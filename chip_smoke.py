@@ -1,0 +1,485 @@
+"""Drive the gastx_torch main path on one GPU and check it.
+
+Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
+CUDA device and the CUDA toolkit (``nvcc``); it imports nothing of JAX or
+of the ``gastx`` package. Phases, in order; any failure ends the run with
+a non-zero exit and no result line:
+
+  1. build the three CUDA kernels from ``gastx_torch/csrc`` (one ``nvcc``
+     per source, all started together) and print the card's name and power
+     limit;
+  2. hold each kernel and each entry-point wrapper to its plain PyTorch
+     version on the card at the main path's shapes (27-frame model, full
+     width, B=256 windows);
+  3. run three reconstruct requests through ``gastx_torch.cli.reconstruct
+     --random-weights --no-render`` on synthetic COCO keypoint files of 50,
+     277 and 1000 frames; the launch counters are zeroed just before and
+     read just after, so they show the main path ran the kernels. Every
+     forward the requests make (the padded, flip-TTA batches) is recorded
+     and then held to the model's plain reference forward on the same
+     batch;
+  4. time the full-width forward on B=1024 windows of 27 frames against
+     the plain reference forward, and each kernel at the forward's shapes
+     against its plain version;
+  5. trace one such forward with torch.profiler: device time by kernel and
+     the device's idle share.
+
+Tolerance: each kernel, wrapper and the forward must agree with its plain
+version to max |delta| <= 1e-4 * max(1, max |plain|); both sides compute
+in float32 and only the order of summation differs. Timings are CUDA
+events around repeated calls after a warm-up. The last lines are the
+``{"kernels": [...]}`` summary, the card's ``name, power.limit``, and
+``{"ok": true, "device": {...}}``. Details also go to
+``chiprun_out/chip_smoke.json``.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+TOL = 1e-4
+F32_PEAK = 67e12       # H100 SXM float32 FLOP/s outside the tensor cores
+HBM_RATE = 3.35e12     # H100 SXM device-memory bytes/s
+REPO = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(REPO, "chiprun_out")
+WORK_DIR = os.path.join(REPO, "build", "chip_smoke")
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def max_err(got, plain) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    if got.shape != plain.shape:
+        fail(f"shape {tuple(got.shape)} != plain {tuple(plain.shape)}")
+    if not bool(torch.isfinite(got).all()):
+        fail("non-finite output")
+    return float((got - plain).abs().max())
+
+
+def check(name: str, got, plain) -> float:
+    err = max_err(got, plain)
+    bound = TOL * max(1.0, float(plain.abs().max()))
+    print(f"  {name}: max|d| {err:.3e} (bound {bound:.3e})")
+    if not err <= bound:
+        fail(f"{name} disagrees with its plain version: {err} > {bound}")
+    return err
+
+
+# --------------------------------------------------------------------------
+# Work counts for the bounds: FLOPs (multiply-add = 2) and the bytes that
+# must move (each input read once, each output written once), float32.
+# --------------------------------------------------------------------------
+
+def gemm_work(m, ks, n, has_bn, has_res):
+    k = sum(ks)
+    flops = 2 * m * n * k
+    elems = m * k + k * n + m * n + 2 * n * has_bn
+    if has_res:
+        elems += m * n
+        flops += m * n
+    return flops + 2 * m * n * has_bn, 4 * elems
+
+
+def sem_work(rows, c, j, d):
+    flops = rows * 2 * c * (2 * (1 + d) + 2)
+    elems = rows * 4 * c + rows * 2 * c + 2 * j * c * (1 + d) + 4 * c
+    return flops, 4 * elems + 4 * 2 * j * d
+
+
+def attn_work(rows, j, k, inter, g):
+    frames = rows // j
+    flops = frames * k * (2 * 2 * j * inter + 6 * j * j + 2 * j * j * g)
+    elems = rows * (2 * k * inter + k * g) + rows * k * g + 2 * k * inter \
+        + k * j * j
+    return flops, 4 * elems
+
+
+def gab_work(rows, c, j, k, inter, g, d):
+    parts = [gemm_work(rows, [c], 4 * c + 2 * k * inter + k * g, 1, 0),
+             sem_work(rows, c, j, d),
+             gemm_work(rows, [2 * c], c, 1, 0),
+             attn_work(rows, j, k, inter, g),
+             gemm_work(rows, [k * g], c, 1, 0),
+             gemm_work(rows, [c, c, c], 2 * c, 1, 0)]
+    flops = sum(p[0] for p in parts)
+    weights = c * (4 * c + 2 * k * inter + k * g) + 2 * c * c + k * g * c \
+        + 6 * c * c
+    return flops, 4 * (rows * c + rows * 2 * c + weights)
+
+
+def level_work(rows_in, c_in, rows_out, c, conv_k, gab):
+    """A level: its conv chain (conv_k MACs per output row and channel,
+    conv_k * c weights) feeding a GAB whose work is ``gab``; the level
+    reads its own input instead of the GAB's."""
+    flops, nbytes = gab
+    return (flops + 2 * rows_out * conv_k * c,
+            nbytes + 4 * (rows_in * c_in - rows_out * c + conv_k * c))
+
+
+def bound(flops, nbytes):
+    t_ops, t_bytes = flops / F32_PEAK, nbytes / HBM_RATE
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def profile_forward(model, x):
+    """Phase 5: device time of one forward by kernel, from torch.profiler,
+    and the device's idle share of the forward's CUDA-event time (both
+    under the profiler's own overhead). Returns None, and says "not
+    measured", if the profiler records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    print("phase 5: torch.profiler trace of one B=1024 forward")
+    model(x)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        model(x)
+        end.record()
+        torch.cuda.synchronize()
+    wall_ms = start.elapsed_time(end)
+    groups: dict = {}
+    for ev in prof.key_averages():
+        # Device-side events only: a CPU op's entry repeats the device time
+        # of the kernels it launched.
+        dev_ms = ev.self_device_time_total / 1e3
+        if ev.device_type != DeviceType.CUDA or dev_ms <= 0:
+            continue
+        name = next((k for k in ("gemm_epilogue", "sem_graph",
+                                 "joint_attention") if f"{k}_kernel" in
+                     ev.key), f"other: {ev.key[:70]}")
+        g = groups.setdefault(name, [0.0, 0])
+        g[0] += dev_ms
+        g[1] += ev.count
+    busy = sum(v[0] for v in groups.values())
+    if busy == 0:
+        print("  no device time recorded: not measured")
+        return None
+    for name, (ms, n) in sorted(groups.items(),
+                                key=lambda kv: -kv[1][0])[:12]:
+        print(f"  {ms:9.3f} ms  {n:4d}x  {name}")
+    idle = max(0.0, 1.0 - busy / wall_ms)
+    print(f"  device busy {busy:.3f} of {wall_ms:.3f} ms: idle share "
+          f"{idle:.4f}")
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": idle,
+            "by_kernel": {k: {"ms": v[0], "count": v[1]}
+                          for k, v in groups.items()}}
+
+
+# Each entry of the kernels line: (name, launch counter, source, the TPU
+# kernel it replaces). The three CUDA kernels count their own launches;
+# each entry point counts the kernel launches made inside it, and the
+# fused_gab entries count every GAB of their width class (C <= 256, the
+# GABs of levels 0 and 1; C = 512, level 2).
+KERNELS = (
+    ("gemm_epilogue", "gemm_epilogue", "gastx_torch/csrc/gemm_epilogue.cu",
+     "gastx/ops/pallas/fused_gab.py:469"),
+    ("sem_graph", "sem_graph", "gastx_torch/csrc/sem_graph.cu",
+     "gastx/ops/pallas/fused_gab.py:182"),
+    ("joint_attention", "joint_attention",
+     "gastx_torch/csrc/joint_attention.cu",
+     "gastx/ops/pallas/fused_gab.py:248"),
+    ("fused_level0", "fused_level0", "gastx_torch/ops/cuda/fused_level.py",
+     "gastx/ops/pallas/fused_level.py:194"),
+    ("fused_level", "fused_level", "gastx_torch/ops/cuda/fused_level.py",
+     "gastx/ops/pallas/fused_level.py:116"),
+    ("fused_gab (C=128, T=25)", "fused_gab",
+     "gastx_torch/ops/cuda/fused_gab.py",
+     "gastx/ops/pallas/fused_gab.py:798"),
+    ("fused_gab (C=512, T=1)", "fused_gab_split",
+     "gastx_torch/ops/cuda/fused_gab.py",
+     "gastx/ops/pallas/fused_gab.py:1175"),
+)
+
+
+def launch_counts(K) -> dict:
+    return {**K.LAUNCHES, **K.ENTRY_LAUNCHES}
+
+
+# --------------------------------------------------------------------------
+
+def synthetic_coco(frames: int, seed: int):
+    """(1, T, 17, 2) COCO keypoints of a person swaying across a 1000 x 1002
+    frame, with detector-like jitter."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    base = np.array([[0, -160], [-8, -168], [8, -168], [-18, -160],
+                     [18, -160], [-45, -110], [45, -110], [-60, -50],
+                     [60, -50], [-65, 5], [65, 5], [-28, 10], [28, 10],
+                     [-30, 95], [30, 95], [-32, 180], [32, 180]], np.float32)
+    t = np.arange(frames, dtype=np.float32)[:, None, None]
+    sway = np.stack([40 * np.sin(t / 25.0), 10 * np.cos(t / 13.0)], -1)[..., 0]
+    kps = base[None] * (1.0 + 0.05 * np.sin(t / 40.0)) + sway \
+        + np.array([500.0, 520.0], np.float32)
+    kps += rng.normal(0.0, 2.0, kps.shape)
+    return kps[None].astype(np.float32)
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU",
+              file=sys.stderr)
+        return 2
+    try:
+        import gastx_torch  # noqa: F401
+    except ImportError:
+        print("chip_smoke: gastx_torch not found; run from the root of a "
+              "checkout", file=sys.stderr)
+        return 2
+    import numpy as np
+
+    from gastx_torch.cli import reconstruct as rc
+    from gastx_torch.data import save_keypoints_json
+    from gastx_torch.models import (GastNet, config_for_frames, init_gastnet,
+                                    randomize_eval_statistics)
+    from torch.nn.modules.module import register_module_forward_hook
+    from gastx_torch.ops.cuda import kernels as K
+    from gastx_torch.ops.cuda.fused_gab import (fused_gab, fused_gab_plain,
+                                                gab_tables)
+    from gastx_torch.ops.cuda.fused_level import (
+        fused_level, fused_level0, fused_level0_plain, fused_level_plain,
+        level0_tables, level_tables)
+
+    if (torch.get_float32_matmul_precision() != "highest"
+            or torch.backends.cuda.matmul.allow_tf32):
+        fail("float32 matmuls must run at 'highest' precision, TF32 off")
+    dev = torch.device("cuda")
+    report = {"device": torch.cuda.get_device_name(0)}
+    t_start = time.time()
+
+    # ---- phase 1: build -------------------------------------------------
+    t0 = time.time()
+    logs = K.build_kernels()
+    report["build_s"] = time.time() - t0
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    report["card"] = smi
+    print(f"phase 1: built {list(logs) or 'nothing (cached)'} in "
+          f"{report['build_s']:.1f} s on {smi}")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.split(':')[-1].strip()}")
+
+    cfg = config_for_frames(27)
+    gen = torch.Generator().manual_seed(0)
+    model = randomize_eval_statistics(init_gastnet(GastNet(cfg), gen), gen)
+    model = model.to(dev).eval()
+    statics = model.statics
+    j = cfg.num_joints_in
+    gts = [gab_tables(g, statics) for g in model.layers_graph_conv]
+    l0t = level0_tables(model.init_bn, model.expand_conv, model.expand_bn)
+    l1t = level_tables(*model.level_modules(1))
+
+    def randn(*shape, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn(shape, generator=g, device=dev)
+
+    # Call sites of each kernel at the main path's shapes for a batch of
+    # b windows: (kernel fn, plain fn, args builder).
+    def shapes(b):
+        x0 = randn(b, 27, j, 2, seed=1)
+        x1 = randn(b, 25, j, 256, seed=2)
+        x2 = randn(b, 1, j, 512, seed=3)
+        x128 = randn(b, 25, j, 128, seed=6)
+        g1 = gts[1]
+        c1 = 256
+        ki = g1.proj_t.numel()
+        rows1 = b * 19 * j
+        a1 = randn(rows1, c1, seed=4)
+        p1 = randn(rows1, g1.w_proj.shape[1], seed=5)
+        return {
+            "gemm_epilogue": (K.gemm_epilogue, K.gemm_epilogue_plain,
+                              ([(a1, g1.w_proj, 0)], rows1),
+                              dict(scale=g1.proj_scale,
+                                   shift=g1.proj_shift)),
+            "sem_graph": (K.sem_graph, K.sem_graph_plain,
+                          (p1, c1, g1.w_self, g1.w_nbr, g1.col,
+                           g1.sem_scale, g1.sem_shift), {}),
+            "joint_attention": (K.joint_attention, K.joint_attention_plain,
+                                (p1[:, 4 * c1:4 * c1 + ki],
+                                 p1[:, 4 * c1 + ki:4 * c1 + 2 * ki],
+                                 p1[:, 4 * c1 + 2 * ki:], g1.proj_t,
+                                 g1.proj_p, g1.c_k), {}),
+            "fused_level0": (fused_level0, fused_level0_plain,
+                             (x0, l0t, gts[0]), {}),
+            "fused_level": (fused_level, fused_level_plain,
+                            (x1, l1t, gts[1]),
+                            dict(fw=3, dilation=3, res_off=3)),
+            "fused_gab (C=128, T=25)": (fused_gab, fused_gab_plain,
+                                        (x128, gts[0]), {}),
+            "fused_gab (C=512, T=1)": (fused_gab, fused_gab_plain,
+                                       (x2, gts[2]), {}),
+        }
+
+    # ---- phase 2: each kernel against its plain version, B=256 ----------
+    print("phase 2: kernels against their plain versions (B=256)")
+    errs = {}
+    for name, (fn, plain, args, kw) in shapes(256).items():
+        errs[name] = check(name, fn(*args, **kw), plain(*args, **kw))
+
+    # ---- phase 3: reconstruct requests (the main path) -----------------
+    print("phase 3: reconstruct requests")
+    os.makedirs(WORK_DIR, exist_ok=True)
+    requests = []
+    forwards = []  # (model, input batch, kernel-route output) of each call
+
+    def record(module, inputs, output):
+        if isinstance(module, GastNet):
+            forwards.append((module, inputs[0], output))
+
+    hook = register_module_forward_hook(record)
+    K.reset_launches()
+    for i, frames in enumerate((50, 277, 1000)):
+        kps = synthetic_coco(frames, seed=i)
+        path = os.path.join(WORK_DIR, f"request{i}.json")
+        save_keypoints_json(path, kps, np.ones(kps.shape[:3], np.float32))
+        argv = ["-k", path, "--random-weights", "--no-render",
+                "-vo", os.path.join(WORK_DIR, f"request{i}.mp4")]
+        t0 = time.time()
+        out = rc.reconstruct(rc.parse_args(argv))
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        if out.shape != (frames, j, 3) or not np.isfinite(out).all():
+            fail(f"request {i}: bad output {out.shape}")
+        requests.append({"frames": frames, "s": dt})
+        print(f"  request {i}: {frames} frames -> {out.shape}, {dt:.3f} s")
+    main_launches = launch_counts(K)
+    hook.remove()
+    print(f"  launches: {main_launches}")
+    for name, count in main_launches.items():
+        if count <= 0:
+            fail(f"{name} was not launched on the main path")
+    if len(forwards) != len(requests):
+        fail(f"{len(forwards)} forwards recorded for {len(requests)} "
+             f"requests")
+    for i, (module, xb, yb) in enumerate(forwards):
+        requests[i]["batch"] = list(xb.shape)
+        requests[i]["max_abs_err"] = check(
+            f"request {i} forward {tuple(xb.shape)}", yb,
+            module.reference_forward(xb))
+    del forwards
+    report["requests"] = requests
+    report["main_path_launches"] = main_launches
+
+    # ---- phase 4: the B=1024 forward and each kernel's time -------------
+    print("phase 4: full-width forward, B=1024 windows of 27 frames")
+    b = 1024
+    x = randn(b, 27, j, 2, seed=7)
+    K.reset_launches()
+    y = model(x)
+    torch.cuda.synchronize()
+    per_forward = launch_counts(K)
+    y_plain = model.reference_forward(x)
+    fwd_err = check("forward", y, y_plain)
+    del y, y_plain
+    fwd_ms = cuda_ms(lambda: model(x))
+    plain_fwd_ms = cuda_ms(lambda: model.reference_forward(x), reps=3)
+    report["forward"] = {
+        "batch": b, "ms": fwd_ms, "seq_per_s": b / (fwd_ms / 1e3),
+        "plain_ms": plain_fwd_ms, "max_abs_err": fwd_err,
+        "launches_per_forward": per_forward}
+    print(f"  {b / (fwd_ms / 1e3):.1f} seq/s ({fwd_ms:.2f} ms per forward; "
+          f"plain {plain_fwd_ms:.2f} ms); launches per forward "
+          f"{per_forward}")
+
+    g1 = gts[1]
+    k, inter = g1.proj_t.shape
+    g_ch = (g1.w_proj.shape[1] - 4 * 256 - 2 * k * inter) // k
+    d = g1.col.shape[2]
+    rows = {"l0": b * 25 * j, "l1": b * 19 * j, "l2": b * j}
+    work = {
+        "gemm_epilogue": gemm_work(rows["l1"], [256], g1.w_proj.shape[1],
+                                   1, 0),
+        "sem_graph": sem_work(rows["l1"], 256, j, d),
+        "joint_attention": attn_work(rows["l1"], j, k, inter, g_ch),
+    }
+    gab = {c: gab_work(rows[lv], c, j, 4, c // 4, c // 4, d)
+           for lv, c in (("l0", 128), ("l1", 256), ("l2", 512))}
+    work["fused_level0"] = level_work(b * 27 * j, 2, rows["l0"], 128, 3 * 2,
+                                      gab[128])
+    work["fused_level"] = level_work(b * 25 * j, 256, rows["l1"], 256,
+                                     4 * 256, gab[256])
+    work["fused_gab (C=128, T=25)"] = gab[128]
+    work["fused_gab (C=512, T=1)"] = gab[512]
+
+    kernels = []
+    calls = shapes(b)
+    for name, counter, source, replaces in KERNELS:
+        fn, plain, args, kw = calls[name]
+        err = check(f"{name} (B={b})", fn(*args, **kw), plain(*args, **kw))
+        ms = cuda_ms(lambda: fn(*args, **kw))
+        plain_ms = cuda_ms(lambda: plain(*args, **kw), reps=3)
+        library_ms = None
+        if name == "gemm_epilogue":  # a bias (scale 1): one addmm
+            (a, w, _), = args[0]
+            library_ms = cuda_ms(lambda: torch.addmm(kw["shift"], a, w))
+        bms, by = bound(*work[name])
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": main_launches[counter],
+            "max_abs_err": max(err, errs[name]), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": library_ms})
+        print(f"  {name}: {ms:.3f} ms (plain {plain_ms:.3f}, bound "
+              f"{bms:.3f} by {by}"
+              + (f", torch.addmm {library_ms:.3f}" if library_ms else "")
+              + ")")
+        torch.cuda.empty_cache()
+    del calls
+    report["profile"] = profile_forward(model, x)
+    report["kernels"] = kernels
+    report["total_s"] = time.time() - t_start
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    if not all(math.isfinite(kk["ms"]) for kk in kernels):
+        fail("a kernel time is not finite")
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,128 @@
+"""GastNet model configuration and per-layout static graph constants.
+
+The port's own copy of the structural part of ``gastx.models.config``:
+the fields that fix the architecture and the geometry derived from them.
+The TPU route knobs of the JAX config (kernel impl selection, tile
+budgets, frame packing, precision tiers, storage dtypes) have no meaning
+here and are not carried. The port computes in float32.
+"""
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import NamedTuple, Tuple
+
+import numpy as np
+
+from gastx_torch.skeleton import get_layout, local_adjacencies
+
+
+@dataclass(frozen=True)
+class GastNetConfig:
+    """Static configuration of a GastNet model.
+
+    Shipped configs (reference reconstruction.py:220-228): 27-frame = fw
+    (3,3,3) ch 128; 81-frame = (3,3,3,3) ch 64; 243-frame = (3,3,3,3,3)
+    ch 32.
+    """
+
+    num_joints_in: int = 17
+    in_features: int = 2
+    num_joints_out: int = 17
+    filter_widths: Tuple[int, ...] = (3, 3, 3)
+    channels: int = 128
+    dropout: float = 0.25
+    causal: bool = False
+    dense: bool = False
+    layout: str = "h36m17"
+
+    def __post_init__(self):
+        for fw in self.filter_widths:
+            if fw % 2 == 0:
+                raise ValueError("Only odd filter widths are supported")
+        if get_layout(self.layout).num_joints != self.num_joints_in:
+            raise ValueError(
+                f"layout {self.layout} has "
+                f"{get_layout(self.layout).num_joints} joints, expected "
+                f"{self.num_joints_in}")
+
+    def pads(self) -> Tuple[int, ...]:
+        pads = [self.filter_widths[0] // 2]
+        next_dilation = self.filter_widths[0]
+        for fw in self.filter_widths[1:]:
+            pads.append((fw - 1) * next_dilation // 2)
+            next_dilation *= fw
+        return tuple(pads)
+
+    def causal_shifts(self, variant: str = "dilated") -> Tuple[int, ...]:
+        """Per-level asymmetric shifts used for residual slicing.
+
+        The dilated variant scales shifts by the running dilation; the
+        strided variant works on the downsampled time axis, so its shifts
+        stay unscaled.
+        """
+        if not self.causal:
+            return tuple(0 for _ in self.filter_widths)
+        shifts = [self.filter_widths[0] // 2]
+        next_dilation = self.filter_widths[0]
+        for fw in self.filter_widths[1:]:
+            if variant == "strided":
+                shifts.append(fw // 2)
+            else:
+                shifts.append(fw // 2 * next_dilation)
+            next_dilation *= fw
+        return tuple(shifts)
+
+    def receptive_field(self) -> int:
+        """Total receptive field in frames."""
+        return 1 + 2 * sum(self.pads())
+
+    @property
+    def num_levels(self) -> int:
+        return len(self.filter_widths)
+
+    def block_channels(self, i: int) -> int:
+        """Channels entering graph-attention block ``i`` (2^i * channels)."""
+        return (2 ** i) * self.channels
+
+    @property
+    def out_channels(self) -> int:
+        return (2 ** self.num_levels) * self.channels
+
+
+class GraphStatics(NamedTuple):
+    """Static per-layout constants consumed by the graph ops."""
+
+    num_joints: int
+    sym_idx: np.ndarray  # flat row-major nonzero indices of adj_sym
+    con_idx: np.ndarray  # flat row-major nonzero indices of adj_con
+
+
+@functools.lru_cache(maxsize=None)
+def graph_statics(layout_name: str) -> GraphStatics:
+    layout = get_layout(layout_name)
+    adj_sym, adj_con = local_adjacencies(layout)
+    return GraphStatics(
+        num_joints=layout.num_joints,
+        sym_idx=np.flatnonzero(adj_sym > 0),
+        con_idx=np.flatnonzero(adj_con > 0),
+    )
+
+
+def config_for_frames(frames: int, num_joints: int = 17, *,
+                      causal: bool = False,
+                      dropout: float = 0.05) -> GastNetConfig:
+    """The shipped receptive-field -> architecture table."""
+    if frames == 27:
+        fw, ch = (3, 3, 3), 128
+    elif frames == 81:
+        fw, ch = (3, 3, 3, 3), 64
+    elif frames == 243:
+        fw, ch = (3, 3, 3, 3, 3), 32
+    else:
+        raise ValueError(f"No shipped config for receptive field {frames}")
+    layout = {17: "h36m17", 19: "h36m19", 16: "sh16",
+              15: "humaneva15"}[num_joints]
+    return GastNetConfig(num_joints_in=num_joints, num_joints_out=num_joints,
+                         filter_widths=fw, channels=ch, causal=causal,
+                         dropout=dropout, layout=layout)

@@ -1,0 +1,200 @@
+"""GastNet in PyTorch: the module tree and the eval forward.
+
+The ``nn.Module`` tree follows the upstream model's ``state_dict`` key
+layout (init_bn / expand_conv / expand_bn / layers_conv / layers_bn /
+layers_graph_conv.{i}.{local_graph_layer, global_graph_layer, cat_conv,
+cat_bn} / shrink), so an upstream ``.bin`` and the JAX package's weights
+(through ``gastx_torch.io.params_from_jax``) load with
+``load_state_dict``. The conv modules only hold weights: no convolution
+runs through cuDNN.
+
+Two eval forwards, dilated, any T >= the receptive field, activations
+channels-last (B, T, J, C):
+
+  * :meth:`GastNet.forward` — the kernel route. Level 0 runs
+    ``fused_level0``; every level with C <= 256 runs ``fused_level``; the
+    wider level (C=512 at 27 frames, T'=1 at every shipped config) runs its
+    conv chain as plain torch and then ``fused_gab``, the port of the TPU's
+    ``fused_gab_split``. The final 1x1 shrink is ``torch.matmul``. On a
+    CPU tensor each wrapper runs its plain version.
+  * :meth:`GastNet.reference_forward` — the unfused ops of
+    ``gastx_torch.ops`` (the JAX package's XLA route), the reference the
+    kernel route is held to.
+
+Training, the strided variant and ``dense=True`` are later slices.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from gastx_torch.models.config import GastNetConfig, graph_statics
+from gastx_torch.ops.batchnorm import batch_norm
+from gastx_torch.ops.cuda.fused_gab import fused_gab, gab_tables
+from gastx_torch.ops.cuda.fused_level import (fused_level, fused_level0,
+                                              level0_tables, level_tables)
+from gastx_torch.ops.graph import graph_attention_block
+from gastx_torch.ops.temporal import (pconv_weight, pointwise,
+                                      tconv_weight, temporal_conv)
+
+# Levels up to this width run the level wrapper; wider ones run the conv
+# chain in torch and then fused_gab (see the module docstring).
+LEVEL_KERNEL_MAX_CHANNELS = 256
+
+
+class SemCHGraphConv(nn.Module):
+    """Channel-wise semantic graph conv weights: W (2, Cin, Cout) self and
+    neighbour matrices, e (Cout, nnz) edge logits in the flat row-major
+    order of the adjacency's nonzeros."""
+
+    def __init__(self, c_in: int, c_out: int, nnz: int):
+        super().__init__()
+        self.W = nn.Parameter(torch.zeros(2, c_in, c_out))
+        self.e = nn.Parameter(torch.ones(c_out, nnz))
+
+
+class LocalGraph(nn.Module):
+    def __init__(self, c: int, statics):
+        super().__init__()
+        self.gcn_sym = SemCHGraphConv(c, c, len(statics.sym_idx))
+        self.gcn_con = SemCHGraphConv(c, c, len(statics.con_idx))
+        self.bn_1 = nn.BatchNorm2d(c)
+        self.bn_2 = nn.BatchNorm2d(c)
+        self.cat_conv = nn.Conv2d(2 * c, c, 1, bias=False)
+        self.cat_bn = nn.BatchNorm2d(c)
+
+
+class GlobalHead(nn.Module):
+    """One attention head: theta/phi/g 1x1 projections, the rank-1
+    ``concat_project`` score weights and the (J, J) bias C_k."""
+
+    def __init__(self, c: int, inter: int, g_ch: int, j: int):
+        super().__init__()
+        self.theta = nn.Conv1d(c, inter, 1)
+        self.phi = nn.Conv1d(c, inter, 1)
+        self.g = nn.Conv1d(c, g_ch, 1)
+        self.concat_project = nn.Sequential(
+            nn.Conv2d(2 * inter, 1, 1, bias=False))
+        self.C_k = nn.Parameter(torch.zeros(j, j))
+
+
+class MultiGlobalGraph(nn.Module):
+    def __init__(self, c: int, inter: int, j: int):
+        super().__init__()
+        k = c // inter
+        g_ch = c if inter == c // 2 else inter
+        self.attentions = nn.ModuleList(
+            GlobalHead(c, inter, g_ch, j) for _ in range(k))
+        self.cat_conv = nn.Conv2d(k * g_ch, c, 1, bias=False)
+        self.cat_bn = nn.BatchNorm2d(c)
+
+
+class GraphAttentionBlock(nn.Module):
+    def __init__(self, c: int, statics):
+        super().__init__()
+        self.local_graph_layer = LocalGraph(c, statics)
+        self.global_graph_layer = MultiGlobalGraph(c, c // 4,
+                                                   statics.num_joints)
+        self.cat_conv = nn.Conv2d(3 * c, 2 * c, 1, bias=False)
+        self.cat_bn = nn.BatchNorm2d(2 * c)
+
+
+class GastNet(nn.Module):
+    """The dilated GAST-Net lifting model (eval mode)."""
+
+    def __init__(self, cfg: GastNetConfig):
+        super().__init__()
+        if cfg.dense:
+            raise NotImplementedError("dense=True is not ported yet")
+        self.cfg = cfg
+        self.statics = graph_statics(cfg.layout)
+        fw, c = cfg.filter_widths, cfg.channels
+        self.init_bn = nn.BatchNorm2d(cfg.in_features)
+        self.expand_conv = nn.Conv2d(cfg.in_features, c, (fw[0], 1),
+                                     bias=False)
+        self.expand_bn = nn.BatchNorm2d(c)
+        convs, bns = [], []
+        for i in range(1, cfg.num_levels):
+            ci = cfg.block_channels(i)
+            convs += [nn.Conv2d(ci, ci, (fw[i], 1), bias=False),
+                      nn.Conv2d(ci, ci, 1, bias=False)]
+            bns += [nn.BatchNorm2d(ci), nn.BatchNorm2d(ci)]
+        self.layers_conv = nn.ModuleList(convs)
+        self.layers_bn = nn.ModuleList(bns)
+        self.layers_graph_conv = nn.ModuleList(
+            GraphAttentionBlock(cfg.block_channels(i), self.statics)
+            for i in range(cfg.num_levels))
+        self.shrink = nn.Conv2d(cfg.out_channels, 3, 1, bias=False)
+
+    def _check_input(self, x: torch.Tensor) -> None:
+        cfg = self.cfg
+        if (x.dim() != 4 or x.shape[2] != cfg.num_joints_in
+                or x.shape[3] != cfg.in_features):
+            raise ValueError(
+                f"expected (B, T, {cfg.num_joints_in}, {cfg.in_features}) "
+                f"keypoints, got {tuple(x.shape)}")
+        if x.shape[1] < cfg.receptive_field():
+            raise ValueError(f"{x.shape[1]} frames are fewer than the "
+                             f"receptive field {cfg.receptive_field()}")
+
+    def level_modules(self, i: int):
+        """(temporal conv, its BN, 1x1 conv, its BN) of level i >= 1."""
+        return (self.layers_conv[2 * i - 2], self.layers_bn[2 * i - 2],
+                self.layers_conv[2 * i - 1], self.layers_bn[2 * i - 1])
+
+    @torch.no_grad()
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, T, J, C_in) normalized 2D keypoints -> (B, T-rf+1, J, 3),
+        through the kernel wrappers."""
+        self._check_input(x)
+        cfg, statics = self.cfg, self.statics
+        fw, pads = cfg.filter_widths, cfg.pads()
+        shifts = cfg.causal_shifts("dilated")
+        gabs = self.layers_graph_conv
+        x = x.to(torch.float32).contiguous()
+        y = fused_level0(
+            x, level0_tables(self.init_bn, self.expand_conv, self.expand_bn),
+            gab_tables(gabs[0], statics))
+        dilation = fw[0]
+        for i in range(1, cfg.num_levels):
+            conv_t, bn_t, conv_1, bn_1 = self.level_modules(i)
+            if cfg.block_channels(i) <= LEVEL_KERNEL_MAX_CHANNELS:
+                y = fused_level(y, level_tables(conv_t, bn_t, conv_1, bn_1),
+                                gab_tables(gabs[i], statics), fw=fw[i],
+                                dilation=dilation,
+                                res_off=pads[i] + shifts[i])
+            else:
+                y = self._conv_chain(y, i, dilation)
+                y = fused_gab(y.contiguous(), gab_tables(gabs[i], statics))
+            dilation *= fw[i]
+        return pointwise(y, pconv_weight(self.shrink))
+
+    def _conv_chain(self, y: torch.Tensor, i: int, dilation: int
+                    ) -> torch.Tensor:
+        """dilated conv -> BN -> ReLU -> 1x1 -> BN -> ReLU -> + residual."""
+        conv_t, bn_t, conv_1, bn_1 = self.level_modules(i)
+        pad = self.cfg.pads()[i]
+        shift = self.cfg.causal_shifts("dilated")[i]
+        res = y[:, pad + shift: y.shape[1] - pad + shift]
+        z = temporal_conv(y, tconv_weight(conv_t), dilation=dilation)
+        z = torch.relu(batch_norm(z, bn_t))
+        z = pointwise(z, pconv_weight(conv_1))
+        z = torch.relu(batch_norm(z, bn_1))
+        return res + z
+
+    @torch.no_grad()
+    def reference_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The same function through the unfused plain ops."""
+        self._check_input(x)
+        cfg, statics = self.cfg, self.statics
+        gabs = self.layers_graph_conv
+        y = batch_norm(x.to(torch.float32), self.init_bn)
+        y = temporal_conv(y, tconv_weight(self.expand_conv))
+        y = torch.relu(batch_norm(y, self.expand_bn))
+        y = graph_attention_block(y, gabs[0], statics)
+        dilation = cfg.filter_widths[0]
+        for i in range(1, cfg.num_levels):
+            y = graph_attention_block(self._conv_chain(y, i, dilation),
+                                      gabs[i], statics)
+            dilation *= cfg.filter_widths[i]
+        return pointwise(y, pconv_weight(self.shrink))

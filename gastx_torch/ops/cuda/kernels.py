@@ -1,0 +1,429 @@
+"""Build, binding and launch wrappers of the port's CUDA kernels.
+
+Three kernels, each a CUDA C++ source under ``gastx_torch/csrc/`` with a
+plain C interface:
+
+  * ``gemm_epilogue`` — tiled f32 GEMM over up to three pieces with a tap
+    row map and a BN (scale/shift) / ReLU / residual epilogue;
+  * ``sem_graph`` — the local branch's semantic graph aggregation;
+  * ``joint_attention`` — per-frame multi-head attention over the joints.
+
+Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
+library under ``build/gastx_torch/`` at the root of the checkout (named
+by a hash of the source and flags, so an edited source is rebuilt), at
+first use, all ``nvcc`` processes started together, and loaded with
+``ctypes``. Kernels launch on PyTorch's current stream and allocate
+nothing: the wrappers allocate outputs with ``torch.empty``.
+
+Every wrapper checks device, dtype, shape and contiguity. On a CUDA tensor
+it launches its kernel (and raises if the launch fails); on a CPU tensor
+it runs the plain PyTorch version beside it, which is also what the card
+runs to hold the kernel to. ``LAUNCHES`` counts kernel launches by
+kernel; ``ENTRY_LAUNCHES`` counts the kernel launches made inside each
+entry point (:func:`entry_point`). Both are counted in ``_launch`` alone,
+after the launch succeeded.
+"""
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from gastx_torch.device import check_f32_matmul
+
+KERNEL_SOURCES = ("gemm_epilogue", "sem_graph", "joint_attention")
+CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "gastx_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# The port's entry points that replace TPU kernels. The one ``fused_gab``
+# counts under the TPU kernel it stands for: ``fused_gab`` for C <= 256,
+# ``fused_gab_split`` above.
+ENTRY_POINTS = ("fused_level0", "fused_level", "fused_gab",
+                "fused_gab_split")
+
+# Kernel launches by kernel, and by the entry points open at the launch.
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_SOURCES}
+ENTRY_LAUNCHES: Dict[str, int] = {name: 0 for name in ENTRY_POINTS}
+_OPEN_ENTRIES: List[str] = []
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = {
+    "gemm_epilogue": [_P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I,
+                      _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _I, _P, _P],
+    "sem_graph": [_P, _I, _P, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "joint_attention": [_P, _P, _P, _I, _P, _P, _P, _P, _LL, _I, _I, _I,
+                        _I, _P],
+}
+
+
+def reset_launches() -> None:
+    for counts in (LAUNCHES, ENTRY_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+@contextlib.contextmanager
+def entry_point(name: str):
+    """Attribute the kernel launches made inside the block to the entry
+    point ``name`` as well (entry points nest: a level's GAB counts under
+    both)."""
+    if name not in ENTRY_LAUNCHES:
+        raise ValueError(f"unknown entry point {name}")
+    _OPEN_ENTRIES.append(name)
+    try:
+        yield
+    finally:
+        _OPEN_ENTRIES.pop()
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found: nvcc is needed to build "
+                           "the gastx_torch kernels")
+    return str(Path(CUDA_HOME) / "bin" / "nvcc")
+
+
+def _library_path(name: str) -> Path:
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+
+
+def build_kernels() -> Dict[str, str]:
+    """Compile every kernel whose library is missing, one ``nvcc`` per
+    source, all started together, and load them all. Returns the compiler
+    output (``ptxas -v``: registers, shared memory, spills) of each kernel
+    built."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    try:
+        for name in KERNEL_SOURCES:
+            lib = _library_path(name)
+            if lib.exists():
+                continue
+            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC_DIR / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp, lib)
+        logs = {}
+        for name, (proc, tmp, lib) in procs.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {name}.cu:\n{out}")
+            os.replace(tmp, lib)
+            logs[name] = out
+        for name in KERNEL_SOURCES:
+            _lib(name)
+        return logs
+    finally:
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    if name not in _LIBS:
+        path = _library_path(name)
+        if not path.exists():
+            build_kernels()
+        lib = ctypes.CDLL(str(path))
+        fn = getattr(lib, name)
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        lib.error_string.argtypes = [ctypes.c_int]
+        lib.error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return _LIBS[name]
+
+
+def _launch(name: str, *args) -> None:
+    lib = _lib(name)
+    code = getattr(lib, name)(*args)
+    if code != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.error_string(code).decode()} ({code})")
+    LAUNCHES[name] += 1
+    for entry in _OPEN_ENTRIES:
+        ENTRY_LAUNCHES[entry] += 1
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _check(device: torch.device, **tensors) -> None:
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def use_kernel(device: torch.device) -> bool:
+    """True for the kernel (a CUDA tensor), False for the plain version
+    (a CPU tensor); anything else raises."""
+    if device.type == "cuda":
+        return True
+    if device.type == "cpu":
+        return False
+    raise ValueError(f"gastx_torch kernels run on cuda or cpu, not {device}")
+
+
+# --------------------------------------------------------------------------
+# gemm_epilogue
+# --------------------------------------------------------------------------
+
+Piece = Tuple[torch.Tensor, torch.Tensor, int]
+
+
+def _check_gemm(pieces, m, s_out, a_s_in, scale, shift, res, res_s_in,
+                res_off):
+    if not 1 <= len(pieces) <= 3:
+        raise ValueError(f"gemm_epilogue takes 1 to 3 pieces, got "
+                         f"{len(pieces)}")
+    device = pieces[0][0].device
+    n = pieces[0][1].shape[1]
+    if m < 1 or s_out < 1 or m % s_out:
+        raise ValueError(f"rows {m} must be a positive multiple of the "
+                         f"sequence's output rows {s_out}")
+    seqs = m // s_out
+    for i, (a, w, off) in enumerate(pieces):
+        _check(device, **{f"a{i}": a, f"w{i}": w})
+        if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[0]:
+            raise ValueError(f"piece {i}: a {tuple(a.shape)} and w "
+                             f"{tuple(w.shape)} do not multiply")
+        if w.shape[1] != n:
+            raise ValueError(f"piece {i} has {w.shape[1]} columns, not {n}")
+        if off < 0 or (seqs - 1) * a_s_in + s_out + off > a.shape[0]:
+            raise ValueError(f"piece {i}: the row map reads past the "
+                             f"{a.shape[0]} rows of a")
+    for name, v in (("scale", scale), ("shift", shift)):
+        if v is not None:
+            _check(device, **{name: v})
+            if v.shape != (n,):
+                raise ValueError(f"{name} must be ({n},), got "
+                                 f"{tuple(v.shape)}")
+    if (scale is None) != (shift is None):
+        raise ValueError("scale and shift come together")
+    if res is not None:
+        _check(device, res=res)
+        if (res.dim() != 2 or res.shape[1] != n or res_off < 0
+                or (seqs - 1) * res_s_in + s_out + res_off > res.shape[0]):
+            raise ValueError(f"residual {tuple(res.shape)} does not cover "
+                             f"the row map")
+    return device, n
+
+
+def _row_map(m, s_out, s_in, off, device):
+    r = torch.arange(m, device=device)
+    return (r // s_out) * s_in + r % s_out + off
+
+
+def gemm_epilogue_plain(pieces: Sequence[Piece], m: int, *,
+                        s_out: Optional[int] = None,
+                        a_s_in: Optional[int] = None,
+                        scale=None, shift=None, relu: bool = False,
+                        res=None,
+                        res_s_in: Optional[int] = None,
+                        res_off: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of :func:`gemm_epilogue` (same arguments)."""
+    s_out = m if s_out is None else s_out
+    a_s_in = s_out if a_s_in is None else a_s_in
+    res_s_in = s_out if res_s_in is None else res_s_in
+    _check_gemm(pieces, m, s_out, a_s_in, scale, shift, res, res_s_in,
+                res_off)
+    check_f32_matmul(pieces[0][0])
+    device = pieces[0][0].device
+    acc = None
+    for a, w, off in pieces:
+        rows = _row_map(m, s_out, a_s_in, off, device)
+        term = torch.matmul(a[rows], w)
+        acc = term if acc is None else acc + term
+    if scale is not None:
+        acc = acc * scale + shift
+    if relu:
+        acc = torch.relu(acc)
+    if res is not None:
+        acc = acc + res[_row_map(m, s_out, res_s_in, res_off, device)]
+    return acc
+
+
+def gemm_epilogue(pieces: Sequence[Piece], m: int, *,
+                  s_out: Optional[int] = None, a_s_in: Optional[int] = None,
+                  scale=None, shift=None, relu: bool = False, res=None,
+                  res_s_in: Optional[int] = None,
+                  res_off: int = 0) -> torch.Tensor:
+    """out (m, N) = epi(sum_p A_p[in_row(r, p)] @ W_p).
+
+    ``pieces``: up to three (a (rows, K_p), w (K_p, N), a_off). Rows are
+    grouped in sequences of ``s_out`` output rows (default: one sequence
+    of ``m``); output row r = s*s_out + q reads row s*a_s_in + q + a_off of
+    ``a``. The epilogue applies ``scale``/``shift`` (a bias is scale 1),
+    ReLU, then adds ``res`` row s*res_s_in + q + res_off.
+    """
+    s_out = m if s_out is None else s_out
+    a_s_in = s_out if a_s_in is None else a_s_in
+    res_s_in = s_out if res_s_in is None else res_s_in
+    device, n = _check_gemm(pieces, m, s_out, a_s_in, scale, shift, res,
+                            res_s_in, res_off)
+    if not use_kernel(device):
+        return gemm_epilogue_plain(
+            pieces, m, s_out=s_out, a_s_in=a_s_in, scale=scale, shift=shift,
+            relu=relu, res=res, res_s_in=res_s_in, res_off=res_off)
+    out = torch.empty((m, n), dtype=torch.float32, device=device)
+    flat = []
+    for i in range(3):
+        if i < len(pieces):
+            a, w, off = pieces[i]
+            flat += [a.data_ptr(), w.data_ptr(), a.shape[1], off]
+        else:
+            flat += [None, None, 0, 0]
+    _launch("gemm_epilogue", *flat, len(pieces), m, n, s_out, a_s_in,
+            res_s_in, _ptr(scale), _ptr(shift), int(relu),
+            _ptr(res), res_off, out.data_ptr(), _stream())
+    return out
+
+
+# --------------------------------------------------------------------------
+# sem_graph
+# --------------------------------------------------------------------------
+
+def _check_sem(p, c, w_self, w_nbr, col, scale, shift):
+    device = p.device
+    _check(device, w_self=w_self, w_nbr=w_nbr, scale=scale, shift=shift)
+    if p.dtype != torch.float32 or p.dim() != 2 or p.stride(1) != 1:
+        raise ValueError("p must be a float32 (rows, ld) matrix with unit "
+                         "column stride")
+    _, j, d = col.shape
+    if (col.device != device or col.dtype != torch.int32
+            or not col.is_contiguous() or col.shape != (2, j, d)):
+        raise ValueError("col must be a contiguous int32 (2, J, D) table")
+    if w_self.shape != (2, j, c) or w_nbr.shape != (2, j, d, c):
+        raise ValueError("w_self/w_nbr must be (2, J, C)/(2, J, D, C)")
+    if scale.shape != (2 * c,) or shift.shape != (2 * c,):
+        raise ValueError(f"scale/shift must be ({2 * c},)")
+    if p.shape[1] < 4 * c or p.shape[0] % j:
+        raise ValueError(f"p {tuple(p.shape)} must hold whole frames of "
+                         f"{j} rows and at least {4 * c} columns")
+    return device, j, d
+
+
+def sem_graph_plain(p, c, w_self, w_nbr, col, scale, shift):
+    """Plain PyTorch version of :func:`sem_graph` (same arguments)."""
+    _, j, _ = _check_sem(p, c, w_self, w_nbr, col, scale, shift)
+    frames = p.shape[0] // j
+    outs = []
+    for b in range(2):
+        h0 = p[:, 2 * b * c:2 * b * c + c].reshape(frames, j, c)
+        h1 = p[:, 2 * b * c + c:2 * b * c + 2 * c].reshape(frames, j, c)
+        nbr = h1[:, col[b].long(), :] * w_nbr[b]          # (F, J, D, C)
+        outs.append(h0 * w_self[b] + nbr.sum(dim=2))
+    out = torch.cat(outs, dim=-1).reshape(frames * j, 2 * c)
+    return torch.relu(out * scale + shift)
+
+
+def sem_graph(p: torch.Tensor, c: int, w_self, w_nbr, col, scale,
+              shift) -> torch.Tensor:
+    """Local-branch aggregation of both semantic graph convs.
+
+    ``p``: (rows, ld) projection output whose columns [0, 4C) are
+    [W0_sym | W1_sym | W0_con | W1_con] (any row stride, unit column
+    stride). Tables: ``w_self`` (2, J, C), ``w_nbr`` (2, J, D, C), ``col``
+    (2, J, D) int32 with entries in [0, J) (``gab_tables`` checks them on
+    the host), ``scale``/``shift`` (2C,) — branch 0 sym, 1 con. Returns
+    relu(BN([sym | con])) as (rows, 2C).
+    """
+    device, j, d = _check_sem(p, c, w_self, w_nbr, col, scale, shift)
+    if not use_kernel(device):
+        return sem_graph_plain(p, c, w_self, w_nbr, col, scale, shift)
+    rows = p.shape[0]
+    out = torch.empty((rows, 2 * c), dtype=torch.float32, device=device)
+    _launch("sem_graph", p.data_ptr(), p.stride(0), out.data_ptr(), rows, j,
+            c, d, w_self.data_ptr(), w_nbr.data_ptr(), col.data_ptr(),
+            scale.data_ptr(), shift.data_ptr(), _stream())
+    return out
+
+
+# --------------------------------------------------------------------------
+# joint_attention
+# --------------------------------------------------------------------------
+
+def _check_attn(theta, phi, g, proj_t, proj_p, c_k):
+    device = theta.device
+    _check(device, proj_t=proj_t, proj_p=proj_p, c_k=c_k)
+    k, inter = proj_t.shape
+    j = c_k.shape[1]
+    for name, t in (("theta", theta), ("phi", phi), ("g", g)):
+        if (t.device != device or t.dtype != torch.float32 or t.dim() != 2
+                or t.stride(1) != 1 or t.stride(0) != theta.stride(0)
+                or t.shape[0] != theta.shape[0]):
+            raise ValueError(f"{name} must be a float32 (rows, width) view "
+                             f"sharing theta's rows and row stride")
+    if theta.shape[1] != k * inter or phi.shape[1] != k * inter:
+        raise ValueError("theta/phi must hold K*I columns")
+    if proj_p.shape != (k, inter) or c_k.shape != (k, j, j):
+        raise ValueError("proj_p must be (K, I) and c_k (K, J, J)")
+    if g.shape[1] % k or theta.shape[0] % j or j > 32:
+        raise ValueError("g must hold K*G columns, rows whole frames of "
+                         "J <= 32 joints")
+    return device, k, inter, j, g.shape[1] // k
+
+
+def joint_attention_plain(theta, phi, g, proj_t, proj_p, c_k):
+    """Plain PyTorch version of :func:`joint_attention`."""
+    _, k, inter, j, g_ch = _check_attn(theta, phi, g, proj_t, proj_p, c_k)
+    check_f32_matmul(theta)
+    frames = theta.shape[0] // j
+    sa = (theta.reshape(frames, j, k, inter) * proj_t).sum(-1)  # (F, J, K)
+    sb = (phi.reshape(frames, j, k, inter) * proj_p).sum(-1)
+    sa, sb = sa.transpose(1, 2), sb.transpose(1, 2)             # (F, K, J)
+    f = F.leaky_relu(sa[..., :, None] + sb[..., None, :], 0.2)
+    attn = torch.softmax(f, dim=-1) + c_k                       # (F,K,J,J)
+    gk = g.reshape(frames, j, k, g_ch).transpose(1, 2)          # (F,K,J,G)
+    out = torch.matmul(attn, gk).transpose(1, 2)                # (F,J,K,G)
+    return out.reshape(frames * j, k * g_ch)
+
+
+def joint_attention(theta: torch.Tensor, phi: torch.Tensor, g: torch.Tensor,
+                    proj_t, proj_p, c_k) -> torch.Tensor:
+    """Per-frame multi-head attention over the joints.
+
+    ``theta``/``phi`` (rows, K*I) and ``g`` (rows, K*G): column views of
+    one projection output (same row stride). ``proj_t``/``proj_p`` (K, I)
+    rank-1 score vectors, ``c_k`` (K, J, J) additive attention biases.
+    Returns the head-major (rows, K*G) head outputs.
+    """
+    device, k, inter, j, g_ch = _check_attn(theta, phi, g, proj_t, proj_p,
+                                            c_k)
+    if not use_kernel(device):
+        return joint_attention_plain(theta, phi, g, proj_t, proj_p, c_k)
+    rows = theta.shape[0]
+    out = torch.empty((rows, k * g_ch), dtype=torch.float32, device=device)
+    _launch("joint_attention", theta.data_ptr(), phi.data_ptr(),
+            g.data_ptr(), theta.stride(0), proj_t.data_ptr(),
+            proj_p.data_ptr(), c_k.data_ptr(), out.data_ptr(), rows // j, j,
+            inter, g_ch, k, _stream())
+    return out

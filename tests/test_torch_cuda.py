@@ -1,0 +1,116 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. Every test here is marked ``cuda`` and skips without a CUDA device.
+
+The file imports neither JAX nor gastx, so it runs on a machine that has
+only PyTorch: ``python -m pytest tests/test_torch_cuda.py -m cuda
+--noconftest`` (the suite's conftest configures JAX).
+
+Tolerance: max |kernel - plain| <= 1e-4 * max(1, max |plain|). Both sides
+compute in float32; only the order of summation differs.
+"""
+import pytest
+import torch
+
+from gastx_torch.models import (GastNet, config_for_frames,
+                                randomize_eval_statistics)
+from gastx_torch.models.init import init_gastnet
+from gastx_torch.ops.cuda import kernels as K
+from gastx_torch.ops.cuda.fused_gab import (fused_gab, fused_gab_plain,
+                                            gab_tables)
+from gastx_torch.ops.cuda.fused_level import (fused_level, fused_level0,
+                                              fused_level0_plain,
+                                              fused_level_plain,
+                                              level0_tables, level_tables)
+
+
+@pytest.fixture(scope="module")
+def model():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert not torch.backends.cuda.matmul.allow_tf32
+    gen = torch.Generator().manual_seed(0)
+    m = init_gastnet(GastNet(config_for_frames(27)), gen)
+    return randomize_eval_statistics(m, gen).cuda().eval()
+
+
+def _randn(*shape, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=gen).cuda()
+
+
+def _assert_close(got, plain):
+    torch.cuda.synchronize()
+    assert got.shape == plain.shape
+    bound = 1e-4 * max(1.0, plain.abs().max().item())
+    err = (got - plain).abs().max().item()
+    assert err <= bound, (err, bound)
+
+
+@pytest.mark.cuda
+def test_cuda_gemm_epilogue_matches_plain(model):
+    """Ragged rows and columns, three tap pieces and a residual."""
+    b, t_in, j, c, n, d = 3, 11, 17, 130, 70, 3
+    t_out = t_in - 2 * d
+    x = _randn(b * t_in * j, c, seed=1)
+    w = _randn(3, c, n, seed=2)
+    kw = dict(s_out=t_out * j, a_s_in=t_in * j, scale=_randn(n, seed=4),
+              shift=_randn(n, seed=5), relu=True,
+              res=_randn(b * t_in * j, n, seed=6), res_s_in=t_in * j,
+              res_off=d * j)
+    pieces = [(x, w[k].contiguous(), k * d * j) for k in range(3)]
+    m = b * t_out * j
+    _assert_close(K.gemm_epilogue(pieces, m, **kw),
+                  K.gemm_epilogue_plain(pieces, m, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", [0, 2])
+def test_cuda_graph_kernels_match_plain(model, level):
+    t = gab_tables(model.layers_graph_conv[level], model.statics)
+    c = t.w_proj.shape[0]
+    ki = t.proj_t.numel()
+    p = _randn(40 * 17, t.w_proj.shape[1], seed=7)
+    args = (c, t.w_self, t.w_nbr, t.col, t.sem_scale, t.sem_shift)
+    _assert_close(K.sem_graph(p, *args), K.sem_graph_plain(p, *args))
+    views = (p[:, 4 * c:4 * c + ki], p[:, 4 * c + ki:4 * c + 2 * ki],
+             p[:, 4 * c + 2 * ki:], t.proj_t, t.proj_p, t.c_k)
+    _assert_close(K.joint_attention(*views),
+                  K.joint_attention_plain(*views))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level,frames", [(0, 25), (1, 19), (2, 1)])
+def test_cuda_fused_gab_matches_plain(model, level, frames):
+    t = gab_tables(model.layers_graph_conv[level], model.statics)
+    x = _randn(16, frames, 17, t.w_proj.shape[0], seed=8)
+    _assert_close(fused_gab(x, t), fused_gab_plain(x, t))
+
+
+@pytest.mark.cuda
+def test_cuda_fused_level0_matches_plain(model):
+    l0 = level0_tables(model.init_bn, model.expand_conv, model.expand_bn)
+    gt = gab_tables(model.layers_graph_conv[0], model.statics)
+    x = _randn(16, 27, 17, 2, seed=9)
+    _assert_close(fused_level0(x, l0, gt), fused_level0_plain(x, l0, gt))
+
+
+@pytest.mark.cuda
+def test_cuda_fused_level_matches_plain(model):
+    lt = level_tables(*model.level_modules(1))
+    gt = gab_tables(model.layers_graph_conv[1], model.statics)
+    x = _randn(16, 25, 17, 256, seed=10)
+    kw = dict(fw=3, dilation=3, res_off=3)
+    _assert_close(fused_level(x, lt, gt, **kw),
+                  fused_level_plain(x, lt, gt, **kw))
+
+
+@pytest.mark.cuda
+def test_cuda_forward_runs_the_kernels_and_matches_reference(model):
+    x = _randn(8, 40, 17, 2, seed=11)
+    K.reset_launches()
+    y = model(x)
+    torch.cuda.synchronize()
+    assert all(v > 0 for v in K.LAUNCHES.values()), K.LAUNCHES
+    assert all(v > 0 for v in K.ENTRY_LAUNCHES.values()), K.ENTRY_LAUNCHES
+    _assert_close(y, model.reference_forward(x))

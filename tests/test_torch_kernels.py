@@ -1,0 +1,136 @@
+"""The port's kernel wrappers (gastx_torch.ops.cuda) against the JAX
+package's Pallas kernels, run in interpret mode on the CPU, where each
+wrapper takes its plain version (tests/test_torch_cuda.py holds the
+kernels themselves to their plain versions on the card).
+
+Tolerance: atol 2e-5, rtol 1e-4 (both sides float32; only the order of
+summation differs between XLA:CPU and ATen).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import gastx.models as jm
+from gastx.ops.pallas.fused_gab import fused_gab as j_fused_gab
+from gastx.ops.pallas.fused_gab import fused_gab_split as j_fused_gab_split
+from gastx.ops.pallas.fused_level import fused_level as j_fused_level
+from gastx.ops.pallas.fused_level import fused_level0 as j_fused_level0
+from gastx_torch.ops.cuda import kernels as K
+from gastx_torch.ops.cuda.fused_gab import fused_gab, gab_tables
+from gastx_torch.ops.cuda.fused_level import (fused_level, fused_level0,
+                                              level0_tables, level_tables)
+from test_torch_common import (assert_close, inputs, port_model,
+                               random_jax_tree)
+
+LEVEL_CFG = jm.GastNetConfig(filter_widths=(3, 3), channels=64, dropout=0.0)
+
+
+def _idx(cfg):
+    s = jm.graph_statics(cfg.layout)
+    return tuple(int(i) for i in s.sym_idx), tuple(int(i) for i in s.con_idx)
+
+
+@pytest.fixture(scope="module")
+def level_weights():
+    params, state = random_jax_tree(LEVEL_CFG, seed=11)
+    return params, state, port_model(LEVEL_CFG, params, state)
+
+
+def test_fused_gab_matches_jax_kernel(level_weights):
+    params, state, model = level_weights
+    x = inputs((2, 5, 17, 64), 1)
+    want = j_fused_gab(jnp.asarray(x), params["gabs"][0], state["gabs"][0],
+                       *_idx(LEVEL_CFG), interpret=True)
+    got = fused_gab(torch.from_numpy(x),
+                    gab_tables(model.layers_graph_conv[0], model.statics))
+    assert_close(got, want)
+
+
+def test_fused_gab_matches_jax_split_kernel_at_512():
+    cfg = jm.GastNetConfig(dropout=0.0)
+    assert cfg.block_channels(2) == 512
+    params, state = random_jax_tree(cfg, seed=12)
+    model = port_model(cfg, params, state)
+    x = inputs((1, 3, 17, 512), 2)
+    want = j_fused_gab_split(jnp.asarray(x), params["gabs"][2],
+                             state["gabs"][2], *_idx(cfg), interpret=True)
+    got = fused_gab(torch.from_numpy(x),
+                    gab_tables(model.layers_graph_conv[2], model.statics))
+    assert_close(got, want)
+
+
+def test_fused_level0_matches_jax_kernel(level_weights):
+    params, state, model = level_weights
+    x = inputs((2, 9, 17, 2), 3)
+    want = j_fused_level0(jnp.asarray(x), params, state, *_idx(LEVEL_CFG),
+                          fw=3, interpret=True)
+    got = fused_level0(
+        torch.from_numpy(x),
+        level0_tables(model.init_bn, model.expand_conv, model.expand_bn),
+        gab_tables(model.layers_graph_conv[0], model.statics))
+    assert_close(got, want)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_fused_level_matches_jax_kernel(causal):
+    cfg = jm.GastNetConfig(filter_widths=(3, 3), channels=64, dropout=0.0,
+                           causal=causal)
+    params, state = random_jax_tree(cfg, seed=13)
+    model = port_model(cfg, params, state)
+    res_off = cfg.pads()[1] + cfg.causal_shifts("dilated")[1]
+    x = inputs((2, 9, 17, 128), 4)
+    want = j_fused_level(jnp.asarray(x), params["temporal"][0],
+                         state["temporal"][0], params["gabs"][1],
+                         state["gabs"][1], *_idx(cfg), fw=3, dilation=3,
+                         res_off=res_off, interpret=True)
+    got = fused_level(
+        torch.from_numpy(x),
+        level_tables(*model.level_modules(1)),
+        gab_tables(model.layers_graph_conv[1], model.statics),
+        fw=3, dilation=3, res_off=res_off)
+    assert_close(got, want)
+
+
+def test_gemm_epilogue_row_map_and_residual():
+    """The tap row map and residual offset, against an explicit loop: two
+    sequences of T_in=6 frames of J=2 rows, a 3-tap conv of dilation 2
+    (T_out=2), residual from frame 1."""
+    rng = np.random.default_rng(5)
+    b, t_in, j, c, n, d = 2, 6, 2, 3, 4, 2
+    x = rng.standard_normal((b * t_in * j, c)).astype(np.float32)
+    w = rng.standard_normal((3, c, n)).astype(np.float32)
+    res = rng.standard_normal((b * t_in * j, n)).astype(np.float32)
+    scale, shift = rng.uniform(0.5, 1.5, n), rng.standard_normal(n)
+    t_out = t_in - 2 * d
+    want = np.zeros((b * t_out * j, n), np.float32)
+    for s in range(b):
+        for q in range(t_out * j):
+            acc = sum(x[s * t_in * j + q + k * d * j] @ w[k] for k in range(3))
+            want[s * t_out * j + q] = (np.maximum(acc * scale + shift, 0)
+                                       + res[s * t_in * j + q + j])
+    tx = torch.from_numpy
+    got = K.gemm_epilogue(
+        [(tx(x), tx(w[k]), k * d * j) for k in range(3)], b * t_out * j,
+        s_out=t_out * j, a_s_in=t_in * j,
+        scale=tx(scale.astype(np.float32)),
+        shift=tx(shift.astype(np.float32)), relu=True, res=tx(res),
+        res_s_in=t_in * j, res_off=j)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
+def test_wrappers_reject_bad_inputs(level_weights):
+    _, _, model = level_weights
+    t = gab_tables(model.layers_graph_conv[0], model.statics)
+    x = torch.zeros(2, 3, 17, 64)
+    with pytest.raises(ValueError):
+        fused_gab(x.double(), t)
+    with pytest.raises(ValueError):
+        fused_gab(x.transpose(1, 2), t)
+    with pytest.raises(ValueError):
+        fused_gab(torch.zeros(2, 3, 17, 32), t)
+    a = torch.zeros(8, 3)
+    with pytest.raises(ValueError):
+        K.gemm_epilogue([(a, torch.zeros(4, 2), 0)], 8)
+    with pytest.raises(ValueError):  # the row map would read past a
+        K.gemm_epilogue([(a, torch.zeros(3, 2), 1)], 8)

@@ -1,0 +1,152 @@
+"""The port's model, weight bridge, lifting, geometry, data and CLI against
+the JAX package on the CPU, on numpy-seeded weights and inputs.
+
+Tolerance: atol 2e-5, rtol 1e-4 (both sides float32; only the order of
+summation differs between XLA:CPU and ATen).
+"""
+import json
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import gastx.models as jm
+from gastx.data import coco_h36m as j_coco_h36m
+from gastx.geometry import camera_to_world as j_camera_to_world
+from gastx.geometry import normalize_screen_coordinates as j_normalize
+from gastx.infer import lift_sequences as j_lift_sequences
+from gastx.infer import lift_to_world as j_lift_to_world
+from gastx.io import state_dict_from_params
+from gastx_torch.data import (coco_h36m, load_keypoints_json,
+                              save_keypoints_json)
+from gastx_torch.geometry import camera_to_world, normalize_screen_coordinates
+from gastx_torch.infer import lift_sequences, lift_to_world
+from gastx_torch.io import params_from_jax
+from gastx_torch.models import GastNet
+from test_torch_common import (assert_close, inputs, port_model,
+                               random_jax_tree, torch_config)
+
+SMALL = jm.GastNetConfig(filter_widths=(3, 3, 3), channels=16, dropout=0.0)
+
+
+def test_params_from_jax_matches_state_dict_from_params():
+    """The bridge gives the JAX package's own export, key for key and value
+    for value, and it loads into GastNet with strict=True."""
+    params, state = random_jax_tree(SMALL, seed=1)
+    want = state_dict_from_params(params, state, SMALL)
+    got = params_from_jax(params, state, SMALL)
+    assert sorted(got) == sorted(want)
+    for key, value in want.items():
+        assert tuple(got[key].shape) == np.shape(value), key
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(value),
+                                      err_msg=key)
+    model = GastNet(torch_config(SMALL))
+    assert sorted(model.state_dict()) == sorted(want)
+    model.load_state_dict(got, strict=True)
+
+
+@pytest.mark.parametrize("cfg", [
+    SMALL,
+    jm.GastNetConfig(filter_widths=(3, 3, 3), channels=16, dropout=0.0,
+                     causal=True),
+    jm.GastNetConfig(dropout=0.0),
+], ids=["small", "small-causal", "27f-full-width"])
+def test_forward_matches_gastnet_forward(cfg):
+    """Both of the port's forwards (the kernel route, which takes its plain
+    versions on the CPU, and the unfused reference) against the JAX eval
+    forward."""
+    params, state = random_jax_tree(cfg, seed=2)
+    model = port_model(cfg, params, state)
+    x = inputs((2, cfg.receptive_field() + 4, 17, 2), 3)
+    want, _ = jm.gastnet_forward(params, state, jnp.asarray(x), cfg,
+                                 variant="dilated", train=False)
+    xt = torch.from_numpy(x)
+    assert_close(model(xt), want)
+    assert_close(model.reference_forward(xt), want)
+
+
+@pytest.fixture(scope="module")
+def lifting_weights():
+    params, state = random_jax_tree(SMALL, seed=4)
+    return params, state, port_model(SMALL, params, state)
+
+
+def test_lift_sequences_tta_ragged(lifting_weights):
+    """Two ragged sequences in two length buckets, with flip TTA."""
+    params, state, model = lifting_weights
+    seqs = [inputs((30, 17, 2), 5), inputs((70, 17, 2), 6)]
+    want = j_lift_sequences(params, state, seqs, SMALL, tta=True)
+    got = lift_sequences(model, seqs, tta=True)
+    for g, w, s in zip(got, want, seqs):
+        assert g.shape == (s.shape[0], 17, 3)
+        assert_close(g, w)
+
+
+def test_lift_sequences_kps_lr(lifting_weights):
+    """A 2D joint order whose mirror columns differ from the layout's."""
+    params, state, model = lifting_weights
+    seqs = [inputs((12, 17, 2), 7)]
+    kps_lr = ([1, 2, 3, 4], [5, 6, 7, 8])
+    want = j_lift_sequences(params, state, seqs, SMALL, kps_lr=kps_lr)
+    assert_close(lift_sequences(model, seqs, kps_lr=kps_lr)[0], want[0])
+
+
+def test_lift_to_world(lifting_weights):
+    params, state, model = lifting_weights
+    seqs = [inputs((20, 17, 2), 8)]
+    want = j_lift_to_world(params, state, seqs, SMALL)
+    assert_close(lift_to_world(model, seqs)[0], want[0])
+
+
+def test_geometry_matches_jax():
+    rng = np.random.default_rng(9)
+    q = rng.standard_normal(4).astype(np.float32)
+    q /= np.linalg.norm(q)
+    pts = rng.standard_normal((5, 17, 3)).astype(np.float32)
+    want = j_camera_to_world(pts, R=q, t=0.5)
+    assert_close(camera_to_world(torch.from_numpy(pts), torch.from_numpy(q),
+                                 0.5), want)
+    px = rng.uniform(0, 1000, (5, 17, 2)).astype(np.float32)
+    np.testing.assert_array_equal(
+        normalize_screen_coordinates(px, 1000, 1002),
+        j_normalize(px, w=1000, h=1002))
+
+
+def _coco_keypoints(t, seed):
+    rng = np.random.default_rng(seed)
+    return rng.uniform(100, 900, (1, t, 17, 2)).astype(np.float32)
+
+
+def test_keypoints_json_round_trip_and_coco(tmp_path):
+    kps = _coco_keypoints(12, 10)
+    scores = np.ones(kps.shape[:3], np.float32)
+    path = str(tmp_path / "kps.json")
+    save_keypoints_json(path, kps, scores)
+    got, got_scores, label, _ = load_keypoints_json(path, 17)
+    np.testing.assert_array_equal(got[0], kps[0])
+    np.testing.assert_array_equal(got_scores[0], scores[0])
+    assert label == "unknown"
+    h36m, valid = coco_h36m(got[0])
+    j_h36m, j_valid = j_coco_h36m(got[0])
+    np.testing.assert_array_equal(h36m, j_h36m)
+    np.testing.assert_array_equal(valid, j_valid)
+
+
+def test_reconstruct_cli_on_cpu(tmp_path):
+    from gastx_torch.cli import reconstruct
+
+    kps = _coco_keypoints(40, 11)
+    kps[0, 5] = 0.0                       # one frame without a detection
+    path = str(tmp_path / "kps.json")
+    save_keypoints_json(path, kps, np.ones(kps.shape[:3], np.float32))
+    with open(path) as f:
+        assert len(json.load(f)["data"]) == 40
+    out = reconstruct.reconstruct(reconstruct.parse_args(
+        ["-k", path, "--random-weights", "--no-render", "--device", "cpu",
+         "-vo", str(tmp_path / "out" / "rec.mp4")]))
+    assert out.shape == (40, 17, 3)
+    assert np.isfinite(out).all()
+    np.testing.assert_array_equal(out[5], 0.0)
+    saved = np.load(tmp_path / "out" / "rec.npz")["reconstruction"]
+    np.testing.assert_array_equal(saved, out)
