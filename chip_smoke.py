@@ -5,24 +5,29 @@ CUDA device and the CUDA toolkit (``nvcc``); it imports nothing of JAX or
 of the ``gastx`` package. Phases, in order; any failure ends the run with
 a non-zero exit and no result line:
 
-  1. build the three CUDA kernels from ``gastx_torch/csrc`` (one ``nvcc``
+  1. build the four CUDA kernels from ``gastx_torch/csrc`` (one ``nvcc``
      per source, all started together) and print the card's name and power
      limit;
   2. hold each kernel and each entry-point wrapper to its plain PyTorch
-     version on the card at the main path's shapes (27-frame model, full
-     width, B=256 windows);
-  3. run three reconstruct requests through ``gastx_torch.cli.reconstruct
-     --random-weights --no-render`` on synthetic COCO keypoint files of 50,
-     277 and 1000 frames; the launch counters are zeroed just before and
-     read just after, so they show the main path ran the kernels. Every
-     forward the requests make (the padded, flip-TTA batches) is recorded
-     and then held to the model's plain reference forward on the same
-     batch;
-  4. time the full-width forward on B=1024 windows of 27 frames against
-     the plain reference forward, and each kernel at the forward's shapes
-     against its plain version;
-  5. trace one such forward with torch.profiler: device time by kernel and
-     the device's idle share.
+     version on the card at the main paths' shapes: the 27-frame model at
+     B=256 windows, and the narrow levels (C=32, 64) of the 243- and
+     81-frame models at B=256 (``gab_narrow``, ``fused_gab``,
+     ``fused_level0``, ``fused_level``);
+  3. run reconstruct requests through ``gastx_torch.cli.reconstruct
+     --random-weights --no-render`` on synthetic COCO keypoint files: 50,
+     277 and 1000 frames with the 27-frame model, 277 and 1000 frames with
+     ``-f 81`` and ``-f 243``. The launch counters are zeroed just before
+     and read just after, so they show the main paths ran every kernel.
+     Every forward the requests make (the padded, flip-TTA batches) is
+     recorded and then held to the model's plain reference forward on the
+     same batch;
+  4. time the full-width forwards against the plain reference forward:
+     B=1024 windows of 27 and of 81 frames, B=256 windows of 243 frames;
+     then each kernel at its forward's shapes against its plain version,
+     and ``gab_narrow`` beside the three-kernel chain that C < 128 ran
+     before it;
+  5. trace one 27-frame B=1024 and one 243-frame B=256 forward with
+     torch.profiler: device time by kernel and the device's idle share.
 
 Tolerance: each kernel, wrapper and the forward must agree with its plain
 version to max |delta| <= 1e-4 * max(1, max |plain|); both sides compute
@@ -146,7 +151,7 @@ def bound(flops, nbytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def profile_forward(model, x):
+def profile_forward(model, x, label):
     """Phase 5: device time of one forward by kernel, from torch.profiler,
     and the device's idle share of the forward's CUDA-event time (both
     under the profiler's own overhead). Returns None, and says "not
@@ -155,7 +160,7 @@ def profile_forward(model, x):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    print("phase 5: torch.profiler trace of one B=1024 forward")
+    print(f"phase 5: torch.profiler trace of one {label} forward")
     model(x)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -175,8 +180,8 @@ def profile_forward(model, x):
         if ev.device_type != DeviceType.CUDA or dev_ms <= 0:
             continue
         name = next((k for k in ("gemm_epilogue", "sem_graph",
-                                 "joint_attention") if f"{k}_kernel" in
-                     ev.key), f"other: {ev.key[:70]}")
+                                 "joint_attention", "gab_narrow")
+                     if f"{k}_kernel" in ev.key), f"other: {ev.key[:70]}")
         g = groups.setdefault(name, [0.0, 0])
         g[0] += dev_ms
         g[1] += ev.count
@@ -196,10 +201,10 @@ def profile_forward(model, x):
 
 
 # Each entry of the kernels line: (name, launch counter, source, the TPU
-# kernel it replaces). The three CUDA kernels count their own launches;
+# kernel it replaces). The four CUDA kernels count their own launches;
 # each entry point counts the kernel launches made inside it, and the
-# fused_gab entries count every GAB of their width class (C <= 256, the
-# GABs of levels 0 and 1; C = 512, level 2).
+# fused_gab entries count every GAB of their width class (C < 128, the
+# narrow levels of 81f/243f; 128 <= C <= 256; C = 512, the last level).
 KERNELS = (
     ("gemm_epilogue", "gemm_epilogue", "gastx_torch/csrc/gemm_epilogue.cu",
      "gastx/ops/pallas/fused_gab.py:469"),
@@ -218,7 +223,21 @@ KERNELS = (
     ("fused_gab (C=512, T=1)", "fused_gab_split",
      "gastx_torch/ops/cuda/fused_gab.py",
      "gastx/ops/pallas/fused_gab.py:1175"),
+    ("gab_narrow", "gab_narrow", "gastx_torch/csrc/gab_narrow.cu",
+     "gastx/ops/pallas/fused_gab.py:959"),
+    ("fused_gab (C=32, T=241)", "fused_gab_pbatch",
+     "gastx_torch/ops/cuda/fused_gab.py",
+     "gastx/ops/pallas/fused_gab.py:959"),
+    ("fused_gab (C=64, T=79)", "fused_gab_pbatch",
+     "gastx_torch/ops/cuda/fused_gab.py",
+     "gastx/ops/pallas/fused_gab.py:959"),
 )
+
+# The reconstruct requests of phase 3: (receptive field, frames).
+REQUESTS = ((27, 50), (27, 277), (27, 1000), (81, 277), (81, 1000),
+            (243, 277), (243, 1000))
+# The forwards of phase 4: (receptive field, batch of windows).
+FORWARDS = ((27, 1024), (81, 1024), (243, 256))
 
 
 def launch_counts(K) -> dict:
@@ -298,15 +317,26 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.split(':')[-1].strip()}")
 
-    cfg = config_for_frames(27)
-    gen = torch.Generator().manual_seed(0)
-    model = randomize_eval_statistics(init_gastnet(GastNet(cfg), gen), gen)
-    model = model.to(dev).eval()
+    def build(frames):
+        gen = torch.Generator().manual_seed(0 if frames == 27 else frames)
+        m = GastNet(config_for_frames(frames))
+        m = randomize_eval_statistics(init_gastnet(m, gen), gen)
+        return m.to(dev).eval()
+
+    models = {rf: build(rf) for rf, _ in FORWARDS}
+    model = models[27]
     statics = model.statics
-    j = cfg.num_joints_in
+    j = model.cfg.num_joints_in
     gts = [gab_tables(g, statics) for g in model.layers_graph_conv]
     l0t = level0_tables(model.init_bn, model.expand_conv, model.expand_bn)
     l1t = level_tables(*model.level_modules(1))
+    m81, m243 = models[81], models[243]
+    n81 = gab_tables(m81.layers_graph_conv[0], m81.statics)
+    n243 = [gab_tables(m243.layers_graph_conv[i], m243.statics)
+            for i in (0, 1)]
+    l0_81 = level0_tables(m81.init_bn, m81.expand_conv, m81.expand_bn)
+    l0_243 = level0_tables(m243.init_bn, m243.expand_conv, m243.expand_bn)
+    l1_243 = level_tables(*m243.level_modules(1))
 
     def randn(*shape, seed):
         g = torch.Generator(device=dev).manual_seed(seed)
@@ -349,13 +379,41 @@ def main() -> int:
                                        (x2, gts[2]), {}),
         }
 
+    # The narrow levels: the 243-frame model's levels 0-1 (C=32, 64) on
+    # b243 windows, the 81-frame model's level 0 (C=64) on b81.
+    def narrow_shapes(b243, b81):
+        x32 = randn(b243, 241, j, 32, seed=11)
+        x64 = randn(b81, 79, j, 64, seed=12)
+        return {
+            "gab_narrow": (K.gab_narrow, K.gab_narrow_plain,
+                           (x32.reshape(-1, 32), n243[0]), {}),
+            "gab_narrow (C=64, T=79)": (K.gab_narrow, K.gab_narrow_plain,
+                                        (x64.reshape(-1, 64), n81), {}),
+            "fused_gab (C=32, T=241)": (fused_gab, fused_gab_plain,
+                                        (x32, n243[0]), {}),
+            "fused_gab (C=64, T=79)": (fused_gab, fused_gab_plain,
+                                       (x64, n81), {}),
+            "fused_level0 (C=32, T=243)": (
+                fused_level0, fused_level0_plain,
+                (randn(b243, 243, j, 2, seed=13), l0_243, n243[0]), {}),
+            "fused_level0 (C=64, T=81)": (
+                fused_level0, fused_level0_plain,
+                (randn(b81, 81, j, 2, seed=14), l0_81, n81), {}),
+            "fused_level (C=64, T=241)": (
+                fused_level, fused_level_plain,
+                (randn(b243, 241, j, 64, seed=15), l1_243, n243[1]),
+                dict(fw=3, dilation=3, res_off=3)),
+        }
+
     # ---- phase 2: each kernel against its plain version, B=256 ----------
     print("phase 2: kernels against their plain versions (B=256)")
     errs = {}
-    for name, (fn, plain, args, kw) in shapes(256).items():
+    for name, (fn, plain, args, kw) in {**shapes(256),
+                                        **narrow_shapes(256, 256)}.items():
         errs[name] = check(name, fn(*args, **kw), plain(*args, **kw))
+    torch.cuda.empty_cache()
 
-    # ---- phase 3: reconstruct requests (the main path) -----------------
+    # ---- phase 3: reconstruct requests (the main paths) ----------------
     print("phase 3: reconstruct requests")
     os.makedirs(WORK_DIR, exist_ok=True)
     requests = []
@@ -367,11 +425,11 @@ def main() -> int:
 
     hook = register_module_forward_hook(record)
     K.reset_launches()
-    for i, frames in enumerate((50, 277, 1000)):
+    for i, (rf, frames) in enumerate(REQUESTS):
         kps = synthetic_coco(frames, seed=i)
         path = os.path.join(WORK_DIR, f"request{i}.json")
         save_keypoints_json(path, kps, np.ones(kps.shape[:3], np.float32))
-        argv = ["-k", path, "--random-weights", "--no-render",
+        argv = ["-k", path, "-f", str(rf), "--random-weights", "--no-render",
                 "-vo", os.path.join(WORK_DIR, f"request{i}.mp4")]
         t0 = time.time()
         out = rc.reconstruct(rc.parse_args(argv))
@@ -379,8 +437,9 @@ def main() -> int:
         dt = time.time() - t0
         if out.shape != (frames, j, 3) or not np.isfinite(out).all():
             fail(f"request {i}: bad output {out.shape}")
-        requests.append({"frames": frames, "s": dt})
-        print(f"  request {i}: {frames} frames -> {out.shape}, {dt:.3f} s")
+        requests.append({"model": rf, "frames": frames, "s": dt})
+        print(f"  request {i}: -f {rf}, {frames} frames -> {out.shape}, "
+              f"{dt:.3f} s")
     main_launches = launch_counts(K)
     hook.remove()
     print(f"  launches: {main_launches}")
@@ -399,27 +458,32 @@ def main() -> int:
     report["requests"] = requests
     report["main_path_launches"] = main_launches
 
-    # ---- phase 4: the B=1024 forward and each kernel's time -------------
-    print("phase 4: full-width forward, B=1024 windows of 27 frames")
-    b = 1024
-    x = randn(b, 27, j, 2, seed=7)
-    K.reset_launches()
-    y = model(x)
-    torch.cuda.synchronize()
-    per_forward = launch_counts(K)
-    y_plain = model.reference_forward(x)
-    fwd_err = check("forward", y, y_plain)
-    del y, y_plain
-    fwd_ms = cuda_ms(lambda: model(x))
-    plain_fwd_ms = cuda_ms(lambda: model.reference_forward(x), reps=3)
-    report["forward"] = {
-        "batch": b, "ms": fwd_ms, "seq_per_s": b / (fwd_ms / 1e3),
-        "plain_ms": plain_fwd_ms, "max_abs_err": fwd_err,
-        "launches_per_forward": per_forward}
-    print(f"  {b / (fwd_ms / 1e3):.1f} seq/s ({fwd_ms:.2f} ms per forward; "
-          f"plain {plain_fwd_ms:.2f} ms); launches per forward "
-          f"{per_forward}")
+    # ---- phase 4: the forwards and each kernel's time -------------------
+    print("phase 4: full-width forwards")
+    report["forwards"] = {}
+    xs = {}
+    for rf, b in FORWARDS:
+        m = models[rf]
+        x = xs[rf] = randn(b, rf, j, 2, seed=7)
+        K.reset_launches()
+        y = m(x)
+        torch.cuda.synchronize()
+        per_forward = launch_counts(K)
+        y_plain = m.reference_forward(x)
+        fwd_err = check(f"{rf}f forward (B={b})", y, y_plain)
+        del y, y_plain
+        fwd_ms = cuda_ms(lambda: m(x))
+        plain_fwd_ms = cuda_ms(lambda: m.reference_forward(x), reps=3)
+        report["forwards"][f"{rf}f"] = {
+            "batch": b, "ms": fwd_ms, "seq_per_s": b / (fwd_ms / 1e3),
+            "plain_ms": plain_fwd_ms, "max_abs_err": fwd_err,
+            "launches_per_forward": per_forward}
+        print(f"  {rf}f B={b}: {b / (fwd_ms / 1e3):.1f} seq/s ({fwd_ms:.2f} "
+              f"ms per forward; plain {plain_fwd_ms:.2f} ms); launches per "
+              f"forward {per_forward}")
+        torch.cuda.empty_cache()
 
+    b = 1024
     g1 = gts[1]
     k, inter = g1.proj_t.shape
     g_ch = (g1.w_proj.shape[1] - 4 * 256 - 2 * k * inter) // k
@@ -439,12 +503,17 @@ def main() -> int:
                                      4 * 256, gab[256])
     work["fused_gab (C=128, T=25)"] = gab[128]
     work["fused_gab (C=512, T=1)"] = gab[512]
+    work["gab_narrow"] = gab_work(256 * 241 * j, 32, j, 4, 8, 8, d)
+    work["fused_gab (C=32, T=241)"] = work["gab_narrow"]
+    work["fused_gab (C=64, T=79)"] = gab_work(b * 79 * j, 64, j, 4, 16, 16,
+                                              d)
 
     kernels = []
-    calls = shapes(b)
+    calls = {**shapes(b), **narrow_shapes(256, b)}
     for name, counter, source, replaces in KERNELS:
         fn, plain, args, kw = calls[name]
-        err = check(f"{name} (B={b})", fn(*args, **kw), plain(*args, **kw))
+        nb = 256 if name in ("gab_narrow", "fused_gab (C=32, T=241)") else b
+        err = check(f"{name} (B={nb})", fn(*args, **kw), plain(*args, **kw))
         ms = cuda_ms(lambda: fn(*args, **kw))
         plain_ms = cuda_ms(lambda: plain(*args, **kw), reps=3)
         library_ms = None
@@ -463,8 +532,26 @@ def main() -> int:
               + (f", torch.addmm {library_ms:.3f}" if library_ms else "")
               + ")")
         torch.cuda.empty_cache()
+
+    # gab_narrow beside the three-kernel chain that C < 128 ran before it.
+    report["gab_narrow_vs_chain"] = {}
+    for key, label in (("gab_narrow", "C=32, T=241, B=256"),
+                       ("gab_narrow (C=64, T=79)", "C=64, T=79, B=1024")):
+        x2, t = calls[key][2]
+        c = x2.shape[1]
+        ms = cuda_ms(lambda: K.gab_narrow(x2, t))
+        chain_ms = cuda_ms(lambda: K.gab_chain(
+            x2, t, K.gemm_epilogue, K.sem_graph, K.joint_attention))
+        bms, by = bound(*gab_work(x2.shape[0], c, j, 4, c // 4, c // 4, d))
+        report["gab_narrow_vs_chain"][label] = {
+            "ms": ms, "chain_ms": chain_ms, "bound_ms": bms, "bound_by": by}
+        print(f"  gab_narrow ({label}): {ms:.3f} ms; the chain "
+              f"{chain_ms:.3f} ms; bound {bms:.3f} by {by}")
     del calls
-    report["profile"] = profile_forward(model, x)
+    torch.cuda.empty_cache()
+    report["profile"] = profile_forward(model, xs[27], "27f B=1024")
+    report["profile_243f"] = profile_forward(models[243], xs[243],
+                                             "243f B=256")
     report["kernels"] = kernels
     report["total_s"] = time.time() - t_start
 

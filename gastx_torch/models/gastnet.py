@@ -13,10 +13,22 @@ channels-last (B, T, J, C):
 
   * :meth:`GastNet.forward` — the kernel route. Level 0 runs
     ``fused_level0``; every level with C <= 256 runs ``fused_level``; the
-    wider level (C=512 at 27 frames, T'=1 at every shipped config) runs its
+    C=512 tail (the last level of every shipped config, T'=1) runs its
     conv chain as plain torch and then ``fused_gab``, the port of the TPU's
-    ``fused_gab_split``. The final 1x1 shrink is ``torch.matmul``. On a
-    CPU tensor each wrapper runs its plain version.
+    ``fused_gab_split``. The final 1x1 shrink is ``torch.matmul``. Inside
+    the level wrappers the GAB goes by width (``fused_gab``): C < 128 is
+    one ``gab_narrow`` launch, wider blocks the three-kernel chain. By
+    config:
+
+    ======  ======================  =====================================
+    frames  level widths C          GAB route
+    ======  ======================  =====================================
+    27      128, 256, 512           chain, chain, chain (split)
+    81      64, 128, 256, 512       gab_narrow, chain, chain, chain
+    243     32, 64, 128, 256, 512   gab_narrow x2, chain x2, chain
+    ======  ======================  =====================================
+
+    On a CPU tensor each wrapper runs its plain version.
   * :meth:`GastNet.reference_forward` — the unfused ops of
     ``gastx_torch.ops`` (the JAX package's XLA route), the reference the
     kernel route is held to.

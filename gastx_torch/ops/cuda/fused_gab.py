@@ -1,15 +1,24 @@
 """Eval-mode graph-attention block (GAB) on Hopper.
 
-Replaces the TPU kernels ``gastx/ops/pallas/fused_gab.py`` ``fused_gab``
-(C <= 256, one VMEM-resident kernel) and ``fused_gab_split`` (C <= 512, two
-kernels): one wrapper, :func:`fused_gab`, covers C <= 512.
+Replaces the TPU kernels ``gastx/ops/pallas/fused_gab.py``
+``fused_gab_pbatch`` (C < 128, frames packed into the lanes),
+``fused_gab`` (C <= 256, one VMEM-resident kernel) and
+``fused_gab_split`` (C <= 512, two kernels): one wrapper,
+:func:`fused_gab`, covers C <= 512 and routes by width.
 
-The TPU kernels keep every weight resident in VMEM and run the block per
-row tile. That does not carry over: at C=512 the block's weights are about
-13 MB, and a Hopper block has 227 KB of shared memory, so a kernel per
-frame would re-read every weight for each of B*T frames. Here the block
-is a chain over M = B*T*J rows of three CUDA kernels
-(``gastx_torch/csrc``):
+**C < 128: one kernel.** ``gab_narrow`` (``gastx_torch/csrc``) runs the
+whole block for a tile of whole frames in one launch, every intermediate
+in shared memory: at J=17 a frame's x and projection output take 18 KB
+at C=32 and 35 KB at C=64, so a block holds a few frames, only x is read
+and the 2C output written, and the weights (64 and 256 KB) stream through
+shared memory in slabs.
+
+**C >= 128: a chain.** The TPU kernels keep every weight resident in VMEM
+and run the block per row tile. That does not carry over: at C=512 the
+block's weights are about 13 MB, and a Hopper block has 227 KB of shared
+memory, so a kernel per frame would re-read every weight for each of B*T
+frames. Here the block is a chain over M = B*T*J rows of three CUDA
+kernels (``kernels.gab_chain``):
 
   1. ``gemm_epilogue``: P = x @ [W0_sym|W1_sym|W0_con|W1_con|theta|phi|g]
      + bias (shift at scale 1), the seven C-wide projections in one
@@ -23,12 +32,12 @@ is a chain over M = B*T*J rows of three CUDA kernels
   6. ``gemm_epilogue``: out = relu(BN(x@W_a + local@W_b + global@W_c)), the
      3C->2C block concat as three pieces, never materialised.
 
-The GEMMs are bound by the float32 FMA rate, the two graph kernels by
-device-memory bytes (see each source's note). All BNs are folded on the
-host into scale/shift, as ``_fold_bn`` does. The plain version,
-:func:`fused_gab_plain`, runs the same chain through the kernels' plain
-PyTorch versions; ``gastx_torch.ops.graph.graph_attention_block`` is the
-unfused reference.
+The GEMMs and ``gab_narrow`` are bound by the float32 FMA rate, the two
+graph kernels by device-memory bytes (see each source's note). All BNs
+are folded on the host into scale/shift, as ``_fold_bn`` does. The plain
+version, :func:`fused_gab_plain`, runs the same chain through the
+kernels' plain PyTorch versions at every width; ``gastx_torch.ops.graph.
+graph_attention_block`` is the unfused reference.
 """
 from __future__ import annotations
 
@@ -177,26 +186,6 @@ def gab_tables(block: nn.Module, statics) -> GabTables:
         gcat_scale=f32(s_g), gcat_shift=f32(t_g))
 
 
-def gab_chain(x: torch.Tensor, t: GabTables, gemm, sem, attn
-              ) -> torch.Tensor:
-    """The block on (rows, C) activations through the given GEMM, graph
-    and attention functions (the kernels, or their plain versions)."""
-    rows, c = x.shape
-    ki = t.proj_t.shape[0] * t.proj_t.shape[1]
-    p = gemm([(x, t.w_proj, 0)], rows, scale=t.proj_scale,
-             shift=t.proj_shift)
-    ab = sem(p, c, t.w_self, t.w_nbr, t.col, t.sem_scale, t.sem_shift)
-    local = gemm([(ab, t.lcat_w, 0)], rows, scale=t.lcat_scale,
-                 shift=t.lcat_shift, relu=True)
-    heads = attn(p[:, 4 * c:4 * c + ki], p[:, 4 * c + ki:4 * c + 2 * ki],
-                 p[:, 4 * c + 2 * ki:], t.proj_t, t.proj_p, t.c_k)
-    globl = gemm([(heads, t.acat_w, 0)], rows, scale=t.acat_scale,
-                 shift=t.acat_shift, relu=True)
-    return gemm([(x, t.gcat_w[0:c], 0), (local, t.gcat_w[c:2 * c], 0),
-                 (globl, t.gcat_w[2 * c:3 * c], 0)], rows,
-                scale=t.gcat_scale, shift=t.gcat_shift, relu=True)
-
-
 def _check_x(x: torch.Tensor, t: GabTables) -> None:
     c = t.w_proj.shape[0]
     if (x.dim() != 4 or x.shape[-1] != c or x.shape[-2] != t.c_k.shape[1]
@@ -212,20 +201,25 @@ def fused_gab_plain(x: torch.Tensor, t: GabTables) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_gab`."""
     _check_x(x, t)
     b, tt, j, c = x.shape
-    y = gab_chain(x.reshape(-1, c), t, K.gemm_epilogue_plain,
-                  K.sem_graph_plain, K.joint_attention_plain)
+    y = K.gab_chain(x.reshape(-1, c), t, K.gemm_epilogue_plain,
+                    K.sem_graph_plain, K.joint_attention_plain)
     return y.reshape(b, tt, j, 2 * c)
 
 
 def fused_gab(x: torch.Tensor, t: GabTables) -> torch.Tensor:
-    """(B, T, J, C) -> (B, T, J, 2C), the eval-mode GAB, C <= 512. Its
-    launches count under ``fused_gab`` for C <= 256 and under
-    ``fused_gab_split`` above, the TPU kernels it replaces."""
+    """(B, T, J, C) -> (B, T, J, 2C), the eval-mode GAB, C <= 512. C < 128
+    runs ``gab_narrow`` and counts under ``fused_gab_pbatch``; wider blocks
+    run the chain and count under ``fused_gab`` (C <= 256) or
+    ``fused_gab_split``: the TPU kernels each replaces."""
     _check_x(x, t)
     if not K.use_kernel(x.device):
         return fused_gab_plain(x, t)
     b, tt, j, c = x.shape
-    with K.entry_point("fused_gab" if c <= 256 else "fused_gab_split"):
-        y = gab_chain(x.reshape(-1, c), t, K.gemm_epilogue, K.sem_graph,
-                      K.joint_attention)
+    if c <= K.NARROW_MAX_CHANNELS:
+        with K.entry_point("fused_gab_pbatch"):
+            y = K.gab_narrow(x.reshape(-1, c), t)
+    else:
+        with K.entry_point("fused_gab" if c <= 256 else "fused_gab_split"):
+            y = K.gab_chain(x.reshape(-1, c), t, K.gemm_epilogue,
+                            K.sem_graph, K.joint_attention)
     return y.reshape(b, tt, j, 2 * c)

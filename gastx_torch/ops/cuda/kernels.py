@@ -1,12 +1,17 @@
 """Build, binding and launch wrappers of the port's CUDA kernels.
 
-Three kernels, each a CUDA C++ source under ``gastx_torch/csrc/`` with a
+Four kernels, each a CUDA C++ source under ``gastx_torch/csrc/`` with a
 plain C interface:
 
   * ``gemm_epilogue`` — tiled f32 GEMM over up to three pieces with a tap
     row map and a BN (scale/shift) / ReLU / residual epilogue;
   * ``sem_graph`` — the local branch's semantic graph aggregation;
-  * ``joint_attention`` — per-frame multi-head attention over the joints.
+  * ``joint_attention`` — per-frame multi-head attention over the joints;
+  * ``gab_narrow`` — the whole eval GAB at C < 128 in one launch, every
+    intermediate in shared memory.
+
+The first three chain into the GAB at C >= 128 (:func:`gab_chain`); the
+chain of their plain versions is also ``gab_narrow``'s plain version.
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library under ``build/gastx_torch/`` at the root of the checkout (named
@@ -38,17 +43,18 @@ import torch.nn.functional as F
 
 from gastx_torch.device import check_f32_matmul
 
-KERNEL_SOURCES = ("gemm_epilogue", "sem_graph", "joint_attention")
+KERNEL_SOURCES = ("gemm_epilogue", "sem_graph", "joint_attention",
+                  "gab_narrow")
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "gastx_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # The port's entry points that replace TPU kernels. The one ``fused_gab``
-# counts under the TPU kernel it stands for: ``fused_gab`` for C <= 256,
-# ``fused_gab_split`` above.
-ENTRY_POINTS = ("fused_level0", "fused_level", "fused_gab",
-                "fused_gab_split")
+# counts under the TPU kernel it stands for: ``fused_gab_pbatch`` for
+# C < 128, ``fused_gab`` for 128 <= C <= 256, ``fused_gab_split`` above.
+ENTRY_POINTS = ("fused_level0", "fused_level", "fused_gab_pbatch",
+                "fused_gab", "fused_gab_split")
 
 # Kernel launches by kernel, and by the entry points open at the launch.
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_SOURCES}
@@ -63,6 +69,9 @@ _ARGTYPES = {
     "sem_graph": [_P, _I, _P, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "joint_attention": [_P, _P, _P, _I, _P, _P, _P, _P, _LL, _I, _I, _I,
                         _I, _P],
+    # x, out, frames, J, C, D, K, I, G, the 20 tables of a GabTables in
+    # its field order, stream
+    "gab_narrow": [_P, _P, _LL, _I, _I, _I, _I, _I, _I] + [_P] * 21,
 }
 
 
@@ -426,4 +435,80 @@ def joint_attention(theta: torch.Tensor, phi: torch.Tensor, g: torch.Tensor,
             g.data_ptr(), theta.stride(0), proj_t.data_ptr(),
             proj_p.data_ptr(), c_k.data_ptr(), out.data_ptr(), rows // j, j,
             inter, g_ch, k, _stream())
+    return out
+
+
+# --------------------------------------------------------------------------
+# gab_narrow
+# --------------------------------------------------------------------------
+
+def gab_chain(x: torch.Tensor, t, gemm, sem, attn) -> torch.Tensor:
+    """The eval GAB on (rows, C) activations through the given GEMM, graph
+    and attention functions (the kernels, or their plain versions); ``t``
+    is a ``fused_gab.GabTables``."""
+    rows, c = x.shape
+    ki = t.proj_t.shape[0] * t.proj_t.shape[1]
+    p = gemm([(x, t.w_proj, 0)], rows, scale=t.proj_scale,
+             shift=t.proj_shift)
+    ab = sem(p, c, t.w_self, t.w_nbr, t.col, t.sem_scale, t.sem_shift)
+    local = gemm([(ab, t.lcat_w, 0)], rows, scale=t.lcat_scale,
+                 shift=t.lcat_shift, relu=True)
+    heads = attn(p[:, 4 * c:4 * c + ki], p[:, 4 * c + ki:4 * c + 2 * ki],
+                 p[:, 4 * c + 2 * ki:], t.proj_t, t.proj_p, t.c_k)
+    globl = gemm([(heads, t.acat_w, 0)], rows, scale=t.acat_scale,
+                 shift=t.acat_shift, relu=True)
+    return gemm([(x, t.gcat_w[0:c], 0), (local, t.gcat_w[c:2 * c], 0),
+                 (globl, t.gcat_w[2 * c:3 * c], 0)], rows,
+                scale=t.gcat_scale, shift=t.gcat_shift, relu=True)
+
+
+NARROW_MAX_CHANNELS = 127
+# Weights the kernel copies into shared memory 16 bytes at a time.
+_NARROW_ALIGNED = ("w_proj", "lcat_w", "acat_w", "gcat_w")
+
+
+def _check_narrow(x, t):
+    device = x.device
+    _check(device, x=x, **{k: v for k, v in t._asdict().items()
+                           if k != "col"})
+    c = t.w_proj.shape[0]
+    k, inter = t.proj_t.shape
+    j = t.c_k.shape[1]
+    width = t.w_proj.shape[1]
+    kg = width - 4 * c - 2 * k * inter
+    if x.dim() != 2 or x.shape[1] != c or x.shape[0] % j:
+        raise ValueError(f"x must be (rows, {c}) holding whole frames of {j} "
+                         f"joints, got {tuple(x.shape)}")
+    d = t.col.shape[2]
+    if not (c <= NARROW_MAX_CHANNELS and c % 16 == 0 and j <= 32 and d <= 8
+            and k * inter >= c and 0 < kg and kg % 16 == 0 and kg % k == 0):
+        raise ValueError(f"gab_narrow takes C < 128 and K*G in multiples of "
+                         f"16, K*I >= C, J <= 32 and D <= 8; got C={c}, "
+                         f"J={j}, K*I={k * inter}, K*G={kg}, D={d}")
+    if any(getattr(t, name).data_ptr() % 16 for name in _NARROW_ALIGNED):
+        raise ValueError("gab_narrow's weight tables must be 16-byte aligned")
+    if (t.col.device != device or t.col.dtype != torch.int32
+            or not t.col.is_contiguous()):
+        raise ValueError("col must be a contiguous int32 table on x's device")
+    return device, c, j, k, inter, kg // k, d
+
+
+def gab_narrow_plain(x: torch.Tensor, t) -> torch.Tensor:
+    """Plain PyTorch version of :func:`gab_narrow`: the chain of the three
+    kernels' plain versions."""
+    _check_narrow(x, t)
+    return gab_chain(x, t, gemm_epilogue_plain, sem_graph_plain,
+                     joint_attention_plain)
+
+
+def gab_narrow(x: torch.Tensor, t) -> torch.Tensor:
+    """The eval GAB in one launch at C < 128: (rows, C) -> (rows, 2C), rows
+    whole frames of J <= 32 joints; ``t`` is a ``fused_gab.GabTables``."""
+    device, c, j, k, inter, g_ch, d = _check_narrow(x, t)
+    if not use_kernel(device):
+        return gab_narrow_plain(x, t)
+    out = torch.empty((x.shape[0], 2 * c), dtype=torch.float32,
+                      device=device)
+    _launch("gab_narrow", x.data_ptr(), out.data_ptr(), x.shape[0] // j,
+            j, c, d, k, inter, g_ch, *(v.data_ptr() for v in t), _stream())
     return out

@@ -11,7 +11,7 @@ compute in float32; only the order of summation differs.
 import pytest
 import torch
 
-from gastx_torch.models import (GastNet, config_for_frames,
+from gastx_torch.models import (GastNet, GastNetConfig, config_for_frames,
                                 randomize_eval_statistics)
 from gastx_torch.models.init import init_gastnet
 from gastx_torch.ops.cuda import kernels as K
@@ -105,12 +105,72 @@ def test_cuda_fused_level_matches_plain(model):
                   fused_level_plain(x, lt, gt, **kw))
 
 
+# What a forward of each shipped model launches: its levels are C = 128,
+# 256, 512 (27f), 64 .. 512 (81f) and 32 .. 512 (243f), and only C < 128
+# takes gab_narrow, under the entry point fused_gab_pbatch.
+CHAIN = ("gemm_epilogue", "sem_graph", "joint_attention")
+WIDE_ENTRIES = ("fused_level0", "fused_level", "fused_gab", "fused_gab_split")
+
+
 @pytest.mark.cuda
 def test_cuda_forward_runs_the_kernels_and_matches_reference(model):
     x = _randn(8, 40, 17, 2, seed=11)
     K.reset_launches()
     y = model(x)
     torch.cuda.synchronize()
-    assert all(v > 0 for v in K.LAUNCHES.values()), K.LAUNCHES
-    assert all(v > 0 for v in K.ENTRY_LAUNCHES.values()), K.ENTRY_LAUNCHES
+    assert all(K.LAUNCHES[k] > 0 for k in CHAIN), K.LAUNCHES
+    assert K.LAUNCHES["gab_narrow"] == 0, K.LAUNCHES
+    assert all(K.ENTRY_LAUNCHES[k] > 0 for k in WIDE_ENTRIES), \
+        K.ENTRY_LAUNCHES
+    assert K.ENTRY_LAUNCHES["fused_gab_pbatch"] == 0, K.ENTRY_LAUNCHES
     _assert_close(y, model.reference_forward(x))
+
+
+def _model(frames, num_joints=17):
+    gen = torch.Generator().manual_seed(frames + num_joints)
+    m = init_gastnet(GastNet(config_for_frames(frames, num_joints)), gen)
+    return randomize_eval_statistics(m, gen).cuda().eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_joints", [15, 16, 17, 19])
+def test_cuda_gab_narrow_matches_plain(model, num_joints):
+    """C=32 and C=64 (the 243-frame model's levels 0-1) on every layout,
+    with 1, 7 and 1000 frames, so a tile is ragged."""
+    m = _model(243, num_joints)
+    for level in (0, 1):
+        t = gab_tables(m.layers_graph_conv[level], m.statics)
+        c = t.w_proj.shape[0]
+        for frames in (1, 7, 1000):
+            x = _randn(frames * num_joints, c, seed=12 + frames)
+            _assert_close(K.gab_narrow(x, t), K.gab_narrow_plain(x, t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [16, 48])
+def test_cuda_gab_narrow_other_widths(model, channels):
+    """Narrow widths no shipped model has: C = 16, 32 and 48, 96 (masked
+    column strips, and the kernel's tile for 64 < C < 128)."""
+    gen = torch.Generator().manual_seed(channels)
+    m = GastNet(GastNetConfig(filter_widths=(3, 3), channels=channels))
+    m = randomize_eval_statistics(init_gastnet(m, gen), gen).cuda().eval()
+    for level in (0, 1):
+        t = gab_tables(m.layers_graph_conv[level], m.statics)
+        c = t.w_proj.shape[0]
+        for frames in (7, 300):
+            x = _randn(frames * 17, c, seed=frames + c)
+            _assert_close(K.gab_narrow(x, t), K.gab_narrow_plain(x, t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames,batch", [(81, 4), (243, 2)])
+def test_cuda_narrow_forward_launches_gab_narrow(model, frames, batch):
+    m = _model(frames)
+    x = _randn(batch, frames + 6, 17, 2, seed=13)
+    K.reset_launches()
+    y = m(x)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["gab_narrow"] == {81: 1, 243: 2}[frames], K.LAUNCHES
+    assert K.ENTRY_LAUNCHES["fused_gab_pbatch"] == K.LAUNCHES["gab_narrow"]
+    assert all(K.LAUNCHES[k] > 0 for k in CHAIN), K.LAUNCHES
+    _assert_close(y, m.reference_forward(x))

@@ -13,9 +13,11 @@ import torch
 
 import gastx.models as jm
 from gastx.ops.pallas.fused_gab import fused_gab as j_fused_gab
+from gastx.ops.pallas.fused_gab import fused_gab_pbatch as j_fused_gab_pbatch
 from gastx.ops.pallas.fused_gab import fused_gab_split as j_fused_gab_split
 from gastx.ops.pallas.fused_level import fused_level as j_fused_level
 from gastx.ops.pallas.fused_level import fused_level0 as j_fused_level0
+from gastx_torch.models.gastnet import GraphAttentionBlock
 from gastx_torch.ops.cuda import kernels as K
 from gastx_torch.ops.cuda.fused_gab import fused_gab, gab_tables
 from gastx_torch.ops.cuda.fused_level import (fused_level, fused_level0,
@@ -24,6 +26,10 @@ from test_torch_common import (assert_close, inputs, port_model,
                                random_jax_tree)
 
 LEVEL_CFG = jm.GastNetConfig(filter_widths=(3, 3), channels=64, dropout=0.0)
+# The 243-frame model's widths: C = 32, 64, ... (the narrow GABs of levels
+# 0-1, gab_narrow on the card).
+NARROW_CFG = jm.GastNetConfig(filter_widths=(3, 3, 3, 3, 3), channels=32,
+                              dropout=0.0)
 
 
 def _idx(cfg):
@@ -35,6 +41,12 @@ def _idx(cfg):
 def level_weights():
     params, state = random_jax_tree(LEVEL_CFG, seed=11)
     return params, state, port_model(LEVEL_CFG, params, state)
+
+
+@pytest.fixture(scope="module")
+def narrow_weights():
+    params, state = random_jax_tree(NARROW_CFG, seed=14)
+    return params, state, port_model(NARROW_CFG, params, state)
 
 
 def test_fused_gab_matches_jax_kernel(level_weights):
@@ -57,6 +69,56 @@ def test_fused_gab_matches_jax_split_kernel_at_512():
                              state["gabs"][2], *_idx(cfg), interpret=True)
     got = fused_gab(torch.from_numpy(x),
                     gab_tables(model.layers_graph_conv[2], model.statics))
+    assert_close(got, want)
+
+
+@pytest.mark.parametrize("b,c,pack", [(8, 32, 4), (3, 32, 4), (4, 64, 2)])
+def test_fused_gab_matches_jax_pbatch_kernel(narrow_weights, b, c, pack):
+    """The narrow GAB (C < 128: gab_narrow on the card, its plain chain
+    here) against the frame-packed TPU kernel; b=3 leaves a frame count
+    that is not a multiple of the pack."""
+    params, state, model = narrow_weights
+    level = {32: 0, 64: 1}[c]
+    x = inputs((b, 5, 17, c), 5)
+    want = j_fused_gab_pbatch(jnp.asarray(x), params["gabs"][level],
+                              state["gabs"][level], *_idx(NARROW_CFG),
+                              pack=pack, interpret=True)
+    t = gab_tables(model.layers_graph_conv[level], model.statics)
+    assert_close(fused_gab(torch.from_numpy(x), t), want)
+    assert_close(K.gab_narrow(torch.from_numpy(x).reshape(-1, c), t),
+                 np.asarray(want).reshape(-1, 2 * c))
+
+
+def test_fused_level0_matches_jax_kernel_at_32(narrow_weights):
+    params, state, model = narrow_weights
+    x = inputs((2, 7, 17, 2), 6)
+    want = j_fused_level0(jnp.asarray(x), params, state, *_idx(NARROW_CFG),
+                          fw=3, interpret=True)
+    got = fused_level0(
+        torch.from_numpy(x),
+        level0_tables(model.init_bn, model.expand_conv, model.expand_bn),
+        gab_tables(model.layers_graph_conv[0], model.statics))
+    assert_close(got, want)
+
+
+@pytest.mark.parametrize("channels", [16, 32], ids=["C=32", "C=64"])
+def test_fused_level_matches_jax_kernel_narrow(channels):
+    """An interior level whose GAB is narrow: C=32 (a 16-channel model's
+    level 1) and C=64 (the 243-frame model's level 1)."""
+    cfg = jm.GastNetConfig(filter_widths=(3, 3), channels=channels,
+                           dropout=0.0)
+    params, state = random_jax_tree(cfg, seed=15)
+    model = port_model(cfg, params, state)
+    c = cfg.block_channels(1)
+    x = inputs((2, 9, 17, c), 7)
+    want = j_fused_level(jnp.asarray(x), params["temporal"][0],
+                         state["temporal"][0], params["gabs"][1],
+                         state["gabs"][1], *_idx(cfg), fw=3, dilation=3,
+                         res_off=3, interpret=True)
+    got = fused_level(
+        torch.from_numpy(x), level_tables(*model.level_modules(1)),
+        gab_tables(model.layers_graph_conv[1], model.statics),
+        fw=3, dilation=3, res_off=3)
     assert_close(got, want)
 
 
@@ -129,6 +191,11 @@ def test_wrappers_reject_bad_inputs(level_weights):
         fused_gab(x.transpose(1, 2), t)
     with pytest.raises(ValueError):
         fused_gab(torch.zeros(2, 3, 17, 32), t)
+    with pytest.raises(ValueError):  # rows are not whole frames
+        K.gab_narrow(torch.zeros(20, 64), t)
+    wide = gab_tables(GraphAttentionBlock(128, model.statics), model.statics)
+    with pytest.raises(ValueError):  # C >= 128 is the chain's
+        K.gab_narrow(torch.zeros(17, 128), wide)
     a = torch.zeros(8, 3)
     with pytest.raises(ValueError):
         K.gemm_epilogue([(a, torch.zeros(4, 2), 0)], 8)

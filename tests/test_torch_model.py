@@ -46,19 +46,28 @@ def test_params_from_jax_matches_state_dict_from_params():
     model.load_state_dict(got, strict=True)
 
 
-@pytest.mark.parametrize("cfg", [
-    SMALL,
-    jm.GastNetConfig(filter_widths=(3, 3, 3), channels=16, dropout=0.0,
-                     causal=True),
-    jm.GastNetConfig(dropout=0.0),
-], ids=["small", "small-causal", "27f-full-width"])
-def test_forward_matches_gastnet_forward(cfg):
+F81 = dict(filter_widths=(3, 3, 3, 3), channels=64, dropout=0.0)
+F243 = dict(filter_widths=(3, 3, 3, 3, 3), channels=32, dropout=0.0)
+
+
+@pytest.mark.parametrize("cfg,batch,extra", [
+    (SMALL, 2, 4),
+    (jm.GastNetConfig(filter_widths=(3, 3, 3), channels=16, dropout=0.0,
+                      causal=True), 2, 4),
+    (jm.GastNetConfig(dropout=0.0), 2, 4),
+    (jm.GastNetConfig(**F81), 1, 2),
+    (jm.GastNetConfig(**F81, causal=True), 1, 2),
+    (jm.GastNetConfig(**F243), 1, 2),
+], ids=["small", "small-causal", "27f-full-width", "81f-full-width",
+        "81f-causal-full-width", "243f-full-width"])
+def test_forward_matches_gastnet_forward(cfg, batch, extra):
     """Both of the port's forwards (the kernel route, which takes its plain
     versions on the CPU, and the unfused reference) against the JAX eval
-    forward."""
+    forward (XLA, float32), on ``batch`` windows of the receptive field
+    plus ``extra`` frames."""
     params, state = random_jax_tree(cfg, seed=2)
     model = port_model(cfg, params, state)
-    x = inputs((2, cfg.receptive_field() + 4, 17, 2), 3)
+    x = inputs((batch, cfg.receptive_field() + extra, 17, 2), 3)
     want, _ = jm.gastnet_forward(params, state, jnp.asarray(x), cfg,
                                  variant="dilated", train=False)
     xt = torch.from_numpy(x)
@@ -133,7 +142,8 @@ def test_keypoints_json_round_trip_and_coco(tmp_path):
     np.testing.assert_array_equal(valid, j_valid)
 
 
-def test_reconstruct_cli_on_cpu(tmp_path):
+@pytest.mark.parametrize("frames", [27, 243])
+def test_reconstruct_cli_on_cpu(tmp_path, frames):
     from gastx_torch.cli import reconstruct
 
     kps = _coco_keypoints(40, 11)
@@ -143,8 +153,8 @@ def test_reconstruct_cli_on_cpu(tmp_path):
     with open(path) as f:
         assert len(json.load(f)["data"]) == 40
     out = reconstruct.reconstruct(reconstruct.parse_args(
-        ["-k", path, "--random-weights", "--no-render", "--device", "cpu",
-         "-vo", str(tmp_path / "out" / "rec.mp4")]))
+        ["-k", path, "-f", str(frames), "--random-weights", "--no-render",
+         "--device", "cpu", "-vo", str(tmp_path / "out" / "rec.mp4")]))
     assert out.shape == (40, 17, 3)
     assert np.isfinite(out).all()
     np.testing.assert_array_equal(out[5], 0.0)
