@@ -12,22 +12,35 @@ a non-zero exit and no result line:
      version on the card at the main paths' shapes: the 27-frame model at
      B=256 windows, and the narrow levels (C=32, 64) of the 243- and
      81-frame models at B=256 (``gab_narrow``, ``fused_gab``,
-     ``fused_level0``, ``fused_level``);
+     ``fused_level0``, ``fused_level``); then the other routes' entry
+     points at B=256: ``fused_local_branch`` and
+     ``fused_global_attention`` at the 27-frame model's C=128 and C=512,
+     ``head_attention`` on one head at C=256, ``fused_gab_packed`` at the
+     243-frame model's C=32 and C=64;
   3. run reconstruct requests through ``gastx_torch.cli.reconstruct
      --random-weights --no-render`` on synthetic COCO keypoint files: 50,
      277 and 1000 frames with the 27-frame model, 277 and 1000 frames with
-     ``-f 81`` and ``-f 243``. The launch counters are zeroed just before
-     and read just after, so they show the main paths ran every kernel.
-     Every forward the requests make (the padded, flip-TTA batches) is
-     recorded and then held to the model's plain reference forward on the
-     same batch;
+     ``-f 81`` and ``-f 243``; then two requests through
+     ``gastx_torch.infer.lift_sequences`` on the 1000-frame sequence: the
+     27-frame model on the hybrid route (``gab_impl="pallas_local"``,
+     ``attn_impl="pallas_head"``) and the 243-frame model on the packed
+     one (``gab_impl="pallas"``, ``packed_channels=64``). The launch
+     counters are zeroed just before and read just after, so they show
+     the main paths ran every kernel and every entry point but
+     ``fused_global_attention``, which no model route reaches (0 main-path
+     launches; its phase-2 calls are reported apart, as
+     ``direct_launches``). Every forward the requests make (the padded,
+     flip-TTA batches) is recorded and then held to the model's plain
+     reference forward on the same batch;
   4. time the full-width forwards against the plain reference forward:
-     B=1024 windows of 27 and of 81 frames, B=256 windows of 243 frames;
-     then each kernel at its forward's shapes against its plain version,
-     and ``gab_narrow`` beside the three-kernel chain that C < 128 ran
-     before it;
-  5. trace one 27-frame B=1024 and one 243-frame B=256 forward with
-     torch.profiler: device time by kernel and the device's idle share.
+     B=1024 windows of 27 and of 81 frames, B=256 windows of 243 frames,
+     then the hybrid 27-frame (B=1024) and packed 243-frame (B=256)
+     routes; then each kernel and entry point at its forward's shapes
+     against its plain version, and ``gab_narrow`` beside the
+     three-kernel chain that C < 128 ran before it;
+  5. trace one forward of each of the 27-frame (B=1024), 243-frame
+     (B=256), hybrid and packed cells with torch.profiler: device time by
+     kernel and the device's idle share.
 
 Tolerance: each kernel, wrapper and the forward must agree with its plain
 version to max |delta| <= 1e-4 * max(1, max |plain|); both sides compute
@@ -136,6 +149,24 @@ def gab_work(rows, c, j, k, inter, g, d):
     return flops, 4 * (rows * c + rows * 2 * c + weights)
 
 
+def local_work(rows, c, j, d):
+    """The local branch alone: its 4C-wide projection, sem_graph, cat."""
+    parts = [gemm_work(rows, [c], 4 * c, 0, 0), sem_work(rows, c, j, d),
+             gemm_work(rows, [2 * c], c, 1, 0)]
+    weights = c * 4 * c + 2 * c * c
+    return sum(p[0] for p in parts), 4 * (2 * rows * c + weights)
+
+
+def global_work(rows, c, j, k, inter, g):
+    """The global branch alone: theta/phi/g projection, attention, cat."""
+    width = 2 * k * inter + k * g
+    parts = [gemm_work(rows, [c], width, 1, 0),
+             attn_work(rows, j, k, inter, g),
+             gemm_work(rows, [k * g], c, 1, 0)]
+    weights = c * width + k * g * c
+    return sum(p[0] for p in parts), 4 * (2 * rows * c + weights)
+
+
 def level_work(rows_in, c_in, rows_out, c, conv_k, gab):
     """A level: its conv chain (conv_k MACs per output row and channel,
     conv_k * c weights) feeding a GAB whose work is ``gab``; the level
@@ -231,13 +262,48 @@ KERNELS = (
     ("fused_gab (C=64, T=79)", "fused_gab_pbatch",
      "gastx_torch/ops/cuda/fused_gab.py",
      "gastx/ops/pallas/fused_gab.py:959"),
+    ("fused_gab_packed (C=32, T=241)", "fused_gab_packed",
+     "gastx_torch/ops/cuda/fused_gab.py",
+     "gastx/ops/pallas/fused_gab.py:1053"),
+    ("fused_gab_packed (C=64, T=235)", "fused_gab_packed",
+     "gastx_torch/ops/cuda/fused_gab.py",
+     "gastx/ops/pallas/fused_gab.py:1053"),
+    ("fused_local_branch (C=128, T=25)", "fused_local_branch",
+     "gastx_torch/ops/cuda/fused_gab.py",
+     "gastx/ops/pallas/fused_gab.py:1118"),
+    ("fused_local_branch (C=512, T=1)", "fused_local_branch",
+     "gastx_torch/ops/cuda/fused_gab.py",
+     "gastx/ops/pallas/fused_gab.py:1118"),
+    ("head_attention (C=256, T=19)", "head_attention",
+     "gastx_torch/ops/cuda/head_attn.py",
+     "gastx/ops/pallas/head_attn.py:61"),
+    ("fused_global_attention (C=128, T=25)", "fused_global_attention",
+     "gastx_torch/ops/cuda/global_attn.py",
+     "gastx/ops/pallas/global_attn.py:113"),
+    ("fused_global_attention (C=512, T=1)", "fused_global_attention",
+     "gastx_torch/ops/cuda/global_attn.py",
+     "gastx/ops/pallas/global_attn.py:113"),
 )
+# No model route reaches fused_global_attention, in the JAX package or
+# here: its counter stays 0 on the main paths, and so do its kernels-line
+# launches; its phase-2 calls go under "direct_launches".
+OFF_PATH = ("fused_global_attention",)
+# Entries timed at B=256 windows in phase 4 (the others at B=1024).
+B256 = ("gab_narrow", "fused_gab (C=32, T=241)",
+        "fused_gab_packed (C=32, T=241)", "fused_gab_packed (C=64, T=235)")
 
 # The reconstruct requests of phase 3: (receptive field, frames).
 REQUESTS = ((27, 50), (27, 277), (27, 1000), (81, 277), (81, 1000),
             (243, 277), (243, 1000))
-# The forwards of phase 4: (receptive field, batch of windows).
-FORWARDS = ((27, 1024), (81, 1024), (243, 256))
+# The other routes, by the config fields that pick them.
+HYBRID = {"gab_impl": "pallas_local", "attn_impl": "pallas_head"}
+PACKED = {"gab_impl": "pallas", "packed_channels": 64}
+# The lift_sequences requests of phase 3: (cell, frames).
+ROUTE_REQUESTS = (("27f hybrid", 1000), ("243f packed", 1000))
+# The cells of phase 4: (cell, receptive field, batch of windows, route).
+FORWARDS = (("27f", 27, 1024, {}), ("81f", 81, 1024, {}),
+            ("243f", 243, 256, {}), ("27f hybrid", 27, 1024, HYBRID),
+            ("243f packed", 243, 256, PACKED))
 
 
 def launch_counts(K) -> dict:
@@ -282,17 +348,27 @@ def main() -> int:
         return 2
     import numpy as np
 
+    import dataclasses
+
     from gastx_torch.cli import reconstruct as rc
-    from gastx_torch.data import save_keypoints_json
+    from gastx_torch.data import coco_h36m, save_keypoints_json
+    from gastx_torch.geometry import normalize_screen_coordinates
+    from gastx_torch.infer import lift_sequences
     from gastx_torch.models import (GastNet, config_for_frames, init_gastnet,
                                     randomize_eval_statistics)
     from torch.nn.modules.module import register_module_forward_hook
     from gastx_torch.ops.cuda import kernels as K
-    from gastx_torch.ops.cuda.fused_gab import (fused_gab, fused_gab_plain,
-                                                gab_tables)
+    from gastx_torch.ops.cuda.fused_gab import (
+        fused_gab, fused_gab_packed, fused_gab_packed_plain, fused_gab_plain,
+        fused_local_branch, fused_local_branch_plain, gab_tables,
+        local_tables)
     from gastx_torch.ops.cuda.fused_level import (
         fused_level, fused_level0, fused_level0_plain, fused_level_plain,
         level0_tables, level_tables)
+    from gastx_torch.ops.cuda.global_attn import (
+        fused_global_attention, fused_global_attention_plain, global_tables)
+    from gastx_torch.ops.cuda.head_attn import (head_attention,
+                                                head_attention_plain)
 
     if (torch.get_float32_matmul_precision() != "highest"
             or torch.backends.cuda.matmul.allow_tf32):
@@ -317,20 +393,24 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.split(':')[-1].strip()}")
 
-    def build(frames):
+    def build(frames, route):
         gen = torch.Generator().manual_seed(0 if frames == 27 else frames)
-        m = GastNet(config_for_frames(frames))
+        m = GastNet(dataclasses.replace(config_for_frames(frames), **route))
         m = randomize_eval_statistics(init_gastnet(m, gen), gen)
         return m.to(dev).eval()
 
-    models = {rf: build(rf) for rf, _ in FORWARDS}
-    model = models[27]
+    models = {cell: build(rf, route) for cell, rf, _, route in FORWARDS}
+    model = models["27f"]
     statics = model.statics
     j = model.cfg.num_joints_in
     gts = [gab_tables(g, statics) for g in model.layers_graph_conv]
+    lts = [local_tables(g.local_graph_layer, statics)
+           for g in model.layers_graph_conv]
+    glts = [global_tables(g.global_graph_layer)
+            for g in model.layers_graph_conv]
     l0t = level0_tables(model.init_bn, model.expand_conv, model.expand_bn)
     l1t = level_tables(*model.level_modules(1))
-    m81, m243 = models[81], models[243]
+    m81, m243 = models["81f"], models["243f"]
     n81 = gab_tables(m81.layers_graph_conv[0], m81.statics)
     n243 = [gab_tables(m243.layers_graph_conv[i], m243.statics)
             for i in (0, 1)]
@@ -405,12 +485,54 @@ def main() -> int:
                 dict(fw=3, dilation=3, res_off=3)),
         }
 
+    # The other routes' entry points: the 27-frame model's local and global
+    # branches at C=128 (level 0) and C=512 (level 2) on b27 windows, one
+    # head of its level 1 (C=256), and the packed GABs of the 243-frame
+    # model's levels 0-1 (C=32, 64) on b243.
+    def route_shapes(b27, b243):
+        x128 = randn(b27, 25, j, 128, seed=21)
+        x512 = randn(b27, 1, j, 512, seed=22)
+        g1 = glts[1]
+        k1, i1 = g1.proj_t.shape
+        ki = k1 * i1
+        p1 = randn(b27 * 19, j, g1.w_attn.shape[1], seed=23)
+        g_ch = (p1.shape[-1] - 2 * ki) // k1
+        head = (p1[..., :i1], p1[..., ki:ki + i1],
+                p1[..., 2 * ki:2 * ki + g_ch],
+                g1.proj_t[0].reshape(-1, 1), g1.proj_p[0].reshape(-1, 1),
+                g1.c_k[0])
+        return {
+            "fused_gab_packed (C=32, T=241)": (
+                fused_gab_packed, fused_gab_packed_plain,
+                (randn(b243, 241, j * 32, seed=24), n243[0], j), {}),
+            "fused_gab_packed (C=64, T=235)": (
+                fused_gab_packed, fused_gab_packed_plain,
+                (randn(b243, 235, j * 64, seed=25), n243[1], j), {}),
+            "fused_local_branch (C=128, T=25)": (
+                fused_local_branch, fused_local_branch_plain,
+                (x128, lts[0]), {}),
+            "fused_local_branch (C=512, T=1)": (
+                fused_local_branch, fused_local_branch_plain,
+                (x512, lts[2]), {}),
+            "head_attention (C=256, T=19)": (
+                head_attention, head_attention_plain, head, {}),
+            "fused_global_attention (C=128, T=25)": (
+                fused_global_attention, fused_global_attention_plain,
+                (x128, glts[0]), {}),
+            "fused_global_attention (C=512, T=1)": (
+                fused_global_attention, fused_global_attention_plain,
+                (x512, glts[2]), {}),
+        }
+
     # ---- phase 2: each kernel against its plain version, B=256 ----------
     print("phase 2: kernels against their plain versions (B=256)")
     errs = {}
-    for name, (fn, plain, args, kw) in {**shapes(256),
-                                        **narrow_shapes(256, 256)}.items():
+    K.reset_launches()
+    for name, (fn, plain, args, kw) in {
+            **shapes(256), **narrow_shapes(256, 256),
+            **route_shapes(256, 256)}.items():
         errs[name] = check(name, fn(*args, **kw), plain(*args, **kw))
+    phase2_launches = launch_counts(K)
     torch.cuda.empty_cache()
 
     # ---- phase 3: reconstruct requests (the main paths) ----------------
@@ -440,11 +562,28 @@ def main() -> int:
         requests.append({"model": rf, "frames": frames, "s": dt})
         print(f"  request {i}: -f {rf}, {frames} frames -> {out.shape}, "
               f"{dt:.3f} s")
+    # The other routes have no CLI flag (nor has the JAX CLI): lift the
+    # 1000-frame sequence, converted and normalized as the CLI does it.
+    for cell, frames in ROUTE_REQUESTS:
+        i = len(requests)
+        kps, _ = coco_h36m(synthetic_coco(frames, seed=i)[0])
+        seq = normalize_screen_coordinates(kps, w=rc.WIDTH, h=rc.HEIGHT)
+        t0 = time.time()
+        out = lift_sequences(models[cell], [seq.astype(np.float32)])[0]
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        if out.shape != (frames, j, 3) or not np.isfinite(out).all():
+            fail(f"request {i}: bad output {out.shape}")
+        requests.append({"model": cell, "frames": frames, "s": dt})
+        print(f"  request {i}: {cell} ({models[cell].cfg.gab_impl}, "
+              f"{models[cell].cfg.attn_impl}, packed_channels "
+              f"{models[cell].cfg.packed_channels}), {frames} frames -> "
+              f"{out.shape}, {dt:.3f} s")
     main_launches = launch_counts(K)
     hook.remove()
     print(f"  launches: {main_launches}")
     for name, count in main_launches.items():
-        if count <= 0:
+        if count <= 0 and name not in OFF_PATH:
             fail(f"{name} was not launched on the main path")
     if len(forwards) != len(requests):
         fail(f"{len(forwards)} forwards recorded for {len(requests)} "
@@ -462,23 +601,23 @@ def main() -> int:
     print("phase 4: full-width forwards")
     report["forwards"] = {}
     xs = {}
-    for rf, b in FORWARDS:
-        m = models[rf]
-        x = xs[rf] = randn(b, rf, j, 2, seed=7)
+    for cell, rf, b, _ in FORWARDS:
+        m = models[cell]
+        x = xs[cell] = randn(b, rf, j, 2, seed=7)
         K.reset_launches()
         y = m(x)
         torch.cuda.synchronize()
-        per_forward = launch_counts(K)
+        per_forward = {k: v for k, v in launch_counts(K).items() if v}
         y_plain = m.reference_forward(x)
-        fwd_err = check(f"{rf}f forward (B={b})", y, y_plain)
+        fwd_err = check(f"{cell} forward (B={b})", y, y_plain)
         del y, y_plain
         fwd_ms = cuda_ms(lambda: m(x))
         plain_fwd_ms = cuda_ms(lambda: m.reference_forward(x), reps=3)
-        report["forwards"][f"{rf}f"] = {
+        report["forwards"][cell] = {
             "batch": b, "ms": fwd_ms, "seq_per_s": b / (fwd_ms / 1e3),
             "plain_ms": plain_fwd_ms, "max_abs_err": fwd_err,
             "launches_per_forward": per_forward}
-        print(f"  {rf}f B={b}: {b / (fwd_ms / 1e3):.1f} seq/s ({fwd_ms:.2f} "
+        print(f"  {cell} B={b}: {b / (fwd_ms / 1e3):.1f} seq/s ({fwd_ms:.2f} "
               f"ms per forward; plain {plain_fwd_ms:.2f} ms); launches per "
               f"forward {per_forward}")
         torch.cuda.empty_cache()
@@ -507,12 +646,25 @@ def main() -> int:
     work["fused_gab (C=32, T=241)"] = work["gab_narrow"]
     work["fused_gab (C=64, T=79)"] = gab_work(b * 79 * j, 64, j, 4, 16, 16,
                                               d)
+    work["fused_gab_packed (C=32, T=241)"] = work["gab_narrow"]
+    work["fused_gab_packed (C=64, T=235)"] = gab_work(256 * 235 * j, 64, j,
+                                                      4, 16, 16, d)
+    work["fused_local_branch (C=128, T=25)"] = local_work(rows["l0"], 128, j,
+                                                          d)
+    work["fused_local_branch (C=512, T=1)"] = local_work(rows["l2"], 512, j,
+                                                         d)
+    work["head_attention (C=256, T=19)"] = attn_work(rows["l1"], j, 1, inter,
+                                                     g_ch)
+    work["fused_global_attention (C=128, T=25)"] = global_work(
+        rows["l0"], 128, j, 4, 32, 32)
+    work["fused_global_attention (C=512, T=1)"] = global_work(
+        rows["l2"], 512, j, 4, 128, 128)
 
     kernels = []
-    calls = {**shapes(b), **narrow_shapes(256, b)}
+    calls = {**shapes(b), **narrow_shapes(256, b), **route_shapes(b, 256)}
     for name, counter, source, replaces in KERNELS:
         fn, plain, args, kw = calls[name]
-        nb = 256 if name in ("gab_narrow", "fused_gab (C=32, T=241)") else b
+        nb = 256 if name in B256 else b
         err = check(f"{name} (B={nb})", fn(*args, **kw), plain(*args, **kw))
         ms = cuda_ms(lambda: fn(*args, **kw))
         plain_ms = cuda_ms(lambda: plain(*args, **kw), reps=3)
@@ -527,6 +679,8 @@ def main() -> int:
             "max_abs_err": max(err, errs[name]), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": library_ms})
+        if counter in OFF_PATH:
+            kernels[-1]["direct_launches"] = phase2_launches[counter]
         print(f"  {name}: {ms:.3f} ms (plain {plain_ms:.3f}, bound "
               f"{bms:.3f} by {by}"
               + (f", torch.addmm {library_ms:.3f}" if library_ms else "")
@@ -549,9 +703,12 @@ def main() -> int:
               f"{chain_ms:.3f} ms; bound {bms:.3f} by {by}")
     del calls
     torch.cuda.empty_cache()
-    report["profile"] = profile_forward(model, xs[27], "27f B=1024")
-    report["profile_243f"] = profile_forward(models[243], xs[243],
+    report["profile"] = profile_forward(model, xs["27f"], "27f B=1024")
+    report["profile_243f"] = profile_forward(models["243f"], xs["243f"],
                                              "243f B=256")
+    for cell in ("27f hybrid", "243f packed"):
+        report[f"profile_{cell.replace(' ', '_')}"] = profile_forward(
+            models[cell], xs[cell], f"{cell} B={xs[cell].shape[0]}")
     report["kernels"] = kernels
     report["total_s"] = time.time() - t_start
 

@@ -1,10 +1,29 @@
 """GastNet model configuration and per-layout static graph constants.
 
-The port's own copy of the structural part of ``gastx.models.config``:
-the fields that fix the architecture and the geometry derived from them.
-The TPU route knobs of the JAX config (kernel impl selection, tile
-budgets, frame packing, precision tiers, storage dtypes) have no meaning
-here and are not carried. The port computes in float32.
+The port's own copy of ``gastx.models.config``: the fields that fix the
+architecture, the geometry derived from them, and the three route knobs
+of the eval forward that the port carries, with the JAX names and
+meanings (``gastx_torch.models.gastnet`` has the route table):
+
+  * ``gab_impl``: ``"auto"`` (the level kernels, then ``fused_gab`` at
+    C=512), ``"pallas"`` (torch conv chains, then ``fused_gab`` per GAB),
+    ``"pallas_local"`` (the hybrid GAB: ``fused_local_branch``, the global
+    branch and the block concat in plain torch) or ``"xla"`` (plain ops
+    throughout). The kernel or its plain version follows the tensor's
+    device, so the JAX ``_interpret`` suffixes have no counterpart.
+  * ``attn_impl``: ``"einsum"`` or ``"pallas_head"`` (``head_attention``
+    once per head wherever the plain global branch runs).
+  * ``packed_channels``: under ``"pallas"`` only, levels whose GAB width
+    C is at most this run the GAB through ``fused_gab_packed`` on the
+    (B, T, J*C) view. The JAX package also packs under ``"auto"`` on a
+    TPU; on Hopper the packed GAB is ``fused_gab`` on a view, so that
+    combination would only take levels off the level kernels, and any
+    ``packed_channels`` > 0 with another ``gab_impl`` raises.
+
+Not carried yet (ROADMAP queue 1): ``gab_impl="pallas_level"`` and
+``"pallas_pbatch"``, ``attn_impl="batched"``, ``local_impl``,
+``gab_impl_levels``, tile budgets, kernel forms, precision tiers and
+storage dtypes. The port computes in float32.
 """
 from __future__ import annotations
 
@@ -16,6 +35,9 @@ import numpy as np
 
 from gastx_torch.skeleton import get_layout, local_adjacencies
 
+GAB_IMPLS = ("auto", "pallas", "pallas_local", "xla")
+ATTN_IMPLS = ("einsum", "pallas_head")
+
 
 @dataclass(frozen=True)
 class GastNetConfig:
@@ -24,6 +46,11 @@ class GastNetConfig:
     Shipped configs (reference reconstruction.py:220-228): 27-frame = fw
     (3,3,3) ch 128; 81-frame = (3,3,3,3) ch 64; 243-frame = (3,3,3,3,3)
     ch 32.
+
+    ``gab_impl`` defaults to ``"auto"`` here and in ``config_for_frames``:
+    the route the JAX package's ``"auto"`` takes on an f32 TPU path. The
+    bare JAX config's ``"xla"`` default is deliberately not mirrored, so
+    that a model runs on the kernels unless its caller asks otherwise.
     """
 
     num_joints_in: int = 17
@@ -35,6 +62,9 @@ class GastNetConfig:
     causal: bool = False
     dense: bool = False
     layout: str = "h36m17"
+    gab_impl: str = "auto"
+    attn_impl: str = "einsum"
+    packed_channels: int = 0
 
     def __post_init__(self):
         for fw in self.filter_widths:
@@ -45,6 +75,20 @@ class GastNetConfig:
                 f"layout {self.layout} has "
                 f"{get_layout(self.layout).num_joints} joints, expected "
                 f"{self.num_joints_in}")
+        if self.gab_impl not in GAB_IMPLS:
+            raise ValueError(f"unknown gab_impl {self.gab_impl!r}; the port "
+                             f"takes {GAB_IMPLS}")
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"unknown attn_impl {self.attn_impl!r}; the "
+                             f"port takes {ATTN_IMPLS}")
+        if (not isinstance(self.packed_channels, int)
+                or isinstance(self.packed_channels, bool)
+                or self.packed_channels < 0):
+            raise ValueError(f"packed_channels must be an int >= 0, got "
+                             f"{self.packed_channels!r}")
+        if self.packed_channels and self.gab_impl != "pallas":
+            raise ValueError(f"packed_channels > 0 needs gab_impl='pallas', "
+                             f"got {self.gab_impl!r}")
 
     def pads(self) -> Tuple[int, ...]:
         pads = [self.filter_widths[0] // 2]

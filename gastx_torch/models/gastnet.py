@@ -11,27 +11,40 @@ runs through cuDNN.
 Two eval forwards, dilated, any T >= the receptive field, activations
 channels-last (B, T, J, C):
 
-  * :meth:`GastNet.forward` — the kernel route. Level 0 runs
-    ``fused_level0``; every level with C <= 256 runs ``fused_level``; the
-    C=512 tail (the last level of every shipped config, T'=1) runs its
-    conv chain as plain torch and then ``fused_gab``, the port of the TPU's
-    ``fused_gab_split``. The final 1x1 shrink is ``torch.matmul``. Inside
-    the level wrappers the GAB goes by width (``fused_gab``): C < 128 is
-    one ``gab_narrow`` launch, wider blocks the three-kernel chain. By
-    config:
+  * :meth:`GastNet.forward` — the route the config picks, as the JAX
+    package's knobs of the same names pick it (``gastx/models/
+    gastnet.py``, ``gastx/ops/graph.py``):
 
-    ======  ======================  =====================================
-    frames  level widths C          GAB route
-    ======  ======================  =====================================
-    27      128, 256, 512           chain, chain, chain (split)
-    81      64, 128, 256, 512       gab_narrow, chain, chain, chain
-    243     32, 64, 128, 256, 512   gab_narrow x2, chain x2, chain
-    ======  ======================  =====================================
+    ==============  =======================================================
+    route           levels
+    ==============  =======================================================
+    ``"auto"``      level 0 ``fused_level0``; every level with C <= 256
+    (default)       ``fused_level``; the C=512 tail its conv chain in plain
+                    torch, then ``fused_gab`` (the TPU's
+                    ``fused_gab_split``)
+    ``"pallas"``    every level: the plain expand prefix or conv chain,
+                    then ``fused_gab``
+    ``"pallas_      every level: the plain prefix or conv chain, then the
+    local"``        hybrid GAB: ``fused_local_branch``, the global branch
+                    (by ``attn_impl``) and the 3C->2C concat in plain torch
+    ``"xla"``       the plain ops throughout, the global branch by
+                    ``attn_impl``
+    ==============  =======================================================
 
-    On a CPU tensor each wrapper runs its plain version.
+    ``attn_impl="pallas_head"`` runs each head of a plain global branch
+    (``"pallas_local"``, ``"xla"``) through ``head_attention``, its
+    projection and cat in plain torch. ``packed_channels`` (``"pallas"``
+    only; the config rejects it elsewhere) runs every GAB of C <=
+    ``packed_channels`` through ``fused_gab_packed`` on the (B, T, J*C)
+    view of its conv chain's output (the JAX package's ``_packed_prefix``;
+    its block-diagonal convs compute the same function as the per-joint
+    convs run here). Inside every wrapper the GAB goes by width: C < 128
+    is one ``gab_narrow`` launch, wider blocks the three-kernel chain. The
+    final 1x1 shrink is ``torch.matmul``. On a CPU tensor each wrapper
+    runs its plain version.
   * :meth:`GastNet.reference_forward` — the unfused ops of
-    ``gastx_torch.ops`` (the JAX package's XLA route), the reference the
-    kernel route is held to.
+    ``gastx_torch.ops.graph`` (the JAX package's XLA route with the einsum
+    attention) for every config, the reference every route is held to.
 
 Training, the strided variant and ``dense=True`` are later slices.
 """
@@ -42,10 +55,16 @@ from torch import nn
 
 from gastx_torch.models.config import GastNetConfig, graph_statics
 from gastx_torch.ops.batchnorm import batch_norm
-from gastx_torch.ops.cuda.fused_gab import fused_gab, gab_tables
+from gastx_torch.ops.cuda.fused_gab import (fused_gab, fused_gab_packed,
+                                            fused_local_branch, gab_tables,
+                                            local_tables)
 from gastx_torch.ops.cuda.fused_level import (fused_level, fused_level0,
                                               level0_tables, level_tables)
-from gastx_torch.ops.graph import graph_attention_block
+from gastx_torch.ops.cuda.global_attn import global_tables
+from gastx_torch.ops.cuda.head_attn import head_attention
+from gastx_torch.ops.graph import (block_concat, global_concat,
+                                   graph_attention_block, local_graph,
+                                   multi_global_graph)
 from gastx_torch.ops.temporal import (pconv_weight, pointwise,
                                       tconv_weight, temporal_conv)
 
@@ -157,29 +176,85 @@ class GastNet(nn.Module):
     @torch.no_grad()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, T, J, C_in) normalized 2D keypoints -> (B, T-rf+1, J, 3),
-        through the kernel wrappers."""
+        on the route ``cfg.gab_impl``, ``cfg.attn_impl`` and
+        ``cfg.packed_channels`` pick."""
         self._check_input(x)
         cfg, statics = self.cfg, self.statics
         fw, pads = cfg.filter_widths, cfg.pads()
         shifts = cfg.causal_shifts("dilated")
         gabs = self.layers_graph_conv
         x = x.to(torch.float32).contiguous()
-        y = fused_level0(
-            x, level0_tables(self.init_bn, self.expand_conv, self.expand_bn),
-            gab_tables(gabs[0], statics))
+        # The level kernels run under "auto" alone, as the JAX gates have it.
+        level_kernels = cfg.gab_impl == "auto"
+        if level_kernels:
+            y = fused_level0(
+                x, level0_tables(self.init_bn, self.expand_conv,
+                                 self.expand_bn),
+                gab_tables(gabs[0], statics))
+        else:
+            y = batch_norm(x, self.init_bn)
+            y = temporal_conv(y, tconv_weight(self.expand_conv))
+            y = torch.relu(batch_norm(y, self.expand_bn))
+            y = self._gab(y, 0)
         dilation = fw[0]
         for i in range(1, cfg.num_levels):
-            conv_t, bn_t, conv_1, bn_1 = self.level_modules(i)
-            if cfg.block_channels(i) <= LEVEL_KERNEL_MAX_CHANNELS:
-                y = fused_level(y, level_tables(conv_t, bn_t, conv_1, bn_1),
+            if (level_kernels
+                    and cfg.block_channels(i) <= LEVEL_KERNEL_MAX_CHANNELS):
+                y = fused_level(y, level_tables(*self.level_modules(i)),
                                 gab_tables(gabs[i], statics), fw=fw[i],
                                 dilation=dilation,
                                 res_off=pads[i] + shifts[i])
             else:
-                y = self._conv_chain(y, i, dilation)
-                y = fused_gab(y.contiguous(), gab_tables(gabs[i], statics))
+                y = self._gab(self._conv_chain(y, i, dilation), i)
             dilation *= fw[i]
         return pointwise(y, pconv_weight(self.shrink))
+
+    def _gab(self, y: torch.Tensor, i: int) -> torch.Tensor:
+        """GAB ``i`` on the route's wrapper: ``fused_gab_packed`` on the
+        (B, T, J*C) view at a packed width, ``fused_gab`` under "auto" and
+        "pallas", else the plain block with the hybrid's kernels in it."""
+        cfg, gab, statics = self.cfg, self.layers_graph_conv[i], self.statics
+        b, t, j, c = y.shape
+        if c <= cfg.packed_channels:
+            y = fused_gab_packed(y.contiguous().view(b, t, j * c),
+                                 gab_tables(gab, statics), j)
+            return y.view(b, t, j, 2 * c)
+        if cfg.gab_impl in ("auto", "pallas"):
+            return fused_gab(y.contiguous(), gab_tables(gab, statics))
+        loc, glb = gab.local_graph_layer, gab.global_graph_layer
+        if cfg.gab_impl == "pallas_local":
+            local = fused_local_branch(y.contiguous(),
+                                       local_tables(loc, statics))
+        else:
+            local = local_graph(y, loc, statics)
+        if cfg.attn_impl == "pallas_head":
+            globl = global_concat(self._heads(y, glb), glb)
+        else:
+            globl = multi_global_graph(y, glb)
+        return block_concat(y, local, globl, gab)
+
+    @staticmethod
+    def _heads(y: torch.Tensor, glb: nn.Module) -> list:
+        """The global branch's head outputs, each head through
+        ``head_attention`` on column views of one plain projection
+        [theta | phi | g] (head-major within each), as the JAX package
+        keeps the projections outside its per-head kernel."""
+        t = global_tables(glb)
+        b, tt, j, _ = y.shape
+        p = (pointwise(y, t.w_attn) + t.attn_shift).reshape(b * tt, j, -1)
+        k, inter = t.proj_t.shape
+        g_ch = (p.shape[-1] - 2 * k * inter) // k
+        outs = []
+        for h in range(k):
+            out = head_attention(
+                p[..., h * inter:(h + 1) * inter],
+                p[..., (k + h) * inter:(k + h + 1) * inter],
+                p[..., 2 * k * inter + h * g_ch:2 * k * inter
+                  + (h + 1) * g_ch],
+                t.proj_t[h].reshape(-1, 1), t.proj_p[h].reshape(-1, 1),
+                t.c_k[h])
+            outs.append(out.reshape(b, tt, j, g_ch))
+        return outs
 
     def _conv_chain(self, y: torch.Tensor, i: int, dilation: int
                     ) -> torch.Tensor:
@@ -196,7 +271,8 @@ class GastNet(nn.Module):
 
     @torch.no_grad()
     def reference_forward(self, x: torch.Tensor) -> torch.Tensor:
-        """The same function through the unfused plain ops."""
+        """The same function through the unfused plain ops, whatever the
+        config's route."""
         self._check_input(x)
         cfg, statics = self.cfg, self.statics
         gabs = self.layers_graph_conv

@@ -38,6 +38,18 @@ are folded on the host into scale/shift, as ``_fold_bn`` does. The plain
 version, :func:`fused_gab_plain`, runs the same chain through the
 kernels' plain PyTorch versions at every width; ``gastx_torch.ops.graph.
 graph_attention_block`` is the unfused reference.
+
+Two more entry points replace TPU kernels of the same file:
+
+  * :func:`fused_local_branch` (``fused_local_branch``, C <= 512, the
+    ``gab_impl="pallas_local"`` hybrid): steps 1-3 of the chain alone
+    (``kernels.local_chain``), its projection onto the 4C sem columns;
+  * :func:`fused_gab_packed` (``fused_gab_packed``, C <= 256): the GAB on
+    the packed (B, T, J*C) layout, which is a view of the (B, T, J, C)
+    that :func:`fused_gab` takes. The TPU kernel packs J into the lanes
+    to cut the lane padding of narrow C; Hopper has no lanes to pad, so
+    the port keeps the layout at its interface and runs ``fused_gab``'s
+    kernels on the view.
 """
 from __future__ import annotations
 
@@ -50,8 +62,13 @@ from torch import nn
 
 from gastx_torch.ops.batchnorm import fold_bn
 from gastx_torch.ops.cuda import kernels as K
+from gastx_torch.ops.cuda.global_attn import attn_columns, head_tables
 from gastx_torch.ops.graph import sem_adjacency
 from gastx_torch.ops.temporal import pconv_weight
+
+MAX_CHANNELS = 512
+# The TPU kernel fused_gab_packed's width limit (MAX_FUSED_CHANNELS).
+PACKED_MAX_CHANNELS = 256
 
 
 class GabTables(NamedTuple):
@@ -128,14 +145,32 @@ def _pad_degree(w_nbr: torch.Tensor, col: np.ndarray, d: int):
     return w_nbr, col
 
 
-@torch.no_grad()
-def gab_tables(block: nn.Module, statics) -> GabTables:
-    """Fold one ``GraphAttentionBlock``'s weights into :class:`GabTables`."""
-    j = statics.num_joints
-    loc, glb = block.local_graph_layer, block.global_graph_layer
-    heads = list(glb.attentions)
-    c = loc.gcn_sym.W.shape[1]
+class LocalTables(NamedTuple):
+    """Host-side weights of one ``LocalGraph`` (the GAB's local branch
+    alone) in the kernels' layouts; the fields after ``w_sem`` are those
+    of :class:`GabTables`."""
 
+    w_sem: torch.Tensor       # (C, 4C)  W0_sym | W1_sym | W0_con | W1_con
+    w_self: torch.Tensor      # (2, J, C)
+    w_nbr: torch.Tensor       # (2, J, D, C)
+    col: torch.Tensor         # (2, J, D) int32
+    sem_scale: torch.Tensor   # (2C,)
+    sem_shift: torch.Tensor
+    lcat_w: torch.Tensor      # (2C, C)
+    lcat_scale: torch.Tensor  # (C,)
+    lcat_shift: torch.Tensor
+
+
+def sem_columns(loc: nn.Module) -> list:
+    """One ``LocalGraph``'s projection, unfolded: the (C, C) blocks
+    W0_sym, W1_sym, W0_con, W1_con."""
+    return [loc.gcn_sym.W[0], loc.gcn_sym.W[1], loc.gcn_con.W[0],
+            loc.gcn_con.W[1]]
+
+
+def _local_after_projection(loc: nn.Module, statics) -> dict:
+    """The :class:`LocalTables` fields after ``w_sem``."""
+    j = statics.num_joints
     ws_s, wn_s, col_s = local_weight_tables(loc.gcn_sym.e, statics.sym_idx, j)
     ws_c, wn_c, col_c = local_weight_tables(loc.gcn_con.e, statics.con_idx, j)
     d = max(col_s.shape[1], col_c.shape[1])
@@ -144,57 +179,49 @@ def gab_tables(block: nn.Module, statics) -> GabTables:
     col = np.stack([col_s, col_c])
     if col.min() < 0 or col.max() >= j:
         raise ValueError("neighbour table holds a joint index out of range")
-
-    def cat_cols(name):  # head-major (C, K*width) columns and (K*width,)
-        return (torch.cat([pconv_weight(getattr(h, name)) for h in heads], 1),
-                torch.cat([getattr(h, name).bias for h in heads]))
-
-    (wt, bt), (wp, bp), (wg, bg) = (cat_cols("theta"), cat_cols("phi"),
-                                    cat_cols("g"))
-    w_proj = torch.cat([loc.gcn_sym.W[0], loc.gcn_sym.W[1], loc.gcn_con.W[0],
-                        loc.gcn_con.W[1], wt, wp, wg], dim=1)
-    proj_shift = torch.cat([bt.new_zeros(4 * c), bt, bp, bg])
-    proj = torch.stack([h.concat_project[0].weight.reshape(-1)
-                        for h in heads])                      # (K, 2I)
-    inter = wt.shape[1] // len(heads)
-
     s_sym, t_sym = fold_bn(loc.bn_1)
     s_con, t_con = fold_bn(loc.bn_2)
     s_l, t_l = fold_bn(loc.cat_bn)
-    s_a, t_a = fold_bn(glb.cat_bn)
-    s_g, t_g = fold_bn(block.cat_bn)
-
-    def f32(t):
-        return t.detach().to(torch.float32).contiguous()
-
-    return GabTables(
-        w_proj=f32(w_proj), proj_scale=f32(torch.ones_like(proj_shift)),
-        proj_shift=f32(proj_shift),
-        w_self=f32(torch.stack([ws_s, ws_c])),
-        w_nbr=f32(torch.stack([wn_s, wn_c])),
+    return dict(
+        w_self=K.as_table(torch.stack([ws_s, ws_c])),
+        w_nbr=K.as_table(torch.stack([wn_s, wn_c])),
         col=torch.as_tensor(col, dtype=torch.int32,
-                            device=w_proj.device).contiguous(),
-        sem_scale=f32(torch.cat([s_sym, s_con])),
-        sem_shift=f32(torch.cat([t_sym, t_con])),
-        lcat_w=f32(pconv_weight(loc.cat_conv)),
-        lcat_scale=f32(s_l), lcat_shift=f32(t_l),
-        proj_t=f32(proj[:, :inter]), proj_p=f32(proj[:, inter:]),
-        c_k=f32(torch.stack([h.C_k for h in heads])),
-        acat_w=f32(pconv_weight(glb.cat_conv)),
-        acat_scale=f32(s_a), acat_shift=f32(t_a),
-        gcat_w=f32(pconv_weight(block.cat_conv)),
-        gcat_scale=f32(s_g), gcat_shift=f32(t_g))
+                            device=ws_s.device).contiguous(),
+        sem_scale=K.as_table(torch.cat([s_sym, s_con])),
+        sem_shift=K.as_table(torch.cat([t_sym, t_con])),
+        lcat_w=K.as_table(pconv_weight(loc.cat_conv)),
+        lcat_scale=K.as_table(s_l), lcat_shift=K.as_table(t_l))
+
+
+@torch.no_grad()
+def local_tables(loc: nn.Module, statics) -> LocalTables:
+    """Fold one ``LocalGraph``'s weights into :class:`LocalTables`."""
+    return LocalTables(w_sem=K.as_table(torch.cat(sem_columns(loc), dim=1)),
+                       **_local_after_projection(loc, statics))
+
+
+@torch.no_grad()
+def gab_tables(block: nn.Module, statics) -> GabTables:
+    """Fold one ``GraphAttentionBlock``'s weights into :class:`GabTables`:
+    one projection of both branches' columns, each branch's other tables,
+    and the block concat."""
+    loc, glb = block.local_graph_layer, block.global_graph_layer
+    attn_cols, attn_shift = attn_columns(glb)
+    shift = torch.cat([attn_shift.new_zeros(4 * loc.gcn_sym.W.shape[2]),
+                       attn_shift])
+    s_g, t_g = fold_bn(block.cat_bn)
+    return GabTables(
+        w_proj=K.as_table(torch.cat(sem_columns(loc) + attn_cols, dim=1)),
+        proj_scale=K.as_table(torch.ones_like(shift)),
+        proj_shift=K.as_table(shift),
+        **_local_after_projection(loc, statics), **head_tables(glb),
+        gcat_w=K.as_table(pconv_weight(block.cat_conv)),
+        gcat_scale=K.as_table(s_g), gcat_shift=K.as_table(t_g))
 
 
 def _check_x(x: torch.Tensor, t: GabTables) -> None:
-    c = t.w_proj.shape[0]
-    if (x.dim() != 4 or x.shape[-1] != c or x.shape[-2] != t.c_k.shape[1]
-            or x.dtype != torch.float32 or not x.is_contiguous()):
-        raise ValueError(f"x must be a contiguous float32 (B, T, "
-                         f"{t.c_k.shape[1]}, {c}) tensor, got "
-                         f"{tuple(x.shape)} {x.dtype}")
-    if c > 512:
-        raise ValueError(f"fused_gab supports C <= 512, got {c}")
+    K.check_blocks(x, t.w_proj.shape[0], t.c_k.shape[1], MAX_CHANNELS,
+                   "fused_gab")
 
 
 def fused_gab_plain(x: torch.Tensor, t: GabTables) -> torch.Tensor:
@@ -206,6 +233,18 @@ def fused_gab_plain(x: torch.Tensor, t: GabTables) -> torch.Tensor:
     return y.reshape(b, tt, j, 2 * c)
 
 
+def _gab_kernels(x: torch.Tensor, t: GabTables) -> torch.Tensor:
+    """The GAB's kernels on CUDA (B, T, J, C) activations: ``gab_narrow``
+    at C < 128, the chain above."""
+    b, tt, j, c = x.shape
+    if c <= K.NARROW_MAX_CHANNELS:
+        y = K.gab_narrow(x.reshape(-1, c), t)
+    else:
+        y = K.gab_chain(x.reshape(-1, c), t, K.gemm_epilogue, K.sem_graph,
+                        K.joint_attention)
+    return y.reshape(b, tt, j, 2 * c)
+
+
 def fused_gab(x: torch.Tensor, t: GabTables) -> torch.Tensor:
     """(B, T, J, C) -> (B, T, J, 2C), the eval-mode GAB, C <= 512. C < 128
     runs ``gab_narrow`` and counts under ``fused_gab_pbatch``; wider blocks
@@ -214,12 +253,73 @@ def fused_gab(x: torch.Tensor, t: GabTables) -> torch.Tensor:
     _check_x(x, t)
     if not K.use_kernel(x.device):
         return fused_gab_plain(x, t)
-    b, tt, j, c = x.shape
-    if c <= K.NARROW_MAX_CHANNELS:
-        with K.entry_point("fused_gab_pbatch"):
-            y = K.gab_narrow(x.reshape(-1, c), t)
-    else:
-        with K.entry_point("fused_gab" if c <= 256 else "fused_gab_split"):
-            y = K.gab_chain(x.reshape(-1, c), t, K.gemm_epilogue,
-                            K.sem_graph, K.joint_attention)
-    return y.reshape(b, tt, j, 2 * c)
+    c = x.shape[-1]
+    entry = ("fused_gab_pbatch" if c <= K.NARROW_MAX_CHANNELS
+             else "fused_gab" if c <= 256 else "fused_gab_split")
+    with K.entry_point(entry):
+        return _gab_kernels(x, t)
+
+
+def _unpack(x: torch.Tensor, t: GabTables, num_joints: int) -> torch.Tensor:
+    """The (B, T, J, C) view of packed (B, T, J*C) activations."""
+    c = t.w_proj.shape[0]
+    if (x.dim() != 3 or num_joints != t.c_k.shape[1]
+            or x.shape[-1] != num_joints * c or x.dtype != torch.float32
+            or not x.is_contiguous()):
+        raise ValueError(f"x must be a contiguous float32 (B, T, "
+                         f"{t.c_k.shape[1]}*{c}) tensor of {t.c_k.shape[1]} "
+                         f"joints, got {tuple(x.shape)} {x.dtype} and "
+                         f"{num_joints} joints")
+    if c > PACKED_MAX_CHANNELS:
+        raise ValueError(f"fused_gab_packed supports C <= "
+                         f"{PACKED_MAX_CHANNELS}, got {c}")
+    return x.view(x.shape[0], x.shape[1], num_joints, c)
+
+
+def fused_gab_packed_plain(x: torch.Tensor, t: GabTables,
+                           num_joints: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_gab_packed`."""
+    y = fused_gab_plain(_unpack(x, t, num_joints), t)
+    return y.view(x.shape[0], x.shape[1], -1)
+
+
+def fused_gab_packed(x: torch.Tensor, t: GabTables,
+                     num_joints: int) -> torch.Tensor:
+    """(B, T, J*C) -> (B, T, J*2C), the eval-mode GAB on the packed
+    layout, C <= 256: :func:`fused_gab`'s kernels on the (B, T, J, C)
+    view, counted under ``fused_gab_packed`` alone."""
+    xv = _unpack(x, t, num_joints)
+    _check_x(xv, t)
+    if not K.use_kernel(x.device):
+        return fused_gab_packed_plain(x, t, num_joints)
+    with K.entry_point("fused_gab_packed"):
+        y = _gab_kernels(xv, t)
+    return y.view(x.shape[0], x.shape[1], -1)
+
+
+def _check_local(x: torch.Tensor, t: LocalTables) -> int:
+    c = t.w_sem.shape[0]
+    K.check_blocks(x, c, t.w_self.shape[1], MAX_CHANNELS,
+                   "fused_local_branch")
+    return c
+
+
+def fused_local_branch_plain(x: torch.Tensor, t: LocalTables
+                             ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_local_branch`."""
+    c = _check_local(x, t)
+    y = K.local_chain(x.reshape(-1, c), t, K.gemm_epilogue_plain,
+                      K.sem_graph_plain)
+    return y.reshape(x.shape)
+
+
+def fused_local_branch(x: torch.Tensor, t: LocalTables) -> torch.Tensor:
+    """(B, T, J, C) -> (B, T, J, C), the eval-mode local branch (both
+    semantic graph convs, their BN/ReLU, the 2C -> C cat, BN, ReLU),
+    C <= 512."""
+    c = _check_local(x, t)
+    if not K.use_kernel(x.device):
+        return fused_local_branch_plain(x, t)
+    with K.entry_point("fused_local_branch"):
+        y = K.local_chain(x.reshape(-1, c), t, K.gemm_epilogue, K.sem_graph)
+    return y.reshape(x.shape)

@@ -49,17 +49,13 @@ class Level0Tables(NamedTuple):
     shift: torch.Tensor
 
 
-def _f32(t: torch.Tensor) -> torch.Tensor:
-    return t.detach().to(torch.float32).contiguous()
-
-
 @torch.no_grad()
 def level_tables(conv_t: nn.Module, bn_t: nn.Module, conv_1: nn.Module,
                  bn_1: nn.Module) -> LevelTables:
     s_t, t_t = fold_bn(bn_t)
     s_1, t_1 = fold_bn(bn_1)
-    return LevelTables(_f32(tconv_weight(conv_t)), _f32(s_t), _f32(t_t),
-                       _f32(pconv_weight(conv_1)), _f32(s_1), _f32(t_1))
+    return LevelTables(*(K.as_table(t) for t in (
+        tconv_weight(conv_t), s_t, t_t, pconv_weight(conv_1), s_1, t_1)))
 
 
 @torch.no_grad()
@@ -69,8 +65,8 @@ def level0_tables(init_bn: nn.Module, expand_conv: nn.Module,
     w = tconv_weight(expand_conv)                          # (fw, C_in, C)
     bias = torch.einsum("kco,c->o", w, b_i)
     s_e, t_e = fold_bn(expand_bn)
-    return Level0Tables(_f32(w * a_i[None, :, None]), _f32(s_e),
-                        _f32(t_e + bias * s_e))
+    return Level0Tables(K.as_table(w * a_i[None, :, None]), K.as_table(s_e),
+                        K.as_table(t_e + bias * s_e))
 
 
 def _check_x(x: torch.Tensor, c_in: int, span: int) -> None:

@@ -10,8 +10,20 @@ plain C interface:
   * ``gab_narrow`` — the whole eval GAB at C < 128 in one launch, every
     intermediate in shared memory.
 
-The first three chain into the GAB at C >= 128 (:func:`gab_chain`); the
-chain of their plain versions is also ``gab_narrow``'s plain version.
+The first three chain into the GAB at C >= 128 (:func:`gab_chain`) and
+into its two branches alone (:func:`local_chain`, projection ->
+``sem_graph`` -> cat; :func:`global_chain`, projection ->
+``joint_attention`` -> cat), which ``gab_chain`` runs on one shared
+projection; the chain of their plain versions is also ``gab_narrow``'s
+plain version.
+
+The entry points that replace the TPU kernels (``ENTRY_POINTS``) wrap
+these: ``fused_level0``/``fused_level`` (``fused_level.py``), ``fused_gab``
+(``fused_gab.py``; counted as ``fused_gab_pbatch``, ``fused_gab`` or
+``fused_gab_split`` by width), ``fused_gab_packed`` (``fused_gab`` on the
+(B, T, J*C) view), ``fused_local_branch`` (``local_chain``),
+``head_attention`` (``head_attn.py``: ``joint_attention`` with one head)
+and ``fused_global_attention`` (``global_attn.py``: ``global_chain``).
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library under ``build/gastx_torch/`` at the root of the checkout (named
@@ -54,7 +66,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # counts under the TPU kernel it stands for: ``fused_gab_pbatch`` for
 # C < 128, ``fused_gab`` for 128 <= C <= 256, ``fused_gab_split`` above.
 ENTRY_POINTS = ("fused_level0", "fused_level", "fused_gab_pbatch",
-                "fused_gab", "fused_gab_split")
+                "fused_gab", "fused_gab_split", "fused_gab_packed",
+                "fused_local_branch", "head_attention",
+                "fused_global_attention")
 
 # Kernel launches by kernel, and by the entry points open at the launch.
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_SOURCES}
@@ -189,6 +203,12 @@ def _check(device: torch.device, **tensors) -> None:
             raise ValueError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def as_table(t: torch.Tensor) -> torch.Tensor:
+    """A host-folded weight table as the wrappers take it: detached,
+    float32, contiguous."""
+    return t.detach().to(torch.float32).contiguous()
 
 
 def use_kernel(device: torch.device) -> bool:
@@ -439,27 +459,70 @@ def joint_attention(theta: torch.Tensor, phi: torch.Tensor, g: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# gab_narrow
+# The chains: the GAB and its two branches through the kernels above
 # --------------------------------------------------------------------------
+
+def local_chain(x: torch.Tensor, t, gemm, sem, p=None) -> torch.Tensor:
+    """Steps 1-3 of the GAB chain, the eval local branch: (rows, C) ->
+    (rows, C). ``p`` is a projection output whose first 4C columns are
+    [W0_sym | W1_sym | W0_con | W1_con] (the GAB chain's); without it,
+    step 1 projects x onto ``t.w_sem``. ``t`` is a ``fused_gab.
+    LocalTables`` or ``GabTables``; ``gemm``/``sem`` the kernels or their
+    plain versions."""
+    rows, c = x.shape
+    if p is None:
+        p = gemm([(x, t.w_sem, 0)], rows)
+    ab = sem(p, c, t.w_self, t.w_nbr, t.col, t.sem_scale, t.sem_shift)
+    return gemm([(ab, t.lcat_w, 0)], rows, scale=t.lcat_scale,
+                shift=t.lcat_shift, relu=True)
+
+
+def global_chain(x: torch.Tensor, t, gemm, attn, p=None) -> torch.Tensor:
+    """Steps 1, 4 and 5 of the GAB chain, the eval multi-head global
+    branch with its cat, BN and ReLU: (rows, C) -> (rows, C). ``p`` is a
+    (rows, 2KI + KG) view [theta | phi | g] of a projection output (the
+    GAB chain's); without it, step 1 projects x onto ``t.w_attn`` plus
+    its biases. ``t`` is a ``global_attn.GlobalTables`` or ``fused_gab.
+    GabTables``."""
+    rows = x.shape[0]
+    ki = t.proj_t.numel()
+    if p is None:
+        p = gemm([(x, t.w_attn, 0)], rows, scale=t.attn_scale,
+                 shift=t.attn_shift)
+    heads = attn(p[:, :ki], p[:, ki:2 * ki], p[:, 2 * ki:], t.proj_t,
+                 t.proj_p, t.c_k)
+    return gemm([(heads, t.acat_w, 0)], rows, scale=t.acat_scale,
+                shift=t.acat_shift, relu=True)
+
 
 def gab_chain(x: torch.Tensor, t, gemm, sem, attn) -> torch.Tensor:
     """The eval GAB on (rows, C) activations through the given GEMM, graph
     and attention functions (the kernels, or their plain versions); ``t``
-    is a ``fused_gab.GabTables``."""
+    is a ``fused_gab.GabTables``. One projection feeds both branches."""
     rows, c = x.shape
-    ki = t.proj_t.shape[0] * t.proj_t.shape[1]
     p = gemm([(x, t.w_proj, 0)], rows, scale=t.proj_scale,
              shift=t.proj_shift)
-    ab = sem(p, c, t.w_self, t.w_nbr, t.col, t.sem_scale, t.sem_shift)
-    local = gemm([(ab, t.lcat_w, 0)], rows, scale=t.lcat_scale,
-                 shift=t.lcat_shift, relu=True)
-    heads = attn(p[:, 4 * c:4 * c + ki], p[:, 4 * c + ki:4 * c + 2 * ki],
-                 p[:, 4 * c + 2 * ki:], t.proj_t, t.proj_p, t.c_k)
-    globl = gemm([(heads, t.acat_w, 0)], rows, scale=t.acat_scale,
-                 shift=t.acat_shift, relu=True)
+    local = local_chain(x, t, gemm, sem, p)
+    globl = global_chain(x, t, gemm, attn, p[:, 4 * c:])
     return gemm([(x, t.gcat_w[0:c], 0), (local, t.gcat_w[c:2 * c], 0),
                  (globl, t.gcat_w[2 * c:3 * c], 0)], rows,
                 scale=t.gcat_scale, shift=t.gcat_shift, relu=True)
+
+
+def check_blocks(x: torch.Tensor, c: int, j: int, max_channels: int,
+                 name: str) -> None:
+    """An entry point's (B, T, J, C) float32 contiguous activations."""
+    if (x.dim() != 4 or x.shape[-1] != c or x.shape[-2] != j
+            or x.dtype != torch.float32 or not x.is_contiguous()):
+        raise ValueError(f"x must be a contiguous float32 (B, T, {j}, {c}) "
+                         f"tensor, got {tuple(x.shape)} {x.dtype}")
+    if c > max_channels:
+        raise ValueError(f"{name} supports C <= {max_channels}, got {c}")
+
+
+# --------------------------------------------------------------------------
+# gab_narrow
+# --------------------------------------------------------------------------
 
 
 NARROW_MAX_CHANNELS = 127

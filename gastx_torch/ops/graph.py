@@ -2,7 +2,9 @@
 
 Parity target: the eval path of ``gastx.ops.graph``. These are the port's
 plain references: the model's ``reference_forward`` runs them, and the
-CUDA kernels of ``gastx_torch.ops.cuda`` are held against them.
+CUDA kernels of ``gastx_torch.ops.cuda`` are held against them. The
+model's hybrid routes put kernels between :func:`global_concat` and
+:func:`block_concat`, the plain tails of the two modules below.
 
   * :func:`sem_ch_graph_conv` — channel-wise semantic graph conv with a
     masked softmax over each adjacency row (fill -9e15, not -inf, as the
@@ -81,7 +83,13 @@ def multi_global_graph(x: torch.Tensor, mod: nn.Module) -> torch.Tensor:
         f = F.leaky_relu(sa[..., :, None] + sb[..., None, :], 0.2)
         attn = torch.softmax(f, dim=-1) + head.C_k
         outs.append(torch.matmul(attn, g))                     # (B, T, J, G)
-    y = torch.matmul(torch.cat(outs, dim=-1), pconv_weight(mod.cat_conv))
+    return global_concat(outs, mod)
+
+
+def global_concat(heads: list, mod: nn.Module) -> torch.Tensor:
+    """The global branch's head outputs (head-major) -> K*G->C 1x1 conv ->
+    BN -> ReLU."""
+    y = torch.matmul(torch.cat(heads, dim=-1), pconv_weight(mod.cat_conv))
     return torch.relu(batch_norm(y, mod.cat_bn))
 
 
@@ -90,6 +98,12 @@ def graph_attention_block(x: torch.Tensor, mod: nn.Module, statics
     """residual ++ local ++ global -> 1x1 conv (3C->2C) -> BN -> ReLU."""
     local = local_graph(x, mod.local_graph_layer, statics)
     globl = multi_global_graph(x, mod.global_graph_layer)
+    return block_concat(x, local, globl, mod)
+
+
+def block_concat(x: torch.Tensor, local: torch.Tensor, globl: torch.Tensor,
+                 mod: nn.Module) -> torch.Tensor:
+    """The GAB's [x, local, global] -> 1x1 conv (3C->2C) -> BN -> ReLU."""
     y = torch.matmul(torch.cat([x, local, globl], dim=-1),
                      pconv_weight(mod.cat_conv))
     return torch.relu(batch_norm(y, mod.cat_bn))

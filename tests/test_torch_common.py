@@ -7,6 +7,7 @@ statistics, edge logits ``e``, ``C_k`` and biases included, so a folding
 or layout bug cannot hide behind the identity-BN / zero-bias defaults of
 ``init_gastnet``.
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -66,15 +67,28 @@ def random_jax_tree(cfg, seed):
 
 
 def torch_config(cfg):
+    """The port's config of a JAX one: its structure and its route knobs,
+    the ``_interpret`` suffixes stripped (on the port the tensor's device
+    picks kernel or plain version). Knobs the port does not carry yet
+    raise."""
+    if cfg.local_impl != "einsum" or cfg.gab_impl_levels:
+        raise ValueError("the port carries neither local_impl nor "
+                         "gab_impl_levels")
     return tm.GastNetConfig(
         num_joints_in=cfg.num_joints_in, num_joints_out=cfg.num_joints_out,
         filter_widths=cfg.filter_widths, channels=cfg.channels,
-        causal=cfg.causal, layout=cfg.layout)
+        causal=cfg.causal, layout=cfg.layout,
+        gab_impl=cfg.gab_impl.removesuffix("_interpret"),
+        attn_impl=cfg.attn_impl.removesuffix("_interpret"),
+        packed_channels=cfg.packed_channels)
 
 
-def port_model(cfg, params, state):
-    """The port's GastNet on the CPU with the JAX weights loaded."""
-    model = tm.GastNet(torch_config(cfg))
+def port_model(cfg, params, state, **route):
+    """The port's GastNet on the CPU with the JAX weights loaded, on the
+    route of ``cfg`` with the fields in ``route`` replaced. The port's
+    kernel route is ``gab_impl="auto"``; a bare JAX config's default
+    ``"xla"`` computes the same function."""
+    model = tm.GastNet(dataclasses.replace(torch_config(cfg), **route))
     model.load_state_dict(params_from_jax(params, state, cfg), strict=True)
     return model.eval()
 
@@ -120,15 +134,81 @@ def test_default_device_raises_without_gpu(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+ROUTES = ({"gab_impl": "auto"}, {"gab_impl": "pallas"},
+          {"gab_impl": "pallas_local", "attn_impl": "pallas_head"},
+          {"gab_impl": "xla", "attn_impl": "pallas_head"},
+          {"gab_impl": "pallas", "packed_channels": 64})
+
+
 def test_launch_counters_stay_zero_on_cpu():
-    """On CPU tensors every wrapper takes its plain version: no kernel is
-    built or launched and no counter moves."""
+    """On CPU tensors every wrapper takes its plain version, on every
+    route and through every entry point called alone: no kernel is built
+    or launched and no counter moves."""
+    from gastx_torch.ops.cuda.fused_gab import (fused_gab_packed,
+                                                fused_local_branch,
+                                                gab_tables, local_tables)
+    from gastx_torch.ops.cuda.global_attn import (fused_global_attention,
+                                                  global_tables)
+
     cfg = jm.GastNetConfig(filter_widths=(3, 3), channels=32, dropout=0.0)
-    model = port_model(cfg, *random_jax_tree(cfg, 0))
+    params, state = random_jax_tree(cfg, 0)
+    x = torch.from_numpy(inputs((2, 9, 17, 2), 1))
     K.reset_launches()
-    model(torch.from_numpy(inputs((2, 9, 17, 2), 1)))
+    for route in ROUTES:
+        model = port_model(cfg, params, state, **route)
+        model(x)
+    gab = model.layers_graph_conv[0]
+    h = torch.from_numpy(inputs((2, 3, 17, 32), 2))
+    fused_local_branch(h, local_tables(gab.local_graph_layer, model.statics))
+    fused_global_attention(h, global_tables(gab.global_graph_layer))
+    fused_gab_packed(h.reshape(2, 3, -1), gab_tables(gab, model.statics), 17)
+    assert set(K.ENTRY_LAUNCHES) == set(K.ENTRY_POINTS)
     assert all(v == 0 for v in K.LAUNCHES.values()), K.LAUNCHES
     assert all(v == 0 for v in K.ENTRY_LAUNCHES.values()), K.ENTRY_LAUNCHES
+
+
+def test_torch_config_carries_the_routes():
+    """The route knobs cross with their JAX names, the _interpret suffixes
+    stripped; knobs the port lacks raise."""
+    cfg = jm.GastNetConfig(filter_widths=(3, 3), channels=32,
+                           gab_impl="pallas_interpret",
+                           attn_impl="pallas_head_interpret",
+                           packed_channels=64)
+    t = torch_config(cfg)
+    assert (t.gab_impl, t.attn_impl, t.packed_channels) == (
+        "pallas", "pallas_head", 64)
+    assert torch_config(jm.GastNetConfig(
+        gab_impl="pallas_local_interpret")).gab_impl == "pallas_local"
+    for bad in ({"local_impl": "gather"}, {"gab_impl_levels": ("xla",)}):
+        with pytest.raises(ValueError):
+            torch_config(jm.GastNetConfig(**bad))
+
+
+def test_config_rejects_routes_the_port_lacks():
+    """``"auto"`` is the default, here and in config_for_frames; values
+    with no port route, and packing off ``"pallas"``, raise ValueError,
+    and JAX knobs the port does not carry are not fields."""
+    assert tm.GastNetConfig().gab_impl == "auto"
+    assert tm.config_for_frames(243).gab_impl == "auto"
+    for gab_impl in ("auto", "pallas", "pallas_local", "xla"):
+        tm.GastNetConfig(gab_impl=gab_impl)
+    bad = [{"gab_impl": v} for v in (
+        "pallas_interpret", "pallas_local_interpret", "pallas_level",
+        "pallas_level_interpret", "pallas_pbatch", "pallas_pbatch_interpret",
+        "")]
+    bad += [{"attn_impl": v} for v in ("batched", "pallas_head_interpret")]
+    bad += [{"gab_impl": "pallas", "packed_channels": v}
+            for v in (-1, 1.5, True)]
+    # Packing needs "pallas": the JAX package also packs under "auto" on a
+    # TPU, which on Hopper would only take levels off the level kernels.
+    bad += [{"gab_impl": v, "packed_channels": 64}
+            for v in ("auto", "pallas_local", "xla")]
+    for kw in bad:
+        with pytest.raises(ValueError):
+            tm.GastNetConfig(**kw)
+    for kw in ({"local_impl": "gather"}, {"gab_impl_levels": ("pallas",)}):
+        with pytest.raises(TypeError):
+            tm.GastNetConfig(**kw)
 
 
 @pytest.mark.parametrize("frames,causal", [(27, False), (27, True),

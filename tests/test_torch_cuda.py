@@ -8,6 +8,8 @@ only PyTorch: ``python -m pytest tests/test_torch_cuda.py -m cuda
 Tolerance: max |kernel - plain| <= 1e-4 * max(1, max |plain|). Both sides
 compute in float32; only the order of summation differs.
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -15,12 +17,18 @@ from gastx_torch.models import (GastNet, GastNetConfig, config_for_frames,
                                 randomize_eval_statistics)
 from gastx_torch.models.init import init_gastnet
 from gastx_torch.ops.cuda import kernels as K
-from gastx_torch.ops.cuda.fused_gab import (fused_gab, fused_gab_plain,
-                                            gab_tables)
+from gastx_torch.ops.cuda.fused_gab import (
+    fused_gab, fused_gab_packed, fused_gab_packed_plain, fused_gab_plain,
+    fused_local_branch, fused_local_branch_plain, gab_tables, local_tables)
 from gastx_torch.ops.cuda.fused_level import (fused_level, fused_level0,
                                               fused_level0_plain,
                                               fused_level_plain,
                                               level0_tables, level_tables)
+from gastx_torch.ops.cuda.global_attn import (fused_global_attention,
+                                              fused_global_attention_plain,
+                                              global_tables)
+from gastx_torch.ops.cuda.head_attn import (head_attention,
+                                            head_attention_plain)
 
 
 @pytest.fixture(scope="module")
@@ -160,6 +168,75 @@ def test_cuda_gab_narrow_other_widths(model, channels):
         for frames in (7, 300):
             x = _randn(frames * 17, c, seed=frames + c)
             _assert_close(K.gab_narrow(x, t), K.gab_narrow_plain(x, t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level,frames", [(0, 25), (2, 1)])
+def test_cuda_branch_entry_points_match_plain(model, level, frames):
+    """fused_local_branch and fused_global_attention at C=128 and C=512,
+    and head_attention on every head of that block."""
+    gab = model.layers_graph_conv[level]
+    lt = local_tables(gab.local_graph_layer, model.statics)
+    gt = global_tables(gab.global_graph_layer)
+    x = _randn(16, frames, 17, lt.w_sem.shape[0], seed=14)
+    _assert_close(fused_local_branch(x, lt), fused_local_branch_plain(x, lt))
+    _assert_close(fused_global_attention(x, gt),
+                  fused_global_attention_plain(x, gt))
+    k, inter = gt.proj_t.shape
+    p = _randn(16 * frames, 17, gt.w_attn.shape[1], seed=15)
+    for h in range(k):
+        args = (p[..., h * inter:(h + 1) * inter],
+                p[..., (k + h) * inter:(k + h + 1) * inter],
+                p[..., (2 * k + h) * inter:(2 * k + h + 1) * inter],
+                gt.proj_t[h].reshape(-1, 1), gt.proj_p[h].reshape(-1, 1),
+                gt.c_k[h])
+        _assert_close(head_attention(*args), head_attention_plain(*args))
+
+
+@pytest.mark.cuda
+def test_cuda_fused_gab_packed_matches_plain(model):
+    m = _model(243)
+    for level, frames in ((0, 241), (1, 235)):
+        t = gab_tables(m.layers_graph_conv[level], m.statics)
+        x = _randn(3, frames, 17 * t.w_proj.shape[0], seed=16 + level)
+        _assert_close(fused_gab_packed(x, t, 17),
+                      fused_gab_packed_plain(x, t, 17))
+
+
+# What one forward of each other route launches (PERF.md): kernel launches
+# by kernel, then by entry point; every counter not listed stays 0.
+ROUTE_LAUNCHES = {
+    "27f hybrid": (27, {"gab_impl": "pallas_local",
+                        "attn_impl": "pallas_head"},
+                   {"gemm_epilogue": 6, "sem_graph": 3,
+                    "joint_attention": 12},
+                   {"fused_local_branch": 9, "head_attention": 12}),
+    "27f xla head": (27, {"gab_impl": "xla", "attn_impl": "pallas_head"},
+                     {"joint_attention": 12}, {"head_attention": 12}),
+    "243f packed": (243, {"gab_impl": "pallas", "packed_channels": 64},
+                    {"gemm_epilogue": 12, "sem_graph": 3,
+                     "joint_attention": 3, "gab_narrow": 2},
+                    {"fused_gab_packed": 2, "fused_gab": 12,
+                     "fused_gab_split": 6}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", sorted(ROUTE_LAUNCHES))
+def test_cuda_route_forward_launches_and_matches_reference(model, cell):
+    frames, route, kernels, entries = ROUTE_LAUNCHES[cell]
+    gen = torch.Generator().manual_seed(frames)
+    m = GastNet(dataclasses.replace(config_for_frames(frames), **route))
+    m = randomize_eval_statistics(init_gastnet(m, gen), gen).cuda().eval()
+    x = _randn(2, frames + 6, 17, 2, seed=17)
+    K.reset_launches()
+    y = m(x)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {k: kernels.get(k, 0) for k in K.LAUNCHES}, \
+        K.LAUNCHES
+    assert K.ENTRY_LAUNCHES == {k: entries.get(k, 0)
+                                for k in K.ENTRY_LAUNCHES}, K.ENTRY_LAUNCHES
+    _assert_close(y, m.reference_forward(x))
 
 
 @pytest.mark.cuda

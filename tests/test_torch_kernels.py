@@ -13,15 +13,26 @@ import torch
 
 import gastx.models as jm
 from gastx.ops.pallas.fused_gab import fused_gab as j_fused_gab
+from gastx.ops.pallas.fused_gab import fused_gab_packed as j_fused_gab_packed
 from gastx.ops.pallas.fused_gab import fused_gab_pbatch as j_fused_gab_pbatch
 from gastx.ops.pallas.fused_gab import fused_gab_split as j_fused_gab_split
+from gastx.ops.pallas.fused_gab import (
+    fused_local_branch as j_fused_local_branch)
 from gastx.ops.pallas.fused_level import fused_level as j_fused_level
 from gastx.ops.pallas.fused_level import fused_level0 as j_fused_level0
+from gastx.ops.pallas.global_attn import (
+    fused_global_attention as j_fused_global_attention)
+from gastx.ops.pallas.head_attn import head_attention as j_head_attention
 from gastx_torch.models.gastnet import GraphAttentionBlock
 from gastx_torch.ops.cuda import kernels as K
-from gastx_torch.ops.cuda.fused_gab import fused_gab, gab_tables
+from gastx_torch.ops.cuda.fused_gab import (fused_gab, fused_gab_packed,
+                                            fused_local_branch, gab_tables,
+                                            local_tables)
 from gastx_torch.ops.cuda.fused_level import (fused_level, fused_level0,
                                               level0_tables, level_tables)
+from gastx_torch.ops.cuda.global_attn import (fused_global_attention,
+                                              global_tables)
+from gastx_torch.ops.cuda.head_attn import head_attention
 from test_torch_common import (assert_close, inputs, port_model,
                                random_jax_tree)
 
@@ -30,6 +41,8 @@ LEVEL_CFG = jm.GastNetConfig(filter_widths=(3, 3), channels=64, dropout=0.0)
 # 0-1, gab_narrow on the card).
 NARROW_CFG = jm.GastNetConfig(filter_widths=(3, 3, 3, 3, 3), channels=32,
                               dropout=0.0)
+# The 27-frame model's widths: C = 128, 256, 512.
+WIDE_CFG = jm.GastNetConfig(dropout=0.0)
 
 
 def _idx(cfg):
@@ -49,6 +62,12 @@ def narrow_weights():
     return params, state, port_model(NARROW_CFG, params, state)
 
 
+@pytest.fixture(scope="module")
+def wide_weights():
+    params, state = random_jax_tree(WIDE_CFG, seed=12)
+    return params, state, port_model(WIDE_CFG, params, state)
+
+
 def test_fused_gab_matches_jax_kernel(level_weights):
     params, state, model = level_weights
     x = inputs((2, 5, 17, 64), 1)
@@ -59,17 +78,90 @@ def test_fused_gab_matches_jax_kernel(level_weights):
     assert_close(got, want)
 
 
-def test_fused_gab_matches_jax_split_kernel_at_512():
-    cfg = jm.GastNetConfig(dropout=0.0)
-    assert cfg.block_channels(2) == 512
-    params, state = random_jax_tree(cfg, seed=12)
-    model = port_model(cfg, params, state)
+def test_fused_gab_matches_jax_split_kernel_at_512(wide_weights):
+    params, state, model = wide_weights
+    assert WIDE_CFG.block_channels(2) == 512
     x = inputs((1, 3, 17, 512), 2)
     want = j_fused_gab_split(jnp.asarray(x), params["gabs"][2],
-                             state["gabs"][2], *_idx(cfg), interpret=True)
+                             state["gabs"][2], *_idx(WIDE_CFG),
+                             interpret=True)
     got = fused_gab(torch.from_numpy(x),
                     gab_tables(model.layers_graph_conv[2], model.statics))
     assert_close(got, want)
+
+
+@pytest.mark.parametrize("weights,cfg,level", [
+    ("narrow_weights", NARROW_CFG, 0), ("wide_weights", WIDE_CFG, 2)],
+    ids=["C=32", "C=512"])
+def test_fused_local_branch_matches_jax_kernel(request, weights, cfg, level):
+    params, state, model = request.getfixturevalue(weights)
+    c = cfg.block_channels(level)
+    x = inputs((1, 3, 17, c), 16)
+    want = j_fused_local_branch(jnp.asarray(x), params["gabs"][level],
+                                state["gabs"][level], *_idx(cfg),
+                                interpret=True)
+    got = fused_local_branch(
+        torch.from_numpy(x),
+        local_tables(model.layers_graph_conv[level].local_graph_layer,
+                     model.statics))
+    assert_close(got, want)
+
+
+def test_head_attention_matches_jax_kernel(level_weights):
+    """Each head of a C=128 block on its slices of one projection output,
+    over M = 37 frames: not a multiple of the TPU kernel's 32-frame tile,
+    which it pads."""
+    params, _, model = level_weights
+    gp = params["gabs"][1]["global"]
+    k, inter = gp["proj_theta"].shape
+    assert k * inter == 128 and gp["g_w"].shape[2] == inter
+    p = inputs((37, 17, 3 * k * inter), 17)     # theta | phi | g
+    heads = model.layers_graph_conv[1].global_graph_layer.attentions
+    for h in range(k):
+        cols = [slice(s * k * inter + h * inter, s * k * inter +
+                      (h + 1) * inter) for s in range(3)]
+        want = j_head_attention(
+            *(jnp.asarray(p[..., c]) for c in cols),
+            jnp.asarray(gp["proj_theta"][h].reshape(inter, 1)),
+            jnp.asarray(gp["proj_phi"][h].reshape(inter, 1)),
+            jnp.asarray(gp["C_k"][h]), interpret=True)
+        proj = heads[h].concat_project[0].weight.reshape(-1, 1)
+        pt = torch.from_numpy(p)
+        got = head_attention(*(pt[..., c] for c in cols), proj[:inter],
+                             proj[inter:], heads[h].C_k)
+        assert_close(got, want)
+
+
+@pytest.mark.parametrize("weights,level", [
+    ("level_weights", 0), ("wide_weights", 2)], ids=["C=64", "C=512"])
+def test_fused_global_attention_matches_jax_kernel(request, weights, level):
+    """Held to the TPU kernel with cat_bn folded as the JAX package's own
+    test folds it."""
+    params, state, model = request.getfixturevalue(weights)
+    gp = params["gabs"][level]["global"]
+    gs = state["gabs"][level]["global"]
+    scale = gp["cat_bn"]["scale"] / np.sqrt(gs["cat_bn"]["var"] + 1e-5)
+    shift = gp["cat_bn"]["bias"] - gs["cat_bn"]["mean"] * scale
+    glb = model.layers_graph_conv[level].global_graph_layer
+    x = inputs((1, 3, 17, glb.cat_conv.weight.shape[0]), 18)
+    want = j_fused_global_attention(jnp.asarray(x), gp, jnp.asarray(scale),
+                                    jnp.asarray(shift), interpret=True)
+    got = fused_global_attention(torch.from_numpy(x), global_tables(glb))
+    assert_close(got, want)
+
+
+@pytest.mark.parametrize("c", [32, 64])
+def test_fused_gab_packed_matches_jax_kernel(narrow_weights, c):
+    """On the packed (B, T, J*C) layout, B*T = 10 frames: not a multiple of
+    the TPU kernel's row tile."""
+    params, state, model = narrow_weights
+    level = {32: 0, 64: 1}[c]
+    x = inputs((2, 5, 17 * c), 19)
+    want = j_fused_gab_packed(jnp.asarray(x), params["gabs"][level],
+                              state["gabs"][level], 17, *_idx(NARROW_CFG),
+                              interpret=True)
+    t = gab_tables(model.layers_graph_conv[level], model.statics)
+    assert_close(fused_gab_packed(torch.from_numpy(x), t, 17), want)
 
 
 @pytest.mark.parametrize("b,c,pack", [(8, 32, 4), (3, 32, 4), (4, 64, 2)])
@@ -201,3 +293,34 @@ def test_wrappers_reject_bad_inputs(level_weights):
         K.gemm_epilogue([(a, torch.zeros(4, 2), 0)], 8)
     with pytest.raises(ValueError):  # the row map would read past a
         K.gemm_epilogue([(a, torch.zeros(3, 2), 1)], 8)
+
+
+def test_route_entry_points_reject_bad_inputs(level_weights, wide_weights):
+    _, _, model = level_weights
+    gab = model.layers_graph_conv[0]
+    t = gab_tables(gab, model.statics)
+    x = torch.zeros(2, 3, 17, 64)
+    with pytest.raises(ValueError):  # 16 joints for a 17-joint block
+        fused_gab_packed(x.reshape(2, 3, -1)[..., :16 * 64], t, 16)
+    with pytest.raises(ValueError):  # not contiguous
+        fused_gab_packed(torch.zeros(2, 3, 2 * 17 * 64)[..., ::2], t, 17)
+    wide = wide_weights[2].layers_graph_conv[2]
+    with pytest.raises(ValueError):  # C=512 is beyond the packed kernel
+        fused_gab_packed(torch.zeros(1, 1, 17 * 512),
+                         gab_tables(wide, model.statics), 17)
+    with pytest.raises(ValueError):
+        fused_local_branch(x[..., :32].contiguous(),
+                           local_tables(gab.local_graph_layer, model.statics))
+    with pytest.raises(ValueError):
+        fused_global_attention(x.double(), global_tables(
+            gab.global_graph_layer))
+    head = gab.global_graph_layer.attentions[0]
+    proj = head.concat_project[0].weight.reshape(-1, 1)
+    p = torch.zeros(4, 17, 48)
+    with pytest.raises(ValueError):  # proj vectors of the wrong length
+        head_attention(p[..., :16], p[..., 16:32], p[..., 32:], proj, proj,
+                       head.C_k)
+    with pytest.raises(ValueError):  # rows that do not merge without a copy
+        head_attention(*(p.transpose(0, 1)[..., s:s + 16]
+                         for s in (0, 16, 32)),
+                       proj[:16], proj[16:], head.C_k)

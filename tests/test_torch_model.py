@@ -4,6 +4,8 @@ the JAX package on the CPU, on numpy-seeded weights and inputs.
 Tolerance: atol 2e-5, rtol 1e-4 (both sides float32; only the order of
 summation differs between XLA:CPU and ATen).
 """
+import collections
+import dataclasses
 import json
 
 import jax.numpy as jnp
@@ -66,7 +68,7 @@ def test_forward_matches_gastnet_forward(cfg, batch, extra):
     forward (XLA, float32), on ``batch`` windows of the receptive field
     plus ``extra`` frames."""
     params, state = random_jax_tree(cfg, seed=2)
-    model = port_model(cfg, params, state)
+    model = port_model(cfg, params, state, gab_impl="auto")
     x = inputs((batch, cfg.receptive_field() + extra, 17, 2), 3)
     want, _ = jm.gastnet_forward(params, state, jnp.asarray(x), cfg,
                                  variant="dilated", train=False)
@@ -75,10 +77,90 @@ def test_forward_matches_gastnet_forward(cfg, batch, extra):
     assert_close(model.reference_forward(xt), want)
 
 
+ROUTE_CFG = jm.GastNetConfig(filter_widths=(3, 3, 3), channels=32,
+                             dropout=0.0)
+
+
+@pytest.fixture(scope="module")
+def route_weights():
+    return random_jax_tree(ROUTE_CFG, seed=20)
+
+
+@pytest.mark.parametrize("port_route,jax_route", [
+    ({"gab_impl": "pallas_local", "attn_impl": "pallas_head"},
+     {"gab_impl": "pallas_local_interpret",
+      "attn_impl": "pallas_head_interpret"}),
+    ({"gab_impl": "xla", "attn_impl": "pallas_head"},
+     {"gab_impl": "xla", "attn_impl": "pallas_head_interpret"}),
+    ({"gab_impl": "pallas", "packed_channels": 32},
+     {"gab_impl": "pallas_interpret", "packed_channels": 32}),
+    ({"gab_impl": "pallas", "packed_channels": 64},
+     {"gab_impl": "pallas_interpret", "packed_channels": 64}),
+], ids=["hybrid-head", "xla-head", "packed32", "packed64"])
+def test_route_forward_matches_gastnet_forward(route_weights, port_route,
+                                               jax_route):
+    """The port's other routes (widths C = 32, 64, 128) against the JAX
+    forward on the same route, its Pallas kernels in interpret mode."""
+    params, state = route_weights
+    model = port_model(ROUTE_CFG, params, state, **port_route)
+    x = inputs((2, 29, 17, 2), 21)
+    want, _ = jm.gastnet_forward(
+        params, state, jnp.asarray(x),
+        dataclasses.replace(ROUTE_CFG, **jax_route), variant="dilated",
+        train=False)
+    assert_close(model(torch.from_numpy(x)), want)
+
+
+# Entry-point calls of one forward of the C = 32, 64, 128 model, by route
+# (the JAX package's gates: level kernels under "auto" only; packing
+# under "pallas" alone, at the widths up to packed_channels; 4 heads).
+ROUTE_CALLS = [
+    ({"gab_impl": "auto"}, {"fused_level0": 1, "fused_level": 2}),
+    ({"gab_impl": "pallas"}, {"fused_gab": 3}),
+    ({"gab_impl": "pallas_local", "attn_impl": "pallas_head"},
+     {"fused_local_branch": 3, "head_attention": 12}),
+    ({"gab_impl": "pallas_local"}, {"fused_local_branch": 3}),
+    ({"gab_impl": "xla", "attn_impl": "pallas_head"},
+     {"head_attention": 12}),
+    ({"gab_impl": "xla"}, {}),
+    ({"gab_impl": "pallas", "packed_channels": 64},
+     {"fused_gab_packed": 2, "fused_gab": 1}),
+    ({"gab_impl": "pallas", "packed_channels": 32},
+     {"fused_gab_packed": 1, "fused_gab": 2}),
+    ({"gab_impl": "pallas", "packed_channels": 16}, {"fused_gab": 3}),
+]
+
+
+def test_routes_call_their_entry_points(route_weights, monkeypatch):
+    """Which wrapper each route reaches: the parity tests cannot tell, as
+    every route computes the same function."""
+    import gastx_torch.models.gastnet as G
+
+    calls = collections.Counter()
+
+    def spy(mod, name):
+        fn = getattr(mod, name)
+
+        def counted(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        monkeypatch.setattr(mod, name, counted)
+
+    for mod, name in ((G, "fused_level0"), (G, "fused_level"),
+                      (G, "fused_gab"), (G, "fused_gab_packed"),
+                      (G, "fused_local_branch"), (G, "head_attention")):
+        spy(mod, name)
+    x = torch.from_numpy(inputs((1, 27, 17, 2), 22))
+    for route, want in ROUTE_CALLS:
+        calls.clear()
+        port_model(ROUTE_CFG, *route_weights, **route)(x)
+        assert dict(calls) == want, route
+
+
 @pytest.fixture(scope="module")
 def lifting_weights():
     params, state = random_jax_tree(SMALL, seed=4)
-    return params, state, port_model(SMALL, params, state)
+    return params, state, port_model(SMALL, params, state, gab_impl="auto")
 
 
 def test_lift_sequences_tta_ragged(lifting_weights):
