@@ -16,7 +16,9 @@ a non-zero exit and no result line:
      points at B=256: ``fused_local_branch`` and
      ``fused_global_attention`` at the 27-frame model's C=128 and C=512,
      ``head_attention`` on one head at C=256, ``fused_gab_packed`` at the
-     243-frame model's C=32 and C=64;
+     243-frame model's C=32 and C=64; then ``gemm_epilogue`` on ragged
+     cases (``gemm_ragged_cases``), each checked to launch the
+     instantiation ``gemm_variant`` must pick, 16-byte or general;
   3. run reconstruct requests through ``gastx_torch.cli.reconstruct
      --random-weights --no-render`` on synthetic COCO keypoint files: 50,
      277 and 1000 frames with the 27-frame model, 277 and 1000 frames with
@@ -29,15 +31,20 @@ a non-zero exit and no result line:
      the main paths ran every kernel and every entry point but
      ``fused_global_attention``, which no model route reaches (0 main-path
      launches; its phase-2 calls are reported apart, as
-     ``direct_launches``). Every forward the requests make (the padded,
-     flip-TTA batches) is recorded and then held to the model's plain
-     reference forward on the same batch;
+     ``direct_launches``), and that the general ``gemm_epilogue`` ran once
+     per default-route forward (its level-0 expand conv, K = 2) and
+     nowhere else. Every forward the requests make (the padded, flip-TTA
+     batches) is recorded and then held to the model's plain reference
+     forward on the same batch;
   4. time the full-width forwards against the plain reference forward:
      B=1024 windows of 27 and of 81 frames, B=256 windows of 243 frames,
      then the hybrid 27-frame (B=1024) and packed 243-frame (B=256)
      routes; then each kernel and entry point at its forward's shapes
      against its plain version, and ``gab_narrow`` beside the
-     three-kernel chain that C < 128 ran before it;
+     three-kernel chain that C < 128 ran before it; then ``gemm_epilogue``
+     at each main-path shape (``GEMM_SHAPES``: ms, TFLOP/s, bound, the
+     instantiation, and one ``torch.addmm`` over the same product as a
+     yardstick);
   5. trace one forward of each of the 27-frame (B=1024), 243-frame
      (B=256), hybrid and packed cells with torch.profiler: device time by
      kernel and the device's idle share.
@@ -46,9 +53,11 @@ Tolerance: each kernel, wrapper and the forward must agree with its plain
 version to max |delta| <= 1e-4 * max(1, max |plain|); both sides compute
 in float32 and only the order of summation differs. Timings are CUDA
 events around repeated calls after a warm-up. The last lines are the
-``{"kernels": [...]}`` summary, the card's ``name, power.limit``, and
-``{"ok": true, "device": {...}}``. Details also go to
-``chiprun_out/chip_smoke.json``.
+``{"kernels": [...]}`` summary (``gemm_epilogue``'s entry also gives its
+launches by instantiation and, as ``ragged_max_abs_err``, the largest
+error of phase 2's ragged cases), the card's ``name, power.limit``, and
+``{"ok": true, "device": {...}}``. Details, the per-shape table among
+them, also go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -182,6 +191,177 @@ def bound(flops, nbytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+# --------------------------------------------------------------------------
+# gemm_epilogue by shape. The 15 launches of one 27f forward at B=1024
+# windows, one line each, then the chain levels 2-3 of the 243f model at
+# B=256: (label, windows, output frames, K of each piece, N, epilogue,
+# taps, residual). Epilogue "bias" is scale 1 and a shift, "bn" a scale,
+# shift and ReLU; taps (input frames, dilation) is a conv's row map over
+# one input; residual (input frames, offset in frames). J = 17.
+# --------------------------------------------------------------------------
+
+GEMM_SHAPES = (
+    ("27f L0 expand conv", 1024, 25, (2, 2, 2), 128, "bn", (27, 1), None),
+    ("27f L0 projection", 1024, 25, (128,), 896, "bias", None, None),
+    ("27f L0 local cat", 1024, 25, (256,), 128, "bn", None, None),
+    ("27f L0 global cat", 1024, 25, (128,), 128, "bn", None, None),
+    ("27f L0 block concat", 1024, 25, (128,) * 3, 256, "bn", None, None),
+    ("27f L1 dilated conv", 1024, 19, (256,) * 3, 256, "bn", (25, 3), None),
+    ("27f L1 1x1 + residual", 1024, 19, (256,), 256, "bn", None, (25, 3)),
+    ("27f L1 projection", 1024, 19, (256,), 1792, "bias", None, None),
+    ("27f L1 local cat", 1024, 19, (512,), 256, "bn", None, None),
+    ("27f L1 global cat", 1024, 19, (256,), 256, "bn", None, None),
+    ("27f L1 block concat", 1024, 19, (256,) * 3, 512, "bn", None, None),
+    ("27f L2 projection", 1024, 1, (512,), 3584, "bias", None, None),
+    ("27f L2 local cat", 1024, 1, (1024,), 512, "bn", None, None),
+    ("27f L2 global cat", 1024, 1, (512,), 512, "bn", None, None),
+    ("27f L2 block concat", 1024, 1, (512,) * 3, 1024, "bn", None, None),
+    ("243f L2 projection", 256, 217, (128,), 896, "bias", None, None),
+    ("243f L2 block concat", 256, 217, (128,) * 3, 256, "bn", None, None),
+    ("243f L3 projection", 256, 163, (256,), 1792, "bias", None, None),
+    ("243f L3 block concat", 256, 163, (256,) * 3, 512, "bn", None, None),
+)
+
+
+def gemm_case(spec, dev, seed: int, windows=None):
+    """Operands of one ``GEMM_SHAPES`` line (at ``windows`` windows if
+    given): (pieces, m, keyword arguments of ``gemm_epilogue``)."""
+    import torch
+
+    _, b, t_out, ks, n, epi, taps, res = spec
+    b = windows or b
+    j = 17
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    m = b * t_out * j
+    w_scale = 1.0 / math.sqrt(sum(ks))
+    if taps:
+        t_in, d = taps
+        a = rnd(b * t_in * j, ks[0])
+        pieces = [(a, rnd(k, n) * w_scale, p * d * j)
+                  for p, k in enumerate(ks)]
+    else:
+        t_in = t_out
+        pieces = [(rnd(m, k), rnd(k, n) * w_scale, 0) for k in ks]
+    kw = dict(s_out=t_out * j, a_s_in=t_in * j, relu=epi == "bn",
+              scale=(rnd(n).abs() + 0.5 if epi == "bn"
+                     else torch.ones(n, device=dev)),
+              shift=rnd(n), res=None, res_s_in=t_out * j, res_off=0)
+    if res:
+        t_res, off = res
+        kw.update(res=rnd(b * t_res * j, n), res_s_in=t_res * j,
+                  res_off=off * j)
+    return pieces, m, kw
+
+
+def gemm_ragged_cases(dev):
+    """Phase 2's held cases of ``gemm_epilogue``: (label, pieces, m,
+    keyword arguments, the instantiation they must take)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def plain(m, k, n, **kw):
+        return [(rnd(m, k), rnd(k, n), 0)], m, dict(
+            scale=rnd(n), shift=rnd(n), **kw)
+
+    def taps(c, n, d, res):
+        b, t_in, j = 3, 11, 17
+        t_out = t_in - 2 * d
+        x = rnd(b * t_in * j, c)
+        kw = dict(s_out=t_out * j, a_s_in=t_in * j, scale=rnd(n),
+                  shift=rnd(n), relu=True)
+        if res:
+            kw.update(res=rnd(b * t_in * j, n), res_s_in=t_in * j,
+                      res_off=d * j)
+        return ([(x, rnd(c, n), k * d * j) for k in range(3)], b * t_out * j,
+                kw)
+
+    w_off = torch.empty(128 * 64 + 1, device=dev)[1:].view(128, 64)
+    w_off.copy_(rnd(128, 64))
+    cases = [
+        ("M=1000, not a tile multiple", *plain(1000, 256, 256), "vec16"),
+        ("M=100 < one tile", *plain(100, 64, 96, relu=True), "vec16"),
+        ("K=2 taps", *taps(2, 128, 1, False), "general"),
+        ("K=130, N=70", *plain(517, 130, 70, relu=True), "general"),
+        ("3-piece concat", [(rnd(777, 128), rnd(128, 256), 0)
+                            for _ in range(3)], 777,
+         dict(scale=rnd(256), shift=rnd(256), relu=True), "vec16"),
+        ("dilated taps + residual", *taps(128, 128, 3, True), "vec16"),
+        ("dilated taps + residual, C=130, N=70", *taps(130, 70, 3, True),
+         "general"),
+        ("W at a 4-byte offset", [(rnd(300, 128), w_off, 0)], 300, {},
+         "general"),
+    ]
+    for i, want in ((7, "vec16"), (0, "general")):  # 27f L1 proj, L0 conv
+        cases.append((f"{GEMM_SHAPES[i][0]} (B=256)",
+                      *gemm_case(GEMM_SHAPES[i], dev, 40 + i, windows=256),
+                      want))
+    return cases
+
+
+def gemm_library_operands(pieces, m, kw):
+    """torch.addmm's operands for the same product: [A_0 | A_1 | A_2]
+    through the row map, and the stacked W (the yardstick only)."""
+    import torch
+
+    r = torch.arange(m, device=pieces[0][0].device)
+    s_out = kw.get("s_out", m)
+    base = (r // s_out) * kw.get("a_s_in", s_out) + r % s_out
+    if len(pieces) == 1 and pieces[0][2] == 0 and torch.equal(base, r):
+        return pieces[0][0], pieces[0][1]
+    return (torch.cat([a[base + off] for a, _, off in pieces], 1),
+            torch.cat([w for _, w, _ in pieces], 0))
+
+
+def gemm_table(K, dev) -> list:
+    """Phase 4's per-shape table: ``gemm_epilogue`` at each
+    ``GEMM_SHAPES`` line, held to its plain version, beside its bound and
+    one ``torch.addmm`` over the same product."""
+    import torch
+
+    print("phase 4: gemm_epilogue by shape (ms, TFLOP/s of the product)")
+    rows = []
+    for i, spec in enumerate(GEMM_SHAPES):
+        label, _, _, ks, n, _, taps, _ = spec
+        pieces, m, kw = gemm_case(spec, dev, seed=100 + i)
+        variant = K.gemm_variant(pieces, n, kw["res"])
+        err = check(label, K.gemm_epilogue(pieces, m, **kw),
+                    K.gemm_epilogue_plain(pieces, m, **kw))
+        ms = cuda_ms(lambda: K.gemm_epilogue(pieces, m, **kw))
+        a_cat, w_cat = gemm_library_operands(pieces, m, kw)
+        library_ms = cuda_ms(lambda: torch.addmm(kw["shift"], a_cat, w_cat))
+        del a_cat, w_cat
+        # Bytes: each input once (a conv's taps share one input).
+        a_elems = (pieces[0][0].numel() if taps
+                   else sum(a.numel() for a, _, _ in pieces))
+        flops, nbytes = gemm_work(m, ks, n, 1, kw["res"] is not None)
+        nbytes += 4 * (a_elems - m * sum(ks))
+        bms, by = bound(flops, nbytes)
+        tflops = 2 * m * n * sum(ks) / ms / 1e9
+        rows.append({"shape": label, "m": m, "ks": list(ks), "n": n,
+                     "variant": variant, "ms": ms, "tflops": tflops,
+                     "library_ms": library_ms,
+                     "library_tflops": 2 * m * n * sum(ks) / library_ms / 1e9,
+                     "bound_ms": bms, "bound_by": by, "max_abs_err": err})
+        print(f"  {label} [{variant}] M={m} K={'+'.join(map(str, ks))} "
+              f"N={n}: {ms:.3f} ms, {tflops:.1f} TFLOP/s; torch.addmm "
+              f"{library_ms:.3f} ms; bound {bms:.3f} by {by}")
+        del pieces, kw
+        torch.cuda.empty_cache()
+    # One 27f B=1024 forward's products, summed.
+    f27 = [r for r in rows if r["shape"].startswith("27f")]
+    print(f"  the {len(f27)} 27f lines: {sum(r['ms'] for r in f27):.3f} ms; "
+          f"torch.addmm {sum(r['library_ms'] for r in f27):.3f} ms")
+    return rows
+
+
 def profile_forward(model, x, label):
     """Phase 5: device time of one forward by kernel, from torch.profiler,
     and the device's idle share of the forward's CUDA-event time (both
@@ -307,7 +487,9 @@ FORWARDS = (("27f", 27, 1024, {}), ("81f", 81, 1024, {}),
 
 
 def launch_counts(K) -> dict:
-    return {**K.LAUNCHES, **K.ENTRY_LAUNCHES}
+    return {**K.LAUNCHES, **{f"gemm_epilogue {v}": n
+                             for v, n in K.GEMM_LAUNCHES.items()},
+            **K.ENTRY_LAUNCHES}
 
 
 # --------------------------------------------------------------------------
@@ -533,6 +715,17 @@ def main() -> int:
             **route_shapes(256, 256)}.items():
         errs[name] = check(name, fn(*args, **kw), plain(*args, **kw))
     phase2_launches = launch_counts(K)
+    # gemm_epilogue's ragged cases, each on the instantiation it must take.
+    gemm_errs = []
+    for label, pieces, m, kw, want in gemm_ragged_cases(dev):
+        before = dict(K.GEMM_LAUNCHES)
+        got = K.gemm_epilogue(pieces, m, **kw)
+        taken = [v for v in K.GEMM_VARIANTS
+                 if K.GEMM_LAUNCHES[v] != before[v]]
+        if taken != [want]:
+            fail(f"gemm_epilogue {label}: took {taken}, not {want}")
+        gemm_errs.append(check(f"gemm_epilogue {label} ({want})", got,
+                               K.gemm_epilogue_plain(pieces, m, **kw)))
     torch.cuda.empty_cache()
 
     # ---- phase 3: reconstruct requests (the main paths) ----------------
@@ -588,6 +781,11 @@ def main() -> int:
     if len(forwards) != len(requests):
         fail(f"{len(forwards)} forwards recorded for {len(requests)} "
              f"requests")
+    level0_convs = sum(module.cfg.gab_impl == "auto"
+                       for module, _, _ in forwards)
+    if main_launches["gemm_epilogue general"] != level0_convs:
+        fail(f"{main_launches['gemm_epilogue general']} general gemm_epilogue "
+             f"launches for {level0_convs} level-0 expand convs")
     for i, (module, xb, yb) in enumerate(forwards):
         requests[i]["batch"] = list(xb.shape)
         requests[i]["max_abs_err"] = check(
@@ -608,6 +806,9 @@ def main() -> int:
         y = m(x)
         torch.cuda.synchronize()
         per_forward = {k: v for k, v in launch_counts(K).items() if v}
+        if K.GEMM_LAUNCHES["general"] != (m.cfg.gab_impl == "auto"):
+            fail(f"{cell}: {K.GEMM_LAUNCHES['general']} general "
+                 f"gemm_epilogue launches in one forward")
         y_plain = m.reference_forward(x)
         fwd_err = check(f"{cell} forward (B={b})", y, y_plain)
         del y, y_plain
@@ -681,6 +882,11 @@ def main() -> int:
             "library_ms": library_ms})
         if counter in OFF_PATH:
             kernels[-1]["direct_launches"] = phase2_launches[counter]
+        if name == "gemm_epilogue":  # max_abs_err: the main shape alone
+            kernels[-1]["launches_by_variant"] = {
+                v: main_launches[f"gemm_epilogue {v}"]
+                for v in K.GEMM_VARIANTS}
+            kernels[-1]["ragged_max_abs_err"] = max(gemm_errs)
         print(f"  {name}: {ms:.3f} ms (plain {plain_ms:.3f}, bound "
               f"{bms:.3f} by {by}"
               + (f", torch.addmm {library_ms:.3f}" if library_ms else "")
@@ -703,6 +909,7 @@ def main() -> int:
               f"{chain_ms:.3f} ms; bound {bms:.3f} by {by}")
     del calls
     torch.cuda.empty_cache()
+    report["gemm_shapes"] = gemm_table(K, dev)
     report["profile"] = profile_forward(model, xs["27f"], "27f B=1024")
     report["profile_243f"] = profile_forward(models["243f"], xs["243f"],
                                              "243f B=256")

@@ -3,8 +3,9 @@
 Four kernels, each a CUDA C++ source under ``gastx_torch/csrc/`` with a
 plain C interface:
 
-  * ``gemm_epilogue`` — tiled f32 GEMM over up to three pieces with a tap
-    row map and a BN (scale/shift) / ReLU / residual epilogue;
+  * ``gemm_epilogue`` — pipelined f32 GEMM over up to three pieces with a
+    tap row map and a BN (scale/shift) / ReLU / residual epilogue, in two
+    instantiations (:func:`gemm_variant`);
   * ``sem_graph`` — the local branch's semantic graph aggregation;
   * ``joint_attention`` — per-frame multi-head attention over the joints;
   * ``gab_narrow`` — the whole eval GAB at C < 128 in one launch, every
@@ -36,9 +37,10 @@ Every wrapper checks device, dtype, shape and contiguity. On a CUDA tensor
 it launches its kernel (and raises if the launch fails); on a CPU tensor
 it runs the plain PyTorch version beside it, which is also what the card
 runs to hold the kernel to. ``LAUNCHES`` counts kernel launches by
-kernel; ``ENTRY_LAUNCHES`` counts the kernel launches made inside each
-entry point (:func:`entry_point`). Both are counted in ``_launch`` alone,
-after the launch succeeded.
+kernel, ``GEMM_LAUNCHES`` the ``gemm_epilogue`` launches by instantiation;
+``ENTRY_LAUNCHES`` counts the kernel launches made inside each entry point
+(:func:`entry_point`). All are counted in ``_launch`` alone, after the
+launch succeeded.
 """
 from __future__ import annotations
 
@@ -70,8 +72,15 @@ ENTRY_POINTS = ("fused_level0", "fused_level", "fused_gab_pbatch",
                 "fused_local_branch", "head_attention",
                 "fused_global_attention")
 
-# Kernel launches by kernel, and by the entry points open at the launch.
+# gemm_epilogue's two instantiations: 16-byte loads, copies and epilogue,
+# and 4-byte ones for the rest (gemm_variant); the C function's last
+# argument picks one (1: vec16).
+GEMM_VARIANTS = ("vec16", "general")
+
+# Kernel launches by kernel, gemm_epilogue's by instantiation, and by the
+# entry points open at the launch.
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_SOURCES}
+GEMM_LAUNCHES: Dict[str, int] = {name: 0 for name in GEMM_VARIANTS}
 ENTRY_LAUNCHES: Dict[str, int] = {name: 0 for name in ENTRY_POINTS}
 _OPEN_ENTRIES: List[str] = []
 
@@ -79,7 +88,8 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     "gemm_epilogue": [_P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I,
-                      _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _I, _P, _P],
+                      _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _I, _P, _P,
+                      _I],
     "sem_graph": [_P, _I, _P, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "joint_attention": [_P, _P, _P, _I, _P, _P, _P, _P, _LL, _I, _I, _I,
                         _I, _P],
@@ -90,7 +100,7 @@ _ARGTYPES = {
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, ENTRY_LAUNCHES):
+    for counts in (LAUNCHES, GEMM_LAUNCHES, ENTRY_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -181,6 +191,8 @@ def _launch(name: str, *args) -> None:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.error_string(code).decode()} ({code})")
     LAUNCHES[name] += 1
+    if name == "gemm_epilogue":
+        GEMM_LAUNCHES["vec16" if args[-1] else "general"] += 1
     for entry in _OPEN_ENTRIES:
         ENTRY_LAUNCHES[entry] += 1
 
@@ -332,8 +344,25 @@ def gemm_epilogue(pieces: Sequence[Piece], m: int, *,
             flat += [None, None, 0, 0]
     _launch("gemm_epilogue", *flat, len(pieces), m, n, s_out, a_s_in,
             res_s_in, _ptr(scale), _ptr(shift), int(relu),
-            _ptr(res), res_off, out.data_ptr(), _stream())
+            _ptr(res), res_off, out.data_ptr(), _stream(),
+            int(gemm_variant(pieces, n, res) == "vec16"))
     return out
+
+
+def gemm_variant(pieces: Sequence[Piece], n: int,
+                 res: Optional[torch.Tensor]) -> str:
+    """The instantiation of ``gemm_epilogue`` for these operands:
+    ``"vec16"`` (16-byte loads, copies and epilogue) when every K_p and N are
+    multiples of 4 and every a_p, w_p and ``res`` starts 16-byte aligned
+    (then so does every row, with its offset a_off * K_p, and the fresh
+    output), else ``"general"``."""
+    ptrs = [t.data_ptr() for a, w, _ in pieces for t in (a, w)]
+    if res is not None:
+        ptrs.append(res.data_ptr())
+    if (n % 4 == 0 and all(a.shape[1] % 4 == 0 for a, _, _ in pieces)
+            and all(p % 16 == 0 for p in ptrs)):
+        return "vec16"
+    return "general"
 
 
 # --------------------------------------------------------------------------

@@ -55,21 +55,64 @@ def _assert_close(got, plain):
     assert err <= bound, (err, bound)
 
 
-@pytest.mark.cuda
-def test_cuda_gemm_epilogue_matches_plain(model):
-    """Ragged rows and columns, three tap pieces and a residual."""
-    b, t_in, j, c, n, d = 3, 11, 17, 130, 70, 3
+def _taps(c, n, d, res):
+    """A 3-tap dilated conv's row map over B=3 sequences of T_in=11 frames
+    of J=17 joints, BN and ReLU, and the residual slice if ``res``."""
+    b, t_in, j = 3, 11, 17
     t_out = t_in - 2 * d
     x = _randn(b * t_in * j, c, seed=1)
     w = _randn(3, c, n, seed=2)
     kw = dict(s_out=t_out * j, a_s_in=t_in * j, scale=_randn(n, seed=4),
-              shift=_randn(n, seed=5), relu=True,
-              res=_randn(b * t_in * j, n, seed=6), res_s_in=t_in * j,
-              res_off=d * j)
-    pieces = [(x, w[k].contiguous(), k * d * j) for k in range(3)]
-    m = b * t_out * j
-    _assert_close(K.gemm_epilogue(pieces, m, **kw),
-                  K.gemm_epilogue_plain(pieces, m, **kw))
+              shift=_randn(n, seed=5), relu=True)
+    if res:
+        kw.update(res=_randn(b * t_in * j, n, seed=6), res_s_in=t_in * j,
+                  res_off=d * j)
+    return [(x, w[k].contiguous(), k * d * j) for k in range(3)], \
+        b * t_out * j, kw
+
+
+def _w_at_offset(k, n):
+    """A (k, n) weight that starts 4 bytes past a 16-byte boundary."""
+    w = torch.empty(k * n + 1, device="cuda")[1:].view(k, n)
+    return w.copy_(_randn(k, n, seed=3))
+
+
+# gemm_epilogue's ragged cases: (operands builder, instantiation it takes).
+GEMM_CASES = {
+    "k2_taps": (lambda: _taps(2, 128, 1, False), "general"),
+    "k130_n70": (lambda: ([(_randn(517, 130, seed=1),
+                            _randn(130, 70, seed=2), 0)], 517,
+                          dict(scale=_randn(70, seed=4),
+                               shift=_randn(70, seed=5), relu=True)),
+                 "general"),
+    "three_pieces": (lambda: ([(_randn(777, 128, seed=i),
+                                _randn(128, 256, seed=10 + i), 0)
+                               for i in range(3)], 777,
+                              dict(scale=_randn(256, seed=4),
+                                   shift=_randn(256, seed=5), relu=True)),
+                     "vec16"),
+    "taps_residual": (lambda: _taps(128, 128, 3, True), "vec16"),
+    "taps_residual_ragged": (lambda: _taps(130, 70, 3, True), "general"),
+    "m_below_tile": (lambda: ([(_randn(100, 64, seed=1),
+                                _randn(64, 96, seed=2), 0)], 100, {}),
+                     "vec16"),
+    "w_offset": (lambda: ([(_randn(300, 128, seed=1), _w_at_offset(128, 64),
+                            0)], 300, {}), "general"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GEMM_CASES))
+def test_cuda_gemm_epilogue_matches_plain(model, case):
+    """Ragged rows, columns and K, taps, pieces and a residual, each on the
+    instantiation gemm_variant picks for it."""
+    build, variant = GEMM_CASES[case]
+    pieces, m, kw = build()
+    K.reset_launches()
+    got = K.gemm_epilogue(pieces, m, **kw)
+    assert K.GEMM_LAUNCHES == {v: int(v == variant)
+                               for v in K.GEMM_VARIANTS}, K.GEMM_LAUNCHES
+    _assert_close(got, K.gemm_epilogue_plain(pieces, m, **kw))
 
 
 @pytest.mark.cuda

@@ -273,6 +273,61 @@ def test_gemm_epilogue_row_map_and_residual():
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
 
 
+def _at_offset(*shape):
+    """A zero tensor that starts 4 bytes past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 1)[1:].view(*shape)
+
+
+def _conv_taps(c_in):
+    """The level-0 expand conv's three tap pieces over (B, T, J, C_in)."""
+    x = torch.zeros(2, 9, 17, c_in).reshape(-1, c_in)
+    w = torch.zeros(3, c_in, 128)
+    return [(x, w[k], k * 17) for k in range(3)]
+
+
+# (pieces, N, residual) -> the gemm_epilogue instantiation they take.
+GEMM_VARIANT_CASES = {
+    "aligned": (lambda: [(torch.zeros(40, 128), torch.zeros(128, 256), 0)],
+                256, None, "vec16"),
+    "aligned_three_pieces": (
+        lambda: [(torch.zeros(40, 128), torch.zeros(128, 256), 0)] * 3,
+        256, None, "vec16"),
+    "aligned_residual": (
+        lambda: [(torch.zeros(40, 128), torch.zeros(128, 256), 0)], 256,
+        torch.zeros(60, 256), "vec16"),
+    "aligned_row_offset": (
+        lambda: [(torch.zeros(40, 132), torch.zeros(132, 64), 3)], 64, None,
+        "vec16"),
+    "k_not_multiple_of_4": (
+        lambda: [(torch.zeros(40, 130), torch.zeros(130, 64), 0)], 64, None,
+        "general"),
+    "n_not_multiple_of_4": (
+        lambda: [(torch.zeros(40, 128), torch.zeros(128, 70), 0)], 70, None,
+        "general"),
+    "misaligned_a": (lambda: [(_at_offset(40, 128), torch.zeros(128, 64),
+                               0)], 64, None, "general"),
+    "misaligned_w": (lambda: [(torch.zeros(40, 128), _at_offset(128, 64),
+                               0)], 64, None, "general"),
+    "misaligned_w_third_piece": (
+        lambda: [(torch.zeros(40, 128), torch.zeros(128, 64), 0)] * 2
+        + [(torch.zeros(40, 128), _at_offset(128, 64), 0)], 64, None,
+        "general"),
+    "misaligned_res": (lambda: [(torch.zeros(40, 128), torch.zeros(128, 64),
+                                 0)], 64, _at_offset(40, 64), "general"),
+    "level0_taps": (lambda: _conv_taps(2), 128, None, "general"),
+    "level_taps_c128": (lambda: _conv_taps(128), 128, None, "vec16"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GEMM_VARIANT_CASES))
+def test_gemm_variant(case):
+    """The 16-byte instantiation only where every K_p and N are multiples of
+    4 and every operand starts 16-byte aligned."""
+    pieces, n, res, want = GEMM_VARIANT_CASES[case]
+    assert K.gemm_variant(pieces(), n, res) == want
+
+
 def test_wrappers_reject_bad_inputs(level_weights):
     _, _, model = level_weights
     t = gab_tables(model.layers_graph_conv[0], model.statics)
