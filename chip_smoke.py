@@ -18,7 +18,11 @@ a non-zero exit and no result line:
      ``head_attention`` on one head at C=256, ``fused_gab_packed`` at the
      243-frame model's C=32 and C=64; then ``gemm_epilogue`` on ragged
      cases (``gemm_ragged_cases``), each checked to launch the
-     instantiation ``gemm_variant`` must pick, 16-byte or general;
+     instantiation ``gemm_variant`` must pick, 16-byte or general; then
+     the 8-channel model's forward on the ``"auto"``, ``"pallas"`` and
+     packed routes against its plain reference, its C=8 GAB on the chain
+     (off ``gab_narrow``'s shape rule) and the others where
+     ``kernels.gab_route`` sends them;
   3. run reconstruct requests through ``gastx_torch.cli.reconstruct
      --random-weights --no-render`` on synthetic COCO keypoint files: 50,
      277 and 1000 frames with the 27-frame model, 277 and 1000 frames with
@@ -41,10 +45,11 @@ a non-zero exit and no result line:
      then the hybrid 27-frame (B=1024) and packed 243-frame (B=256)
      routes; then each kernel and entry point at its forward's shapes
      against its plain version, and ``gab_narrow`` beside the
-     three-kernel chain that C < 128 ran before it; then ``gemm_epilogue``
-     at each main-path shape (``GEMM_SHAPES``: ms, TFLOP/s, bound, the
-     instantiation, and one ``torch.addmm`` over the same product as a
-     yardstick);
+     three-kernel chain at the three narrow GABs of the shipped models
+     (C=32, T=241, B=256; C=64, T=79, B=1024; C=64, T=235, B=256); then
+     ``gemm_epilogue`` at each main-path shape (``GEMM_SHAPES``: ms,
+     TFLOP/s, bound, the instantiation, and one ``torch.addmm`` over the
+     same product as a yardstick);
   5. trace one forward of each of the 27-frame (B=1024), 243-frame
      (B=256), hybrid and packed cells with torch.profiler: device time by
      kernel and the device's idle share.
@@ -494,6 +499,51 @@ def launch_counts(K) -> dict:
 
 # --------------------------------------------------------------------------
 
+# The models of phase 2's odd-width forwards: channels=8 (GABs at C = 8,
+# 16, 32) on each route that reaches fused_gab. C = 8 is off gab_narrow's
+# shape rule, so its level must take the chain.
+ODD_WIDTH_ROUTES = (("auto", {"gab_impl": "auto"}),
+                    ("pallas", {"gab_impl": "pallas"}),
+                    ("packed", {"gab_impl": "pallas", "packed_channels": 16}))
+
+
+def odd_width_forwards(K, dev) -> dict:
+    """Phase 2: the 8-channel model's forward (B=64 windows of 27 frames)
+    on each of ODD_WIDTH_ROUTES, held to its plain reference forward, with
+    the launches that show which kernels each GAB took."""
+    import torch
+
+    from gastx_torch.models import (GastNet, GastNetConfig, init_gastnet,
+                                    randomize_eval_statistics)
+    from gastx_torch.ops.cuda.fused_gab import gab_tables
+
+    out = {}
+    for label, route in ODD_WIDTH_ROUTES:
+        gen = torch.Generator().manual_seed(8)
+        m = GastNet(GastNetConfig(filter_widths=(3, 3, 3), channels=8,
+                                  **route))
+        m = randomize_eval_statistics(init_gastnet(m, gen), gen).to(dev)
+        m = m.eval()
+        routes = [K.gab_route(*K.gab_shape(gab_tables(g, m.statics)))
+                  for g in m.layers_graph_conv]
+        x = torch.randn((64, 27, 17, 2), generator=torch.Generator(
+            device=dev).manual_seed(9), device=dev)
+        K.reset_launches()
+        y = m(x)
+        torch.cuda.synchronize()
+        launches = {k: K.LAUNCHES[k] for k in ("gab_narrow", "sem_graph")}
+        want = {"gab_narrow": routes.count("gab_narrow"),
+                "sem_graph": routes.count("chain")}
+        if routes[0] != "chain" or launches != want:
+            fail(f"channels=8 {label}: GAB routes {routes}, launches "
+                 f"{launches}")
+        err = check(f"channels=8 forward, {label} {tuple(x.shape)}", y,
+                    m.reference_forward(x))
+        out[label] = {"routes": routes, "launches": launches,
+                      "max_abs_err": err}
+    return out
+
+
 def synthetic_coco(frames: int, seed: int):
     """(1, T, 17, 2) COCO keypoints of a person swaying across a 1000 x 1002
     frame, with detector-like jitter."""
@@ -646,11 +696,15 @@ def main() -> int:
     def narrow_shapes(b243, b81):
         x32 = randn(b243, 241, j, 32, seed=11)
         x64 = randn(b81, 79, j, 64, seed=12)
+        x235 = randn(b243, 235, j, 64, seed=16)
         return {
             "gab_narrow": (K.gab_narrow, K.gab_narrow_plain,
                            (x32.reshape(-1, 32), n243[0]), {}),
             "gab_narrow (C=64, T=79)": (K.gab_narrow, K.gab_narrow_plain,
                                         (x64.reshape(-1, 64), n81), {}),
+            "gab_narrow (C=64, T=235)": (K.gab_narrow, K.gab_narrow_plain,
+                                         (x235.reshape(-1, 64), n243[1]),
+                                         {}),
             "fused_gab (C=32, T=241)": (fused_gab, fused_gab_plain,
                                         (x32, n243[0]), {}),
             "fused_gab (C=64, T=79)": (fused_gab, fused_gab_plain,
@@ -726,6 +780,7 @@ def main() -> int:
             fail(f"gemm_epilogue {label}: took {taken}, not {want}")
         gemm_errs.append(check(f"gemm_epilogue {label} ({want})", got,
                                K.gemm_epilogue_plain(pieces, m, **kw)))
+    report["odd_width_forwards"] = odd_width_forwards(K, dev)
     torch.cuda.empty_cache()
 
     # ---- phase 3: reconstruct requests (the main paths) ----------------
@@ -893,10 +948,12 @@ def main() -> int:
               + ")")
         torch.cuda.empty_cache()
 
-    # gab_narrow beside the three-kernel chain that C < 128 ran before it.
+    # gab_narrow beside the three-kernel chain, at the three narrow GABs
+    # of the shipped models (kernels.gab_route follows such numbers).
     report["gab_narrow_vs_chain"] = {}
     for key, label in (("gab_narrow", "C=32, T=241, B=256"),
-                       ("gab_narrow (C=64, T=79)", "C=64, T=79, B=1024")):
+                       ("gab_narrow (C=64, T=79)", "C=64, T=79, B=1024"),
+                       ("gab_narrow (C=64, T=235)", "C=64, T=235, B=256")):
         x2, t = calls[key][2]
         c = x2.shape[1]
         ms = cuda_ms(lambda: K.gab_narrow(x2, t))

@@ -17,44 +17,62 @@
 //   out    = relu(BN([x | local | global] @ gcat_w))   (rows, 2C)
 //
 // the same function as the chain of gemm_epilogue / sem_graph /
-// joint_attention launches in gastx_torch/ops/cuda/fused_gab.py.
+// joint_attention launches in gastx_torch/ops/cuda/fused_gab.py. Shapes:
+// C in {16, 32, 48, 64, 80, 96}, K <= 4 heads with K*I = K*G = C, J <= 32
+// joints, D <= 8 neighbour slots (kernels.narrow_shape_ok, the same rule).
 //
 // Bound on this card: the block reads x (C floats a row) and writes 2C, and
-// does about 2 * 16 * C^2 FLOPs a row in its five products (35 kFLOP at
-// C=32, about 140 kFLOP at C=64), some 90 to 180 FLOPs per byte of device
-// memory, far above the float32 ridge of ~20: the SMs' float32 FMA rate
-// bounds it. The chain of six launches moves ~9x those bytes through device
-// memory (P alone is 7C wide) and runs its products on 128-wide tiles that
-// C = 32..64 leaves mostly idle.
+// does 2 * 16 * C^2 FLOPs a row in its products (33 kFLOP at C=32, 131
+// kFLOP at C=64), some 90 to 180 FLOPs per byte of device memory, far above
+// the float32 ridge of ~20: the SMs' float32 FMA rate bounds it, so the
+// design is about keeping the FMA pipes busy. The earlier one-pass design
+// ran at 4.3-5.3x that bound, for four reasons, and this one answers each:
 //
-// Design: one block per tile of whole frames, so attention never crosses a
-// block; x and P stay in shared memory, and every later intermediate is
-// written over a part of P that is no longer read (heads over g, ab over
-// theta/phi, local and global over the sem columns), so only x is read and
-// only the output is written to device memory, and two blocks fit an SM.
-// Each product is a block-level loop: warp w owns RT rows, each lane CT
-// columns strided by 32; BK-deep slabs of the weight are staged into shared
-// memory by cp.async, double-buffered and shared by all warps, and the A
-// rows are float2 broadcasts from shared memory. Attention runs one warp
-// per (frame, head), one lane per query joint (J <= 32); the key scores come
-// from the other lanes by shuffle, so no J x J score matrix is stored. C_k,
-// the score vectors and the neighbour table are copied into shared memory
-// once per block; the semantic-graph weights are read once per (joint,
-// channel) for all the frames of the tile. Float32 FMAs only: no tensor
-// cores.
+// 1. Few FMAs between barriers. It staged 16-row weight slabs of one
+//    32-lane column strip, so a thread did 160-560 FMAs a barrier, and its
+//    ring drained at every product's end. Here a slab holds all N columns
+//    of a product, 32 rows where C allows (16 at C = 16, 48, 80), and a
+//    thread owns 4 rows x 4 columns of each C-wide output group, so it does
+//    512-1024 FMAs a barrier; the slabs of all seven products of every
+//    tile run as one cp.async stream (2 slabs of 32 rows in the ring, or 3
+//    of 16) that never drains: the next product's first slab is in flight
+//    during the semantic graph and attention.
+// 2. Scalar shared loads. Every activation lives in shared memory
+//    column-major (a group's column k is BMP floats from column k+1), which
+//    is k-major for the products, so both operands come in as 16-byte
+//    loads: per k a thread loads one float4 of A and N/C float4 of W for 16
+//    N/C FMAs (8:1 and 10.7:1), and a warp of 4 x 8 threads reads 64
+//    distinct bytes of A and 128 of each W group.
+// 3. Weights read again for every small tile. A tile is BM = 256 rows at
+//    C <= 32 (15 frames of J = 17), 128 at C = 48..64 (7 frames), 64 at C
+//    >= 80, against 34 rows at C=64 before, so the weights stream from L2
+//    3.5x less often. Blocks are persistent (as many as fit, each walking
+//    tiles) with 512 threads at C = 32 and 64, so the score vectors, C_k and
+//    the neighbour table load once a block, and the next tile's x and
+//    semantic-graph weights come in by cp.async during the block concat.
+// 4. A 7C-wide P. No more than five C-wide column groups are live a row:
+//    the semantic columns are projected and aggregated one branch at a
+//    time, the graph writing ab over its self columns, and theta/phi and g
+//    come after the local branch, into groups it no longer needs (the
+//    group plan is at the kernel). A group also stages a branch's graph
+//    weights, so the graph reads them from shared memory.
+//
+// Attention runs one warp per (frame, head), one lane per query joint; the
+// key scores come from the other lanes by shuffle, so no J x J score
+// matrix is stored, and g is row-major so that every lane reads the same
+// float4. Float32 FMAs only: no tensor cores. At C = 80 and 96 the tile of
+// 64 rows holds 3 frames and the kernel loses to the chain on the card;
+// kernels.gab_route sends those widths to the chain.
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int MAX_WARPS = 8;
-constexpr int BK = 16;       // weight rows per staged slab
-constexpr int STAGES = 2;    // slabs in flight
 constexpr int MAX_J = 32;    // joints a frame may have (one lane each)
 constexpr int MAX_D = 8;     // neighbour slots of a joint in sem_graph
-constexpr int PAD = 2;       // extra floats per row of P: spreads the rows
-                             // attention's lanes read over the banks
+constexpr int MAX_HEADS = 4;
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Tables {
@@ -68,138 +86,364 @@ struct Tables {
   const float *gcat_w, *gcat_scale, *gcat_shift;
 };
 
-// out[r, col] = epi([A_0 | A_1 | A_2][r, :] @ w[:, col]): up to three A
-// pieces of kp columns each in shared memory (even row strides), w (k, n)
-// row-major in device memory; epi = * scale + shift, then ReLU if RELU.
-// Stored for r < rows_store.
-struct Gemm {
-  const float* a[3];
-  int lda[3];
-  int kp, k;
-  const float* w;
-  int n;
-  const float* scale;
-  const float* shift;
-  float* out;
-  int ldo, rows_store;
+// A width's tiling: RTH x C/4 threads, each holding TM rows (TM/4 groups of
+// 4, RTH * 4 rows apart) of every C-wide column group (4 columns each), and
+// a ring of STAGES weight slabs of BK rows. The tile's activations are five
+// groups of C columns of BMP floats (group 0 holds x; see the kernel).
+template <int C_, int RTH_, int TM_, int MINB_, int BK_, int STAGES_>
+struct Cfg {
+  static constexpr int C = C_;
+  static constexpr int RTH = RTH_;
+  static constexpr int CTH = C_ / 4;
+  static constexpr int NT = RTH_ * CTH;
+  static constexpr int TM = TM_;
+  static constexpr int BM = RTH_ * TM_;
+  static constexpr int BMP = BM + 4;
+  static constexpr int GROUP = C_ * BMP;     // floats of a column group
+  static constexpr int MINB = MINB_;
+  static constexpr int BK = BK_;
+  static constexpr int STAGES = STAGES_;
+  static constexpr int SLAB = BK_ * 2 * C_;  // the widest product's slab
+  static constexpr int S = C_ / BK_;         // slabs of C rows of K
+  static constexpr int SPT = 10 * S;         // slabs a tile
+  static_assert(C_ % BK_ == 0 && TM_ % 4 == 0 && RTH_ % 4 == 0 &&
+                    NT % 32 == 0 && STAGES_ >= 2, "tiling");
 };
 
-// The weight streams through a ring of STAGES slabs (BK rows of one column
-// strip) that cp.async fills STAGES - 1 slabs ahead, across strips, so one
-// barrier a slab suffices. Warps whose rows all lie past `rows_active` only
-// help stage the weights. Ends with a barrier: `ws` is free again.
-template <int RT, int CT, bool RELU>
-__device__ void block_gemm(const Gemm& g, float* ws, int rows_active) {
-  constexpr int NC = 32 * CT;
-  constexpr int SLAB = BK * NC;
-  const int tid = threadIdx.x, lane = tid % 32;
-  const int r0 = (tid / 32) * RT;
-  const bool active = r0 < rows_active;
-  const int slabs = g.k / BK;
-  const int total = slabs * ((g.n + NC - 1) / NC);
-  auto stage = [&](int i) {  // slab i % slabs of strip i / slabs
-    if (i < total) {
-      const int s0 = (i / slabs) * NC, k0 = (i % slabs) * BK;
-      float* buf = ws + (i % STAGES) * SLAB;
-      for (int e = tid; e < SLAB / 4; e += blockDim.x) {
-        const int kl = e / (NC / 4), cl = (e % (NC / 4)) * 4;
-        if (s0 + cl < g.n)
-          __pipeline_memcpy_async(buf + 4 * e,
-                                  g.w + (k0 + kl) * g.n + s0 + cl, 16);
-        else
-          *reinterpret_cast<float4*>(buf + 4 * e) =
-              make_float4(0.f, 0.f, 0.f, 0.f);
-      }
+// Stages slab i of the block's stream into its ring slot: slab i % SPT of
+// a tile, whose seven products take S, S, 2S, S, S, S and 3S slabs.
+template <class G>
+__device__ __forceinline__ void stage(const Tables& t, float* ring,
+                                      long long i, long long total) {
+  constexpr int C = G::C, S = G::S;
+  if (i < total) {
+    const int s = (int)(i % G::SPT);
+    const float* w;
+    int ld, n, k0;
+    if (s < S) {         // P1: sym semantic columns
+      w = t.w_proj; ld = 7 * C; n = 2 * C; k0 = s;
+    } else if (s < 2 * S) {  // P2: con
+      w = t.w_proj + 2 * C; ld = 7 * C; n = 2 * C; k0 = s - S;
+    } else if (s < 4 * S) {  // P3: local cat
+      w = t.lcat_w; ld = C; n = C; k0 = s - 2 * S;
+    } else if (s < 5 * S) {  // P4: theta | phi
+      w = t.w_proj + 4 * C; ld = 7 * C; n = 2 * C; k0 = s - 4 * S;
+    } else if (s < 6 * S) {  // P5: g
+      w = t.w_proj + 6 * C; ld = 7 * C; n = C; k0 = s - 5 * S;
+    } else if (s < 7 * S) {  // P6: global cat
+      w = t.acat_w; ld = C; n = C; k0 = s - 6 * S;
+    } else {                 // P7: block concat
+      w = t.gcat_w; ld = 2 * C; n = 2 * C; k0 = s - 7 * S;
     }
-    __pipeline_commit();
-  };
-  for (int i = 0; i < STAGES - 1; ++i) stage(i);
-  float acc[RT][CT];
-  for (int i = 0; i < total; ++i) {
-    const int s = i % slabs;
-    if (s == 0) {
-#pragma unroll
-      for (int r = 0; r < RT; ++r)
-#pragma unroll
-        for (int jj = 0; jj < CT; ++jj) acc[r][jj] = 0.f;
-    }
-    __pipeline_wait_prior(STAGES - 2);
-    __syncthreads();        // slab i has landed; slab i - 1 is read
-    stage(i + STAGES - 1);  // into the buffer slab i - 1 held
-    if (!active) continue;
-    const float* cur = ws + (i % STAGES) * SLAB;
-    const int k0 = s * BK, piece = k0 / g.kp;
-    const int lda = piece == 0 ? g.lda[0] : piece == 1 ? g.lda[1] : g.lda[2];
-    const float* a = (piece == 0 ? g.a[0] : piece == 1 ? g.a[1] : g.a[2]) +
-                     r0 * lda + (k0 - piece * g.kp);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 2) {
-      float2 av[RT];
-#pragma unroll
-      for (int r = 0; r < RT; ++r)
-        av[r] = *reinterpret_cast<const float2*>(a + r * lda + kk);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float wv[CT];
-#pragma unroll
-        for (int jj = 0; jj < CT; ++jj)
-          wv[jj] = cur[(kk + h) * NC + lane + 32 * jj];
-#pragma unroll
-        for (int r = 0; r < RT; ++r)
-#pragma unroll
-          for (int jj = 0; jj < CT; ++jj)
-            acc[r][jj] = fmaf(h ? av[r].y : av[r].x, wv[jj], acc[r][jj]);
-      }
-    }
-    if (s != slabs - 1) continue;
-    const int s0 = (i / slabs) * NC;
-#pragma unroll
-    for (int jj = 0; jj < CT; ++jj) {
-      const int col = s0 + lane + 32 * jj;
-      if (col >= g.n) continue;
-      const float sc = __ldg(g.scale + col), sh = __ldg(g.shift + col);
-#pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        if (r0 + r >= g.rows_store) continue;
-        float v = acc[r][jj] * sc + sh;
-        if (RELU) v = fmaxf(v, 0.f);
-        g.out[(r0 + r) * g.ldo + col] = v;
-      }
+    k0 *= G::BK;
+    float* buf = ring + (int)(i % G::STAGES) * G::SLAB;
+    const int q = n / 4;  // 16-byte chunks a slab row
+    for (int e = threadIdx.x; e < G::BK * q; e += G::NT) {
+      const int kl = e / q, cl = (e - kl * q) * 4;
+      __pipeline_memcpy_async(buf + kl * n + cl,
+                              w + (size_t)(k0 + kl) * ld + cl, 16);
     }
   }
-  __syncthreads();
+  __pipeline_commit();
+}
+
+// Copies n floats, by 4-byte cp.async copies if ASYNC.
+template <class G, bool ASYNC>
+__device__ __forceinline__ void copy_floats(float* dst, const float* src,
+                                            int n) {
+  for (int e = threadIdx.x; e < n; e += G::NT) {
+    if (ASYNC)
+      __pipeline_memcpy_async(dst + e, src + e, 4);
+    else
+      dst[e] = __ldg(src + e);
+  }
+}
+
+// x rows of the tile (row-major, `rows` of them) into activation group 0,
+// column-major; the rows past them zero.
+template <class G, bool ASYNC>
+__device__ __forceinline__ void load_x(const float* __restrict__ xg,
+                                       float* xs, int rows) {
+  constexpr int C = G::C;
+  for (int e = threadIdx.x; e < G::BM * C; e += G::NT) {
+    const int r = e / C, c = e - r * C;
+    float* dst = xs + c * G::BMP + r;
+    if (r >= rows)
+      *dst = 0.f;
+    else if (ASYNC)
+      __pipeline_memcpy_async(dst, xg + e, 4);
+    else
+      *dst = __ldg(xg + e);
+  }
+}
+
+// The semantic-graph weights of branch b in their order in a staged group:
+// w_self (J, C) | w_nbr (J, D, C) | scale (C) | shift (C).
+template <class G, bool ASYNC>
+__device__ __forceinline__ void load_sem(const Tables& t, float* dst, int j,
+                                         int d, int b) {
+  constexpr int C = G::C;
+  copy_floats<G, ASYNC>(dst, t.w_self + b * j * C, j * C);
+  copy_floats<G, ASYNC>(dst + j * C, t.w_nbr + b * j * d * C, j * d * C);
+  copy_floats<G, ASYNC>(dst + j * (1 + d) * C, t.sem_scale + b * C, C);
+  copy_floats<G, ASYNC>(dst + j * (1 + d) * C + C, t.sem_shift + b * C, C);
+}
+
+// What P7 brings in for the next tile, past the reads of each group: the
+// semantic-graph weights of both branches (into groups 4 and 3, if staged)
+// and x (into group 0).
+struct Prefetch {
+  const float* x;
+  int rows, j, d;
+  bool sem;
+};
+
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// The thread's place in the RTH x CTH grid. Where CTH is a multiple of 8 a
+// warp is 4 x 8 threads (16 rows by 32 columns of a group), so a k step's
+// A and W loads are 64 and 128 distinct bytes; else a warp runs along CTH.
+template <class G>
+__device__ __forceinline__ void thread_tile(int& rt, int& ct) {
+  if (G::CTH % 8 == 0) {
+    constexpr int WC = G::CTH / 8;
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    ct = (warp % WC) * 8 + lane % 8;
+    rt = (warp / WC) * 4 + lane / 8;
+  } else {
+    ct = threadIdx.x % G::CTH;
+    rt = threadIdx.x / G::CTH;
+  }
+}
+
+// One product over the tile's BM rows: out[r, n] = epi(sum_k A[r, k]
+// W[k, n]), N = MM * C, K = NS * BK. Column k of A is column k % C of group
+// a[k / C]; W streams through the ring (slab counter g). epi = * scale +
+// shift, then ReLU if RELU. Output column group j goes to group o[j]
+// (column-major, or row-major with C floats a row if ROW_MAJOR), or, if
+// TO_GLOBAL, to rows < rows_valid of the row-major (rows, N) `out`, while
+// `pre` brings in the next tile. With `on` false only the weights stream.
+template <class G, int MM, int NS, bool RELU, bool TO_GLOBAL,
+          bool ROW_MAJOR = false>
+__device__ __forceinline__ void product(
+    bool on, const Tables& t, float* ring, long long& g, long long total,
+    float* acts, int a0, int a1, int a2, const float* scale,
+    const float* shift, int o0, int o1, float* out = nullptr,
+    int rows_valid = 0, const Prefetch* pre = nullptr) {
+  constexpr int C = G::C, N = MM * C, TM = G::TM, BMP = G::BMP;
+  constexpr int BK = G::BK, S = G::S;
+  int rt, ct;
+  thread_tile<G>(rt, ct);
+  float acc[TM][4 * MM];
+#pragma unroll
+  for (int m = 0; m < TM; ++m)
+#pragma unroll
+    for (int n = 0; n < 4 * MM; ++n) acc[m][n] = 0.f;
+  for (int s = 0; s < NS; ++s) {
+    __pipeline_wait_prior(G::STAGES - 2);
+    __syncthreads();  // slab g has landed; slab g - 1 is read
+    if (pre != nullptr) {
+      // Groups 4 and 1 are free; group 0 from slab S, group 3 from 2S on
+      // (each lands with this slab's copies, before the next tile needs
+      // it).
+      if (s == 0 && pre->sem)
+        load_sem<G, true>(t, acts + 4 * G::GROUP, pre->j, pre->d, 0);
+      if (s == S && pre->x != nullptr)
+        load_x<G, true>(pre->x, acts, pre->rows);
+      if (s == 2 * S && pre->sem)
+        load_sem<G, true>(t, acts + 3 * G::GROUP, pre->j, pre->d, 1);
+    }
+    stage<G>(t, ring, g + G::STAGES - 1, total);
+    const float* w = ring + (int)(g % G::STAGES) * G::SLAB + 4 * ct;
+    ++g;
+    if (!on) continue;
+    const int k0 = s * BK, piece = k0 / C;
+    const float* a =
+        acts + (size_t)(piece == 0 ? a0 : piece == 1 ? a1 : a2) * G::GROUP +
+        (size_t)(k0 - piece * C) * BMP + 4 * rt;
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float4 av[TM / 4], wv[MM];
+#pragma unroll
+      for (int i = 0; i < TM / 4; ++i)
+        av[i] = *reinterpret_cast<const float4*>(a + kk * BMP +
+                                                 i * 4 * G::RTH);
+#pragma unroll
+      for (int j = 0; j < MM; ++j)
+        wv[j] = *reinterpret_cast<const float4*>(w + kk * N + j * C);
+#pragma unroll
+      for (int m = 0; m < TM; ++m)
+#pragma unroll
+        for (int n = 0; n < 4 * MM; ++n)
+          acc[m][n] = fmaf(comp(av[m / 4], m % 4), comp(wv[n / 4], n % 4),
+                           acc[m][n]);
+    }
+  }
+  if (!on) return;
+#pragma unroll
+  for (int j = 0; j < MM; ++j) {
+    const int c0 = 4 * ct + j * C;
+    float sc[4], sh[4];
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      sc[v] = __ldg(scale + c0 + v);
+      sh[v] = __ldg(shift + c0 + v);
+    }
+#pragma unroll
+    for (int m = 0; m < TM; ++m)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        float y = acc[m][4 * j + v] * sc[v] + sh[v];
+        acc[m][4 * j + v] = RELU ? fmaxf(y, 0.f) : y;
+      }
+    if (TO_GLOBAL || ROW_MAJOR) {
+      float* base = TO_GLOBAL ? out + c0
+                              : acts + (size_t)(j ? o1 : o0) * G::GROUP +
+                                    4 * ct;
+      const int ld = TO_GLOBAL ? N : C;
+#pragma unroll
+      for (int m = 0; m < TM; ++m) {
+        const int r = 4 * rt + (m / 4) * 4 * G::RTH + m % 4;
+        if (!TO_GLOBAL || r < rows_valid)
+          *reinterpret_cast<float4*>(base + (size_t)r * ld) =
+              make_float4(acc[m][4 * j], acc[m][4 * j + 1],
+                          acc[m][4 * j + 2], acc[m][4 * j + 3]);
+      }
+    } else {
+      float* base = acts + (size_t)(j ? o1 : o0) * G::GROUP +
+                    (size_t)(4 * ct) * BMP + 4 * rt;
+#pragma unroll
+      for (int i = 0; i < TM / 4; ++i)
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+          *reinterpret_cast<float4*>(base + v * BMP + i * 4 * G::RTH) =
+              make_float4(acc[4 * i][4 * j + v], acc[4 * i + 1][4 * j + v],
+                          acc[4 * i + 2][4 * j + v],
+                          acc[4 * i + 3][4 * j + v]);
+    }
+  }
+}
+
+// One (joint, channel) pair of the semantic graph: its weights and
+// neighbours, and its self column, in place of which it writes.
+struct SemPair {
+  float w_self, sc, sh, wn[MAX_D];
+  int nb[MAX_D];
+  float* h0;
+  const float* h1;
+};
+
+// Where a branch's semantic-graph weights are read from: a staged group,
+// or the tables at the branch's offsets.
+struct SemSrc {
+  const float *w_self, *w_nbr, *sc, *sh;
+};
+
+template <class G>
+__device__ __forceinline__ SemSrc sem_src(const Tables& t, const float* staged,
+                                          int j, int d, int b) {
+  constexpr int C = G::C;
+  if (staged != nullptr)
+    return {staged, staged + j * C, staged + j * (1 + d) * C,
+            staged + j * (1 + d) * C + C};
+  return {t.w_self + b * j * C, t.w_nbr + b * j * d * C,
+          t.sem_scale + b * C, t.sem_shift + b * C};
+}
+
+template <class G>
+__device__ __forceinline__ SemPair sem_pair(const SemSrc& w, const int* col,
+                                            float* self, const float* nbr,
+                                            int ch, int q, int j, int d,
+                                            int b) {
+  constexpr int C = G::C, BMP = G::BMP;
+  const int bq = b * j + q;
+  SemPair p;
+#pragma unroll
+  for (int dd = 0; dd < MAX_D; ++dd) {
+    p.wn[dd] = dd < d ? w.w_nbr[(q * d + dd) * C + ch] : 0.f;
+    p.nb[dd] = dd < d ? col[bq * d + dd] : 0;
+  }
+  p.w_self = w.w_self[q * C + ch];
+  p.sc = w.sc[ch];
+  p.sh = w.sh[ch];
+  p.h0 = self + ch * BMP + q;
+  p.h1 = nbr + ch * BMP;
+  return p;
+}
+
+__device__ __forceinline__ void sem_row(const SemPair& p, int r0, int d) {
+  float acc = p.h0[r0] * p.w_self;
+#pragma unroll
+  for (int dd = 0; dd < MAX_D; ++dd) {
+    if (dd >= d) break;
+    acc = fmaf(p.h1[r0 + p.nb[dd]], p.wn[dd], acc);
+  }
+  p.h0[r0] = fmaxf(acc * p.sc + p.sh, 0.f);
+}
+
+// Semantic graph aggregation of branch b (0 sym, 1 con) from its self and
+// neighbour columns: ab = relu(BN(h0 * w_self + sum_d h1[nbr_d] * w_nbr_d)),
+// written over h0 (each value is read by the thread that writes it alone).
+// A thread takes two (joint, channel) pairs at a time and their weights
+// once, for every frame of the tile. A warp's lanes are 8 channels x 4
+// joints, so its shared loads and stores fall in 32 distinct banks (and
+// weight loads from device memory, where they are not staged, are 32-byte
+// runs).
+template <class G>
+__device__ __forceinline__ void sem_graph(const SemSrc& w, const int* col,
+                                          float* self, const float* nbr,
+                                          int nf, int j, int d, int b) {
+  constexpr int C = G::C, CB = C / 8;
+  const int pairs = ((j + 3) / 4) * 4 * C;
+  const int lane = threadIdx.x % 32;
+  for (int idx = threadIdx.x; idx < pairs; idx += 2 * G::NT) {
+    const int blk0 = idx / 32, blk1 = (idx + G::NT) / 32;
+    const int ch0 = (blk0 % CB) * 8 + lane % 8;
+    const int q0 = (blk0 / CB) * 4 + lane / 8;
+    const int ch1 = (blk1 % CB) * 8 + lane % 8;
+    const int q1 = (blk1 / CB) * 4 + lane / 8;
+    const bool on0 = q0 < j, on1 = idx + G::NT < pairs && q1 < j;
+    const SemPair p0 = sem_pair<G>(w, col, self, nbr, ch0, on0 ? q0 : 0, j,
+                                   d, b);
+    const SemPair p1 = sem_pair<G>(w, col, self, nbr, ch1, on1 ? q1 : 0, j,
+                                   d, b);
+    for (int r0 = 0; r0 < nf * j; r0 += j) {
+      if (on0) sem_row(p0, r0, d);
+      if (on1) sem_row(p1, r0, d);
+    }
+  }
 }
 
 __device__ __forceinline__ float leaky(float f) {
   return f > 0.f ? f : 0.2f * f;
 }
 
-// Per-frame multi-head attention over the joints of the nf frames: reads
-// theta/phi/g from P and writes each head's outputs over its g columns
-// (head-major, so the heads are P[:, 4C + 2KI : 4C + 2KI + KG)).
-// proj_t/proj_p (K, I) and c_k (K, J, J) are the block's copies in shared
-// memory.
-__device__ void attention(float* p, int ldp, int nf, int j, int c,
-                          int nheads, int inter, int g_ch,
-                          const float* proj_t, const float* proj_p,
-                          const float* c_k) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nwarps = blockDim.x / 32;
-  const int ki = nheads * inter;
-  const float* theta = p + 4 * c;
-  const float* phi = theta + ki;
-  float* g = p + 4 * c + 2 * ki;
-  const int q = lane;
-  for (int pair = warp; pair < nf * nheads; pair += nwarps) {
+// Per-frame multi-head attention over the joints of the tile's nf frames:
+// theta and phi column-major, g row-major (C floats a row; head-major, I =
+// G = C / K columns a head; I is a multiple of 4). Each head's outputs go
+// over its theta columns. proj_t/proj_p (K, I) and c_k (K, J, J) are the
+// block's copies.
+template <class G>
+__device__ __forceinline__ void attention(float* theta, const float* phi,
+                                          const float* gv, int nf, int j,
+                                          int nheads, const float* proj_t,
+                                          const float* proj_p,
+                                          const float* c_k) {
+  constexpr int C = G::C, BMP = G::BMP;
+  const int warp = threadIdx.x / 32, q = threadIdx.x % 32;
+  const int inter = C / nheads;
+  for (int pair = warp; pair < nf * nheads; pair += G::NT / 32) {
     const int fr = pair / nheads, k = pair - fr * nheads;
     const int row0 = fr * j;
     float sa = 0.f, sb = 0.f;
     if (q < j) {
-      const float* th = theta + (row0 + q) * ldp + k * inter;
-      const float* ph = phi + (row0 + q) * ldp + k * inter;
+#pragma unroll 4
       for (int i = 0; i < inter; ++i) {
-        sa = fmaf(th[i], proj_t[k * inter + i], sa);
-        sb = fmaf(ph[i], proj_p[k * inter + i], sb);
+        const int cc = k * inter + i;
+        sa = fmaf(theta[cc * BMP + row0 + q], proj_t[cc], sa);
+        sb = fmaf(phi[cc * BMP + row0 + q], proj_p[cc], sb);
       }
     }
     // Lane q's attention row, softmaxed with its max subtracted, + C_k.
@@ -226,144 +470,146 @@ __device__ void attention(float* p, int ldp, int nf, int j, int c,
       if (m >= j) break;
       w[m] = w[m] * inv + ck[m];
     }
-    float* gk = g + row0 * ldp + k * g_ch;
-    for (int g0 = 0; g0 < g_ch; g0 += 8) {
-      float acc[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) acc[u] = 0.f;
+    // Every lane reads the same float4 of g (a broadcast). Lane q reads
+    // theta of its own row alone, so it may write there.
+    const float* gk = gv + (size_t)row0 * C + k * inter;
+    for (int g0 = 0; g0 < inter; g0 += 8) {
+      const bool hi = g0 + 4 < inter;
+      float4 lo4 = make_float4(0.f, 0.f, 0.f, 0.f), hi4 = lo4;
 #pragma unroll
       for (int m = 0; m < MAX_J; ++m) {
         if (m >= j) break;
-        const float* gm = gk + m * ldp + g0;
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-          if (g0 + u < g_ch) acc[u] = fmaf(w[m], gm[u], acc[u]);
+        const float4 a = *reinterpret_cast<const float4*>(gk + m * C + g0);
+        lo4.x = fmaf(w[m], a.x, lo4.x);
+        lo4.y = fmaf(w[m], a.y, lo4.y);
+        lo4.z = fmaf(w[m], a.z, lo4.z);
+        lo4.w = fmaf(w[m], a.w, lo4.w);
+        if (hi) {
+          const float4 h =
+              *reinterpret_cast<const float4*>(gk + m * C + g0 + 4);
+          hi4.x = fmaf(w[m], h.x, hi4.x);
+          hi4.y = fmaf(w[m], h.y, hi4.y);
+          hi4.z = fmaf(w[m], h.z, hi4.z);
+          hi4.w = fmaf(w[m], h.w, hi4.w);
+        }
       }
-      __syncwarp();  // every lane has read this chunk of g before any
-                     // lane writes its outputs over it
       if (q < j) {
-        float* o = gk + q * ldp + g0;
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-          if (g0 + u < g_ch) o[u] = acc[u];
+        float* o = theta + (size_t)(k * inter + g0) * BMP + row0 + q;
+        o[0] = lo4.x;
+        o[BMP] = lo4.y;
+        o[2 * BMP] = lo4.z;
+        o[3 * BMP] = lo4.w;
+        if (hi) {
+          o[4 * BMP] = hi4.x;
+          o[5 * BMP] = hi4.y;
+          o[6 * BMP] = hi4.z;
+          o[7 * BMP] = hi4.w;
+        }
       }
     }
   }
 }
 
-// Widest column strip of a block's products: the projection's (CT = 7) or
-// the block concat's (CT = 2 CW).
-template <int CW>
-__host__ __device__ constexpr int slab_width() {
-  return 64 * CW > 224 ? 64 * CW : 224;
-}
-
-// CW = ceil(C / 32): the narrow products (N = C and 2C) take one strip.
-template <int RT, int CW>
-__global__ void __launch_bounds__(MAX_WARPS * 32, 2)
+// Persistent blocks: block b takes tiles b, b + gridDim.x, ... of fpt whole
+// frames each. The five activation groups of a tile, in order of use:
+//   0: x
+//   P1 x @ [W0_sym | W1_sym] -> 1 (self), 2 (neighbours); the graph
+//      writes ab_sym over 1, its weights staged in 4
+//   P2 x @ [W0_con | W1_con] -> 2, 4; ab_con over 2, weights staged in 3
+//   P3 [ab_sym | ab_con] @ lcat_w -> local, 3
+//   P4 x @ [theta | phi] -> 1, 2; P5 x @ g -> 4 (row-major); attention
+//      writes the heads over theta, 1
+//   P6 heads @ acat_w -> global, 2
+//   P7 [x | local | global] @ gcat_w -> out, while the next tile's
+//      semantic weights (4, 3) and x (0) come in.
+// The weights of a branch are staged when they fit in a group; else the
+// graph reads them from device memory.
+template <class G>
+__global__ void __launch_bounds__(G::NT, G::MINB)
 gab_narrow_kernel(const float* __restrict__ x, float* __restrict__ out,
-                  long long frames, int fpb, int j, int c, int d, int nheads,
-                  int inter, int g_ch, const Tables t) {
+                  long long frames, int fpt, long long tiles, int j, int d,
+                  int nheads, const Tables t) {
   extern __shared__ float4 smem4[];
-  const int ki = nheads * inter, kg = nheads * g_ch, c2 = 2 * c;
-  const int np = 4 * c + 2 * ki + kg;
-  const int ldp = np + PAD;
-  const int rows_p = (blockDim.x / 32) * RT;
-  // Shared memory: weight slabs (STAGES, BK, slab width) | x (rows_p, C) |
-  // P (rows_p, ldp) | c_k (K, J, J) | proj_t, proj_p (K, I) | col (2, J, D).
-  float* ws = reinterpret_cast<float*>(smem4);
-  float* xs = ws + STAGES * BK * slab_width<CW>();
-  float* p = xs + rows_p * c;
-  float* heads = p + 4 * c + 2 * ki;
-  float* ck = p + rows_p * ldp;
+  constexpr int C = G::C, S = G::S, GR = G::GROUP;
+  float* acts = reinterpret_cast<float*>(smem4);
+  float* ring = acts + 5 * GR;
+  float* ck = ring + G::STAGES * G::SLAB;
   float* pt = ck + nheads * j * j;
-  float* pp = pt + ki;
-  int* col = reinterpret_cast<int*>(pp + ki);
-
-  const long long f0 = (long long)blockIdx.x * fpb;
-  const int nf = (int)min((long long)fpb, frames - f0);
-  const int rows = nf * j;
-  const float* xg = x + f0 * j * c;
-
-  // Rows past the last frame of a tile are zero, so every value computed
-  // for them stays finite; none is stored.
-  for (int idx = threadIdx.x; idx < rows_p * c; idx += blockDim.x)
-    xs[idx] = idx < rows * c ? xg[idx] : 0.f;
-  for (int idx = threadIdx.x; idx < nheads * j * j; idx += blockDim.x)
-    ck[idx] = __ldg(t.c_k + idx);
-  for (int idx = threadIdx.x; idx < ki; idx += blockDim.x) {
-    pt[idx] = __ldg(t.proj_t + idx);
-    pp[idx] = __ldg(t.proj_p + idx);
+  float* pp = pt + C;
+  int* col = reinterpret_cast<int*>(pp + C);
+  for (int i = threadIdx.x; i < nheads * j * j; i += G::NT)
+    ck[i] = __ldg(t.c_k + i);
+  for (int i = threadIdx.x; i < C; i += G::NT) {
+    pt[i] = __ldg(t.proj_t + i);
+    pp[i] = __ldg(t.proj_p + i);
   }
-  for (int idx = threadIdx.x; idx < 2 * j * d; idx += blockDim.x)
-    col[idx] = __ldg(t.col + idx);
-  __syncthreads();
+  for (int i = threadIdx.x; i < 2 * j * d; i += G::NT)
+    col[i] = __ldg(t.col + i);
+  const bool staged = j * (1 + d) * C + 2 * C <= GR;
+  const SemSrc sem_w0 = sem_src<G>(t, staged ? acts + 4 * GR : nullptr, j,
+                                   d, 0);
+  const SemSrc sem_w1 = sem_src<G>(t, staged ? acts + 3 * GR : nullptr, j,
+                                   d, 1);
 
-  // P = x @ [W0_sym | W1_sym | W0_con | W1_con | theta | phi | g] + bias
-  block_gemm<RT, 7, false>(
-      Gemm{{xs, xs, xs}, {c, c, c}, c, c, t.w_proj, np, t.proj_scale,
-           t.proj_shift, p, ldp, rows_p},
-      ws, rows);
-
-  attention(p, ldp, nf, j, c, nheads, inter, g_ch, pt, pp, ck);
-  __syncthreads();
-
-  // Semantic graph aggregation of both branches (b = 0 sym, 1 con) from
-  // P[:, 2bC:2bC+C) (self) and P[:, 2bC+C:2bC+2C) (the frame's neighbours),
-  // written over theta/phi as ab = P[:, 4C:6C). A thread takes a (joint,
-  // channel) and its weights once, for every frame of the tile.
-  for (int idx = threadIdx.x; idx < j * c2; idx += blockDim.x) {
-    const int q = idx / c2, cc = idx - q * c2;
-    const int b = cc / c, ch = cc - b * c, bq = b * j + q;
-    float wn[MAX_D];
-    int nb[MAX_D];
-#pragma unroll
-    for (int dd = 0; dd < MAX_D; ++dd) {
-      wn[dd] = dd < d ? __ldg(t.w_nbr + (bq * d + dd) * c + ch) : 0.f;
-      nb[dd] = dd < d ? col[bq * d + dd] : 0;
-    }
-    const float w_self = __ldg(t.w_self + bq * c + ch);
-    const float sc = __ldg(t.sem_scale + cc), sh = __ldg(t.sem_shift + cc);
-    const float* h = p + b * c2 + ch;
-    for (int fr = 0; fr < nf; ++fr) {
-      const int r0 = fr * j;
-      float acc = h[(r0 + q) * ldp] * w_self;
-#pragma unroll
-      for (int dd = 0; dd < MAX_D; ++dd) {
-        if (dd >= d) break;
-        acc = fmaf(h[(r0 + nb[dd]) * ldp + c], wn[dd], acc);
+  // The ring runs over every slab of the block's tiles (a product's first
+  // barrier also publishes the tables, x and the staged weights).
+  const long long total =
+      ((tiles - 1 - blockIdx.x) / gridDim.x + 1) * G::SPT;
+  long long g = 0;
+  for (int i = 0; i < G::STAGES - 1; ++i) stage<G>(t, ring, i, total);
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long f0 = tile * fpt;
+    const int nf = (int)min((long long)fpt, frames - f0);
+    const int rows = nf * j;
+    if (tile == blockIdx.x) {  // the first tile's; P7 brings the next ones
+      if (/*XLOAD*/true) load_x<G, false>(x + f0 * j * C, acts, rows);
+      if (staged) {
+        load_sem<G, false>(t, acts + 4 * GR, j, d, 0);
+        load_sem<G, false>(t, acts + 3 * GR, j, d, 1);
       }
-      p[(r0 + q) * ldp + 4 * c + cc] = fmaxf(acc * sc + sh, 0.f);
     }
+    product<G, 2, S, false, false>(/*P1*/true, t, ring, g, total, acts, 0,
+                                   0, 0, t.proj_scale, t.proj_shift, 1, 2);
+    __syncthreads();
+    if (/*SEM*/true)
+      sem_graph<G>(sem_w0, col, acts + GR, acts + 2 * GR, nf, j, d, 0);
+    product<G, 2, S, false, false>(/*P2*/true, t, ring, g, total, acts, 0,
+                                   0, 0, t.proj_scale + 2 * C,
+                                   t.proj_shift + 2 * C, 2, 4);
+    __syncthreads();
+    if (/*SEM*/true)
+      sem_graph<G>(sem_w1, col, acts + 2 * GR, acts + 4 * GR, nf, j, d, 1);
+    product<G, 1, 2 * S, true, false>(/*P3*/true, t, ring, g, total, acts,
+                                      1, 2, 0, t.lcat_scale, t.lcat_shift,
+                                      3, 0);
+    product<G, 2, S, false, false>(/*P4*/true, t, ring, g, total, acts, 0,
+                                   0, 0, t.proj_scale + 4 * C,
+                                   t.proj_shift + 4 * C, 1, 2);
+    product<G, 1, S, false, false, true>(/*P5*/true, t, ring, g, total,
+                                         acts, 0, 0, 0,
+                                         t.proj_scale + 6 * C,
+                                         t.proj_shift + 6 * C, 4, 0);
+    __syncthreads();
+    if (/*ATTN*/true)
+      attention<G>(acts + GR, acts + 2 * GR, acts + 4 * GR, nf, j, nheads,
+                   pt, pp, ck);
+    product<G, 1, S, true, false>(/*P6*/true, t, ring, g, total, acts, 1,
+                                  0, 0, t.acat_scale, t.acat_shift, 2, 0);
+    const long long f1 = (tile + gridDim.x) * fpt;
+    const bool more = tile + gridDim.x < tiles;
+    const Prefetch pre{more && /*XLOAD*/true ? x + f1 * j * C : nullptr,
+                       more ? (int)min((long long)fpt, frames - f1) * j : 0,
+                       j, d, more && staged};
+    product<G, 2, 3 * S, true, true>(/*P7*/true, t, ring, g, total, acts,
+                                     0, 3, 2, t.gcat_scale, t.gcat_shift, 0,
+                                     0, out + f0 * j * 2 * C, rows, &pre);
   }
-  __syncthreads();
-
-  // local = relu(BN(ab @ lcat_w)) -> P[:, 0:C), then global =
-  // relu(BN(heads @ acat_w)) -> P[:, C:2C). Each product ends with a
-  // barrier.
-  block_gemm<RT, CW, true>(
-      Gemm{{p + 4 * c, p, p}, {ldp, ldp, ldp}, c2, c2, t.lcat_w, c,
-           t.lcat_scale, t.lcat_shift, p, ldp, rows_p},
-      ws, rows);
-  block_gemm<RT, CW, true>(
-      Gemm{{heads, p, p}, {ldp, ldp, ldp}, kg, kg, t.acat_w, c,
-           t.acat_scale, t.acat_shift, p + c, ldp, rows_p},
-      ws, rows);
-
-  // out = relu(BN([x | local | global] @ gcat_w)), the concat unformed
-  block_gemm<RT, 2 * CW, true>(
-      Gemm{{xs, p, p + c}, {c, ldp, ldp}, c, 3 * c, t.gcat_w, c2,
-           t.gcat_scale, t.gcat_shift, out + f0 * j * c2, c2, rows},
-      ws, rows);
 }
 
-// Frames per block: as many as MAX_WARPS warps of RT rows hold, but no
-// more than leave two blocks for each SM when there are few frames.
-template <int RT, int CW>
-int launch(const float* x, float* out, long long frames, int j, int c,
-           int d, int nheads, int inter, int g_ch, const Tables& t,
-           cudaStream_t stream) {
-  const int np = 4 * c + 2 * nheads * inter + nheads * g_ch;
+// As many persistent blocks as fit on the card, but no more than tiles.
+template <class G>
+int launch(const float* x, float* out, long long frames, int j, int d,
+           int nheads, const Tables& t, cudaStream_t stream) {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -372,28 +618,32 @@ int launch(const float* x, float* out, long long frames, int j, int c,
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const long long spread = (frames + 2LL * sms - 1) / (2LL * sms);
-  int fpb = MAX_WARPS * RT / j;
-  if (spread < fpb) fpb = spread < 1 ? 1 : (int)spread;
-  const int warps = (fpb * j + RT - 1) / RT;
-  const long long smem =
-      (long long)sizeof(float) *
-      (STAGES * BK * slab_width<CW>() +
-       (long long)warps * RT * (c + np + PAD) + nheads * j * j +
-       2 * nheads * inter + 2 * j * d);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        gab_narrow_kernel<RT, CW>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  if (frames > 0) {
-    const long long blocks = (frames + fpb - 1) / fpb;
-    gab_narrow_kernel<RT, CW><<<(unsigned)blocks, warps * 32, (size_t)smem,
-                                stream>>>(x, out, frames, fpb, j, c, d,
-                                          nheads, inter, g_ch, t);
+  const size_t smem =
+      sizeof(float) * ((size_t)5 * G::GROUP + G::STAGES * G::SLAB +
+                       nheads * j * j + 2 * G::C) +
+      sizeof(int) * 2 * j * d;
+  cudaError_t e = cudaFuncSetAttribute(
+      gab_narrow_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, gab_narrow_kernel<G>, G::NT, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int fpt = G::BM / j;
+  const long long tiles = (frames + fpt - 1) / fpt;
+  if (tiles > 0) {
+    const long long blocks =
+        tiles < (long long)per_sm * sms ? tiles : (long long)per_sm * sms;
+    gab_narrow_kernel<G><<<(unsigned)blocks, G::NT, smem, stream>>>(
+        x, out, frames, fpt, tiles, j, d, nheads, t);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
@@ -401,7 +651,9 @@ int launch(const float* x, float* out, long long frames, int j, int c,
 extern "C" {
 
 // Launches on `stream`; returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a shape the kernel does not take.
+// cudaErrorInvalidValue for a shape the kernel does not take (the rule in
+// the note above) or for `out` or a weight it copies 16 bytes at a time
+// that is not 16-byte aligned.
 int gab_narrow(const void* x, void* out, long long frames, int j, int c,
                int d, int nheads, int inter, int g_ch,
                const void* w_proj, const void* proj_scale,
@@ -414,11 +666,10 @@ int gab_narrow(const void* x, void* out, long long frames, int j, int c,
                const void* acat_shift, const void* gcat_w,
                const void* gcat_scale, const void* gcat_shift,
                void* stream) {
-  // The products step k by BK and copy 16 bytes: C and KG multiples of 8;
-  // ab goes over theta/phi (KI >= C) and the projection fits a strip count.
-  if (j < 1 || j > MAX_J || d > MAX_D || c < 8 || c >= 128 ||
-      c % 8 ||
-      (nheads * g_ch) % 8 || nheads * inter < c)
+  if (frames < 0 || j < 1 || j > MAX_J || d < 1 || d > MAX_D ||
+      nheads < 1 || nheads > MAX_HEADS || nheads * inter != c ||
+      nheads * g_ch != c || !aligned16(out) || !aligned16(w_proj) ||
+      !aligned16(lcat_w) || !aligned16(acat_w) || !aligned16(gcat_w))
     return static_cast<int>(cudaErrorInvalidValue);
   Tables t;
   t.w_proj = static_cast<const float*>(w_proj);
@@ -444,15 +695,31 @@ int gab_narrow(const void* x, void* out, long long frames, int j, int c,
   const float* xf = static_cast<const float*>(x);
   float* of = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // Rows a warp owns, by width: as many frames as two blocks an SM allow.
-  if (c <= 32)
-    return launch<10, 1>(xf, of, frames, j, c, d, nheads, inter, g_ch,
-                         t, st);
-  if (c <= 64)
-    return launch<5, 2>(xf, of, frames, j, c, d, nheads, inter, g_ch,
-                        t, st);
-  return launch<4, 4>(xf, of, frames, j, c, d, nheads, inter, g_ch, t,
-                      st);
+  // Cfg<C, threads along rows, rows a thread, blocks an SM, slab rows,
+  // slabs in the ring>: tiles of 256 rows at C <= 32, 128 at C = 48..64,
+  // 64 at C >= 80; 256 to 512 threads; 32-row slabs where C allows.
+  switch (c) {
+    case 16:
+      return launch<Cfg<16, 64, 4, 2, 16, 3>>(xf, of, frames, j, d, nheads,
+                                              t, st);
+    case 32:
+      return launch<Cfg<32, 64, 4, 1, 32, 2>>(xf, of, frames, j, d, nheads,
+                                              t, st);
+    case 48:
+      return launch<Cfg<48, 32, 4, 1, 16, 3>>(xf, of, frames, j, d, nheads,
+                                              t, st);
+    case 64:
+      return launch<Cfg<64, 32, 4, 1, 32, 2>>(xf, of, frames, j, d, nheads,
+                                              t, st);
+    case 80:
+      return launch<Cfg<80, 16, 4, 1, 16, 3>>(xf, of, frames, j, d, nheads,
+                                              t, st);
+    case 96:
+      return launch<Cfg<96, 16, 4, 1, 32, 2>>(xf, of, frames, j, d, nheads,
+                                              t, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* error_string(int code) {

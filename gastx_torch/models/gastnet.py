@@ -38,8 +38,9 @@ channels-last (B, T, J, C):
     ``packed_channels`` through ``fused_gab_packed`` on the (B, T, J*C)
     view of its conv chain's output (the JAX package's ``_packed_prefix``;
     its block-diagonal convs compute the same function as the per-joint
-    convs run here). Inside every wrapper the GAB goes by width: C < 128
-    is one ``gab_narrow`` launch, wider blocks the three-kernel chain. The
+    convs run here). Inside every wrapper the GAB goes by shape
+    (``kernels.gab_route``): one ``gab_narrow`` launch at the narrow widths
+    where it beat the chain, else the three-kernel chain. The
     final 1x1 shrink is ``torch.matmul``. On a CPU tensor each wrapper
     runs its plain version.
   * :meth:`GastNet.reference_forward` — the unfused ops of

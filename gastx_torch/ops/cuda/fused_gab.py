@@ -6,14 +6,15 @@ Replaces the TPU kernels ``gastx/ops/pallas/fused_gab.py``
 ``fused_gab_split`` (C <= 512, two kernels): one wrapper,
 :func:`fused_gab`, covers C <= 512 and routes by width.
 
-**C < 128: one kernel.** ``gab_narrow`` (``gastx_torch/csrc``) runs the
-whole block for a tile of whole frames in one launch, every intermediate
-in shared memory: at J=17 a frame's x and projection output take 18 KB
-at C=32 and 35 KB at C=64, so a block holds a few frames, only x is read
-and the 2C output written, and the weights (64 and 256 KB) stream through
-shared memory in slabs.
+**Narrow widths: one kernel.** ``gab_narrow`` (``gastx_torch/csrc``) runs
+the whole block for a tile of whole frames in one launch, every
+intermediate in shared memory (five C-wide column groups a row), so only
+x is read and the 2C output written, and the weights (64 KB at C=32, 256
+KB at C=64) stream through shared memory in slabs. ``kernels.gab_route``
+sends a GAB to it where its shape rule holds and it beat the chain on the
+card; every other GAB runs the chain below, whatever its width.
 
-**C >= 128: a chain.** The TPU kernels keep every weight resident in VMEM
+**Wide blocks: a chain.** The TPU kernels keep every weight resident in VMEM
 and run the block per row tile. That does not carry over: at C=512 the
 block's weights are about 13 MB, and a Hopper block has 227 KB of shared
 memory, so a kernel per frame would re-read every weight for each of B*T
@@ -235,9 +236,9 @@ def fused_gab_plain(x: torch.Tensor, t: GabTables) -> torch.Tensor:
 
 def _gab_kernels(x: torch.Tensor, t: GabTables) -> torch.Tensor:
     """The GAB's kernels on CUDA (B, T, J, C) activations: ``gab_narrow``
-    at C < 128, the chain above."""
+    where ``kernels.gab_route`` picks it, else the chain above."""
     b, tt, j, c = x.shape
-    if c <= K.NARROW_MAX_CHANNELS:
+    if K.gab_route(*K.gab_shape(t)) == "gab_narrow":
         y = K.gab_narrow(x.reshape(-1, c), t)
     else:
         y = K.gab_chain(x.reshape(-1, c), t, K.gemm_epilogue, K.sem_graph,
@@ -246,10 +247,11 @@ def _gab_kernels(x: torch.Tensor, t: GabTables) -> torch.Tensor:
 
 
 def fused_gab(x: torch.Tensor, t: GabTables) -> torch.Tensor:
-    """(B, T, J, C) -> (B, T, J, 2C), the eval-mode GAB, C <= 512. C < 128
-    runs ``gab_narrow`` and counts under ``fused_gab_pbatch``; wider blocks
-    run the chain and count under ``fused_gab`` (C <= 256) or
-    ``fused_gab_split``: the TPU kernels each replaces."""
+    """(B, T, J, C) -> (B, T, J, 2C), the eval-mode GAB, C <= 512. It runs
+    ``gab_narrow`` where ``kernels.gab_route`` picks it, else the chain, and
+    counts by width, under the TPU kernel each class replaces:
+    ``fused_gab_pbatch`` (C < 128), ``fused_gab`` (C <= 256) or
+    ``fused_gab_split``."""
     _check_x(x, t)
     if not K.use_kernel(x.device):
         return fused_gab_plain(x, t)

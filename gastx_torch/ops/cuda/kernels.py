@@ -8,11 +8,13 @@ plain C interface:
     instantiations (:func:`gemm_variant`);
   * ``sem_graph`` — the local branch's semantic graph aggregation;
   * ``joint_attention`` — per-frame multi-head attention over the joints;
-  * ``gab_narrow`` — the whole eval GAB at C < 128 in one launch, every
+  * ``gab_narrow`` — the whole eval GAB at the narrow widths
+    (``NARROW_WIDTHS``, C = 16 .. 96 in steps of 16) in one launch, every
     intermediate in shared memory.
 
-The first three chain into the GAB at C >= 128 (:func:`gab_chain`) and
-into its two branches alone (:func:`local_chain`, projection ->
+The first three chain into the GAB (:func:`gab_chain`) wherever
+:func:`gab_route` does not pick ``gab_narrow``, and into its two
+branches alone (:func:`local_chain`, projection ->
 ``sem_graph`` -> cat; :func:`global_chain`, projection ->
 ``joint_attention`` -> cat), which ``gab_chain`` runs on one shared
 projection; the chain of their plain versions is also ``gab_narrow``'s
@@ -554,35 +556,66 @@ def check_blocks(x: torch.Tensor, c: int, j: int, max_channels: int,
 # --------------------------------------------------------------------------
 
 
+# Widths below this count as narrow (the TPU's fused_gab_pbatch class).
 NARROW_MAX_CHANNELS = 127
+# The widths gab_narrow.cu is instantiated for.
+NARROW_WIDTHS = (16, 32, 48, 64, 80, 96)
+# The widths at which gab_narrow beat the three-kernel chain on the card
+# (scripts/torch_gab_narrow_phases.py --widths; PERF.md section 6): 0.83
+# against 2.71 ms at C=16, 1.96 / 4.08 at 32, 4.51 / 5.60 at 48, 5.94 /
+# 7.31 at 64, but 13.71 / 10.56 at 80 and 14.36 / 12.85 at 96 (its tile
+# holds 3 frames there). Every other width runs the chain.
+NARROW_ROUTE_WIDTHS = (16, 32, 48, 64)
 # Weights the kernel copies into shared memory 16 bytes at a time.
 _NARROW_ALIGNED = ("w_proj", "lcat_w", "acat_w", "gcat_w")
+
+
+def narrow_shape_ok(c: int, k: int, inter: int, g_ch: int, j: int,
+                    d: int) -> bool:
+    """gab_narrow's shape rule, the same as its C entry point's: C one of
+    ``NARROW_WIDTHS``, at most 4 heads with K*I = K*G = C, J <= 32 joints
+    and D <= 8 neighbour slots."""
+    return (c in NARROW_WIDTHS and 1 <= k <= 4 and k * inter == c
+            and k * g_ch == c and 1 <= j <= 32 and 1 <= d <= 8)
+
+
+def gab_route(c: int, k: int, inter: int, g_ch: int, j: int,
+              d: int) -> str:
+    """The kernels a GAB of this shape runs on the card: ``"gab_narrow"``
+    where its shape rule holds and it beat the chain, else ``"chain"``."""
+    if narrow_shape_ok(c, k, inter, g_ch, j, d) and c in NARROW_ROUTE_WIDTHS:
+        return "gab_narrow"
+    return "chain"
+
+
+def gab_shape(t) -> Tuple[int, int, int, int, int, int]:
+    """(C, K, I, G, J, D) of a ``fused_gab.GabTables``."""
+    c = t.w_proj.shape[0]
+    k, inter = t.proj_t.shape
+    kg = t.w_proj.shape[1] - 4 * c - 2 * k * inter
+    return c, k, inter, kg // k, t.c_k.shape[1], t.col.shape[2]
 
 
 def _check_narrow(x, t):
     device = x.device
     _check(device, x=x, **{k: v for k, v in t._asdict().items()
                            if k != "col"})
-    c = t.w_proj.shape[0]
-    k, inter = t.proj_t.shape
-    j = t.c_k.shape[1]
-    width = t.w_proj.shape[1]
-    kg = width - 4 * c - 2 * k * inter
+    c, k, inter, g_ch, j, d = gab_shape(t)
     if x.dim() != 2 or x.shape[1] != c or x.shape[0] % j:
         raise ValueError(f"x must be (rows, {c}) holding whole frames of {j} "
                          f"joints, got {tuple(x.shape)}")
-    d = t.col.shape[2]
-    if not (c <= NARROW_MAX_CHANNELS and c % 16 == 0 and j <= 32 and d <= 8
-            and k * inter >= c and 0 < kg and kg % 16 == 0 and kg % k == 0):
-        raise ValueError(f"gab_narrow takes C < 128 and K*G in multiples of "
-                         f"16, K*I >= C, J <= 32 and D <= 8; got C={c}, "
-                         f"J={j}, K*I={k * inter}, K*G={kg}, D={d}")
+    kg = t.w_proj.shape[1] - 4 * c - 2 * k * inter
+    if kg != k * g_ch or not narrow_shape_ok(c, k, inter, g_ch, j, d):
+        raise ValueError(f"gab_narrow takes C in {NARROW_WIDTHS}, K <= 4 "
+                         f"heads with K*I = K*G = C, J <= 32 and D <= 8; got "
+                         f"C={c}, K={k}, K*I={k * inter}, K*G={kg}, J={j}, "
+                         f"D={d}")
     if any(getattr(t, name).data_ptr() % 16 for name in _NARROW_ALIGNED):
         raise ValueError("gab_narrow's weight tables must be 16-byte aligned")
     if (t.col.device != device or t.col.dtype != torch.int32
             or not t.col.is_contiguous()):
         raise ValueError("col must be a contiguous int32 table on x's device")
-    return device, c, j, k, inter, kg // k, d
+    return device, c, j, k, inter, g_ch, d
 
 
 def gab_narrow_plain(x: torch.Tensor, t) -> torch.Tensor:
@@ -594,8 +627,9 @@ def gab_narrow_plain(x: torch.Tensor, t) -> torch.Tensor:
 
 
 def gab_narrow(x: torch.Tensor, t) -> torch.Tensor:
-    """The eval GAB in one launch at C < 128: (rows, C) -> (rows, 2C), rows
-    whole frames of J <= 32 joints; ``t`` is a ``fused_gab.GabTables``."""
+    """The eval GAB in one launch at the narrow widths: (rows, C) ->
+    (rows, 2C), rows whole frames; ``t`` is a ``fused_gab.GabTables`` whose
+    shape meets :func:`narrow_shape_ok` (else ``ValueError``)."""
     device, c, j, k, inter, g_ch, d = _check_narrow(x, t)
     if not use_kernel(device):
         return gab_narrow_plain(x, t)

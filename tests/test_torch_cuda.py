@@ -183,16 +183,24 @@ def _model(frames, num_joints=17):
     return randomize_eval_statistics(m, gen).cuda().eval()
 
 
+# Frame counts that meet gab_narrow's tile edges at every tested width and
+# layout: one frame, a tile that is not full (7 frames; a tile is 3 to 17
+# frames, 64 to 256 rows by width), more tiles than the card has
+# persistent blocks (4001 frames: 236 to 1334 tiles), each with a ragged
+# last tile.
+NARROW_FRAMES = (1, 7, 1000, 4001)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("num_joints", [15, 16, 17, 19])
 def test_cuda_gab_narrow_matches_plain(model, num_joints):
-    """C=32 and C=64 (the 243-frame model's levels 0-1) on every layout,
-    with 1, 7 and 1000 frames, so a tile is ragged."""
+    """C=32 and C=64 (the 243-frame model's levels 0-1) on every layout, at
+    each of NARROW_FRAMES."""
     m = _model(243, num_joints)
     for level in (0, 1):
         t = gab_tables(m.layers_graph_conv[level], m.statics)
         c = t.w_proj.shape[0]
-        for frames in (1, 7, 1000):
+        for frames in NARROW_FRAMES:
             x = _randn(frames * num_joints, c, seed=12 + frames)
             _assert_close(K.gab_narrow(x, t), K.gab_narrow_plain(x, t))
 
@@ -200,17 +208,55 @@ def test_cuda_gab_narrow_matches_plain(model, num_joints):
 @pytest.mark.cuda
 @pytest.mark.parametrize("channels", [16, 48])
 def test_cuda_gab_narrow_other_widths(model, channels):
-    """Narrow widths no shipped model has: C = 16, 32 and 48, 96 (masked
-    column strips, and the kernel's tile for 64 < C < 128)."""
+    """Narrow widths no shipped model has: C = 16, 32 and 48, 96 (the
+    tiles of 256, 128 and 64 rows), at each of NARROW_FRAMES."""
     gen = torch.Generator().manual_seed(channels)
     m = GastNet(GastNetConfig(filter_widths=(3, 3), channels=channels))
     m = randomize_eval_statistics(init_gastnet(m, gen), gen).cuda().eval()
     for level in (0, 1):
         t = gab_tables(m.layers_graph_conv[level], m.statics)
         c = t.w_proj.shape[0]
-        for frames in (7, 300):
+        for frames in NARROW_FRAMES:
             x = _randn(frames * 17, c, seed=frames + c)
             _assert_close(K.gab_narrow(x, t), K.gab_narrow_plain(x, t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [8, 24])
+@pytest.mark.parametrize("route", [
+    {"gab_impl": "auto"}, {"gab_impl": "pallas"},
+    {"gab_impl": "pallas", "packed_channels": 64}],
+    ids=["auto", "pallas", "packed"])
+def test_cuda_odd_width_forward_routes_and_matches_reference(model, channels,
+                                                            route):
+    """Models whose first GAB (C = 8, 24) is off gab_narrow's shape rule:
+    that level takes the chain, the others the kernel gab_route picks, on
+    every route that reaches fused_gab."""
+    gen = torch.Generator().manual_seed(channels)
+    m = GastNet(GastNetConfig(filter_widths=(3, 3, 3), channels=channels,
+                              **route))
+    m = randomize_eval_statistics(init_gastnet(m, gen), gen).cuda().eval()
+    routes = [K.gab_route(*K.gab_shape(gab_tables(g, m.statics)))
+              for g in m.layers_graph_conv]
+    assert routes[0] == "chain"
+    narrow, chained = routes.count("gab_narrow"), routes.count("chain")
+    x = _randn(2, 33, 17, 2, seed=18)
+    K.reset_launches()
+    y = m(x)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["gab_narrow"] == narrow, K.LAUNCHES
+    assert K.LAUNCHES["sem_graph"] == chained, K.LAUNCHES
+    assert K.LAUNCHES["joint_attention"] == chained, K.LAUNCHES
+    # Every GAB here is narrow by width: one launch each on gab_narrow, the
+    # chain's six otherwise, under fused_gab_pbatch or fused_gab_packed.
+    assert (K.ENTRY_LAUNCHES["fused_gab_pbatch"]
+            + K.ENTRY_LAUNCHES["fused_gab_packed"]) == narrow + 6 * chained
+    assert K.ENTRY_LAUNCHES["fused_gab_packed"] == (
+        0 if "packed_channels" not in route
+        else sum(1 if r == "gab_narrow" else 6
+                 for r, g in zip(routes, m.layers_graph_conv)
+                 if g.cat_conv.weight.shape[1] // 3 <= 64))
+    _assert_close(y, m.reference_forward(x))
 
 
 @pytest.mark.cuda

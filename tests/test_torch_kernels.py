@@ -328,6 +328,74 @@ def test_gemm_variant(case):
     assert K.gemm_variant(pieces(), n, res) == want
 
 
+# (C, K, I, G, J, D) -> the kernels the GAB takes on the card. The model's
+# GABs have K = 4 heads and I = G = C // 4; C = 8, 24 and 40 are not
+# multiples of 16, gab_narrow lost to the chain at C = 80 and 96, C = 112
+# has no instantiation of it, C = 128 is wide.
+GAB_ROUTE_CASES = {
+    "C=8": ((8, 4, 2, 2, 17, 4), "chain"),
+    "C=16": ((16, 4, 4, 4, 17, 4), "gab_narrow"),
+    "C=24": ((24, 4, 6, 6, 17, 4), "chain"),
+    "C=32": ((32, 4, 8, 8, 17, 4), "gab_narrow"),
+    "C=40": ((40, 4, 10, 10, 17, 4), "chain"),
+    "C=48": ((48, 4, 12, 12, 17, 4), "gab_narrow"),
+    "C=64": ((64, 4, 16, 16, 17, 4), "gab_narrow"),
+    "C=80": ((80, 4, 20, 20, 17, 4), "chain"),
+    "C=96": ((96, 4, 24, 24, 17, 4), "chain"),
+    "C=112": ((112, 4, 28, 28, 17, 4), "chain"),
+    "C=128": ((128, 4, 32, 32, 17, 4), "chain"),
+    "C=64, 8 heads": ((64, 8, 8, 8, 17, 4), "chain"),
+    "C=64, G != I": ((64, 4, 16, 32, 17, 4), "chain"),
+    "C=32, J=33": ((32, 4, 8, 8, 33, 4), "chain"),
+    "C=32, D=9": ((32, 4, 8, 8, 17, 9), "chain"),
+}
+
+
+@pytest.mark.parametrize("case", list(GAB_ROUTE_CASES))
+def test_gab_route(case):
+    """gab_narrow only where its shape rule holds and it beat the chain;
+    every other GAB shape takes the chain."""
+    shape, want = GAB_ROUTE_CASES[case]
+    assert K.gab_route(*shape) == want
+    assert K.narrow_shape_ok(*shape) == (
+        want == "gab_narrow" or shape[0] in (80, 96))
+
+
+@pytest.mark.parametrize("channels", [8, 24])
+def test_gab_narrow_refuses_widths_it_cannot_compute(channels):
+    """A direct gab_narrow call on a GAB off its shape rule raises before
+    any device work, though the GAB itself runs (on the chain)."""
+    cfg = jm.GastNetConfig(filter_widths=(3,), channels=channels,
+                           dropout=0.0)
+    params, state = random_jax_tree(cfg, seed=23)
+    model = port_model(cfg, params, state)
+    t = gab_tables(model.layers_graph_conv[0], model.statics)
+    assert K.gab_shape(t) == (channels, 4, channels // 4, channels // 4, 17,
+                              t.col.shape[2])
+    x = torch.zeros(2 * 17, channels)
+    with pytest.raises(ValueError, match="gab_narrow takes"):
+        K.gab_narrow(x, t)
+    assert fused_gab(x.reshape(1, 2, 17, channels), t).shape == (
+        1, 2, 17, 2 * channels)
+
+
+@pytest.mark.parametrize("route", [
+    {"gab_impl": "auto"}, {"gab_impl": "pallas"},
+    {"gab_impl": "pallas", "packed_channels": 16}],
+    ids=["auto", "pallas", "packed16"])
+def test_channels8_forward_matches_gastnet_forward(route):
+    """The 8-channel model (GABs at C = 8, 16, 32: the chain, then
+    gab_narrow on the card) on each route that reaches fused_gab, against
+    the JAX eval forward."""
+    cfg = jm.GastNetConfig(filter_widths=(3, 3, 3), channels=8, dropout=0.0)
+    params, state = random_jax_tree(cfg, seed=24)
+    model = port_model(cfg, params, state, **route)
+    x = inputs((2, 29, 17, 2), 25)
+    want, _ = jm.gastnet_forward(params, state, jnp.asarray(x), cfg,
+                                 variant="dilated", train=False)
+    assert_close(model(torch.from_numpy(x)), want)
+
+
 def test_wrappers_reject_bad_inputs(level_weights):
     _, _, model = level_weights
     t = gab_tables(model.layers_graph_conv[0], model.statics)
