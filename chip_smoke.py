@@ -19,7 +19,12 @@ a non-zero exit and no result line:
      243-frame model's C=32 and C=64; then ``gemm_epilogue`` on ragged
      cases (``gemm_ragged_cases``), each checked to launch the
      instantiation ``gemm_variant`` must pick, 16-byte or general; then
-     the 8-channel model's forward on the ``"auto"``, ``"pallas"`` and
+     ``sem_graph`` and ``joint_attention`` on theirs (``graph_cases``: 1,
+     7 and 4001 frames against their frame tiles at C=128, 256 and 512
+     and on the 15/16/19-joint layouts, P at a 4-byte offset and at an
+     odd row stride, the 8-channel model's heads, ``head_attention``'s
+     one-head views), each checked likewise against ``graph_variant``;
+     then the 8-channel model's forward on the ``"auto"``, ``"pallas"`` and
      packed routes against its plain reference, its C=8 GAB on the chain
      (off ``gab_narrow``'s shape rule) and the others where
      ``kernels.gab_route`` sends them;
@@ -37,7 +42,8 @@ a non-zero exit and no result line:
      launches; its phase-2 calls are reported apart, as
      ``direct_launches``), and that the general ``gemm_epilogue`` ran once
      per default-route forward (its level-0 expand conv, K = 2) and
-     nowhere else. Every forward the requests make (the padded, flip-TTA
+     nowhere else, and that the graph kernels' general instantiations ran
+     nowhere. Every forward the requests make (the padded, flip-TTA
      batches) is recorded and then held to the model's plain reference
      forward on the same batch;
   4. time the full-width forwards against the plain reference forward:
@@ -49,7 +55,10 @@ a non-zero exit and no result line:
      (C=32, T=241, B=256; C=64, T=79, B=1024; C=64, T=235, B=256); then
      ``gemm_epilogue`` at each main-path shape (``GEMM_SHAPES``: ms,
      TFLOP/s, bound, the instantiation, and one ``torch.addmm`` over the
-     same product as a yardstick);
+     same product as a yardstick); then the graph kernels by shape
+     (``GRAPH_SHAPES``, their six launches in a 27f B=1024 and a 243f
+     B=256 forward: device ms per launch from torch.profiler, bound, GB/s,
+     the instantiation);
   5. trace one forward of each of the 27-frame (B=1024), 243-frame
      (B=256), hybrid and packed cells with torch.profiler: device time by
      kernel and the device's idle share.
@@ -58,11 +67,12 @@ Tolerance: each kernel, wrapper and the forward must agree with its plain
 version to max |delta| <= 1e-4 * max(1, max |plain|); both sides compute
 in float32 and only the order of summation differs. Timings are CUDA
 events around repeated calls after a warm-up. The last lines are the
-``{"kernels": [...]}`` summary (``gemm_epilogue``'s entry also gives its
-launches by instantiation and, as ``ragged_max_abs_err``, the largest
-error of phase 2's ragged cases), the card's ``name, power.limit``, and
-``{"ok": true, "device": {...}}``. Details, the per-shape table among
-them, also go to ``chiprun_out/chip_smoke.json``.
+``{"kernels": [...]}`` summary (the entries of ``gemm_epilogue``,
+``sem_graph`` and ``joint_attention`` also give their launches by
+instantiation and, as ``ragged_max_abs_err``, the largest error of their
+phase-2 cases), the card's ``name, power.limit``, and ``{"ok": true,
+"device": {...}}``. Details, the per-shape tables among them, also go to
+``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -367,6 +377,176 @@ def gemm_table(K, dev) -> list:
     return rows
 
 
+# --------------------------------------------------------------------------
+# sem_graph and joint_attention by shape: their launches in one 27f B=1024
+# and one 243f B=256 forward, (label, receptive field, GAB level, windows,
+# frames at the GAB); J = 17.
+# --------------------------------------------------------------------------
+
+GRAPH_SHAPES = (("27f L0", 27, 0, 1024, 25), ("27f L1", 27, 1, 1024, 19),
+                ("27f L2", 27, 2, 1024, 1), ("243f L2", 243, 2, 256, 217),
+                ("243f L3", 243, 3, 256, 163), ("243f L4", 243, 4, 256, 1))
+
+
+def graph_operands(K, t, rows, dev, seed, offset=0, pad=0):
+    """``sem_graph``'s and ``joint_attention``'s arguments for the GAB
+    tables ``t`` on one random projection output P of ``rows`` rows, as
+    the chain views it: row stride 7C + ``pad``, P starting ``offset``
+    floats past an aligned allocation."""
+    import torch
+
+    c, k, inter, _, _, _ = K.gab_shape(t)
+    width = t.w_proj.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    flat = torch.randn(rows * (width + pad) + offset, generator=gen,
+                       device=dev)
+    p = flat[offset:].view(rows, width + pad)[:, :width]
+    ki = k * inter
+    return ((p, c, t.w_self, t.w_nbr, t.col, t.sem_scale, t.sem_shift),
+            (p[:, 4 * c:4 * c + ki], p[:, 4 * c + ki:4 * c + 2 * ki],
+             p[:, 4 * c + 2 * ki:], t.proj_t, t.proj_p, t.c_k))
+
+
+def head_operands(t, frames, dev, seed, head=0):
+    """``head_attention``'s arguments for one head of the GAB tables ``t``
+    on one random (frames, J, 2KI + KG) projection, as the hybrid route
+    views it."""
+    import torch
+
+    k, inter = t.proj_t.shape
+    j = t.c_k.shape[1]
+    g_ch = (t.w_proj.shape[1] - 4 * t.w_proj.shape[0] - 2 * k * inter) // k
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = torch.randn((frames, j, 2 * k * inter + k * g_ch), generator=gen,
+                    device=dev)
+    h0 = 2 * k * inter + head * g_ch
+    return (p[..., head * inter:(head + 1) * inter],
+            p[..., (k + head) * inter:(k + head + 1) * inter],
+            p[..., h0:h0 + g_ch], t.proj_t[head].reshape(-1, 1),
+            t.proj_p[head].reshape(-1, 1), t.c_k[head])
+
+
+def launched_variant(K, kernel, call):
+    """Run ``call``; return (the instantiation of ``kernel`` it launched,
+    its result)."""
+    counts = K.VARIANT_LAUNCHES[kernel]
+    before = dict(counts)
+    got = call()
+    taken = [v for v in counts if counts[v] != before[v]]
+    return (taken[0] if len(taken) == 1 else str(taken)), got
+
+
+def device_ms(fn, key: str, reps: int = 20) -> float:
+    """Device time per launch of the kernels whose name holds ``key``, from
+    torch.profiler over ``reps`` calls of ``fn``, so that launch overhead
+    does not hide a small shape. Raises if the profiler records no such
+    kernel, so that the yardstick cannot change without notice."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and key in ev.key:
+            total += ev.self_device_time_total
+            count += ev.count
+    if not count:
+        raise RuntimeError(f"the profiler recorded no kernel named *{key}*")
+    return total / 1e3 / count
+
+
+def graph_table(K, models, dev) -> list:
+    """Phase 4's "graph kernels by shape": ``sem_graph`` and
+    ``joint_attention`` at each ``GRAPH_SHAPES`` launch of ``models``
+    (keyed by receptive field), each held to its plain version, with its
+    device time per launch, bound, GB/s and the instantiation that
+    launched."""
+    import torch
+    from gastx_torch.ops.cuda.fused_gab import gab_tables
+
+    print("phase 4: graph kernels by shape (device ms per launch)")
+    out = []
+    for i, (label, rf, level, b, t_gab) in enumerate(GRAPH_SHAPES):
+        m = models[rf]
+        t = gab_tables(m.layers_graph_conv[level], m.statics)
+        c, k, inter, g_ch, j, d = K.gab_shape(t)
+        rows = b * t_gab * j
+        sem, attn = graph_operands(K, t, rows, dev, seed=200 + i)
+        for name, fn, plain, args, work in (
+                ("sem_graph", K.sem_graph, K.sem_graph_plain, sem,
+                 sem_work(rows, c, j, d)),
+                ("joint_attention", K.joint_attention,
+                 K.joint_attention_plain, attn,
+                 attn_work(rows, j, k, inter, g_ch))):
+            variant, got = launched_variant(K, name, lambda: fn(*args))
+            err = check(f"{name} {label} [{variant}]", got, plain(*args))
+            del got
+            ms = device_ms(lambda: fn(*args), f"{name}_kernel")
+            bms, by = bound(*work)
+            out.append({"kernel": name, "shape": label, "rows": rows, "c": c,
+                        "variant": variant, "ms": ms, "bound_ms": bms,
+                        "bound_by": by, "gb_per_s": work[1] / ms / 1e6,
+                        "max_abs_err": err})
+            print(f"  {name} {label} ({rows} rows, C={c}) [{variant}]: "
+                  f"{ms:.4f} ms, {work[1] / ms / 1e6:.1f} GB/s; bound "
+                  f"{bms:.4f} by {by} ({bms / ms:.0%})")
+        del sem, attn
+        torch.cuda.empty_cache()
+    return out
+
+
+def graph_cases(K, dev, seed_model):
+    """Phase 2's held cases of the graph kernels: (label, kernel, fn, plain
+    fn, args, the instantiation it must take). Frame counts ragged against
+    both kernels' frame tiles (1, 7, 4001 frames; tiles of 4 frames in
+    sem_graph, 1 to 8 in joint_attention) at C=128, 256 and 512 and on the
+    15/16/19-joint layouts at C=256; P at a 4-byte offset and at an odd row
+    stride; the 8-channel model's GAB (heads of I = 2); ``head_attention``'s
+    one-head views at C=256 and C=8. ``seed_model(frames, joints,
+    channels)`` builds a model."""
+    from gastx_torch.ops.cuda.fused_gab import gab_tables
+    from gastx_torch.ops.cuda.head_attn import (head_attention,
+                                                head_attention_plain)
+
+    cases = []
+
+    def both(label, t, rows, want_sem, want_attn, **kw):
+        sem, attn = graph_operands(K, t, rows, dev, seed=len(cases), **kw)
+        cases.append((label, "sem_graph", K.sem_graph, K.sem_graph_plain,
+                      sem, want_sem))
+        cases.append((label, "joint_attention", K.joint_attention,
+                      K.joint_attention_plain, attn, want_attn))
+
+    m17 = seed_model(27, 17, None)
+    for j, levels in ((17, (0, 1, 2)), (15, (1,)), (16, (1,)), (19, (1,))):
+        m = m17 if j == 17 else seed_model(27, j, None)
+        for level in levels:
+            t = gab_tables(m.layers_graph_conv[level], m.statics)
+            for frames in (1, 7, 4001):
+                both(f"J={j}, C={t.w_proj.shape[0]}, {frames} frames", t,
+                     frames * j, "vec16", "vec16")
+    t1 = gab_tables(m17.layers_graph_conv[1], m17.statics)
+    both("C=256, P at a 4-byte offset", t1, 1000 * 17, "general", "general",
+         offset=1)
+    both("C=256, row stride 7C + 1", t1, 1000 * 17, "general", "general",
+         pad=1)
+    m8 = seed_model(27, 17, 8)
+    t8 = gab_tables(m8.layers_graph_conv[0], m8.statics)
+    both("C=8 (I=2), 7 frames", t8, 7 * 17, "vec16", "general")
+    for label, t, want in (("C=256", t1, "vec16"), ("C=8", t8, "general")):
+        cases.append((f"head_attention one head, {label}, 1000 frames",
+                      "joint_attention", head_attention, head_attention_plain,
+                      head_operands(t, 1000, dev, seed=len(cases)), want))
+    return cases
+
+
 def profile_forward(model, x, label):
     """Phase 5: device time of one forward by kernel, from torch.profiler,
     and the device's idle share of the forward's CUDA-event time (both
@@ -492,9 +672,15 @@ FORWARDS = (("27f", 27, 1024, {}), ("81f", 81, 1024, {}),
 
 
 def launch_counts(K) -> dict:
-    return {**K.LAUNCHES, **{f"gemm_epilogue {v}": n
-                             for v, n in K.GEMM_LAUNCHES.items()},
+    return {**K.LAUNCHES, **{f"{k} {v}": n
+                             for k, counts in K.VARIANT_LAUNCHES.items()
+                             for v, n in counts.items()},
             **K.ENTRY_LAUNCHES}
+
+
+# Every view the main paths give the graph kernels meets the 16-byte rule:
+# their 4-byte instantiations launch only in phase 2's cases.
+GRAPH_GENERAL = ("sem_graph general", "joint_attention general")
 
 
 # --------------------------------------------------------------------------
@@ -629,6 +815,17 @@ def main() -> int:
         gen = torch.Generator().manual_seed(0 if frames == 27 else frames)
         m = GastNet(dataclasses.replace(config_for_frames(frames), **route))
         m = randomize_eval_statistics(init_gastnet(m, gen), gen)
+        return m.to(dev).eval()
+
+    def seed_model(frames, joints, channels):
+        """A model of ``frames`` on ``joints`` joints with random weights
+        from a seed: the shipped config, or its structure at ``channels``
+        channels."""
+        cfg = config_for_frames(frames, joints)
+        if channels:
+            cfg = dataclasses.replace(cfg, channels=channels)
+        gen = torch.Generator().manual_seed(frames + joints + (channels or 0))
+        m = randomize_eval_statistics(init_gastnet(GastNet(cfg), gen), gen)
         return m.to(dev).eval()
 
     models = {cell: build(rf, route) for cell, rf, _, route in FORWARDS}
@@ -772,14 +969,24 @@ def main() -> int:
     # gemm_epilogue's ragged cases, each on the instantiation it must take.
     gemm_errs = []
     for label, pieces, m, kw, want in gemm_ragged_cases(dev):
-        before = dict(K.GEMM_LAUNCHES)
-        got = K.gemm_epilogue(pieces, m, **kw)
-        taken = [v for v in K.GEMM_VARIANTS
-                 if K.GEMM_LAUNCHES[v] != before[v]]
-        if taken != [want]:
+        taken, got = launched_variant(
+            K, "gemm_epilogue", lambda: K.gemm_epilogue(pieces, m, **kw))
+        if taken != want:
             fail(f"gemm_epilogue {label}: took {taken}, not {want}")
         gemm_errs.append(check(f"gemm_epilogue {label} ({want})", got,
                                K.gemm_epilogue_plain(pieces, m, **kw)))
+        del got
+    # The graph kernels' ragged, layout and unaligned cases, likewise.
+    graph_errs = {"sem_graph": [], "joint_attention": []}
+    for label, kernel, fn, plain, args, want in graph_cases(K, dev,
+                                                           seed_model):
+        taken, got = launched_variant(K, kernel, lambda: fn(*args))
+        if taken != want:
+            fail(f"{kernel} {label}: took {taken}, not {want}")
+        graph_errs[kernel].append(check(f"{kernel} {label} ({want})", got,
+                                        plain(*args)))
+        del got
+    torch.cuda.empty_cache()
     report["odd_width_forwards"] = odd_width_forwards(K, dev)
     torch.cuda.empty_cache()
 
@@ -831,7 +1038,10 @@ def main() -> int:
     hook.remove()
     print(f"  launches: {main_launches}")
     for name, count in main_launches.items():
-        if count <= 0 and name not in OFF_PATH:
+        if name in GRAPH_GENERAL:
+            if count:
+                fail(f"{name} launched {count} times on the main path")
+        elif count <= 0 and name not in OFF_PATH:
             fail(f"{name} was not launched on the main path")
     if len(forwards) != len(requests):
         fail(f"{len(forwards)} forwards recorded for {len(requests)} "
@@ -861,9 +1071,12 @@ def main() -> int:
         y = m(x)
         torch.cuda.synchronize()
         per_forward = {k: v for k, v in launch_counts(K).items() if v}
-        if K.GEMM_LAUNCHES["general"] != (m.cfg.gab_impl == "auto"):
-            fail(f"{cell}: {K.GEMM_LAUNCHES['general']} general "
-                 f"gemm_epilogue launches in one forward")
+        general = K.VARIANT_LAUNCHES["gemm_epilogue"]["general"]
+        if general != (m.cfg.gab_impl == "auto"):
+            fail(f"{cell}: {general} general gemm_epilogue launches in one "
+                 f"forward")
+        if any(per_forward.get(name) for name in GRAPH_GENERAL):
+            fail(f"{cell}: a 4-byte graph kernel launched: {per_forward}")
         y_plain = m.reference_forward(x)
         fwd_err = check(f"{cell} forward (B={b})", y, y_plain)
         del y, y_plain
@@ -937,11 +1150,11 @@ def main() -> int:
             "library_ms": library_ms})
         if counter in OFF_PATH:
             kernels[-1]["direct_launches"] = phase2_launches[counter]
-        if name == "gemm_epilogue":  # max_abs_err: the main shape alone
+        if name in K.VARIANT_LAUNCHES:  # max_abs_err: the main shape alone
             kernels[-1]["launches_by_variant"] = {
-                v: main_launches[f"gemm_epilogue {v}"]
-                for v in K.GEMM_VARIANTS}
-            kernels[-1]["ragged_max_abs_err"] = max(gemm_errs)
+                v: main_launches[f"{name} {v}"] for v in K.VARIANTS}
+            kernels[-1]["ragged_max_abs_err"] = max(
+                gemm_errs if name == "gemm_epilogue" else graph_errs[name])
         print(f"  {name}: {ms:.3f} ms (plain {plain_ms:.3f}, bound "
               f"{bms:.3f} by {by}"
               + (f", torch.addmm {library_ms:.3f}" if library_ms else "")
@@ -967,6 +1180,8 @@ def main() -> int:
     del calls
     torch.cuda.empty_cache()
     report["gemm_shapes"] = gemm_table(K, dev)
+    report["graph_shapes"] = graph_table(
+        K, {27: model, 243: models["243f"]}, dev)
     report["profile"] = profile_forward(model, xs["27f"], "27f B=1024")
     report["profile_243f"] = profile_forward(models["243f"], xs["243f"],
                                              "243f B=256")

@@ -6,10 +6,12 @@ LeakyReLU(0.2), the softmax over the keys, +C_k and the apply to g. The
 TPU kernel runs it once per head so that the (M, J, J) score tensors,
 which pad J to 128 lanes, never reach HBM; the projections and the cat
 stay outside it. Here it is one launch of the ``joint_attention`` CUDA
-kernel with one head (``gastx_torch/csrc/joint_attention.cu``: one block
-per frame, the scores in shared memory, bound by device-memory bytes).
-That kernel reads column views of one projection output, so the head's
-slices go in without a copy.
+kernel with one head (``gastx_torch/csrc/joint_attention.cu``: persistent
+blocks over tiles of frames, the scores in shared memory, bound by
+device-memory bytes). That kernel reads column views of one projection
+output, so the head's slices go in without a copy; its 16-byte
+instantiation takes them where I and G are multiples of 4
+(``kernels.graph_variant``).
 """
 from __future__ import annotations
 

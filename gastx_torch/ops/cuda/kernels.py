@@ -6,8 +6,9 @@ plain C interface:
   * ``gemm_epilogue`` — pipelined f32 GEMM over up to three pieces with a
     tap row map and a BN (scale/shift) / ReLU / residual epilogue, in two
     instantiations (:func:`gemm_variant`);
-  * ``sem_graph`` — the local branch's semantic graph aggregation;
-  * ``joint_attention`` — per-frame multi-head attention over the joints;
+  * ``sem_graph`` — the local branch's semantic graph aggregation, and
+  * ``joint_attention`` — per-frame multi-head attention over the joints,
+    each in two instantiations (:func:`graph_variant`);
   * ``gab_narrow`` — the whole eval GAB at the narrow widths
     (``NARROW_WIDTHS``, C = 16 .. 96 in steps of 16) in one launch, every
     intermediate in shared memory.
@@ -39,10 +40,10 @@ Every wrapper checks device, dtype, shape and contiguity. On a CUDA tensor
 it launches its kernel (and raises if the launch fails); on a CPU tensor
 it runs the plain PyTorch version beside it, which is also what the card
 runs to hold the kernel to. ``LAUNCHES`` counts kernel launches by
-kernel, ``GEMM_LAUNCHES`` the ``gemm_epilogue`` launches by instantiation;
-``ENTRY_LAUNCHES`` counts the kernel launches made inside each entry point
-(:func:`entry_point`). All are counted in ``_launch`` alone, after the
-launch succeeded.
+kernel, ``VARIANT_LAUNCHES`` those of the kernels with two instantiations
+by kernel and instantiation; ``ENTRY_LAUNCHES`` counts the kernel launches
+made inside each entry point (:func:`entry_point`). All are counted in
+``_launch`` alone, after the launch succeeded.
 """
 from __future__ import annotations
 
@@ -74,15 +75,22 @@ ENTRY_POINTS = ("fused_level0", "fused_level", "fused_gab_pbatch",
                 "fused_local_branch", "head_attention",
                 "fused_global_attention")
 
-# gemm_epilogue's two instantiations: 16-byte loads, copies and epilogue,
-# and 4-byte ones for the rest (gemm_variant); the C function's last
-# argument picks one (1: vec16).
-GEMM_VARIANTS = ("vec16", "general")
+# The two instantiations of gemm_epilogue, sem_graph and joint_attention:
+# 16-byte copies, loads and stores, and 4-byte ones for the rest
+# (gemm_variant, graph_variant); each C function's last argument picks one
+# (1: vec16).
+VARIANTS = ("vec16", "general")
+VARIANT_KERNELS = ("gemm_epilogue", "sem_graph", "joint_attention")
+# The graph kernels' shape rule (their C entry points check it too): J <= 32
+# joints and, for sem_graph, D <= 8 neighbour slots a joint.
+MAX_JOINTS = 32
+MAX_SLOTS = 8
 
-# Kernel launches by kernel, gemm_epilogue's by instantiation, and by the
-# entry points open at the launch.
+# Kernel launches by kernel, by kernel and instantiation, and by the entry
+# points open at the launch.
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_SOURCES}
-GEMM_LAUNCHES: Dict[str, int] = {name: 0 for name in GEMM_VARIANTS}
+VARIANT_LAUNCHES: Dict[str, Dict[str, int]] = {
+    name: {v: 0 for v in VARIANTS} for name in VARIANT_KERNELS}
 ENTRY_LAUNCHES: Dict[str, int] = {name: 0 for name in ENTRY_POINTS}
 _OPEN_ENTRIES: List[str] = []
 
@@ -92,9 +100,9 @@ _ARGTYPES = {
     "gemm_epilogue": [_P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I,
                       _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _I, _P, _P,
                       _I],
-    "sem_graph": [_P, _I, _P, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "sem_graph": [_P, _I, _P, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I],
     "joint_attention": [_P, _P, _P, _I, _P, _P, _P, _P, _LL, _I, _I, _I,
-                        _I, _P],
+                        _I, _P, _I],
     # x, out, frames, J, C, D, K, I, G, the 20 tables of a GabTables in
     # its field order, stream
     "gab_narrow": [_P, _P, _LL, _I, _I, _I, _I, _I, _I] + [_P] * 21,
@@ -102,7 +110,7 @@ _ARGTYPES = {
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, GEMM_LAUNCHES, ENTRY_LAUNCHES):
+    for counts in (LAUNCHES, ENTRY_LAUNCHES, *VARIANT_LAUNCHES.values()):
         for name in counts:
             counts[name] = 0
 
@@ -193,8 +201,8 @@ def _launch(name: str, *args) -> None:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.error_string(code).decode()} ({code})")
     LAUNCHES[name] += 1
-    if name == "gemm_epilogue":
-        GEMM_LAUNCHES["vec16" if args[-1] else "general"] += 1
+    if name in VARIANT_LAUNCHES:
+        VARIANT_LAUNCHES[name]["vec16" if args[-1] else "general"] += 1
     for entry in _OPEN_ENTRIES:
         ENTRY_LAUNCHES[entry] += 1
 
@@ -367,6 +375,21 @@ def gemm_variant(pieces: Sequence[Piece], n: int,
     return "general"
 
 
+def graph_variant(views: Sequence[torch.Tensor], widths: Sequence[int]
+                  ) -> str:
+    """The instantiation of ``sem_graph`` (views ``(p,)``, widths
+    ``(C,)``) or ``joint_attention`` (``(theta, phi, g)``, ``(I, G)``) for
+    these operands: ``"vec16"`` (16-byte copies, loads and stores) when
+    every width and every view's row stride are multiples of 4 and every
+    view starts 16-byte aligned (then so does every row and column group
+    the kernel reads, and the fresh output), else ``"general"``."""
+    if (all(w % 4 == 0 for w in widths)
+            and all(v.stride(0) % 4 == 0 and v.data_ptr() % 16 == 0
+                    for v in views)):
+        return "vec16"
+    return "general"
+
+
 # --------------------------------------------------------------------------
 # sem_graph
 # --------------------------------------------------------------------------
@@ -388,6 +411,9 @@ def _check_sem(p, c, w_self, w_nbr, col, scale, shift):
     if p.shape[1] < 4 * c or p.shape[0] % j:
         raise ValueError(f"p {tuple(p.shape)} must hold whole frames of "
                          f"{j} rows and at least {4 * c} columns")
+    if j > MAX_JOINTS or d > MAX_SLOTS:
+        raise ValueError(f"sem_graph takes J <= {MAX_JOINTS} joints and D <= "
+                         f"{MAX_SLOTS} neighbour slots, got J={j}, D={d}")
     return device, j, d
 
 
@@ -413,8 +439,8 @@ def sem_graph(p: torch.Tensor, c: int, w_self, w_nbr, col, scale,
     [W0_sym | W1_sym | W0_con | W1_con] (any row stride, unit column
     stride). Tables: ``w_self`` (2, J, C), ``w_nbr`` (2, J, D, C), ``col``
     (2, J, D) int32 with entries in [0, J) (``gab_tables`` checks them on
-    the host), ``scale``/``shift`` (2C,) — branch 0 sym, 1 con. Returns
-    relu(BN([sym | con])) as (rows, 2C).
+    the host), ``scale``/``shift`` (2C,) — branch 0 sym, 1 con; J <= 32,
+    D <= 8. Returns relu(BN([sym | con])) as (rows, 2C).
     """
     device, j, d = _check_sem(p, c, w_self, w_nbr, col, scale, shift)
     if not use_kernel(device):
@@ -423,7 +449,8 @@ def sem_graph(p: torch.Tensor, c: int, w_self, w_nbr, col, scale,
     out = torch.empty((rows, 2 * c), dtype=torch.float32, device=device)
     _launch("sem_graph", p.data_ptr(), p.stride(0), out.data_ptr(), rows, j,
             c, d, w_self.data_ptr(), w_nbr.data_ptr(), col.data_ptr(),
-            scale.data_ptr(), shift.data_ptr(), _stream())
+            scale.data_ptr(), shift.data_ptr(), _stream(),
+            int(graph_variant((p,), (c,)) == "vec16"))
     return out
 
 
@@ -446,9 +473,9 @@ def _check_attn(theta, phi, g, proj_t, proj_p, c_k):
         raise ValueError("theta/phi must hold K*I columns")
     if proj_p.shape != (k, inter) or c_k.shape != (k, j, j):
         raise ValueError("proj_p must be (K, I) and c_k (K, J, J)")
-    if g.shape[1] % k or theta.shape[0] % j or j > 32:
-        raise ValueError("g must hold K*G columns, rows whole frames of "
-                         "J <= 32 joints")
+    if g.shape[1] % k or theta.shape[0] % j or j > MAX_JOINTS:
+        raise ValueError(f"g must hold K*G columns, rows whole frames of "
+                         f"J <= {MAX_JOINTS} joints")
     return device, k, inter, j, g.shape[1] // k
 
 
@@ -485,7 +512,8 @@ def joint_attention(theta: torch.Tensor, phi: torch.Tensor, g: torch.Tensor,
     _launch("joint_attention", theta.data_ptr(), phi.data_ptr(),
             g.data_ptr(), theta.stride(0), proj_t.data_ptr(),
             proj_p.data_ptr(), c_k.data_ptr(), out.data_ptr(), rows // j, j,
-            inter, g_ch, k, _stream())
+            inter, g_ch, k, _stream(),
+            int(graph_variant((theta, phi, g), (inter, g_ch)) == "vec16"))
     return out
 
 
@@ -562,9 +590,10 @@ NARROW_MAX_CHANNELS = 127
 NARROW_WIDTHS = (16, 32, 48, 64, 80, 96)
 # The widths at which gab_narrow beat the three-kernel chain on the card
 # (scripts/torch_gab_narrow_phases.py --widths; PERF.md section 6): 0.83
-# against 2.71 ms at C=16, 1.96 / 4.08 at 32, 4.51 / 5.60 at 48, 5.94 /
-# 7.31 at 64, but 13.71 / 10.56 at 80 and 14.36 / 12.85 at 96 (its tile
-# holds 3 frames there). Every other width runs the chain.
+# against 2.13 ms at C=16, 1.94 / 3.20 at 32, 4.47 / 4.49 at 48, 5.91 /
+# 5.94 at 64 (a tie since the graph kernels' redesign), but 13.62 / 9.17
+# at 80 and 14.26 / 11.05 at 96 (its tile holds 3 frames there). Every
+# other width runs the chain.
 NARROW_ROUTE_WIDTHS = (16, 32, 48, 64)
 # Weights the kernel copies into shared memory 16 bytes at a time.
 _NARROW_ALIGNED = ("w_proj", "lcat_w", "acat_w", "gcat_w")
@@ -576,7 +605,8 @@ def narrow_shape_ok(c: int, k: int, inter: int, g_ch: int, j: int,
     ``NARROW_WIDTHS``, at most 4 heads with K*I = K*G = C, J <= 32 joints
     and D <= 8 neighbour slots."""
     return (c in NARROW_WIDTHS and 1 <= k <= 4 and k * inter == c
-            and k * g_ch == c and 1 <= j <= 32 and 1 <= d <= 8)
+            and k * g_ch == c and 1 <= j <= MAX_JOINTS
+            and 1 <= d <= MAX_SLOTS)
 
 
 def gab_route(c: int, k: int, inter: int, g_ch: int, j: int,

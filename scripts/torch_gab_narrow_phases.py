@@ -225,9 +225,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if args.widths:
         result["widths"] = time_widths(K, fns["whole"], cuda_ms)
-    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(REPO, "chiprun_out", args.json),
-              "w") as f:
+    path = os.path.join(REPO, "chiprun_out", args.json)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps(result))
     return 0

@@ -110,24 +110,93 @@ def test_cuda_gemm_epilogue_matches_plain(model, case):
     pieces, m, kw = build()
     K.reset_launches()
     got = K.gemm_epilogue(pieces, m, **kw)
-    assert K.GEMM_LAUNCHES == {v: int(v == variant)
-                               for v in K.GEMM_VARIANTS}, K.GEMM_LAUNCHES
+    _assert_launched("gemm_epilogue", variant)
     _assert_close(got, K.gemm_epilogue_plain(pieces, m, **kw))
 
 
+def _assert_launched(kernel, variant):
+    """Since the last reset, ``kernel`` launched once, on ``variant``."""
+    assert K.VARIANT_LAUNCHES[kernel] == {
+        v: int(v == variant) for v in K.VARIANTS}, K.VARIANT_LAUNCHES
+
+
+def _model(frames, num_joints=17):
+    gen = torch.Generator().manual_seed(frames + num_joints)
+    m = init_gastnet(GastNet(config_for_frames(frames, num_joints)), gen)
+    return randomize_eval_statistics(m, gen).cuda().eval()
+
+
+# The graph kernels' cases: (joints, GAB level of the 27-frame model (C =
+# 128, 256, 512), extra row-stride columns of P, the instantiation taken).
+# A row stride of 7C + 1 is not a multiple of 4: the 4-byte instantiation.
+GRAPH_CASES = {
+    "J=17, C=128": (17, 0, 0, "vec16"),
+    "J=17, C=256": (17, 1, 0, "vec16"),
+    "J=17, C=512": (17, 2, 0, "vec16"),
+    "J=15, C=256": (15, 1, 0, "vec16"),
+    "J=16, C=256": (16, 1, 0, "vec16"),
+    "J=19, C=256": (19, 1, 0, "vec16"),
+    "J=17, C=256, odd row stride": (17, 1, 1, "general"),
+}
+# Frame counts ragged against both kernels' frame tiles: 1 frame, a tile
+# that is not full (sem_graph's tiles are 4 frames, joint_attention's 1 to
+# 8), more tiles than the card has persistent blocks.
+GRAPH_FRAMES = (1, 7, 1000, 4001)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("level", [0, 2])
-def test_cuda_graph_kernels_match_plain(model, level):
-    t = gab_tables(model.layers_graph_conv[level], model.statics)
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_cuda_graph_kernels_match_plain(model, case):
+    """sem_graph and joint_attention on column views of one projection
+    output, at each of GRAPH_FRAMES, each launch on the instantiation
+    graph_variant picks for it."""
+    j, level, pad, variant = GRAPH_CASES[case]
+    m = model if j == 17 else _model(27, j)
+    t = gab_tables(m.layers_graph_conv[level], m.statics)
     c = t.w_proj.shape[0]
     ki = t.proj_t.numel()
-    p = _randn(40 * 17, t.w_proj.shape[1], seed=7)
-    args = (c, t.w_self, t.w_nbr, t.col, t.sem_scale, t.sem_shift)
-    _assert_close(K.sem_graph(p, *args), K.sem_graph_plain(p, *args))
-    views = (p[:, 4 * c:4 * c + ki], p[:, 4 * c + ki:4 * c + 2 * ki],
-             p[:, 4 * c + 2 * ki:], t.proj_t, t.proj_p, t.c_k)
-    _assert_close(K.joint_attention(*views),
-                  K.joint_attention_plain(*views))
+    width = t.w_proj.shape[1]
+    for frames in GRAPH_FRAMES:
+        p = _randn(frames * j, width + pad, seed=7 + frames)[:, :width]
+        args = (c, t.w_self, t.w_nbr, t.col, t.sem_scale, t.sem_shift)
+        K.reset_launches()
+        got = K.sem_graph(p, *args)
+        _assert_launched("sem_graph", variant)
+        _assert_close(got, K.sem_graph_plain(p, *args))
+        views = (p[:, 4 * c:4 * c + ki], p[:, 4 * c + ki:4 * c + 2 * ki],
+                 p[:, 4 * c + 2 * ki:], t.proj_t, t.proj_p, t.c_k)
+        K.reset_launches()
+        got = K.joint_attention(*views)
+        _assert_launched("joint_attention", variant)
+        _assert_close(got, K.joint_attention_plain(*views))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels,variant", [(128, "vec16"), (8, "general")],
+                         ids=["C=256", "C=8"])
+def test_cuda_head_attention_views_take_their_instantiation(model, channels,
+                                                            variant):
+    """head_attention's one-head views of a projection output: I = G = 64 at
+    the 27-frame model's level 1 (C=256, 16-byte), I = G = 2 at the
+    8-channel model's level 0 (C=8, 4-byte)."""
+    gen = torch.Generator().manual_seed(channels)
+    m = GastNet(dataclasses.replace(config_for_frames(27), channels=channels))
+    m = randomize_eval_statistics(init_gastnet(m, gen), gen).cuda().eval()
+    gt = global_tables(m.layers_graph_conv[1 if channels == 128 else 0]
+                       .global_graph_layer)
+    k, inter = gt.proj_t.shape
+    g_ch = (gt.w_attn.shape[1] - 2 * k * inter) // k
+    p = _randn(1001, 17, gt.w_attn.shape[1], seed=19)
+    for h in range(k):
+        g0 = 2 * k * inter + h * g_ch
+        args = (p[..., h * inter:(h + 1) * inter],
+                p[..., (k + h) * inter:(k + h + 1) * inter],
+                p[..., g0:g0 + g_ch], gt.proj_t[h].reshape(-1, 1),
+                gt.proj_p[h].reshape(-1, 1), gt.c_k[h])
+        K.reset_launches()
+        got = head_attention(*args)
+        _assert_launched("joint_attention", variant)
+        _assert_close(got, head_attention_plain(*args))
 
 
 @pytest.mark.cuda
@@ -175,12 +244,6 @@ def test_cuda_forward_runs_the_kernels_and_matches_reference(model):
         K.ENTRY_LAUNCHES
     assert K.ENTRY_LAUNCHES["fused_gab_pbatch"] == 0, K.ENTRY_LAUNCHES
     _assert_close(y, model.reference_forward(x))
-
-
-def _model(frames, num_joints=17):
-    gen = torch.Generator().manual_seed(frames + num_joints)
-    m = init_gastnet(GastNet(config_for_frames(frames, num_joints)), gen)
-    return randomize_eval_statistics(m, gen).cuda().eval()
 
 
 # Frame counts that meet gab_narrow's tile edges at every tested width and

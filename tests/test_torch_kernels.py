@@ -43,6 +43,16 @@ NARROW_CFG = jm.GastNetConfig(filter_widths=(3, 3, 3, 3, 3), channels=32,
                               dropout=0.0)
 # The 27-frame model's widths: C = 128, 256, 512.
 WIDE_CFG = jm.GastNetConfig(dropout=0.0)
+# The other joint layouts (J = 15, 16, 19; D = 5 neighbour slots, as at
+# J = 17), whose frames the card's graph kernels tile: a two-level model of
+# each, C = 32, 64.
+LAYOUTS = ("humaneva15", "sh16", "h36m19")
+
+
+def _layout_cfg(layout):
+    j = jm.graph_statics(layout).num_joints
+    return jm.GastNetConfig(filter_widths=(3, 3), channels=32, dropout=0.0,
+                            num_joints_in=j, num_joints_out=j, layout=layout)
 
 
 def _idx(cfg):
@@ -68,6 +78,25 @@ def wide_weights():
     return params, state, port_model(WIDE_CFG, params, state)
 
 
+@pytest.fixture(scope="module")
+def layout_weights():
+    """layout -> (params, state, port model) of its ``_layout_cfg``."""
+    out = {}
+    for i, layout in enumerate(LAYOUTS):
+        cfg = _layout_cfg(layout)
+        params, state = random_jax_tree(cfg, seed=26 + i)
+        out[layout] = params, state, port_model(cfg, params, state)
+    return out
+
+
+def _weights(request, name):
+    """A parity case's (params, state, port model): a module fixture by
+    name, or a layout's model."""
+    if name in LAYOUTS:
+        return request.getfixturevalue("layout_weights")[name]
+    return request.getfixturevalue(name)
+
+
 def test_fused_gab_matches_jax_kernel(level_weights):
     params, state, model = level_weights
     x = inputs((2, 5, 17, 64), 1)
@@ -91,12 +120,14 @@ def test_fused_gab_matches_jax_split_kernel_at_512(wide_weights):
 
 
 @pytest.mark.parametrize("weights,cfg,level", [
-    ("narrow_weights", NARROW_CFG, 0), ("wide_weights", WIDE_CFG, 2)],
-    ids=["C=32", "C=512"])
+    ("narrow_weights", NARROW_CFG, 0), ("wide_weights", WIDE_CFG, 2)] + [
+    (layout, _layout_cfg(layout), 1) for layout in LAYOUTS],
+    ids=["C=32", "C=512", *LAYOUTS])
 def test_fused_local_branch_matches_jax_kernel(request, weights, cfg, level):
-    params, state, model = request.getfixturevalue(weights)
+    """At C=32 and 512 on 17 joints, and at C=64 on each other layout."""
+    params, state, model = _weights(request, weights)
     c = cfg.block_channels(level)
-    x = inputs((1, 3, 17, c), 16)
+    x = inputs((1, 3, cfg.num_joints_in, c), 16)
     want = j_fused_local_branch(jnp.asarray(x), params["gabs"][level],
                                 state["gabs"][level], *_idx(cfg),
                                 interpret=True)
@@ -107,15 +138,18 @@ def test_fused_local_branch_matches_jax_kernel(request, weights, cfg, level):
     assert_close(got, want)
 
 
-def test_head_attention_matches_jax_kernel(level_weights):
-    """Each head of a C=128 block on its slices of one projection output,
-    over M = 37 frames: not a multiple of the TPU kernel's 32-frame tile,
-    which it pads."""
-    params, _, model = level_weights
+@pytest.mark.parametrize("weights,j,c", [("level_weights", 17, 128)] + [
+    (layout, _layout_cfg(layout).num_joints_in, 64) for layout in LAYOUTS],
+    ids=["h36m17", *LAYOUTS])
+def test_head_attention_matches_jax_kernel(request, weights, j, c):
+    """Each head of level 1's block (C=128 on 17 joints, C=64 on each other
+    layout) on its slices of one projection output, over M = 37 frames:
+    not a multiple of the TPU kernel's 32-frame tile, which it pads."""
+    params, _, model = _weights(request, weights)
     gp = params["gabs"][1]["global"]
     k, inter = gp["proj_theta"].shape
-    assert k * inter == 128 and gp["g_w"].shape[2] == inter
-    p = inputs((37, 17, 3 * k * inter), 17)     # theta | phi | g
+    assert k * inter == c and gp["g_w"].shape[2] == inter
+    p = inputs((37, j, 3 * k * inter), 17)     # theta | phi | g
     heads = model.layers_graph_conv[1].global_graph_layer.attentions
     for h in range(k):
         cols = [slice(s * k * inter + h * inter, s * k * inter +
@@ -328,6 +362,67 @@ def test_gemm_variant(case):
     assert K.gemm_variant(pieces(), n, res) == want
 
 
+def _projection(c, pad=0, offset=0, rows=34):
+    """The chain's zero (rows, 7C) projection output P of a GAB with K = 4
+    heads and I = G = C / 4, at row stride 7C + ``pad``, ``offset`` floats
+    past an aligned start."""
+    flat = torch.zeros(rows * (7 * c + pad) + offset)
+    return flat[offset:].view(rows, 7 * c + pad)[:, :7 * c]
+
+
+def _sem(c, **kw):
+    """sem_graph's (views, widths) on the chain's P."""
+    return (_projection(c, **kw),), (c,)
+
+
+def _attn(c, **kw):
+    """joint_attention's (views, widths) on the chain's theta | phi | g."""
+    p, ki = _projection(c, **kw), c
+    return ((p[:, 4 * c:4 * c + ki], p[:, 4 * c + ki:4 * c + 2 * ki],
+             p[:, 4 * c + 2 * ki:]), (c // 4, c // 4))
+
+
+def _head(c, h):
+    """head_attention's one-head views (rows of 17 joints merged) of a
+    hybrid-route projection [theta | phi | g] at C, K = 4, head h."""
+    i = c // 4
+    p = torch.zeros(5, 17, 3 * c).view(-1, 3 * c)
+    return ((p[:, h * i:(h + 1) * i], p[:, c + h * i:c + (h + 1) * i],
+             p[:, 2 * c + h * i:2 * c + (h + 1) * i]), (i, i))
+
+
+# (views, widths) of sem_graph or joint_attention -> the instantiation.
+GRAPH_VARIANT_CASES = {
+    "sem C=128": (lambda: _sem(128), "vec16"),
+    "sem C=256": (lambda: _sem(256), "vec16"),
+    "sem C=512": (lambda: _sem(512), "vec16"),
+    "sem C=8": (lambda: _sem(8), "vec16"),
+    "sem C=24": (lambda: _sem(24), "vec16"),
+    "sem C=6": (lambda: _sem(6), "general"),
+    "sem odd row stride": (lambda: _sem(256, pad=1), "general"),
+    "sem 4-byte offset": (lambda: _sem(256, offset=1), "general"),
+    "attn C=128": (lambda: _attn(128), "vec16"),
+    "attn C=256": (lambda: _attn(256), "vec16"),
+    "attn C=512": (lambda: _attn(512), "vec16"),
+    "attn C=8 (I=2)": (lambda: _attn(8), "general"),
+    "attn C=24 (I=6)": (lambda: _attn(24), "general"),
+    "attn C=16 (I=4)": (lambda: _attn(16), "vec16"),
+    "attn odd row stride": (lambda: _attn(256, pad=1), "general"),
+    "attn 4-byte offset": (lambda: _attn(256, offset=1), "general"),
+    "head C=256": (lambda: _head(256, 1), "vec16"),
+    "head C=128": (lambda: _head(128, 3), "vec16"),
+    "head C=8": (lambda: _head(8, 1), "general"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_VARIANT_CASES))
+def test_graph_variant(case):
+    """The graph kernels' 16-byte instantiation only where every width and
+    row stride is a multiple of 4 and every view starts 16-byte aligned."""
+    operands, want = GRAPH_VARIANT_CASES[case]
+    assert K.graph_variant(*operands()) == want
+
+
 # (C, K, I, G, J, D) -> the kernels the GAB takes on the card. The model's
 # GABs have K = 4 heads and I = G = C // 4; C = 8, 24 and 40 are not
 # multiples of 16, gab_narrow lost to the chain at C = 80 and 96, C = 112
@@ -416,6 +511,11 @@ def test_wrappers_reject_bad_inputs(level_weights):
         K.gemm_epilogue([(a, torch.zeros(4, 2), 0)], 8)
     with pytest.raises(ValueError):  # the row map would read past a
         K.gemm_epilogue([(a, torch.zeros(3, 2), 1)], 8)
+    with pytest.raises(ValueError, match="D <= 8"):  # 9 neighbour slots
+        K.sem_graph(torch.zeros(17, 8), 2, torch.zeros(2, 17, 2),
+                    torch.zeros(2, 17, 9, 2),
+                    torch.zeros(2, 17, 9, dtype=torch.int32), torch.zeros(4),
+                    torch.zeros(4))
 
 
 def test_route_entry_points_reject_bad_inputs(level_weights, wide_weights):
