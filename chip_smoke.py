@@ -27,7 +27,12 @@ a non-zero exit and no result line:
      then the 8-channel model's forward on the ``"auto"``, ``"pallas"`` and
      packed routes against its plain reference, its C=8 GAB on the chain
      (off ``gab_narrow``'s shape rule) and the others where
-     ``kernels.gab_route`` sends them;
+     ``kernels.gab_route`` sends them; then the kernels at the rows one
+     streaming push gives them (``STREAM_GABS``, M = 1): every launch of
+     the 27-frame model's GAB chains at 153, 51 and 17 rows (C = 128, 256,
+     512) and the 81-frame model's GAB 0 at 459 rows (C = 64, on
+     ``gab_narrow`` where ``gab_route`` picks it), each on the
+     instantiation ``gemm_variant`` or ``graph_variant`` picks;
   3. run reconstruct requests through ``gastx_torch.cli.reconstruct
      --random-weights --no-render`` on synthetic COCO keypoint files: 50,
      277 and 1000 frames with the 27-frame model, 277 and 1000 frames with
@@ -61,18 +66,35 @@ a non-zero exit and no result line:
      the instantiation);
   5. trace one forward of each of the 27-frame (B=1024), 243-frame
      (B=256), hybrid and packed cells with torch.profiler: device time by
-     kernel and the device's idle share.
+     kernel and the device's idle share;
+  6. the strided forwards of the 27-, 81- and 243-frame models, causal and
+     not, and the 27-frame dense forward, each on B=256 windows of rf
+     frames: held to ``reference_forward`` of the same variant, timed, and
+     their launches (counters zeroed just before, read just after) held to
+     what their GABs must launch with no level kernel, as the JAX gates
+     have it;
+  7. the dilated ``"auto"`` forward on the 15-, 16- and 19-joint layouts
+     (27 frames, B=1024) and the 243-frame one on 19 joints (B=256), held
+     to ``reference_forward``, through the level kernels;
+  8. causal streaming through ``gastx_torch.infer.StreamingLifter`` at 27
+     and 81 frames, M = 1 and 256 streams: 200 pushes after 10 warm-up
+     pushes, per-push latency (p50, p99; host clock around ``push``),
+     stream-pushes a second, launches a push by kernel (zeroed just
+     before, read just after), one profiled push (device busy and idle
+     share), and 40 streamed frames held to the same windows edge-padded
+     and lifted offline by ``reference_forward(variant="strided")``; then
+     ``gab_narrow`` beside the chain at one push's 81f GAB 0 (459 rows).
 
 Tolerance: each kernel, wrapper and the forward must agree with its plain
 version to max |delta| <= 1e-4 * max(1, max |plain|); both sides compute
 in float32 and only the order of summation differs. Timings are CUDA
 events around repeated calls after a warm-up. The last lines are the
-``{"kernels": [...]}`` summary (the entries of ``gemm_epilogue``,
-``sem_graph`` and ``joint_attention`` also give their launches by
-instantiation and, as ``ragged_max_abs_err``, the largest error of their
-phase-2 cases), the card's ``name, power.limit``, and ``{"ok": true,
-"device": {...}}``. Details, the per-shape tables among them, also go to
-``chiprun_out/chip_smoke.json``.
+script's total seconds, the ``{"kernels": [...]}`` summary (the entries
+of ``gemm_epilogue``, ``sem_graph`` and ``joint_attention`` also give
+their launches by instantiation and, as ``ragged_max_abs_err``, the
+largest error of their phase-2 cases), the card's ``name,
+power.limit``, and ``{"ok": true, "device": {...}}``. Details, the
+per-shape tables among them, also go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -548,23 +570,30 @@ def graph_cases(K, dev, seed_model):
 
 
 def profile_forward(model, x, label):
-    """Phase 5: device time of one forward by kernel, from torch.profiler,
-    and the device's idle share of the forward's CUDA-event time (both
-    under the profiler's own overhead). Returns None, and says "not
-    measured", if the profiler records no device time."""
+    """Phase 5: :func:`profile_call` on one forward."""
+    return profile_call(lambda: model(x),
+                        f"phase 5: torch.profiler trace of one {label} "
+                        f"forward")
+
+
+def profile_call(fn, title):
+    """Device time of one call of ``fn`` by kernel, from torch.profiler,
+    the kernels it ran, and the device's idle share of the call's
+    CUDA-event time (both under the profiler's own overhead). Returns None,
+    and says "not measured", if the profiler records no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    print(f"phase 5: torch.profiler trace of one {label} forward")
-    model(x)
+    print(title)
+    fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         start.record()
-        model(x)
+        fn()
         end.record()
         torch.cuda.synchronize()
     wall_ms = start.elapsed_time(end)
@@ -589,9 +618,11 @@ def profile_forward(model, x, label):
                                 key=lambda kv: -kv[1][0])[:12]:
         print(f"  {ms:9.3f} ms  {n:4d}x  {name}")
     idle = max(0.0, 1.0 - busy / wall_ms)
+    launched = sum(v[1] for v in groups.values())
     print(f"  device busy {busy:.3f} of {wall_ms:.3f} ms: idle share "
-          f"{idle:.4f}")
+          f"{idle:.4f}; {launched} device operations")
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": idle,
+            "device_operations": launched,
             "by_kernel": {k: {"ms": v[0], "count": v[1]}
                           for k, v in groups.items()}}
 
@@ -730,6 +761,236 @@ def odd_width_forwards(K, dev) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# The strided, dense, layout and streaming paths (phases 2, 6-8)
+# --------------------------------------------------------------------------
+
+# The GABs of one streaming push at M = 1 (a window of rf frames, strided
+# at each level): (receptive field, GAB level, frames at the GAB); J = 17.
+# 27f: 153, 51 and 17 rows at C = 128, 256, 512; 81f's GAB 0: 459 rows at
+# C = 64.
+STREAM_GABS = ((27, 0, 9), (27, 1, 3), (27, 2, 1), (81, 0, 27))
+
+
+def small_row_cases(K, dev, seed_model) -> list:
+    """Phase 2: the kernels at the rows one streaming push gives them
+    (``STREAM_GABS``), each launch held to its plain version and checked to
+    run on the instantiation ``gemm_variant`` or ``graph_variant`` picks:
+    every launch of the GAB's chain, or its ``gab_narrow`` launch where
+    ``gab_route`` picks that, and the GAB's whole output."""
+    import torch
+    from gastx_torch.ops.cuda.fused_gab import gab_tables
+
+    def gemm_variant(pieces, m, **kw):
+        return K.gemm_variant(pieces, pieces[0][1].shape[1], kw.get("res"))
+
+    def sem_variant(p, c, *_):
+        return K.graph_variant((p,), (c,))
+
+    def attn_variant(theta, phi, g, proj_t, *_):
+        k, inter = proj_t.shape
+        return K.graph_variant((theta, phi, g), (inter, g.shape[1] // k))
+
+    out = []
+    for rf, level, frames in STREAM_GABS:
+        m = seed_model(rf, 17, None)
+        t = gab_tables(m.layers_graph_conv[level], m.statics)
+        c, rows = t.w_proj.shape[0], frames * 17
+        label = f"{rf}f GAB {level} (C={c}, {rows} rows)"
+        x = torch.randn((rows, c), generator=torch.Generator(
+            device=dev).manual_seed(300 + rows), device=dev)
+        route = K.gab_route(*K.gab_shape(t))
+        errs = []
+
+        def held(name, fn, plain, variant_of):
+            def run(*args, **kw):
+                taken, got = launched_variant(K, name,
+                                              lambda: fn(*args, **kw))
+                want = variant_of(*args, **kw)
+                if taken != want:
+                    fail(f"{name} at {label}: took {taken}, not {want}")
+                errs.append(check(f"{name} at {label} [{taken}]", got,
+                                  plain(*args, **kw)))
+                return got
+            return run
+
+        if route == "gab_narrow":
+            before = K.LAUNCHES["gab_narrow"]
+            got = K.gab_narrow(x, t)
+            if K.LAUNCHES["gab_narrow"] != before + 1:
+                fail(f"gab_narrow did not launch at {label}")
+            errs.append(check(f"gab_narrow at {label}", got,
+                              K.gab_narrow_plain(x, t)))
+        else:
+            got = K.gab_chain(
+                x, t,
+                held("gemm_epilogue", K.gemm_epilogue, K.gemm_epilogue_plain,
+                     gemm_variant),
+                held("sem_graph", K.sem_graph, K.sem_graph_plain,
+                     sem_variant),
+                held("joint_attention", K.joint_attention,
+                     K.joint_attention_plain, attn_variant))
+            errs.append(check(f"the GAB chain at {label}", got,
+                              K.gab_chain(x, t, K.gemm_epilogue_plain,
+                                          K.sem_graph_plain,
+                                          K.joint_attention_plain)))
+        out.append({"gab": label, "route": route, "max_abs_err": max(errs)})
+    return out
+
+
+def gab_launches(K, model) -> dict:
+    """What one forward's GABs launch when none runs inside a level
+    kernel: per GAB one ``gab_narrow``, or the chain's four
+    ``gemm_epilogue`` launches, one ``sem_graph`` and one
+    ``joint_attention``, as ``gab_route`` sends it."""
+    from gastx_torch.ops.cuda.fused_gab import gab_tables
+
+    routes = [K.gab_route(*K.gab_shape(gab_tables(g, model.statics)))
+              for g in model.layers_graph_conv]
+    chain = routes.count("chain")
+    return {"gemm_epilogue": 4 * chain, "sem_graph": chain,
+            "joint_attention": chain, "gab_narrow": routes.count("gab_narrow")}
+
+
+def held_forward(K, label, model, x, variant, reps=10) -> dict:
+    """One forward of ``variant`` with the launch counters zeroed just
+    before and read just after, held to ``reference_forward`` on the same
+    input, then timed (CUDA events) beside the plain reference."""
+    import torch
+
+    K.reset_launches()
+    y = model(x, variant=variant)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in launch_counts(K).items() if v}
+    err = check(f"{label} forward {tuple(x.shape)}", y,
+                model.reference_forward(x, variant=variant))
+    del y
+    ms = cuda_ms(lambda: model(x, variant=variant), reps=reps)
+    plain_ms = cuda_ms(lambda: model.reference_forward(x, variant=variant),
+                       reps=3)
+    b = x.shape[0]
+    print(f"  {label} B={b}: {b / (ms / 1e3):.1f} windows/s ({ms:.3f} ms "
+          f"per forward; plain {plain_ms:.3f} ms); launches {launches}")
+    torch.cuda.empty_cache()
+    return {"batch": b, "frames": x.shape[1], "variant": variant, "ms": ms,
+            "seq_per_s": b / (ms / 1e3), "plain_ms": plain_ms,
+            "max_abs_err": err, "launches_per_forward": launches}
+
+
+# Phase 6: the strided forwards, (receptive field, causal), each on B=256
+# windows of rf frames, and the 27f dense forward.
+STRIDED_CELLS = ((27, False), (27, True), (81, False), (81, True),
+                 (243, False), (243, True))
+# Phase 7: the dilated "auto" forward on the other layouts, (receptive
+# field, joints, windows).
+LAYOUT_CELLS = ((27, 15, 1024), (27, 16, 1024), (27, 19, 1024),
+                (243, 19, 256))
+# Phase 8: streaming, (receptive field, persons) of causal models (the
+# realtime CLI's -f 27 and -f 81), timed over PUSHES pushes after WARMUP
+# ones, then HELD_FRAMES pushes held to the windows lifted offline.
+STREAM_CELLS = ((27, 1), (27, 256), (81, 1), (81, 256))
+WARMUP_PUSHES, PUSHES, HELD_FRAMES = 10, 200, 40
+
+
+def stream_keypoints(frames: int, persons: int, seed: int):
+    """(T, M, 17, 2) normalized keypoints: the synthetic person of
+    ``synthetic_coco`` in H36M order, each stream shifted at random."""
+    import numpy as np
+
+    from gastx_torch.data import coco_h36m
+    from gastx_torch.geometry import normalize_screen_coordinates
+
+    kps, _ = coco_h36m(synthetic_coco(frames, seed)[0])
+    seq = normalize_screen_coordinates(kps, w=1000, h=1002)
+    rng = np.random.default_rng(seed)
+    shift = rng.normal(0.0, 0.05, (1, persons, 1, 2))
+    return (seq[:, None] + shift).astype(np.float32)
+
+
+def streaming_cell(K, model, persons: int, label: str) -> dict:
+    """Phase 8 for one cell: per-push latency (host clock around ``push``,
+    which ends in the host copy), streams x pushes a second, launches a
+    push by kernel (the counters zeroed just before the timed pushes and
+    read just after, each push's GABs held to :func:`gab_launches`), one
+    profiled push, and HELD_FRAMES streamed outputs against the same
+    windows edge-padded and lifted offline by ``reference_forward``."""
+    import numpy as np
+    import torch
+
+    from gastx_torch.infer import StreamingLifter
+
+    rf = model.cfg.receptive_field()
+    kps = stream_keypoints(WARMUP_PUSHES + PUSHES + 1, persons, seed=rf)
+    lifter = StreamingLifter(model, num_person=persons)
+    for i in range(WARMUP_PUSHES):
+        lifter.push(kps[i])
+    torch.cuda.synchronize()
+    K.reset_launches()
+    dts = []
+    for i in range(WARMUP_PUSHES, WARMUP_PUSHES + PUSHES):
+        t0 = time.perf_counter()
+        pose = lifter.push(kps[i])
+        dts.append(time.perf_counter() - t0)
+    launches = {k: v / PUSHES for k, v in launch_counts(K).items() if v}
+    want = {k: v for k, v in gab_launches(K, model).items() if v}
+    got = {k: launches.get(k, 0) for k in ("gemm_epilogue", "sem_graph",
+                                           "joint_attention", "gab_narrow")}
+    if {k: v for k, v in got.items() if v} != want:
+        fail(f"{label}: launches a push {launches}, want {want}")
+    if pose.shape != (persons, 17, 3) or not np.isfinite(pose).all():
+        fail(f"{label}: bad pose {pose.shape}")
+    dts_ms = 1e3 * np.asarray(dts)
+    p50, p99 = np.percentile(dts_ms, 50), np.percentile(dts_ms, 99)
+    rate = persons * PUSHES / dts_ms.sum() * 1e3
+    print(f"  {label}: push p50 {p50:.3f} ms, p99 {p99:.3f} ms; "
+          f"{rate:.1f} stream-pushes/s; launches a push {launches}")
+    prof = profile_call(lambda: lifter.push(kps[-1]),
+                        f"phase 8: torch.profiler trace of one {label} push")
+    # The streamed outputs against the offline windows, on a fresh stream.
+    seq = stream_keypoints(HELD_FRAMES, persons, seed=rf + 1)
+    lifter.reset()
+    streamed = np.stack([lifter.push(f) for f in seq])
+    padded = np.concatenate([np.repeat(seq[:1], rf - 1, axis=0), seq])
+    offline = []
+    for i in range(HELD_FRAMES):
+        w = torch.from_numpy(np.ascontiguousarray(
+            padded[i:i + rf].transpose(1, 0, 2, 3))).to(lifter.device)
+        offline.append(model.reference_forward(w, variant="strided")[:, 0])
+    err = check(f"{label} streamed vs offline ({HELD_FRAMES} frames)",
+                torch.from_numpy(streamed).to(lifter.device),
+                torch.stack(offline))
+    return {"persons": persons, "push_p50_ms": p50, "push_p99_ms": p99,
+            "push_mean_ms": float(dts_ms.mean()),
+            "stream_pushes_per_s": rate, "launches_per_push": launches,
+            "profile": prof, "max_abs_err": err}
+
+
+def narrow_vs_chain(K, t, rows, dev, reps=200) -> dict:
+    """``gab_narrow`` and the three-kernel chain on one GAB of ``rows`` rows:
+    CUDA-event ms a call (launches included) and device ms a call (the
+    profiler's kernel time), as ``gab_route`` would weigh them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn((rows, t.w_proj.shape[0]), generator=torch.Generator(
+        device=dev).manual_seed(rows), device=dev)
+    fns = {"gab_narrow": lambda: K.gab_narrow(x, t),
+           "chain": lambda: K.gab_chain(x, t, K.gemm_epilogue, K.sem_graph,
+                                        K.joint_attention)}
+    out = {}
+    for name, fn in fns.items():
+        ms = cuda_ms(fn, reps=reps, warmup=10)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+        dev_ms = sum(ev.self_device_time_total for ev in prof.key_averages()
+                     if ev.device_type == DeviceType.CUDA) / 1e3 / 20
+        out[name] = {"ms": ms, "device_ms": dev_ms}
+    return out
+
+
 def synthetic_coco(frames: int, seed: int):
     """(1, T, 17, 2) COCO keypoints of a person swaying across a 1000 x 1002
     frame, with detector-like jitter."""
@@ -817,14 +1078,29 @@ def main() -> int:
         m = randomize_eval_statistics(init_gastnet(m, gen), gen)
         return m.to(dev).eval()
 
+    seeded = {}
+
     def seed_model(frames, joints, channels):
         """A model of ``frames`` on ``joints`` joints with random weights
         from a seed: the shipped config, or its structure at ``channels``
-        channels."""
-        cfg = config_for_frames(frames, joints)
-        if channels:
-            cfg = dataclasses.replace(cfg, channels=channels)
-        gen = torch.Generator().manual_seed(frames + joints + (channels or 0))
+        channels (built once)."""
+        key = (frames, joints, channels)
+        if key not in seeded:
+            cfg = config_for_frames(frames, joints)
+            if channels:
+                cfg = dataclasses.replace(cfg, channels=channels)
+            gen = torch.Generator().manual_seed(frames + joints
+                                                + (channels or 0))
+            m = randomize_eval_statistics(init_gastnet(GastNet(cfg), gen),
+                                          gen)
+            seeded[key] = m.to(dev).eval()
+        return seeded[key]
+
+    def variant_model(frames, joints=17, **fields):
+        """The shipped config of ``frames`` on ``joints`` joints with
+        ``fields`` replaced (causal, dense), random weights from a seed."""
+        cfg = dataclasses.replace(config_for_frames(frames, joints), **fields)
+        gen = torch.Generator().manual_seed(frames + joints + 1)
         m = randomize_eval_statistics(init_gastnet(GastNet(cfg), gen), gen)
         return m.to(dev).eval()
 
@@ -988,6 +1264,9 @@ def main() -> int:
         del got
     torch.cuda.empty_cache()
     report["odd_width_forwards"] = odd_width_forwards(K, dev)
+    torch.cuda.empty_cache()
+    print("phase 2: the kernels at one streaming push's rows (M = 1)")
+    report["small_rows"] = small_row_cases(K, dev, seed_model)
     torch.cuda.empty_cache()
 
     # ---- phase 3: reconstruct requests (the main paths) ----------------
@@ -1188,8 +1467,80 @@ def main() -> int:
     for cell in ("27f hybrid", "243f packed"):
         report[f"profile_{cell.replace(' ', '_')}"] = profile_forward(
             models[cell], xs[cell], f"{cell} B={xs[cell].shape[0]}")
+
+    # ---- phase 6: the strided and dense forwards -----------------------
+    def gab_path(label, m, cell):
+        """The launches of a forward that no level kernel runs: each GAB's
+        kernels as gab_route sends it, the 16-byte instantiations only."""
+        got = cell["launches_per_forward"]
+        want = {k: v for k, v in gab_launches(K, m).items() if v}
+        if ({k: got[k] for k in K.KERNEL_SOURCES if k in got} != want
+                or got.get("fused_level0") or got.get("fused_level")
+                or any(got.get(f"{k} general") for k in K.VARIANT_KERNELS)):
+            fail(f"{label}: launches {got}, want {want} and no level kernel")
+
+    print("phase 6: strided (windows of rf frames) and dense forwards, "
+          "B=256")
+    report["strided_forwards"] = {}
+    for rf, causal in STRIDED_CELLS:
+        label = f"{rf}f strided{' causal' if causal else ''}"
+        m = variant_model(rf, causal=causal)
+        cell = held_forward(K, label, m, randn(256, rf, j, 2, seed=60 + rf),
+                            "strided")
+        gab_path(label, m, cell)
+        report["strided_forwards"][label] = cell
+        del m
+    m = variant_model(27, dense=True)
+    cell = held_forward(K, "27f dense", m, randn(256, 27, j, 2, seed=61),
+                        "dilated")
+    gab_path("27f dense", m, cell)
+    report["dense_forward"] = cell
+    del m
+
+    # ---- phase 7: the dilated forward on the other layouts -------------
+    print("phase 7: the dilated forward on the 15/16/19-joint layouts")
+    report["layout_forwards"] = {}
+    for rf, joints, b in LAYOUT_CELLS:
+        label = f"{rf}f J={joints}"
+        m = variant_model(rf, joints)
+        cell = held_forward(K, label, m,
+                            randn(b, rf, joints, 2, seed=70 + joints),
+                            "dilated", reps=5)
+        got, want = cell["launches_per_forward"], gab_launches(K, m)
+        if (not got.get("fused_level0") or not got.get("fused_level")
+                or any(got.get(k, 0) != want[k]
+                       for k in ("sem_graph", "joint_attention",
+                                 "gab_narrow"))):
+            fail(f"{label}: launches {got}; GABs want {want}")
+        report["layout_forwards"][label] = cell
+        del m
+
+    # ---- phase 8: causal streaming --------------------------------------
+    print("phase 8: causal streaming through StreamingLifter")
+    report["streaming"] = {}
+    stream_models = {}
+    for rf, persons in STREAM_CELLS:
+        if rf not in stream_models:
+            stream_models[rf] = variant_model(rf, causal=True)
+        label = f"{rf}f M={persons}"
+        report["streaming"][label] = streaming_cell(
+            K, stream_models[rf], persons, label)
+        torch.cuda.empty_cache()
+    m81 = stream_models[81]
+    t81 = gab_tables(m81.layers_graph_conv[0], m81.statics)
+    route = K.gab_route(*K.gab_shape(t81))
+    vs = narrow_vs_chain(K, t81, 27 * j, dev)
+    report["stream_gab0_81f"] = {"route": route, **vs}
+    print(f"  81f GAB 0 at one push's 459 rows (C=64), routed to {route}: "
+          f"gab_narrow {vs['gab_narrow']['ms']:.4f} ms a call "
+          f"({vs['gab_narrow']['device_ms']:.4f} on the device); the chain "
+          f"{vs['chain']['ms']:.4f} ({vs['chain']['device_ms']:.4f})")
+    del stream_models, m81
+
     report["kernels"] = kernels
     report["total_s"] = time.time() - t_start
+    print(f"chip_smoke: total {report['total_s']:.1f} s (build "
+          f"{report['build_s']:.1f} s)")
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -1,3 +1,4 @@
 from gastx_torch.infer.lifting import lift_sequences, lift_to_world
+from gastx_torch.infer.streaming import StreamingLifter
 
-__all__ = ["lift_sequences", "lift_to_world"]
+__all__ = ["lift_sequences", "lift_to_world", "StreamingLifter"]

@@ -37,6 +37,10 @@ from gastx_torch.skeleton import get_layout, local_adjacencies
 
 GAB_IMPLS = ("auto", "pallas", "pallas_local", "xla")
 ATTN_IMPLS = ("einsum", "pallas_head")
+# The two forwards of one set of weights (``GastNet.forward``'s
+# ``variant``): valid dilated convs over any T >= the receptive field, or
+# strided convs that compute only the frames the output needs.
+VARIANTS = ("dilated", "strided")
 
 
 @dataclass(frozen=True)
@@ -120,6 +124,46 @@ class GastNetConfig:
     def receptive_field(self) -> int:
         """Total receptive field in frames."""
         return 1 + 2 * sum(self.pads())
+
+    def conv_width(self, i: int) -> int:
+        """Taps of level ``i``'s temporal conv (i >= 1): ``fw[i]``, or
+        with ``dense`` the whole span ``2*pads[i] + 1`` at dilation 1."""
+        if self.dense:
+            return 2 * self.pads()[i] + 1
+        return self.filter_widths[i]
+
+    def output_frames(self, frames: int, variant: str = "dilated") -> int:
+        """Output frames of a ``variant`` forward over ``frames`` input
+        frames; ValueError for a T that forward cannot take.
+
+        Dilated: any T >= the receptive field, T - rf + 1 frames out.
+        Strided: T >= rf and, at each level, a residual slice
+        ``y[:, shift + fw//2 :: fw]`` as long as the strided conv's output
+        or broadcast against a one-frame output, as the JAX package's
+        residual add has it (T = n * rf always qualifies: n frames out).
+        The strided variant has no dense form."""
+        if variant not in VARIANTS:
+            raise ValueError(f"unknown variant {variant!r}; the port takes "
+                             f"{VARIANTS}")
+        rf = self.receptive_field()
+        if frames < rf:
+            raise ValueError(f"{frames} frames are fewer than the "
+                             f"receptive field {rf}")
+        if variant == "dilated":
+            return frames - rf + 1
+        if self.dense:
+            raise ValueError("the strided variant has no dense form")
+        fw, shifts = self.filter_widths, self.causal_shifts("strided")
+        t = (frames - fw[0]) // fw[0] + 1
+        for i in range(1, self.num_levels):
+            conv = (t - fw[i]) // fw[i] + 1
+            res = len(range(shifts[i] + fw[i] // 2, t, fw[i]))
+            if conv != res and conv != 1:
+                raise ValueError(
+                    f"{frames} frames do not stride evenly: level {i} has a "
+                    f"{res}-frame residual for a {conv}-frame conv")
+            t = res
+        return t
 
     @property
     def num_levels(self) -> int:

@@ -1,4 +1,4 @@
-"""GastNet in PyTorch: the module tree and the eval forward.
+"""GastNet in PyTorch: the module tree and the eval forwards.
 
 The ``nn.Module`` tree follows the upstream model's ``state_dict`` key
 layout (init_bn / expand_conv / expand_bn / layers_conv / layers_bn /
@@ -6,10 +6,22 @@ layers_graph_conv.{i}.{local_graph_layer, global_graph_layer, cat_conv,
 cat_bn} / shrink), so an upstream ``.bin`` and the JAX package's weights
 (through ``gastx_torch.io.params_from_jax``) load with
 ``load_state_dict``. The conv modules only hold weights: no convolution
-runs through cuDNN.
+runs through cuDNN. ``dense=True`` widens each level's temporal conv to
+its whole span (``GastNetConfig.conv_width``) at dilation 1.
 
-Two eval forwards, dilated, any T >= the receptive field, activations
-channels-last (B, T, J, C):
+Both forwards take ``variant``, as the JAX ``gastnet_forward`` does, with
+activations channels-last (B, T, J, C):
+
+  * ``"dilated"`` (default): valid dilated convs over any T >= the
+    receptive field rf, T - rf + 1 frames out;
+  * ``"strided"``: each level's conv strides by its filter width and its
+    residual is ``y[:, shift + fw//2 :: fw]`` (the upstream
+    ``SpatioTemporalModelOptimized1f``), so a window of rf frames gives one
+    frame. It takes the T that ``GastNetConfig.output_frames`` admits
+    (T = n * rf gives n frames) and has no dense form. Causal streaming
+    (``gastx_torch.infer.streaming``) runs it on one window a push.
+
+The two forwards:
 
   * :meth:`GastNet.forward` — the route the config picks, as the JAX
     package's knobs of the same names pick it (``gastx/models/
@@ -18,10 +30,13 @@ channels-last (B, T, J, C):
     ==============  =======================================================
     route           levels
     ==============  =======================================================
-    ``"auto"``      level 0 ``fused_level0``; every level with C <= 256
-    (default)       ``fused_level``; the C=512 tail its conv chain in plain
-                    torch, then ``fused_gab`` (the TPU's
-                    ``fused_gab_split``)
+    ``"auto"``      dilated, not dense: level 0 ``fused_level0``; every
+    (default)       level with C <= 256 ``fused_level``; the C=512 tail its
+                    conv chain in plain torch, then ``fused_gab`` (the
+                    TPU's ``fused_gab_split``). Strided or dense: the plain
+                    expand prefix or conv chain, then ``fused_gab``, at
+                    every level (the JAX level kernels are gated to the
+                    dilated, non-dense forward)
     ``"pallas"``    every level: the plain expand prefix or conv chain,
                     then ``fused_gab``
     ``"pallas_      every level: the plain prefix or conv chain, then the
@@ -35,19 +50,20 @@ channels-last (B, T, J, C):
     (``"pallas_local"``, ``"xla"``) through ``head_attention``, its
     projection and cat in plain torch. ``packed_channels`` (``"pallas"``
     only; the config rejects it elsewhere) runs every GAB of C <=
-    ``packed_channels`` through ``fused_gab_packed`` on the (B, T, J*C)
-    view of its conv chain's output (the JAX package's ``_packed_prefix``;
-    its block-diagonal convs compute the same function as the per-joint
-    convs run here). Inside every wrapper the GAB goes by shape
-    (``kernels.gab_route``): one ``gab_narrow`` launch at the narrow widths
-    where it beat the chain, else the three-kernel chain. The
-    final 1x1 shrink is ``torch.matmul``. On a CPU tensor each wrapper
-    runs its plain version.
+    ``packed_channels`` of the dilated forward through
+    ``fused_gab_packed`` on the (B, T, J*C) view of its conv chain's
+    output (the JAX package's ``_packed_prefix``, which the strided
+    forward does not take; its block-diagonal convs compute the same
+    function as the per-joint convs run here). Inside every wrapper the
+    GAB goes by shape (``kernels.gab_route``): one ``gab_narrow`` launch at
+    the narrow widths where it beat the chain, else the three-kernel
+    chain. The final 1x1 shrink is ``torch.matmul``. On a CPU tensor each
+    wrapper runs its plain version.
   * :meth:`GastNet.reference_forward` — the unfused ops of
     ``gastx_torch.ops.graph`` (the JAX package's XLA route with the einsum
     attention) for every config, the reference every route is held to.
 
-Training, the strided variant and ``dense=True`` are later slices.
+Training is a later slice.
 """
 from __future__ import annotations
 
@@ -132,12 +148,10 @@ class GraphAttentionBlock(nn.Module):
 
 
 class GastNet(nn.Module):
-    """The dilated GAST-Net lifting model (eval mode)."""
+    """The GAST-Net lifting model (eval mode), dilated and strided."""
 
     def __init__(self, cfg: GastNetConfig):
         super().__init__()
-        if cfg.dense:
-            raise NotImplementedError("dense=True is not ported yet")
         self.cfg = cfg
         self.statics = graph_statics(cfg.layout)
         fw, c = cfg.filter_widths, cfg.channels
@@ -148,7 +162,7 @@ class GastNet(nn.Module):
         convs, bns = [], []
         for i in range(1, cfg.num_levels):
             ci = cfg.block_channels(i)
-            convs += [nn.Conv2d(ci, ci, (fw[i], 1), bias=False),
+            convs += [nn.Conv2d(ci, ci, (cfg.conv_width(i), 1), bias=False),
                       nn.Conv2d(ci, ci, 1, bias=False)]
             bns += [nn.BatchNorm2d(ci), nn.BatchNorm2d(ci)]
         self.layers_conv = nn.ModuleList(convs)
@@ -158,16 +172,14 @@ class GastNet(nn.Module):
             for i in range(cfg.num_levels))
         self.shrink = nn.Conv2d(cfg.out_channels, 3, 1, bias=False)
 
-    def _check_input(self, x: torch.Tensor) -> None:
+    def _check_input(self, x: torch.Tensor, variant: str) -> None:
         cfg = self.cfg
         if (x.dim() != 4 or x.shape[2] != cfg.num_joints_in
                 or x.shape[3] != cfg.in_features):
             raise ValueError(
                 f"expected (B, T, {cfg.num_joints_in}, {cfg.in_features}) "
                 f"keypoints, got {tuple(x.shape)}")
-        if x.shape[1] < cfg.receptive_field():
-            raise ValueError(f"{x.shape[1]} frames are fewer than the "
-                             f"receptive field {cfg.receptive_field()}")
+        cfg.output_frames(x.shape[1], variant)
 
     def level_modules(self, i: int):
         """(temporal conv, its BN, 1x1 conv, its BN) of level i >= 1."""
@@ -175,28 +187,29 @@ class GastNet(nn.Module):
                 self.layers_conv[2 * i - 1], self.layers_bn[2 * i - 1])
 
     @torch.no_grad()
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, T, J, C_in) normalized 2D keypoints -> (B, T-rf+1, J, 3),
-        on the route ``cfg.gab_impl``, ``cfg.attn_impl`` and
-        ``cfg.packed_channels`` pick."""
-        self._check_input(x)
+    def forward(self, x: torch.Tensor, variant: str = "dilated"
+                ) -> torch.Tensor:
+        """(B, T, J, C_in) normalized 2D keypoints -> (B, T_out, J, 3)
+        (``cfg.output_frames(T, variant)`` frames), on the route
+        ``cfg.gab_impl``, ``cfg.attn_impl`` and ``cfg.packed_channels``
+        pick for ``variant`` (the module docstring's table)."""
+        self._check_input(x, variant)
         cfg, statics = self.cfg, self.statics
         fw, pads = cfg.filter_widths, cfg.pads()
-        shifts = cfg.causal_shifts("dilated")
+        shifts = cfg.causal_shifts(variant)
         gabs = self.layers_graph_conv
         x = x.to(torch.float32).contiguous()
-        # The level kernels run under "auto" alone, as the JAX gates have it.
-        level_kernels = cfg.gab_impl == "auto"
+        # The level kernels run on the dilated, non-dense forward under
+        # "auto" alone, as the JAX gates (l0_fused, level_fuse_ok) have it.
+        level_kernels = (cfg.gab_impl == "auto" and variant == "dilated"
+                         and not cfg.dense)
         if level_kernels:
             y = fused_level0(
                 x, level0_tables(self.init_bn, self.expand_conv,
                                  self.expand_bn),
                 gab_tables(gabs[0], statics))
         else:
-            y = batch_norm(x, self.init_bn)
-            y = temporal_conv(y, tconv_weight(self.expand_conv))
-            y = torch.relu(batch_norm(y, self.expand_bn))
-            y = self._gab(y, 0)
+            y = self._gab(self._expand(x, variant), 0, variant)
         dilation = fw[0]
         for i in range(1, cfg.num_levels):
             if (level_kernels
@@ -206,17 +219,19 @@ class GastNet(nn.Module):
                                 dilation=dilation,
                                 res_off=pads[i] + shifts[i])
             else:
-                y = self._gab(self._conv_chain(y, i, dilation), i)
+                y = self._gab(self._conv_chain(y, i, dilation, variant), i,
+                              variant)
             dilation *= fw[i]
         return pointwise(y, pconv_weight(self.shrink))
 
-    def _gab(self, y: torch.Tensor, i: int) -> torch.Tensor:
+    def _gab(self, y: torch.Tensor, i: int, variant: str) -> torch.Tensor:
         """GAB ``i`` on the route's wrapper: ``fused_gab_packed`` on the
-        (B, T, J*C) view at a packed width, ``fused_gab`` under "auto" and
-        "pallas", else the plain block with the hybrid's kernels in it."""
+        (B, T, J*C) view at a packed width of the dilated forward,
+        ``fused_gab`` under "auto" and "pallas", else the plain block with
+        the hybrid's kernels in it."""
         cfg, gab, statics = self.cfg, self.layers_graph_conv[i], self.statics
         b, t, j, c = y.shape
-        if c <= cfg.packed_channels:
+        if variant == "dilated" and c <= cfg.packed_channels:
             y = fused_gab_packed(y.contiguous().view(b, t, j * c),
                                  gab_tables(gab, statics), j)
             return y.view(b, t, j, 2 * c)
@@ -257,33 +272,49 @@ class GastNet(nn.Module):
             outs.append(out.reshape(b, tt, j, g_ch))
         return outs
 
-    def _conv_chain(self, y: torch.Tensor, i: int, dilation: int
-                    ) -> torch.Tensor:
-        """dilated conv -> BN -> ReLU -> 1x1 -> BN -> ReLU -> + residual."""
+    def _expand(self, x: torch.Tensor, variant: str) -> torch.Tensor:
+        """init_bn -> expand conv (strided by fw[0] in the strided
+        variant) -> BN -> ReLU, in plain torch."""
+        stride = self.cfg.filter_widths[0] if variant == "strided" else 1
+        y = batch_norm(x, self.init_bn)
+        y = temporal_conv(y, tconv_weight(self.expand_conv), stride=stride)
+        return torch.relu(batch_norm(y, self.expand_bn))
+
+    def _conv_chain(self, y: torch.Tensor, i: int, dilation: int,
+                    variant: str) -> torch.Tensor:
+        """Level ``i``'s temporal conv -> BN -> ReLU -> 1x1 -> BN -> ReLU
+        -> + residual: dilated (at dilation 1 and the dense width with
+        ``dense``) with the pads' residual slice, or strided by fw[i] with
+        the residual ``y[:, shift + fw//2 :: fw]``."""
+        cfg = self.cfg
         conv_t, bn_t, conv_1, bn_1 = self.level_modules(i)
-        pad = self.cfg.pads()[i]
-        shift = self.cfg.causal_shifts("dilated")[i]
-        res = y[:, pad + shift: y.shape[1] - pad + shift]
-        z = temporal_conv(y, tconv_weight(conv_t), dilation=dilation)
+        fw, shift = cfg.filter_widths[i], cfg.causal_shifts(variant)[i]
+        if variant == "strided":
+            res = y[:, shift + fw // 2::fw]
+            z = temporal_conv(y, tconv_weight(conv_t), stride=fw)
+        else:
+            pad = cfg.pads()[i]
+            res = y[:, pad + shift: y.shape[1] - pad + shift]
+            z = temporal_conv(y, tconv_weight(conv_t),
+                              dilation=1 if cfg.dense else dilation)
         z = torch.relu(batch_norm(z, bn_t))
         z = pointwise(z, pconv_weight(conv_1))
         z = torch.relu(batch_norm(z, bn_1))
         return res + z
 
     @torch.no_grad()
-    def reference_forward(self, x: torch.Tensor) -> torch.Tensor:
+    def reference_forward(self, x: torch.Tensor, variant: str = "dilated"
+                          ) -> torch.Tensor:
         """The same function through the unfused plain ops, whatever the
         config's route."""
-        self._check_input(x)
+        self._check_input(x, variant)
         cfg, statics = self.cfg, self.statics
         gabs = self.layers_graph_conv
-        y = batch_norm(x.to(torch.float32), self.init_bn)
-        y = temporal_conv(y, tconv_weight(self.expand_conv))
-        y = torch.relu(batch_norm(y, self.expand_bn))
+        y = self._expand(x.to(torch.float32), variant)
         y = graph_attention_block(y, gabs[0], statics)
         dilation = cfg.filter_widths[0]
         for i in range(1, cfg.num_levels):
-            y = graph_attention_block(self._conv_chain(y, i, dilation),
-                                      gabs[i], statics)
+            y = graph_attention_block(
+                self._conv_chain(y, i, dilation, variant), gabs[i], statics)
             dilation *= cfg.filter_widths[i]
         return pointwise(y, pconv_weight(self.shrink))

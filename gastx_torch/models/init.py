@@ -43,7 +43,7 @@ def init_gastnet(model: GastNet, gen: torch.Generator) -> GastNet:
     for i in range(1, cfg.num_levels):
         c = cfg.block_channels(i)
         _uniform(model.layers_conv[2 * i - 2].weight,
-                 math.sqrt(1.0 / (c * fw[i])), gen)
+                 math.sqrt(1.0 / (c * cfg.conv_width(i))), gen)
         _uniform(model.layers_conv[2 * i - 1].weight, math.sqrt(1.0 / c), gen)
     for block in model.layers_graph_conv:
         loc, glb = block.local_graph_layer, block.global_graph_layer

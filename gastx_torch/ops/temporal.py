@@ -12,23 +12,27 @@ from gastx_torch.device import check_f32_matmul
 
 
 def temporal_conv(x: torch.Tensor, w: torch.Tensor, *,
-                  dilation: int = 1) -> torch.Tensor:
-    """Valid dilated temporal conv, stride 1.
+                  dilation: int = 1, stride: int = 1) -> torch.Tensor:
+    """Valid dilated, strided temporal conv.
 
     ``x``: (B, T, N, Cin); ``w``: (fw, Cin, Cout). Returns (B, T', N, Cout)
-    with T' = T - (fw-1)*dilation: output frame t sums tap k of input
-    frame t + k*dilation.
+    with T' = (T - (fw-1)*dilation - 1) // stride + 1, the length the JAX
+    package's VALID ``conv_general_dilated`` gives: output frame t sums tap
+    k of input frame t*stride + k*dilation. Each tap is one matmul on a
+    strided frame view.
     """
     check_f32_matmul(x)
     fw = w.shape[0]
-    t_out = x.shape[1] - (fw - 1) * dilation
-    if t_out < 1:
+    span = (fw - 1) * dilation + 1
+    if x.shape[1] < span:
         raise ValueError(f"sequence of {x.shape[1]} frames is shorter than "
-                         f"the conv's span {(fw - 1) * dilation + 1}")
-    y = torch.matmul(x[:, 0:t_out], w[0])
+                         f"the conv's span {span}")
+    t_out = (x.shape[1] - span) // stride + 1
+    last = (t_out - 1) * stride + 1
+    y = torch.matmul(x[:, 0:last:stride], w[0])
     for k in range(1, fw):
         s = k * dilation
-        y = y + torch.matmul(x[:, s:s + t_out], w[k])
+        y = y + torch.matmul(x[:, s:s + last:stride], w[k])
     return y
 
 

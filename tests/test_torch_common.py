@@ -39,12 +39,14 @@ def _leaf_name(path):
 
 def random_jax_tree(cfg, seed):
     """JAX (params, state) of ``cfg`` with every leaf drawn from a numpy
-    seed, as numpy arrays."""
-    params, state = jm.init_gastnet(jax.random.PRNGKey(0), cfg)
+    seed, as numpy arrays. Only the tree's shapes are taken from
+    ``init_gastnet`` (traced, not run)."""
+    params, state = jax.eval_shape(
+        lambda: jm.init_gastnet(jax.random.PRNGKey(0), cfg))
     rng = np.random.default_rng(seed)
 
     def draw(path, leaf):
-        shape = np.shape(leaf)
+        shape = tuple(leaf.shape)
         name = _leaf_name(path)
         if name in ("var", "scale"):
             v = rng.uniform(0.5, 1.5, shape)
@@ -77,7 +79,7 @@ def torch_config(cfg):
     return tm.GastNetConfig(
         num_joints_in=cfg.num_joints_in, num_joints_out=cfg.num_joints_out,
         filter_widths=cfg.filter_widths, channels=cfg.channels,
-        causal=cfg.causal, layout=cfg.layout,
+        causal=cfg.causal, dense=cfg.dense, layout=cfg.layout,
         gab_impl=cfg.gab_impl.removesuffix("_interpret"),
         attn_impl=cfg.attn_impl.removesuffix("_interpret"),
         packed_channels=cfg.packed_channels)
@@ -112,6 +114,7 @@ def test_port_imports_neither_jax_nor_gastx():
         "for m in pkgutil.walk_packages(gastx_torch.__path__, "
         "'gastx_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "assert 'gastx_torch.infer.streaming' in sys.modules\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'gastx') or "
         "m.startswith(('jax.', 'gastx.')))\n"
@@ -211,11 +214,19 @@ def test_config_rejects_routes_the_port_lacks():
             tm.GastNetConfig(**kw)
 
 
-@pytest.mark.parametrize("frames,causal", [(27, False), (27, True),
-                                           (81, False), (243, True)])
-def test_config_geometry_matches_jax(frames, causal):
-    j = jm.config_for_frames(frames, causal=causal)
-    t = tm.config_for_frames(frames, causal=causal)
+@pytest.mark.parametrize("frames,joints,causal,dense", [
+    (27, 17, False, False), (27, 17, True, False), (81, 17, False, False),
+    (243, 17, True, False), (27, 15, True, False), (81, 16, False, True),
+    (243, 19, True, True), (27, 17, False, True)],
+    ids=["27-False", "27-True", "81-False", "243-True", "27-J15-causal",
+         "81-J16-dense", "243-J19-causal-dense", "27-dense"])
+def test_config_geometry_matches_jax(frames, joints, causal, dense):
+    """Pads, receptive field, shifts, widths and each level's temporal conv
+    width (the JAX init's ``conv_t`` taps, dense or not) on every layout."""
+    j = dataclasses.replace(jm.config_for_frames(frames, joints,
+                                                 causal=causal), dense=dense)
+    t = dataclasses.replace(tm.config_for_frames(frames, joints,
+                                                 causal=causal), dense=dense)
     assert (t.filter_widths, t.channels, t.layout) == (
         j.filter_widths, j.channels, j.layout)
     assert t.pads() == j.pads()
@@ -224,6 +235,10 @@ def test_config_geometry_matches_jax(frames, causal):
         assert t.causal_shifts(variant) == j.causal_shifts(variant)
     assert [t.block_channels(i) for i in range(t.num_levels)] == [
         j.block_channels(i) for i in range(j.num_levels)]
+    params = jax.eval_shape(lambda: jm.init_gastnet(jax.random.PRNGKey(0),
+                                                    j))[0]
+    assert [t.conv_width(i) for i in range(1, t.num_levels)] == [
+        p["conv_t"]["w"].shape[0] for p in params["temporal"]]
 
 
 @pytest.mark.parametrize("layout", ["h36m17", "h36m19", "sh16",

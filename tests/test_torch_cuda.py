@@ -403,3 +403,142 @@ def test_cuda_narrow_forward_launches_gab_narrow(model, frames, batch):
     assert K.ENTRY_LAUNCHES["fused_gab_pbatch"] == K.LAUNCHES["gab_narrow"]
     assert all(K.LAUNCHES[k] > 0 for k in CHAIN), K.LAUNCHES
     _assert_close(y, m.reference_forward(x))
+
+
+def _variant_model(frames, num_joints=17, **fields):
+    cfg = dataclasses.replace(config_for_frames(frames, num_joints), **fields)
+    gen = torch.Generator().manual_seed(frames + num_joints + 1)
+    m = init_gastnet(GastNet(cfg), gen)
+    return randomize_eval_statistics(m, gen).cuda().eval()
+
+
+def _gab_launches(m):
+    """What a forward's GABs launch outside the level kernels, by kernel:
+    per GAB one gab_narrow, or the chain's 4 GEMMs, sem_graph and
+    joint_attention, as gab_route sends it."""
+    routes = [K.gab_route(*K.gab_shape(gab_tables(g, m.statics)))
+              for g in m.layers_graph_conv]
+    chain = routes.count("chain")
+    return {"gemm_epilogue": 4 * chain, "sem_graph": chain,
+            "joint_attention": chain, "gab_narrow": routes.count("gab_narrow")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames,causal,windows", [
+    (27, False, 1), (27, True, 2), (81, True, 1), (243, False, 1)])
+def test_cuda_strided_forward_launches_and_matches_reference(model, frames,
+                                                             causal, windows):
+    """The strided forward on windows of rf frames (and 2 rf): every GAB on
+    fused_gab's kernels, no level kernel, as the JAX gates have it."""
+    m = _variant_model(frames, causal=causal)
+    x = _randn(3, windows * frames, 17, 2, seed=20)
+    K.reset_launches()
+    y = m(x, variant="strided")
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == _gab_launches(m), K.LAUNCHES
+    assert K.ENTRY_LAUNCHES["fused_level0"] == 0
+    assert K.ENTRY_LAUNCHES["fused_level"] == 0
+    assert y.shape == (3, windows, 17, 3)
+    _assert_close(y, m.reference_forward(x, variant="strided"))
+
+
+@pytest.mark.cuda
+def test_cuda_dense_forward_launches_and_matches_reference(model):
+    m = _variant_model(27, dense=True)
+    x = _randn(3, 31, 17, 2, seed=21)
+    K.reset_launches()
+    y = m(x)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == _gab_launches(m), K.LAUNCHES
+    _assert_close(y, m.reference_forward(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames,num_joints", [(27, 15), (27, 16), (27, 19),
+                                               (243, 19)])
+def test_cuda_layout_forward_matches_reference(model, frames, num_joints):
+    """The dilated "auto" forward on the other layouts: the level kernels,
+    each GAB on the kernels gab_route picks."""
+    m = _variant_model(frames, num_joints)
+    x = _randn(2, frames + 4, num_joints, 2, seed=22)
+    K.reset_launches()
+    y = m(x)
+    torch.cuda.synchronize()
+    want = _gab_launches(m)
+    assert K.ENTRY_LAUNCHES["fused_level0"] > 0
+    assert K.ENTRY_LAUNCHES["fused_level"] > 0
+    for k in ("sem_graph", "joint_attention", "gab_narrow"):
+        assert K.LAUNCHES[k] == want[k], K.LAUNCHES
+    _assert_close(y, m.reference_forward(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames,persons", [(27, 1), (81, 3)])
+def test_cuda_streaming_matches_offline_windows(model, frames, persons):
+    """StreamingLifter on the card against the edge-padded windows lifted
+    offline by the plain strided forward, 12 pushes."""
+    import numpy as np
+
+    from gastx_torch.infer import StreamingLifter
+
+    m = _variant_model(frames, causal=True)
+    rf = m.cfg.receptive_field()
+    seq = _randn(12, persons, 17, 2, seed=23).mul_(0.3).cpu().numpy()
+    lifter = StreamingLifter(m, num_person=persons)
+    K.reset_launches()
+    handle = lifter.push_async(seq[0])
+    assert handle.is_cuda
+    assert K.LAUNCHES == _gab_launches(m), K.LAUNCHES
+    lifter.reset()
+    streamed = np.stack([lifter.push(f) for f in seq])
+    padded = np.concatenate([np.repeat(seq[:1], rf - 1, axis=0), seq])
+    for i in range(len(seq)):
+        w = torch.from_numpy(np.ascontiguousarray(
+            padded[i:i + rf].transpose(1, 0, 2, 3))).cuda()
+        _assert_close(torch.from_numpy(streamed[i]).cuda(),
+                      m.reference_forward(w, variant="strided")[:, 0])
+
+
+# One streaming push's GABs at M = 1: (receptive field, GAB level, frames):
+# 153, 51 and 17 rows at C = 128, 256, 512, and 81f's 459 rows at C = 64.
+STREAM_GABS = ((27, 0, 9), (27, 1, 3), (27, 2, 1), (81, 0, 27))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames,level,gab_frames", STREAM_GABS)
+def test_cuda_kernels_at_streaming_rows(model, frames, level, gab_frames):
+    """Every kernel launch of the GAB at the rows one push gives it, each on
+    the instantiation its variant function picks, and the GAB's output."""
+    m = model if frames == 27 else _model(frames)
+    t = gab_tables(m.layers_graph_conv[level], m.statics)
+    c = t.w_proj.shape[0]
+    x = _randn(gab_frames * 17, c, seed=24)
+
+    def held(name, fn, plain, variant_of):
+        def run(*args, **kw):
+            K.reset_launches()
+            got = fn(*args, **kw)
+            _assert_launched(name, variant_of(*args, **kw))
+            _assert_close(got, plain(*args, **kw))
+            return got
+        return run
+
+    plain = K.gab_chain(x, t, K.gemm_epilogue_plain, K.sem_graph_plain,
+                        K.joint_attention_plain)
+    if K.gab_route(*K.gab_shape(t)) == "gab_narrow":
+        K.reset_launches()
+        got = K.gab_narrow(x, t)
+        assert K.LAUNCHES["gab_narrow"] == 1
+    else:
+        got = K.gab_chain(
+            x, t,
+            held("gemm_epilogue", K.gemm_epilogue, K.gemm_epilogue_plain,
+                 lambda p, m_, **kw: K.gemm_variant(p, p[0][1].shape[1],
+                                                    kw.get("res"))),
+            held("sem_graph", K.sem_graph, K.sem_graph_plain,
+                 lambda p, c_, *_: K.graph_variant((p,), (c_,))),
+            held("joint_attention", K.joint_attention,
+                 K.joint_attention_plain,
+                 lambda th, ph, g, pt, *_: K.graph_variant(
+                     (th, ph, g), (pt.shape[1], g.shape[1] // pt.shape[0]))))
+    _assert_close(got, plain)

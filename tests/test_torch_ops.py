@@ -48,6 +48,26 @@ def test_temporal_conv_dilated(weights, dilation):
     assert_close(got, want)
 
 
+@pytest.mark.parametrize("stride", [1, 3])
+@pytest.mark.parametrize("dilation", [1, 3])
+@pytest.mark.parametrize("extra", [0, 5], ids=["T=span", "T=span+5"])
+def test_temporal_conv_strided(weights, stride, dilation, extra):
+    """The strided conv's length and taps against the JAX VALID conv: T the
+    conv's span exactly (one frame out) and a T that leaves the last
+    stride ragged."""
+    params, _, model = weights
+    span = 2 * dilation + 1
+    x = inputs((2, span + extra, 17, 64), 4)
+    w = params["temporal"][0]["conv_t"]["w"]
+    want = j_temporal_conv(jnp.asarray(x), jnp.asarray(w), dilation=dilation,
+                           stride=stride)
+    got = temporal_conv(torch.from_numpy(x),
+                        tconv_weight(model.layers_conv[0]), dilation=dilation,
+                        stride=stride)
+    assert got.shape == want.shape
+    assert_close(got, want)
+
+
 def test_pointwise(weights):
     params, _, model = weights
     x = inputs((2, 3, 17, 64), 3)
