@@ -83,7 +83,22 @@ a non-zero exit and no result line:
      before, read just after), one profiled push (device busy and idle
      share), and 40 streamed frames held to the same windows edge-padded
      and lifted offline by ``reference_forward(variant="strided")``; then
-     ``gab_narrow`` beside the chain at one push's 81f GAB 0 (459 rows).
+     ``gab_narrow`` beside the chain at one push's 81f GAB 0 (459 rows);
+  9. training and evaluation (``TRAIN_CELLS`` and the notes beside them):
+     (a) strided amsgrad train steps at full width (27f at B=128 and
+     B=1024, 243f at B=256; dropout 0.05): ms a step, windows a second,
+     the split between forward with loss, backward and optimizer, peak
+     memory, one profiled step, and the launch counters held at 0;
+     (b) one 27f step at B=16 on the card against the same step on the
+     CPU, in float64 and float32; (c) the convergence gate of
+     ``tests/test_golden.py`` on the card (held-out MPJPE under 30 mm, its
+     eval forward on the kernels, held to ``reference_forward``); (d)
+     ``python -m gastx_torch.cli.trainval`` on a synthetic H36M-format
+     dataset under ``build/chip_smoke/trainval``: two epochs with
+     evaluation and checkpoints, a resume from epoch 1 held to the straight
+     run's epoch 2, and ``--evaluate``, every eval forward held to
+     ``reference_forward`` as it runs and the launch counters read over
+     the three runs.
 
 Tolerance: each kernel, wrapper and the forward must agree with its plain
 version to max |delta| <= 1e-4 * max(1, max |plain|); both sides compute
@@ -991,6 +1006,399 @@ def narrow_vs_chain(K, t, rows, dev, reps=200) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 9: training and evaluation
+# --------------------------------------------------------------------------
+
+# The train-step cells: (label, receptive field, batch of rf-frame windows):
+# trainval's -b default at 27f, the JAX bench's train batch at 27f, and the
+# 243f model at B=256. Random weights from a seed, dropout 0.05, strided.
+TRAIN_CELLS = (("27f B=128", 27, 128), ("27f B=1024", 27, 1024),
+               ("243f B=256", 243, 256))
+TRAIN_DROPOUT, TRAIN_LR = 0.05, 1e-3
+TRAIN_WARMUP, TRAIN_STEPS = 3, 20
+# The card's step against the CPU's: the 27f model at B=16, dropout 0.
+STEP_CHECK_BATCH = 16
+# trainval on the synthetic H36M-format dataset: subjects, two actions of
+# FRAMES frames each, four cameras.
+TRAINVAL_SUBJECTS = ("S1", "S5", "S6", "S7", "S8", "S9", "S11")
+TRAINVAL_ACTIONS = ("Walking 1", "Eating 1")
+TRAINVAL_FRAMES = 500
+TRAINVAL_ARGS = ("-arc", "3,3,3", "-ch", "128", "-b", "128", "--downsample",
+                 "1", "--checkpoint-frequency", "1")
+# Where a ReLU's input lies within rounding of zero, float32 steps on two
+# devices take different branches (a handful of elements of ~5M at 27f
+# B=16), and each such element moves every gradient upstream of it by up
+# to ~1-5% of its tensor's largest value. So the float32 step is held on
+# its loss and BN statistics (forward quantities), and the whole step
+# (loss, every gradient, every parameter after the amsgrad step, the BN
+# statistics) is held in float64, where no branch flips.
+STEP_CHECK_DTYPES = ("float64", "float32")
+
+
+def train_batch(frames: int, batch: int, seed: int, dev):
+    """Random (B, rf, 17, 2) keypoints, (B, 1, 17, 3) targets and unit
+    weights on ``dev``."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    x2 = torch.randn((batch, frames, 17, 2), generator=g)
+    x3 = 0.3 * torch.randn((batch, 1, 17, 3), generator=g)
+    return x2.to(dev), x3.to(dev), torch.ones(batch, device=dev)
+
+
+def train_cell(K, label, frames, batch, dev) -> dict:
+    """Phase 9 (a): TRAIN_STEPS strided train steps after TRAIN_WARMUP
+    (CUDA events): ms a step, windows a second, the split of a step
+    between the forward with its loss, the backward and the optimizer;
+    peak memory; one profiled step; the launch counters stay 0."""
+    import dataclasses
+
+    import torch
+
+    from gastx_torch.models import build_gastnet, config_for_frames
+    from gastx_torch.train import make_optimizer, set_lr, train_step
+    from gastx_torch.train.loop import root_relative, weighted_loss
+
+    cfg = dataclasses.replace(config_for_frames(frames),
+                              dropout=TRAIN_DROPOUT)
+    model = build_gastnet(cfg, seed=frames, device=dev)
+    opt = make_optimizer(model.parameters())
+    gen = torch.Generator(device=dev).manual_seed(frames + batch)
+    x2, x3, w = train_batch(frames, batch, frames + batch, dev)
+
+    def step():
+        return train_step(model, opt, x2, x3, w, TRAIN_LR, gen, "strided")
+
+    def split_step(ev):
+        """train_step's three parts, each closed by a CUDA event."""
+        model.train()
+        loss = weighted_loss(model(x2, "strided", generator=gen),
+                             root_relative(x3), w)
+        ev[1].record()
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        ev[2].record()
+        set_lr(opt, TRAIN_LR)
+        opt.step()
+        ev[3].record()
+        return loss.detach()
+
+    K.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step() for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    losses += [step() for _ in range(TRAIN_STEPS)]
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / TRAIN_STEPS
+    parts = [0.0, 0.0, 0.0]
+    for _ in range(TRAIN_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        losses.append(split_step(ev))
+        torch.cuda.synchronize()
+        for i in range(3):
+            parts[i] += ev[i].elapsed_time(ev[i + 1]) / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_call(step, f"phase 9: torch.profiler trace of one "
+                              f"{label} train step")
+    launches = {k: v for k, v in launch_counts(K).items() if v}
+    loss = torch.stack(losses).cpu()
+    if not bool(torch.isfinite(loss).all()):
+        fail(f"{label}: a train loss is not finite")
+    if launches:
+        fail(f"{label}: the train steps launched hand-written kernels: "
+             f"{launches}")
+    split = dict(zip(("forward_loss_ms", "backward_ms", "optimizer_ms"),
+                     parts))
+    print(f"  {label}: {ms:.3f} ms a step, {batch / (ms / 1e3):.1f} "
+          f"windows/s; forward+loss {parts[0]:.3f}, backward "
+          f"{parts[1]:.3f}, optimizer {parts[2]:.3f} ms (a split step "
+          f"{sum(parts):.3f}); peak {peak / 2**30:.3f} GiB; loss "
+          f"{float(loss[0]):.4f} -> {float(loss[-1]):.4f}; launches 0")
+    del model, opt
+    torch.cuda.empty_cache()
+    return {"batch": batch, "frames": frames, "ms": ms,
+            "windows_per_s": batch / (ms / 1e3), **split,
+            "peak_bytes": peak, "profile": prof,
+            "loss_first": float(loss[0]), "loss_last": float(loss[-1])}
+
+
+def step_against_cpu(dev) -> dict:
+    """Phase 9 (b): one train step of the 27f model (dropout 0) at
+    B=STEP_CHECK_BATCH on the card and on the CPU from the same weights and
+    batch, in each of STEP_CHECK_DTYPES: the largest difference of the
+    loss, the gradients, the parameters after the step and the BN running
+    statistics, each over its bound TOL * max(1, max|cpu|) per tensor."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from gastx_torch.models import (build_gastnet, config_for_frames,
+                                    randomize_eval_statistics)
+    from gastx_torch.train import make_optimizer, train_step
+
+    cfg = dataclasses.replace(config_for_frames(27), dropout=0.0)
+    base = build_gastnet(cfg, seed=27, device="cpu")
+    randomize_eval_statistics(base, torch.Generator().manual_seed(28))
+    x2, x3, w = train_batch(27, STEP_CHECK_BATCH, 29, "cpu")
+
+    def one_step(dtype, device):
+        m = copy.deepcopy(base).to(dtype=dtype, device=device)
+        opt = make_optimizer(m.parameters())
+        loss = train_step(m, opt, x2.to(device, dtype), x3.to(device, dtype),
+                          w.to(device, dtype), TRAIN_LR, None, "strided")
+        grads = {n: p.grad for n, p in m.named_parameters()}
+        return {"loss": {"loss": loss.reshape(1)}, "grads": grads,
+                "params": dict(m.named_parameters()),
+                "bn_stats": {n: b for n, b in m.named_buffers()
+                             if "running" in n}}
+
+    def worst(got, want):
+        """Per category: the largest |got - want| over its bound, and the
+        tensor it is in."""
+        out = {}
+        for cat in want:
+            ratios = []
+            for n, t in want[cat].items():
+                t = t.detach().double().cpu()
+                d = (got[cat][n].detach().double().cpu() - t).abs().max()
+                ratios.append((float(d) / (TOL * max(1.0, float(
+                    t.abs().max()))), float(d), n))
+            r = max(ratios)
+            out[cat] = {"err_over_bound": r[0], "max_abs_err": r[1],
+                        "tensor": r[2]}
+        return out
+
+    steps = {(dt, dev_): one_step(getattr(torch, dt), dev_)
+             for dt in STEP_CHECK_DTYPES for dev_ in ("cpu", dev)}
+    report = {}
+    for dt in STEP_CHECK_DTYPES:
+        card = worst(steps[(dt, dev)], steps[(dt, "cpu")])
+        report[dt] = card
+        gated = (card if dt == "float64" else
+                 {k: card[k] for k in ("loss", "bn_stats")})
+        print(f"  {dt} step, card against CPU: " + "; ".join(
+            f"{k} {v['max_abs_err']:.3e} ({v['err_over_bound']:.3f} of "
+            f"its bound{', held' if k in gated else ''})"
+            for k, v in card.items()))
+        for k, v in gated.items():
+            if not v["err_over_bound"] <= 1.0:
+                fail(f"{dt} train step, {k}: the card's {v['tensor']} is "
+                     f"{v['max_abs_err']} off the CPU's")
+    # How far float32 itself is from float64, on each device.
+    for d in ("cpu", dev):
+        ref = worst(steps[("float32", d)], steps[("float64", d)])
+        report[f"float32 against float64 on {d}"] = ref
+        print(f"  float32 against float64 on {d}: " + "; ".join(
+            f"{k} {v['max_abs_err']:.3e} ({v['err_over_bound']:.3f} of the "
+            f"bound)" for k, v in ref.items()))
+    return report
+
+
+def convergence_on_card(K, dev) -> dict:
+    """Phase 9 (c): the convergence gate of tests/test_golden.py on the
+    card from the port's seeded init; the held-out MPJPE is a strided eval
+    forward on the kernels, held to reference_forward."""
+    import numpy as np
+    import torch
+
+    from gastx_torch.data import synthetic
+    from gastx_torch.eval.metrics import mpjpe
+    from gastx_torch.models import GastNetConfig, build_gastnet
+    from gastx_torch.train import make_optimizer, train_step
+    from gastx_torch.train.loop import root_relative
+
+    cfg = GastNetConfig(filter_widths=(3, 3), channels=32, dropout=0.0)
+    model = build_gastnet(cfg, seed=synthetic.CONVERGENCE_SEED, device=dev)
+    rf = cfg.receptive_field()
+    rng = np.random.default_rng(7)
+    ex2d, ex3d = (torch.from_numpy(a).to(dev)
+                  for a in synthetic.wellposed_batch(rng, 256, rf))
+
+    def held_out_mm(label):
+        model.eval()
+        pred = model(ex2d, "strided")
+        check(f"{label} held-out forward {tuple(ex2d.shape)}", pred,
+              model.reference_forward(ex2d, "strided"))
+        return float(mpjpe(pred, root_relative(ex3d))) * 1000.0
+
+    K.reset_launches()
+    before = held_out_mm("untrained")
+    n, batch = synthetic.CONVERGENCE_STEPS, synthetic.CONVERGENCE_BATCH
+    x2d, x3d = (torch.from_numpy(a).to(dev) for a in
+                synthetic.wellposed_batch(rng, n * batch, rf))
+    opt = make_optimizer(model.parameters())
+    w = torch.ones(batch, device=dev)
+    t0 = time.time()
+    for i in range(n):
+        sl = slice(i * batch, (i + 1) * batch)
+        train_step(model, opt, x2d[sl], x3d[sl], w,
+                   synthetic.convergence_lr(i), None, "strided")
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    after = held_out_mm("trained")
+    launches = {k: v for k, v in launch_counts(K).items() if v}
+    print(f"  convergence: held-out MPJPE {before:.1f} -> {after:.2f} mm "
+          f"after {n} steps of B={batch} ({train_s:.2f} s); eval launches "
+          f"{launches}")
+    if not before > 400.0:
+        fail(f"untrained held-out error suspiciously low: {before} mm")
+    if not after < synthetic.CONVERGENCE_GATE_MM:
+        fail(f"convergence gate failed on the card: {before} -> {after} mm")
+    return {"before_mm": before, "after_mm": after, "steps": n,
+            "batch": batch, "train_s": train_s, "eval_launches": launches}
+
+
+def write_trainval_data(data_dir: str, seed: int = 0) -> None:
+    """A synthetic H36M-format dataset: 32-joint world poses and four
+    cameras of 17-joint pixel detections per subject and action."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(data_dir, exist_ok=True)
+    positions_3d, positions_2d = {}, {}
+    for s in TRAINVAL_SUBJECTS:
+        positions_3d[s], positions_2d[s] = {}, {}
+        for a in TRAINVAL_ACTIONS:
+            walk = np.cumsum(0.01 * rng.standard_normal(
+                (TRAINVAL_FRAMES, 1, 3)), axis=0)
+            positions_3d[s][a] = (walk + 0.3 * rng.standard_normal(
+                (TRAINVAL_FRAMES, 32, 3))).astype(np.float32)
+            positions_2d[s][a] = [
+                (rng.random((TRAINVAL_FRAMES, 17, 2)) * 1000).astype(
+                    np.float32) for _ in range(4)]
+    np.savez_compressed(os.path.join(data_dir, "data_3d_h36m.npz"),
+                        positions_3d=positions_3d)
+    metadata = {"layout_name": "h36m", "num_joints": 17,
+                "keypoints_symmetry": [[4, 5, 6, 11, 12, 13],
+                                       [1, 2, 3, 14, 15, 16]]}
+    np.savez_compressed(
+        os.path.join(data_dir, "data_2d_h36m_cpn_ft_h36m_dbb.npz"),
+        positions_2d=positions_2d, metadata=metadata)
+
+
+def run_trainval(argv) -> str:
+    """``python -m gastx_torch.cli.trainval argv`` in this process (so the
+    forward hook and the launch counters see it); returns its stdout."""
+    import contextlib
+    import io
+    import runpy
+
+    out = io.StringIO()
+    saved = sys.argv
+    sys.argv = ["gastx_torch.cli.trainval", *argv]
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_module("gastx_torch.cli.trainval", run_name="__main__",
+                             alter_sys=True)
+    finally:
+        sys.argv = saved
+    return out.getvalue()
+
+
+def trainval_on_card(K, dev) -> dict:
+    """Phase 9 (d): trainval end to end: two epochs with evaluation and a
+    checkpoint each, a resume from epoch 1 to epoch 2 in a second
+    directory (its epoch-2 checkpoint held to the straight one), then
+    --evaluate. Every eval forward is held to reference_forward on the
+    same batch at the time it runs; the launch counters are zeroed before
+    and read after."""
+    import json
+    import shutil
+
+    import torch
+    from torch.nn.modules.module import register_module_forward_hook
+
+    from gastx_torch.models import GastNet
+    from gastx_torch.train import load_checkpoint
+
+    root = os.path.join(WORK_DIR, "trainval")
+    shutil.rmtree(root, ignore_errors=True)
+    data_dir = os.path.join(root, "data")
+    write_trainval_data(data_dir)
+    straight, resumed = (os.path.join(root, d) for d in ("straight",
+                                                         "resumed"))
+    common = [*TRAINVAL_ARGS, "--data-dir", data_dir]
+    held = []
+
+    def hold(module, inputs, output):
+        if isinstance(module, GastNet) and not module.training:
+            held.append(check(
+                f"trainval eval forward {tuple(inputs[0].shape)}", output,
+                module.reference_forward(inputs[0])))
+
+    hook = register_module_forward_hook(hold)
+    K.reset_launches()
+    t0 = time.time()
+    try:
+        out = run_trainval([*common, "-e", "2", "--checkpoint", straight,
+                            "--log-file", os.path.join(root, "log.jsonl")])
+        os.makedirs(resumed)
+        shutil.copy(os.path.join(straight, "epoch_1.pt"), resumed)
+        out_r = run_trainval([*common, "-e", "2", "--checkpoint", resumed,
+                              "-r", "epoch_1.pt"])
+        out_e = run_trainval([*common, "--checkpoint", straight,
+                              "--evaluate", "epoch_2.pt"])
+    finally:
+        hook.remove()
+    total_s = time.time() - t0
+    launches = {k: v for k, v in launch_counts(K).items() if v}
+    for text in (out, out_r, out_e):
+        if "Protocol #2" not in text or f"running on {dev}" not in text:
+            fail(f"trainval printed no Protocol #2 evaluation on {dev}:\n"
+                 + text[-2000:])
+    for line in out_e.splitlines():
+        if "action-wise average" in line:
+            print(f"  --evaluate: {line.strip()}")
+    with open(os.path.join(root, "log.jsonl")) as f:
+        epochs = [json.loads(line) for line in f]
+    for e in epochs:
+        print(f"  epoch {e['step']}: {e['train_s']:.2f} s training "
+              f"({e['train_frames'] / e['train_s']:.1f} train frames/s), "
+              f"{e['epoch_minutes'] * 60:.2f} s with its evaluation; "
+              f"valid MPJPE {e['valid_mpjpe_mm']:.1f} mm")
+    a = load_checkpoint(os.path.join(straight, "epoch_2.pt"))
+    b = load_checkpoint(os.path.join(resumed, "epoch_2.pt"))
+    if a["epoch"] != b["epoch"] or a["lr"] != b["lr"]:
+        fail("the resumed checkpoint's epoch or lr differs")
+    tensors = dict(a["model"])
+    for i, st in a["optimizer"]["state"].items():
+        tensors.update({f"optimizer {i} {k}": v for k, v in st.items()})
+    other = dict(b["model"])
+    for i, st in b["optimizer"]["state"].items():
+        other.update({f"optimizer {i} {k}": v for k, v in st.items()})
+    worst = (0.0, 0.0, "")
+    for n, t in tensors.items():
+        t, u = t.double(), other[n].double()
+        d = float((t - u).abs().max())
+        bound_ = TOL * max(1.0, float(t.abs().max()))
+        worst = max(worst, (d / bound_, d, n))
+    print(f"  resume against straight: largest difference {worst[1]:.3e} "
+          f"({worst[2]}), {worst[0]:.3f} of its bound; {len(held)} eval "
+          f"forwards held; launches {launches}; {total_s:.1f} s")
+    if not worst[0] <= 1.0:
+        fail(f"resumed {worst[2]} differs from the straight run by "
+             f"{worst[1]}")
+    for name in ("fused_level0", "fused_level", "fused_gab",
+                 "fused_gab_split", "gemm_epilogue", "sem_graph",
+                 "joint_attention"):
+        if not launches.get(name):
+            fail(f"trainval's eval passes did not launch {name}")
+    if not held:
+        fail("no trainval eval forward was recorded")
+    torch.cuda.empty_cache()
+    return {"epochs": epochs, "resume_max_abs_diff": worst[1],
+            "resume_worst_tensor": worst[2], "eval_forwards_held": len(held),
+            "eval_max_abs_err": max(held), "launches": launches,
+            "total_s": total_s}
+
+
 def synthetic_coco(frames: int, seed: int):
     """(1, T, 17, 2) COCO keypoints of a person swaying across a 1000 x 1002
     frame, with detector-like jitter."""
@@ -1536,6 +1944,15 @@ def main() -> int:
           f"({vs['gab_narrow']['device_ms']:.4f} on the device); the chain "
           f"{vs['chain']['ms']:.4f} ({vs['chain']['device_ms']:.4f})")
     del stream_models, m81
+
+    # ---- phase 9: training and evaluation --------------------------------
+    print("phase 9: training (strided train steps, no kernel) and "
+          "trainval's evaluation on the kernels")
+    report["train_cells"] = {label: train_cell(K, label, frames, b, dev)
+                             for label, frames, b in TRAIN_CELLS}
+    report["train_step_against_cpu"] = step_against_cpu(dev)
+    report["convergence"] = convergence_on_card(K, dev)
+    report["trainval"] = trainval_on_card(K, dev)
 
     report["kernels"] = kernels
     report["total_s"] = time.time() - t_start

@@ -1,0 +1,241 @@
+"""Train and evaluate GastNet on Human3.6M / HumanEva, on the GPU.
+
+The port of ``gastx.cli.trainval`` (the reference's ``trainval.py``): an
+epoch loop of amsgrad train steps with a x``lr_decay`` per-epoch learning
+rate, per-epoch validation and train-eval MPJPE, a checkpoint of the best
+valid MPJPE under 49.5 mm and periodic ones that resume (epoch, lr,
+optimizer, batcher RNG), and the final action-wise Protocol #1/#2
+evaluation with flip TTA, by subject with ``--by-subject``::
+
+    python -m gastx_torch.cli.trainval -e 80 -k cpn_ft_h36m_dbb -arc 3,3,3 -b 128
+    python -m gastx_torch.cli.trainval -k cpn_ft_h36m_dbb --evaluate epoch_best.pt
+
+It runs on ``cuda`` unless ``--device`` names another device, on one
+device. Training takes the strided variant for ``--stride 1`` (else the
+dilated one), through the plain ops with autograd; every evaluation pass
+runs ``lift_sequences`` on the model in eval mode, on the hand-written
+kernels. Batches have one fixed size: a ragged last batch is padded with
+zero-weight copies of its last row. Each step draws its dropout masks
+from a generator seeded by (epoch, batch index), so a resume needs no
+RNG state beyond the batcher's. Checkpoints are the port's own
+(``gastx_torch.train.checkpoint``, ``.pt``); ``--evaluate`` also takes an
+upstream ``.bin``.
+"""
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from gastx_torch.cli.arguments import parse_args
+from gastx_torch.data.generators import ChunkedBatcher
+from gastx_torch.data.harness import fetch, group_actions_by_name, load_data
+from gastx_torch.data.prefetch import prefetch_to_device, stage
+from gastx_torch.device import resolve_device
+from gastx_torch.eval.protocol import evaluate_sequences, run_evaluation
+from gastx_torch.io import load_torch_checkpoint
+from gastx_torch.models import GastNetConfig, build_gastnet
+from gastx_torch.train import (load_checkpoint, make_optimizer,
+                               restore_batcher_random_state, save_checkpoint,
+                               train_step)
+from gastx_torch.utils import MetricLogger, export_training_curves
+
+LAYOUTS = {17: "h36m17", 16: "sh16", 15: "humaneva15", 19: "h36m19"}
+# The reference's acceptance bar: a best checkpoint is kept only under it.
+BEST_BAR_MM = 49.5
+
+
+def build_config(args, dataset, in_features: int = 2) -> GastNetConfig:
+    """``in_features`` follows the 2D data's channel count: 2 for plain
+    keypoints, 3 when the detections carry confidence scores."""
+    num_joints = dataset.skeleton().num_joints()
+    return GastNetConfig(
+        num_joints_in=num_joints, in_features=in_features,
+        num_joints_out=num_joints,
+        filter_widths=tuple(int(x) for x in args.architecture.split(",")),
+        channels=args.channels, dropout=args.dropout, causal=args.causal,
+        layout=LAYOUTS[num_joints])
+
+
+def step_seed(epoch: int, batch_index: int) -> int:
+    """The dropout generator's seed of one train step."""
+    return (epoch << 32) + batch_index
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    print(args)
+    device = resolve_device(args.device)
+    os.makedirs(args.checkpoint, exist_ok=True)
+
+    (keypoints, dataset, _metadata, kps_left, kps_right, joints_left,
+     joints_right) = load_data(args.dataset, args.keypoints, args.data_dir)
+
+    subjects_train = args.subjects_train.split(",")
+    subjects_test = args.subjects_test.split(",")
+    action_filter = None if args.actions == "*" else args.actions.split(",")
+    if action_filter is not None:
+        print("Selected actions:", action_filter)
+
+    _, poses_valid, poses_valid_2d = fetch(
+        subjects_test, action_filter, dataset, keypoints, args.downsample)
+
+    cfg = build_config(args, dataset, in_features=poses_valid_2d[0].shape[-1])
+    rf = cfg.receptive_field()
+    pad = (rf - 1) // 2
+    print(f"INFO: Receptive field: {rf} frames")
+    if args.causal:
+        print("INFO: Using causal convolutions")
+
+    model = build_gastnet(cfg, seed=0, device=device)
+    print("INFO: Trainable parameter count:",
+          sum(p.numel() for p in model.parameters()))
+    print(f"INFO: running on {device}")
+
+    # The strided variant trains stride-1 chunks without waste; the
+    # dilated one otherwise.
+    train_variant = ("strided" if args.stride == 1
+                     and not args.disable_optimizations else "dilated")
+
+    epoch = 0
+    lr = args.learning_rate
+    batcher_rng = None
+    opt_state = None
+    if args.resume or args.evaluate:
+        path = os.path.join(args.checkpoint, args.resume or args.evaluate)
+        print("Loading checkpoint", path)
+        if path.endswith(".bin"):
+            model.load_state_dict(load_torch_checkpoint(path), strict=True)
+        else:
+            blob = load_checkpoint(path)
+            model.load_state_dict(blob["model"], strict=True)
+            if args.resume:
+                epoch, lr = blob["epoch"], blob["lr"]
+                opt_state = blob["optimizer"]
+                batcher_rng = restore_batcher_random_state(blob)
+
+    if not args.evaluate:
+        cameras_train, poses_train, poses_train_2d = fetch(
+            subjects_train, action_filter, dataset, keypoints,
+            args.downsample, subset=args.subset)
+        full_batch = args.batch_size // args.stride
+        train_batcher = ChunkedBatcher(
+            full_batch, cameras_train, poses_train, poses_train_2d,
+            args.stride, pad=pad, causal_shift=pad if args.causal else 0,
+            shuffle=True, augment=args.data_augmentation, kps_left=kps_left,
+            kps_right=kps_right, joints_left=joints_left,
+            joints_right=joints_right)
+        if batcher_rng is not None:
+            train_batcher.set_random_state(batcher_rng)
+        print(f"INFO: Training on {train_batcher.num_frames()} frames")
+
+        opt = make_optimizer(model.parameters(), lr)
+        if opt_state is not None:
+            opt.load_state_dict(opt_state)
+        generator = torch.Generator(device=device)
+        metric_log = MetricLogger(args.log_file or None)
+        losses_train, losses_train_eval, losses_valid = [], [], []
+        loss_min = BEST_BAR_MM
+
+        def prepare(batch):
+            """Pad a ragged batch with zero-weight filler rows; stage it."""
+            _, batch_3d, batch_2d = batch
+            b = batch_2d.shape[0]
+            weights = np.zeros(full_batch, np.float32)
+            weights[:b] = 1.0
+            if b < full_batch:
+                reps = full_batch - b
+                batch_2d = np.concatenate(
+                    [batch_2d, np.repeat(batch_2d[-1:], reps, 0)])
+                batch_3d = np.concatenate(
+                    [batch_3d, np.repeat(batch_3d[-1:], reps, 0)])
+            return (stage(batch_2d.astype(np.float32), device),
+                    stage(batch_3d.astype(np.float32), device),
+                    stage(weights, device), b)
+
+        while epoch < args.epochs:
+            start_time = time.time()
+            loss_sum = torch.zeros((), dtype=torch.float64, device=device)
+            n_frames = 0
+            for bi, (b2, b3, w, b) in enumerate(prefetch_to_device(
+                    train_batcher.next_epoch(), prepare)):
+                generator.manual_seed(step_seed(epoch, bi))
+                loss = train_step(model, opt, b2, b3, w, lr, generator,
+                                  train_variant)
+                frames = b * args.stride
+                loss_sum += loss * frames
+                n_frames += frames
+            losses_train.append(loss_sum.item() / n_frames)
+            train_s = time.time() - start_time
+
+            if not args.no_eval:
+                e_valid, _ = evaluate_sequences(
+                    model, poses_valid_2d, poses_valid, tta=False,
+                    compute_p2=False)
+                e_train, _ = evaluate_sequences(
+                    model, poses_train_2d, poses_train, tta=False,
+                    compute_p2=False)
+                losses_valid.append(e_valid / 1000)
+                losses_train_eval.append(e_train / 1000)
+
+            elapsed = (time.time() - start_time) / 60
+            metric_log.log(
+                epoch + 1, lr=lr, epoch_minutes=round(elapsed, 3),
+                train_s=train_s, train_frames=n_frames,
+                train_mpjpe_mm=losses_train[-1] * 1000,
+                train_eval_mpjpe_mm=(losses_train_eval[-1] * 1000
+                                     if losses_train_eval else None),
+                valid_mpjpe_mm=(losses_valid[-1] * 1000
+                                if losses_valid else None))
+            if args.no_eval:
+                print(f"[{epoch + 1}] time {elapsed:.2f} lr {lr:f} "
+                      f"3d_train {losses_train[-1] * 1000:f}")
+            else:
+                print(f"[{epoch + 1}] time {elapsed:.2f} lr {lr:f} "
+                      f"3d_train {losses_train[-1] * 1000:f} "
+                      f"3d_eval {losses_train_eval[-1] * 1000:f} "
+                      f"3d_valid {losses_valid[-1] * 1000:f}")
+                if losses_valid[-1] * 1000 < loss_min:
+                    chk_path = os.path.join(args.checkpoint, "epoch_best.pt")
+                    print("Saving checkpoint to", chk_path)
+                    save_checkpoint(
+                        chk_path, epoch=epoch, lr=lr, model=model,
+                        optimizer=opt,
+                        batcher_random_state=train_batcher.random_state())
+                    loss_min = losses_valid[-1] * 1000
+
+            lr *= args.lr_decay
+            epoch += 1
+
+            if epoch % args.checkpoint_frequency == 0:
+                chk_path = os.path.join(args.checkpoint, f"epoch_{epoch}.pt")
+                print("Saving checkpoint to", chk_path)
+                save_checkpoint(
+                    chk_path, epoch=epoch, lr=lr, model=model, optimizer=opt,
+                    batcher_random_state=train_batcher.random_state())
+
+            if args.export_training_curves and epoch > 3:
+                export_training_curves(
+                    os.path.join(args.checkpoint, "loss_3d.png"),
+                    losses_train, losses_train_eval, losses_valid)
+
+    print("Evaluating...")
+    all_actions, by_subject = group_actions_by_name(dataset, subjects_test)
+    kw = dict(downsample=args.downsample, tta=args.test_time_augmentation,
+              action_filter=action_filter, kps_lr=(kps_left, kps_right))
+    if not args.by_subject:
+        run_evaluation(model, all_actions, dataset, keypoints, **kw)
+    else:
+        for subject in by_subject:
+            print("Evaluating on subject", subject)
+            run_evaluation(model, by_subject[subject], dataset, keypoints,
+                           **kw)
+            print("")
+    return model
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

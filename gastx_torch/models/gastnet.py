@@ -63,9 +63,20 @@ The two forwards:
     ``gastx_torch.ops.graph`` (the JAX package's XLA route with the einsum
     attention) for every config, the reference every route is held to.
 
-Training is a later slice.
+Both run under ``torch.no_grad()``, in eval mode. In train mode
+(``model.train()``) :meth:`GastNet.forward` runs the train forward
+instead, the counterpart of ``gastnet_forward(train=True)``: the same
+plain ops as ``reference_forward``, with autograd, for every route and
+variant, BN on the batch statistics (the running ones updated in place)
+and dropout at the JAX package's three sites (each GAB's local and
+global branch, and each level's conv chain before its residual add),
+its masks drawn from the ``torch.Generator`` the caller passes. It
+reaches no hand-written kernel, as the JAX package's train gates reach no
+Pallas kernel.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -79,7 +90,7 @@ from gastx_torch.ops.cuda.fused_level import (fused_level, fused_level0,
                                               level0_tables, level_tables)
 from gastx_torch.ops.cuda.global_attn import global_tables
 from gastx_torch.ops.cuda.head_attn import head_attention
-from gastx_torch.ops.graph import (block_concat, global_concat,
+from gastx_torch.ops.graph import (block_concat, dropout, global_concat,
                                    graph_attention_block, local_graph,
                                    multi_global_graph)
 from gastx_torch.ops.temporal import (pconv_weight, pointwise,
@@ -148,7 +159,8 @@ class GraphAttentionBlock(nn.Module):
 
 
 class GastNet(nn.Module):
-    """The GAST-Net lifting model (eval mode), dilated and strided."""
+    """The GAST-Net lifting model, dilated and strided: the kernel route
+    in eval mode, the plain ops with autograd in train mode."""
 
     def __init__(self, cfg: GastNetConfig):
         super().__init__()
@@ -186,13 +198,28 @@ class GastNet(nn.Module):
         return (self.layers_conv[2 * i - 2], self.layers_bn[2 * i - 2],
                 self.layers_conv[2 * i - 1], self.layers_bn[2 * i - 1])
 
-    @torch.no_grad()
-    def forward(self, x: torch.Tensor, variant: str = "dilated"
+    def forward(self, x: torch.Tensor, variant: str = "dilated", *,
+                generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         """(B, T, J, C_in) normalized 2D keypoints -> (B, T_out, J, 3)
-        (``cfg.output_frames(T, variant)`` frames), on the route
-        ``cfg.gab_impl``, ``cfg.attn_impl`` and ``cfg.packed_channels``
-        pick for ``variant`` (the module docstring's table)."""
+        (``cfg.output_frames(T, variant)`` frames). In eval mode, without
+        gradients, on the route ``cfg.gab_impl``, ``cfg.attn_impl`` and
+        ``cfg.packed_channels`` pick for ``variant`` (the module
+        docstring's table). In train mode the train forward, its dropout
+        masks drawn from ``generator`` (required when ``cfg.dropout`` >
+        0)."""
+        if self.training:
+            if self.cfg.dropout > 0.0 and generator is None:
+                raise ValueError("a train forward with dropout > 0 needs a "
+                                 "torch.Generator (generator=...)")
+            self._check_input(x, variant)
+            return self._plain_forward(x, variant, train=True,
+                                       generator=generator)
+        with torch.no_grad():
+            return self._kernel_forward(x, variant)
+
+    def _kernel_forward(self, x: torch.Tensor, variant: str
+                        ) -> torch.Tensor:
         self._check_input(x, variant)
         cfg, statics = self.cfg, self.statics
         fw, pads = cfg.filter_widths, cfg.pads()
@@ -272,20 +299,24 @@ class GastNet(nn.Module):
             outs.append(out.reshape(b, tt, j, g_ch))
         return outs
 
-    def _expand(self, x: torch.Tensor, variant: str) -> torch.Tensor:
+    def _expand(self, x: torch.Tensor, variant: str, train: bool = False
+                ) -> torch.Tensor:
         """init_bn -> expand conv (strided by fw[0] in the strided
         variant) -> BN -> ReLU, in plain torch."""
         stride = self.cfg.filter_widths[0] if variant == "strided" else 1
-        y = batch_norm(x, self.init_bn)
+        y = batch_norm(x, self.init_bn, train=train)
         y = temporal_conv(y, tconv_weight(self.expand_conv), stride=stride)
-        return torch.relu(batch_norm(y, self.expand_bn))
+        return torch.relu(batch_norm(y, self.expand_bn, train=train))
 
     def _conv_chain(self, y: torch.Tensor, i: int, dilation: int,
-                    variant: str) -> torch.Tensor:
+                    variant: str, train: bool = False,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
         """Level ``i``'s temporal conv -> BN -> ReLU -> 1x1 -> BN -> ReLU
-        -> + residual: dilated (at dilation 1 and the dense width with
-        ``dense``) with the pads' residual slice, or strided by fw[i] with
-        the residual ``y[:, shift + fw//2 :: fw]``."""
+        (-> dropout in train mode) -> + residual: dilated (at dilation 1
+        and the dense width with ``dense``) with the pads' residual slice,
+        or strided by fw[i] with the residual ``y[:, shift + fw//2 ::
+        fw]``."""
         cfg = self.cfg
         conv_t, bn_t, conv_1, bn_1 = self.level_modules(i)
         fw, shift = cfg.filter_widths[i], cfg.causal_shifts(variant)[i]
@@ -297,24 +328,40 @@ class GastNet(nn.Module):
             res = y[:, pad + shift: y.shape[1] - pad + shift]
             z = temporal_conv(y, tconv_weight(conv_t),
                               dilation=1 if cfg.dense else dilation)
-        z = torch.relu(batch_norm(z, bn_t))
+        z = torch.relu(batch_norm(z, bn_t, train=train))
         z = pointwise(z, pconv_weight(conv_1))
-        z = torch.relu(batch_norm(z, bn_1))
+        z = torch.relu(batch_norm(z, bn_1, train=train))
+        if train and cfg.dropout > 0.0:
+            z = dropout(z, cfg.dropout, generator)
         return res + z
 
     @torch.no_grad()
     def reference_forward(self, x: torch.Tensor, variant: str = "dilated"
                           ) -> torch.Tensor:
-        """The same function through the unfused plain ops, whatever the
-        config's route."""
+        """The same function as the eval forward through the unfused plain
+        ops, whatever the config's route; BN on the running statistics
+        whatever the module's mode."""
         self._check_input(x, variant)
+        return self._plain_forward(x, variant)
+
+    def _plain_forward(self, x: torch.Tensor, variant: str, *,
+                       train: bool = False,
+                       generator: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
+        """The plain ops level by level, in the weights' dtype (float32;
+        float64 for a float64 copy of the model); with ``train``,
+        batch-statistic BN and dropout, the masks drawn in the JAX
+        package's order (a level's conv chain, then its GAB's local and
+        global branch)."""
         cfg, statics = self.cfg, self.statics
         gabs = self.layers_graph_conv
-        y = self._expand(x.to(torch.float32), variant)
-        y = graph_attention_block(y, gabs[0], statics)
+        kw = dict(train=train, rate=cfg.dropout, generator=generator)
+        y = self._expand(x.to(self.shrink.weight.dtype), variant, train)
+        y = graph_attention_block(y, gabs[0], statics, **kw)
         dilation = cfg.filter_widths[0]
         for i in range(1, cfg.num_levels):
             y = graph_attention_block(
-                self._conv_chain(y, i, dilation, variant), gabs[i], statics)
+                self._conv_chain(y, i, dilation, variant, train, generator),
+                gabs[i], statics, **kw)
             dilation *= cfg.filter_widths[i]
         return pointwise(y, pconv_weight(self.shrink))

@@ -252,6 +252,7 @@ def fused_gab(x: torch.Tensor, t: GabTables) -> torch.Tensor:
     counts by width, under the TPU kernel each class replaces:
     ``fused_gab_pbatch`` (C < 128), ``fused_gab`` (C <= 256) or
     ``fused_gab_split``."""
+    K.check_no_grad("fused_gab", x, t)
     _check_x(x, t)
     if not K.use_kernel(x.device):
         return fused_gab_plain(x, t)
@@ -290,6 +291,7 @@ def fused_gab_packed(x: torch.Tensor, t: GabTables,
     """(B, T, J*C) -> (B, T, J*2C), the eval-mode GAB on the packed
     layout, C <= 256: :func:`fused_gab`'s kernels on the (B, T, J, C)
     view, counted under ``fused_gab_packed`` alone."""
+    K.check_no_grad("fused_gab_packed", x, t)
     xv = _unpack(x, t, num_joints)
     _check_x(xv, t)
     if not K.use_kernel(x.device):
@@ -319,6 +321,7 @@ def fused_local_branch(x: torch.Tensor, t: LocalTables) -> torch.Tensor:
     """(B, T, J, C) -> (B, T, J, C), the eval-mode local branch (both
     semantic graph convs, their BN/ReLU, the 2C -> C cat, BN, ReLU),
     C <= 512."""
+    K.check_no_grad("fused_local_branch", x, t)
     c = _check_local(x, t)
     if not K.use_kernel(x.device):
         return fused_local_branch_plain(x, t)

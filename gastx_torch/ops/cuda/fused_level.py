@@ -128,6 +128,7 @@ def fused_level(x: torch.Tensor, lt: LevelTables, gt: GabTables, *,
     """(B, T, J, C) -> (B, T', J, 2C), T' = T - (fw-1)*dilation: dilated
     conv -> BN -> ReLU -> 1x1 -> BN -> ReLU -> + x[res_off:res_off+T'] ->
     GAB. ``res_off`` is in frames (pad + causal shift)."""
+    K.check_no_grad("fused_level", x, lt, gt)
     _check_level(x, lt, fw, dilation, res_off)
     if not K.use_kernel(x.device):
         return fused_level_plain(x, lt, gt, fw=fw, dilation=dilation,
@@ -147,6 +148,7 @@ def fused_level0(x: torch.Tensor, l0: Level0Tables, gt: GabTables
                  ) -> torch.Tensor:
     """Raw (B, T, J, C_in) keypoints -> (B, T-fw+1, J, 2C): the expand
     level [init_bn -> expand conv -> BN -> ReLU -> GAB0], init_bn folded."""
+    K.check_no_grad("fused_level0", x, l0, gt)
     _check_x(x, l0.w.shape[1], l0.w.shape[0])
     if not K.use_kernel(x.device):
         return fused_level0_plain(x, l0, gt)

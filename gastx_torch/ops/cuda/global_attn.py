@@ -110,6 +110,7 @@ def fused_global_attention(x: torch.Tensor, t: GlobalTables
                            ) -> torch.Tensor:
     """(B, T, J, C) -> (B, T, J, C), the eval ``multi_global_graph``,
     C <= 512."""
+    K.check_no_grad("fused_global_attention", x, t)
     c = _check(x, t)
     if not K.use_kernel(x.device):
         return fused_global_attention_plain(x, t)

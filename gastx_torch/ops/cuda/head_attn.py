@@ -67,6 +67,8 @@ def head_attention(theta_k: torch.Tensor, phi_k: torch.Tensor,
     (J, J) the bias added after the softmax. The three activations must
     share one row stride, as column views of one projection output do.
     """
+    K.check_no_grad("head_attention", theta_k, phi_k, g_k, proj_t, proj_p,
+                    c_k)
     args = _args(theta_k, phi_k, g_k, proj_t, proj_p, c_k)
     if not K.use_kernel(theta_k.device):
         return head_attention_plain(theta_k, phi_k, g_k, proj_t, proj_p, c_k)

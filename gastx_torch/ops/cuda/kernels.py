@@ -36,7 +36,10 @@ first use, all ``nvcc`` processes started together, and loaded with
 ``ctypes``. Kernels launch on PyTorch's current stream and allocate
 nothing: the wrappers allocate outputs with ``torch.empty``.
 
-Every wrapper checks device, dtype, shape and contiguity. On a CUDA tensor
+Every wrapper checks device, dtype, shape and contiguity, and raises
+(:func:`check_no_grad`) when grad mode is on and an input requires a
+gradient: the kernels have no backward, and a wrapper never detaches its
+inputs quietly. On a CUDA tensor
 it launches its kernel (and raises if the launch fails); on a CPU tensor
 it runs the plain PyTorch version beside it, which is also what the card
 runs to hold the kernel to. ``LAUNCHES`` counts kernel launches by
@@ -233,6 +236,27 @@ def as_table(t: torch.Tensor) -> torch.Tensor:
     return t.detach().to(torch.float32).contiguous()
 
 
+def check_no_grad(name: str, *args) -> None:
+    """Raise if grad mode is on and a tensor among ``args`` (tensors, or
+    sequences and tables of them) requires a gradient: the kernels and
+    their entry points are eval-only, and the train forward runs the plain
+    ops instead."""
+    if not torch.is_grad_enabled():
+        return
+    stack = list(args)
+    while stack:
+        a = stack.pop()
+        if isinstance(a, torch.Tensor):
+            if a.requires_grad:
+                raise RuntimeError(
+                    f"{name} has no backward: it was called with an input "
+                    f"that requires a gradient while grad mode is on; run "
+                    f"it under torch.no_grad() (the model's eval mode) or "
+                    f"train through the plain ops")
+        elif isinstance(a, (tuple, list)):
+            stack.extend(a)
+
+
 def use_kernel(device: torch.device) -> bool:
     """True for the kernel (a CUDA tensor), False for the plain version
     (a CPU tensor); anything else raises."""
@@ -335,6 +359,7 @@ def gemm_epilogue(pieces: Sequence[Piece], m: int, *,
     ``a``. The epilogue applies ``scale``/``shift`` (a bias is scale 1),
     ReLU, then adds ``res`` row s*res_s_in + q + res_off.
     """
+    check_no_grad("gemm_epilogue", pieces, scale, shift, res)
     s_out = m if s_out is None else s_out
     a_s_in = s_out if a_s_in is None else a_s_in
     res_s_in = s_out if res_s_in is None else res_s_in
@@ -442,6 +467,7 @@ def sem_graph(p: torch.Tensor, c: int, w_self, w_nbr, col, scale,
     the host), ``scale``/``shift`` (2C,) — branch 0 sym, 1 con; J <= 32,
     D <= 8. Returns relu(BN([sym | con])) as (rows, 2C).
     """
+    check_no_grad("sem_graph", p, w_self, w_nbr, scale, shift)
     device, j, d = _check_sem(p, c, w_self, w_nbr, col, scale, shift)
     if not use_kernel(device):
         return sem_graph_plain(p, c, w_self, w_nbr, col, scale, shift)
@@ -503,6 +529,7 @@ def joint_attention(theta: torch.Tensor, phi: torch.Tensor, g: torch.Tensor,
     rank-1 score vectors, ``c_k`` (K, J, J) additive attention biases.
     Returns the head-major (rows, K*G) head outputs.
     """
+    check_no_grad("joint_attention", theta, phi, g, proj_t, proj_p, c_k)
     device, k, inter, j, g_ch = _check_attn(theta, phi, g, proj_t, proj_p,
                                             c_k)
     if not use_kernel(device):
@@ -660,6 +687,7 @@ def gab_narrow(x: torch.Tensor, t) -> torch.Tensor:
     """The eval GAB in one launch at the narrow widths: (rows, C) ->
     (rows, 2C), rows whole frames; ``t`` is a ``fused_gab.GabTables`` whose
     shape meets :func:`narrow_shape_ok` (else ``ValueError``)."""
+    check_no_grad("gab_narrow", x, t)
     device, c, j, k, inter, g_ch, d = _check_narrow(x, t)
     if not use_kernel(device):
         return gab_narrow_plain(x, t)

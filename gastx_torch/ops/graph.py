@@ -1,10 +1,17 @@
-"""Graph-attention primitives over the joint axis, channels-last, eval mode.
+"""Graph-attention primitives over the joint axis, channels-last.
 
-Parity target: the eval path of ``gastx.ops.graph``. These are the port's
-plain references: the model's ``reference_forward`` runs them, and the
-CUDA kernels of ``gastx_torch.ops.cuda`` are held against them. The
-model's hybrid routes put kernels between :func:`global_concat` and
-:func:`block_concat`, the plain tails of the two modules below.
+Parity target: the XLA path of ``gastx.ops.graph``, eval and train. These
+are the port's plain references: the model's ``reference_forward`` and
+its train forward run them, and the CUDA kernels of
+``gastx_torch.ops.cuda`` are held against them. The model's hybrid routes
+put kernels between :func:`global_concat` and :func:`block_concat`, the
+plain tails of the two modules below.
+
+With ``train=True`` every BN takes the batch statistics (and updates its
+running ones), and :func:`dropout` runs at the JAX package's two GAB
+sites: the local branch's output after its cat BN/ReLU and the global
+branch's after its cat. Every op is differentiable: no in-place write
+touches a tensor that autograd saved.
 
   * :func:`sem_ch_graph_conv` — channel-wise semantic graph conv with a
     masked softmax over each adjacency row (fill -9e15, not -inf, as the
@@ -56,18 +63,41 @@ def sem_ch_graph_conv(x: torch.Tensor, w: torch.Tensor, e: torch.Tensor,
     return h0 * diag.t() + torch.einsum("cjk,btkc->btjc", off, h1)
 
 
-def local_graph(x: torch.Tensor, mod: nn.Module, statics) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout: keep each value with probability 1 - ``rate``
+    (a mask drawn from ``generator``) and scale the kept ones by
+    1 / (1 - rate), as the JAX ``_dropout`` does."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+def _maybe_dropout(y: torch.Tensor, train: bool, rate: float,
+                   generator) -> torch.Tensor:
+    if train and rate > 0.0:
+        return dropout(y, rate, generator)
+    return y
+
+
+def local_graph(x: torch.Tensor, mod: nn.Module, statics, *,
+                train: bool = False, rate: float = 0.0,
+                generator=None) -> torch.Tensor:
     """Two-branch (mirror symmetry + kinematic connection) local module."""
     j = statics.num_joints
     a = sem_ch_graph_conv(x, mod.gcn_sym.W, mod.gcn_sym.e, statics.sym_idx, j)
     b = sem_ch_graph_conv(x, mod.gcn_con.W, mod.gcn_con.e, statics.con_idx, j)
-    a = torch.relu(batch_norm(a, mod.bn_1))
-    b = torch.relu(batch_norm(b, mod.bn_2))
+    a = torch.relu(batch_norm(a, mod.bn_1, train=train))
+    b = torch.relu(batch_norm(b, mod.bn_2, train=train))
     y = torch.matmul(torch.cat([a, b], dim=-1), pconv_weight(mod.cat_conv))
-    return torch.relu(batch_norm(y, mod.cat_bn))
+    y = torch.relu(batch_norm(y, mod.cat_bn, train=train))
+    return _maybe_dropout(y, train, rate, generator)
 
 
-def multi_global_graph(x: torch.Tensor, mod: nn.Module) -> torch.Tensor:
+def multi_global_graph(x: torch.Tensor, mod: nn.Module, *,
+                       train: bool = False, rate: float = 0.0,
+                       generator=None) -> torch.Tensor:
     """Multi-head attention over joints, one head at a time; head outputs
     concatenate head-major as in the reference's torch.cat."""
     check_f32_matmul(x)
@@ -83,27 +113,34 @@ def multi_global_graph(x: torch.Tensor, mod: nn.Module) -> torch.Tensor:
         f = F.leaky_relu(sa[..., :, None] + sb[..., None, :], 0.2)
         attn = torch.softmax(f, dim=-1) + head.C_k
         outs.append(torch.matmul(attn, g))                     # (B, T, J, G)
-    return global_concat(outs, mod)
+    return global_concat(outs, mod, train=train, rate=rate,
+                         generator=generator)
 
 
-def global_concat(heads: list, mod: nn.Module) -> torch.Tensor:
+def global_concat(heads: list, mod: nn.Module, *, train: bool = False,
+                  rate: float = 0.0, generator=None) -> torch.Tensor:
     """The global branch's head outputs (head-major) -> K*G->C 1x1 conv ->
-    BN -> ReLU."""
+    BN -> ReLU (-> dropout in train mode)."""
     y = torch.matmul(torch.cat(heads, dim=-1), pconv_weight(mod.cat_conv))
-    return torch.relu(batch_norm(y, mod.cat_bn))
+    y = torch.relu(batch_norm(y, mod.cat_bn, train=train))
+    return _maybe_dropout(y, train, rate, generator)
 
 
-def graph_attention_block(x: torch.Tensor, mod: nn.Module, statics
-                          ) -> torch.Tensor:
-    """residual ++ local ++ global -> 1x1 conv (3C->2C) -> BN -> ReLU."""
-    local = local_graph(x, mod.local_graph_layer, statics)
-    globl = multi_global_graph(x, mod.global_graph_layer)
-    return block_concat(x, local, globl, mod)
+def graph_attention_block(x: torch.Tensor, mod: nn.Module, statics, *,
+                          train: bool = False, rate: float = 0.0,
+                          generator=None) -> torch.Tensor:
+    """residual ++ local ++ global -> 1x1 conv (3C->2C) -> BN -> ReLU.
+    In train mode the local branch's dropout mask is drawn before the
+    global branch's, the JAX package's order."""
+    kw = dict(train=train, rate=rate, generator=generator)
+    local = local_graph(x, mod.local_graph_layer, statics, **kw)
+    globl = multi_global_graph(x, mod.global_graph_layer, **kw)
+    return block_concat(x, local, globl, mod, train=train)
 
 
 def block_concat(x: torch.Tensor, local: torch.Tensor, globl: torch.Tensor,
-                 mod: nn.Module) -> torch.Tensor:
+                 mod: nn.Module, *, train: bool = False) -> torch.Tensor:
     """The GAB's [x, local, global] -> 1x1 conv (3C->2C) -> BN -> ReLU."""
     y = torch.matmul(torch.cat([x, local, globl], dim=-1),
                      pconv_weight(mod.cat_conv))
-    return torch.relu(batch_norm(y, mod.cat_bn))
+    return torch.relu(batch_norm(y, mod.cat_bn, train=train))

@@ -542,3 +542,117 @@ def test_cuda_kernels_at_streaming_rows(model, frames, level, gab_frames):
                  lambda th, ph, g, pt, *_: K.graph_variant(
                      (th, ph, g), (pt.shape[1], g.shape[1] // pt.shape[0]))))
     _assert_close(got, plain)
+
+
+# -- training ----------------------------------------------------------------
+
+def _train_batch(frames, batch, seed, device, dtype=torch.float32):
+    gen = torch.Generator().manual_seed(seed)
+    x2 = torch.randn((batch, frames, 17, 2), generator=gen)
+    x3 = 0.3 * torch.randn((batch, 1, 17, 3), generator=gen)
+    return (x2.to(device, dtype), x3.to(device, dtype),
+            torch.ones(batch, device=device, dtype=dtype))
+
+
+def _one_train_step(base, dtype, device):
+    import copy
+
+    from gastx_torch.train import make_optimizer, train_step
+
+    m = copy.deepcopy(base).to(dtype=dtype, device=device)
+    opt = make_optimizer(m.parameters())
+    loss = train_step(m, opt, *_train_batch(27, 4, 30, device, dtype), 1e-3,
+                      None, "strided")
+    return loss, m
+
+
+def _close_per_tensor(got, want):
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    bound = 1e-4 * max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= bound
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_matches_cpu_step(model):
+    """One strided step of the 27f model (dropout 0) on the card against
+    the CPU from the same weights and batch. In float64 the whole step:
+    the loss, every gradient, every parameter after the amsgrad step and
+    the BN running statistics. In float32 the loss and the BN statistics:
+    its gradients differ where a ReLU input lies within rounding of zero
+    (chip_smoke.py's STEP_CHECK_DTYPES note)."""
+    import dataclasses
+
+    base = GastNet(dataclasses.replace(config_for_frames(27), dropout=0.0))
+    gen = torch.Generator().manual_seed(31)
+    randomize_eval_statistics(init_gastnet(base, gen), gen)
+    for dtype in (torch.float64, torch.float32):
+        loss_c, cpu = _one_train_step(base, dtype, "cpu")
+        loss_g, card = _one_train_step(base, dtype, "cuda")
+        _close_per_tensor(loss_g, loss_c)
+        for (n, b), (_, bc) in zip(card.named_buffers(),
+                                   cpu.named_buffers()):
+            if "running" in n:
+                _close_per_tensor(b, bc)
+        if dtype is torch.float64:
+            for (n, p), (_, pc) in zip(card.named_parameters(),
+                                       cpu.named_parameters()):
+                _close_per_tensor(p.grad, pc.grad)
+                _close_per_tensor(p, pc)
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_launches_no_kernel(model):
+    """A train step (dropout 0.05) runs the plain ops alone: every launch
+    counter stays 0, and the loss is finite."""
+    import dataclasses
+
+    from gastx_torch.models import build_gastnet
+    from gastx_torch.train import make_optimizer, train_step
+
+    m = build_gastnet(dataclasses.replace(config_for_frames(27),
+                                          dropout=0.05), device="cuda")
+    opt = make_optimizer(m.parameters())
+    K.reset_launches()
+    loss = train_step(m, opt, *_train_batch(27, 8, 32, "cuda"), 1e-3,
+                      torch.Generator(device="cuda").manual_seed(0),
+                      "strided")
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert all(v == 0 for v in K.LAUNCHES.values()), K.LAUNCHES
+    assert all(v == 0 for v in K.ENTRY_LAUNCHES.values()), K.ENTRY_LAUNCHES
+
+
+@pytest.mark.cuda
+def test_cuda_run_evaluation_runs_the_kernels(model, tmp_path):
+    """run_evaluation on the card launches the level kernels and agrees
+    with the same evaluation on the CPU (P1, P2 in mm, to 2e-2 mm)."""
+    import copy
+
+    import numpy as np
+
+    from gastx_torch.data.harness import group_actions_by_name, load_data
+    from gastx_torch.eval import run_evaluation
+
+    rng = np.random.default_rng(0)
+    subjects = ["S1", "S9", "S11"]
+    p3 = {s: {"Walking 1": rng.standard_normal((60, 32, 3)).astype(
+        np.float32)} for s in subjects}
+    p2 = {s: {"Walking 1": [(rng.random((60, 17, 2)) * 1000).astype(
+        np.float32) for _ in range(4)]} for s in subjects}
+    np.savez_compressed(tmp_path / "data_3d_h36m.npz", positions_3d=p3)
+    meta = {"layout_name": "h36m", "num_joints": 17,
+            "keypoints_symmetry": [[4, 5, 6, 11, 12, 13],
+                                   [1, 2, 3, 14, 15, 16]]}
+    np.savez_compressed(tmp_path / "data_2d_h36m_cpn_ft_h36m_dbb.npz",
+                        positions_2d=p2, metadata=meta)
+    kps, ds, _, kl, kr, _, _ = load_data("h36m", "cpn_ft_h36m_dbb",
+                                         str(tmp_path))
+    actions = group_actions_by_name(ds, ["S9", "S11"])[0]
+    kw = dict(downsample=1, kps_lr=(kl, kr), log=lambda *_: None)
+    cpu = copy.deepcopy(model).cpu()
+    K.reset_launches()
+    got = run_evaluation(model, actions, ds, kps, **kw)
+    for name in ("fused_level0", "fused_level", "fused_gab_split"):
+        assert K.ENTRY_LAUNCHES[name] > 0, K.ENTRY_LAUNCHES
+    want = run_evaluation(cpu, actions, ds, kps, **kw)
+    np.testing.assert_allclose(got, want, atol=2e-2, rtol=1e-4)

@@ -159,10 +159,10 @@ def test_head_attention_matches_jax_kernel(request, weights, j, c):
             jnp.asarray(gp["proj_theta"][h].reshape(inter, 1)),
             jnp.asarray(gp["proj_phi"][h].reshape(inter, 1)),
             jnp.asarray(gp["C_k"][h]), interpret=True)
-        proj = heads[h].concat_project[0].weight.reshape(-1, 1)
+        proj = heads[h].concat_project[0].weight.detach().reshape(-1, 1)
         pt = torch.from_numpy(p)
         got = head_attention(*(pt[..., c] for c in cols), proj[:inter],
-                             proj[inter:], heads[h].C_k)
+                             proj[inter:], heads[h].C_k.detach())
         assert_close(got, want)
 
 
@@ -538,12 +538,13 @@ def test_route_entry_points_reject_bad_inputs(level_weights, wide_weights):
         fused_global_attention(x.double(), global_tables(
             gab.global_graph_layer))
     head = gab.global_graph_layer.attentions[0]
-    proj = head.concat_project[0].weight.reshape(-1, 1)
+    proj = head.concat_project[0].weight.detach().reshape(-1, 1)
+    c_k = head.C_k.detach()
     p = torch.zeros(4, 17, 48)
     with pytest.raises(ValueError):  # proj vectors of the wrong length
         head_attention(p[..., :16], p[..., 16:32], p[..., 32:], proj, proj,
-                       head.C_k)
+                       c_k)
     with pytest.raises(ValueError):  # rows that do not merge without a copy
         head_attention(*(p.transpose(0, 1)[..., s:s + 16]
                          for s in (0, 16, 32)),
-                       proj[:16], proj[16:], head.C_k)
+                       proj[:16], proj[16:], c_k)
