@@ -5,7 +5,7 @@ CUDA device and the CUDA toolkit (``nvcc``); it imports nothing of JAX or
 of the ``gastx`` package. Phases, in order; any failure ends the run with
 a non-zero exit and no result line:
 
-  1. build the four CUDA kernels from ``gastx_torch/csrc`` (one ``nvcc``
+  1. build the five CUDA kernels from ``gastx_torch/csrc`` (one ``nvcc``
      per source, all started together) and print the card's name and power
      limit;
   2. hold each kernel and each entry-point wrapper to its plain PyTorch
@@ -96,13 +96,39 @@ a non-zero exit and no result line:
      ``python -m gastx_torch.cli.trainval`` on a synthetic H36M-format
      dataset under ``build/chip_smoke/trainval``: two epochs with
      evaluation and checkpoints, a resume from epoch 1 held to the straight
-     run's epoch 2, and ``--evaluate``, every eval forward held to
-     ``reference_forward`` as it runs and the launch counters read over
-     the three runs.
+     run's epoch 2, and ``--evaluate``, all at trainval's default
+     ``--matmul-precision high``, then ``--evaluate`` at ``mixed`` and
+     ``default``, every eval forward held to the same route and tiers
+     through the plain versions (``plain_route_forward``) as it runs and
+     the launch counters read over the five runs;
+ 10. the precision tiers (``gastx_torch.ops.precision``): (a) the
+     tensor-core ``gemm_tc`` at every tier (``TC_PASSES``) on the 27f
+     level-1 projection (B=1024, timed beside the float32
+     ``gemm_epilogue``, its bound at 989 TFLOP/s a pass or 3.35 TB/s, and
+     a bf16 ``torch.matmul`` for the one-pass tier), the level-1 1x1 with
+     its residual, the block concat, the level-0 expand conv (K = 2 a tap,
+     the general instantiation) and ``gemm_epilogue``'s ragged cases, each
+     held to ``gemm_epilogue_plain`` at the same tier, then
+     ``joint_attention`` at C=256 and 128 at the cert's tier pairs (B=1024,
+     timed) and at every pair (B=4), held by ``attn_tier_check``; (b) the
+     cert: 27f, 81f and 243f at seeds 0-23 of the port's init, max
+     |tiered - float32| of the card's forward in mm for (i) all "high"
+     (over 0.1 mm fails the run) and (ii) the JAX inference preset (a
+     finding), worst seed printed; (c) those six tiered forwards at B=64
+     held to ``plain_route_forward``, the launch counters zeroed just
+     before and read just after (the tiered path: every tier's
+     instantiation it must launch, and no float32 ``gemm_epilogue``); (d)
+     windows/s, device busy and idle share and launches of the float32,
+     (i) and (ii) forwards at 27f/81f/243f (B=1024/1024/256), and
+     ``gab_narrow`` beside the chain at the preset's tiers at the three
+     narrow GABs.
 
 Tolerance: each kernel, wrapper and the forward must agree with its plain
 version to max |delta| <= 1e-4 * max(1, max |plain|); both sides compute
-in float32 and only the order of summation differs. Timings are CUDA
+in float32 and only the order of summation differs (at a tier, both round
+the same operands to bf16 and sum exact products in float32;
+``attn_tier_check`` says what it adds for the attention's softmax
+weights, which each side computes before it rounds them). Timings are CUDA
 events around repeated calls after a warm-up. The last lines are the
 script's total seconds, the ``{"kernels": [...]}`` summary (the entries
 of ``gemm_epilogue``, ``sem_graph`` and ``joint_attention`` also give
@@ -130,6 +156,21 @@ WORK_DIR = os.path.join(REPO, "build", "chip_smoke")
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def card_state(label: str) -> str:
+    """The card's SM clock (and its maximum), power draw, temperature and
+    active clock-throttle reasons from nvidia-smi, printed beside
+    ``label``: timings taken while the card throttles are not comparable
+    with others."""
+    fields = ("clocks.sm,clocks.max.sm,power.draw,temperature.gpu,"
+              "clocks_throttle_reasons.active")
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"  card ({label}): {out} (sm clock, max, power, temperature, "
+          f"throttle reasons)")
+    return out
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -620,7 +661,7 @@ def profile_call(fn, title):
         if ev.device_type != DeviceType.CUDA or dev_ms <= 0:
             continue
         name = next((k for k in ("gemm_epilogue", "sem_graph",
-                                 "joint_attention", "gab_narrow")
+                                 "joint_attention", "gab_narrow", "gemm_tc")
                      if f"{k}_kernel" in ev.key), f"other: {ev.key[:70]}")
         g = groups.setdefault(name, [0.0, 0])
         g[0] += dev_ms
@@ -721,7 +762,16 @@ def launch_counts(K) -> dict:
     return {**K.LAUNCHES, **{f"{k} {v}": n
                              for k, counts in K.VARIANT_LAUNCHES.items()
                              for v, n in counts.items()},
+            **{f"{k} {t}": n for k, counts in K.TIER_LAUNCHES.items()
+               for t, n in counts.items()},
             **K.ENTRY_LAUNCHES}
+
+
+def tiered_launch(name: str) -> bool:
+    """A counter of the tiered instantiations (``gemm_tc``'s, and
+    ``joint_attention``'s by tier pair), which the float32 paths never
+    launch."""
+    return name.startswith("gemm_tc") or "/" in name
 
 
 # Every view the main paths give the graph kernels meets the 16-byte rule:
@@ -1306,9 +1356,11 @@ def trainval_on_card(K, dev) -> dict:
     """Phase 9 (d): trainval end to end: two epochs with evaluation and a
     checkpoint each, a resume from epoch 1 to epoch 2 in a second
     directory (its epoch-2 checkpoint held to the straight one), then
-    --evaluate. Every eval forward is held to reference_forward on the
-    same batch at the time it runs; the launch counters are zeroed before
-    and read after."""
+    --evaluate, at trainval's --matmul-precision default ("high"), and
+    --evaluate again at "mixed" and at "default". Every eval forward is
+    held to the same route and tiers through the plain versions
+    (``plain_route_forward``) on the same batch at the time it runs; the
+    launch counters are zeroed before and read after."""
     import json
     import shutil
 
@@ -1325,13 +1377,19 @@ def trainval_on_card(K, dev) -> dict:
     straight, resumed = (os.path.join(root, d) for d in ("straight",
                                                          "resumed"))
     common = [*TRAINVAL_ARGS, "--data-dir", data_dir]
-    held = []
+    held, tier_errs = [], {}
 
     def hold(module, inputs, output):
         if isinstance(module, GastNet) and not module.training:
-            held.append(check(
-                f"trainval eval forward {tuple(inputs[0].shape)}", output,
-                module.reference_forward(inputs[0])))
+            cfg = module.cfg
+            label = (f"{cfg.matmul_precision}, "
+                     f"{len(cfg.precision_overrides)} overrides")
+            err, tier_err, scale = tiered_check(
+                f"trainval eval forward {tuple(inputs[0].shape)} at "
+                f"{label}", module, inputs[0], output)
+            held.append(err)
+            tier_errs[label] = max(tier_errs.get(label, (0.0, 0.0)),
+                                   (tier_err, scale))
 
     hook = register_module_forward_hook(hold)
     K.reset_launches()
@@ -1345,17 +1403,23 @@ def trainval_on_card(K, dev) -> dict:
                               "-r", "epoch_1.pt"])
         out_e = run_trainval([*common, "--checkpoint", straight,
                               "--evaluate", "epoch_2.pt"])
+        out_tiers = [run_trainval([*common, "--checkpoint", straight,
+                                   "--evaluate", "epoch_2.pt",
+                                   "--matmul-precision", tier])
+                     for tier in ("mixed", "default")]
     finally:
         hook.remove()
     total_s = time.time() - t0
     launches = {k: v for k, v in launch_counts(K).items() if v}
-    for text in (out, out_r, out_e):
+    for text in (out, out_r, out_e, *out_tiers):
         if "Protocol #2" not in text or f"running on {dev}" not in text:
             fail(f"trainval printed no Protocol #2 evaluation on {dev}:\n"
                  + text[-2000:])
-    for line in out_e.splitlines():
-        if "action-wise average" in line:
-            print(f"  --evaluate: {line.strip()}")
+    for tier, text in zip(("high", "mixed", "default"), (out_e, *out_tiers)):
+        for line in text.splitlines():
+            if "action-wise average" in line:
+                print(f"  --evaluate --matmul-precision {tier}: "
+                      f"{line.strip()}")
     with open(os.path.join(root, "log.jsonl")) as f:
         epochs = [json.loads(line) for line in f]
     for e in epochs:
@@ -1380,23 +1444,449 @@ def trainval_on_card(K, dev) -> dict:
         bound_ = TOL * max(1.0, float(t.abs().max()))
         worst = max(worst, (d / bound_, d, n))
     print(f"  resume against straight: largest difference {worst[1]:.3e} "
-          f"({worst[2]}), {worst[0]:.3f} of its bound; {len(held)} eval "
+          f"({worst[2]}), {worst[0]:.3f} of its bound; tiers' own largest "
+          f"distance from the float32 forward, by tier (mm, and the "
+          f"largest float32 output in mm): "
+          f"{ {k: (round(e * 1000, 4), round(m * 1000, 1))
+               for k, (e, m) in tier_errs.items()} }; "
+          f"{len(held)} eval "
           f"forwards held; launches {launches}; {total_s:.1f} s")
     if not worst[0] <= 1.0:
         fail(f"resumed {worst[2]} differs from the straight run by "
              f"{worst[1]}")
     for name in ("fused_level0", "fused_level", "fused_gab",
-                 "fused_gab_split", "gemm_epilogue", "sem_graph",
-                 "joint_attention"):
+                 "fused_gab_split", "gemm_tc", "sem_graph",
+                 "joint_attention", "gemm_tc high", "gemm_tc high_rhs",
+                 "gemm_tc default", "joint_attention high/high",
+                 "joint_attention default/default"):
         if not launches.get(name):
             fail(f"trainval's eval passes did not launch {name}")
+    if launches.get("gemm_epilogue"):
+        fail("trainval's tiered eval passes launched the float32 "
+             "gemm_epilogue")
     if not held:
         fail("no trainval eval forward was recorded")
     torch.cuda.empty_cache()
     return {"epochs": epochs, "resume_max_abs_diff": worst[1],
             "resume_worst_tensor": worst[2], "eval_forwards_held": len(held),
             "eval_max_abs_err": max(held), "launches": launches,
+            "tier_max_abs_err_vs_float32": tier_errs,
             "total_s": total_s}
+
+
+# --------------------------------------------------------------------------
+# Phase 10: the precision tiers (gastx_torch.ops.precision) on the card
+# --------------------------------------------------------------------------
+
+BF16_PEAK = 989e12     # H100 SXM dense bf16 tensor-core FLOP/s
+# gemm_tc's tiers and bf16 passes ("kdefault" is the "default" one).
+TC_PASSES = {"default": 1, "high_lhs": 2, "high_rhs": 2, "high": 3}
+# phase 10 (a): gemm_epilogue's shapes held at every tier: a GEMM_SHAPES
+# line (index) at a number of windows, and the tier row's main shape.
+TIER_GEMM_CASES = ((7, 1024), (6, 256), (10, 256), (0, 1024))
+# The score/apply tier pairs the cert's two configurations give
+# joint_attention: all "high", and the preset's.
+ATTN_PAIRS = (("high", "high"), ("default", "default"))
+# Every pair at one small shape: the runtime tier codes of the two
+# instantiations (the apply tier "high" is the other one).
+ATTN_ALL = ("highest", "default", "high_lhs", "high_rhs", "high")
+# phase 10 (b): the cert, 24 seeds of the port's init at each model,
+# B=64 windows of rf frames, dropout 0, eval; the budget is the JAX
+# package's 0.1 mm (gastx/models/config.py:350-353), outputs in metres.
+CERT_SEEDS = range(24)
+CERT_BUDGET_MM = 0.1
+# phase 10 (d): (receptive field, batch of windows) of the throughput.
+TIER_FORWARDS = ((27, 1024), (81, 1024), (243, 256))
+
+
+def tier_configs(frames: int) -> dict:
+    """The cert's configurations of the shipped ``frames`` model (h36m17,
+    dilated, non-causal, dropout 0): float32, (i) all "high", (ii) the JAX
+    package's inference preset."""
+    from gastx_torch.models import config_for_frames
+    from gastx_torch.models.config import TPU_MIXED_PRECISION_OVERRIDES
+
+    return {
+        "highest": config_for_frames(frames, dropout=0.0),
+        "high": config_for_frames(frames, dropout=0.0,
+                                  matmul_precision="high"),
+        "preset": config_for_frames(
+            frames, dropout=0.0, matmul_precision="high",
+            precision_overrides=TPU_MIXED_PRECISION_OVERRIDES)}
+
+
+def with_config(model, cfg):
+    """``model`` with ``cfg`` (the same architecture, other tiers)."""
+    model.cfg = cfg
+    return model
+
+
+def attn_tier_check(name, got, plain, plain_f32, noise, g, c_k,
+                    apply_tier):
+    """Hold a tiered ``joint_attention`` to its plain version.
+
+    Both round the same score operands (inputs), but the apply's lhs is the
+    softmax each computes in its own float32 order, so a weight lying
+    within rounding of a bf16 boundary may round to the neighbouring value
+    on one side: one bf16 ulp, at most 2^-7 |w| (2^-14 where the lhs keeps
+    16 bits). So each output element may differ by the float32 bound plus
+    2^-7 max|g| sum_m |w_qm| <= 2^-7 max|g| (1 + max_q sum_m |C_k[q, m]|).
+    Such flips are rare, so the kernel must also lie nearer its plain
+    version than the float32 output, by half in root-mean-square (a kernel
+    that skipped the rounding would sit at the float32 output), wherever
+    the tier moves the plain output by more than twice ``noise``, the
+    float32 kernel's own root-mean-square distance from its plain
+    version (below it no test tells a tier from float32)."""
+    err = max_err(got, plain)
+    flip = {"highest": 0.0, "high_lhs": 2.0 ** -14,
+            "high": 2.0 ** -14}.get(apply_tier, 2.0 ** -7)
+    ck_sum = float(c_k.abs().sum(-1).max())
+    bound_ = (TOL * max(1.0, float(plain.abs().max()))
+              + flip * float(g.abs().max()) * (1.0 + ck_sum))
+    rms = float((got - plain).pow(2).mean().sqrt())
+    rms_f32 = float((got - plain_f32).pow(2).mean().sqrt())
+    rms_tier = float((plain - plain_f32).pow(2).mean().sqrt())
+    print(f"  {name}: max|d| {err:.3e} (bound {bound_:.3e}); rms {rms:.3e}"
+          f", from the float32 output {rms_f32:.3e} (the tier moves the "
+          f"plain output by {rms_tier:.3e}, float32 noise {noise:.3e})")
+    if not err <= bound_:
+        fail(f"{name} disagrees with its plain version: {err} > {bound_}")
+    if rms_tier > 2 * noise and not rms <= 0.5 * rms_f32:
+        fail(f"{name}: rms {rms} from its plain version is not half its "
+             f"{rms_f32} from the float32 output")
+    return err
+
+
+def tc_work(m, ks, n, has_bn, has_res, tier):
+    """gemm_tc's bound: the product's operations at the bf16 rate a pass,
+    the bytes of A (float32), W's bf16 halves, the output and epilogue."""
+    flops, nbytes = gemm_work(m, ks, n, has_bn, has_res)
+    k = sum(ks)
+    halves = 2 if tier in ("high", "high_rhs") else 1
+    nbytes += (2 * halves - 4) * k * n
+    return flops, nbytes, TC_PASSES[tier]
+
+
+def tc_bound(flops, nbytes, passes):
+    t_ops, t_bytes = flops * passes / BF16_PEAK, nbytes / HBM_RATE
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def tier_kernels(K, dev, gts, glts) -> dict:
+    """Phase 10 (a): ``gemm_epilogue`` at every tier on ``gemm_tc`` and
+    ``joint_attention`` at the cert's tier pairs, held to their plain
+    versions (the same operands rounded), timed beside their bound and one
+    PyTorch call where one computes the same function; the ragged
+    ``general`` cases at every tier, each on the instantiation
+    ``tc_variant`` picks."""
+    import torch
+
+    print("phase 10 (a): the tiered kernels against their plain versions")
+    card_state("phase 10 (a)")
+    rows, errs = [], {}
+    for tier in TC_PASSES:
+        for idx, windows in TIER_GEMM_CASES:
+            spec = GEMM_SHAPES[idx]
+            label, _, _, ks, n, epi, taps, res = spec
+            pieces, m, kw = gemm_case(spec, dev, 300 + idx, windows=windows)
+            kw["tier"] = tier
+            variant = K.tc_variant(pieces, n, kw["res"])
+            taken, got = launched_variant(
+                K, "gemm_tc", lambda: K.gemm_epilogue(pieces, m, **kw))
+            if taken != variant:
+                fail(f"gemm_tc {label}: took {taken}, not {variant}")
+            err = check(f"gemm_tc {tier} {label} (B={windows}, {variant})",
+                        got, K.gemm_epilogue_plain(pieces, m, **kw))
+            del got
+            errs[tier] = max(errs.get(tier, 0.0), err)
+            if idx != TIER_GEMM_CASES[0][0]:
+                continue
+            ms = cuda_ms(lambda: K.gemm_epilogue(pieces, m, **kw))
+            plain_ms = cuda_ms(lambda: K.gemm_epilogue_plain(pieces, m,
+                                                             **kw), reps=3)
+            f32_ms = cuda_ms(lambda: K.gemm_epilogue(
+                pieces, m, **{**kw, "tier": "highest"}))
+            library_ms = None
+            if tier == "default":  # one bf16 cuBLAS product, bf16 out
+                a16 = pieces[0][0].to(torch.bfloat16)
+                w16 = pieces[0][1].to(torch.bfloat16)
+                library_ms = cuda_ms(lambda: torch.matmul(a16, w16))
+                del a16, w16
+            bms, by = tc_bound(*tc_work(m, ks, n, 1, kw["res"] is not None,
+                                        tier))
+            rows.append({"tier": tier, "shape": f"{label} (B={windows})",
+                         "m": m, "ks": list(ks), "n": n, "ms": ms,
+                         "plain_ms": plain_ms, "float32_ms": f32_ms,
+                         "library_ms": library_ms, "bound_ms": bms,
+                         "bound_by": by, "max_abs_err": err,
+                         "tflops": 2 * m * n * sum(ks) / ms / 1e9})
+            print(f"  gemm_tc {tier} {label} (B={windows}): {ms:.3f} ms "
+                  f"({rows[-1]['tflops']:.1f} TFLOP/s; float32 "
+                  f"gemm_epilogue {f32_ms:.3f}; plain {plain_ms:.3f}; bound "
+                  f"{bms:.3f} by {by}"
+                  + (f"; bf16 torch.matmul {library_ms:.3f}"
+                     if library_ms else "") + ")")
+            del pieces, kw
+            torch.cuda.empty_cache()
+        for label, pieces, m, kw, _ in gemm_ragged_cases(dev):
+            kw = {**kw, "tier": tier}
+            want = K.tc_variant(pieces, pieces[0][1].shape[1],
+                                kw.get("res"))
+            taken, got = launched_variant(
+                K, "gemm_tc", lambda: K.gemm_epilogue(pieces, m, **kw))
+            if taken != want:
+                fail(f"gemm_tc {label}: took {taken}, not {want}")
+            errs[tier] = max(errs[tier], check(
+                f"gemm_tc {tier} {label} ({want})", got,
+                K.gemm_epilogue_plain(pieces, m, **kw)))
+            del got
+
+    attn_rows = []
+    g1 = gts[1]
+    for c, t, frames in ((256, g1, 19), (128, gts[0], 25)):
+        for b, pairs in ((1024, ATTN_PAIRS), (4, [
+                (s_, a_) for s_ in ATTN_ALL for a_ in ATTN_ALL])):
+            rows_ = b * frames * 17
+            _, args = graph_operands(K, t, rows_, dev, seed=400 + c)
+            g = args[2]
+            plain_f32 = K.joint_attention_plain(*args)
+            noise = float((K.joint_attention(*args) - plain_f32).pow(2)
+                          .mean().sqrt())
+            for st, at in pairs:
+                kw = dict(score_tier=st, apply_tier=at)
+                got = K.joint_attention(*args, **kw)
+                plain = (plain_f32 if st == at == "highest"
+                         else K.joint_attention_plain(*args, **kw))
+                err = attn_tier_check(
+                    f"joint_attention {st}/{at} C={c} (B={b})", got, plain,
+                    plain_f32, noise, g, t.c_k, at)
+                del got, plain
+                key = f"{st}/{at}"
+                errs[key] = max(errs.get(key, 0.0), err)
+                if b != 1024:
+                    continue
+                ms = device_ms(lambda: K.joint_attention(*args, **kw),
+                               "joint_attention")
+                f32_ms = device_ms(lambda: K.joint_attention(*args),
+                                   "joint_attention")
+                plain_ms = cuda_ms(lambda: K.joint_attention_plain(
+                    *args, **kw), reps=3)
+                k_, inter = t.proj_t.shape
+                flops, nbytes = attn_work(rows_, 17, k_, inter,
+                                          g.shape[1] // k_)
+                bms, by = bound(flops * (2 if at == "high" else 1), nbytes)
+                attn_rows.append({
+                    "pair": key, "c": c, "rows": rows_, "ms": ms,
+                    "float32_ms": f32_ms, "plain_ms": plain_ms,
+                    "library_ms": None, "bound_ms": bms, "bound_by": by,
+                    "max_abs_err": err})
+                print(f"  joint_attention {key} C={c} (B={b}): {ms:.3f} ms "
+                      f"a launch on the device (float32 {f32_ms:.3f}; plain "
+                      f"{plain_ms:.3f}; bound {bms:.3f} by {by})")
+            del args, g, plain_f32
+            torch.cuda.empty_cache()
+    return {"gemm_tc": rows, "joint_attention": attn_rows, "errs": errs,
+            "direct_launches": {k: dict(v) for k, v in
+                                K.TIER_LAUNCHES.items()}}
+
+
+def tiered_check(name, model, x, got):
+    """Hold a tiered eval forward ``got`` of ``model`` on ``x`` to the same
+    route and tiers through the plain versions; returns (its max |d|, the
+    plain route's own max distance from the float32 ``reference_forward``,
+    the float32 output's largest magnitude).
+
+    Two computations at one tier whose float32 sums run in other orders
+    round a few operands to neighbouring bf16 values; past the first such
+    operand they differ as two draws of the tier's rounding do. So the
+    bound is the float32 one or, where larger, twice the tier's own
+    distance from the float32 forward, which a broken kernel (a wrong row,
+    tap or head) far exceeds. At "highest" it is the float32 bound."""
+    plain = model.plain_route_forward(x)
+    f32 = model.reference_forward(x)
+    tier_err = max_err(plain, f32)
+    err = max_err(got, plain)
+    bound_ = max(TOL * max(1.0, float(plain.abs().max())), 2 * tier_err)
+    print(f"  {name}: max|d| {err:.3e} (bound {bound_:.3e}; the tier's own "
+          f"distance from float32 {tier_err:.3e})")
+    if not err <= bound_:
+        fail(f"{name} disagrees with its plain version: {err} > {bound_}")
+    return err, tier_err, float(f32.abs().max())
+
+
+def tier_cert(dev) -> dict:
+    """Phase 10 (b): the 24-seed cert. For each model and seed, the port's
+    init (``build_gastnet``, seed), the input ``np.random.default_rng(seed)
+    .standard_normal((64, rf, 17, 2))`` (as the JAX package's
+    ``scripts/perf_lab13.py``), and the max |tiered - float32| of the
+    card's eval forward in mm (x1000): (i) all "high", which fails the run
+    above the budget, (ii) the JAX preset, a finding against it."""
+    import numpy as np
+    import torch
+
+    from gastx_torch.models import build_gastnet
+
+    print(f"phase 10 (b): the cert, worst of {len(CERT_SEEDS)} seeds, "
+          f"max |tiered - float32| in mm (budget {CERT_BUDGET_MM} mm)")
+    out = {}
+    for frames in (27, 81, 243):
+        cfgs = tier_configs(frames)
+        worst = {"high": (0.0, -1), "preset": (0.0, -1)}
+        per_seed = {"high": [], "preset": []}
+        for seed in CERT_SEEDS:
+            model = build_gastnet(cfgs["highest"], seed=seed, device=dev)
+            x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+                (64, frames, 17, 2)).astype(np.float32)).to(dev)
+            exact = model(x)
+            for name in worst:
+                y = with_config(model, cfgs[name])(x)
+                if not bool(torch.isfinite(y).all()):
+                    fail(f"cert {frames}f {name} seed {seed}: non-finite")
+                d = float((y - exact).abs().max()) * 1000.0
+                per_seed[name].append(d)
+                worst[name] = max(worst[name], (d, seed))
+            with_config(model, cfgs["highest"])
+            del model, x, exact
+        out[f"{frames}f"] = {name: {"worst_mm": w, "seed": s,
+                                    "per_seed_mm": per_seed[name]}
+                             for name, (w, s) in worst.items()}
+        for name, (w, s) in worst.items():
+            print(f"  {frames}f {name}: worst {w:.4f} mm (seed {s}); median "
+                  f"{float(np.median(per_seed[name])):.4f} mm")
+        torch.cuda.empty_cache()
+    for frames in (27, 81, 243):
+        w = out[f"{frames}f"]["high"]["worst_mm"]
+        if not w <= CERT_BUDGET_MM:
+            fail(f"cert (i) at {frames}f: {w} mm over {CERT_BUDGET_MM} mm")
+    return out
+
+
+def tier_paths(K, dev) -> dict:
+    """Phase 10 (c): the tiered forwards, (i) and (ii) at 27f, 81f and
+    243f on B=64 windows, each held to the same route and tiers through
+    the plain versions (``plain_route_forward``) within the float32 bound
+    (the bf16 operands are rounded alike; only the float32 sums' order, and
+    the rare operand that rounds to the neighbouring bf16 value after it,
+    differ). The launch counters are zeroed just before these six forwards
+    and read just after: the tiered path's launches."""
+    import numpy as np
+    import torch
+
+    from gastx_torch.models import build_gastnet
+
+    print("phase 10 (c): the tiered forwards against their plain route "
+          "(B=64)")
+    models, xs, held = {}, {}, {}
+    for frames in (27, 81, 243):
+        models[frames] = build_gastnet(tier_configs(frames)["highest"],
+                                       seed=frames, device=dev)
+        xs[frames] = torch.from_numpy(np.random.default_rng(frames)
+                                      .standard_normal((64, frames, 17, 2))
+                                      .astype(np.float32)).to(dev)
+    outs = {}
+    K.reset_launches()
+    for frames in (27, 81, 243):
+        for name in ("high", "preset"):
+            m = with_config(models[frames], tier_configs(frames)[name])
+            outs[(frames, name)] = m(xs[frames])
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in launch_counts(K).items() if v}
+    for (frames, name), y in outs.items():
+        m = with_config(models[frames], tier_configs(frames)[name])
+        held[f"{frames}f {name}"] = check(
+            f"{frames}f {name} forward (B=64) against its plain route", y,
+            m.plain_route_forward(xs[frames]))
+    print(f"  launches over the six forwards: {launches}")
+    for key in ("gemm_tc", "gemm_tc high", "gemm_tc high_rhs",
+                "gemm_tc default", "gemm_tc general",
+                "joint_attention high/high",
+                "joint_attention default/default", "gab_narrow",
+                "sem_graph"):
+        if not launches.get(key):
+            fail(f"the tiered path did not launch {key}")
+    if launches.get("gemm_epilogue"):
+        fail("a tiered forward launched the float32 gemm_epilogue")
+    del models, xs, outs
+    torch.cuda.empty_cache()
+    return {"max_abs_err": held, "launches": launches}
+
+
+def tier_throughput(K, dev) -> dict:
+    """Phase 10 (d): windows/s of the full-width forwards (27f/81f/243f at
+    B=1024/1024/256) at float32, (i) and (ii) in one call, each with its
+    device busy time and idle share (one profiled forward) and launches by
+    instantiation; then gab_narrow (float32 at every tier) beside the chain
+    at the preset's tiers at the three narrow GABs (``gab_route``'s
+    rule)."""
+    import torch
+
+    from gastx_torch.models import build_gastnet
+    from gastx_torch.ops.cuda.fused_gab import KERNEL_OPS, gab_tables
+
+    print("phase 10 (d): throughput of the tiered forwards (each timed in "
+          "two turns, float32, high, preset, preset, high, float32)")
+    out = {}
+    for frames, b in TIER_FORWARDS:
+        cfgs = tier_configs(frames)
+        model = build_gastnet(cfgs["highest"], seed=frames, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(frames)
+        x = torch.randn((b, frames, 17, 2), generator=gen, device=dev)
+        state = card_state(f"{frames}f B={b}")
+        times = {}
+        for name in ("highest", "high", "preset", "preset", "high",
+                     "highest"):
+            m = with_config(model, cfgs[name])
+            if name not in times:
+                K.reset_launches()
+                m(x)
+                torch.cuda.synchronize()
+                per_forward = {k: v for k, v in launch_counts(K).items()
+                               if v}
+                prof = profile_call(lambda: m(x), f"  {frames}f B={b} "
+                                    f"{name}: one profiled forward")
+                out[f"{frames}f {name}"] = {
+                    "batch": b, "device_busy_ms": prof
+                    and prof["device_busy_ms"],
+                    "idle_share": prof and prof["idle_share"],
+                    "launches_per_forward": per_forward, "card": state}
+            times.setdefault(name, []).append(cuda_ms(lambda: m(x)))
+        for name, ms_ in times.items():
+            ms = sum(ms_) / len(ms_)
+            out[f"{frames}f {name}"].update(ms=ms, turns_ms=ms_,
+                                            seq_per_s=b / (ms / 1e3))
+            print(f"  {frames}f B={b} {name}: {b / (ms / 1e3):.1f} seq/s "
+                  f"({ms:.2f} ms a forward; turns {ms_[0]:.2f}, "
+                  f"{ms_[1]:.2f}); launches "
+                  f"{out[f'{frames}f {name}']['launches_per_forward']}")
+        del model, x
+        torch.cuda.empty_cache()
+    nar = {}
+    for frames, level, b, t_gab in ((243, 0, 256, 241), (81, 0, 1024, 79),
+                                    (243, 1, 256, 235)):
+        cfg = tier_configs(frames)["preset"]
+        model = build_gastnet(cfg, seed=frames, device=dev)
+        t = gab_tables(model.layers_graph_conv[level], model.statics)
+        tiers = {op: cfg.tier_for(op, f"gab{level}") for op in KERNEL_OPS}
+        c = t.w_proj.shape[0]
+        gen = torch.Generator(device=dev).manual_seed(level)
+        x2 = torch.randn((b * t_gab * 17, c), generator=gen, device=dev)
+        ms = cuda_ms(lambda: K.gab_narrow(x2, t))
+        chain_ms = cuda_ms(lambda: K.gab_chain(
+            x2, t, K.gemm_epilogue, K.sem_graph, K.joint_attention, tiers))
+        f32_chain_ms = cuda_ms(lambda: K.gab_chain(
+            x2, t, K.gemm_epilogue, K.sem_graph, K.joint_attention))
+        label = f"{frames}f GAB {level} C={c} T={t_gab} B={b}"
+        nar[label] = {"gab_narrow_ms": ms, "tiered_chain_ms": chain_ms,
+                      "float32_chain_ms": f32_chain_ms,
+                      "route": K.gab_route(*K.gab_shape(t), tiers)}
+        print(f"  {label}: gab_narrow {ms:.3f} ms; the chain at the preset's "
+              f"tiers {chain_ms:.3f} ms (float32 {f32_chain_ms:.3f}); routed "
+              f"to {nar[label]['route']}")
+        del model, t, x2
+        torch.cuda.empty_cache()
+    out["narrow_vs_tiered_chain"] = nar
+    return out
 
 
 def synthetic_coco(frames: int, seed: int):
@@ -1725,7 +2215,7 @@ def main() -> int:
     hook.remove()
     print(f"  launches: {main_launches}")
     for name, count in main_launches.items():
-        if name in GRAPH_GENERAL:
+        if name in GRAPH_GENERAL or tiered_launch(name):
             if count:
                 fail(f"{name} launched {count} times on the main path")
         elif count <= 0 and name not in OFF_PATH:
@@ -1749,6 +2239,7 @@ def main() -> int:
 
     # ---- phase 4: the forwards and each kernel's time -------------------
     print("phase 4: full-width forwards")
+    report["card_phase4"] = card_state("phase 4")
     report["forwards"] = {}
     xs = {}
     for cell, rf, b, _ in FORWARDS:
@@ -1946,6 +2437,7 @@ def main() -> int:
     del stream_models, m81
 
     # ---- phase 9: training and evaluation --------------------------------
+    report["card_phase9"] = card_state("phase 9")
     print("phase 9: training (strided train steps, no kernel) and "
           "trainval's evaluation on the kernels")
     report["train_cells"] = {label: train_cell(K, label, frames, b, dev)
@@ -1953,6 +2445,40 @@ def main() -> int:
     report["train_step_against_cpu"] = step_against_cpu(dev)
     report["convergence"] = convergence_on_card(K, dev)
     report["trainval"] = trainval_on_card(K, dev)
+
+    # ---- phase 10: the precision tiers -----------------------------------
+    print("phase 10: the precision tiers (bf16 passes on the tensor cores, "
+          "rounded attention operands)")
+    K.reset_launches()
+    report["tier_kernels"] = tk = tier_kernels(K, dev, gts, glts)
+    direct = launch_counts(K)
+    report["tier_cert"] = tier_cert(dev)
+    report["tier_paths"] = tp = tier_paths(K, dev)
+    report["tier_throughput"] = tier_throughput(K, dev)
+    for r in tk["gemm_tc"]:
+        key = f"gemm_tc {r['tier']}"
+        kernels.append({
+            "name": f"gemm_tc ({r['tier']}, {r['shape']})", "route": "cuda",
+            "source": "gastx_torch/csrc/gemm_tc.cu",
+            "replaces": "gastx/ops/pallas/precision.py:99",
+            "launches": tp["launches"].get(key, 0),
+            "max_abs_err": tk["errs"][r["tier"]], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "float32_ms": r["float32_ms"]})
+        if not kernels[-1]["launches"]:  # off the tiered path: high_lhs
+            kernels[-1]["direct_launches"] = direct[key]
+    for r in tk["joint_attention"]:
+        key = f"joint_attention {r['pair']}"
+        kernels.append({
+            "name": f"joint_attention ({r['pair']}, C={r['c']})",
+            "route": "cuda", "source": "gastx_torch/csrc/joint_attention.cu",
+            "replaces": "gastx/ops/pallas/fused_gab.py:248",
+            "launches": tp["launches"].get(key, 0),
+            "max_abs_err": tk["errs"][r["pair"]], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "float32_ms": r["float32_ms"]})
 
     report["kernels"] = kernels
     report["total_s"] = time.time() - t_start

@@ -5,8 +5,7 @@ The flags, defaults and invalid-combination checks of
 reference invocations work unchanged, plus ``--device`` (default
 ``cuda``). Flags whose modules the port has not carried yet are refused
 with the ``ROADMAP.md`` item they wait for: ``--render`` (queue 1 item 6,
-rendering), ``--profile-dir`` (item 8, profiling) and a
-``--matmul-precision`` other than ``high`` (item 2, precision tiers).
+rendering) and ``--profile-dir`` (item 8, profiling).
 """
 from __future__ import annotations
 
@@ -53,13 +52,16 @@ def parse_args(argv=None):
                         help="use causal convolutions (real-time)")
     parser.add_argument("-ch", "--channels", default=128, type=int,
                         metavar="N", help="conv channels")
-    # The JAX package's matmul tier knob: the port computes in float32,
-    # the JAX package's "high"; the other tiers wait for ROADMAP queue 1
-    # item 2.
+    # The JAX package's matmul tier knob (trainval.build_config maps it).
     parser.add_argument("--matmul-precision", default="high", type=str,
                         choices=("high", "mixed", "default"),
                         metavar="TIER",
-                        help="matmul precision tier (only 'high' is ported)")
+                        help="matmul precision tier of the eval passes' "
+                        "kernels on the GPU: 'high' (3 bf16 passes), "
+                        "'mixed' (high with the TPU mixed preset) or "
+                        "'default' (1 bf16 pass); the train step is plain "
+                        "ops with autograd and computes float32 at every "
+                        "tier, and so does every pass on the CPU")
 
     # Experimental settings
     parser.add_argument("-e", "--epochs", default=60, type=int, metavar="N",
@@ -126,8 +128,4 @@ def parse_args(argv=None):
     if args.profile_dir:
         parser.error("--profile-dir is not ported yet (ROADMAP.md queue 1 "
                      "item 8, profiling)")
-    if args.matmul_precision != "high":
-        parser.error(f"--matmul-precision {args.matmul_precision} is not "
-                     f"ported yet: the port computes in float32, the 'high' "
-                     f"tier (ROADMAP.md queue 1 item 2, precision tiers)")
     return args

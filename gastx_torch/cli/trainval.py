@@ -14,7 +14,8 @@ It runs on ``cuda`` unless ``--device`` names another device, on one
 device. Training takes the strided variant for ``--stride 1`` (else the
 dilated one), through the plain ops with autograd; every evaluation pass
 runs ``lift_sequences`` on the model in eval mode, on the hand-written
-kernels. Batches have one fixed size: a ragged last batch is padded with
+kernels at the ``--matmul-precision`` tier (:func:`build_config`).
+Batches have one fixed size: a ragged last batch is padded with
 zero-weight copies of its last row. Each step draws its dropout masks
 from a generator seeded by (epoch, batch index), so a resume needs no
 RNG state beyond the batcher's. Checkpoints are the port's own
@@ -38,6 +39,7 @@ from gastx_torch.device import resolve_device
 from gastx_torch.eval.protocol import evaluate_sequences, run_evaluation
 from gastx_torch.io import load_torch_checkpoint
 from gastx_torch.models import GastNetConfig, build_gastnet
+from gastx_torch.models.config import TPU_MIXED_PRECISION_OVERRIDES
 from gastx_torch.train import (load_checkpoint, make_optimizer,
                                restore_batcher_random_state, save_checkpoint,
                                train_step)
@@ -50,14 +52,24 @@ BEST_BAR_MM = 49.5
 
 def build_config(args, dataset, in_features: int = 2) -> GastNetConfig:
     """``in_features`` follows the 2D data's channel count: 2 for plain
-    keypoints, 3 when the detections carry confidence scores."""
+    keypoints, 3 when the detections carry confidence scores.
+    ``--matmul-precision`` maps onto (matmul_precision, precision_overrides)
+    as the JAX ``build_config`` maps it: ``mixed`` is ``"high"`` with
+    ``TPU_MIXED_PRECISION_OVERRIDES``, the others the tier alone. The eval
+    passes' kernels run it on the GPU; the train step computes float32."""
     num_joints = dataset.skeleton().num_joints()
+    tier = getattr(args, "matmul_precision", "high")
+    if tier == "mixed":
+        precision, overrides = "high", TPU_MIXED_PRECISION_OVERRIDES
+    else:
+        precision, overrides = tier, ()
     return GastNetConfig(
         num_joints_in=num_joints, in_features=in_features,
         num_joints_out=num_joints,
         filter_widths=tuple(int(x) for x in args.architecture.split(",")),
         channels=args.channels, dropout=args.dropout, causal=args.causal,
-        layout=LAYOUTS[num_joints])
+        layout=LAYOUTS[num_joints], matmul_precision=precision,
+        precision_overrides=overrides)
 
 
 def step_seed(epoch: int, batch_index: int) -> int:

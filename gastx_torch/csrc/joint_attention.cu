@@ -39,6 +39,22 @@
 //   float4 of g and a float4 of 4 queries' weights per key, 16 FMAs, and
 //   storing float4s (16 lanes write 256 contiguous bytes at G = 64).
 //
+// Tiers. The score dots (theta/phi by p_theta/p_phi) and the apply dots
+// (attn by g) each carry the TPU kernel's tier (`kdot`, gastx/ops/pallas/
+// precision.py:99; codes 0 highest, 1 default, 2 high_lhs, 3 high_rhs,
+// 4 high). With q1(x) = bf16(x) and q2(x) = q1(x) + q1(x - q1(x)) (x to
+// 16 bits), a tier is its operands rounded as they are loaded, the
+// accumulation staying float32 FMA: default q1(a) q1(b), high_lhs q2(a)
+// q1(b), high_rhs q1(a) q2(b), and high q2(a) q1(b) + q1(a) lo(b) with
+// lo(b) = q1(b - q1(b)); each equals the sum of kdot's bf16 passes, whose
+// products are exact in float32. The weights p_theta/p_phi are rounded
+// once as they are staged, theta/phi in registers at the score, g in place
+// in shared memory after the scores, and the attention weights as the
+// softmax stores them; the high apply tier keeps a second copy of each (its
+// second term), the one instantiation that changes the apply loop
+// (APPLY_HIGH). The kernel is byte-bound, so the rounding is cheap; at
+// codes (0, 0) it computes exactly what it did without tiers.
+//
 // Two instantiations: VEC = 4 (16-byte copies, loads and stores) where I, G
 // and ldp are multiples of 4 and theta, phi, g and out start 16-byte
 // aligned, and VEC = 1 (4-byte) otherwise, e.g. the 8-channel model's heads
@@ -47,6 +63,7 @@
 // J <= 32; two tiles of one frame must fit in shared memory (2 J (2I + G +
 // 8) floats and the head's constants: 2I + G up to ~1600 at J = 17, ~850
 // at J = 32).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -130,15 +147,40 @@ struct Vec<1> {
 
 __host__ __device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
 
-// Floats of shared memory a block takes, and where each part starts.
+constexpr int HIGH = 4;  // the tier code of "high"
+
+// x rounded: mode 0 exact, 1 q1, 2 q2 (the module note).
+__device__ __forceinline__ float q1(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ float rnd(float x, int mode) {
+  if (mode == 0) return x;
+  const float h = q1(x);
+  return mode == 1 ? h : h + q1(x - h);
+}
+__device__ __forceinline__ float lo(float x) { return q1(x - q1(x)); }
+// The rounding of a tier's lhs and rhs operand in its first term.
+__device__ __forceinline__ int lhs_mode(int tier) {
+  return tier == 0 ? 0 : (tier == 2 || tier == 4 ? 2 : 1);
+}
+__device__ __forceinline__ int rhs_mode(int tier) {
+  return tier == 0 ? 0 : (tier == 3 ? 2 : 1);
+}
+
+// Floats of shared memory a block takes, and where each part starts; the
+// high tiers' second copies (pt2/pp2 for the score, at2/gl for the apply)
+// take room only where their tier is high.
 struct Layout {
   int rs;     // row stride of a tile buffer: theta | phi | g, padded
   int jp;     // queries of a key-major attention row, padded to 4
+  int gp;     // row stride of g's lo half
   int tile;   // floats of one tile buffer
-  int pt, pp, ck, sa, sb, at, total;
-  __host__ __device__ Layout(int j, int inter, int g_ch, int fpt) {
+  int pt, pp, ck, sa, sb, at, pt2, pp2, at2, gl, total;
+  __host__ __device__ Layout(int j, int inter, int g_ch, int fpt,
+                             bool score_high, bool apply_high) {
     rs = round4(2 * inter + g_ch) + 4;
     jp = round4(j);
+    gp = round4(g_ch);
     tile = fpt * j * rs;
     pt = 2 * tile;
     pp = pt + round4(inter);
@@ -146,12 +188,17 @@ struct Layout {
     sa = ck + round4(j * j);
     sb = sa + round4(fpt * j);
     at = sb + round4(fpt * j);
-    total = at + fpt * j * jp;
+    pt2 = at + fpt * j * jp;
+    pp2 = pt2 + (score_high ? round4(inter) : 0);
+    at2 = pp2 + (score_high ? round4(inter) : 0);
+    gl = at2 + (apply_high ? fpt * j * jp : 0);
+    total = gl + (apply_high ? fpt * j * gp : 0);
   }
 };
 
-// Grid (blocks a head, heads); THREADS threads.
-template <int VEC>
+// Grid (blocks a head, heads); THREADS threads. APPLY_HIGH: apply_tier is
+// "high" (4); score_tier and the other apply tiers are runtime codes.
+template <int VEC, bool APPLY_HIGH>
 __global__ void __launch_bounds__(THREADS)
     joint_attention_kernel(const float* __restrict__ theta,
                            const float* __restrict__ phi,
@@ -160,10 +207,12 @@ __global__ void __launch_bounds__(THREADS)
                            const float* __restrict__ proj_p,
                            const float* __restrict__ c_k,
                            float* __restrict__ out, long long frames, int j,
-                           int inter, int g_ch, int heads, int fpt) {
+                           int inter, int g_ch, int heads, int fpt,
+                           int score_tier, int apply_tier) {
   using V = Vec<VEC>;
   extern __shared__ __align__(16) float smem[];
-  const Layout L(j, inter, g_ch, fpt);
+  const bool score_high = score_tier == HIGH;
+  const Layout L(j, inter, g_ch, fpt, score_high, APPLY_HIGH);
   const int k = blockIdx.y;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -174,10 +223,22 @@ __global__ void __launch_bounds__(THREADS)
   float* sa = smem + L.sa;
   float* sb = smem + L.sb;
   float* at = smem + L.at;  // [fpt][key m][query, padded to jp]
+  float* pt2 = smem + L.pt2;
+  float* pp2 = smem + L.pp2;
+  float* at2 = smem + L.at2;  // APPLY_HIGH: q1 of the attention weights
+  float* gl = smem + L.gl;    // APPLY_HIGH: lo(g), [fpt * J][gp]
+  const int s_lhs = lhs_mode(score_tier), s_rhs = rhs_mode(score_tier);
+  const int a_lhs = lhs_mode(apply_tier), a_rhs = rhs_mode(apply_tier);
 
+  // The head's score weights, rounded as the rhs of the score tier.
   for (int i = tid; i < inter; i += THREADS) {
-    pt[i] = proj_t[k * inter + i];
-    pp[i] = proj_p[k * inter + i];
+    const float vt = proj_t[k * inter + i], vp = proj_p[k * inter + i];
+    pt[i] = rnd(vt, s_rhs);
+    pp[i] = rnd(vp, s_rhs);
+    if (score_high) {
+      pt2[i] = lo(vt);
+      pp2[i] = lo(vp);
+    }
   }
   for (int i = tid; i < j * j; i += THREADS) ck[i] = c_k[k * j * j + i];
 
@@ -230,10 +291,24 @@ __global__ void __launch_bounds__(THREADS)
       float s1 = 0.f, s2 = 0.f;
       if (r < rows) {
         const float* row = h + r * L.rs;
-        for (int i = e; i < ci; i += GROUP) {
-          s1 = V::dot(V::load(row + i * VEC), V::load(pt + i * VEC), s1);
-          s2 = V::dot(V::load(row + inter + i * VEC), V::load(pp + i * VEC),
-                      s2);
+        if (s_lhs == 0) {  // highest: the float32 dots
+          for (int i = e; i < ci; i += GROUP) {
+            s1 = V::dot(V::load(row + i * VEC), V::load(pt + i * VEC), s1);
+            s2 = V::dot(V::load(row + inter + i * VEC),
+                        V::load(pp + i * VEC), s2);
+          }
+        } else {  // one float a step, theta/phi rounded as loaded
+          for (int i = e * VEC; i < inter; i += GROUP * VEC)
+#pragma unroll
+            for (int u = 0; u < VEC; ++u) {
+              const float a = row[i + u], b = row[inter + i + u];
+              s1 = fmaf(rnd(a, s_lhs), pt[i + u], s1);
+              s2 = fmaf(rnd(b, s_lhs), pp[i + u], s2);
+              if (score_high) {
+                s1 = fmaf(q1(a), pt2[i + u], s1);
+                s2 = fmaf(q1(b), pp2[i + u], s2);
+              }
+            }
         }
       }
 #pragma unroll
@@ -247,6 +322,18 @@ __global__ void __launch_bounds__(THREADS)
       }
     }
     __syncthreads();
+
+    // The tile's g rounded in place as the apply's rhs (and its lo half
+    // apart for the high tier); the softmax does not read g.
+    if (APPLY_HIGH || a_rhs != 0) {
+      float* gs = smem + buf * L.tile + 2 * inter;
+      for (int it = tid; it < rows * g_ch; it += THREADS) {
+        const int r = it / g_ch, c = it - r * g_ch;
+        const float v = gs[r * L.rs + c];
+        gs[r * L.rs + c] = rnd(v, a_rhs);
+        if (APPLY_HIGH) gl[r * L.gp + c] = lo(v);
+      }
+    }
 
     // Softmax: row r = f * j + q, 4 lanes each, lane er holding keys er,
     // er + 4, ...; a warp takes 8 rows a round and stops when it has none,
@@ -285,8 +372,11 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int u = 0; u < MAX_J / ROW; ++u) {
         const int m = er + u * ROW;
-        if (u * ROW < j && ok && m < j)
-          at[(f * j + m) * L.jp + q] = v[u] * inv + ck[q * j + m];
+        if (u * ROW < j && ok && m < j) {
+          const float w = v[u] * inv + ck[q * j + m];
+          at[(f * j + m) * L.jp + q] = rnd(w, a_lhs);
+          if (APPLY_HIGH) at2[(f * j + m) * L.jp + q] = q1(w);
+        }
       }
     }
     __syncthreads();
@@ -310,6 +400,16 @@ __global__ void __launch_bounds__(THREADS)
         acc[1] = V::axpy(w.y, gm, acc[1]);
         acc[2] = V::axpy(w.z, gm, acc[2]);
         acc[3] = V::axpy(w.w, gm, acc[3]);
+        if constexpr (APPLY_HIGH) {  // + q1(attn) lo(g)
+          const typename V::T g2 =
+              V::load(gl + (f * j + m) * L.gp + c * VEC);
+          const float4 w2 = *reinterpret_cast<const float4*>(
+              at2 + f * j * L.jp + q0 + m * L.jp);
+          acc[0] = V::axpy(w2.x, g2, acc[0]);
+          acc[1] = V::axpy(w2.y, g2, acc[1]);
+          acc[2] = V::axpy(w2.z, g2, acc[2]);
+          acc[3] = V::axpy(w2.w, g2, acc[3]);
+        }
       }
       float* o = out + (r0 + f * j + q0) * kg + k * g_ch + c * VEC;
 #pragma unroll
@@ -333,11 +433,12 @@ bool aligned16(const void* p) {
 }
 
 // About one wave of persistent blocks, spread evenly over the heads.
-template <int VEC>
+template <int VEC, bool APPLY_HIGH>
 int launch(const float* theta, const float* phi, const float* g,
            long long ldp, const float* proj_t, const float* proj_p,
            const float* c_k, float* out, long long frames, int j, int inter,
-           int g_ch, int heads, cudaStream_t stream) {
+           int g_ch, int heads, int score_tier, int apply_tier,
+           cudaStream_t stream) {
   static int sms = 0, max_smem = 0;
   if (sms == 0) {
     int e = device_attr(cudaDevAttrMultiProcessorCount, &sms);
@@ -351,17 +452,19 @@ int launch(const float* theta, const float* phi, const float* g,
   const int frame_bytes = (int)sizeof(float) * j * (round4(2 * inter + g_ch) + 4);
   int fpt = TILE_BYTES / frame_bytes;
   fpt = fpt < 1 ? 1 : (fpt > MAX_FRAMES ? MAX_FRAMES : fpt);
-  const size_t smem = sizeof(float) * Layout(j, inter, g_ch, fpt).total;
+  const size_t smem =
+      sizeof(float) *
+      Layout(j, inter, g_ch, fpt, score_tier == HIGH, APPLY_HIGH).total;
   if (smem > (size_t)max_smem) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        joint_attention_kernel<VEC>,
+        joint_attention_kernel<VEC, APPLY_HIGH>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   int per_sm = 0;
   cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, joint_attention_kernel<VEC>, THREADS, smem);
+      &per_sm, joint_attention_kernel<VEC, APPLY_HIGH>, THREADS, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const long long tiles = (frames + fpt - 1) / fpt;
@@ -369,10 +472,10 @@ int launch(const float* theta, const float* phi, const float* g,
   if (per_head < 1) per_head = 1;
   if (per_head > tiles) per_head = tiles;
   if (tiles > 0) {
-    joint_attention_kernel<VEC>
+    joint_attention_kernel<VEC, APPLY_HIGH>
         <<<dim3((unsigned)per_head, heads), THREADS, smem, stream>>>(
             theta, phi, g, ldp, proj_t, proj_p, c_k, out, frames, j, inter,
-            g_ch, heads, fpt);
+            g_ch, heads, fpt, score_tier, apply_tier);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -381,29 +484,35 @@ int launch(const float* theta, const float* phi, const float* g,
 
 extern "C" {
 
-// Launches the 16-byte instantiation if vec16, else the 4-byte one, on
+// Launches the 16-byte instantiation if vec16, else the 4-byte one, with
+// the score and apply dots at their tier codes (0 highest .. 4 high), on
 // `stream`; returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue with no launch for a shape the kernel does not take
-// (J > 32, or a one-frame tile that does not fit in shared memory) or, with
-// vec16, for I, G or ldp not a multiple of 4 or a view or out not 16-byte
-// aligned.
+// (J > 32, or a one-frame tile that does not fit in shared memory), an
+// unknown tier code or, with vec16, for I, G or ldp not a multiple of 4 or
+// a view or out not 16-byte aligned.
 int joint_attention(const void* theta, const void* phi, const void* g,
                     int ldp, const void* proj_t, const void* proj_p,
                     const void* c_k, void* out, long long frames, int j,
-                    int inter, int g_ch, int heads, void* stream, int vec16) {
+                    int inter, int g_ch, int heads, void* stream,
+                    int score_tier, int apply_tier, int vec16) {
   if (frames < 0 || j < 1 || j > MAX_J || inter < 1 || g_ch < 1 ||
-      heads < 1 ||
+      heads < 1 || score_tier < 0 || score_tier > HIGH || apply_tier < 0 ||
+      apply_tier > HIGH ||
       (vec16 && (inter % 4 != 0 || g_ch % 4 != 0 || ldp % 4 != 0 ||
                  !aligned16(theta) || !aligned16(phi) || !aligned16(g) ||
                  !aligned16(out))))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto run = vec16 ? launch<4> : launch<1>;
+  const bool high = apply_tier == HIGH;
+  const auto run = vec16 ? (high ? launch<4, true> : launch<4, false>)
+                         : (high ? launch<1, true> : launch<1, false>);
   return run(static_cast<const float*>(theta), static_cast<const float*>(phi),
              static_cast<const float*>(g), ldp,
              static_cast<const float*>(proj_t),
              static_cast<const float*>(proj_p),
              static_cast<const float*>(c_k), static_cast<float*>(out), frames,
-             j, inter, g_ch, heads, static_cast<cudaStream_t>(stream));
+             j, inter, g_ch, heads, score_tier, apply_tier,
+             static_cast<cudaStream_t>(stream));
 }
 
 const char* error_string(int code) {

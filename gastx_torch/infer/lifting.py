@@ -39,6 +39,24 @@ def _perm_from_lr(left, right, n: int) -> np.ndarray:
     return perm
 
 
+def eval_forward(model: GastNet, x: torch.Tensor,
+                 variant: str = "dilated") -> torch.Tensor:
+    """The eval forward whatever the module's mode, as the JAX lifting
+    always runs ``train=False``: a model in train mode is set to eval and
+    back (as ``eval.protocol.evaluate_sequences`` does), under
+    ``torch.no_grad``, so a model left in train mode neither moves its BN
+    running statistics nor asks for a dropout generator, and the output
+    requires no gradient."""
+    with torch.no_grad():
+        if not model.training:
+            return model(x, variant)
+        model.eval()
+        try:
+            return model(x, variant)
+        finally:
+            model.train()
+
+
 def _lift_batch(model: GastNet, x: torch.Tensor, tta: bool,
                 kps_perm: Optional[np.ndarray] = None) -> torch.Tensor:
     """x: (M, T_padded, J, C_in) -> (M, T_out, J, 3), flip-TTA averaged.
@@ -56,7 +74,7 @@ def _lift_batch(model: GastNet, x: torch.Tensor, tta: bool,
         flipped = x.clone()
         flipped[..., 0] *= -1.0
         x = torch.cat([x, flipped[:, :, in_perm]], dim=0)
-    y = model(x)
+    y = eval_forward(model, x)
     if tta:
         m = y.shape[0] // 2
         y0, y1 = y[:m], y[m:].clone()

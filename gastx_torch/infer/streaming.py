@@ -13,6 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from gastx_torch.infer.lifting import eval_forward
 from gastx_torch.models.gastnet import GastNet
 
 
@@ -46,7 +47,9 @@ class StreamingLifter:
     def push_async(self, keypoints) -> torch.Tensor:
         """:meth:`push` without the copy to the host: returns the (M, J, 3)
         tensor on the model's device, its forward possibly still in flight
-        (no synchronisation). The window advances as in :meth:`push`."""
+        (no synchronisation). The window advances as in :meth:`push`. The
+        forward is the eval one whatever the model's mode
+        (``lifting.eval_forward``)."""
         cfg = self.model.cfg
         kpts = torch.as_tensor(keypoints, dtype=torch.float32,
                                device=self.device)
@@ -58,4 +61,4 @@ class StreamingLifter:
         if self._window is None:
             self._window = frame.expand(-1, cfg.receptive_field(), -1, -1)
         self._window = torch.cat([self._window[:, 1:], frame], dim=1)
-        return self.model(self._window, variant="strided")[:, 0]
+        return eval_forward(self.model, self._window, "strided")[:, 0]

@@ -20,19 +20,44 @@ meanings (``gastx_torch.models.gastnet`` has the route table):
     combination would only take levels off the level kernels, and any
     ``packed_channels`` > 0 with another ``gab_impl`` raises.
 
+The matmul precision tiers carry the JAX names and meanings:
+``matmul_precision`` (the base tier: ``"highest"``, ``"high"`` or
+``"default"``) and ``precision_overrides`` ((op_class, tier) pairs over
+``OP_CLASSES``, each optionally level-qualified, ``"gab1.attn_proj"`` or
+``"lvl2.temporal"``, the qualified entry winning over the bare class), with
+``TPU_MIXED_PRECISION_OVERRIDES``, ``KERNEL_ONLY_TIERS`` and
+``xla_precision`` copied from the JAX package. Where the port honours them:
+the kernels' dots run at their tier on the card (``gastx_torch.ops.
+precision``: bf16 passes on the tensor cores in ``gemm_epilogue``,
+operands rounded in ``joint_attention``); ``gab_narrow`` computes float32
+at every tier; every plain site (the shrink, the C=512 level's conv chain,
+``gab_impl="xla"``'s ops, the projections and cats of the hybrid route,
+the train forward) computes float32 whatever ``xla_precision`` names for
+it, and so does every site on the CPU, as the JAX package's CPU path
+computes float32 for every tier.
+
+The port's defaults differ from the JAX package's: its bare config and
+``config_for_frames`` keep ``matmul_precision="highest"`` with no
+overrides, where JAX's run ``"high"`` with the TPU preset, because
+``ROADMAP.md`` lets a non-float32 default in only after its own 24-seed
+error certificate on the card (``chip_smoke.py``).
+
 Not carried yet (ROADMAP queue 1): ``gab_impl="pallas_level"`` and
 ``"pallas_pbatch"``, ``attn_impl="batched"``, ``local_impl``,
-``gab_impl_levels``, tile budgets, kernel forms, precision tiers and
-storage dtypes. The port computes in float32.
+``gab_impl_levels``, tile budgets, kernel forms (the 243f
+``gab_kernel_form_levels=("fold",)`` among them: ROADMAP queue 2 B1) and
+storage dtypes.
 """
 from __future__ import annotations
 
 import functools
+import re
 from dataclasses import dataclass
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 
+from gastx_torch.ops.precision import TIERS
 from gastx_torch.skeleton import get_layout, local_adjacencies
 
 GAB_IMPLS = ("auto", "pallas", "pallas_local", "xla")
@@ -41,6 +66,14 @@ ATTN_IMPLS = ("einsum", "pallas_head")
 # ``variant``): valid dilated convs over any T >= the receptive field, or
 # strided convs that compute only the frames the output needs.
 VARIANTS = ("dilated", "strided")
+
+# The op classes of precision_overrides (the JAX GastNetConfig's list).
+OP_CLASSES = ("expand", "temporal", "mid1x1", "shrink", "gab_cat",
+              "local_sem", "local_off", "local_cat", "attn_proj",
+              "attn_score", "attn_apply", "attn_cat")
+# The tiers a base matmul_precision takes (an override takes any of TIERS).
+BASE_TIERS = ("default", "high", "highest")
+_QUALIFIED = re.compile(r"^(?:(?:gab|lvl)\d+\.)?(\w+)$")
 
 
 @dataclass(frozen=True)
@@ -69,6 +102,29 @@ class GastNetConfig:
     gab_impl: str = "auto"
     attn_impl: str = "einsum"
     packed_channels: int = 0
+    # The base tier of every kernel dot, and (op_class, tier) overrides
+    # (module docstring). The JAX default is "high"; the port's stays
+    # float32 until its own cert clears another.
+    matmul_precision: str = "highest"
+    precision_overrides: Tuple[Tuple[str, str], ...] = ()
+
+    def precision_for(self, op_class: str) -> Optional[str]:
+        """Override tier of an op class (bare or level-qualified, matched
+        as written), or None to inherit ``matmul_precision``."""
+        for name, prec in self.precision_overrides:
+            if name == op_class:
+                return prec
+        return None
+
+    def tier_for(self, op_class: str, tag: str) -> str:
+        """The tier of ``op_class`` at the call site ``tag`` (``"gab1"``,
+        ``"lvl2"``): the qualified override, else the bare class's, else
+        ``matmul_precision`` (the JAX ``level_prec(tag).kernel_raw(op) or
+        base``)."""
+        v = self.precision_for(f"{tag}.{op_class}")
+        if v is None:
+            v = self.precision_for(op_class)
+        return self.matmul_precision if v is None else v
 
     def __post_init__(self):
         for fw in self.filter_widths:
@@ -93,6 +149,27 @@ class GastNetConfig:
         if self.packed_channels and self.gab_impl != "pallas":
             raise ValueError(f"packed_channels > 0 needs gab_impl='pallas', "
                              f"got {self.gab_impl!r}")
+        if self.matmul_precision not in BASE_TIERS:
+            hint = (" (a kernel-only tier: valid in precision_overrides, "
+                    "not as the base)"
+                    if self.matmul_precision in KERNEL_ONLY_TIERS else "")
+            raise ValueError(f"unknown matmul_precision "
+                             f"{self.matmul_precision!r}{hint}; valid: "
+                             f"{BASE_TIERS}")
+        for entry in self.precision_overrides:
+            if len(entry) != 2:
+                raise ValueError(f"precision_overrides entry {entry!r} is "
+                                 f"not an (op_class, tier) pair")
+            name, tier = entry
+            match = _QUALIFIED.match(name)
+            if match is None or match.group(1) not in OP_CLASSES:
+                raise ValueError(f"unknown op class {name!r} in "
+                                 f"precision_overrides; valid: {OP_CLASSES}"
+                                 f", optionally as 'gab<i>.' or 'lvl<i>.'"
+                                 f"<class>")
+            if tier not in TIERS:
+                raise ValueError(f"unknown precision tier {tier!r} for "
+                                 f"{name!r}; valid: {TIERS}")
 
     def pads(self) -> Tuple[int, ...]:
         pads = [self.filter_widths[0] // 2]
@@ -197,10 +274,46 @@ def graph_statics(layout_name: str) -> GraphStatics:
     )
 
 
+# Measured per-op-class mixed-precision preset of the JAX package (its
+# TPU cert: 0.0577 mm worst of 24 seeds at 27f, gastx/models/config.py:
+# 350-399); the port's own cert is chip_smoke.py's.
+TPU_MIXED_PRECISION_OVERRIDES: Tuple[Tuple[str, str], ...] = (
+    ("local_sem", "default"), ("local_off", "default"),
+    ("local_cat", "default"), ("attn_score", "default"),
+    ("attn_apply", "default"),
+    ("temporal", "high_rhs"), ("mid1x1", "high_rhs"),
+)
+# The JAX package's historical name of the same preset.
+TPU_MIXED_SAFE_OVERRIDES: Tuple[Tuple[str, str], ...] = \
+    TPU_MIXED_PRECISION_OVERRIDES
+
+# Tiers that exist only inside the kernels: the 2-pass pair and the
+# kernel-only 1-pass tier. Valid in precision_overrides, not as the base.
+KERNEL_ONLY_TIERS: Tuple[str, ...] = ("high_lhs", "high_rhs", "kdefault")
+
+
+def xla_precision(tier):
+    """The tier the JAX package's XLA sites take for a possibly
+    kernel-only tier. The port's plain sites compute float32 whatever it
+    names (module docstring)."""
+    return "high" if tier in KERNEL_ONLY_TIERS else tier
+
+
 def config_for_frames(frames: int, num_joints: int = 17, *,
-                      causal: bool = False,
-                      dropout: float = 0.05) -> GastNetConfig:
-    """The shipped receptive-field -> architecture table."""
+                      causal: bool = False, dropout: float = 0.05,
+                      precision_overrides: Tuple[Tuple[str, str], ...] = (),
+                      matmul_precision: str = "highest") -> GastNetConfig:
+    """The shipped receptive-field -> architecture table.
+
+    The tiers default to float32 (module docstring); pass
+    ``matmul_precision="high", precision_overrides=
+    TPU_MIXED_PRECISION_OVERRIDES`` for the JAX package's inference
+    default. Given that preset at 243 frames, the JAX 1-pass loosening of
+    the three remaining 3-pass kernel classes to ``"kdefault"`` is
+    prepended under JAX's gate (the preset exactly, on the default
+    ``"auto"`` route, which is the port's only route here). The JAX
+    243f ``gab_kernel_form_levels=("fold",)`` is not carried (ROADMAP
+    queue 2 B1)."""
     if frames == 27:
         fw, ch = (3, 3, 3), 128
     elif frames == 81:
@@ -211,6 +324,12 @@ def config_for_frames(frames: int, num_joints: int = 17, *,
         raise ValueError(f"No shipped config for receptive field {frames}")
     layout = {17: "h36m17", 19: "h36m19", 16: "sh16",
               15: "humaneva15"}[num_joints]
+    overrides = tuple(tuple(p) for p in precision_overrides)
+    if frames == 243 and overrides == TPU_MIXED_PRECISION_OVERRIDES:
+        overrides = (("attn_proj", "kdefault"), ("attn_cat", "kdefault"),
+                     ("gab_cat", "kdefault")) + overrides
     return GastNetConfig(num_joints_in=num_joints, num_joints_out=num_joints,
                          filter_widths=fw, channels=ch, causal=causal,
-                         dropout=dropout, layout=layout)
+                         dropout=dropout, layout=layout,
+                         matmul_precision=matmul_precision,
+                         precision_overrides=overrides)

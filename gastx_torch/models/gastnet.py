@@ -63,6 +63,20 @@ The two forwards:
     ``gastx_torch.ops.graph`` (the JAX package's XLA route with the einsum
     attention) for every config, the reference every route is held to.
 
+Precision tiers (``cfg.matmul_precision``, ``cfg.precision_overrides``):
+each kernel call site takes its {op_class: tier} dict, resolved per level
+as the JAX forward resolves it (``gastx/models/gastnet.py:218-235``):
+``fused_level0`` the ``"lvl0"``-qualified ``expand`` in its
+``"temporal"`` slot and the ``"gab0"`` classes, ``fused_level`` the
+``"lvl{i}"`` conv classes and the ``"gab{i}"`` GAB classes, every other
+GAB wrapper its ``"gab{i}"`` classes (``ops.precision.resolve_tiers``;
+all ``"highest"`` on a CPU tensor). The plain sites (the shrink, the
+C=512 conv chain, the hybrid route's projections and cats,
+``gab_impl="xla"``) and the train forward compute float32 at every tier.
+:meth:`GastNet.plain_route_forward` runs the same route and tiers
+through every wrapper's plain version, the tiered forward's reference on
+the card; ``reference_forward`` is float32.
+
 Both run under ``torch.no_grad()``, in eval mode. In train mode
 (``model.train()``) :meth:`GastNet.forward` runs the train forward
 instead, the counterpart of ``gastnet_forward(train=True)``: the same
@@ -83,22 +97,40 @@ from torch import nn
 
 from gastx_torch.models.config import GastNetConfig, graph_statics
 from gastx_torch.ops.batchnorm import batch_norm
-from gastx_torch.ops.cuda.fused_gab import (fused_gab, fused_gab_packed,
-                                            fused_local_branch, gab_tables,
-                                            local_tables)
-from gastx_torch.ops.cuda.fused_level import (fused_level, fused_level0,
-                                              level0_tables, level_tables)
+from gastx_torch.ops.cuda.fused_gab import (
+    KERNEL_OPS, fused_gab, fused_gab_packed, fused_gab_packed_plain,
+    fused_gab_plain, fused_local_branch, fused_local_branch_plain,
+    gab_tables, local_tables)
+from gastx_torch.ops.cuda.fused_level import (
+    LEVEL_OPS, fused_level, fused_level0, fused_level0_plain,
+    fused_level_plain, level0_tables, level_tables)
 from gastx_torch.ops.cuda.global_attn import global_tables
-from gastx_torch.ops.cuda.head_attn import head_attention
+from gastx_torch.ops.cuda.head_attn import head_attention, \
+    head_attention_plain
 from gastx_torch.ops.graph import (block_concat, dropout, global_concat,
                                    graph_attention_block, local_graph,
                                    multi_global_graph)
+from gastx_torch.ops.precision import resolve_tiers
 from gastx_torch.ops.temporal import (pconv_weight, pointwise,
                                       tconv_weight, temporal_conv)
 
 # Levels up to this width run the level wrapper; wider ones run the conv
 # chain in torch and then fused_gab (see the module docstring).
 LEVEL_KERNEL_MAX_CHANNELS = 256
+
+
+
+def _wrappers(plain: bool) -> dict:
+    """The entry points of the kernel route, or their plain versions
+    (looked up at each forward)."""
+    if plain:
+        return dict(level0=fused_level0_plain, level=fused_level_plain,
+                    gab=fused_gab_plain, packed=fused_gab_packed_plain,
+                    local=fused_local_branch_plain,
+                    head=head_attention_plain)
+    return dict(level0=fused_level0, level=fused_level, gab=fused_gab,
+                packed=fused_gab_packed, local=fused_local_branch,
+                head=head_attention)
 
 
 class SemCHGraphConv(nn.Module):
@@ -218,70 +250,92 @@ class GastNet(nn.Module):
         with torch.no_grad():
             return self._kernel_forward(x, variant)
 
-    def _kernel_forward(self, x: torch.Tensor, variant: str
-                        ) -> torch.Tensor:
+    @torch.no_grad()
+    def plain_route_forward(self, x: torch.Tensor, variant: str = "dilated"
+                            ) -> torch.Tensor:
+        """The eval forward's route and tiers through every wrapper's plain
+        version, on any device and in any mode: the tiered forward's
+        reference on the card (on the CPU the same as the eval forward)."""
+        return self._kernel_forward(x, variant, plain=True)
+
+    def _kernel_forward(self, x: torch.Tensor, variant: str,
+                        plain: bool = False) -> torch.Tensor:
         self._check_input(x, variant)
         cfg, statics = self.cfg, self.statics
         fw, pads = cfg.filter_widths, cfg.pads()
         shifts = cfg.causal_shifts(variant)
         gabs = self.layers_graph_conv
+        wrap = _wrappers(plain)
         x = x.to(torch.float32).contiguous()
+        dev = x.device
         # The level kernels run on the dilated, non-dense forward under
         # "auto" alone, as the JAX gates (l0_fused, level_fuse_ok) have it.
         level_kernels = (cfg.gab_impl == "auto" and variant == "dilated"
                          and not cfg.dense)
         if level_kernels:
-            y = fused_level0(
+            tiers0 = resolve_tiers(cfg, "gab0", KERNEL_OPS, dev)
+            tiers0["temporal"] = resolve_tiers(cfg, "lvl0", ("expand",),
+                                             dev)["expand"]
+            y = wrap["level0"](
                 x, level0_tables(self.init_bn, self.expand_conv,
                                  self.expand_bn),
-                gab_tables(gabs[0], statics))
+                gab_tables(gabs[0], statics), tiers0)
         else:
-            y = self._gab(self._expand(x, variant), 0, variant)
+            y = self._gab(self._expand(x, variant), 0, variant, wrap)
         dilation = fw[0]
         for i in range(1, cfg.num_levels):
             if (level_kernels
                     and cfg.block_channels(i) <= LEVEL_KERNEL_MAX_CHANNELS):
-                y = fused_level(y, level_tables(*self.level_modules(i)),
-                                gab_tables(gabs[i], statics), fw=fw[i],
-                                dilation=dilation,
-                                res_off=pads[i] + shifts[i])
+                tiers = {**resolve_tiers(cfg, f"lvl{i}", LEVEL_OPS, dev),
+                         **resolve_tiers(cfg, f"gab{i}", KERNEL_OPS, dev)}
+                y = wrap["level"](
+                    y, level_tables(*self.level_modules(i)),
+                    gab_tables(gabs[i], statics), fw=fw[i],
+                    dilation=dilation, res_off=pads[i] + shifts[i],
+                    tiers=tiers)
             else:
                 y = self._gab(self._conv_chain(y, i, dilation, variant), i,
-                              variant)
+                              variant, wrap)
             dilation *= fw[i]
         return pointwise(y, pconv_weight(self.shrink))
 
-    def _gab(self, y: torch.Tensor, i: int, variant: str) -> torch.Tensor:
+    def _gab(self, y: torch.Tensor, i: int, variant: str,
+             wrap: dict) -> torch.Tensor:
         """GAB ``i`` on the route's wrapper: ``fused_gab_packed`` on the
         (B, T, J*C) view at a packed width of the dilated forward,
         ``fused_gab`` under "auto" and "pallas", else the plain block with
-        the hybrid's kernels in it."""
+        the hybrid's kernels in it; each kernel at the ``"gab{i}"`` tiers
+        (``wrap``: the wrappers or their plain versions)."""
         cfg, gab, statics = self.cfg, self.layers_graph_conv[i], self.statics
         b, t, j, c = y.shape
+        tiers = resolve_tiers(cfg, f"gab{i}", KERNEL_OPS, y.device)
         if variant == "dilated" and c <= cfg.packed_channels:
-            y = fused_gab_packed(y.contiguous().view(b, t, j * c),
-                                 gab_tables(gab, statics), j)
+            y = wrap["packed"](y.contiguous().view(b, t, j * c),
+                               gab_tables(gab, statics), j, tiers)
             return y.view(b, t, j, 2 * c)
         if cfg.gab_impl in ("auto", "pallas"):
-            return fused_gab(y.contiguous(), gab_tables(gab, statics))
+            return wrap["gab"](y.contiguous(), gab_tables(gab, statics),
+                               tiers)
         loc, glb = gab.local_graph_layer, gab.global_graph_layer
         if cfg.gab_impl == "pallas_local":
-            local = fused_local_branch(y.contiguous(),
-                                       local_tables(loc, statics))
+            local = wrap["local"](y.contiguous(), local_tables(loc, statics),
+                                  tiers)
         else:
             local = local_graph(y, loc, statics)
         if cfg.attn_impl == "pallas_head":
-            globl = global_concat(self._heads(y, glb), glb)
+            globl = global_concat(self._heads(y, glb, wrap["head"], tiers),
+                                  glb)
         else:
             globl = multi_global_graph(y, glb)
         return block_concat(y, local, globl, gab)
 
     @staticmethod
-    def _heads(y: torch.Tensor, glb: nn.Module) -> list:
+    def _heads(y: torch.Tensor, glb: nn.Module, head, tiers: dict) -> list:
         """The global branch's head outputs, each head through
-        ``head_attention`` on column views of one plain projection
-        [theta | phi | g] (head-major within each), as the JAX package
-        keeps the projections outside its per-head kernel."""
+        ``head_attention`` (``head``: it or its plain version) at the
+        ``attn_score``/``attn_apply`` tiers, on column views of one plain
+        projection [theta | phi | g] (head-major within each), as the JAX
+        package keeps the projections outside its per-head kernel."""
         t = global_tables(glb)
         b, tt, j, _ = y.shape
         p = (pointwise(y, t.w_attn) + t.attn_shift).reshape(b * tt, j, -1)
@@ -289,13 +343,14 @@ class GastNet(nn.Module):
         g_ch = (p.shape[-1] - 2 * k * inter) // k
         outs = []
         for h in range(k):
-            out = head_attention(
+            out = head(
                 p[..., h * inter:(h + 1) * inter],
                 p[..., (k + h) * inter:(k + h + 1) * inter],
                 p[..., 2 * k * inter + h * g_ch:2 * k * inter
                   + (h + 1) * g_ch],
                 t.proj_t[h].reshape(-1, 1), t.proj_p[h].reshape(-1, 1),
-                t.c_k[h])
+                t.c_k[h], score_tier=tiers["attn_score"],
+                apply_tier=tiers["attn_apply"])
             outs.append(out.reshape(b, tt, j, g_ch))
         return outs
 

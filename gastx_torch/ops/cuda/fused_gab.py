@@ -34,7 +34,19 @@ kernels (``kernels.gab_chain``):
      3C->2C block concat as three pieces, never materialised.
 
 The GEMMs and ``gab_narrow`` are bound by the float32 FMA rate, the two
-graph kernels by device-memory bytes (see each source's note). All BNs
+graph kernels by device-memory bytes (see each source's note).
+
+**Tiers.** Each entry point takes ``tiers``, the {op_class: tier} of the
+TPU kernel's dots (``KERNEL_OPS``; None: all ``"highest"``): on the chain
+the GEMMs run ``local_sem``/``attn_proj`` (the projection, split into
+two launches where they differ), ``local_cat``, ``attn_cat`` and
+``gab_cat`` at theirs, ``joint_attention`` ``attn_score`` and
+``attn_apply``; ``sem_graph`` needs none (the TPU kernels' local
+aggregation is dot-free FMAs, ``gastx/ops/pallas/fused_gab.py:69-72``).
+``gab_narrow`` computes float32 at every tier; where the chain's GEMMs
+run on the tensor cores, ``gab_route`` keeps it only at the widths where
+it still beat the tiered chain. The plain version follows the same route
+rule, so it stays the kernels' exact counterpart. All BNs
 are folded on the host into scale/shift, as ``_fold_bn`` does. The plain
 version, :func:`fused_gab_plain`, runs the same chain through the
 kernels' plain PyTorch versions at every width; ``gastx_torch.ops.graph.
@@ -55,7 +67,7 @@ Two more entry points replace TPU kernels of the same file:
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -68,6 +80,9 @@ from gastx_torch.ops.graph import sem_adjacency
 from gastx_torch.ops.temporal import pconv_weight
 
 MAX_CHANNELS = 512
+# The TPU GAB kernels' dots by op class (gastx/ops/pallas/fused_gab.py:73).
+KERNEL_OPS = ("local_sem", "local_cat", "attn_proj",
+              "attn_score", "attn_apply", "attn_cat", "gab_cat")
 # The TPU kernel fused_gab_packed's width limit (MAX_FUSED_CHANNELS).
 PACKED_MAX_CHANNELS = 256
 
@@ -225,42 +240,53 @@ def _check_x(x: torch.Tensor, t: GabTables) -> None:
                    "fused_gab")
 
 
-def fused_gab_plain(x: torch.Tensor, t: GabTables) -> torch.Tensor:
+def _chain_tiers(t: GabTables, tiers):
+    """The chain's tiers for this GAB: None (float32) where ``gab_route``
+    picks ``gab_narrow``, which computes float32 at every tier."""
+    if K.gab_route(*K.gab_shape(t), tiers) == "gab_narrow":
+        return None
+    return tiers
+
+
+def fused_gab_plain(x: torch.Tensor, t: GabTables,
+                    tiers: Optional[Dict[str, str]] = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_gab`."""
     _check_x(x, t)
     b, tt, j, c = x.shape
     y = K.gab_chain(x.reshape(-1, c), t, K.gemm_epilogue_plain,
-                    K.sem_graph_plain, K.joint_attention_plain)
+                    K.sem_graph_plain, K.joint_attention_plain,
+                    _chain_tiers(t, tiers))
     return y.reshape(b, tt, j, 2 * c)
 
 
-def _gab_kernels(x: torch.Tensor, t: GabTables) -> torch.Tensor:
+def _gab_kernels(x: torch.Tensor, t: GabTables, tiers) -> torch.Tensor:
     """The GAB's kernels on CUDA (B, T, J, C) activations: ``gab_narrow``
     where ``kernels.gab_route`` picks it, else the chain above."""
     b, tt, j, c = x.shape
-    if K.gab_route(*K.gab_shape(t)) == "gab_narrow":
+    if K.gab_route(*K.gab_shape(t), tiers) == "gab_narrow":
         y = K.gab_narrow(x.reshape(-1, c), t)
     else:
         y = K.gab_chain(x.reshape(-1, c), t, K.gemm_epilogue, K.sem_graph,
-                        K.joint_attention)
+                        K.joint_attention, tiers)
     return y.reshape(b, tt, j, 2 * c)
 
 
-def fused_gab(x: torch.Tensor, t: GabTables) -> torch.Tensor:
+def fused_gab(x: torch.Tensor, t: GabTables,
+              tiers: Optional[Dict[str, str]] = None) -> torch.Tensor:
     """(B, T, J, C) -> (B, T, J, 2C), the eval-mode GAB, C <= 512. It runs
-    ``gab_narrow`` where ``kernels.gab_route`` picks it, else the chain, and
-    counts by width, under the TPU kernel each class replaces:
-    ``fused_gab_pbatch`` (C < 128), ``fused_gab`` (C <= 256) or
+    ``gab_narrow`` where ``kernels.gab_route`` picks it, else the chain at
+    ``tiers``, and counts by width, under the TPU kernel each class
+    replaces: ``fused_gab_pbatch`` (C < 128), ``fused_gab`` (C <= 256) or
     ``fused_gab_split``."""
     K.check_no_grad("fused_gab", x, t)
     _check_x(x, t)
     if not K.use_kernel(x.device):
-        return fused_gab_plain(x, t)
+        return fused_gab_plain(x, t, tiers)
     c = x.shape[-1]
     entry = ("fused_gab_pbatch" if c <= K.NARROW_MAX_CHANNELS
              else "fused_gab" if c <= 256 else "fused_gab_split")
     with K.entry_point(entry):
-        return _gab_kernels(x, t)
+        return _gab_kernels(x, t, tiers)
 
 
 def _unpack(x: torch.Tensor, t: GabTables, num_joints: int) -> torch.Tensor:
@@ -279,15 +305,17 @@ def _unpack(x: torch.Tensor, t: GabTables, num_joints: int) -> torch.Tensor:
     return x.view(x.shape[0], x.shape[1], num_joints, c)
 
 
-def fused_gab_packed_plain(x: torch.Tensor, t: GabTables,
-                           num_joints: int) -> torch.Tensor:
+def fused_gab_packed_plain(x: torch.Tensor, t: GabTables, num_joints: int,
+                           tiers: Optional[Dict[str, str]] = None
+                           ) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_gab_packed`."""
-    y = fused_gab_plain(_unpack(x, t, num_joints), t)
+    y = fused_gab_plain(_unpack(x, t, num_joints), t, tiers)
     return y.view(x.shape[0], x.shape[1], -1)
 
 
-def fused_gab_packed(x: torch.Tensor, t: GabTables,
-                     num_joints: int) -> torch.Tensor:
+def fused_gab_packed(x: torch.Tensor, t: GabTables, num_joints: int,
+                     tiers: Optional[Dict[str, str]] = None
+                     ) -> torch.Tensor:
     """(B, T, J*C) -> (B, T, J*2C), the eval-mode GAB on the packed
     layout, C <= 256: :func:`fused_gab`'s kernels on the (B, T, J, C)
     view, counted under ``fused_gab_packed`` alone."""
@@ -295,9 +323,9 @@ def fused_gab_packed(x: torch.Tensor, t: GabTables,
     xv = _unpack(x, t, num_joints)
     _check_x(xv, t)
     if not K.use_kernel(x.device):
-        return fused_gab_packed_plain(x, t, num_joints)
+        return fused_gab_packed_plain(x, t, num_joints, tiers)
     with K.entry_point("fused_gab_packed"):
-        y = _gab_kernels(xv, t)
+        y = _gab_kernels(xv, t, tiers)
     return y.view(x.shape[0], x.shape[1], -1)
 
 
@@ -308,23 +336,28 @@ def _check_local(x: torch.Tensor, t: LocalTables) -> int:
     return c
 
 
-def fused_local_branch_plain(x: torch.Tensor, t: LocalTables
+def fused_local_branch_plain(x: torch.Tensor, t: LocalTables,
+                             tiers: Optional[Dict[str, str]] = None
                              ) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_local_branch`."""
     c = _check_local(x, t)
     y = K.local_chain(x.reshape(-1, c), t, K.gemm_epilogue_plain,
-                      K.sem_graph_plain)
+                      K.sem_graph_plain, tiers=tiers)
     return y.reshape(x.shape)
 
 
-def fused_local_branch(x: torch.Tensor, t: LocalTables) -> torch.Tensor:
+def fused_local_branch(x: torch.Tensor, t: LocalTables,
+                       tiers: Optional[Dict[str, str]] = None
+                       ) -> torch.Tensor:
     """(B, T, J, C) -> (B, T, J, C), the eval-mode local branch (both
     semantic graph convs, their BN/ReLU, the 2C -> C cat, BN, ReLU),
-    C <= 512."""
+    C <= 512; ``tiers`` as :func:`fused_gab`'s (``local_sem``,
+    ``local_cat``)."""
     K.check_no_grad("fused_local_branch", x, t)
     c = _check_local(x, t)
     if not K.use_kernel(x.device):
-        return fused_local_branch_plain(x, t)
+        return fused_local_branch_plain(x, t, tiers)
     with K.entry_point("fused_local_branch"):
-        y = K.local_chain(x.reshape(-1, c), t, K.gemm_epilogue, K.sem_graph)
+        y = K.local_chain(x.reshape(-1, c), t, K.gemm_epilogue, K.sem_graph,
+                          tiers=tiers)
     return y.reshape(x.shape)

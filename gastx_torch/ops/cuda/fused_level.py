@@ -14,19 +14,28 @@ residual slice at ``res_off`` frames. The GAB then runs through
 ``gastx_torch.ops.cuda.fused_gab.fused_gab``. The TPU's VMEM gate on the sequence
 length is not carried: these wrappers take any T, so whole-sequence
 lifting stays on them.
+
+``tiers`` ({op_class: tier}, None: all ``"highest"``) covers ``LEVEL_OPS``
+(the conv taps and the 1x1) and ``fused_gab.KERNEL_OPS``; in
+``fused_level0`` the expand conv takes the ``"temporal"`` slot, as the TPU
+kernel's does (``gastx/models/gastnet.py:264-272``).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
 
 from gastx_torch.ops.batchnorm import fold_bn
 from gastx_torch.ops.cuda import kernels as K
-from gastx_torch.ops.cuda.fused_gab import (GabTables, fused_gab,
-                                            fused_gab_plain)
+from gastx_torch.ops.cuda.fused_gab import (KERNEL_OPS, GabTables,
+                                            fused_gab, fused_gab_plain)
 from gastx_torch.ops.temporal import pconv_weight, tconv_weight
+
+# The TPU level kernels' conv-chain dots (gastx/ops/pallas/fused_level.py:
+# 54), before the GAB's KERNEL_OPS.
+LEVEL_OPS = ("temporal", "mid1x1")
 
 
 class LevelTables(NamedTuple):
@@ -83,27 +92,34 @@ def _taps(x2, w, j, dilation):
     return [(x2, w[k], k * dilation * j) for k in range(w.shape[0])]
 
 
-def _level(x, lt, gt, fw, dilation, res_off, gemm, gab):
+def _gab_tiers(tiers):
+    return None if tiers is None else {op: tiers[op] for op in KERNEL_OPS}
+
+
+def _level(x, lt, gt, fw, dilation, res_off, gemm, gab, tiers):
     b, t, j, c = x.shape
     t_out = t - (fw - 1) * dilation
     m, s_out = b * t_out * j, t_out * j
     x2 = x.reshape(-1, c)
+    tier = (lambda op: "highest") if tiers is None else tiers.__getitem__
     z = gemm(_taps(x2, lt.wt, j, dilation), m, s_out=s_out, a_s_in=t * j,
-             scale=lt.bnt_scale, shift=lt.bnt_shift, relu=True)
+             scale=lt.bnt_scale, shift=lt.bnt_shift, relu=True,
+             tier=tier("temporal"))
     y1 = gemm([(z, lt.w1, 0)], m, s_out=s_out, scale=lt.bn1_scale,
               shift=lt.bn1_shift, relu=True, res=x2, res_s_in=t * j,
-              res_off=res_off * j)
-    return gab(y1.reshape(b, t_out, j, c), gt)
+              res_off=res_off * j, tier=tier("mid1x1"))
+    return gab(y1.reshape(b, t_out, j, c), gt, _gab_tiers(tiers))
 
 
-def _level0(x, l0, gt, gemm, gab):
+def _level0(x, l0, gt, gemm, gab, tiers):
     b, t, j, c_in = x.shape
     fw, c = l0.w.shape[0], l0.w.shape[2]
     t_out = t - (fw - 1)
     m, s_out = b * t_out * j, t_out * j
     z = gemm(_taps(x.reshape(-1, c_in), l0.w, j, 1), m, s_out=s_out,
-             a_s_in=t * j, scale=l0.scale, shift=l0.shift, relu=True)
-    return gab(z.reshape(b, t_out, j, c), gt)
+             a_s_in=t * j, scale=l0.scale, shift=l0.shift, relu=True,
+             tier="highest" if tiers is None else tiers["temporal"])
+    return gab(z.reshape(b, t_out, j, c), gt, _gab_tiers(tiers))
 
 
 def _check_level(x, lt, fw, dilation, res_off):
@@ -116,15 +132,18 @@ def _check_level(x, lt, fw, dilation, res_off):
 
 
 def fused_level_plain(x, lt: LevelTables, gt: GabTables, *, fw: int,
-                      dilation: int, res_off: int) -> torch.Tensor:
+                      dilation: int, res_off: int,
+                      tiers: Optional[Dict[str, str]] = None
+                      ) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_level`."""
     _check_level(x, lt, fw, dilation, res_off)
     return _level(x, lt, gt, fw, dilation, res_off, K.gemm_epilogue_plain,
-                  fused_gab_plain)
+                  fused_gab_plain, tiers)
 
 
 def fused_level(x: torch.Tensor, lt: LevelTables, gt: GabTables, *,
-                fw: int, dilation: int, res_off: int) -> torch.Tensor:
+                fw: int, dilation: int, res_off: int,
+                tiers: Optional[Dict[str, str]] = None) -> torch.Tensor:
     """(B, T, J, C) -> (B, T', J, 2C), T' = T - (fw-1)*dilation: dilated
     conv -> BN -> ReLU -> 1x1 -> BN -> ReLU -> + x[res_off:res_off+T'] ->
     GAB. ``res_off`` is in frames (pad + causal shift)."""
@@ -132,25 +151,27 @@ def fused_level(x: torch.Tensor, lt: LevelTables, gt: GabTables, *,
     _check_level(x, lt, fw, dilation, res_off)
     if not K.use_kernel(x.device):
         return fused_level_plain(x, lt, gt, fw=fw, dilation=dilation,
-                                 res_off=res_off)
+                                 res_off=res_off, tiers=tiers)
     with K.entry_point("fused_level"):
         return _level(x, lt, gt, fw, dilation, res_off, K.gemm_epilogue,
-                      fused_gab)
+                      fused_gab, tiers)
 
 
-def fused_level0_plain(x, l0: Level0Tables, gt: GabTables) -> torch.Tensor:
+def fused_level0_plain(x, l0: Level0Tables, gt: GabTables,
+                       tiers: Optional[Dict[str, str]] = None
+                       ) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_level0`."""
     _check_x(x, l0.w.shape[1], l0.w.shape[0])
-    return _level0(x, l0, gt, K.gemm_epilogue_plain, fused_gab_plain)
+    return _level0(x, l0, gt, K.gemm_epilogue_plain, fused_gab_plain, tiers)
 
 
-def fused_level0(x: torch.Tensor, l0: Level0Tables, gt: GabTables
-                 ) -> torch.Tensor:
+def fused_level0(x: torch.Tensor, l0: Level0Tables, gt: GabTables,
+                 tiers: Optional[Dict[str, str]] = None) -> torch.Tensor:
     """Raw (B, T, J, C_in) keypoints -> (B, T-fw+1, J, 2C): the expand
     level [init_bn -> expand conv -> BN -> ReLU -> GAB0], init_bn folded."""
     K.check_no_grad("fused_level0", x, l0, gt)
     _check_x(x, l0.w.shape[1], l0.w.shape[0])
     if not K.use_kernel(x.device):
-        return fused_level0_plain(x, l0, gt)
+        return fused_level0_plain(x, l0, gt, tiers)
     with K.entry_point("fused_level0"):
-        return _level0(x, l0, gt, K.gemm_epilogue, fused_gab)
+        return _level0(x, l0, gt, K.gemm_epilogue, fused_gab, tiers)

@@ -22,7 +22,7 @@ weights and its folded BN alone.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -32,6 +32,9 @@ from gastx_torch.ops.cuda import kernels as K
 from gastx_torch.ops.temporal import pconv_weight
 
 MAX_CHANNELS = 512
+# The TPU kernel's dots by op class (gastx/ops/pallas/global_attn.py:38);
+# ``tiers`` below is a dict over them (None: all "highest").
+KERNEL_OPS = ("attn_proj", "attn_score", "attn_apply", "attn_cat")
 
 
 class GlobalTables(NamedTuple):
@@ -97,24 +100,26 @@ def _check(x: torch.Tensor, t: GlobalTables) -> int:
     return c
 
 
-def fused_global_attention_plain(x: torch.Tensor, t: GlobalTables
+def fused_global_attention_plain(x: torch.Tensor, t: GlobalTables,
+                                 tiers: Optional[Dict[str, str]] = None
                                  ) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_global_attention`."""
     c = _check(x, t)
     y = K.global_chain(x.reshape(-1, c), t, K.gemm_epilogue_plain,
-                       K.joint_attention_plain)
+                       K.joint_attention_plain, tiers=tiers)
     return y.reshape(x.shape)
 
 
-def fused_global_attention(x: torch.Tensor, t: GlobalTables
+def fused_global_attention(x: torch.Tensor, t: GlobalTables,
+                           tiers: Optional[Dict[str, str]] = None
                            ) -> torch.Tensor:
     """(B, T, J, C) -> (B, T, J, C), the eval ``multi_global_graph``,
-    C <= 512."""
+    C <= 512, its dots at ``tiers`` (``KERNEL_OPS``)."""
     K.check_no_grad("fused_global_attention", x, t)
     c = _check(x, t)
     if not K.use_kernel(x.device):
-        return fused_global_attention_plain(x, t)
+        return fused_global_attention_plain(x, t, tiers)
     with K.entry_point("fused_global_attention"):
         y = K.global_chain(x.reshape(-1, c), t, K.gemm_epilogue,
-                           K.joint_attention)
+                           K.joint_attention, tiers=tiers)
     return y.reshape(x.shape)

@@ -50,28 +50,39 @@ def _args(theta_k, phi_k, g_k, proj_t, proj_p, c_k):
             proj_p.reshape(1, inter), c_k.reshape(1, j, j))
 
 
-def head_attention_plain(theta_k, phi_k, g_k, proj_t, proj_p, c_k
-                         ) -> torch.Tensor:
+def head_attention_plain(theta_k, phi_k, g_k, proj_t, proj_p, c_k, *,
+                         score_tier: str = "highest",
+                         apply_tier: str = "highest") -> torch.Tensor:
     """Plain PyTorch version of :func:`head_attention`."""
     out = K.joint_attention_plain(*_args(theta_k, phi_k, g_k, proj_t,
-                                         proj_p, c_k))
+                                         proj_p, c_k),
+                                  score_tier=score_tier,
+                                  apply_tier=apply_tier)
     return out.reshape(g_k.shape)
 
 
 def head_attention(theta_k: torch.Tensor, phi_k: torch.Tensor,
                    g_k: torch.Tensor, proj_t: torch.Tensor,
-                   proj_p: torch.Tensor, c_k: torch.Tensor) -> torch.Tensor:
+                   proj_p: torch.Tensor, c_k: torch.Tensor, *,
+                   score_tier: str = "highest",
+                   apply_tier: str = "highest") -> torch.Tensor:
     """One head: theta_k/phi_k (M, J, I) and g_k (M, J, G) -> (M, J, G).
 
     ``proj_t``/``proj_p`` (I, 1) are the rank-1 score vectors, ``c_k``
     (J, J) the bias added after the softmax. The three activations must
     share one row stride, as column views of one projection output do.
+    ``score_tier``/``apply_tier``: the tiers of the score and apply dots
+    (the TPU kernel's, ``gastx/ops/pallas/head_attn.py:43-56``); the same
+    ``joint_attention`` instantiations as the chain's.
     """
     K.check_no_grad("head_attention", theta_k, phi_k, g_k, proj_t, proj_p,
                     c_k)
     args = _args(theta_k, phi_k, g_k, proj_t, proj_p, c_k)
     if not K.use_kernel(theta_k.device):
-        return head_attention_plain(theta_k, phi_k, g_k, proj_t, proj_p, c_k)
+        return head_attention_plain(theta_k, phi_k, g_k, proj_t, proj_p, c_k,
+                                    score_tier=score_tier,
+                                    apply_tier=apply_tier)
     with K.entry_point("head_attention"):
-        out = K.joint_attention(*args)
+        out = K.joint_attention(*args, score_tier=score_tier,
+                                apply_tier=apply_tier)
     return out.reshape(g_k.shape)

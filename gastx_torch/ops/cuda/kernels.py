@@ -1,14 +1,20 @@
 """Build, binding and launch wrappers of the port's CUDA kernels.
 
-Four kernels, each a CUDA C++ source under ``gastx_torch/csrc/`` with a
+Five kernels, each a CUDA C++ source under ``gastx_torch/csrc/`` with a
 plain C interface:
 
   * ``gemm_epilogue`` — pipelined f32 GEMM over up to three pieces with a
     tap row map and a BN (scale/shift) / ReLU / residual epilogue, in two
-    instantiations (:func:`gemm_variant`);
+    instantiations (:func:`gemm_variant`), the ``"highest"`` tier;
+  * ``gemm_tc`` — the same function at the bf16 tiers
+    (``gastx_torch.ops.precision``) on the tensor cores, one
+    instantiation per tier (``TC_TIERS``) and alignment
+    (:func:`tc_variant`); the :func:`gemm_epilogue` wrapper launches it
+    for every tier but ``"highest"``;
   * ``sem_graph`` — the local branch's semantic graph aggregation, and
   * ``joint_attention`` — per-frame multi-head attention over the joints,
-    each in two instantiations (:func:`graph_variant`);
+    its score and apply dots at their tiers (operands rounded as
+    loaded), each in two instantiations (:func:`graph_variant`);
   * ``gab_narrow`` — the whole eval GAB at the narrow widths
     (``NARROW_WIDTHS``, C = 16 .. 96 in steps of 16) in one launch, every
     intermediate in shared memory.
@@ -40,13 +46,17 @@ Every wrapper checks device, dtype, shape and contiguity, and raises
 (:func:`check_no_grad`) when grad mode is on and an input requires a
 gradient: the kernels have no backward, and a wrapper never detaches its
 inputs quietly. On a CUDA tensor
-it launches its kernel (and raises if the launch fails); on a CPU tensor
-it runs the plain PyTorch version beside it, which is also what the card
-runs to hold the kernel to. ``LAUNCHES`` counts kernel launches by
-kernel, ``VARIANT_LAUNCHES`` those of the kernels with two instantiations
-by kernel and instantiation; ``ENTRY_LAUNCHES`` counts the kernel launches
-made inside each entry point (:func:`entry_point`). All are counted in
-``_launch`` alone, after the launch succeeded.
+it launches its kernel (and raises if the launch fails; a tier below
+``"highest"`` launches a tensor-core or rounding instantiation, never a
+float32 one); on a CPU tensor it runs the plain PyTorch version beside it,
+at the tier it is given, which is also what the card runs to hold the
+kernel to. ``LAUNCHES`` counts kernel launches by kernel,
+``VARIANT_LAUNCHES`` those of the kernels with two alignment
+instantiations by kernel and instantiation, ``TIER_LAUNCHES`` the tiered
+launches of ``gemm_tc`` (by tier) and ``joint_attention`` (by score/apply
+tier pair); ``ENTRY_LAUNCHES`` counts the kernel launches made inside each
+entry point (:func:`entry_point`). All are counted in ``_launch`` alone,
+after the launch succeeded.
 """
 from __future__ import annotations
 
@@ -62,9 +72,11 @@ import torch
 import torch.nn.functional as F
 
 from gastx_torch.device import check_f32_matmul
+from gastx_torch.ops.precision import check_tier, split_bf16, tiered, \
+    tiered_mm
 
 KERNEL_SOURCES = ("gemm_epilogue", "sem_graph", "joint_attention",
-                  "gab_narrow")
+                  "gab_narrow", "gemm_tc")
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "gastx_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -83,7 +95,13 @@ ENTRY_POINTS = ("fused_level0", "fused_level", "fused_gab_pbatch",
 # (gemm_variant, graph_variant); each C function's last argument picks one
 # (1: vec16).
 VARIANTS = ("vec16", "general")
-VARIANT_KERNELS = ("gemm_epilogue", "sem_graph", "joint_attention")
+VARIANT_KERNELS = ("gemm_epilogue", "sem_graph", "joint_attention",
+                   "gemm_tc")
+# gemm_tc's tiers, in the order of its C tier code; "kdefault" is the
+# "default" instantiation (one bf16 pass in a kernel, as on the TPU).
+TC_TIERS = ("default", "high_lhs", "high_rhs", "high")
+# joint_attention's tier codes, for its score and its apply dot.
+ATTN_TIERS = ("highest", "default", "high_lhs", "high_rhs", "high")
 # The graph kernels' shape rule (their C entry points check it too): J <= 32
 # joints and, for sem_graph, D <= 8 neighbour slots a joint.
 MAX_JOINTS = 32
@@ -94,6 +112,10 @@ MAX_SLOTS = 8
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_SOURCES}
 VARIANT_LAUNCHES: Dict[str, Dict[str, int]] = {
     name: {v: 0 for v in VARIANTS} for name in VARIANT_KERNELS}
+# Tiered launches: gemm_tc by tier, joint_attention by "score/apply" pair
+# (a pair of "highest" is its float32 path and is not counted here).
+TIER_LAUNCHES: Dict[str, Dict[str, int]] = {
+    "gemm_tc": {t: 0 for t in TC_TIERS}, "joint_attention": {}}
 ENTRY_LAUNCHES: Dict[str, int] = {name: 0 for name in ENTRY_POINTS}
 _OPEN_ENTRIES: List[str] = []
 
@@ -105,7 +127,11 @@ _ARGTYPES = {
                       _I],
     "sem_graph": [_P, _I, _P, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I],
     "joint_attention": [_P, _P, _P, _I, _P, _P, _P, _P, _LL, _I, _I, _I,
-                        _I, _P, _I],
+                        _I, _P, _I, _I, _I],
+    # per piece (a, w_hi, w_lo, K, a_off) x 3, then as gemm_epilogue's
+    # from npieces on, tier code, vec16
+    "gemm_tc": [_P, _P, _P, _I, _I] * 3 + [_I, _I, _I, _I, _I, _I, _P, _P,
+                                          _I, _P, _I, _P, _P, _I, _I],
     # x, out, frames, J, C, D, K, I, G, the 20 tables of a GabTables in
     # its field order, stream
     "gab_narrow": [_P, _P, _LL, _I, _I, _I, _I, _I, _I] + [_P] * 21,
@@ -113,9 +139,11 @@ _ARGTYPES = {
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, ENTRY_LAUNCHES, *VARIANT_LAUNCHES.values()):
+    for counts in (LAUNCHES, ENTRY_LAUNCHES, *VARIANT_LAUNCHES.values(),
+                   TIER_LAUNCHES["gemm_tc"]):
         for name in counts:
             counts[name] = 0
+    TIER_LAUNCHES["joint_attention"].clear()
 
 
 @contextlib.contextmanager
@@ -197,7 +225,9 @@ def _lib(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
-def _launch(name: str, *args) -> None:
+def _launch(name: str, *args, tier: Optional[str] = None) -> None:
+    """Launch ``name``; ``tier``: the tiered instantiation's label, for
+    ``TIER_LAUNCHES``."""
     lib = _lib(name)
     code = getattr(lib, name)(*args)
     if code != 0:
@@ -206,6 +236,9 @@ def _launch(name: str, *args) -> None:
     LAUNCHES[name] += 1
     if name in VARIANT_LAUNCHES:
         VARIANT_LAUNCHES[name]["vec16" if args[-1] else "general"] += 1
+    if tier is not None:
+        counts = TIER_LAUNCHES[name]
+        counts[tier] = counts.get(tier, 0) + 1
     for entry in _OPEN_ENTRIES:
         ENTRY_LAUNCHES[entry] += 1
 
@@ -323,8 +356,11 @@ def gemm_epilogue_plain(pieces: Sequence[Piece], m: int, *,
                         scale=None, shift=None, relu: bool = False,
                         res=None,
                         res_s_in: Optional[int] = None,
-                        res_off: int = 0) -> torch.Tensor:
-    """Plain PyTorch version of :func:`gemm_epilogue` (same arguments)."""
+                        res_off: int = 0,
+                        tier: str = "highest") -> torch.Tensor:
+    """Plain PyTorch version of :func:`gemm_epilogue` (same arguments):
+    each piece's product by ``precision.tiered_mm`` at ``tier``."""
+    check_tier(tier)
     s_out = m if s_out is None else s_out
     a_s_in = s_out if a_s_in is None else a_s_in
     res_s_in = s_out if res_s_in is None else res_s_in
@@ -335,7 +371,7 @@ def gemm_epilogue_plain(pieces: Sequence[Piece], m: int, *,
     acc = None
     for a, w, off in pieces:
         rows = _row_map(m, s_out, a_s_in, off, device)
-        term = torch.matmul(a[rows], w)
+        term = tiered_mm(a[rows], w, tier)
         acc = term if acc is None else acc + term
     if scale is not None:
         acc = acc * scale + shift
@@ -349,17 +385,21 @@ def gemm_epilogue_plain(pieces: Sequence[Piece], m: int, *,
 def gemm_epilogue(pieces: Sequence[Piece], m: int, *,
                   s_out: Optional[int] = None, a_s_in: Optional[int] = None,
                   scale=None, shift=None, relu: bool = False, res=None,
-                  res_s_in: Optional[int] = None,
-                  res_off: int = 0) -> torch.Tensor:
+                  res_s_in: Optional[int] = None, res_off: int = 0,
+                  tier: str = "highest") -> torch.Tensor:
     """out (m, N) = epi(sum_p A_p[in_row(r, p)] @ W_p).
 
     ``pieces``: up to three (a (rows, K_p), w (K_p, N), a_off). Rows are
     grouped in sequences of ``s_out`` output rows (default: one sequence
     of ``m``); output row r = s*s_out + q reads row s*a_s_in + q + a_off of
     ``a``. The epilogue applies ``scale``/``shift`` (a bias is scale 1),
-    ReLU, then adds ``res`` row s*res_s_in + q + res_off.
+    ReLU, then adds ``res`` row s*res_s_in + q + res_off. ``tier``: the
+    products' precision tier (``gastx_torch.ops.precision``); on the card
+    ``"highest"`` launches the float32 ``gemm_epilogue`` kernel and every
+    other tier ``gemm_tc``, each W split here into its bf16 halves.
     """
     check_no_grad("gemm_epilogue", pieces, scale, shift, res)
+    check_tier(tier)
     s_out = m if s_out is None else s_out
     a_s_in = s_out if a_s_in is None else a_s_in
     res_s_in = s_out if res_s_in is None else res_s_in
@@ -368,8 +408,13 @@ def gemm_epilogue(pieces: Sequence[Piece], m: int, *,
     if not use_kernel(device):
         return gemm_epilogue_plain(
             pieces, m, s_out=s_out, a_s_in=a_s_in, scale=scale, shift=shift,
-            relu=relu, res=res, res_s_in=res_s_in, res_off=res_off)
+            relu=relu, res=res, res_s_in=res_s_in, res_off=res_off,
+            tier=tier)
     out = torch.empty((m, n), dtype=torch.float32, device=device)
+    if tier != "highest":
+        _gemm_tc(pieces, m, n, s_out, a_s_in, res_s_in, scale, shift, relu,
+                 res, res_off, out, tier)
+        return out
     flat = []
     for i in range(3):
         if i < len(pieces):
@@ -382,6 +427,44 @@ def gemm_epilogue(pieces: Sequence[Piece], m: int, *,
             _ptr(res), res_off, out.data_ptr(), _stream(),
             int(gemm_variant(pieces, n, res) == "vec16"))
     return out
+
+
+def _gemm_tc(pieces, m, n, s_out, a_s_in, res_s_in, scale, shift, relu,
+             res, res_off, out, tier) -> None:
+    """Launch ``gemm_tc`` at ``tier`` into ``out``; W's lo half is passed
+    only where the tier multiplies it (``"high"``, ``"high_rhs"``)."""
+    tc = "default" if tier == "kdefault" else tier
+    flat, halves = [], []
+    for i in range(3):
+        if i < len(pieces):
+            a, w, off = pieces[i]
+            hi, lo = split_bf16(w)
+            halves.append((hi, lo))
+            flat += [a.data_ptr(), hi.data_ptr(),
+                     lo.data_ptr() if tc in ("high", "high_rhs") else None,
+                     a.shape[1], off]
+        else:
+            flat += [None, None, None, 0, 0]
+    _launch("gemm_tc", *flat, len(pieces), m, n, s_out, a_s_in, res_s_in,
+            _ptr(scale), _ptr(shift), int(relu), _ptr(res), res_off,
+            out.data_ptr(), _stream(), TC_TIERS.index(tc),
+            int(tc_variant(pieces, n, res) == "vec16"), tier=tc)
+
+
+def tc_variant(pieces: Sequence[Piece], n: int,
+               res: Optional[torch.Tensor]) -> str:
+    """The alignment instantiation of ``gemm_tc`` for these operands:
+    ``"vec16"`` (16-byte loads of A, 16-byte copies of W's bf16 halves,
+    8-byte epilogue) when every K_p is a multiple of 4, N a multiple of 8
+    and every a_p and ``res`` start 16-byte aligned (W's halves are fresh
+    tensors), else ``"general"``."""
+    ptrs = [a.data_ptr() for a, _, _ in pieces]
+    if res is not None:
+        ptrs.append(res.data_ptr())
+    if (n % 8 == 0 and all(a.shape[1] % 4 == 0 for a, _, _ in pieces)
+            and all(p % 16 == 0 for p in ptrs)):
+        return "vec16"
+    return "general"
 
 
 def gemm_variant(pieces: Sequence[Piece], n: int,
@@ -505,42 +588,65 @@ def _check_attn(theta, phi, g, proj_t, proj_p, c_k):
     return device, k, inter, j, g.shape[1] // k
 
 
-def joint_attention_plain(theta, phi, g, proj_t, proj_p, c_k):
-    """Plain PyTorch version of :func:`joint_attention`."""
+def _dot_last(a, b):
+    return (a * b).sum(-1)
+
+
+def joint_attention_plain(theta, phi, g, proj_t, proj_p, c_k, *,
+                          score_tier: str = "highest",
+                          apply_tier: str = "highest"):
+    """Plain PyTorch version of :func:`joint_attention`: the score dots
+    (theta/phi by proj_t/proj_p) at ``score_tier`` and the apply dots
+    (softmax + C_k by g) at ``apply_tier``, by ``precision.tiered``."""
     _, k, inter, j, g_ch = _check_attn(theta, phi, g, proj_t, proj_p, c_k)
+    check_tier(score_tier)
+    check_tier(apply_tier)
     check_f32_matmul(theta)
     frames = theta.shape[0] // j
-    sa = (theta.reshape(frames, j, k, inter) * proj_t).sum(-1)  # (F, J, K)
-    sb = (phi.reshape(frames, j, k, inter) * proj_p).sum(-1)
+    sa = tiered(_dot_last, theta.reshape(frames, j, k, inter), proj_t,
+                score_tier)                                     # (F, J, K)
+    sb = tiered(_dot_last, phi.reshape(frames, j, k, inter), proj_p,
+                score_tier)
     sa, sb = sa.transpose(1, 2), sb.transpose(1, 2)             # (F, K, J)
     f = F.leaky_relu(sa[..., :, None] + sb[..., None, :], 0.2)
     attn = torch.softmax(f, dim=-1) + c_k                       # (F,K,J,J)
     gk = g.reshape(frames, j, k, g_ch).transpose(1, 2)          # (F,K,J,G)
-    out = torch.matmul(attn, gk).transpose(1, 2)                # (F,J,K,G)
+    out = tiered_mm(attn, gk, apply_tier).transpose(1, 2)       # (F,J,K,G)
     return out.reshape(frames * j, k * g_ch)
 
 
 def joint_attention(theta: torch.Tensor, phi: torch.Tensor, g: torch.Tensor,
-                    proj_t, proj_p, c_k) -> torch.Tensor:
+                    proj_t, proj_p, c_k, *, score_tier: str = "highest",
+                    apply_tier: str = "highest") -> torch.Tensor:
     """Per-frame multi-head attention over the joints.
 
     ``theta``/``phi`` (rows, K*I) and ``g`` (rows, K*G): column views of
     one projection output (same row stride). ``proj_t``/``proj_p`` (K, I)
     rank-1 score vectors, ``c_k`` (K, J, J) additive attention biases.
-    Returns the head-major (rows, K*G) head outputs.
+    Returns the head-major (rows, K*G) head outputs. ``score_tier`` and
+    ``apply_tier``: the tiers of the score and apply dots; the kernel
+    rounds their operands as it loads them and accumulates in float32.
     """
     check_no_grad("joint_attention", theta, phi, g, proj_t, proj_p, c_k)
     device, k, inter, j, g_ch = _check_attn(theta, phi, g, proj_t, proj_p,
                                             c_k)
+    check_tier(score_tier)
+    check_tier(apply_tier)
     if not use_kernel(device):
-        return joint_attention_plain(theta, phi, g, proj_t, proj_p, c_k)
+        return joint_attention_plain(theta, phi, g, proj_t, proj_p, c_k,
+                                     score_tier=score_tier,
+                                     apply_tier=apply_tier)
+    codes = [ATTN_TIERS.index("default" if t == "kdefault" else t)
+             for t in (score_tier, apply_tier)]
     rows = theta.shape[0]
     out = torch.empty((rows, k * g_ch), dtype=torch.float32, device=device)
     _launch("joint_attention", theta.data_ptr(), phi.data_ptr(),
             g.data_ptr(), theta.stride(0), proj_t.data_ptr(),
             proj_p.data_ptr(), c_k.data_ptr(), out.data_ptr(), rows // j, j,
-            inter, g_ch, k, _stream(),
-            int(graph_variant((theta, phi, g), (inter, g_ch)) == "vec16"))
+            inter, g_ch, k, _stream(), *codes,
+            int(graph_variant((theta, phi, g), (inter, g_ch)) == "vec16"),
+            tier=(None if codes == [0, 0] else
+                  "/".join(ATTN_TIERS[c] for c in codes)))
     return out
 
 
@@ -548,51 +654,83 @@ def joint_attention(theta: torch.Tensor, phi: torch.Tensor, g: torch.Tensor,
 # The chains: the GAB and its two branches through the kernels above
 # --------------------------------------------------------------------------
 
-def local_chain(x: torch.Tensor, t, gemm, sem, p=None) -> torch.Tensor:
+def _tier(tiers: Optional[Dict[str, str]], op: str) -> dict:
+    """The ``tier`` keyword of one product, none without ``tiers`` (so the
+    chains also take functions with no tier argument)."""
+    return {} if tiers is None else {"tier": tiers[op]}
+
+
+def _attn_tiers(tiers: Optional[Dict[str, str]]) -> dict:
+    return {} if tiers is None else {"score_tier": tiers["attn_score"],
+                                     "apply_tier": tiers["attn_apply"]}
+
+
+def local_chain(x: torch.Tensor, t, gemm, sem, p=None,
+                tiers: Optional[Dict[str, str]] = None) -> torch.Tensor:
     """Steps 1-3 of the GAB chain, the eval local branch: (rows, C) ->
     (rows, C). ``p`` is a projection output whose first 4C columns are
     [W0_sym | W1_sym | W0_con | W1_con] (the GAB chain's); without it,
     step 1 projects x onto ``t.w_sem``. ``t`` is a ``fused_gab.
     LocalTables`` or ``GabTables``; ``gemm``/``sem`` the kernels or their
-    plain versions."""
+    plain versions; ``tiers`` ({op_class: tier}, None: all ``"highest"``)
+    gives the products' tiers, ``local_sem`` and ``local_cat``."""
     rows, c = x.shape
     if p is None:
-        p = gemm([(x, t.w_sem, 0)], rows)
+        p = gemm([(x, t.w_sem, 0)], rows, **_tier(tiers, "local_sem"))
     ab = sem(p, c, t.w_self, t.w_nbr, t.col, t.sem_scale, t.sem_shift)
     return gemm([(ab, t.lcat_w, 0)], rows, scale=t.lcat_scale,
-                shift=t.lcat_shift, relu=True)
+                shift=t.lcat_shift, relu=True, **_tier(tiers, "local_cat"))
 
 
-def global_chain(x: torch.Tensor, t, gemm, attn, p=None) -> torch.Tensor:
+def global_chain(x: torch.Tensor, t, gemm, attn, p=None,
+                 tiers: Optional[Dict[str, str]] = None) -> torch.Tensor:
     """Steps 1, 4 and 5 of the GAB chain, the eval multi-head global
     branch with its cat, BN and ReLU: (rows, C) -> (rows, C). ``p`` is a
     (rows, 2KI + KG) view [theta | phi | g] of a projection output (the
     GAB chain's); without it, step 1 projects x onto ``t.w_attn`` plus
     its biases. ``t`` is a ``global_attn.GlobalTables`` or ``fused_gab.
-    GabTables``."""
+    GabTables``; ``tiers``: ``attn_proj``, ``attn_score``, ``attn_apply``
+    and ``attn_cat``."""
     rows = x.shape[0]
     ki = t.proj_t.numel()
     if p is None:
         p = gemm([(x, t.w_attn, 0)], rows, scale=t.attn_scale,
-                 shift=t.attn_shift)
+                 shift=t.attn_shift, **_tier(tiers, "attn_proj"))
     heads = attn(p[:, :ki], p[:, ki:2 * ki], p[:, 2 * ki:], t.proj_t,
-                 t.proj_p, t.c_k)
+                 t.proj_p, t.c_k, **_attn_tiers(tiers))
     return gemm([(heads, t.acat_w, 0)], rows, scale=t.acat_scale,
-                shift=t.acat_shift, relu=True)
+                shift=t.acat_shift, relu=True, **_tier(tiers, "attn_cat"))
 
 
-def gab_chain(x: torch.Tensor, t, gemm, sem, attn) -> torch.Tensor:
+def gab_chain(x: torch.Tensor, t, gemm, sem, attn,
+              tiers: Optional[Dict[str, str]] = None) -> torch.Tensor:
     """The eval GAB on (rows, C) activations through the given GEMM, graph
     and attention functions (the kernels, or their plain versions); ``t``
-    is a ``fused_gab.GabTables``. One projection feeds both branches."""
+    is a ``fused_gab.GabTables``, ``tiers`` the {op_class: tier} of
+    ``fused_gab.KERNEL_OPS`` (None: all ``"highest"``). One projection
+    feeds both branches: one launch over its 7C columns where
+    ``local_sem`` and ``attn_proj`` share a tier, else two launches, the
+    4C sem columns and the 3C theta/phi/g columns each into an output of
+    its own (``sem_graph`` and ``joint_attention`` read any row stride,
+    so nothing is copied; x is read twice)."""
     rows, c = x.shape
-    p = gemm([(x, t.w_proj, 0)], rows, scale=t.proj_scale,
-             shift=t.proj_shift)
-    local = local_chain(x, t, gemm, sem, p)
-    globl = global_chain(x, t, gemm, attn, p[:, 4 * c:])
+    t_sem, t_attn = _tier(tiers, "local_sem"), _tier(tiers, "attn_proj")
+    if t_sem == t_attn:
+        p = gemm([(x, t.w_proj, 0)], rows, scale=t.proj_scale,
+                 shift=t.proj_shift, **t_sem)
+        p_sem, p_attn = p, p[:, 4 * c:]
+    else:  # the sem columns' shift is zero at scale 1: no epilogue
+        p_sem = gemm([(x, t.w_proj[:, :4 * c].contiguous(), 0)], rows,
+                     **t_sem)
+        p_attn = gemm([(x, t.w_proj[:, 4 * c:].contiguous(), 0)], rows,
+                      scale=t.proj_scale[4 * c:],
+                      shift=t.proj_shift[4 * c:], **t_attn)
+    local = local_chain(x, t, gemm, sem, p_sem, tiers)
+    globl = global_chain(x, t, gemm, attn, p_attn, tiers)
     return gemm([(x, t.gcat_w[0:c], 0), (local, t.gcat_w[c:2 * c], 0),
                  (globl, t.gcat_w[2 * c:3 * c], 0)], rows,
-                scale=t.gcat_scale, shift=t.gcat_shift, relu=True)
+                scale=t.gcat_scale, shift=t.gcat_shift, relu=True,
+                **_tier(tiers, "gab_cat"))
 
 
 def check_blocks(x: torch.Tensor, c: int, j: int, max_channels: int,
@@ -622,6 +760,17 @@ NARROW_WIDTHS = (16, 32, 48, 64, 80, 96)
 # at 80 and 14.26 / 11.05 at 96 (its tile holds 3 frames there). Every
 # other width runs the chain.
 NARROW_ROUTE_WIDTHS = (16, 32, 48, 64)
+# Where the chain's GEMMs run below "highest" (on the tensor cores) and
+# gab_narrow stays float32, it keeps only the widths where it still beat
+# the chain: at the JAX preset's tiers (chip_smoke.py phase 10 (d),
+# NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6) the chain took 5.733
+# against gab_narrow's 7.825 ms at C=64 (81f GAB 0, B=1024) and 4.023
+# against 5.850 ms (243f GAB 1, B=256), but 2.703 against 1.976 ms at
+# C=32 (243f GAB 0). C=16 (2.6x ahead at float32) stays; C=48, a float32
+# tie, goes to the chain.
+NARROW_ROUTE_WIDTHS_TIERED = (16, 32)
+# The chain's GEMM classes: below "highest" they launch gemm_tc.
+GEMM_OPS = ("local_sem", "local_cat", "attn_proj", "attn_cat", "gab_cat")
 # Weights the kernel copies into shared memory 16 bytes at a time.
 _NARROW_ALIGNED = ("w_proj", "lcat_w", "acat_w", "gcat_w")
 
@@ -636,11 +785,16 @@ def narrow_shape_ok(c: int, k: int, inter: int, g_ch: int, j: int,
             and 1 <= d <= MAX_SLOTS)
 
 
-def gab_route(c: int, k: int, inter: int, g_ch: int, j: int,
-              d: int) -> str:
+def gab_route(c: int, k: int, inter: int, g_ch: int, j: int, d: int,
+              tiers: Optional[Dict[str, str]] = None) -> str:
     """The kernels a GAB of this shape runs on the card: ``"gab_narrow"``
-    where its shape rule holds and it beat the chain, else ``"chain"``."""
-    if narrow_shape_ok(c, k, inter, g_ch, j, d) and c in NARROW_ROUTE_WIDTHS:
+    where its shape rule holds and it beat the chain, else ``"chain"``;
+    with ``tiers`` that put a chain GEMM below "highest", the widths it
+    beat the tiered chain at (``NARROW_ROUTE_WIDTHS_TIERED``)."""
+    tiered = tiers is not None and any(tiers[op] != "highest"
+                                       for op in GEMM_OPS)
+    widths = NARROW_ROUTE_WIDTHS_TIERED if tiered else NARROW_ROUTE_WIDTHS
+    if narrow_shape_ok(c, k, inter, g_ch, j, d) and c in widths:
         return "gab_narrow"
     return "chain"
 

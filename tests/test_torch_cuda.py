@@ -6,7 +6,10 @@ only PyTorch: ``python -m pytest tests/test_torch_cuda.py -m cuda
 --noconftest`` (the suite's conftest configures JAX).
 
 Tolerance: max |kernel - plain| <= 1e-4 * max(1, max |plain|). Both sides
-compute in float32; only the order of summation differs.
+compute in float32; only the order of summation differs. At the precision
+tiers both sides round the same operands to bf16 and sum exact products in
+float32, so the same bound holds, except where an operand is itself
+computed (joint_attention's softmax weights): see ``_attn_close``.
 """
 import dataclasses
 
@@ -415,12 +418,13 @@ def _variant_model(frames, num_joints=17, **fields):
 def _gab_launches(m):
     """What a forward's GABs launch outside the level kernels, by kernel:
     per GAB one gab_narrow, or the chain's 4 GEMMs, sem_graph and
-    joint_attention, as gab_route sends it."""
+    joint_attention, as gab_route sends it (float32: no gemm_tc)."""
     routes = [K.gab_route(*K.gab_shape(gab_tables(g, m.statics)))
               for g in m.layers_graph_conv]
     chain = routes.count("chain")
     return {"gemm_epilogue": 4 * chain, "sem_graph": chain,
-            "joint_attention": chain, "gab_narrow": routes.count("gab_narrow")}
+            "joint_attention": chain, "gab_narrow": routes.count("gab_narrow"),
+            "gemm_tc": 0}
 
 
 @pytest.mark.cuda
@@ -656,3 +660,110 @@ def test_cuda_run_evaluation_runs_the_kernels(model, tmp_path):
         assert K.ENTRY_LAUNCHES[name] > 0, K.ENTRY_LAUNCHES
     want = run_evaluation(cpu, actions, ds, kps, **kw)
     np.testing.assert_allclose(got, want, atol=2e-2, rtol=1e-4)
+
+
+# ---- the precision tiers ---------------------------------------------------
+TC_TIERS = ("default", "kdefault", "high_lhs", "high_rhs", "high")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", TC_TIERS)
+@pytest.mark.parametrize("case", sorted(GEMM_CASES))
+def test_cuda_gemm_tc_matches_plain(model, case, tier):
+    """gemm_epilogue at a tier below "highest" launches gemm_tc (never the
+    float32 kernel: no fallback), on the alignment instantiation tc_variant
+    picks and the tier's own instantiation, and agrees with its plain
+    version: both round the same operands, the tensor cores sum the exact
+    bf16 products in float32, so the float32 bound holds."""
+    build, _ = GEMM_CASES[case]
+    pieces, m, kw = build()
+    kw["tier"] = tier
+    n = pieces[0][1].shape[1]
+    K.reset_launches()
+    got = K.gemm_epilogue(pieces, m, **kw)
+    _assert_launched("gemm_tc", K.tc_variant(pieces, n, kw.get("res")))
+    want = "default" if tier == "kdefault" else tier
+    assert K.TIER_LAUNCHES["gemm_tc"] == {
+        t: int(t == want) for t in K.TC_TIERS}
+    assert K.LAUNCHES["gemm_epilogue"] == 0
+    _assert_close(got, K.gemm_epilogue_plain(pieces, m, **kw))
+
+
+def _attn_close(got, plain, plain_f32, noise, g, c_k, apply_tier):
+    """A tiered joint_attention against its plain version: the float32
+    bound, plus one bf16 ulp (2^-7 |w|; 2^-14 where the lhs keeps 16 bits)
+    of any attention weight, which the two sides' float32 softmaxes may
+    round to neighbouring bf16 values; and, in root-mean-square, half as
+    far from its plain version as from the float32 output, which a kernel
+    skipping the rounding would not meet, wherever the tier moves the
+    plain output by more than twice the float32 kernel's own distance
+    ``noise`` from its plain version."""
+    torch.cuda.synchronize()
+    flip = {"highest": 0.0, "high_lhs": 2.0 ** -14,
+            "high": 2.0 ** -14}.get(apply_tier, 2.0 ** -7)
+    bound = (1e-4 * max(1.0, plain.abs().max().item()) + flip
+             * g.abs().max().item() * (1 + c_k.abs().sum(-1).max().item()))
+    assert (got - plain).abs().max().item() <= bound
+    if (plain - plain_f32).pow(2).mean().sqrt().item() <= 2 * noise:
+        return
+    rms = (got - plain).pow(2).mean().sqrt().item()
+    rms_f32 = (got - plain_f32).pow(2).mean().sqrt().item()
+    assert rms <= 0.5 * rms_f32, (rms, rms_f32)
+
+
+ATTN_TIERS = ("highest", "default", "high_lhs", "high_rhs", "high")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("apply_tier", ATTN_TIERS)
+@pytest.mark.parametrize("level", (0, 1))
+def test_cuda_joint_attention_tiers_match_plain(model, level, apply_tier):
+    """joint_attention with its score and apply dots at every pair of
+    tiers (the apply tier "high" is its second instantiation), 16-byte
+    views and a 4-byte one, each launch counted under its pair."""
+    t = gab_tables(model.layers_graph_conv[level], model.statics)
+    c, ki, width = t.w_proj.shape[0], t.proj_t.numel(), t.w_proj.shape[1]
+    for pad, variant in ((0, "vec16"), (1, "general")):
+        p = _randn(301 * 17, width + pad, seed=9 + pad)[:, :width]
+        views = (p[:, 4 * c:4 * c + ki], p[:, 4 * c + ki:4 * c + 2 * ki],
+                 p[:, 4 * c + 2 * ki:], t.proj_t, t.proj_p, t.c_k)
+        f32 = K.joint_attention_plain(*views)
+        noise = (K.joint_attention(*views) - f32).pow(2).mean().sqrt().item()
+        for score_tier in ATTN_TIERS:
+            kw = dict(score_tier=score_tier, apply_tier=apply_tier)
+            K.reset_launches()
+            got = K.joint_attention(*views, **kw)
+            _assert_launched("joint_attention", variant)
+            pair = f"{score_tier}/{apply_tier}"
+            assert K.TIER_LAUNCHES["joint_attention"] == (
+                {} if pair == "highest/highest" else {pair: 1})
+            plain = (f32 if pair == "highest/highest"
+                     else K.joint_attention_plain(*views, **kw))
+            _attn_close(got, plain, f32, noise, views[2], t.c_k,
+                        apply_tier)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames", (27, 243))
+def test_cuda_tiered_forward_matches_plain_route(model, frames):
+    """The JAX preset on the card: every GEMM on gemm_tc (no float32
+    gemm_epilogue launch), the attention at its tiers, within the float32
+    bound of the same route and tiers through the plain versions, and
+    within the cert's 0.1 mm of the float32 forward."""
+    from gastx_torch.models import build_gastnet
+    from gastx_torch.models.config import TPU_MIXED_PRECISION_OVERRIDES
+
+    m = build_gastnet(config_for_frames(frames, dropout=0.0), seed=frames,
+                      device="cuda")
+    x = _randn(4, frames, 17, 2, seed=frames)
+    f32 = m(x)
+    m.cfg = config_for_frames(
+        frames, dropout=0.0, matmul_precision="high",
+        precision_overrides=TPU_MIXED_PRECISION_OVERRIDES)
+    K.reset_launches()
+    got = m(x)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["gemm_tc"] > 0 and K.LAUNCHES["gemm_epilogue"] == 0
+    assert K.TIER_LAUNCHES["joint_attention"].get("default/default")
+    _assert_close(got, m.plain_route_forward(x))
+    assert (got - f32).abs().max().item() <= 1e-4

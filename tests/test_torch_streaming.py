@@ -117,3 +117,39 @@ def test_streaming_requires_causal(weights):
     cfg = dataclasses.replace(CFG, causal=False)
     with pytest.raises(ValueError, match="causal"):
         StreamingLifter(port_model(cfg, params, state))
+
+
+@pytest.mark.parametrize("rate", (0.0, 0.05))
+def test_train_mode_model_lifts_and_streams_as_its_eval_twin(rate):
+    """A model left in train mode (as load_state_dict leaves a fresh
+    module) lifts and streams through the eval forward, as the JAX
+    lifting's train=False has it: its outputs equal its eval-mode twin's,
+    no running statistic moves, no dropout generator is asked for,
+    push_async's tensor needs no gradient, and the mode is restored."""
+    import copy
+
+    from gastx_torch.infer import lift_sequences
+    from gastx_torch.models import (GastNetConfig, build_gastnet,
+                                    randomize_eval_statistics)
+
+    cfg = GastNetConfig(filter_widths=(3, 3), channels=16, causal=True,
+                        dropout=rate)
+    twin = randomize_eval_statistics(
+        build_gastnet(cfg, seed=57, device="cpu"),
+        torch.Generator().manual_seed(58))
+    model = copy.deepcopy(twin).train()
+    stats = {k: v.clone() for k, v in model.state_dict().items()}
+    seq = inputs((20, 17, 2), 59)
+
+    got = lift_sequences(model, [seq])[0]
+    np.testing.assert_array_equal(got, lift_sequences(twin, [seq])[0])
+    lifter, ref = StreamingLifter(model), StreamingLifter(twin)
+    for i in range(4):
+        out = lifter.push_async(seq[i][None])
+        assert not out.requires_grad
+        np.testing.assert_array_equal(out.numpy(), ref.push(seq[i][None]))
+        np.testing.assert_array_equal(lifter.push(seq[4 + i][None]),
+                                      ref.push(seq[4 + i][None]))
+    assert model.training and all(m.training for m in model.modules())
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, stats[k]), k
