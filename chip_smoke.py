@@ -104,11 +104,15 @@ a non-zero exit and no result line:
  10. the precision tiers (``gastx_torch.ops.precision``): (a) the
      tensor-core ``gemm_tc`` at every tier (``TC_PASSES``) on the 27f
      level-1 projection (B=1024, timed beside the float32
-     ``gemm_epilogue``, its bound at 989 TFLOP/s a pass or 3.35 TB/s, and
-     a bf16 ``torch.matmul`` for the one-pass tier), the level-1 1x1 with
-     its residual, the block concat, the level-0 expand conv (K = 2 a tap,
-     the general instantiation) and ``gemm_epilogue``'s ragged cases, each
-     held to ``gemm_epilogue_plain`` at the same tier, then
+     ``gemm_epilogue``, its bound at 989 TFLOP/s a pass or 3.35 TB/s, and,
+     for the one-pass tier, ``torch.addmm(shift, a16, w16,
+     out_dtype=torch.float32)``, one cuBLAS call of the same function, and
+     a bf16 ``torch.matmul``, bf16 out), the level-1 1x1 with its
+     residual, the block concat, the level-0 expand conv (K = 2 a tap, the
+     general instantiation), the edge cases of its ``wgmma`` instantiation
+     (``tc_edge_cases``) and ``gemm_epilogue``'s ragged cases, each held
+     to ``gemm_epilogue_plain`` at the same tier and checked to launch the
+     instantiation ``tc_variant`` picks, then
      ``joint_attention`` at C=256 and 128 at the cert's tier pairs (B=1024,
      timed) and at every pair (B=4), held by ``attn_tier_check``; (b) the
      cert: 27f, 81f and 243f at seeds 0-23 of the port's init, max
@@ -117,7 +121,9 @@ a non-zero exit and no result line:
      finding), worst seed printed; (c) those six tiered forwards at B=64
      held to ``plain_route_forward``, the launch counters zeroed just
      before and read just after (the tiered path: every tier's
-     instantiation it must launch, and no float32 ``gemm_epilogue``); (d)
+     instantiation it must launch, the general ``gemm_tc`` once a forward
+     for its level-0 expand conv and the ``wgmma`` one for every other
+     product, and no float32 ``gemm_epilogue``); (d)
      windows/s, device busy and idle share and launches of the float32,
      (i) and (ii) forwards at 27f/81f/243f (B=1024/1024/256), and
      ``gab_narrow`` beside the chain at the preset's tiers at the three
@@ -397,6 +403,43 @@ def gemm_ragged_cases(dev):
                       *gemm_case(GEMM_SHAPES[i], dev, 40 + i, windows=256),
                       want))
     return cases
+
+
+def tc_edge_cases(dev):
+    """Phase 10 (a)'s cases of ``gemm_tc``'s persistent ``wgmma``
+    instantiation beyond ``gemm_ragged_cases``: one push's rows, the
+    narrow chain's widths, K and N tails inside a tile, more tiles than
+    SMs, three pieces at row offsets with a residual at its own: (label,
+    pieces, m, keyword arguments, the instantiation ``tc_variant`` must
+    pick)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(37)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def one(m, k, n, **kw):
+        return [(rnd(m, k), rnd(k, n) / math.sqrt(k), 0)], m, dict(
+            scale=rnd(n).abs() + 0.5, shift=rnd(n), **kw)
+
+    m3 = 300
+    three = [(rnd(m3 + 40, 128), rnd(128, 256) / math.sqrt(384), 17 * p)
+             for p in range(3)]
+    return [
+        ("M=17, K=512, N=1536 (a push's 27f level-2 rows)",
+         *one(17, 512, 1536), "vec16"),
+        ("M=153, K=48, N=144 (C=48)", *one(153, 48, 144, relu=True),
+         "vec16"),
+        ("M=459, K=64, N=192 (C=64)", *one(459, 64, 192, relu=True),
+         "vec16"),
+        ("K=132, N=72: K and N tails", *one(1000, 132, 72), "vec16"),
+        ("M=17,000, N=512: more tiles than SMs",
+         *one(17000, 256, 512, relu=True), "vec16"),
+        ("3 pieces at a_off 0/17/34, residual at res_off 51", three, m3,
+         dict(scale=rnd(256).abs() + 0.5, shift=rnd(256), relu=True,
+              res=rnd(m3 + 51, 256), res_off=51), "vec16"),
+    ]
 
 
 def gemm_library_operands(pieces, m, kw):
@@ -1573,6 +1616,16 @@ def tc_bound(flops, nbytes, passes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def tc_a_route(kw) -> str:
+    """How gemm_tc's wgmma instantiation brings A into shared memory for
+    these keyword arguments (gemm_tc.cu decides the same): by TMA where a
+    tile's rows are contiguous in A (s_out == a_s_in, the 1x1 products),
+    else by cp.async row gathers through the row map (the conv taps)."""
+    s_out = kw.get("s_out")
+    return "tma" if s_out is None or s_out == kw.get("a_s_in", s_out) \
+        else "gather"
+
+
 def tier_kernels(K, dev, gts, glts) -> dict:
     """Phase 10 (a): ``gemm_epilogue`` at every tier on ``gemm_tc`` and
     ``joint_attention`` at the cert's tier pairs, held to their plain
@@ -1607,29 +1660,43 @@ def tier_kernels(K, dev, gts, glts) -> dict:
                                                              **kw), reps=3)
             f32_ms = cuda_ms(lambda: K.gemm_epilogue(
                 pieces, m, **{**kw, "tier": "highest"}))
-            library_ms = None
-            if tier == "default":  # one bf16 cuBLAS product, bf16 out
+            library_ms = matmul_ms = None
+            if tier == "default":
+                # One cuBLAS call of the same function at this tier (bf16
+                # operands, float32 output, the bias: scale is 1 here),
+                # and a bf16 torch.matmul (bf16 out: half the output
+                # bytes). Yardsticks only.
                 a16 = pieces[0][0].to(torch.bfloat16)
                 w16 = pieces[0][1].to(torch.bfloat16)
-                library_ms = cuda_ms(lambda: torch.matmul(a16, w16))
+                matmul_ms = cuda_ms(lambda: torch.matmul(a16, w16))
+                try:
+                    library_ms = cuda_ms(lambda: torch.addmm(
+                        kw["shift"], a16, w16, out_dtype=torch.float32))
+                except (RuntimeError, TypeError, NotImplementedError) as e:
+                    print(f"  torch.addmm(..., out_dtype=torch.float32) "
+                          f"refused: {str(e).splitlines()[0][:160]}")
                 del a16, w16
             bms, by = tc_bound(*tc_work(m, ks, n, 1, kw["res"] is not None,
                                         tier))
             rows.append({"tier": tier, "shape": f"{label} (B={windows})",
                          "m": m, "ks": list(ks), "n": n, "ms": ms,
                          "plain_ms": plain_ms, "float32_ms": f32_ms,
-                         "library_ms": library_ms, "bound_ms": bms,
+                         "library_ms": library_ms,
+                         "matmul_bf16_ms": matmul_ms, "bound_ms": bms,
                          "bound_by": by, "max_abs_err": err,
+                         "a_route": tc_a_route(kw),
                          "tflops": 2 * m * n * sum(ks) / ms / 1e9})
             print(f"  gemm_tc {tier} {label} (B={windows}): {ms:.3f} ms "
                   f"({rows[-1]['tflops']:.1f} TFLOP/s; float32 "
                   f"gemm_epilogue {f32_ms:.3f}; plain {plain_ms:.3f}; bound "
                   f"{bms:.3f} by {by}"
-                  + (f"; bf16 torch.matmul {library_ms:.3f}"
-                     if library_ms else "") + ")")
+                  + (f"; bf16 torch.matmul {matmul_ms:.3f}; float32-out "
+                     f"torch.addmm {library_ms}" if matmul_ms else "")
+                  + ")")
             del pieces, kw
             torch.cuda.empty_cache()
-        for label, pieces, m, kw, _ in gemm_ragged_cases(dev):
+        for label, pieces, m, kw, _ in (tc_edge_cases(dev)
+                                        + gemm_ragged_cases(dev)):
             kw = {**kw, "tier": tier}
             want = K.tc_variant(pieces, pieces[0][1].shape[1],
                                 kw.get("res"))
@@ -1799,7 +1866,7 @@ def tier_paths(K, dev) -> dict:
             m.plain_route_forward(xs[frames]))
     print(f"  launches over the six forwards: {launches}")
     for key in ("gemm_tc", "gemm_tc high", "gemm_tc high_rhs",
-                "gemm_tc default", "gemm_tc general",
+                "gemm_tc default", "gemm_tc vec16", "gemm_tc general",
                 "joint_attention high/high",
                 "joint_attention default/default", "gab_narrow",
                 "sem_graph"):
@@ -1807,6 +1874,11 @@ def tier_paths(K, dev) -> dict:
             fail(f"the tiered path did not launch {key}")
     if launches.get("gemm_epilogue"):
         fail("a tiered forward launched the float32 gemm_epilogue")
+    # tc_variant picks the general instantiation for the level-0 expand
+    # conv alone (K = 2 a tap): once a forward.
+    if launches.get("gemm_tc general") != len(outs):
+        fail(f"the tiered path launched the general gemm_tc "
+             f"{launches.get('gemm_tc general')} times, not once a forward")
     del models, xs, outs
     torch.cuda.empty_cache()
     return {"max_abs_err": held, "launches": launches}
@@ -2465,7 +2537,11 @@ def main() -> int:
             "max_abs_err": tk["errs"][r["tier"]], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "float32_ms": r["float32_ms"]})
+            "matmul_bf16_ms": r["matmul_bf16_ms"],
+            "float32_ms": r["float32_ms"], "a_route": r["a_route"],
+            "launches_by_variant": {
+                v: tp["launches"].get(f"gemm_tc {v}", 0)
+                for v in K.VARIANTS}})
         if not kernels[-1]["launches"]:  # off the tiered path: high_lhs
             kernels[-1]["direct_launches"] = direct[key]
     for r in tk["joint_attention"]:

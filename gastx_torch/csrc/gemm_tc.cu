@@ -6,88 +6,83 @@
 // `_global_branch` and `_block_concat`, and the conv taps of
 // gastx/ops/pallas/fused_level.py `_kernel_level`) where the model gives
 // them a tier below "highest": the kernels' `kdot` (gastx/ops/pallas/
-// precision.py:99), which computes a product as bf16 passes on the TPU's
-// matrix unit. With a = ah + al (ah = bf16(a), al = bf16(a - ah), both
-// rounded to nearest even) and W = wh + wl likewise:
+// precision.py:99, `kdot_general` :112), which computes a product as bf16
+// passes on the TPU's matrix unit. With a = ah + al (ah = bf16(a),
+// al = bf16(a - ah), both rounded to nearest even) and W = wh + wl likewise:
 //
 //   TIER 0 "default" (and "kdefault"):  ah.wh               one pass
 //   TIER 1 "high_lhs":                  ah.wh + al.wh       two passes
 //   TIER 2 "high_rhs":                  ah.wh + ah.wl       two passes
 //   TIER 3 "high":                      ah.wh + ah.wl + al.wh
 //
-// each pass an mma.sync.m16n8k16 of bf16 operands into float32
-// accumulators (all passes into one accumulator). The function and its
-// arguments are gemm_epilogue.cu's (see there): up to three pieces, the
-// row map in_row(r, p) = (r / s_out) * a_s_in + r % s_out + a_off[p], the
-// epilogue * scale + shift, ReLU, + res[res_row(r)]; W's halves come split
-// on the host (bf16, (K_p, N) row-major; the lo half only where the tier
-// multiplies it).
+// each pass a product of bf16 operands into float32 accumulators (all
+// passes into one accumulator). The function and its arguments are
+// gemm_epilogue.cu's (see there): up to three pieces, the row map
+// in_row(r, p) = (r / s_out) * a_s_in + r % s_out + a_off[p], the epilogue
+// * scale + shift, ReLU, + res[res_row(r)].
 //
-// Bound on this card: at the main path's shapes (K = 128..1536, N up to
-// 3584, M up to ~1e6) a product does 2MNK operations at 989 TFLOP/s a
-// pass against 4(MK + MN) bytes at 3.35 TB/s, about 30-70 operations a
-// byte for one pass, so on paper it is byte-bound at one pass and near
-// the ridge at three. The design is the simple one that is right first:
-//   * 128x128 output tiles, 256 threads (8 warps of 64x32), BK = 32 rows
-//     of K a slab, two shared-memory buffers: the next slab's A is loaded
-//     into registers (16-byte loads where aligned) and W's halves are
-//     copied by cp.async while this slab is multiplied;
-//   * A arrives as float32 and is split into its bf16 halves as it is
-//     stored into shared memory ([m][k], a row pitch of 40 halves so the
-//     ldmatrix rows do not conflict); W's halves are stored [k][n] (pitch
-//     136) and read with ldmatrix.trans;
-//   * the K tail of every piece is zero-filled (the level-0 expand conv
-//     has K = 2 a tap), and the pieces and taps are one stream of slabs;
-//   * the epilogue writes each thread's two adjacent columns (8 bytes).
-// wgmma and TMA are later work. Two alignment instantiations a tier: VEC
-// (every K_p a multiple of 4, N a multiple of 8, a_p, res and the W
-// halves 16-byte aligned) and the general one (scalar loads and stores).
+// Bound on this card: 2MNK operations at 989 TFLOP/s a pass against the
+// bytes of A (float32), W's bf16 halves and the float32 output at 3.35
+// TB/s. At the 27f level-1 projection (M = 330,752, K = 256, N = 1792) the
+// output is 2.37 of the 2.71 GB, so one and two passes are byte-bound
+// (0.81 ms) and three passes are at the ridge (0.92 ms by operations).
+//
+// Two instantiations a tier, picked by the wrapper from the operands
+// (kernels.tc_variant):
+//
+// * vec16 (every K_p a multiple of 4, N a multiple of 8, a_p and res
+//   16-byte aligned): a persistent, warp-specialised wgmma kernel.
+//   - One block of three warpgroups an SM (grid = min(tiles, SMs)); each
+//     walks 128 x 256 output tiles, m-band by m-band, so the band of A
+//     that neighbouring tiles share stays in L2.
+//   - Warpgroup 2 produces into a ring of slabs of BK = 32 k (4 at one W
+//     half, 3 at two; a full and an empty mbarrier a slab, phases carried
+//     across tiles). W arrives by TMA with 64-byte swizzle, the layout of
+//     wgmma's K-major descriptor: the wrapper hands W^T, its bf16 halves as
+//     (N, K_pad) of every piece, each piece padded to BK and every 16 k in
+//     the order TC_K_ORDER (kernels.py, tc_weights). A arrives in
+//     float32 as one 128-byte-swizzled box where the tile's rows are
+//     contiguous in A (s_out == a_s_in: the 1x1 products), else by 16-byte
+//     cp.async row gathers through the row map (the conv taps) into the
+//     same swizzled layout.
+//   - Warpgroups 0 and 1 consume, 64 rows each. Every thread reads its A
+//     fragment as two float4 (TC_K_ORDER puts the fragment's k 2c, 2c+1,
+//     2c+8, 2c+9 at A's 4c .. 4c+3; fragment row g is the tile's row
+//     4 (g % 2) + g / 2 of its 8, so a quarter-warp's two rows lie in the
+//     swizzle's two 64-byte halves: no bank conflicts), splits it into hi
+//     and lo in registers, and issues wgmma.m64n256k16 with A from
+//     registers, one a pass, against the slab's W descriptors. Two wgmma
+//     groups stay in flight: the next slab's fragments are split while
+//     this slab's wgmmas run, and a slab is released once its group has
+//     retired.
+//   - The epilogue applies scale/shift, ReLU and the residual gather in
+//     registers, stages each 64 x 32 box of the warpgroup's rows in a
+//     shared-memory slot (128-byte swizzle) and writes it by TMA store,
+//     which clips rows >= m and columns >= n. The slots are used in turn
+//     (6 a warpgroup at one W half, 5 at two, of a tile's 8); a slot is
+//     rewritten only once the store that read it has read it, so the
+//     stores drain while the next boxes and the next tile's loads and
+//     wgmmas run.
+//   - The output, 2.37 of the projection's 2.71 GB, is the main byte
+//     stream; A's float32 band is read once from device memory and 7
+//     times from L2 (N / 256), W's halves from L2.
+// * general (anything else, e.g. the level-0 expand conv, K = 2 a tap):
+//   a 128 x 128 tile a block, 8 warps of mma.sync.m16n8k16, BK = 32, two
+//   buffers, A split as it is stored into shared memory, W's halves
+//   (K_p, N) row-major per piece, scalar loads and stores.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 32;
-constexpr int THREADS = 256;
 constexpr int MAX_PIECES = 3;
-constexpr int A_PITCH = BK + 8;   // halves of an A row in shared memory
-constexpr int B_PITCH = BN + 8;   // halves of a W row (one k)
-constexpr int A_HALVES = BM * A_PITCH;
-constexpr int B_HALVES = BK * B_PITCH;
-// A staging: thread t loads the float4 at k-chunk t % 8 of rows t / 8 +
-// 32 i, i < 4.
-constexpr int A_CHUNKS = BK / 4;
-constexpr int A_ROWS = BM * A_CHUNKS / THREADS;
-constexpr int A_ROW_STEP = THREADS / A_CHUNKS;
-
-struct GemmArgs {
-  const float* a[MAX_PIECES];
-  const __nv_bfloat16* wh[MAX_PIECES];
-  const __nv_bfloat16* wl[MAX_PIECES];
-  int k[MAX_PIECES];
-  int a_off[MAX_PIECES];
-  int npieces;
-  int m, n;
-  int s_out, a_s_in, res_s_in;
-  const float* scale;
-  const float* shift;
-  int relu;
-  const float* res;
-  int res_off;
-  float* out;
-};
 
 template <int TIER>
 struct Passes {
   static constexpr bool A_LO = TIER == 1 || TIER == 3;
   static constexpr bool B_LO = TIER == 2 || TIER == 3;
-  // Halves of one buffer: A hi [, A lo], W hi [, W lo].
-  static constexpr int STAGE =
-      A_HALVES * (A_LO ? 2 : 1) + B_HALVES * (B_LO ? 2 : 1);
-  static constexpr size_t SMEM = sizeof(__nv_bfloat16) * 2 * STAGE;
 };
 
 template <typename T>
@@ -110,6 +105,57 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                "l"(src), "r"(valid ? 16 : 0)
                : "memory");
 }
+
+// The two bf16 halves of x, rounded to nearest even.
+__device__ __forceinline__ void split(float x, __nv_bfloat16& hi,
+                                      __nv_bfloat16& lo) {
+  hi = __float2bfloat16_rn(x);
+  lo = __float2bfloat16_rn(x - __bfloat162float(hi));
+}
+
+// ==========================================================================
+// general: the mma.sync kernel, scalar loads and stores.
+// ==========================================================================
+namespace general {
+
+constexpr int BM = 128;
+constexpr int BN = 128;
+constexpr int BK = 32;
+constexpr int THREADS = 256;
+constexpr int A_PITCH = BK + 8;   // halves of an A row in shared memory
+constexpr int B_PITCH = BN + 8;   // halves of a W row (one k)
+constexpr int A_HALVES = BM * A_PITCH;
+constexpr int B_HALVES = BK * B_PITCH;
+// A staging: thread t loads k-chunk t % 8 (4 k) of rows t / 8 + 32 i.
+constexpr int A_CHUNKS = BK / 4;
+constexpr int A_ROWS = BM * A_CHUNKS / THREADS;
+constexpr int A_ROW_STEP = THREADS / A_CHUNKS;
+
+struct GemmArgs {
+  const float* a[MAX_PIECES];
+  const __nv_bfloat16* wh[MAX_PIECES];
+  const __nv_bfloat16* wl[MAX_PIECES];
+  int k[MAX_PIECES];
+  int a_off[MAX_PIECES];
+  int npieces;
+  int m, n;
+  int s_out, a_s_in, res_s_in;
+  const float* scale;
+  const float* shift;
+  int relu;
+  const float* res;
+  int res_off;
+  float* out;
+};
+
+template <int TIER>
+struct Layout {
+  using P = Passes<TIER>;
+  // Halves of one buffer: A hi [, A lo], W hi [, W lo].
+  static constexpr int STAGE =
+      A_HALVES * (P::A_LO ? 2 : 1) + B_HALVES * (P::B_LO ? 2 : 1);
+  static constexpr size_t SMEM = sizeof(__nv_bfloat16) * 2 * STAGE;
+};
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -147,17 +193,11 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The two bf16 halves of x, rounded to nearest even.
-__device__ __forceinline__ void split(float x, __nv_bfloat16& hi,
-                                      __nv_bfloat16& lo) {
-  hi = __float2bfloat16_rn(x);
-  lo = __float2bfloat16_rn(x - __bfloat162float(hi));
-}
-
-template <int TIER, bool VEC>
+template <int TIER>
 __global__ void __launch_bounds__(THREADS, 2)
 gemm_tc_kernel(const GemmArgs args, int tiles_n) {
   using P = Passes<TIER>;
+  using L = Layout<TIER>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
 
@@ -169,10 +209,10 @@ gemm_tc_kernel(const GemmArgs args, int tiles_n) {
   const int m = args.m, n = args.n;
 
   // Buffer s: A hi, [A lo,] W hi, [W lo].
-  auto a_hi = [&](int s) { return smem + s * P::STAGE; };
-  auto a_lo = [&](int s) { return smem + s * P::STAGE + A_HALVES; };
+  auto a_hi = [&](int s) { return smem + s * L::STAGE; };
+  auto a_lo = [&](int s) { return smem + s * L::STAGE + A_HALVES; };
   auto b_hi = [&](int s) {
-    return smem + s * P::STAGE + A_HALVES * (P::A_LO ? 2 : 1);
+    return smem + s * L::STAGE + A_HALVES * (P::A_LO ? 2 : 1);
   };
   auto b_lo = [&](int s) { return b_hi(s) + B_HALVES; };
 
@@ -211,29 +251,14 @@ gemm_tc_kernel(const GemmArgs args, int tiles_n) {
   auto load_w = [&](int slot) {
     __nv_bfloat16* dst_h = b_hi(slot);
     __nv_bfloat16* dst_l = b_lo(slot);
-    if constexpr (VEC) {  // N % 8 == 0: 8 halves are in or out together
-#pragma unroll
-      for (int c = 0; c < BK * BN / 8 / THREADS; ++c) {
-        const int idx = tid + c * THREADS;
-        const int kr = idx / (BN / 8);
-        const int cc = (idx % (BN / 8)) * 8;
-        const bool v = lk0 + kr < lK && col0 + cc < n;
-        const long long off = v ? (long long)(lk0 + kr) * n + col0 + cc : 0;
-        cp_async16(smem_addr(dst_h + kr * B_PITCH + cc), wh_ptr + off, v);
-        if constexpr (P::B_LO)
-          cp_async16(smem_addr(dst_l + kr * B_PITCH + cc), wl_ptr + off, v);
-      }
-    } else {
-      const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-      for (int idx = tid; idx < BK * BN; idx += THREADS) {
-        const int kr = idx / BN;
-        const int cc = idx % BN;
-        const bool v = lk0 + kr < lK && col0 + cc < n;
-        const long long off = (long long)(lk0 + kr) * n + col0 + cc;
-        dst_h[kr * B_PITCH + cc] = v ? wh_ptr[off] : zero;
-        if constexpr (P::B_LO)
-          dst_l[kr * B_PITCH + cc] = v ? wl_ptr[off] : zero;
-      }
+    const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+    for (int idx = tid; idx < BK * BN; idx += THREADS) {
+      const int kr = idx / BN;
+      const int cc = idx % BN;
+      const bool v = lk0 + kr < lK && col0 + cc < n;
+      const long long off = (long long)(lk0 + kr) * n + col0 + cc;
+      dst_h[kr * B_PITCH + cc] = v ? wh_ptr[off] : zero;
+      if constexpr (P::B_LO) dst_l[kr * B_PITCH + cc] = v ? wl_ptr[off] : zero;
     }
   };
 
@@ -244,18 +269,10 @@ gemm_tc_kernel(const GemmArgs args, int tiles_n) {
 #pragma unroll
       for (int i = 0; i < A_ROWS; ++i) {
         const float* src = a_ptr[i] + lk0 + a_k;
-        if constexpr (VEC) {  // K % 4 == 0: the 4 k are in or out
-          const float4 v = (a_base[i] >= 0 && lk0 + a_k < lK)
-              ? __ldg(reinterpret_cast<const float4*>(src))
-              : make_float4(0.f, 0.f, 0.f, 0.f);
-          a_stage[i][0] = v.x; a_stage[i][1] = v.y;
-          a_stage[i][2] = v.z; a_stage[i][3] = v.w;
-        } else {
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            a_stage[i][e] = (a_base[i] >= 0 && lk0 + a_k + e < lK)
-                ? __ldg(src + e) : 0.f;
-        }
+        for (int e = 0; e < 4; ++e)
+          a_stage[i][e] = (a_base[i] >= 0 && lk0 + a_k + e < lK)
+              ? __ldg(src + e) : 0.f;
       }
       a_slot = slot;
       load_w(slot);
@@ -381,86 +398,545 @@ gemm_tc_kernel(const GemmArgs args, int tiles_n) {
                                    args.res_off) * (long long)n
                      : nullptr;
         float* out_row = args.out + (long long)r * n;
-        if constexpr (VEC) {  // n % 8 == 0: both columns are in or out
-          if (c >= n) continue;
-          if (res_row) {
-            const float2 rv = *reinterpret_cast<const float2*>(res_row + c);
-            v[0] += rv.x; v[1] += rv.y;
-          }
-          *reinterpret_cast<float2*>(out_row + c) = make_float2(v[0], v[1]);
-        } else {
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            if (c + e >= n) continue;
-            out_row[c + e] = res_row ? v[e] + res_row[c + e] : v[e];
-          }
+        for (int e = 0; e < 2; ++e) {
+          if (c + e >= n) continue;
+          out_row[c + e] = res_row ? v[e] + res_row[c + e] : v[e];
         }
       }
   }
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
-template <int TIER, bool VEC>
+template <int TIER>
 int launch(const GemmArgs& args, cudaStream_t stream) {
-  using P = Passes<TIER>;
-  if constexpr (VEC) {  // tc_variant picks VEC only where these hold
-    bool ok = args.n % 8 == 0 && aligned16(args.out) && aligned16(args.res);
-    for (int p = 0; p < args.npieces; ++p)
-      ok = ok && args.k[p] % 4 == 0 && aligned16(args.a[p]) &&
-           aligned16(args.wh[p]) && aligned16(args.wl[p]);
-    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  }
+  using L = Layout<TIER>;
   for (int p = 0; p < args.npieces; ++p)
-    if (args.wh[p] == nullptr || (P::B_LO && args.wl[p] == nullptr))
+    if (args.wh[p] == nullptr || (Passes<TIER>::B_LO && args.wl[p] == nullptr))
       return static_cast<int>(cudaErrorInvalidValue);
-  if (P::SMEM > 48 * 1024) {
+  if (L::SMEM > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        gemm_tc_kernel<TIER, VEC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::SMEM);
+        gemm_tc_kernel<TIER>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)L::SMEM);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   if (args.m > 0 && args.n > 0) {
     const int tiles_n = (args.n + BN - 1) / BN;
     const long long tiles = (long long)tiles_n * ((args.m + BM - 1) / BM);
-    gemm_tc_kernel<TIER, VEC><<<(unsigned)tiles, THREADS, P::SMEM, stream>>>(
+    gemm_tc_kernel<TIER><<<(unsigned)tiles, THREADS, L::SMEM, stream>>>(
         args, tiles_n);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool VEC>
-int launch_tier(int tier, const GemmArgs& args, cudaStream_t stream) {
-  switch (tier) {
-    case 0: return launch<0, VEC>(args, stream);
-    case 1: return launch<1, VEC>(args, stream);
-    case 2: return launch<2, VEC>(args, stream);
-    case 3: return launch<3, VEC>(args, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+}  // namespace general
+
+// ==========================================================================
+// vec16: the persistent, warp-specialised wgmma kernel.
+// ==========================================================================
+namespace hopper {
+
+constexpr int BM = 128;            // two consumer warpgroups of 64 rows
+constexpr int BN = 256;            // one wgmma.m64n256k16 a pass
+constexpr int BK = 32;             // k a slab: two wgmma k16 steps
+constexpr int CONSUMERS = 2;
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+constexpr int PRODUCER_REGS = 56;  // setmaxnreg: 56 * 128 + 224 * 256 =
+constexpr int CONSUMER_REGS = 224; // 168 * 384, the launch's allocation
+constexpr int A_BYTES = BM * BK * 4;   // [128 rows][32 k] f32, 128B swizzle
+constexpr int W_BYTES = BN * BK * 2;   // [256 n][32 k] bf16, 64B swizzle
+constexpr int BOX = 64 * 32 * 4;       // a warpgroup's 64 x 32 output box
+constexpr int BUDGET = 224 * 1024;     // ring and output boxes
+constexpr int EMPTY_ARRIVALS = 4 * CONSUMERS;  // one a consumer warp
+constexpr int GATHER_ARRIVALS = 128 + 1;       // noinc arrivals + expect_tx
+
+// Shared memory: a ring of STAGES slabs, then SLOTS output boxes a
+// consumer warpgroup (of the 8 in its 64 x 256 rows), then the mbarriers.
+template <int TIER>
+struct Ring {
+  static constexpr int STAGE = A_BYTES + W_BYTES * (Passes<TIER>::B_LO ? 2 : 1);
+  static constexpr int STAGES = Passes<TIER>::B_LO ? 3 : 4;
+  static constexpr int SLOTS_FIT = (BUDGET - STAGES * STAGE) / (CONSUMERS * BOX);
+  static constexpr int SLOTS = SLOTS_FIT < 8 ? SLOTS_FIT : 8;  // 6 or 5
+  static_assert(SLOTS >= 2, "two output boxes a warpgroup at least");
+  static constexpr int BOXES = STAGES * STAGE;
+  static constexpr int BARS = BOXES + CONSUMERS * SLOTS * BOX;
+  static constexpr int SMEM = BARS + 2 * STAGES * 8 + 1024;
+};
+
+struct Args {
+  const float* a[MAX_PIECES];
+  int k[MAX_PIECES];
+  int a_off[MAX_PIECES];
+  int kb_end[MAX_PIECES];   // cumulative slabs at the end of each piece
+  int npieces;
+  int m, n;
+  int s_out, a_s_in, res_s_in;
+  int gather;               // A by cp.async row gathers (s_out != a_s_in)
+  const float* scale;
+  const float* shift;
+  int relu;
+  const float* res;
+  int res_off;
+  float* out;
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
   }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+// The executing thread's cp.asyncs arrive on `bar` when they complete.
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+      "r"(c1) : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Until at most N of this thread's bulk stores have not yet read their
+// shared memory.
+template <int N>
+__device__ __forceinline__ void store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// The 128 threads of consumer warpgroup `wg` (named barrier 1 + wg).
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// wgmma descriptor of a K-major bf16 tile with 64-byte swizzle (TMA's
+// SWIZZLE_64B): rows of 64 bytes, 8-row groups 512 bytes apart (SBO = 32
+// units of 16 bytes), LBO unused (1), layout type 2.
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (32ull << 32) |
+         (2ull << 62);
+}
+
+// d (64 x 256 float32, the warpgroup's accumulators) += a (64 x 16 bf16,
+// registers) . b (16 x 256 bf16, K-major in shared memory); d = a.b where
+// `accumulate` is 0.
+__device__ __forceinline__ void wgmma(float (&d)[128], const uint32_t (&a)[4],
+                                      uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// Both halves of two adjacent k of one row, packed as a fragment register
+// (the lower k in the low 16 bits).
+__device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+template <int TIER>
+__global__ void __launch_bounds__(THREADS, 1)
+gemm_tc_kernel_ws(const Args args, const __grid_constant__ CUtensorMap map_a0,
+                  const __grid_constant__ CUtensorMap map_a1,
+                  const __grid_constant__ CUtensorMap map_a2,
+                  const __grid_constant__ CUtensorMap map_wh,
+                  const __grid_constant__ CUtensorMap map_wl,
+                  const __grid_constant__ CUtensorMap map_out) {
+  using P = Passes<TIER>;
+  using R = Ring<TIER>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // The ring's slabs start 1024-byte aligned (the swizzle's repeat).
+  const uint32_t raw = smem_addr(smem_raw);
+  unsigned char* ring = smem_raw + ((1024 - (raw & 1023)) & 1023);
+  const uint32_t ring_s = smem_addr(ring);
+  const uint32_t full0 = ring_s + R::BARS;
+  const uint32_t empty0 = full0 + 8 * R::STAGES;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int m = args.m, n = args.n;
+  const int tiles_n = (n + BN - 1) / BN;
+  const int tiles = tiles_n * ((m + BM - 1) / BM);
+  const int nkb = args.kb_end[args.npieces - 1];
+
+  if (tid == 0) {
+    for (int s = 0; s < R::STAGES; ++s) {
+      mbar_init(full0 + 8 * s, args.gather ? GATHER_ARRIVALS : 1);
+      mbar_init(empty0 + 8 * s, EMPTY_ARRIVALS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    // ---- producer warpgroup --------------------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    const int t = tid - 128 * CONSUMERS;
+    if (!args.gather && t != 0) return;
+    const uint32_t w_bytes = W_BYTES * (P::B_LO ? 2 : 1);
+    // Gathers: thread t copies the 16-byte chunk t % 8 (4 k) of the tile's
+    // rows t / 8 + 16 i, into TMA's 128-byte swizzle (chunk ^ row % 8).
+    const int ch = t % 8;
+    int in_row[8];
+    uint32_t it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int row0 = (tile / tiles_n) * BM;
+      const int col0 = (tile % tiles_n) * BN;
+      if (args.gather) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int r = row0 + t / 8 + 16 * i;
+          in_row[i] = r < m ? (int)map_row(r, args.s_out, args.a_s_in) : -1;
+        }
+      }
+      for (int kb = 0; kb < nkb; ++kb, ++it) {
+        const int s = it % R::STAGES;
+        const uint32_t ph = (it / R::STAGES) & 1;
+        const uint32_t full = full0 + 8 * s, slab = ring_s + s * R::STAGE;
+        mbar_wait(empty0 + 8 * s, ph ^ 1);
+        const int p = kb < args.kb_end[0] ? 0 : (kb < args.kb_end[1] ? 1 : 2);
+        const int k0 = (kb - (p ? pick(args.kb_end, p - 1) : 0)) * BK;
+        if (t == 0) {
+          mbar_expect_tx(full, w_bytes + (args.gather ? 0 : A_BYTES));
+          if (!args.gather) {
+            const CUtensorMap* ma = p == 0 ? &map_a0 : (p == 1 ? &map_a1 : &map_a2);
+            tma_load(slab, ma, full, k0, row0 + pick(args.a_off, p));
+          }
+          tma_load(slab + A_BYTES, &map_wh, full, kb * BK, col0);
+          if constexpr (P::B_LO)
+            tma_load(slab + A_BYTES + W_BYTES, &map_wl, full, kb * BK, col0);
+        }
+        if (args.gather) {
+          const float* A = pick(args.a, p);
+          const int K = pick(args.k, p);
+          const int off = pick(args.a_off, p);
+          const int k = k0 + 4 * ch;
+          const uint32_t dst = slab + (t / 8) * 128 + ((ch ^ (t / 8 % 8)) * 16);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const bool v = in_row[i] >= 0 && k < K;
+            const float* src = v ? A + (long long)(in_row[i] + off) * K + k : A;
+            cp_async16(dst + 16 * i * 128, src, v);
+          }
+          cp_async_arrive(full);
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: rows 64 wg .. +63 of each tile -------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int lane = tid % 32, warp = (tid / 32) % 4;
+    const int g = lane / 4, c = lane % 4;
+    // Fragment row g of each 8 is the tile's row 4 (g % 2) + g / 2 of
+    // those 8 (sg): the two rows a quarter-warp reads then sit in the two
+    // 64-byte halves of the 128-byte swizzle (conflict-free float4 loads).
+    // The thread holds tile rows rr + 8h, rr = 64 wg + 16 warp + sg.
+    const int sg = 4 * (g % 2) + g / 2;
+    const int rr = 64 * wg + 16 * warp + sg;
+    const int box_row = (16 * warp + sg) * 128;   // in the warpgroup's box
+    const uint32_t boxes = ring_s + R::BOXES + wg * R::SLOTS * BOX;
+    const bool issuer = tid % 128 == 0;
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    // Slab `it`'s A fragments, both k16 steps: rows rr and rr + 8,
+    // physical k 16j + 4c .. + 3 (the swizzled chunk 4j + c), which
+    // TC_K_ORDER makes the fragment's k 2c, 2c + 1, 2c + 8, 2c + 9; split
+    // into hi and lo. Waits for the slab first.
+    auto fragments = [&](uint32_t it, uint32_t (&ah)[2][4],
+                         uint32_t (&al)[2][4]) {
+      const int s = it % R::STAGES;
+      mbar_wait(full0 + 8 * s, (it / R::STAGES) & 1);
+      const unsigned char* slab = ring + s * R::STAGE;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int o = rr * 128 + (((4 * j + c) ^ sg) * 16);
+        const float4 x0 = *reinterpret_cast<const float4*>(slab + o);
+        const float4 x1 = *reinterpret_cast<const float4*>(slab + o + 1024);
+        split2(x0.x, x0.y, ah[j][0], al[j][0]);
+        split2(x1.x, x1.y, ah[j][1], al[j][1]);
+        split2(x0.z, x0.w, ah[j][2], al[j][2]);
+        split2(x1.z, x1.w, ah[j][3], al[j][3]);
+      }
+    };
+    // Slab `it` of the tile (its k-block kb): issue its wgmmas on the
+    // fragments `cur`, let at most this group run on, release the slab
+    // before it (whose group has now retired) and split the next slab's A
+    // into `nxt`, the registers that retired group read.
+    auto step = [&](uint32_t it, int kb, uint32_t (&ch)[2][4],
+                    uint32_t (&cl)[2][4], uint32_t (&nh)[2][4],
+                    uint32_t (&nl)[2][4]) {
+      const int s = it % R::STAGES;
+      const uint32_t wh = ring_s + s * R::STAGE + A_BYTES;
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const uint64_t bh = desc_sw64(wh + 32 * j);
+        wgmma(acc, ch[j], bh, kb | j);
+        if constexpr (P::B_LO)
+          wgmma(acc, ch[j], desc_sw64(wh + W_BYTES + 32 * j), 1);
+        if constexpr (P::A_LO) wgmma(acc, cl[j], bh, 1);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      if (kb > 0 && lane == 0)
+        mbar_arrive(empty0 + 8 * ((it + R::STAGES - 1) % R::STAGES));
+      if (kb + 1 < nkb) fragments(it + 1, nh, nl);
+    };
+    uint32_t it = 0, q = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int row0 = (tile / tiles_n) * BM;
+      const int col0 = (tile % tiles_n) * BN;
+      uint32_t xh[2][4], xl[2][4], yh[2][4], yl[2][4];
+      fragments(it, xh, xl);
+      for (int kb = 0; kb < nkb; kb += 2) {
+        step(it++, kb, xh, xl, yh, yl);
+        if (kb + 1 < nkb) step(it++, kb + 1, yh, yl, xh, xl);
+      }
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      if (lane == 0)
+        mbar_arrive(empty0 + 8 * ((it + R::STAGES - 1) % R::STAGES));
+
+      // Epilogue: accumulator 4j + 2h + e holds tile row rr + 8h, column
+      // 8j + 2c + e. Box b (columns 32b .. +31) of the warpgroup's 64 rows
+      // goes through a slot of SLOTS in turn: the issuer waits until the
+      // store that last read the slot has read it, the warpgroup writes
+      // it (128-byte swizzle), and the issuer stores it by TMA, which
+      // clips rows >= m and columns >= n; the next box, and the next
+      // tile's wgmmas, go on while it drains.
+      const float* res_row[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row0 + rr + 8 * h;
+        res_row[h] = (r < m && args.res)
+            ? args.res + (map_row(r, args.s_out, args.res_s_in) +
+                          args.res_off) * (long long)n
+            : nullptr;
+      }
+#pragma unroll
+      for (int b = 0; b < BN / 32; ++b) {
+        if (col0 + 32 * b >= n || row0 + 64 * wg >= m) break;
+        const uint32_t box = boxes + (q % R::SLOTS) * BOX;
+        if (issuer) store_wait_read<R::SLOTS - 1>();
+        wg_sync(wg);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = 4 * b + jj;
+          const int col = col0 + 8 * j + 2 * c;
+          const bool in = col < n;   // n % 8 == 0: both columns in or out
+          float sc0 = 1.f, sc1 = 1.f, sh0 = 0.f, sh1 = 0.f;
+          if (args.scale && in) {
+            sc0 = __ldg(args.scale + col); sc1 = __ldg(args.scale + col + 1);
+            sh0 = __ldg(args.shift + col); sh1 = __ldg(args.shift + col + 1);
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+            if (args.scale) { v0 = v0 * sc0 + sh0; v1 = v1 * sc1 + sh1; }
+            if (args.relu) { v0 = fmaxf(v0, 0.f); v1 = fmaxf(v1, 0.f); }
+            if (res_row[h] && in) {
+              const float2 rv =
+                  __ldg(reinterpret_cast<const float2*>(res_row[h] + col));
+              v0 += rv.x; v1 += rv.y;
+            }
+            const uint32_t dst = box + box_row + h * 1024 +
+                                 (((2 * jj + c / 2) ^ sg) * 16) + (c % 2) * 8;
+            asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(dst),
+                         "f"(v0), "f"(v1) : "memory");
+          }
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        wg_sync(wg);
+        if (issuer) tma_store(&map_out, box, col0 + 32 * b, row0 + 64 * wg);
+        ++q;
+      }
+    }
+    if (issuer) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver through the runtime, so that the
+// library needs no link against libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 2D tensor map of a row-major (rows, cols) matrix; out-of-bounds
+// elements of a box read as zero.
+bool encode(CUtensorMap* map, const void* base, CUtensorMapDataType type,
+            int elem, long long rows, long long cols, int box_cols,
+            int box_rows, CUtensorMapSwizzle swizzle) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)(cols * elem)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// One block an SM, never more blocks than output tiles.
+template <int TIER>
+int launch(const Args& args, const CUtensorMap (&ma)[MAX_PIECES],
+           const CUtensorMap& mwh, const CUtensorMap& mwl,
+           const CUtensorMap& mout, cudaStream_t stream) {
+  using R = Ring<TIER>;
+  int device, sms;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(gemm_tc_kernel_ws<TIER>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             R::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long tiles = (long long)((args.m + BM - 1) / BM) *
+                          ((args.n + BN - 1) / BN);
+  const int grid = tiles < sms ? (int)tiles : sms;
+  gemm_tc_kernel_ws<TIER><<<grid, THREADS, R::SMEM, stream>>>(
+      args, ma[0], ma[1], ma[2], mwh, mwl, mout);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace hopper
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the instantiation of `tier` (0 default, 1 high_lhs, 2 high_rhs,
-// 3 high), 16-byte if vec16, on `stream`; returns cudaGetLastError() after
-// the launch, or cudaErrorInvalidValue with no launch for an unknown tier,
-// a missing W half the tier multiplies, or vec16 where its alignment does
-// not hold.
+// The general instantiation of `tier` (0 default, 1 high_lhs, 2 high_rhs,
+// 3 high) on `stream`: W's halves per piece, (K_p, N) row-major bf16 (the
+// lo half only where the tier multiplies it). Returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue with no launch for an unknown
+// tier or a missing W half.
 int gemm_tc(const void* a0, const void* wh0, const void* wl0, int k0,
             int off0, const void* a1, const void* wh1, const void* wl1,
             int k1, int off1, const void* a2, const void* wh2,
             const void* wl2, int k2, int off2, int npieces, int m, int n,
             int s_out, int a_s_in, int res_s_in, const void* scale,
             const void* shift, int relu, const void* res, int res_off,
-            void* out, void* stream, int tier, int vec16) {
+            void* out, void* stream, int tier) {
   if (npieces < 1 || npieces > MAX_PIECES)
     return static_cast<int>(cudaErrorInvalidValue);
-  GemmArgs args;
+  general::GemmArgs args;
   const void* as[MAX_PIECES] = {a0, a1, a2};
   const void* whs[MAX_PIECES] = {wh0, wh1, wh2};
   const void* wls[MAX_PIECES] = {wl0, wl1, wl2};
@@ -486,8 +962,90 @@ int gemm_tc(const void* a0, const void* wh0, const void* wl0, int k0,
   args.res_off = res_off;
   args.out = static_cast<float*>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return vec16 ? launch_tier<true>(tier, args, s)
-               : launch_tier<false>(tier, args, s);
+  switch (tier) {
+    case 0: return general::launch<0>(args, s);
+    case 1: return general::launch<1>(args, s);
+    case 2: return general::launch<2>(args, s);
+    case 3: return general::launch<3>(args, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The vec16 instantiation of `tier` on `stream`, one persistent block an SM.
+// Piece p: a_p (rows_p, K_p) float32 and its row offset off_p; W of every
+// piece as one K-major matrix, its bf16 halves wt_hi and wt_lo (N, k_pad)
+// (wt_lo only where the tier multiplies it): piece p's columns padded with
+// zeros to a multiple of 32, every 16 permuted by TC_K_ORDER (kernels.py,
+// tc_weights). Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue with no launch where the operands break the
+// instantiation's rule (K_p % 4, N % 8, 16-byte a_p, res and W, k_pad the
+// pieces' padded sum) or a tensor map cannot be encoded.
+int gemm_tc_hopper(const void* a0, int k0, int rows0, int off0,
+                   const void* a1, int k1, int rows1, int off1,
+                   const void* a2, int k2, int rows2, int off2, int npieces,
+                   const void* wt_hi, const void* wt_lo, int k_pad, int m,
+                   int n, int s_out, int a_s_in, int res_s_in,
+                   const void* scale, const void* shift, int relu,
+                   const void* res, int res_off, void* out, void* stream,
+                   int tier) {
+  using namespace hopper;
+  if (npieces < 1 || npieces > MAX_PIECES || tier < 0 || tier > 3 ||
+      n % 8 != 0 || !aligned16(out) || !aligned16(res) ||
+      !aligned16(wt_hi) || !aligned16(wt_lo) || wt_hi == nullptr ||
+      ((tier == 2 || tier == 3) && wt_lo == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args args;
+  const void* as[MAX_PIECES] = {a0, a1, a2};
+  const int ks[MAX_PIECES] = {k0, k1, k2};
+  const int rows[MAX_PIECES] = {rows0, rows1, rows2};
+  const int offs[MAX_PIECES] = {off0, off1, off2};
+  args.gather = s_out != a_s_in;
+  CUtensorMap ma[MAX_PIECES] = {}, mwh = {}, mwl = {}, mout = {};
+  int kb = 0;
+  for (int p = 0; p < MAX_PIECES; ++p) {
+    args.a[p] = static_cast<const float*>(as[p]);
+    args.k[p] = ks[p];
+    args.a_off[p] = offs[p];
+    if (p < npieces) {
+      if (ks[p] < 1 || ks[p] % 4 != 0 || !aligned16(as[p]))
+        return static_cast<int>(cudaErrorInvalidValue);
+      kb += (ks[p] + BK - 1) / BK;
+      if (!args.gather &&
+          !encode(&ma[p], as[p], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                  rows[p], ks[p], BK, BM, CU_TENSOR_MAP_SWIZZLE_128B))
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    args.kb_end[p] = kb;
+  }
+  if (kb * BK != k_pad) return static_cast<int>(cudaErrorInvalidValue);
+  if (m < 1 || n < 1) return static_cast<int>(cudaGetLastError());
+  if (!encode(&mout, out, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, m, n, 32, 64,
+              CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode(&mwh, wt_hi, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, n, k_pad, BK,
+              BN, CU_TENSOR_MAP_SWIZZLE_64B) ||
+      (wt_lo != nullptr &&
+       !encode(&mwl, wt_lo, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, n, k_pad,
+               BK, BN, CU_TENSOR_MAP_SWIZZLE_64B)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  args.npieces = npieces;
+  args.m = m;
+  args.n = n;
+  args.s_out = s_out;
+  args.a_s_in = a_s_in;
+  args.res_s_in = res_s_in;
+  args.scale = static_cast<const float*>(scale);
+  args.shift = static_cast<const float*>(shift);
+  args.relu = relu;
+  args.res = static_cast<const float*>(res);
+  args.res_off = res_off;
+  args.out = static_cast<float*>(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (tier) {
+    case 0: return launch<0>(args, ma, mwh, mwl, mout, s);
+    case 1: return launch<1>(args, ma, mwh, mwl, mout, s);
+    case 2: return launch<2>(args, ma, mwh, mwl, mout, s);
+    default: return launch<3>(args, ma, mwh, mwl, mout, s);
+  }
 }
 
 const char* error_string(int code) {

@@ -9,8 +9,10 @@ plain C interface:
   * ``gemm_tc`` — the same function at the bf16 tiers
     (``gastx_torch.ops.precision``) on the tensor cores, one
     instantiation per tier (``TC_TIERS``) and alignment
-    (:func:`tc_variant`); the :func:`gemm_epilogue` wrapper launches it
-    for every tier but ``"highest"``;
+    (:func:`tc_variant`): ``vec16`` a persistent warp-specialised
+    ``wgmma`` kernel fed by TMA (W as :func:`tc_weights` lays it out),
+    ``general`` an ``mma.sync`` one; the :func:`gemm_epilogue` wrapper
+    launches it for every tier but ``"highest"``;
   * ``sem_graph`` — the local branch's semantic graph aggregation, and
   * ``joint_attention`` — per-frame multi-head attention over the joints,
     its score and apply dots at their tiers (operands rounded as
@@ -129,13 +131,22 @@ _ARGTYPES = {
     "joint_attention": [_P, _P, _P, _I, _P, _P, _P, _P, _LL, _I, _I, _I,
                         _I, _P, _I, _I, _I],
     # per piece (a, w_hi, w_lo, K, a_off) x 3, then as gemm_epilogue's
-    # from npieces on, tier code, vec16
+    # from npieces on, tier code (the general instantiation)
     "gemm_tc": [_P, _P, _P, _I, _I] * 3 + [_I, _I, _I, _I, _I, _I, _P, _P,
-                                          _I, _P, _I, _P, _P, _I, _I],
+                                          _I, _P, _I, _P, _P, _I],
+    # per piece (a, K, rows, a_off) x 3, npieces, W^T's halves and their
+    # padded K, then as gemm_epilogue's from m on, tier code (vec16)
+    "gemm_tc_hopper": [_P, _I, _I, _I] * 3 + [_I, _P, _P, _I, _I, _I, _I,
+                                              _I, _I, _P, _P, _I, _P, _I,
+                                              _P, _P, _I],
     # x, out, frames, J, C, D, K, I, G, the 20 tables of a GabTables in
     # its field order, stream
     "gab_narrow": [_P, _P, _LL, _I, _I, _I, _I, _I, _I] + [_P] * 21,
 }
+
+
+# The C functions of each library beyond the one named after it.
+_EXTRA_SYMBOLS = {"gemm_tc": ("gemm_tc_hopper",)}
 
 
 def reset_launches() -> None:
@@ -216,26 +227,32 @@ def _lib(name: str) -> ctypes.CDLL:
         if not path.exists():
             build_kernels()
         lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, name)
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
+        for symbol in (name, *_EXTRA_SYMBOLS.get(name, ())):
+            fn = getattr(lib, symbol)
+            fn.argtypes = _ARGTYPES[symbol]
+            fn.restype = ctypes.c_int
         lib.error_string.argtypes = [ctypes.c_int]
         lib.error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
     return _LIBS[name]
 
 
-def _launch(name: str, *args, tier: Optional[str] = None) -> None:
-    """Launch ``name``; ``tier``: the tiered instantiation's label, for
-    ``TIER_LAUNCHES``."""
+def _launch(name: str, *args, tier: Optional[str] = None,
+            symbol: Optional[str] = None,
+            variant: Optional[str] = None) -> None:
+    """Launch kernel ``name`` through its C function ``symbol`` (default
+    ``name``); ``tier``: the tiered instantiation's label, for
+    ``TIER_LAUNCHES``; ``variant``: the alignment instantiation (default:
+    ``"vec16"`` where the last argument is 1)."""
     lib = _lib(name)
-    code = getattr(lib, name)(*args)
+    code = getattr(lib, symbol or name)(*args)
     if code != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.error_string(code).decode()} ({code})")
     LAUNCHES[name] += 1
     if name in VARIANT_LAUNCHES:
-        VARIANT_LAUNCHES[name]["vec16" if args[-1] else "general"] += 1
+        VARIANT_LAUNCHES[name][variant or ("vec16" if args[-1]
+                                           else "general")] += 1
     if tier is not None:
         counts = TIER_LAUNCHES[name]
         counts[tier] = counts.get(tier, 0) + 1
@@ -396,7 +413,8 @@ def gemm_epilogue(pieces: Sequence[Piece], m: int, *,
     ReLU, then adds ``res`` row s*res_s_in + q + res_off. ``tier``: the
     products' precision tier (``gastx_torch.ops.precision``); on the card
     ``"highest"`` launches the float32 ``gemm_epilogue`` kernel and every
-    other tier ``gemm_tc``, each W split here into its bf16 halves.
+    other tier ``gemm_tc``, each W split here into its bf16 halves (laid
+    out by :func:`tc_weights` for the ``vec16`` instantiation).
     """
     check_no_grad("gemm_epilogue", pieces, scale, shift, res)
     check_tier(tier)
@@ -431,33 +449,48 @@ def gemm_epilogue(pieces: Sequence[Piece], m: int, *,
 
 def _gemm_tc(pieces, m, n, s_out, a_s_in, res_s_in, scale, shift, relu,
              res, res_off, out, tier) -> None:
-    """Launch ``gemm_tc`` at ``tier`` into ``out``; W's lo half is passed
-    only where the tier multiplies it (``"high"``, ``"high_rhs"``)."""
+    """Launch ``gemm_tc`` at ``tier`` into ``out``, on the instantiation
+    :func:`tc_variant` picks; W's lo half is made and passed only where
+    the tier multiplies it (``"high"``, ``"high_rhs"``)."""
     tc = "default" if tier == "kdefault" else tier
+    lo = tc in ("high", "high_rhs")
+    tail = [m, n, s_out, a_s_in, res_s_in, _ptr(scale), _ptr(shift),
+            int(relu), _ptr(res), res_off, out.data_ptr(), _stream(),
+            TC_TIERS.index(tc)]
+    if tc_variant(pieces, n, res) == "vec16":
+        hi, lo_t = tc_weights(pieces, lo)
+        flat = []
+        for i in range(3):
+            if i < len(pieces):
+                a, _, off = pieces[i]
+                flat += [a.data_ptr(), a.shape[1], a.shape[0], off]
+            else:
+                flat += [None, 0, 0, 0]
+        _launch("gemm_tc", *flat, len(pieces), hi.data_ptr(), _ptr(lo_t),
+                hi.shape[1], *tail, tier=tc, symbol="gemm_tc_hopper",
+                variant="vec16")
+        return
     flat, halves = [], []
     for i in range(3):
         if i < len(pieces):
             a, w, off = pieces[i]
-            hi, lo = split_bf16(w)
-            halves.append((hi, lo))
+            hi, lo_t = split_bf16(w)
+            halves.append((hi, lo_t))
             flat += [a.data_ptr(), hi.data_ptr(),
-                     lo.data_ptr() if tc in ("high", "high_rhs") else None,
-                     a.shape[1], off]
+                     lo_t.data_ptr() if lo else None, a.shape[1], off]
         else:
             flat += [None, None, None, 0, 0]
-    _launch("gemm_tc", *flat, len(pieces), m, n, s_out, a_s_in, res_s_in,
-            _ptr(scale), _ptr(shift), int(relu), _ptr(res), res_off,
-            out.data_ptr(), _stream(), TC_TIERS.index(tc),
-            int(tc_variant(pieces, n, res) == "vec16"), tier=tc)
+    _launch("gemm_tc", *flat, len(pieces), *tail, tier=tc,
+            variant="general")
 
 
 def tc_variant(pieces: Sequence[Piece], n: int,
                res: Optional[torch.Tensor]) -> str:
     """The alignment instantiation of ``gemm_tc`` for these operands:
-    ``"vec16"`` (16-byte loads of A, 16-byte copies of W's bf16 halves,
-    8-byte epilogue) when every K_p is a multiple of 4, N a multiple of 8
-    and every a_p and ``res`` start 16-byte aligned (W's halves are fresh
-    tensors), else ``"general"``."""
+    ``"vec16"`` (the ``wgmma`` kernel: TMA or 16-byte row gathers of A,
+    TMA of W's halves, TMA stores of the output) when every K_p is a
+    multiple of 4, N a multiple of 8 and every a_p and ``res`` start
+    16-byte aligned (W's halves are fresh tensors), else ``"general"``."""
     ptrs = [a.data_ptr() for a, _, _ in pieces]
     if res is not None:
         ptrs.append(res.data_ptr())
@@ -465,6 +498,47 @@ def tc_variant(pieces: Sequence[Piece], n: int,
             and all(p % 16 == 0 for p in ptrs)):
         return "vec16"
     return "general"
+
+
+# The k of a slab of the vec16 gemm_tc (gemm_tc.cu, hopper::BK).
+TC_BK = 32
+# The k order of W within every 16 k of its slabs: column l of W^T holds
+# W's row TC_K_ORDER[l], so that the four k of a thread's wgmma fragment
+# (l = 2c, 2c+1, 2c+8, 2c+9) are A's k 4c .. 4c+3, one float4 in shared
+# memory.
+TC_K_ORDER = (0, 1, 4, 5, 8, 9, 12, 13, 2, 3, 6, 7, 10, 11, 14, 15)
+_TC_INDEX: Dict[Tuple[Tuple[int, ...], str], torch.Tensor] = {}
+
+
+def tc_weight_index(ks: Sequence[int], device) -> torch.Tensor:
+    """For each k column of the vec16 ``gemm_tc``'s W^T, the row of
+    ``[W_0; W_1; W_2; 0]`` (pieces of K_p rows, then one zero row) it
+    holds: piece p's columns padded with the zero row to a multiple of
+    ``TC_BK``, every 16 in ``TC_K_ORDER``. Cached per (ks, device)."""
+    key = (tuple(ks), str(device))
+    if key not in _TC_INDEX:
+        idx, base, zero = [], 0, sum(ks)
+        for k in ks:
+            for q in range(-(-k // TC_BK) * TC_BK):
+                src = q - q % 16 + TC_K_ORDER[q % 16]
+                idx.append(base + src if src < k else zero)
+            base += k
+        _TC_INDEX[key] = torch.tensor(idx, dtype=torch.long, device=device)
+    return _TC_INDEX[key]
+
+
+def tc_weights(pieces: Sequence[Piece], lo: bool
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """W of every piece as the vec16 ``gemm_tc`` reads it: the bf16 halves
+    (hi, and lo where ``lo``, else None) of W^T, (N, K_pad) K-major, its
+    columns by :func:`tc_weight_index`."""
+    ws = [w for _, w, _ in pieces]
+    stacked = torch.cat(ws + [ws[0].new_zeros(1, ws[0].shape[1])])
+    wt = stacked.t().index_select(
+        1, tc_weight_index([w.shape[0] for w in ws], stacked.device))
+    if not lo:
+        return wt.to(torch.bfloat16), None
+    return split_bf16(wt)
 
 
 def gemm_variant(pieces: Sequence[Piece], n: int,

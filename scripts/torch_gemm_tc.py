@@ -1,0 +1,260 @@
+"""Time ``gemm_tc`` at every tier on its main-path shapes on one GPU, beside
+its bound and two PyTorch calls.
+
+For the ``gastx_torch`` of this checkout or, with ``--tree``, of another
+one (e.g. a ``git archive`` of the parent commit under ``build/``, whose
+``gemm_epilogue`` wrapper takes the same ``tier`` argument), so that two
+versions of the kernel can be compared in one call, in turns:
+
+    python3 scripts/torch_gemm_tc.py [--tree DIR] [--check] [--cuts]
+        [--json F]
+
+Builds only ``gemm_tc`` and the float32 ``gemm_epilogue`` of that tree and
+prints the compiler's registers, shared memory and spills of each
+``gemm_tc`` instantiation. At each ``chip_smoke.TIER_GEMM_CASES`` shape
+and tier: ms (CUDA events over 20 calls after 2, the wrapper's W split
+included), the bound (``chip_smoke.tc_bound``), TFLOP/s, the instantiation
+that launched and how A reaches shared memory (``chip_smoke.tc_a_route``);
+at each shape once: a bf16 ``torch.matmul`` (bf16 out) and
+``torch.addmm(shift, a16, w16, out_dtype=torch.float32)`` (one cuBLAS call
+with bf16 operands, float32 output and the bias; null where the card
+refuses it), the yardsticks only. ``--check`` first holds every tier on
+``chip_smoke.tc_edge_cases`` and ``gemm_ragged_cases`` and the timed
+shapes to ``gemm_epilogue_plain`` (``chip_smoke.check``).
+
+``--cuts`` then rebuilds this checkout's ``gemm_tc.cu`` once with each
+part of its ``wgmma`` kernel cut out (``CUTS``: the epilogue stores, the
+wgmmas, A's or W's loads) and times every build at the 27f level-1
+projection at each tier; a cut build computes garbage, only its time is
+read, and the difference from the whole kernel is what that part costs,
+overlap included.
+
+Prints one JSON object (rows, checks, cuts, the card's name and power
+limit, the tree) and writes it to ``chiprun_out/`` (``--json``, default
+``gemm_tc.json``).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CUT_DIR = os.path.join(REPO, "build", "gemm_tc_cuts")
+
+_STORE = ("if (issuer) tma_store(&map_out, box, col0 + 32 * b, "
+          "row0 + 64 * wg);")
+_WGMMA = '"wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"'
+_A_TMA = "tma_load(slab, ma, full, k0, row0 + pick(args.a_off, p));"
+_W_TMA = ("tma_load(slab + A_BYTES, &map_wh, full, kb * BK, col0);",
+          "tma_load(slab + A_BYTES + W_BYTES, &map_wl, full, kb * BK, col0);")
+_TX = "w_bytes + (args.gather ? 0 : A_BYTES)"
+_WAIT1 = '"wgmma.wait_group.sync.aligned 1;\\n"'
+# Each cut of the wgmma kernel: (text in gemm_tc.cu, what replaces it). A
+# cut store still stages its box in shared memory; a cut wgmma is a PTX
+# comment.
+CUTS = {
+    "whole": [],
+    "no output stores": [(_STORE, ";")],
+    "no wgmma": [(_WGMMA, '"// cut: wgmma {"')],
+    "loads only": [(_STORE, ";"), (_WGMMA, '"// cut: wgmma {"')],
+    "no A loads": [(_A_TMA, ";"), (_TX, "w_bytes")],
+    "no W loads": [(_W_TMA[0], ";"), (_W_TMA[1], ";"),
+                   (_TX, "(args.gather ? 0u : (uint32_t)A_BYTES)")],
+    # Not a cut: one wgmma group in flight instead of two (each slab's
+    # split then waits for the slab before).
+    "one wgmma group in flight": [(_WAIT1, _WAIT1.replace("1;", "0;"))],
+}
+
+
+def library_calls(torch, pieces, m, kw, cs):
+    """(bf16 matmul ms, float32-out addmm ms or None) over the same
+    product, its operands rounded to bf16 once outside the timing."""
+    a_cat, w_cat = cs.gemm_library_operands(pieces, m, kw)
+    a16, w16 = a_cat.to(torch.bfloat16), w_cat.to(torch.bfloat16)
+    del a_cat, w_cat
+    matmul_ms = cs.cuda_ms(lambda: torch.matmul(a16, w16), reps=20)
+    try:
+        addmm_ms = cs.cuda_ms(lambda: torch.addmm(
+            kw["shift"], a16, w16, out_dtype=torch.float32), reps=20)
+    except (RuntimeError, TypeError, NotImplementedError) as e:
+        print(f"  torch.addmm(..., out_dtype=torch.float32) refused: "
+              f"{str(e).splitlines()[0][:160]}")
+        addmm_ms = None
+    return matmul_ms, addmm_ms
+
+
+def build_cuts(K) -> dict:
+    """Compile every ``CUTS`` build of this checkout's gemm_tc.cu, all
+    ``nvcc`` processes started together; returns {cut: library}."""
+    import ctypes
+
+    src = open(os.path.join(REPO, "gastx_torch", "csrc", "gemm_tc.cu")).read()
+    os.makedirs(CUT_DIR, exist_ok=True)
+    procs = {}
+    for i, (name, subs) in enumerate(CUTS.items()):
+        text = src
+        for old, new in subs:
+            if old not in text:
+                raise SystemExit(f"cut {name!r}: the source no longer holds "
+                                 f"{old!r}")
+            text = text.replace(old, new)
+        cu = os.path.join(CUT_DIR, f"cut{i}.cu")
+        with open(cu, "w") as f:
+            f.write(text)
+        so = os.path.join(CUT_DIR, f"libcut{i}.so")
+        procs[name] = (subprocess.Popen(
+            [K._nvcc(), *K.NVCC_FLAGS, "-o", so, cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+    libs = {}
+    for name, (proc, so) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed on cut {name!r}:\n{out}")
+        lib = ctypes.CDLL(so)
+        for symbol in ("gemm_tc", "gemm_tc_hopper"):
+            fn = getattr(lib, symbol)
+            fn.argtypes = K._ARGTYPES[symbol]
+            fn.restype = ctypes.c_int
+        lib.error_string.argtypes = [ctypes.c_int]
+        lib.error_string.restype = ctypes.c_char_p
+        libs[name] = lib
+    return libs
+
+
+def time_cuts(K, cs, torch, dev) -> dict:
+    """ms of every cut build at the 27f level-1 projection (B=1024), each
+    tier, the builds in turns: whole, cuts..., whole."""
+    libs = build_cuts(K)
+    spec = cs.GEMM_SHAPES[cs.TIER_GEMM_CASES[0][0]]
+    pieces, m, kw = cs.gemm_case(spec, dev, 300,
+                                 windows=cs.TIER_GEMM_CASES[0][1])
+    whole = K._LIBS["gemm_tc"]
+    out = {}
+    order = list(CUTS) + ["whole"]
+    for tier in cs.TC_PASSES:
+        kw["tier"] = tier
+        for i, name in enumerate(order):
+            K._LIBS["gemm_tc"] = libs[name]
+            ms = cs.cuda_ms(lambda: K.gemm_epilogue(pieces, m, **kw), reps=20)
+            out.setdefault(tier, {}).setdefault(name, []).append(ms)
+            print(f"  cut {tier:8s} {name:22s}: {ms:.4f} ms")
+    K._LIBS["gemm_tc"] = whole
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", default=REPO,
+                    help="checkout whose gastx_torch is timed")
+    ap.add_argument("--check", action="store_true",
+                    help="hold every tier on the edge cases first")
+    ap.add_argument("--cuts", action="store_true",
+                    help="time this checkout's kernel with parts cut out")
+    ap.add_argument("--json", default="gemm_tc.json",
+                    help="file name of the result under chiprun_out/")
+    args = ap.parse_args(argv)
+    tree = os.path.abspath(args.tree)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    import chip_smoke as cs
+    sys.path.insert(0, tree)
+    from gastx_torch.ops.cuda import kernels as K
+
+    if not K.__file__.startswith(tree + os.sep):
+        raise SystemExit(f"imported {K.__file__}, not the tree {tree}")
+    K.KERNEL_SOURCES = ("gemm_epilogue", "gemm_tc")  # only what is timed
+    logs = K.build_kernels()
+    for line in logs.get("gemm_tc", "").splitlines():
+        if "Compiling entry" in line or "registers" in line \
+                or "spill" in line or "Potential" in line:
+            print(f"  ptxas: {line.strip()}")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    print(f"card: {card}; tree {tree}")
+    cs.card_state("gemm_tc")
+    dev = torch.device("cuda")
+
+    checks, failed = {}, []
+    if args.check:
+        for tier in cs.TC_PASSES:
+            for label, pieces, m, kw, _ in (cs.tc_edge_cases(dev)
+                                            + cs.gemm_ragged_cases(dev)):
+                kw = {**kw, "tier": tier}
+                want = K.tc_variant(pieces, pieces[0][1].shape[1],
+                                    kw.get("res"))
+                taken, got = cs.launched_variant(
+                    K, "gemm_tc", lambda: K.gemm_epilogue(pieces, m, **kw))
+                try:
+                    if taken != want:
+                        cs.fail(f"gemm_tc {label}: took {taken}, not {want}")
+                    checks[f"{tier} {label}"] = cs.check(
+                        f"gemm_tc {tier} {label} ({want})", got,
+                        K.gemm_epilogue_plain(pieces, m, **kw))
+                except SystemExit as e:  # report every case, then fail
+                    print(f"  {e}")
+                    failed.append(f"{tier} {label}")
+                del got
+        if failed:
+            cs.fail(f"{len(failed)} cases disagree: {failed}")
+
+    rows = []
+    for idx, windows in cs.TIER_GEMM_CASES:
+        spec = cs.GEMM_SHAPES[idx]
+        label, _, _, ks, n, _, _, res = spec
+        pieces, m, kw = cs.gemm_case(spec, dev, 300 + idx, windows=windows)
+        shape = f"{label} (B={windows})"
+        variant = K.tc_variant(pieces, n, kw["res"])
+        a_route = cs.tc_a_route(kw)
+        matmul_ms, addmm_ms = library_calls(torch, pieces, m, kw, cs)
+        print(f"  {shape}: bf16 torch.matmul {matmul_ms:.4f} ms; "
+              f"float32-out torch.addmm "
+              + (f"{addmm_ms:.4f} ms" if addmm_ms else "null"))
+        for tier in cs.TC_PASSES:
+            kw["tier"] = tier
+            taken, got = cs.launched_variant(
+                K, "gemm_tc", lambda: K.gemm_epilogue(pieces, m, **kw))
+            if taken != variant:
+                cs.fail(f"gemm_tc {shape}: took {taken}, not {variant}")
+            if args.check:
+                checks[f"{tier} {shape}"] = cs.check(
+                    f"gemm_tc {tier} {shape}", got,
+                    K.gemm_epilogue_plain(pieces, m, **kw))
+            del got
+            ms = cs.cuda_ms(lambda: K.gemm_epilogue(pieces, m, **kw),
+                            reps=20)
+            bms, by = cs.tc_bound(*cs.tc_work(m, ks, n, 1, res is not None,
+                                              tier))
+            tflops = 2 * m * n * sum(ks) * cs.TC_PASSES[tier] / ms / 1e9
+            rows.append({"shape": shape, "m": m, "ks": list(ks), "n": n,
+                         "tier": tier, "variant": variant,
+                         "a_route": a_route, "ms": ms, "bound_ms": bms,
+                         "bound_by": by, "tflops_all_passes": tflops,
+                         "matmul_bf16_ms": matmul_ms,
+                         "addmm_f32_out_ms": addmm_ms})
+            print(f"  gemm_tc {tier:8s} {shape} [{variant}, A by "
+                  f"{a_route}]: {ms:.4f} ms (bound {bms:.4f} by {by}, "
+                  f"{bms / ms:.1%} of it; {tflops:.1f} TFLOP/s all passes)")
+        del pieces, kw
+        torch.cuda.empty_cache()
+    cuts = time_cuts(K, cs, torch, dev) if args.cuts else None
+    result = {"card": card, "tree": tree, "rows": rows, "checks": checks,
+              "cuts": cuts}
+    path = os.path.join(REPO, "chiprun_out", args.json)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(result, f, indent=1)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

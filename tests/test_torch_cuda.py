@@ -80,6 +80,23 @@ def _w_at_offset(k, n):
     return w.copy_(_randn(k, n, seed=3))
 
 
+def _one(m, k, n, **kw):
+    """One piece (m, k) @ (k, n) with a BN epilogue."""
+    return [(_randn(m, k, seed=1), _randn(k, n, seed=2) / k ** 0.5, 0)], m, \
+        dict(scale=_randn(n, seed=4).abs() + 0.5, shift=_randn(n, seed=5),
+             **kw)
+
+
+def _three_pieces_offsets():
+    """Three pieces read at row offsets 0, 17 and 34, the residual at 51."""
+    m = 300
+    return ([(_randn(m + 40, 128, seed=p), _randn(128, 256, seed=10 + p)
+              / 384 ** 0.5, 17 * p) for p in range(3)], m,
+            dict(scale=_randn(256, seed=4).abs() + 0.5,
+                 shift=_randn(256, seed=5), relu=True,
+                 res=_randn(m + 51, 256, seed=6), res_off=51))
+
+
 # gemm_epilogue's ragged cases: (operands builder, instantiation it takes).
 GEMM_CASES = {
     "k2_taps": (lambda: _taps(2, 128, 1, False), "general"),
@@ -101,6 +118,14 @@ GEMM_CASES = {
                      "vec16"),
     "w_offset": (lambda: ([(_randn(300, 128, seed=1), _w_at_offset(128, 64),
                             0)], 300, {}), "general"),
+    # gemm_tc's wgmma instantiation: one push's rows, the narrow chain's
+    # widths, K and N tails, more tiles than SMs, offsets and a residual.
+    "m17_n1536": (lambda: _one(17, 512, 1536), "vec16"),
+    "m153_n144": (lambda: _one(153, 48, 144, relu=True), "vec16"),
+    "m459_n192": (lambda: _one(459, 64, 192, relu=True), "vec16"),
+    "k132_n72": (lambda: _one(1000, 132, 72), "vec16"),
+    "many_tiles": (lambda: _one(17000, 256, 512, relu=True), "vec16"),
+    "three_pieces_offsets": (lambda: _three_pieces_offsets(), "vec16"),
 }
 
 

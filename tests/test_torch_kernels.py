@@ -362,6 +362,107 @@ def test_gemm_variant(case):
     assert K.gemm_variant(pieces(), n, res) == want
 
 
+# (pieces, N, residual) -> the gemm_tc instantiation they take: the
+# wgmma one (vec16) needs K_p % 4, N % 8 and 16-byte a_p and res; W is
+# re-laid out by the wrapper, so its own alignment does not count.
+TC_VARIANT_CASES = {
+    "aligned": (lambda: [(torch.zeros(40, 128), torch.zeros(128, 256), 0)],
+                256, None, "vec16"),
+    "aligned_three_pieces": (
+        lambda: [(torch.zeros(40, 128), torch.zeros(128, 256), 0)] * 3,
+        256, None, "vec16"),
+    "aligned_residual": (
+        lambda: [(torch.zeros(40, 128), torch.zeros(128, 256), 0)], 256,
+        torch.zeros(60, 256), "vec16"),
+    "three_pieces_row_offsets": (
+        lambda: [(torch.zeros(80, 132), torch.zeros(132, 64), 17 * p)
+                 for p in range(3)], 64, torch.zeros(90, 64), "vec16"),
+    "k_not_multiple_of_4": (
+        lambda: [(torch.zeros(40, 130), torch.zeros(130, 64), 0)], 64, None,
+        "general"),
+    "n_multiple_of_4_not_8": (
+        lambda: [(torch.zeros(40, 128), torch.zeros(128, 68), 0)], 68, None,
+        "general"),
+    "misaligned_a": (lambda: [(_at_offset(40, 128), torch.zeros(128, 64),
+                               0)], 64, None, "general"),
+    "misaligned_a_third_piece": (
+        lambda: [(torch.zeros(40, 128), torch.zeros(128, 64), 0)] * 2
+        + [(_at_offset(40, 128), torch.zeros(128, 64), 0)], 64, None,
+        "general"),
+    "misaligned_w": (lambda: [(torch.zeros(40, 128), _at_offset(128, 64),
+                               0)], 64, None, "vec16"),
+    "misaligned_res": (lambda: [(torch.zeros(40, 128), torch.zeros(128, 64),
+                                 0)], 64, _at_offset(40, 64), "general"),
+    "m17_below_one_tile": (
+        lambda: [(torch.zeros(17, 512), torch.zeros(512, 1536), 0)], 1536,
+        None, "vec16"),
+    "n144_c48": (lambda: [(torch.zeros(153, 48), torch.zeros(48, 144), 0)],
+                 144, None, "vec16"),
+    "n192_c64": (lambda: [(torch.zeros(459, 64), torch.zeros(64, 192), 0)],
+                 192, None, "vec16"),
+    "level0_taps": (lambda: _conv_taps(2), 128, None, "general"),
+    "level_taps_c128": (lambda: _conv_taps(128), 128, None, "vec16"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TC_VARIANT_CASES))
+def test_tc_variant(case):
+    """gemm_tc's wgmma instantiation only where every K_p is a multiple of
+    4, N of 8, and every a_p and the residual start 16-byte aligned."""
+    pieces, n, res, want = TC_VARIANT_CASES[case]
+    assert K.tc_variant(pieces(), n, res) == want
+
+
+@pytest.mark.parametrize("ks", [(256,), (128, 64, 12), (4,), (48,),
+                                (256, 256, 256)])
+@pytest.mark.parametrize("lo", [False, True])
+def test_tc_weights(ks, lo):
+    """W as the wgmma instantiation reads it: A's k in the kernel's own
+    order (each piece padded to TC_BK, every 16 k read as TC_K_ORDER
+    lays W^T's columns) times W^T's halves gives each half's product."""
+    from gastx_torch.ops.precision import split_bf16
+
+    rng = np.random.default_rng(len(ks) + sum(ks))
+    n = 24
+    pieces = [(torch.from_numpy(rng.standard_normal((5, k), np.float32)),
+               torch.from_numpy(rng.standard_normal((k, n), np.float32)), 0)
+              for k in ks]
+    hi, wl = K.tc_weights(pieces, lo)
+    k_pad = sum(-(-k // K.TC_BK) * K.TC_BK for k in ks)
+    assert hi.dtype == torch.bfloat16 and hi.shape == (n, k_pad)
+    assert hi.is_contiguous() and (wl is not None) == lo
+    # The kernel: A of each piece in its padded slabs, column q of a slab
+    # holding A's k (q - q % 16) + TC_K_ORDER[q % 16].
+    a_pad = torch.cat([torch.nn.functional.pad(
+        a, (0, -(-a.shape[1] // K.TC_BK) * K.TC_BK - a.shape[1]))
+        for a, _, _ in pieces], 1).double()
+    order = [q - q % 16 + K.TC_K_ORDER[q % 16] for q in range(k_pad)]
+    for half, w_t in ((0, hi), (1, wl)):
+        if w_t is None:
+            continue
+        got = a_pad[:, order] @ w_t.double().t()
+        want = sum(a.double() @ split_bf16(w)[half].double()
+                   for a, w, _ in pieces)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12,
+                                   atol=1e-12)
+
+
+def test_tc_weight_index():
+    """Each piece padded to TC_BK with the zero row (index sum(ks)), every
+    16 columns in TC_K_ORDER; cached per (ks, device)."""
+    idx = K.tc_weight_index((20, 4), "cpu").tolist()
+    zero = 24
+    want = [K.TC_K_ORDER[q] for q in range(16)]
+    want += [16 + K.TC_K_ORDER[q] if K.TC_K_ORDER[q] < 4 else zero
+             for q in range(16)]
+    want += [20 + K.TC_K_ORDER[q] if K.TC_K_ORDER[q] < 4 else zero
+             for q in range(16)] + [zero] * 16
+    assert idx == want
+    assert sorted(K.TC_K_ORDER) == list(range(16))
+    assert K.tc_weight_index((20, 4), "cpu") is K.tc_weight_index([20, 4],
+                                                                  "cpu")
+
+
 def _projection(c, pad=0, offset=0, rows=34):
     """The chain's zero (rows, 7C) projection output P of a GAB with K = 4
     heads and I = G = C / 4, at row stride 7C + ``pad``, ``offset`` floats
