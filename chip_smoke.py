@@ -40,7 +40,16 @@ a non-zero exit and no result line:
      ``gastx_torch.infer.lift_sequences`` on the 1000-frame sequence: the
      27-frame model on the hybrid route (``gab_impl="pallas_local"``,
      ``attn_impl="pallas_head"``) and the 243-frame model on the packed
-     one (``gab_impl="pallas"``, ``packed_channels=64``). The launch
+     one (``gab_impl="pallas"``, ``packed_channels=64``); then trained
+     weights: the 27-frame model of ``build_gastnet``'s seed
+     ``WEIGHT_SEED`` saved as a port ``.pt`` and read through ``-w``, held
+     to ``--random-weights --seed WEIGHT_SEED`` on the same file; then one
+     request each for ``-kf mpii``, ``-kf openpose`` and ``-kf wholebody``
+     (``-n 19``) on seeded files of those layouts (``synthetic_layout``).
+     Every request passes ``-vi`` a missing video, so the normalization
+     falls back to 1000x1002 as the JAX CLI's does; none renders (the
+     card's machine has neither matplotlib nor cv2). The requests' seconds
+     are printed beside the card's name and power limit. The launch
      counters are zeroed just before and read just after, so they show
      the main paths ran every kernel and every entry point but
      ``fused_global_attention``, which no model route reaches (0 main-path
@@ -98,9 +107,13 @@ a non-zero exit and no result line:
      evaluation and checkpoints, a resume from epoch 1 held to the straight
      run's epoch 2, and ``--evaluate``, all at trainval's default
      ``--matmul-precision high``, then ``--evaluate`` at ``mixed`` and
-     ``default``, every eval forward held to the same route and tiers
-     through the plain versions (``plain_route_forward``) as it runs and
-     the launch counters read over the five runs;
+     ``default``, then ``--evaluate`` and ``--resume`` on the JAX
+     package's ``.ckpt`` (``JAX_CKPT``, read by
+     ``gastx_torch.io.load_jax_checkpoint``; the resumed Adam's state at
+     its first step held to the ``.ckpt``'s step and moments), every eval
+     forward held to the same route and tiers through the plain versions
+     (``plain_route_forward``) as it runs and the launch counters read
+     over the seven runs;
  10. the precision tiers (``gastx_torch.ops.precision``): (a) the
      tensor-core ``gemm_tc`` at every tier (``TC_PASSES``) on the 27f
      level-1 projection (B=1024, timed beside the float32
@@ -795,6 +808,21 @@ HYBRID = {"gab_impl": "pallas_local", "attn_impl": "pallas_head"}
 PACKED = {"gab_impl": "pallas", "packed_channels": 64}
 # The lift_sequences requests of phase 3: (cell, frames).
 ROUTE_REQUESTS = (("27f hybrid", 1000), ("243f packed", 1000))
+# Phase 3's trained-weights requests: the 27f model of build_gastnet's
+# seed WEIGHT_SEED saved as a port .pt and read through -w, against
+# --random-weights --seed WEIGHT_SEED; then one request a keypoint format
+# the coco requests leave out, (-kf, the model's joints), on files of
+# FORMAT_FRAMES frames.
+WEIGHT_SEED = 5
+FORMAT_REQUESTS = (("mpii", 17), ("openpose", 17), ("wholebody", 19))
+FORMAT_FRAMES = 277
+# Phase 9 (d)'s JAX .ckpt: the committed fixture of
+# tests/test_torch_interchange.py (a gastx.train.save_checkpoint train
+# state of -arc 3,3 -ch 8, amsgrad count 7, epoch 1) and its trainval
+# flags (later flags win over TRAINVAL_ARGS').
+JAX_CKPT = os.path.join(REPO, "tests", "data",
+                        "jax_train_state_arc33_ch8.ckpt")
+JAX_CKPT_ARGS = ("-arc", "3,3", "-ch", "8")
 # The cells of phase 4: (cell, receptive field, batch of windows, route).
 FORWARDS = (("27f", 27, 1024, {}), ("81f", 81, 1024, {}),
             ("243f", 243, 256, {}), ("27f hybrid", 27, 1024, HYBRID),
@@ -1400,7 +1428,10 @@ def trainval_on_card(K, dev) -> dict:
     checkpoint each, a resume from epoch 1 to epoch 2 in a second
     directory (its epoch-2 checkpoint held to the straight one), then
     --evaluate, at trainval's --matmul-precision default ("high"), and
-    --evaluate again at "mixed" and at "default". Every eval forward is
+    --evaluate again at "mixed" and at "default"; then --evaluate and
+    --resume (to epoch 2) on the JAX package's .ckpt (``JAX_CKPT``), the
+    resumed Adam's state at its first step held to the .ckpt's step and
+    moments, each placed on its parameter by name. Every eval forward is
     held to the same route and tiers through the plain versions
     (``plain_route_forward``) on the same batch at the time it runs; the
     launch counters are zeroed before and read after."""
@@ -1409,8 +1440,10 @@ def trainval_on_card(K, dev) -> dict:
 
     import torch
     from torch.nn.modules.module import register_module_forward_hook
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
 
-    from gastx_torch.models import GastNet
+    from gastx_torch.io import load_jax_checkpoint
+    from gastx_torch.models import GastNet, GastNetConfig
     from gastx_torch.train import load_checkpoint
 
     root = os.path.join(WORK_DIR, "trainval")
@@ -1450,11 +1483,31 @@ def trainval_on_card(K, dev) -> dict:
                                    "--evaluate", "epoch_2.pt",
                                    "--matmul-precision", tier])
                      for tier in ("mixed", "default")]
+        jax_dir = os.path.join(root, "jax_ckpt")
+        t_jax = time.time()
+        out_je = run_trainval([*common, *JAX_CKPT_ARGS, "--checkpoint",
+                               jax_dir, "--evaluate", JAX_CKPT])
+        first_step = []
+
+        def capture(optimizer, args, kwargs):
+            if not first_step:
+                first_step.append([
+                    {k: v.detach().cpu().clone() for k, v in
+                     optimizer.state[p].items()}
+                    for p in optimizer.param_groups[0]["params"]])
+
+        step_hook = register_optimizer_step_pre_hook(capture)
+        try:
+            out_jr = run_trainval([*common, *JAX_CKPT_ARGS, "--checkpoint",
+                                   jax_dir, "-e", "2", "-r", JAX_CKPT])
+        finally:
+            step_hook.remove()
+        jax_s = time.time() - t_jax
     finally:
         hook.remove()
     total_s = time.time() - t0
     launches = {k: v for k, v in launch_counts(K).items() if v}
-    for text in (out, out_r, out_e, *out_tiers):
+    for text in (out, out_r, out_e, *out_tiers, out_je, out_jr):
         if "Protocol #2" not in text or f"running on {dev}" not in text:
             fail(f"trainval printed no Protocol #2 evaluation on {dev}:\n"
                  + text[-2000:])
@@ -1509,12 +1562,36 @@ def trainval_on_card(K, dev) -> dict:
              "gemm_epilogue")
     if not held:
         fail("no trainval eval forward was recorded")
+
+    # The JAX .ckpt: --resume trains epoch 2 only, at the .ckpt's lr, and
+    # its Adam starts from the .ckpt's step and moments.
+    jax_cfg = GastNetConfig(filter_widths=(3, 3), channels=8)
+    want = load_jax_checkpoint(JAX_CKPT, jax_cfg)
+    if "[2] time" not in out_jr or "[1] time" in out_jr \
+            or f"lr {want['lr']:f}" not in out_jr:
+        fail("trainval --resume on the JAX .ckpt did not train epoch 2 "
+             "alone at its lr:\n" + out_jr[-2000:])
+    names = [n for n, _ in GastNet(jax_cfg).named_parameters()]
+    moments = want["optimizer"]
+    if not first_step or len(first_step[0]) != len(names):
+        fail("trainval --resume on the JAX .ckpt took no optimizer step")
+    for n, state in zip(names, first_step[0]):
+        if float(state["step"]) != float(moments["step"]) or any(
+                not torch.equal(state[k], moments[k][n])
+                for k in ("exp_avg", "exp_avg_sq", "max_exp_avg_sq")):
+            fail(f"the resumed Adam's state of {n} is not the .ckpt's")
+    for line in out_je.splitlines():
+        if "action-wise average" in line:
+            print(f"  --evaluate on the JAX .ckpt: {line.strip()}")
+    print(f"  --resume on the JAX .ckpt: Adam's first step from the "
+          f".ckpt's step {float(moments['step']):g} and moments on all "
+          f"{len(names)} parameters; the .ckpt's two runs {jax_s:.1f} s")
     torch.cuda.empty_cache()
     return {"epochs": epochs, "resume_max_abs_diff": worst[1],
             "resume_worst_tensor": worst[2], "eval_forwards_held": len(held),
             "eval_max_abs_err": max(held), "launches": launches,
             "tier_max_abs_err_vs_float32": tier_errs,
-            "total_s": total_s}
+            "jax_ckpt_s": jax_s, "total_s": total_s}
 
 
 # --------------------------------------------------------------------------
@@ -1979,6 +2056,37 @@ def synthetic_coco(frames: int, seed: int):
     return kps[None].astype(np.float32)
 
 
+def synthetic_layout(fmt: str, frames: int, seed: int):
+    """(1, T, J, 2) keypoints of ``fmt``'s layout, rearranged from
+    ``synthetic_coco``'s person: MPII-16; OpenPose-18 (COCO with the neck
+    at index 1); COCO-WholeBody-133 with the six foot points beside the
+    ankles (hands and face left at zero)."""
+    import numpy as np
+
+    coco = synthetic_coco(frames, seed)[0]
+
+    def mid(a, b):
+        return 0.5 * (coco[:, a] + coco[:, b])
+
+    if fmt == "openpose":
+        out = np.concatenate([coco[:, :1], mid(5, 6)[:, None], coco[:, 1:]],
+                             axis=1)
+    elif fmt == "mpii":
+        up = coco[:, 0] - mid(5, 6)
+        out = np.stack([coco[:, 16], coco[:, 14], coco[:, 12], coco[:, 11],
+                        coco[:, 13], coco[:, 15], mid(11, 12), mid(5, 6),
+                        mid(5, 6) + 0.5 * up, coco[:, 0] + 0.5 * up,
+                        coco[:, 10], coco[:, 8], coco[:, 6], coco[:, 5],
+                        coco[:, 7], coco[:, 9]], axis=1)
+    else:  # wholebody
+        out = np.zeros((frames, 133, 2), np.float32)
+        out[:, :17] = coco
+        feet = np.array([[10, 15], [20, 12], [-5, 5]], np.float32)
+        out[:, 17:20] = coco[:, 15:16] + feet
+        out[:, 20:23] = coco[:, 16:17] + feet * [-1, 1]
+    return out[None].astype(np.float32)
+
+
 def main() -> int:
     try:
         import torch
@@ -2003,8 +2111,10 @@ def main() -> int:
     from gastx_torch.data import coco_h36m, save_keypoints_json
     from gastx_torch.geometry import normalize_screen_coordinates
     from gastx_torch.infer import lift_sequences
-    from gastx_torch.models import (GastNet, config_for_frames, init_gastnet,
+    from gastx_torch.models import (GastNet, build_gastnet,
+                                    config_for_frames, init_gastnet,
                                     randomize_eval_statistics)
+    from gastx_torch.train import save_checkpoint
     from torch.nn.modules.module import register_module_forward_hook
     from gastx_torch.ops.cuda import kernels as K
     from gastx_torch.ops.cuda.fused_gab import (
@@ -2249,23 +2359,35 @@ def main() -> int:
         if isinstance(module, GastNet):
             forwards.append((module, inputs[0], output))
 
-    hook = register_module_forward_hook(record)
-    K.reset_launches()
-    for i, (rf, frames) in enumerate(REQUESTS):
-        kps = synthetic_coco(frames, seed=i)
-        path = os.path.join(WORK_DIR, f"request{i}.json")
-        save_keypoints_json(path, kps, np.ones(kps.shape[:3], np.float32))
-        argv = ["-k", path, "-f", str(rf), "--random-weights", "--no-render",
+    no_video = os.path.join(WORK_DIR, "no_video.mp4")  # -vi falls back
+
+    def request(model, label, argv, frames, joints=j):
+        """One ``reconstruct --no-render`` request; its output."""
+        i = len(requests)
+        argv = [*argv, "--no-render", "-vi", no_video,
                 "-vo", os.path.join(WORK_DIR, f"request{i}.mp4")]
         t0 = time.time()
         out = rc.reconstruct(rc.parse_args(argv))
         torch.cuda.synchronize()
         dt = time.time() - t0
-        if out.shape != (frames, j, 3) or not np.isfinite(out).all():
+        if out.shape != (frames, joints, 3) or not np.isfinite(out).all():
             fail(f"request {i}: bad output {out.shape}")
-        requests.append({"model": rf, "frames": frames, "s": dt})
-        print(f"  request {i}: -f {rf}, {frames} frames -> {out.shape}, "
+        requests.append({"model": model, "frames": frames, "s": dt})
+        print(f"  request {i}: {label}, {frames} frames -> {out.shape}, "
               f"{dt:.3f} s")
+        return out
+
+    def keypoints_file(name, kps):
+        path = os.path.join(WORK_DIR, f"{name}.json")
+        save_keypoints_json(path, kps, np.ones(kps.shape[:3], np.float32))
+        return path
+
+    hook = register_module_forward_hook(record)
+    K.reset_launches()
+    for i, (rf, frames) in enumerate(REQUESTS):
+        path = keypoints_file(f"request{i}", synthetic_coco(frames, seed=i))
+        request(rf, f"-f {rf}", ["-k", path, "-f", str(rf),
+                                 "--random-weights"], frames)
     # The other routes have no CLI flag (nor has the JAX CLI): lift the
     # 1000-frame sequence, converted and normalized as the CLI does it.
     for cell, frames in ROUTE_REQUESTS:
@@ -2283,8 +2405,32 @@ def main() -> int:
               f"{models[cell].cfg.attn_impl}, packed_channels "
               f"{models[cell].cfg.packed_channels}), {frames} frames -> "
               f"{out.shape}, {dt:.3f} s")
+    # Trained weights through -w: a port .pt of the seeded 27f model
+    # against the same seed's --random-weights; then the other formats.
+    weights = os.path.join(WORK_DIR, "weights.pt")
+    save_checkpoint(weights, epoch=0, lr=0.0, model=build_gastnet(
+        config_for_frames(27), seed=WEIGHT_SEED, device=dev))
+    coco = keypoints_file("weights", synthetic_coco(FORMAT_FRAMES, seed=20))
+    from_pt = request("27f -w .pt", "-w weights.pt", ["-k", coco, "-w",
+                                                      weights],
+                      FORMAT_FRAMES)
+    seeded = request("27f seeded", f"--random-weights --seed {WEIGHT_SEED}",
+                     ["-k", coco, "--random-weights", "--seed",
+                      str(WEIGHT_SEED)], FORMAT_FRAMES)
+    report["weights_request_max_abs_err"] = check(
+        "reconstruct -w weights.pt against --random-weights --seed",
+        torch.from_numpy(from_pt), torch.from_numpy(seeded))
+    for i, (fmt, joints) in enumerate(FORMAT_REQUESTS):
+        path = keypoints_file(fmt, synthetic_layout(fmt, FORMAT_FRAMES,
+                                                    seed=21 + i))
+        request(f"27f -kf {fmt}", f"-kf {fmt} -n {joints}",
+                ["-k", path, "-kf", fmt, "-n", str(joints),
+                 "--random-weights"], FORMAT_FRAMES, joints)
     main_launches = launch_counts(K)
     hook.remove()
+    request_s = [r["s"] for r in requests]
+    print(f"  {len(requests)} requests in {sum(request_s):.3f} s "
+          f"({', '.join(f'{t:.3f}' for t in request_s)}) on {smi}")
     print(f"  launches: {main_launches}")
     for name, count in main_launches.items():
         if name in GRAPH_GENERAL or tiered_launch(name):

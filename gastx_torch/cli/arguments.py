@@ -3,9 +3,8 @@
 The flags, defaults and invalid-combination checks of
 ``gastx.cli.arguments`` (the reference's ``common/arguments.py``), so
 reference invocations work unchanged, plus ``--device`` (default
-``cuda``). Flags whose modules the port has not carried yet are refused
-with the ``ROADMAP.md`` item they wait for: ``--render`` (queue 1 item 6,
-rendering) and ``--profile-dir`` (item 8, profiling).
+``cuda``). ``--profile-dir`` is refused with the ``ROADMAP.md`` item it
+waits for (queue 1 item 8, profiling).
 """
 from __future__ import annotations
 
@@ -122,9 +121,6 @@ def parse_args(argv=None):
     if args.export_training_curves and args.no_eval:
         parser.error("--export-training-curves and --no-eval cannot be set "
                      "at the same time")
-    if args.render:
-        parser.error("--render is not ported yet (ROADMAP.md queue 1 item "
-                     "6, rendering)")
     if args.profile_dir:
         parser.error("--profile-dir is not ported yet (ROADMAP.md queue 1 "
                      "item 8, profiling)")

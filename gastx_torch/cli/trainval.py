@@ -5,7 +5,8 @@ epoch loop of amsgrad train steps with a x``lr_decay`` per-epoch learning
 rate, per-epoch validation and train-eval MPJPE, a checkpoint of the best
 valid MPJPE under 49.5 mm and periodic ones that resume (epoch, lr,
 optimizer, batcher RNG), and the final action-wise Protocol #1/#2
-evaluation with flip TTA, by subject with ``--by-subject``::
+evaluation with flip TTA, by subject with ``--by-subject``, or with
+``--render`` the lift of one video (``--viz-*``) exported and rendered::
 
     python -m gastx_torch.cli.trainval -e 80 -k cpn_ft_h36m_dbb -arc 3,3,3 -b 128
     python -m gastx_torch.cli.trainval -k cpn_ft_h36m_dbb --evaluate epoch_best.pt
@@ -19,8 +20,12 @@ Batches have one fixed size: a ragged last batch is padded with
 zero-weight copies of its last row. Each step draws its dropout masks
 from a generator seeded by (epoch, batch index), so a resume needs no
 RNG state beyond the batcher's. Checkpoints are the port's own
-(``gastx_torch.train.checkpoint``, ``.pt``); ``--evaluate`` also takes an
-upstream ``.bin``.
+(``gastx_torch.train.checkpoint``, ``.pt``); ``--evaluate`` and
+``--resume`` also take the JAX package's ``.ckpt``
+(``gastx_torch.io.load_jax_checkpoint``: weights, and for a resume the
+epoch, lr, amsgrad moments and batcher RNG), and ``--evaluate`` an
+upstream ``.bin``. ``--render`` lifts on the device and renders on the
+host (matplotlib; it raises where matplotlib is missing).
 """
 from __future__ import annotations
 
@@ -37,7 +42,10 @@ from gastx_torch.data.harness import fetch, group_actions_by_name, load_data
 from gastx_torch.data.prefetch import prefetch_to_device, stage
 from gastx_torch.device import resolve_device
 from gastx_torch.eval.protocol import evaluate_sequences, run_evaluation
-from gastx_torch.io import load_torch_checkpoint
+from gastx_torch.geometry import camera_to_world, image_coordinates
+from gastx_torch.infer import lift_sequences
+from gastx_torch.io import (adam_state_dict, load_jax_checkpoint,
+                            load_torch_checkpoint)
 from gastx_torch.models import GastNetConfig, build_gastnet
 from gastx_torch.models.config import TPU_MIXED_PRECISION_OVERRIDES
 from gastx_torch.train import (load_checkpoint, make_optimizer,
@@ -83,11 +91,13 @@ def main(argv=None):
     device = resolve_device(args.device)
     os.makedirs(args.checkpoint, exist_ok=True)
 
-    (keypoints, dataset, _metadata, kps_left, kps_right, joints_left,
-     joints_right) = load_data(args.dataset, args.keypoints, args.data_dir)
+    (keypoints, dataset, keypoints_metadata, kps_left, kps_right,
+     joints_left, joints_right) = load_data(args.dataset, args.keypoints,
+                                            args.data_dir)
 
     subjects_train = args.subjects_train.split(",")
-    subjects_test = args.subjects_test.split(",")
+    subjects_test = ([args.viz_subject] if args.render
+                     else args.subjects_test.split(","))
     action_filter = None if args.actions == "*" else args.actions.split(",")
     if action_filter is not None:
         print("Selected actions:", action_filter)
@@ -116,13 +126,16 @@ def main(argv=None):
     lr = args.learning_rate
     batcher_rng = None
     opt_state = None
+    jax_ckpt = False
     if args.resume or args.evaluate:
         path = os.path.join(args.checkpoint, args.resume or args.evaluate)
         print("Loading checkpoint", path)
         if path.endswith(".bin"):
             model.load_state_dict(load_torch_checkpoint(path), strict=True)
         else:
-            blob = load_checkpoint(path)
+            jax_ckpt = path.endswith(".ckpt")
+            blob = (load_jax_checkpoint(path, cfg) if jax_ckpt
+                    else load_checkpoint(path))
             model.load_state_dict(blob["model"], strict=True)
             if args.resume:
                 epoch, lr = blob["epoch"], blob["lr"]
@@ -146,6 +159,8 @@ def main(argv=None):
 
         opt = make_optimizer(model.parameters(), lr)
         if opt_state is not None:
+            if jax_ckpt:  # the amsgrad moments by parameter name
+                opt_state = adam_state_dict(opt_state, model, opt)
             opt.load_state_dict(opt_state)
         generator = torch.Generator(device=device)
         metric_log = MetricLogger(args.log_file or None)
@@ -234,6 +249,11 @@ def main(argv=None):
                     os.path.join(args.checkpoint, "loss_3d.png"),
                     losses_train, losses_train_eval, losses_valid)
 
+    if args.render:
+        render(args, model, keypoints, dataset, keypoints_metadata,
+               (kps_left, kps_right))
+        return model
+
     print("Evaluating...")
     all_actions, by_subject = group_actions_by_name(dataset, subjects_test)
     kw = dict(downsample=args.downsample, tta=args.test_time_augmentation,
@@ -247,6 +267,69 @@ def main(argv=None):
                            **kw)
             print("")
     return model
+
+
+def render(args, model, keypoints, dataset, keypoints_metadata, kps_lr):
+    """``--render``: lift the ``--viz-*`` video's 2D keypoints on the
+    model's device (flip TTA unless ``-no-tta``), save them with
+    ``--viz-export``, and with ``--viz-output`` render them beside the
+    ground truth in world coordinates (the JAX ``--render`` branch)."""
+    print("Rendering...")
+    subject, action, camera = (args.viz_subject, args.viz_action,
+                               args.viz_camera)
+    input_keypoints = keypoints[subject][action][camera].copy()
+    ground_truth = None
+    if subject in dataset.subjects() and action in dataset[subject]:
+        if "positions_3d" in dataset[subject][action]:
+            ground_truth = dataset[subject][action]["positions_3d"][
+                camera].copy()
+    if ground_truth is None:
+        print("INFO: this action is unlabeled. Ground truth will not be "
+              "rendered.")
+
+    # The detections' full channel count (2, or 3 with confidence).
+    prediction = lift_sequences(model, [input_keypoints],
+                                tta=args.test_time_augmentation,
+                                kps_lr=kps_lr)[0]
+    if args.viz_export is not None:
+        print("Exporting joint positions to", args.viz_export)
+        np.save(args.viz_export, prediction)
+    if args.viz_output is None:
+        return
+
+    def to_world(x, rot, t):  # on the host
+        return camera_to_world(torch.from_numpy(x), rot, t).numpy()
+
+    cam = dataset.cameras()[subject][camera]
+    if ground_truth is not None:
+        trajectory = ground_truth[:, :1]
+        ground_truth[:, 1:] += trajectory
+        prediction += trajectory
+        prediction = to_world(prediction, cam["orientation"],
+                              cam["translation"])
+        ground_truth = to_world(ground_truth, cam["orientation"],
+                                cam["translation"])
+    else:
+        rot = next(c[camera]["orientation"]
+                   for c in dataset.cameras().values()
+                   if "orientation" in c[camera])
+        prediction = to_world(prediction, rot, 0.0)
+        prediction[:, :, 2] -= np.min(prediction[:, :, 2])
+
+    anim_output = {"Reconstruction": prediction}
+    if ground_truth is not None and not args.viz_no_ground_truth:
+        anim_output["Ground truth"] = ground_truth
+    input_keypoints = image_coordinates(input_keypoints[..., :2],
+                                        w=cam["res_w"], h=cam["res_h"])
+
+    from gastx_torch.viz import render_animation
+    render_animation(
+        input_keypoints, keypoints_metadata, anim_output, dataset.skeleton(),
+        dataset.fps(), args.viz_bitrate, cam["azimuth"], args.viz_output,
+        limit=args.viz_limit, downsample=args.viz_downsample,
+        size=args.viz_size, input_video_path=args.viz_video,
+        viewport=(cam["res_w"], cam["res_h"]),
+        input_video_skip=args.viz_skip)
 
 
 if __name__ == "__main__":

@@ -10,19 +10,26 @@ first 23 (body+feet).
 from __future__ import annotations
 
 import json
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
 
 def load_keypoints_json(
-    file_path: str, num_joints: int, num_person: int = 2
+    file_path: str, num_joints: int, num_person: int = 2,
+    raw_joints: Optional[int] = None
 ) -> Tuple[np.ndarray, np.ndarray, str, int]:
-    """Returns (keypoints (M, T, J, 2), scores (M, T, J), label, label_index)."""
+    """Returns (keypoints (M, T, J, 2), scores (M, T, J), label, label_index).
+
+    ``raw_joints``: the joints of each pose in the file; by default 133
+    (wholebody) for ``num_joints`` 19, else 17 (COCO), as the JAX loader
+    reads every file. The 16-joint MPII and 18-joint OpenPose files need
+    theirs.
+    """
     with open(file_path, "r") as fr:
         video_info = json.load(fr)
 
-    num_joints_raw = 133 if num_joints == 19 else 17
+    num_joints_raw = raw_joints or (133 if num_joints == 19 else 17)
 
     label = video_info.get("label", "")
     label_index = video_info.get("label_index", -1)

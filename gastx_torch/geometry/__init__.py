@@ -1,7 +1,8 @@
 from gastx_torch.geometry.camera import (camera_to_world, image_coordinates,
                                          normalize_screen_coordinates,
-                                         world_to_camera)
-from gastx_torch.geometry.quaternion import qrot
+                                         project_to_2d, world_to_camera)
+from gastx_torch.geometry.quaternion import qinverse, qrot
 
 __all__ = ["camera_to_world", "image_coordinates",
-           "normalize_screen_coordinates", "qrot", "world_to_camera"]
+           "normalize_screen_coordinates", "project_to_2d", "qinverse",
+           "qrot", "world_to_camera"]

@@ -1,4 +1,5 @@
-"""Quaternion rotation (parity target: ``gastx.geometry.quaternion.qrot``).
+"""Quaternion rotation and inverse (parity target:
+``gastx.geometry.quaternion``).
 
 Quaternions are ``(..., 4)`` tensors ``[w, x, y, z]``, assumed unit-norm.
 """
@@ -19,3 +20,10 @@ def qrot(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     uv = torch.linalg.cross(qvec, v, dim=-1)
     uuv = torch.linalg.cross(qvec, uv, dim=-1)
     return v + 2.0 * (q[..., :1] * uv + uuv)
+
+
+def qinverse(q: torch.Tensor) -> torch.Tensor:
+    """Conjugate of a unit quaternion (its inverse)."""
+    if q.shape[-1] != 4:
+        raise ValueError(f"qinverse takes (..., 4), got {tuple(q.shape)}")
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)

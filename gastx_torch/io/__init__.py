@@ -1,3 +1,6 @@
+from gastx_torch.io.jax_checkpoint import (adam_state_dict,
+                                           load_jax_checkpoint)
 from gastx_torch.io.torch_import import load_torch_checkpoint, params_from_jax
 
-__all__ = ["load_torch_checkpoint", "params_from_jax"]
+__all__ = ["adam_state_dict", "load_jax_checkpoint", "load_torch_checkpoint",
+           "params_from_jax"]

@@ -221,12 +221,16 @@ def test_resume_is_bitwise_on_cpu(synthetic_h36m):
     (["--matmul-precision", "mixed"], "item 2")])
 def test_trainval_refuses_flags_not_ported(synthetic_h36m, capsys, flag,
                                            item):
-    """--render and --profile-dir are refused with the ROADMAP item they
-    wait for; --matmul-precision (item 2, the precision tiers) is ported
-    and parses (test_torch_precision holds its mapping to JAX's)."""
+    """--profile-dir is refused with the ROADMAP item it waits for;
+    --render (item 6, rendering; test_torch_viz_data runs it) and
+    --matmul-precision (item 2, the precision tiers; test_torch_precision
+    holds its mapping to JAX's) are ported and parse."""
     if item == "item 2":
         args = trainval.parse_args(_argv(synthetic_h36m, "ckpt", *flag))
         assert args.matmul_precision == "mixed"
+        return
+    if item == "item 6":
+        assert trainval.parse_args(_argv(synthetic_h36m, "ckpt", *flag)).render
         return
     with pytest.raises(SystemExit):
         trainval.main(_argv(synthetic_h36m, "ckpt", *flag))
