@@ -140,7 +140,27 @@ a non-zero exit and no result line:
      windows/s, device busy and idle share and launches of the float32,
      (i) and (ii) forwards at 27f/81f/243f (B=1024/1024/256), and
      ``gab_narrow`` beside the chain at the preset's tiers at the three
-     narrow GABs.
+     narrow GABs;
+ 11. the in-the-wild pipeline (``gastx_torch.cli.gen_skes`` and
+     ``gastx_torch.cli.realtime`` through their frame functions,
+     ``skeletons_from_frames`` and ``run_frames``) at full width with
+     random weights from seeds: YOLOv3 at 416 from a darknet file written
+     here (its heads calibrated on the clip: ``write_pipeline_weights``),
+     HRNet-W48 at 384x288 from the port module's saved state dict, the 27f
+     lifter; on a clip of 256 synthetic 1280x720 frames (``clip_frames``:
+     one moving figure, two in the second half). First the card's YOLO
+     output and HRNet heatmaps on the first 4 frames against the port's
+     CPU path (the same bound), with the same boxes and tracks; then
+     ``gen_skes`` at ``-np 1`` and ``2``, ``--det-batch 1`` and ``16``
+     (seconds a request, 2D frames a second), every lift forward held to
+     ``reference_forward``, one profiled request (device ms by stage:
+     letterbox, YOLO, crops, HRNet, lift; idle share); then ``realtime``
+     (causal 27f, M = 1) with ``--no-pipeline`` and pipelined over 210
+     frames delivered at 30 frames a second (per-frame latency p50/p99 over
+     the last 200, frames a second; the two loops' poses equal). The
+     launch counters are zeroed before each and read after: every kernel
+     of a 27f forward ran under gen_skes, and every kernel of a 27f push
+     under realtime.
 
 Tolerance: each kernel, wrapper and the forward must agree with its plain
 version to max |delta| <= 1e-4 * max(1, max |plain|); both sides compute
@@ -149,10 +169,11 @@ the same operands to bf16 and sum exact products in float32;
 ``attn_tier_check`` says what it adds for the attention's softmax
 weights, which each side computes before it rounds them). Timings are CUDA
 events around repeated calls after a warm-up. The last lines are the
-script's total seconds, the ``{"kernels": [...]}`` summary (the entries
-of ``gemm_epilogue``, ``sem_graph`` and ``joint_attention`` also give
-their launches by instantiation and, as ``ragged_max_abs_err``, the
-largest error of their phase-2 cases), the card's ``name,
+script's total seconds, the ``{"kernels": [...]}`` summary (every entry
+also gives, as ``pipeline_launches``, its launches under phase 11; the
+entries of ``gemm_epilogue``, ``sem_graph`` and ``joint_attention`` their
+launches by instantiation and, as ``ragged_max_abs_err``, the largest
+error of their phase-2 cases), the card's ``name,
 power.limit``, and ``{"ok": true, "device": {...}}``. Details, the
 per-shape tables among them, also go to ``chiprun_out/chip_smoke.json``.
 """
@@ -2087,6 +2108,473 @@ def synthetic_layout(fmt: str, frames: int, seed: int):
     return out[None].astype(np.float32)
 
 
+# --------------------------------------------------------------------------
+# Phase 11: the in-the-wild pipeline (YOLOv3 -> SORT -> HRNet -> lifting).
+# --------------------------------------------------------------------------
+# The clip: PIPE_FRAMES synthetic 1280x720 BGR frames, one bright figure
+# moving across the first half, two the second (seeded numpy, no file).
+PIPE_FRAMES, PIPE_W, PIPE_H = 256, 1280, 720
+# gen_skes requests: (-np, --det-batch).
+PIPE_RUNS = ((1, 1), (1, 16), (2, 1), (2, 16))
+# The profiled request: -np 2 --det-batch 16 over the clip's first frames.
+PIPE_PROFILE_FRAMES = 32
+# Frames held against the port's CPU path (YOLO output, heatmaps, boxes).
+PIPE_CPU_FRAMES = 4
+# realtime: the per-frame latency over RT_FRAMES frames after RT_WARMUP,
+# the clip delivered at RT_FPS frames a second, as a camera delivers it
+# (an unpaced file lets the pipelined loop's reader run ahead, and its
+# frames then wait in the stage queues).
+RT_WARMUP, RT_FRAMES, RT_FPS = 10, 200, 30.0
+# Random weights from seeds: YOLOv3 at 416 (darknet file written here)
+# and HRNet-W48 at 384x288 (the port module's state dict).
+YOLO_SEED, HRNET_SEED = 31, 32
+# write_pipeline_weights: the clip's frames YOLO's figure probe is fitted
+# on, the gain of its objectness logit (logits a probe unit), and the
+# margin of the person class over the others.
+YOLO_PROBE_FRAMES = tuple(range(0, PIPE_FRAMES, 32)) + (PIPE_FRAMES // 2,)
+YOLO_PROBE_GAIN, YOLO_PERSON_MARGIN = 8.0, 2.0
+PIPE_STAGES = ("gastx_torch.letterbox", "gastx_torch.yolo",
+               "gastx_torch.crops", "gastx_torch.hrnet", "gastx_torch.lift")
+
+
+def figure_boxes(t: int) -> list:
+    """The (x1, y1, x2, y2) pixel boxes of ``clip_frames``' figures in
+    frame ``t``."""
+    boxes = [(100 + 3 * t, 150, 180 + 3 * t, 630)]
+    if t >= PIPE_FRAMES // 2:
+        x = 1100 - 2 * (t - PIPE_FRAMES // 2)
+        boxes.append((x, 180, x + 80, 660))
+    return boxes
+
+
+def clip_frames(n: int = PIPE_FRAMES, seed: int = 0):
+    """Yield the clip's first ``n`` (PIPE_H, PIPE_W, 3) uint8 BGR frames: a
+    fixed noisy background and bright figures (head, torso, legs) moving
+    sideways, at ``figure_boxes``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    background = rng.integers(0, 90, (PIPE_H, PIPE_W, 3), dtype=np.uint8)
+    colors = ((230, 220, 210), (60, 200, 240))
+    for t in range(n):
+        img = background.copy()
+        for (x, y, _, _), color in zip(figure_boxes(t), colors):
+            img[y:y + 60, x + 20:x + 60] = color                 # head
+            img[y + 70:y + 300, x:x + 80] = color                # torso
+            img[y + 300:y + 480, x + 5:x + 30] = color           # legs
+            img[y + 300:y + 480, x + 50:x + 75] = color
+        yield img
+
+
+def paced(frames, fps: float):
+    """Yield ``frames`` no faster than ``fps`` a second."""
+    t0 = time.perf_counter()
+    for i, frame in enumerate(frames):
+        wait = t0 + i / fps - time.perf_counter()
+        if wait > 0:
+            time.sleep(wait)
+        yield frame
+
+
+def yolo_arrays(blocks, seed: int) -> list:
+    """Random darknet weights for ``blocks``, per conv layer in file
+    order: BN layers (bias, scale, mean, var) near identity, conv weights
+    of std 1/sqrt(fan in), so activations stay finite at full depth."""
+    import numpy as np
+
+    from gastx_torch.pipeline.yolo.model import _infer_channels
+
+    rng = np.random.default_rng(seed)
+    chans = _infer_channels(blocks, int(blocks[0].get("channels", 3)))
+    layers = []
+    for i, b in enumerate(blocks[1:]):
+        if b["type"] != "convolutional":
+            continue
+        f, k = int(b["filters"]), int(b["size"])
+        fan_in = chans[i] * k * k
+        entry = {"w": (rng.standard_normal(f * fan_in)
+                       / np.sqrt(fan_in)).astype(np.float32)}
+        if int(b.get("batch_normalize", 0)):
+            entry["bn"] = np.concatenate([
+                0.1 * rng.standard_normal(f), 1 + 0.1 * rng.standard_normal(f),
+                0.1 * rng.standard_normal(f),
+                rng.uniform(0.5, 1.5, f)]).astype(np.float32)
+        else:
+            entry["bias"] = np.zeros(f, np.float32)
+        layers.append(entry)
+    return layers
+
+
+def write_darknet(path: str, layers: list) -> None:
+    import numpy as np
+
+    with open(path, "wb") as fh:
+        np.zeros(5, np.int32).tofile(fh)
+        for e in layers:
+            (e["bn"] if "bn" in e else e["bias"]).tofile(fh)
+            e["w"].tofile(fh)
+
+
+def write_pipeline_weights(dev) -> tuple:
+    """The YOLOv3 ``.weights`` and the HRNet-W48 ``.pth``, under WORK_DIR.
+
+    YOLO's weights are random but for its heads' last convolution. There
+    each head's logits are scaled to unit spread on the clip, and the
+    13x13 head is made to find the figures: its objectness is a ridge
+    probe of its input features over YOLO_PROBE_FRAMES of the clip (1 on
+    the cells whose centre lies on a figure, 0 elsewhere), passing 0.70
+    halfway between the probe's largest value off the figures and its
+    first quartile on them; its box offsets are 0 and its sizes the
+    figures' (80x480 pixels), so that NMS keeps one box a figure. The finer
+    heads' objectness stays below 0.70, and every anchor's person class is
+    put YOLO_PERSON_MARGIN above the other classes."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from gastx_torch.pipeline.hrnet import PoseHighResolutionNet, hrnet_extra
+    from gastx_torch.pipeline.yolo import prep_frame, yolov3_blocks
+    from gastx_torch.pipeline.yolo.detect import YoloHumanDetector
+
+    blocks = yolov3_blocks()
+    layers = yolo_arrays(blocks, YOLO_SEED)
+    heads = [e for e in layers if "bias" in e]
+    yolo_path = os.path.join(WORK_DIR, "yolov3.weights")
+    write_darknet(yolo_path, layers)
+    det = YoloHumanDetector(yolo_path, device=dev)
+    feats, conv2d = [[], [], []], F.conv2d
+
+    def spy(x, w, *args, **kw):  # the heads' input features
+        if w.shape[0] == 255:
+            k = sum(map(len, feats)) % 3
+            feats[k].append(x[0].double().flatten(1).cpu().numpy())
+        return conv2d(x, w, *args, **kw)
+
+    frames = {t: f for t, f in enumerate(clip_frames())
+              if t in YOLO_PROBE_FRAMES}
+    F.conv2d = spy
+    try:
+        with torch.no_grad():
+            for t in YOLO_PROBE_FRAMES:
+                det.model(prep_frame(torch.from_numpy(frames[t]).to(dev),
+                                     416))
+    finally:
+        F.conv2d = conv2d
+    del det, frames
+    threshold = math.log(0.7 / 0.3)  # the objectness logit of 0.70
+    scale = min(416 / PIPE_W, 416 / PIPE_H)
+    y0 = (416 - int(PIPE_H * scale)) // 2
+    x0 = (416 - int(PIPE_W * scale)) // 2
+    anchors = np.array([int(v) for v in blocks[-1]["anchors"].split(",")],
+                       np.float64).reshape(9, 2)
+    for e, phi, g, mask in zip(heads, feats, (13, 26, 52),
+                               ((6, 7, 8), (3, 4, 5), (0, 1, 2))):
+        phi = np.concatenate(phi, axis=1)                 # (C, frames * g*g)
+        if not np.isfinite(phi).all():
+            fail(f"YOLO's {g}x{g} head input is not finite")
+        w = e["w"].reshape(255, -1)
+        logit = w.astype(np.float64) @ phi
+        w /= np.float32(logit.std())                       # unit spread
+        logit /= logit.std()
+        bias = e["bias"].reshape(3, 85)
+        for a in range(3):
+            bias[a, 5] = YOLO_PERSON_MARGIN + float(np.max(
+                logit[a * 85 + 6:(a + 1) * 85].max(axis=0)
+                - logit[a * 85 + 5]))
+            bias[a, 4] = -30.0
+        if g != 13:
+            continue
+        centre = (np.arange(g) + 0.5) * (416 / g)
+        cy = ((centre[:, None] - y0) / scale).repeat(g, 1).reshape(-1)
+        cx = ((centre[None] - x0) / scale).repeat(g, 0).reshape(-1)
+        target = np.concatenate([
+            np.any([(cx >= x1) & (cx < x2) & (cy >= y1) & (cy < y2)
+                    for x1, y1, x2, y2 in figure_boxes(t)], axis=0)
+            for t in YOLO_PROBE_FRAMES]).astype(np.float64)
+        mean = phi.mean(1, keepdims=True)
+        xc = phi - mean
+        gram = xc @ xc.T
+        ridge = 1e-4 * np.trace(gram) / len(gram)
+        beta = np.linalg.solve(gram + ridge * np.eye(len(gram)),
+                               xc @ (target - target.mean()))
+        fit = beta @ xc + target.mean()
+        on, off = fit[target > 0], fit[target == 0]
+        level = 0.5 * (np.percentile(on, 25) + off.max())
+        print(f"  YOLO probe: {int(target.sum())} figure cells of "
+              f"{target.size}, the fit {np.percentile(on, 25):.3f} at the "
+              f"figures' first quartile, {off.max():.3f} at most elsewhere; "
+              f"0.70 at {level:.3f}")
+        for a, (aw, ah) in enumerate(anchors[list(mask)]):
+            w[a * 85:a * 85 + 4] = 0.0                     # x, y, w, h
+            bias[a, :2] = 0.0
+            bias[a, 2] = math.log(80 * scale / aw)
+            bias[a, 3] = math.log(480 * scale / ah)
+            w[a * 85 + 4] = (YOLO_PROBE_GAIN * beta).astype(np.float32)
+            bias[a, 4] = threshold + YOLO_PROBE_GAIN * (
+                target.mean() - float(beta @ mean[:, 0]) - level)
+    write_darknet(yolo_path, layers)
+
+    torch.manual_seed(HRNET_SEED)
+    hrnet = PoseHighResolutionNet(hrnet_extra(48))
+    gen = torch.Generator().manual_seed(HRNET_SEED)
+    with torch.no_grad():
+        for m in hrnet.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0, 0.05, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+    hrnet_path = os.path.join(WORK_DIR, "pose_hrnet_w48_384x288.pth")
+    torch.save(hrnet.state_dict(), hrnet_path)
+    return yolo_path, hrnet_path
+
+
+def pipeline_args(np_: int, det_batch: int, dev):
+    from gastx_torch.cli import gen_skes
+
+    return gen_skes.parse_args([
+        "-v", "clip.mp4", "-np", str(np_), "--det-batch", str(det_batch),
+        "--random-lifter-weights", "-f", "27", "--device", str(dev)])
+
+
+def stage_profile(fn, title: str) -> dict:
+    """One torch.profiler trace of ``fn``: device ms under each pipeline
+    stage's ``record_function`` range (the kernels launched inside it),
+    the device's busy ms and idle share of the call's CUDA-event time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    print(title)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    wall_ms = start.elapsed_time(end)
+    stages = {key: {"device_ms": 0.0, "calls": 0} for key in PIPE_STAGES}
+
+    def kernel_us(ev):  # the kernels launched under a host-side event
+        return (sum(k.duration for k in ev.kernels
+                    if k.name not in stages)  # not the range's GPU mirror
+                + sum(kernel_us(c) for c in ev.cpu_children))
+
+    for ev in prof.events():
+        if ev.name in stages and ev.device_type == DeviceType.CPU:
+            stages[ev.name]["device_ms"] += kernel_us(ev) / 1e3
+            stages[ev.name]["calls"] += 1
+    busy, ops = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and ev.key not in stages:
+            busy += ev.self_device_time_total / 1e3
+            ops += ev.count
+    if busy == 0:
+        print("  no device time recorded: not measured")
+        return {"wall_ms": wall_ms, "device_busy_ms": None}
+    for key in PIPE_STAGES:
+        s = stages[key]
+        print(f"  {key}: {s['device_ms']:.3f} ms device ({s['calls']} "
+              f"calls)")
+    attributed = sum(s["device_ms"] for s in stages.values())
+    idle = max(0.0, 1.0 - busy / wall_ms)
+    print(f"  device busy {busy:.3f} of {wall_ms:.3f} ms: idle share "
+          f"{idle:.4f}; {ops} device operations; {busy - attributed:.3f} "
+          f"ms outside the stages")
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": idle,
+            "device_operations": ops, "stages": stages}
+
+
+def pipeline_against_cpu(yolo_path, hrnet_path, est, dev) -> dict:
+    """The card's YOLO output and HRNet heatmaps on the clip's first
+    frames against the port's CPU path on the same frames, and the boxes
+    and tracks of both (a fresh tracker each)."""
+    import numpy as np
+    import torch
+
+    from gastx_torch.pipeline.sort import Sort
+    from gastx_torch.pipeline.video_pose2d import Pose2DEstimator
+    from gastx_torch.pipeline.yolo import letterbox_image
+    from gastx_torch.pipeline.yolo.detect import canvas_input
+
+    cpu = Pose2DEstimator(yolo_path, hrnet_path, device="cpu")
+    frames = list(clip_frames(PIPE_CPU_FRAMES))
+    out = {"yolo_max_abs_err": 0.0, "heatmap_max_abs_err": 0.0,
+           "frames": PIPE_CPU_FRAMES}
+    est.tracker, cpu.tracker = Sort(), Sort()
+    for i, frame in enumerate(frames):
+        with torch.no_grad():
+            raws = [e.detector.model(canvas_input(letterbox_image(
+                e.detector.to_device(frame)[None], 416)))
+                for e in (est, cpu)]
+        out["yolo_max_abs_err"] = max(out["yolo_max_abs_err"], check(
+            f"frame {i}: YOLO output, card against CPU",
+            raws[0].cpu(), raws[1]))
+        # A box may move by YOLO's bound (in frame pixels) and one step of
+        # the 2-decimal rounding.
+        box_tol = (TOL * max(1.0, float(raws[1].abs().max()))
+                   / min(416 / PIPE_W, 416 / PIPE_H) + 0.01)
+        crops = []
+        for e in (est, cpu):
+            bboxs, scores = e.detector.detect(frame)
+            crops.append((bboxs, e.crops_from_detections(
+                e.detector.to_device(frame), bboxs, scores, 2, True)))
+        (bg, cg), (bc, cc) = crops
+        if (bg is None) != (bc is None) or (cg is None) != (cc is None):
+            fail(f"frame {i}: detections or tracks differ (card "
+                 f"{bg is not None}/{cg is not None}, CPU {bc is not None}"
+                 f"/{cc is not None})")
+        if bg is None or cg is None:
+            continue
+        if bg.shape != bc.shape or np.abs(bg - bc).max() > box_tol:
+            fail(f"frame {i}: boxes differ: {bg.shape} vs {bc.shape}, "
+                 f"max|d| {np.abs(bg - bc).max() if bg.shape == bc.shape else None}"
+                 f" (bound {box_tol})")
+        if (cg[0].shape != cc[0].shape or np.abs(
+                np.asarray(cg[1]) - np.asarray(cc[1])).max() > box_tol):
+            fail(f"frame {i}: the tracks differ")
+        out["box_max_abs_err"] = max(out.get("box_max_abs_err", 0.0),
+                                     float(np.abs(bg - bc).max()))
+        hm = [e.heatmaps(c[0]) for e, c in ((est, cg), (cpu, cc))]
+        out["heatmap_max_abs_err"] = max(out["heatmap_max_abs_err"], check(
+            f"frame {i}: HRNet heatmaps ({len(bg)} boxes, "
+            f"{cg[0].shape[0]} tracked), card against CPU",
+            torch.from_numpy(hm[0]), torch.from_numpy(hm[1])))
+    est.tracker = Sort()
+    return out
+
+
+def pipeline_phase(K, dev, smi) -> dict:
+    """Phase 11: gen_skes and realtime at full width through their frame
+    functions; the launch counters zeroed just before each and read just
+    after; see the module docstring."""
+    import numpy as np
+    import torch
+    from torch.nn.modules.module import register_module_forward_hook
+
+    from gastx_torch.cli import gen_skes, realtime
+    from gastx_torch.models import GastNet
+    from gastx_torch.pipeline import video_pose2d as vp
+    from gastx_torch.pipeline.sort import Sort
+
+    report = {}
+    t0 = time.time()
+    yolo_path, hrnet_path = write_pipeline_weights(dev)
+    est = vp.Pose2DEstimator(yolo_path, hrnet_path, device=dev)
+    report["setup_s"] = time.time() - t0
+    print(f"  weights written and loaded in {report['setup_s']:.1f} s")
+    report["against_cpu"] = pipeline_against_cpu(yolo_path, hrnet_path,
+                                                  est, dev)
+
+    inner = vp.kpts_from_frames
+    t2d = []
+
+    def timed_2d(*a, **kw):
+        t = time.time()
+        out = inner(*a, **kw)
+        torch.cuda.synchronize()
+        t2d.append(time.time() - t)
+        return out
+
+    forwards = []
+
+    def record(module, inputs, output):
+        if isinstance(module, GastNet):
+            forwards.append((module, inputs[0], output))
+
+    vp.kpts_from_frames = timed_2d
+    try:
+        # Warm-up: cuDNN's choices and the allocator at both batch sizes.
+        for np_, db in ((2, 1), (2, 16)):
+            est.tracker = Sort()
+            gen_skes.skeletons_from_frames(pipeline_args(np_, db, dev),
+                                           clip_frames(16), PIPE_W, PIPE_H,
+                                           est)
+        hook = register_module_forward_hook(record)
+        K.reset_launches()
+        runs = []
+        for np_, db in PIPE_RUNS:
+            est.tracker = Sort()
+            t = time.time()
+            pred, re_kpts = gen_skes.skeletons_from_frames(
+                pipeline_args(np_, db, dev), clip_frames(), PIPE_W, PIPE_H,
+                est)
+            torch.cuda.synchronize()
+            dt = time.time() - t
+            if (pred.ndim != 4 or pred.shape[0] < 1 or pred.shape[2:]
+                    != (17, 3) or not np.isfinite(pred).all()):
+                fail(f"gen_skes -np {np_} --det-batch {db}: bad output "
+                     f"{pred.shape}")
+            runs.append({"num_person": np_, "det_batch": db, "s": dt,
+                         "s_2d": t2d[-1], "persons": int(pred.shape[0]),
+                         "frames_out": int(pred.shape[1]),
+                         "frames_2d_per_s": PIPE_FRAMES / t2d[-1]})
+            print(f"  gen_skes -np {np_} --det-batch {db}: {dt:.3f} s a "
+                  f"request, 2D {PIPE_FRAMES / t2d[-1]:.1f} frames/s; "
+                  f"{pred.shape[0]} person(s) over {pred.shape[1]} frames")
+        hook.remove()
+        report["gen_skes_launches"] = launches = launch_counts(K)
+        report["gen_skes"] = runs
+        print(f"  launches over the {len(PIPE_RUNS)} requests: "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        errs = [check(f"lift forward {tuple(x.shape)} against the plain "
+                      f"route", y, m.reference_forward(x))
+                for m, x, y in forwards]
+        if len(forwards) < len(PIPE_RUNS):
+            fail(f"{len(forwards)} lift forwards for {len(PIPE_RUNS)} "
+                 f"requests")
+        report["lift_max_abs_err"] = max(errs)
+        del forwards[:]
+        est.tracker = Sort()
+        report["profile"] = stage_profile(
+            lambda: gen_skes.skeletons_from_frames(
+                pipeline_args(2, 16, dev), clip_frames(PIPE_PROFILE_FRAMES),
+                PIPE_W, PIPE_H, est),
+            f"phase 11: torch.profiler trace of one gen_skes -np 2 "
+            f"--det-batch 16 request of {PIPE_PROFILE_FRAMES} frames")
+    finally:
+        vp.kpts_from_frames = inner
+
+    # (b) realtime: causal 27f, M = 1, both loops over the same frames.
+    report["realtime"] = {}
+    poses = {}
+    K.reset_launches()
+    for label, extra in (("--no-pipeline", ["--no-pipeline"]),
+                         ("pipelined", [])):
+        est.tracker = Sort()
+        args = realtime.parse_args(["-v", "clip.mp4", "-f", "27",
+                                    "--random-lifter-weights", "--device",
+                                    str(dev), *extra])
+        t = time.time()
+        got, lat = realtime.run_frames(
+            args, paced(clip_frames(RT_WARMUP + RT_FRAMES), RT_FPS), PIPE_W,
+            PIPE_H, est)
+        fps = (RT_WARMUP + RT_FRAMES) / (time.time() - t)
+        if len(lat) < RT_WARMUP + RT_FRAMES // 2:
+            fail(f"realtime {label}: {len(lat)} frames with a pose")
+        ms = 1e3 * lat[RT_WARMUP:]
+        report["realtime"][label] = {
+            "frames": int(len(ms)), "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "mean_ms": float(ms.mean()), "frames_per_s": fps}
+        poses[label] = got
+        print(f"  realtime {label}: per-frame latency p50 "
+              f"{np.percentile(ms, 50):.3f} ms, p99 "
+              f"{np.percentile(ms, 99):.3f} ms over {len(ms)} frames "
+              f"delivered at {RT_FPS:g} frames/s; {fps:.1f} frames/s")
+    report["realtime_launches"] = rt_launches = launch_counts(K)
+    if not np.array_equal(poses["--no-pipeline"], poses["pipelined"]):
+        fail("realtime: the pipelined loop's poses differ from the "
+             "sequential loop's")
+    if not np.isfinite(poses["pipelined"]).all():
+        fail("realtime: non-finite poses")
+    print(f"  the two loops' {poses['pipelined'].shape} poses are equal; "
+          f"launches {({k: v for k, v in rt_launches.items() if v})} on "
+          f"{smi}")
+    est.tracker = Sort()
+    return report
+
+
 def main() -> int:
     try:
         import torch
@@ -2132,6 +2620,7 @@ def main() -> int:
     if (torch.get_float32_matmul_precision() != "highest"
             or torch.backends.cuda.matmul.allow_tf32):
         fail("float32 matmuls must run at 'highest' precision, TF32 off")
+    torch.backends.cudnn.allow_tf32 = False  # float32 convolutions
     dev = torch.device("cuda")
     report = {"device": torch.cuda.get_device_name(0)}
     t_start = time.time()
@@ -2701,6 +3190,32 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
             "float32_ms": r["float32_ms"]})
+
+    # ---- phase 11: the in-the-wild pipeline ------------------------------
+    report["card_phase11"] = card_state("phase 11")
+    print("phase 11: the in-the-wild pipeline (YOLOv3 416, SORT, HRNet-W48 "
+          "384x288, the 27f lifter) through gen_skes and realtime")
+    t11 = time.time()
+    report["pipeline"] = pl = pipeline_phase(K, dev, smi)
+    # Every kernel the 27f forward launches ran under gen_skes, and every
+    # kernel a 27f push launches under realtime.
+    for runs, want in (("gen_skes", report["forwards"]["27f"]
+                        ["launches_per_forward"]),
+                       ("realtime", report["streaming"]["27f M=1"]
+                        ["launches_per_push"])):
+        missed = [k for k, v in want.items()
+                  if v and not pl[f"{runs}_launches"].get(k)]
+        if missed:
+            fail(f"phase 11 {runs}: {missed} not launched")
+    counters = [c for _, c, _, _ in KERNELS] + [
+        " ".join(e["name"].replace("(", "").split(",")[0].split())
+        for e in kernels[len(KERNELS):]]  # "gemm_tc default", ...
+    for entry, counter in zip(kernels, counters):
+        entry["pipeline_launches"] = (
+            pl["gen_skes_launches"].get(counter, 0)
+            + pl["realtime_launches"].get(counter, 0))
+    report["pipeline"]["s"] = time.time() - t11
+    print(f"  phase 11 took {report['pipeline']['s']:.1f} s")
 
     report["kernels"] = kernels
     report["total_s"] = time.time() - t_start

@@ -115,24 +115,22 @@ def _video(path: str):
     return None, (WIDTH, HEIGHT)
 
 
-def load_model(args):
-    from gastx_torch.device import resolve_device
+def load_weights(cfg, chk: str, device,
+                 random_flag: str = "--random-weights") -> "GastNet":
+    """A GastNet of ``cfg`` with the weights of ``chk`` (an upstream
+    ``.bin``, the port's ``.pt`` or the JAX package's ``.ckpt``), in eval
+    mode on ``device``; any other or missing file stops naming the three
+    and the CLI's ``random_flag``."""
     from gastx_torch.io import load_jax_checkpoint, load_torch_checkpoint
-    from gastx_torch.models import GastNet, build_gastnet, config_for_frames
+    from gastx_torch.models import GastNet
     from gastx_torch.train import load_checkpoint
 
-    cfg = config_for_frames(args.frames, args.num_joints, causal=args.causal)
-    device = resolve_device(args.device)
-    if args.random_weights:
-        return build_gastnet(cfg, seed=args.seed, device=device)
-    chk = (args.weight if os.path.exists(args.weight)
-           else os.path.join(args.checkpoint_dir, args.weight))
     ext = os.path.splitext(chk)[1]
     if ext not in WEIGHT_FORMATS or not os.path.exists(chk):
         raise SystemExit(
             f"error: no weight file {chk} of a known format: -w takes an "
             f"upstream .bin, a gastx_torch .pt or a gastx (JAX) .ckpt "
-            f"(pass --random-weights for a smoke test)")
+            f"(pass {random_flag} for a smoke test)")
     print("Loading checkpoint", chk)
     if ext == ".bin":
         state_dict = load_torch_checkpoint(chk)
@@ -143,6 +141,19 @@ def load_model(args):
     model = GastNet(cfg)
     model.load_state_dict(state_dict, strict=True)
     return model.to(device).eval()
+
+
+def load_model(args):
+    from gastx_torch.device import resolve_device
+    from gastx_torch.models import build_gastnet, config_for_frames
+
+    cfg = config_for_frames(args.frames, args.num_joints, causal=args.causal)
+    device = resolve_device(args.device)
+    if args.random_weights:
+        return build_gastnet(cfg, seed=args.seed, device=device)
+    chk = (args.weight if os.path.exists(args.weight)
+           else os.path.join(args.checkpoint_dir, args.weight))
+    return load_weights(cfg, chk, device)
 
 
 def reconstruct(args) -> np.ndarray:

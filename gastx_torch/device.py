@@ -31,3 +31,13 @@ def check_f32_matmul(t: torch.Tensor) -> None:
             "the plain float32 path needs torch.get_float32_matmul_precision"
             "() == 'highest' and torch.backends.cuda.matmul.allow_tf32 == "
             "False on the card")
+
+
+def check_f32_conv(device: Union[str, torch.device]) -> None:
+    """Plain convolutions on the card must be full float32: cuDNN's TF32,
+    which PyTorch turns on by default, is refused. Takes the device (not a
+    tensor) so that the check is testable without a card."""
+    if torch.device(device).type == "cuda" and torch.backends.cudnn.allow_tf32:
+        raise RuntimeError(
+            "the plain float32 convolutions need torch.backends.cudnn."
+            "allow_tf32 == False on the card (PyTorch's default is True)")

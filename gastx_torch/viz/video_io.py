@@ -58,9 +58,10 @@ def get_fps(filename: str) -> float:
     return int(num) / int(den)
 
 
-def read_video(filename: str, skip: int = 0,
-               limit: int = -1) -> Iterator[np.ndarray]:
-    """Yield (H, W, 3) uint8 RGB frames."""
+def read_video(filename: str, skip: int = 0, limit: int = -1,
+               bgr: bool = False) -> Iterator[np.ndarray]:
+    """Yield (H, W, 3) uint8 RGB frames (BGR, as OpenCV decodes them, with
+    ``bgr``)."""
     if _has_cv2():
         import cv2
 
@@ -75,7 +76,7 @@ def read_video(filename: str, skip: int = 0,
                 if limit != -1 and i > limit:
                     break  # pull-based reader: stop decoding immediately
                 if i > skip:
-                    yield frame[:, :, ::-1]  # BGR -> RGB
+                    yield frame if bgr else frame[:, :, ::-1]  # -> RGB
         finally:
             cap.release()
         return
@@ -85,7 +86,8 @@ def read_video(filename: str, skip: int = 0,
                            "video decoding")
     w, h = get_resolution(filename)
     cmd = ["ffmpeg", "-i", filename, "-f", "image2pipe", "-pix_fmt",
-           "rgb24", "-vsync", "0", "-vcodec", "rawvideo", "-"]
+           "bgr24" if bgr else "rgb24", "-vsync", "0", "-vcodec", "rawvideo",
+           "-"]
     i = 0
     with sp.Popen(cmd, stdout=sp.PIPE, stderr=sp.DEVNULL,
                   bufsize=-1) as pipe:

@@ -45,6 +45,29 @@ def model():
     return randomize_eval_statistics(m, gen).cuda().eval()
 
 
+@pytest.mark.cuda
+def test_cuda_conv_sites_refuse_tf32(monkeypatch):
+    """The plain float32 convolutions (YOLO, HRNet) on the card refuse
+    cuDNN's TF32, which PyTorch turns on by default, and run with it off;
+    the card's HRNet then agrees with the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gastx_torch.pipeline.hrnet import PoseHighResolutionNet, hrnet_extra
+
+    torch.manual_seed(0)
+    net = PoseHighResolutionNet(hrnet_extra(8)).eval()
+    x = torch.randn(1, 3, 64, 64)  # sides divisible by 32
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    with pytest.raises(RuntimeError, match="allow_tf32"):
+        net.cuda()(x.cuda())
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    assert not torch.backends.cudnn.allow_tf32
+    with torch.no_grad():
+        got = net.cuda()(x.cuda()).cpu()
+        want = net.cpu()(x)
+    _assert_close(got, want)
+
+
 def _randn(*shape, seed=0):
     gen = torch.Generator().manual_seed(seed)
     return torch.randn(shape, generator=gen).cuda()
