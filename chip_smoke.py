@@ -160,7 +160,32 @@ a non-zero exit and no result line:
      the last 200, frames a second; the two loops' poses equal). The
      launch counters are zeroed before each and read after: every kernel
      of a 27f forward ran under gen_skes, and every kernel of a 27f push
-     under realtime.
+     under realtime;
+ 12. data parallelism (``gastx_torch.parallel``), each rank a process
+     started by the spawn method and joined with a timeout: (a)
+     ``gastx_torch.entry.dryrun_multichip(1)`` on NCCL, and the DDP
+     strided train step on one NCCL rank against the step without DDP at
+     27f B=128 and 1024 (the loss and every gradient); (b) two ranks
+     sharing the card over gloo (``dp_pair_rank``): two DP steps at 27f on
+     a global B=1024 against one process's steps on the same batch,
+     float64 held whole (loss, every gradient, every parameter after
+     amsgrad, the BN statistics) and float32 on its first step (loss,
+     gradients, BN statistics), a ragged step whose rank 1 holds only
+     filler rows (loss and BN statistics), ms a step of both (two ranks
+     sharing one card: not a scaling figure) and the gradients'
+     all-reduce alone under a ``trace()`` range; (c) ``lift_sequences(
+     mesh=)`` with flip TTA on phase 3's 27f sequences against the
+     one-process lift, rank 0's launches (zeroed just before, read just
+     after: every counter of phase 4's 27f forward) and profile (the
+     three CUDA kernels); (d) ``python -m torch.distributed.run
+     --nproc_per_node 2 -m gastx_torch.cli.trainval`` on phase 9 (d)'s
+     data, one epoch with ``--profile-dir`` (a trace naming
+     ``train_step``, rank 0's checkpoint alone, and a one-process
+     ``--evaluate`` of it giving the MPJPE rank 0 logged); (e)
+     ``gastx_torch.examples.train_synthetic`` (exit 0: its 3x gate); (f)
+     ``gastx_torch.entry.entry()`` against the plain route,
+     ``profiling.benchmark`` of it and ``flops_estimate`` of the plain
+     route; (g) the ablation modules on the card against the CPU.
 
 Tolerance: each kernel, wrapper and the forward must agree with its plain
 version to max |delta| <= 1e-4 * max(1, max |plain|); both sides compute
@@ -170,7 +195,8 @@ the same operands to bf16 and sum exact products in float32;
 weights, which each side computes before it rounds them). Timings are CUDA
 events around repeated calls after a warm-up. The last lines are the
 script's total seconds, the ``{"kernels": [...]}`` summary (every entry
-also gives, as ``pipeline_launches``, its launches under phase 11; the
+also gives, as ``pipeline_launches``, its launches under phase 11, and
+as ``dp_launches`` rank 0's in phase 12 (c); the
 entries of ``gemm_epilogue``, ``sem_graph`` and ``joint_attention`` their
 launches by instantiation and, as ``ragged_max_abs_err``, the largest
 error of their phase-2 cases), the card's ``name,
@@ -2575,6 +2601,546 @@ def pipeline_phase(K, dev, smi) -> dict:
     return report
 
 
+# --------------------------------------------------------------------------
+# Phase 12: data parallelism (gastx_torch.parallel), the profiling
+# utilities, the example, the entry and the ablations
+# --------------------------------------------------------------------------
+
+# (a) the DDP step on one NCCL rank against the step without DDP, at
+# these batches of 27f windows; (b) two ranks sharing the card over gloo:
+# the global batch (DP_PAIR_BATCH // 2 a rank), two steps, then
+# DP_TIMED_STEPS timed after their warm-up; the ragged step's real rows
+# (fewer than a rank's half: rank 1 holds only filler rows).
+DP_BATCHES = (128, 1024)
+DP_PAIR_BATCH = 1024
+DP_RAGGED_ROWS = 300
+DP_TIMED_STEPS = 5
+DP_ALLREDUCE_REPS = 5
+DP_RANK_TIMEOUT = 300
+# (d) trainval under torch.distributed.run on phase 9 (d)'s data: one
+# epoch (later flags win over TRAINVAL_ARGS'), every 16th frame.
+DP_TRAINVAL_ARGS = ("-e", "1", "--downsample", "16")
+DP_TRAINVAL_TIMEOUT = 300
+# (e) the example at its defaults; its gate is its own (exit 1 under 3x).
+EXAMPLE_ARGS = ("--steps", "300", "-arc", "3,3", "-ch", "32")
+
+
+def dp_batch(batch: int, seed: int, real: int = 0):
+    """Numpy (x2d (B, 27, 17, 2), x3d (B, 1, 17, 3), w (B,)): unit weights,
+    or ``real`` real rows and zero-weight copies of the last after them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x2 = rng.standard_normal((batch, 27, 17, 2)).astype(np.float32)
+    x3 = (0.3 * rng.standard_normal((batch, 1, 17, 3))).astype(np.float32)
+    w = np.ones(batch, np.float32)
+    if real:
+        x2[real:], x3[real:], w[real:] = x2[real - 1], x3[real - 1], 0.0
+    return x2, x3, w
+
+
+def dp_config():
+    import dataclasses
+
+    from gastx_torch.models import config_for_frames
+
+    return dataclasses.replace(config_for_frames(27), dropout=TRAIN_DROPOUT)
+
+
+def step_state(model, loss) -> dict:
+    """A copy on the host of a step's loss, gradients, parameters and BN
+    statistics."""
+    def host(t):
+        return t.detach().to("cpu", copy=True)
+
+    return {"loss": {"loss": host(loss).reshape(1)},
+            "grads": {n: host(p.grad) for n, p in model.named_parameters()},
+            "params": {n: host(p) for n, p in model.named_parameters()},
+            "bn_stats": {n: host(b) for n, b in model.named_buffers()
+                         if "running" in n}}
+
+
+def worst_by_kind(got: dict, want: dict) -> dict:
+    """Per kind (loss, grads, ...): the largest |got - want| over its bound
+    TOL * max(1, max|want|) per tensor, the difference, the tensor."""
+    out = {}
+    for kind in want:
+        ratios = []
+        for n, t in want[kind].items():
+            t = t.double()
+            d = float((got[kind][n].double() - t).abs().max())
+            ratios.append((d / (TOL * max(1.0, float(t.abs().max()))), d,
+                           n))
+        r = max(ratios)
+        out[kind] = {"err_over_bound": r[0], "max_abs_err": r[1],
+                     "tensor": r[2]}
+    return out
+
+
+def ddp_one_rank(rank: int, n: int, address: str) -> dict:
+    """Phase 12 (a), in a spawned rank: on NCCL, one rank, the DDP strided
+    step (dropout 0.05) against the same step without DDP at each of
+    DP_BATCHES; the loss and every gradient."""
+    import copy
+
+    import torch
+
+    from gastx_torch.models import build_gastnet
+    from gastx_torch.parallel import (init_distributed, make_mesh,
+                                      replicate, shard_batch)
+    from gastx_torch.train import make_optimizer, train_step
+
+    backend = init_distributed(address, n, rank)
+    mesh = make_mesh()
+    out = {"backend": backend}
+    for b in DP_BATCHES:
+        plain = build_gastnet(dp_config(), seed=27, device=mesh.device)
+        wrapped = copy.deepcopy(plain)
+        ddp = replicate(mesh, wrapped)
+        arrays = dp_batch(b, seed=b)
+        gen = torch.Generator(device=mesh.device)
+        gen.manual_seed(b)
+        loss = train_step(plain, make_optimizer(plain.parameters()),
+                          *(torch.from_numpy(a).to(mesh.device)
+                            for a in arrays), TRAIN_LR, gen, "strided")
+        gen.manual_seed(b)
+        (x2, x3, w), _ = shard_batch(mesh, *arrays)
+        dp_loss = train_step(ddp, make_optimizer(ddp.parameters()), x2, x3,
+                             w, TRAIN_LR, gen, "strided", mesh=mesh,
+                             weight_sum=float(arrays[2].sum()))
+        cmp = worst_by_kind(step_state(wrapped, dp_loss),
+                            step_state(plain, loss))
+        out[f"B={b}"] = {k: cmp[k] for k in ("loss", "grads")}
+        del plain, wrapped, ddp
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_pair_rank(rank: int, n: int, address: str, seqs: list) -> dict:
+    """Phase 12 (b) and (c), in each of two spawned ranks sharing the card
+    over gloo. (b) Two DP strided steps on DP_PAIR_BATCH windows against
+    rank 0's one-process steps on the same batch, in float32 and float64;
+    a ragged step; ms a step of each (DP_TIMED_STEPS after the two), and
+    the all-reduce of the gradients' bytes alone under a trace() range.
+    (c) ``lift_sequences(mesh=)`` with flip TTA on ``seqs``, rank 0's
+    under torch.profiler and the launch counters, against rank 0's
+    one-process lift. Rank 0 returns the comparisons and numbers."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gastx_torch.infer import lift_sequences
+    from gastx_torch.models import (GastNet, build_gastnet,
+                                    config_for_frames, init_gastnet,
+                                    randomize_eval_statistics)
+    from gastx_torch.ops.cuda import kernels as K
+    from gastx_torch.parallel import (init_distributed, make_mesh,
+                                      replicate, shard_batch)
+    from gastx_torch.train import make_optimizer, train_step
+    from gastx_torch.utils import trace
+
+    backend = init_distributed(address, n, rank)
+    mesh = make_mesh()
+    dev = mesh.device
+    out = {"backend": backend}
+    main_rank = rank == 0
+
+    def steps(model, arrays, mesh_, count, seed):
+        """``count`` steps; the last step's state (rank 0), the losses."""
+        ddp = model if mesh_ is None else replicate(mesh_, model)
+        opt = make_optimizer(ddp.parameters())
+        if mesh_ is None:
+            tensors = [torch.from_numpy(a).to(dev) for a in arrays]
+        else:
+            tensors, _ = shard_batch(mesh_, *arrays)
+        gen = torch.Generator(device=dev)
+        states = []
+        for i in range(count):
+            gen.manual_seed(seed + i)
+            loss = train_step(ddp, opt, *tensors, TRAIN_LR, gen, "strided",
+                              mesh=mesh_, weight_sum=float(arrays[2].sum()))
+            if main_rank:
+                states.append(step_state(model, loss))
+        return states, (ddp, opt, tensors, gen)
+
+    # (b) the steps, in float32 and float64: DP first, then rank 0 alone
+    # while rank 1 waits at the barrier.
+    for dtype in (torch.float32, torch.float64):
+        arrays = [a.astype(str(dtype).split(".")[1])
+                  for a in dp_batch(DP_PAIR_BATCH, seed=31)]
+        base = build_gastnet(dp_config(), seed=27, device=dev).to(dtype)
+        dp_states, _ = steps(copy.deepcopy(base), arrays, mesh, 2, 40)
+        dist.barrier()
+        if main_rank:
+            one_states, _ = steps(base, arrays, None, 2, 40)
+            out[str(dtype)] = [worst_by_kind(a, b)
+                               for a, b in zip(dp_states, one_states)]
+        dist.barrier()
+        del base, dp_states
+        torch.cuda.empty_cache()
+
+    # The ragged step: rank 1's rows are all filler.
+    arrays = dp_batch(DP_PAIR_BATCH, seed=32, real=DP_RAGGED_ROWS)
+    base = build_gastnet(dp_config(), seed=27, device=dev)
+    dp_states, _ = steps(copy.deepcopy(base), arrays, mesh, 1, 50)
+    dist.barrier()
+    if main_rank:
+        one_states, _ = steps(base, arrays, None, 1, 50)
+        out["ragged"] = worst_by_kind(dp_states[0], one_states[0])
+    dist.barrier()
+
+    # ms a step: DP (both ranks on the card), then rank 0 alone.
+    def step_ms(mesh_):
+        _, (ddp, opt, tensors, gen) = steps(
+            build_gastnet(dp_config(), seed=27, device=dev),
+            dp_batch(DP_PAIR_BATCH, seed=33), mesh_, 2, 60)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(DP_TIMED_STEPS):
+            train_step(ddp, opt, *tensors, TRAIN_LR, gen, "strided",
+                       mesh=mesh_, weight_sum=float(DP_PAIR_BATCH))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / DP_TIMED_STEPS, ddp
+
+    dist.barrier()
+    out["dp_step_ms"], ddp = step_ms(mesh)
+    flat = torch.zeros(sum(p.numel() for p in ddp.parameters()),
+                       device=dev)
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with trace("gastx_torch.grad_allreduce"):
+        for _ in range(DP_ALLREDUCE_REPS):
+            dist.all_reduce(flat)
+    torch.cuda.synchronize()
+    out["allreduce_ms"] = (time.perf_counter() - t0) * 1e3 / DP_ALLREDUCE_REPS
+    out["grad_bytes"] = flat.numel() * 4
+    del ddp, flat
+    dist.barrier()
+    if main_rank:
+        out["one_process_step_ms"], _ = step_ms(None)
+    dist.barrier()
+    torch.cuda.empty_cache()
+
+    # (c) the sharded lift on the 27f eval model of phases 2-4.
+    gen = torch.Generator().manual_seed(0)
+    model = randomize_eval_statistics(init_gastnet(
+        GastNet(config_for_frames(27)), gen), gen).to(dev).eval()
+    lift_sequences(model, seqs, tta=True, mesh=mesh)  # warm-up
+    torch.cuda.synchronize()
+    dist.barrier()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    if main_rank:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            lifted = lift_sequences(model, seqs, tta=True, mesh=mesh)
+            torch.cuda.synchronize()
+    else:
+        lifted = lift_sequences(model, seqs, tta=True, mesh=mesh)
+    out["lift_s"] = time.perf_counter() - t0
+    out["dp_launches"] = {k: v for k, v in launch_counts(K).items() if v}
+    if main_rank:
+        out["profiled_kernels"] = sorted(
+            {ev.key for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CUDA
+             and ev.self_device_time_total > 0})
+        alone = lift_sequences(model, seqs, tta=True)
+        out["lift"] = [
+            {"frames": a.shape[0], "max_abs_err": float(abs(a - b).max()),
+             "bound": TOL * max(1.0, float(abs(b).max()))}
+            for a, b in zip(lifted, alone)]
+    dist.barrier()
+    return out
+
+
+def run_group(cmd, timeout: float, **kw):
+    """``cmd`` in a session of its own (torch.distributed.run and its
+    ranks); the whole group killed if it outlives ``timeout``. Returns the
+    CompletedProcess."""
+    import signal
+
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True, **kw)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"{' '.join(cmd[:6])} ... ran over {timeout} s")
+    return subprocess.CompletedProcess(cmd, proc.returncode, stdout, stderr)
+
+
+def dp_trainval(dev) -> dict:
+    """Phase 12 (d): ``python -m torch.distributed.run --nproc_per_node 2
+    -m gastx_torch.cli.trainval`` on phase 9 (d)'s data, one epoch with
+    --profile-dir: the trace names train_step, rank 0 alone wrote the
+    checkpoint, and a one-process --evaluate of it without TTA gives the
+    valid MPJPE rank 0 logged (the action-wise mean of two actions of
+    equal frames is the frame-weighted one)."""
+    import re
+    import shutil
+
+    import numpy as np
+
+    from gastx_torch.parallel.mesh import free_port
+
+    root = os.path.join(WORK_DIR, "trainval")
+    data_dir = os.path.join(root, "data")
+    ckpt, prof = (os.path.join(root, d) for d in ("dp", "dp_profile"))
+    log = os.path.join(root, "dp_log.jsonl")
+    for path in (ckpt, prof, log):
+        shutil.rmtree(path, ignore_errors=True)
+        if os.path.isfile(path):
+            os.remove(path)
+    args = [*TRAINVAL_ARGS, *DP_TRAINVAL_ARGS, "--data-dir", data_dir,
+            "--checkpoint", ckpt, "--log-file", log, "--profile-dir", prof]
+    t0 = time.time()
+    run = run_group([sys.executable, "-m", "torch.distributed.run",
+                     "--nproc_per_node", "2", "--master_addr", "127.0.0.1",
+                     "--master_port", str(free_port()), "-m",
+                     "gastx_torch.cli.trainval", *args],
+                    DP_TRAINVAL_TIMEOUT, cwd=REPO,
+                    env={**os.environ, "PYTHONPATH": REPO})
+    wall_s = time.time() - t0
+    if run.returncode != 0:
+        fail(f"trainval under torch.distributed.run exited "
+             f"{run.returncode}:\n{run.stdout[-2000:]}\n{run.stderr[-3000:]}")
+    if "process group of 2 rank(s), 2 on this host, on gloo" not in run.stdout:
+        fail("trainval's two ranks did not take gloo on the one card:\n"
+             + run.stdout[-2000:])
+    with open(log) as f:
+        epochs = [json.loads(line) for line in f]
+    if len(epochs) != 1:
+        fail(f"{len(epochs)} epochs logged, not 1 by rank 0 alone")
+    written = sorted(os.listdir(ckpt))
+    if written != ["epoch_1.pt"]:
+        fail(f"the checkpoint directory holds {written}, not rank 0's "
+             f"epoch_1.pt alone")
+    traces = [os.path.join(prof, f) for f in os.listdir(prof)
+              if f.endswith(".pt.trace.json")]
+    named = [t for t in traces if '"train_step"' in open(t).read()]
+    if not named:
+        fail(f"no trace under {prof} names train_step: {traces}")
+    text = run_trainval([*TRAINVAL_ARGS, *DP_TRAINVAL_ARGS, "--data-dir",
+                         data_dir, "--checkpoint", ckpt, "--evaluate",
+                         "epoch_1.pt", "-no-tta"])
+    p1 = [float(v) for v in re.findall(
+        r"Protocol #1 Error \(MPJPE\): (\S+) mm", text)]
+    logged = epochs[0]["valid_mpjpe_mm"]
+    err = abs(float(np.mean(p1)) - logged)
+    bound = TOL * max(1.0, abs(logged))
+    print(f"  (d) trainval on 2 gloo ranks sharing the card: 1 epoch, "
+          f"{epochs[0]['train_frames']:.0f} train frames in "
+          f"{epochs[0]['train_s']:.2f} s ({wall_s:.1f} s with start-up and "
+          f"evaluation); rank 0 logged valid MPJPE {logged:.4f} mm; a "
+          f"one-process --evaluate of its checkpoint {np.mean(p1):.4f} mm "
+          f"({len(p1)} actions, max|d| {err:.3e}, bound {bound:.3e}); "
+          f"{len(traces)} traces, {len(named)} naming train_step")
+    if len(p1) != 2 or not err <= bound:
+        fail(f"the one-process evaluation of rank 0's checkpoint gives "
+             f"{p1}, not the logged {logged} mm")
+    return {"epoch": epochs[0], "wall_s": wall_s, "evaluate_mm": p1,
+            "max_abs_err": err, "traces": len(traces)}
+
+
+def example_on_card() -> dict:
+    """Phase 12 (e): ``gastx_torch.examples.train_synthetic`` at its
+    defaults on the card; it must exit 0 (its own 3x gate)."""
+    import contextlib
+    import io
+    import re
+
+    from gastx_torch.examples.train_synthetic import main as example
+
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        rc = example([*EXAMPLE_ARGS, "--device", "cuda"])
+    s = time.time() - t0
+    text = out.getvalue()
+    held = [float(v) for v in re.findall(r"held-out (\S+) mm", text)]
+    untrained = float(re.search(r"untrained held-out MPJPE: (\S+) mm",
+                                text).group(1))
+    print(f"  (e) examples.train_synthetic {' '.join(EXAMPLE_ARGS)}: exit "
+          f"{rc} in {s:.1f} s; held-out MPJPE {untrained:.1f} -> "
+          f"{held[-1]:.1f} mm")
+    if rc != 0:
+        fail("the synthetic example failed its gate:\n" + text[-2000:])
+    return {"s": s, "untrained_mm": untrained, "held_out_mm": held[-1]}
+
+
+def entry_on_card(dev) -> dict:
+    """Phase 12 (f): ``gastx_torch.entry.entry()``'s forward on the card
+    against the plain route, ``profiling.benchmark`` of it (windows/s) and
+    ``flops_estimate`` of the plain route."""
+    from gastx_torch.entry import entry
+    from gastx_torch.utils import benchmark, flops_estimate
+
+    fn, (model, x) = entry()
+    err = check("(f) entry() forward (8 windows of 27f)", fn(model, x),
+                model.plain_route_forward(x))
+    bench = benchmark(fn, model, x, iters=50, warmup=5,
+                      items_per_call=x.shape[0])
+    flops = flops_estimate(model.plain_route_forward, x)
+    print(f"  (f) profiling.benchmark of entry(): {bench['items_per_s']:.1f} "
+          f"windows/s, p50 {bench['p50_ms']:.3f} ms, p90 "
+          f"{bench['p90_ms']:.3f} ms; flops_estimate of the plain route "
+          f"{flops:.4e} FLOP a call")
+    if not flops:
+        fail("flops_estimate counted nothing on the plain route")
+    return {"max_abs_err": err, "benchmark": bench, "plain_flops": flops}
+
+
+def ablations_on_card(dev) -> dict:
+    """Phase 12 (g): the three ablation modules on the card against the
+    CPU, in eval and train mode (no dropout: the two devices' generators
+    differ), their output and running statistics."""
+    import copy
+
+    import torch
+
+    from gastx_torch.models.config import graph_statics
+    from gastx_torch.ops import ablations as A
+
+    statics = graph_statics("h36m17")
+    gen = torch.Generator().manual_seed(12)
+    modules = {"SemGraphConv": A.SemGraphConv(128, 128, statics.sym_idx,
+                                              17),
+               "LocalGraphSimple": A.LocalGraphSimple(128, statics),
+               "SingleGlobalGraph": A.SingleGlobalGraph(128, 64, 128, 17)}
+    errs = {}
+    for name, cpu_mod in modules.items():
+        with torch.no_grad():
+            for p in cpu_mod.parameters():
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+        x = torch.randn((64, 25, 17, 128), generator=gen)
+        for mode in ("eval", "train"):
+            card = copy.deepcopy(cpu_mod).to(dev).train(mode == "train")
+            cpu = copy.deepcopy(cpu_mod).train(mode == "train")
+            errs[f"{name} {mode}"] = check(
+                f"(g) {name} ({mode}) card against CPU",
+                card(x.to(dev)).detach().cpu(), cpu(x).detach())
+            for (n, b), c in zip(card.named_buffers(), cpu.buffers()):
+                if "running" in n and not float((b.cpu() - c).abs().max()) \
+                        <= TOL * max(1.0, float(c.abs().max())):
+                    fail(f"(g) {name} ({mode}): the card's {n} differs")
+    return errs
+
+
+def dp_phase(K, dev, report) -> dict:
+    """Phase 12: (a) ``dryrun_multichip(1)`` and the DDP step on one NCCL
+    rank; (b) and (c) two ranks sharing the card over gloo
+    (``dp_pair_rank``); (d) trainval under torch.distributed.run; (e) the
+    synthetic example; (f) the entry and the profiling utilities; (g) the
+    ablations. Every rank is a spawned process joined with a timeout; a
+    rank that fails fails the run."""
+    import numpy as np
+    import torch
+
+    from gastx_torch.cli import reconstruct as rc
+    from gastx_torch.data import coco_h36m
+    from gastx_torch.entry import dryrun_multichip
+    from gastx_torch.geometry import normalize_screen_coordinates
+    from gastx_torch.parallel import spawn
+
+    torch.cuda.empty_cache()
+    res = {}
+
+    def hold(label, cmp, kinds):
+        print(f"  {label}: " + "; ".join(
+            f"{k} {v['max_abs_err']:.3e} ({v['err_over_bound']:.3f} of its "
+            f"bound{', held' if k in kinds else ''})"
+            for k, v in cmp.items()))
+        for k in kinds:
+            if not cmp[k]["err_over_bound"] <= 1.0:
+                fail(f"{label}, {k}: {cmp[k]['tensor']} is "
+                     f"{cmp[k]['max_abs_err']} off")
+
+    # (a) one rank on NCCL.
+    t0 = time.time()
+    losses = dryrun_multichip(1)
+    res["dryrun_1"] = {"losses": losses, "s": time.time() - t0}
+    print(f"  (a) dryrun_multichip(1): losses {losses} "
+          f"({res['dryrun_1']['s']:.1f} s)")
+    res["ddp_one_rank"] = one = spawn(ddp_one_rank, 1,
+                                      timeout=DP_RANK_TIMEOUT)[0]
+    if one["backend"] != "nccl":
+        fail(f"one rank on the card took {one['backend']}, not NCCL")
+    for b in DP_BATCHES:
+        hold(f"(a) DDP step on one NCCL rank against the step without DDP, "
+             f"27f B={b}", one[f"B={b}"], ("loss", "grads"))
+
+    # (b) and (c): two ranks sharing the card over gloo.
+    seqs = []
+    for i, (rf, frames) in enumerate(REQUESTS):
+        if rf == 27:
+            kps, _ = coco_h36m(synthetic_coco(frames, seed=i)[0])
+            seqs.append(normalize_screen_coordinates(
+                kps, w=rc.WIDTH, h=rc.HEIGHT).astype(np.float32))
+    t0 = time.time()
+    res["pair"] = pair = spawn(dp_pair_rank, 2, seqs,
+                               timeout=DP_RANK_TIMEOUT)[0]
+    res["pair"]["s"] = time.time() - t0
+    if pair["backend"] != "gloo":
+        fail(f"two ranks on one card took {pair['backend']}, not gloo")
+    # Adam's first update is about lr * sign(g): a float32 gradient near
+    # zero whose sign the ranks' other summation order flips moves its
+    # parameter by up to 2 lr, and the second step starts from there. So
+    # float32 is held on its first step (the loss, every gradient, the BN
+    # statistics) and float64 on both steps whole, every parameter after
+    # amsgrad included. The ragged step is held on its loss and BN
+    # statistics: where a ReLU's input lies within rounding of zero, the
+    # float32 backward can take the other branch (as between the card and
+    # the CPU, phase 9 (b)), and its gradients are reported.
+    f32 = ("loss", "grads", "bn_stats")
+    for dtype, kinds_by_step in (
+            ("torch.float64", [("loss", "grads", "params", "bn_stats")] * 2),
+            ("torch.float32", [f32, ()])):
+        for i, (cmp, kinds) in enumerate(zip(pair[dtype], kinds_by_step)):
+            hold(f"(b) {dtype[6:]} DP step {i + 1} of two ranks (B="
+                 f"{DP_PAIR_BATCH // 2} each) against one process "
+                 f"(B={DP_PAIR_BATCH})", cmp, kinds)
+    hold(f"(b) ragged DP step ({DP_RAGGED_ROWS} real rows of "
+         f"{DP_PAIR_BATCH}: rank 1's all filler)", pair["ragged"],
+         ("loss", "bn_stats"))
+    print(f"  (b) 27f B={DP_PAIR_BATCH} strided train step, float32, on "
+          f"{report['card']}: two ranks sharing one card over gloo (not a "
+          f"scaling figure) {pair['dp_step_ms']:.3f} ms a step; one process "
+          f"{pair['one_process_step_ms']:.3f} ms; the all-reduce of the "
+          f"gradients' {pair['grad_bytes'] / 1e6:.1f} MB alone (under "
+          f"trace('gastx_torch.grad_allreduce')) {pair['allreduce_ms']:.3f} "
+          f"ms, {pair['allreduce_ms'] / pair['dp_step_ms']:.4f} of the DP "
+          f"step")
+    for r in pair["lift"]:
+        print(f"  (c) sharded flip-TTA lift, {r['frames']} frames: max|d| "
+              f"{r['max_abs_err']:.3e} from the one-process lift (bound "
+              f"{r['bound']:.3e})")
+        if not r["max_abs_err"] <= r["bound"]:
+            fail("the sharded lift disagrees with the one-process lift")
+    want = [k for k, v in report["forwards"]["27f"]["launches_per_forward"]
+            .items() if v]
+    missed = [k for k in want if not pair["dp_launches"].get(k)]
+    unseen = [k for k in ("gemm_epilogue", "sem_graph", "joint_attention")
+              if not any(f"{k}_kernel" in name
+                         for name in pair["profiled_kernels"])]
+    print(f"  (c) rank 0's launches in the sharded lift "
+          f"({pair['lift_s']:.3f} s): {pair['dp_launches']}")
+    if missed or unseen:
+        fail(f"the sharded lift did not launch {missed}, or rank 0's "
+             f"profile does not show {unseen}")
+
+    res["trainval"] = dp_trainval(dev)
+    res["example"] = example_on_card()
+    res["entry"] = entry_on_card(dev)
+    res["ablations"] = ablations_on_card(dev)
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -3216,6 +3782,18 @@ def main() -> int:
             + pl["realtime_launches"].get(counter, 0))
     report["pipeline"]["s"] = time.time() - t11
     print(f"  phase 11 took {report['pipeline']['s']:.1f} s")
+
+    # ---- phase 12: data parallelism, the utilities, example, entry -----
+    report["card_phase12"] = card_state("phase 12")
+    print("phase 12: data parallelism (one NCCL rank; two gloo ranks "
+          "sharing the card), trainval under torch.distributed.run, the "
+          "synthetic example, the entry and the ablations")
+    t12 = time.time()
+    report["dp"] = dp = dp_phase(K, dev, report)
+    for entry, counter in zip(kernels, counters):
+        entry["dp_launches"] = dp["pair"]["dp_launches"].get(counter, 0)
+    report["dp"]["s"] = time.time() - t12
+    print(f"  phase 12 took {report['dp']['s']:.1f} s")
 
     report["kernels"] = kernels
     report["total_s"] = time.time() - t_start

@@ -3,8 +3,7 @@
 The flags, defaults and invalid-combination checks of
 ``gastx.cli.arguments`` (the reference's ``common/arguments.py``), so
 reference invocations work unchanged, plus ``--device`` (default
-``cuda``). ``--profile-dir`` is refused with the ``ROADMAP.md`` item it
-waits for (queue 1 item 8, profiling).
+``cuda``).
 """
 from __future__ import annotations
 
@@ -92,8 +91,7 @@ def parse_args(argv=None):
     parser.add_argument("--log-file", default="", type=str, metavar="PATH",
                         help="JSONL per-epoch metric log (gastx extension)")
     parser.add_argument("--profile-dir", default="", type=str, metavar="PATH",
-                        help="profiler trace of the first training epoch "
-                             "(not ported yet)")
+                        help="profiler trace of the first training epoch")
     parser.add_argument("--device", default=None, type=str, metavar="DEV",
                         help="torch device (default: cuda)")
 
@@ -121,7 +119,4 @@ def parse_args(argv=None):
     if args.export_training_curves and args.no_eval:
         parser.error("--export-training-curves and --no-eval cannot be set "
                      "at the same time")
-    if args.profile_dir:
-        parser.error("--profile-dir is not ported yet (ROADMAP.md queue 1 "
-                     "item 8, profiling)")
     return args

@@ -12,10 +12,22 @@ evaluation with flip TTA, by subject with ``--by-subject``, or with
     python -m gastx_torch.cli.trainval -k cpn_ft_h36m_dbb --evaluate epoch_best.pt
 
 It runs on ``cuda`` unless ``--device`` names another device, on one
-device. Training takes the strided variant for ``--stride 1`` (else the
-dilated one), through the plain ops with autograd; every evaluation pass
-runs ``lift_sequences`` on the model in eval mode, on the hand-written
+device, or data-parallel over the ranks of ``python -m
+torch.distributed.run --nproc_per_node N -m gastx_torch.cli.trainval``
+(the JAX trainval's mesh): NCCL where each rank has a card of its own,
+gloo where ranks share a card or run on the CPU
+(``gastx_torch.parallel``). Every rank runs the same seeded batcher; each
+batch is padded to a multiple of the ranks with zero-weight rows and
+each rank steps on its rows through DDP, with the global batch's BN
+statistics and dropout masks, so that N ranks compute the one-process
+step. Every rank evaluates; only rank 0 prints, logs and writes
+checkpoints (the bare module's state, which a one-process run loads).
+Training takes the strided variant for ``--stride 1`` (else the dilated
+one), through the plain ops with autograd; every evaluation pass runs
+``lift_sequences`` on the model in eval mode, on the hand-written
 kernels at the ``--matmul-precision`` tier (:func:`build_config`).
+``--profile-dir`` writes a ``torch.profiler`` trace of the first epoch,
+each step under a ``train_step`` range.
 Batches have one fixed size: a ragged last batch is padded with
 zero-weight copies of its last row. Each step draws its dropout masks
 from a generator seeded by (epoch, batch index), so a resume needs no
@@ -29,12 +41,14 @@ host (matplotlib; it raises where matplotlib is missing).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gastx_torch.cli.arguments import parse_args
 from gastx_torch.data.generators import ChunkedBatcher
@@ -48,10 +62,13 @@ from gastx_torch.io import (adam_state_dict, load_jax_checkpoint,
                             load_torch_checkpoint)
 from gastx_torch.models import GastNetConfig, build_gastnet
 from gastx_torch.models.config import TPU_MIXED_PRECISION_OVERRIDES
+from gastx_torch.parallel import (init_distributed, make_mesh, replicate,
+                                  shard_batch)
 from gastx_torch.train import (load_checkpoint, make_optimizer,
                                restore_batcher_random_state, save_checkpoint,
                                train_step)
-from gastx_torch.utils import MetricLogger, export_training_curves
+from gastx_torch.utils import (MetricLogger, capture_trace,
+                               export_training_curves, trace)
 
 LAYOUTS = {17: "h36m17", 16: "sh16", 15: "humaneva15", 19: "h36m19"}
 # The reference's acceptance bar: a best checkpoint is kept only under it.
@@ -86,9 +103,31 @@ def step_seed(epoch: int, batch_index: int) -> int:
 
 
 def main(argv=None):
+    """Train and evaluate as the flags say; returns the (bare) model. Under
+    ``torch.distributed.run`` (``WORLD_SIZE`` set) it joins the process
+    group and leaves it at the end; ranks other than 0 print nothing."""
     args = parse_args(argv)
-    print(args)
     device = resolve_device(args.device)
+    if "WORLD_SIZE" not in os.environ:
+        return run(args, device, None)
+    init_distributed(device=device)
+    try:
+        world = dist.get_world_size()
+        mesh = make_mesh(None if device.type == "cuda" else [device] * world)
+        with contextlib.ExitStack() as stack:
+            if mesh.rank:
+                stack.enter_context(contextlib.redirect_stdout(
+                    stack.enter_context(open(os.devnull, "w"))))
+            return run(args, mesh.device, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def run(args, device, mesh):
+    """:func:`main` on ``device``, over ``mesh``'s ranks (None: one
+    process)."""
+    print(args)
+    main_rank = mesh is None or mesh.rank == 0
     os.makedirs(args.checkpoint, exist_ok=True)
 
     (keypoints, dataset, keypoints_metadata, kps_left, kps_right,
@@ -157,44 +196,58 @@ def main(argv=None):
             train_batcher.set_random_state(batcher_rng)
         print(f"INFO: Training on {train_batcher.num_frames()} frames")
 
+        # The DDP wrapper steps; the bare model evaluates and is saved.
+        stepped = model if mesh is None else replicate(mesh, model)
         opt = make_optimizer(model.parameters(), lr)
         if opt_state is not None:
             if jax_ckpt:  # the amsgrad moments by parameter name
                 opt_state = adam_state_dict(opt_state, model, opt)
             opt.load_state_dict(opt_state)
         generator = torch.Generator(device=device)
-        metric_log = MetricLogger(args.log_file or None)
+        metric_log = MetricLogger(args.log_file if main_rank
+                                  and args.log_file else None)
         losses_train, losses_train_eval, losses_valid = [], [], []
         loss_min = BEST_BAR_MM
+        # One fixed batch shape: full_batch rounded up to the ranks, so
+        # that shard_batch never adds weight-1 duplicates.
+        ranks = 1 if mesh is None else mesh.size
+        padded_batch = -(-full_batch // ranks) * ranks
 
         def prepare(batch):
-            """Pad a ragged batch with zero-weight filler rows; stage it."""
+            """Pad a ragged batch with zero-weight filler rows; stage it
+            (this rank's rows under a mesh)."""
             _, batch_3d, batch_2d = batch
             b = batch_2d.shape[0]
-            weights = np.zeros(full_batch, np.float32)
+            weights = np.zeros(padded_batch, np.float32)
             weights[:b] = 1.0
-            if b < full_batch:
-                reps = full_batch - b
+            if b < padded_batch:
+                reps = padded_batch - b
                 batch_2d = np.concatenate(
                     [batch_2d, np.repeat(batch_2d[-1:], reps, 0)])
                 batch_3d = np.concatenate(
                     [batch_3d, np.repeat(batch_3d[-1:], reps, 0)])
-            return (stage(batch_2d.astype(np.float32), device),
-                    stage(batch_3d.astype(np.float32), device),
-                    stage(weights, device), b)
+            arrays = (batch_2d.astype(np.float32),
+                      batch_3d.astype(np.float32), weights)
+            if mesh is not None:
+                return (*shard_batch(mesh, *arrays)[0], b)
+            return (*(stage(a, device) for a in arrays), b)
 
         while epoch < args.epochs:
             start_time = time.time()
             loss_sum = torch.zeros((), dtype=torch.float64, device=device)
             n_frames = 0
-            for bi, (b2, b3, w, b) in enumerate(prefetch_to_device(
-                    train_batcher.next_epoch(), prepare)):
-                generator.manual_seed(step_seed(epoch, bi))
-                loss = train_step(model, opt, b2, b3, w, lr, generator,
-                                  train_variant)
-                frames = b * args.stride
-                loss_sum += loss * frames
-                n_frames += frames
+            profile_dir = (args.profile_dir or None) if epoch == 0 else None
+            with capture_trace(profile_dir):
+                for bi, (b2, b3, w, b) in enumerate(prefetch_to_device(
+                        train_batcher.next_epoch(), prepare)):
+                    generator.manual_seed(step_seed(epoch, bi))
+                    with trace("train_step"):
+                        loss = train_step(stepped, opt, b2, b3, w, lr,
+                                          generator, train_variant,
+                                          mesh=mesh, weight_sum=float(b))
+                    frames = b * args.stride
+                    loss_sum += loss * frames
+                    n_frames += frames
             losses_train.append(loss_sum.item() / n_frames)
             train_s = time.time() - start_time
 
@@ -228,10 +281,11 @@ def main(argv=None):
                 if losses_valid[-1] * 1000 < loss_min:
                     chk_path = os.path.join(args.checkpoint, "epoch_best.pt")
                     print("Saving checkpoint to", chk_path)
-                    save_checkpoint(
-                        chk_path, epoch=epoch, lr=lr, model=model,
-                        optimizer=opt,
-                        batcher_random_state=train_batcher.random_state())
+                    if main_rank:
+                        save_checkpoint(
+                            chk_path, epoch=epoch, lr=lr, model=model,
+                            optimizer=opt,
+                            batcher_random_state=train_batcher.random_state())
                     loss_min = losses_valid[-1] * 1000
 
             lr *= args.lr_decay
@@ -240,18 +294,21 @@ def main(argv=None):
             if epoch % args.checkpoint_frequency == 0:
                 chk_path = os.path.join(args.checkpoint, f"epoch_{epoch}.pt")
                 print("Saving checkpoint to", chk_path)
-                save_checkpoint(
-                    chk_path, epoch=epoch, lr=lr, model=model, optimizer=opt,
-                    batcher_random_state=train_batcher.random_state())
+                if main_rank:
+                    save_checkpoint(
+                        chk_path, epoch=epoch, lr=lr, model=model,
+                        optimizer=opt,
+                        batcher_random_state=train_batcher.random_state())
 
-            if args.export_training_curves and epoch > 3:
+            if args.export_training_curves and epoch > 3 and main_rank:
                 export_training_curves(
                     os.path.join(args.checkpoint, "loss_3d.png"),
                     losses_train, losses_train_eval, losses_valid)
 
     if args.render:
-        render(args, model, keypoints, dataset, keypoints_metadata,
-               (kps_left, kps_right))
+        if main_rank:
+            render(args, model, keypoints, dataset, keypoints_metadata,
+                   (kps_left, kps_right))
         return model
 
     print("Evaluating...")

@@ -8,6 +8,14 @@ swaps left/right input joints (``in_perm``), and its output is un-flipped
 with the 3D layout's ``perm`` before the two halves are averaged. Valid
 convs make the trailing bucket fill's outputs garbage that is trimmed, so
 bucketing is exact.
+
+With a data-parallel ``mesh`` (``gastx_torch.parallel``), serving-style
+inference as the JAX ``mesh=`` argument gives it: each bucket's batch is
+padded to a multiple of the mesh size as well, each rank lifts its
+contiguous rows (with their flip TTA) on its device, and the outputs are
+gathered so that every rank returns every sequence's result, which is
+the one-process result (each row's forward is independent of the
+others).
 """
 from __future__ import annotations
 
@@ -15,9 +23,11 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gastx_torch.geometry import camera_to_world
 from gastx_torch.models.gastnet import GastNet
+from gastx_torch.parallel.mesh import Mesh, batch_sharding
 from gastx_torch.skeleton import get_layout
 
 # Camera->world rotation of the in-the-wild demos.
@@ -84,13 +94,16 @@ def _lift_batch(model: GastNet, x: torch.Tensor, tta: bool,
 
 
 def lift_sequences(model: GastNet, sequences: Sequence[np.ndarray], *,
-                   tta: bool = True, kps_lr=None) -> List[np.ndarray]:
+                   tta: bool = True, kps_lr=None,
+                   mesh: Optional[Mesh] = None) -> List[np.ndarray]:
     """Lift normalized 2D sequences [(T_i, J, C_in)] to [(T_i, J, 3)] on
     the model's device.
 
     ``kps_lr``: optional (left, right) index lists of the 2D detections'
     mirror columns, for a 2D joint order that differs from the 3D
-    layout's.
+    layout's. ``mesh``: lift each bucket's rows across its ranks (every
+    rank calls this with the same sequences; the model is the bare
+    module, not its DDP wrapper).
     """
     cfg = model.cfg
     device = next(model.parameters()).device
@@ -115,19 +128,37 @@ def lift_sequences(model: GastNet, sequences: Sequence[np.ndarray], *,
                              0, seq.shape[0] - 1)
             batch.append(seq[gather])
         m = len(batch)
-        batch.extend([np.zeros_like(batch[0])] * ((1 << (m - 1).bit_length())
-                                                  - m))
-        x = torch.from_numpy(np.stack(batch)).to(device)
-        y = _lift_batch(model, x, tta, kps_perm).cpu().numpy()
+        m_pad = 1 << (m - 1).bit_length()
+        if mesh is not None:  # ... and to a multiple of the mesh size
+            m_pad = -(-m_pad // mesh.size) * mesh.size
+        batch.extend([np.zeros_like(batch[0])] * (m_pad - m))
+        x = np.stack(batch)
+        if mesh is None:
+            y = _lift_batch(model, torch.from_numpy(x).to(device), tta,
+                            kps_perm)
+        else:
+            rows = torch.from_numpy(x[batch_sharding(mesh, m_pad)])
+            y = _gather_rows(_lift_batch(model, rows.to(device), tta,
+                                         kps_perm), mesh)
+        y = y.cpu().numpy()
         for row, i in enumerate(idxs):
             results[i] = np.array(y[row, :sequences[i].shape[0]])
     return results
 
 
+def _gather_rows(y: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Every rank's rows of ``y``, in rank order, on every rank."""
+    if mesh.size == 1:
+        return y
+    parts = [torch.empty_like(y) for _ in range(mesh.size)]
+    dist.all_gather(parts, y.contiguous(), group=mesh.group)
+    return torch.cat(parts)
+
+
 def lift_to_world(model: GastNet, sequences: Sequence[np.ndarray], *,
-                  tta: bool = True, rot: np.ndarray = DEMO_ROT
-                  ) -> List[np.ndarray]:
+                  tta: bool = True, rot: np.ndarray = DEMO_ROT,
+                  mesh: Optional[Mesh] = None) -> List[np.ndarray]:
     """Lift, then rotate the predictions into world coordinates."""
-    preds = lift_sequences(model, sequences, tta=tta)
+    preds = lift_sequences(model, sequences, tta=tta, mesh=mesh)
     return [camera_to_world(torch.from_numpy(p), torch.from_numpy(rot),
                             0.0).numpy() for p in preds]

@@ -116,3 +116,63 @@ def params_from_jax(params: Mapping, state: Optional[Mapping],
 
     put_pconv("shrink.weight", params["shrink"]["w"])
     return sd
+
+
+def ablation_params_from_jax(params: Mapping, state: Optional[Mapping] = None
+                             ) -> Dict[str, torch.Tensor]:
+    """The JAX parameter dict (and BN state) of one ablation module of
+    ``gastx.ops.ablations`` -> the ``state_dict`` of its port in
+    ``gastx_torch.ops.ablations``, told apart by its keys:
+    ``sem_graph_conv``'s (W0, W1, e[, bias]) -> ``SemGraphConv``,
+    ``local_graph_simple``'s (sym, con, bn_sym, bn_con, cat_w, cat_bn) ->
+    ``LocalGraphSimple``, ``single_global_graph``'s (theta_w, ...,
+    C_k, bn) -> ``SingleGlobalGraph``. Without ``state`` the BN buffers
+    are left out (load with ``strict=False``)."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(key, arr):
+        sd[key] = torch.from_numpy(np.array(arr, np.float32, order="C"))
+
+    def put_sem(prefix, p):
+        put(f"{prefix}W", np.stack([np.asarray(p["W0"]),
+                                    np.asarray(p["W1"])]))
+        put(f"{prefix}e", np.asarray(p["e"]).reshape(1, -1))
+        if "bias" in p:
+            put(f"{prefix}bias", p["bias"])
+
+    def put_bn(prefix, p, s):
+        put(f"{prefix}.weight", p["scale"])
+        put(f"{prefix}.bias", p["bias"])
+        if s is not None:
+            put(f"{prefix}.running_mean", s["mean"])
+            put(f"{prefix}.running_var", s["var"])
+            sd[f"{prefix}.num_batches_tracked"] = torch.tensor(
+                0, dtype=torch.int64)
+
+    def sub(key):
+        return None if state is None else state[key]
+
+    if "W0" in params:
+        put_sem("", params)
+    elif "sym" in params:
+        put_sem("gcn_sym.", params["sym"])
+        put_sem("gcn_con.", params["con"])
+        put_bn("bn_1", params["bn_sym"], sub("bn_sym"))
+        put_bn("bn_2", params["bn_con"], sub("bn_con"))
+        put("cat_conv.weight",
+            np.transpose(np.asarray(params["cat_w"]))[:, :, None, None])
+        put_bn("cat_bn", params["cat_bn"], sub("cat_bn"))
+    elif "theta_w" in params:
+        for name in ("theta", "phi", "g"):  # (C, W) -> (W, C, 1)
+            put(f"attentions.{name}.weight",
+                np.transpose(np.asarray(params[f"{name}_w"]))[:, :, None])
+            put(f"attentions.{name}.bias", params[f"{name}_b"])
+        proj = np.concatenate([np.asarray(params["proj_theta"]),
+                               np.asarray(params["proj_phi"])])
+        put("attentions.concat_project.0.weight", proj[None, :, None, None])
+        put("attentions.C_k", params["C_k"])
+        put_bn("bn", params["bn"], sub("bn"))
+    else:
+        raise ValueError(f"not an ablation module's parameters: "
+                         f"{sorted(params)}")
+    return sd

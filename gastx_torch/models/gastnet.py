@@ -113,6 +113,7 @@ from gastx_torch.ops.graph import (block_concat, dropout, global_concat,
 from gastx_torch.ops.precision import resolve_tiers
 from gastx_torch.ops.temporal import (pconv_weight, pointwise,
                                       tconv_weight, temporal_conv)
+from gastx_torch.parallel.mesh import Mesh
 
 # Levels up to this width run the level wrapper; wider ones run the conv
 # chain in torch and then fused_gab (see the module docstring).
@@ -231,22 +232,24 @@ class GastNet(nn.Module):
                 self.layers_conv[2 * i - 1], self.layers_bn[2 * i - 1])
 
     def forward(self, x: torch.Tensor, variant: str = "dilated", *,
-                generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
         """(B, T, J, C_in) normalized 2D keypoints -> (B, T_out, J, 3)
         (``cfg.output_frames(T, variant)`` frames). In eval mode, without
         gradients, on the route ``cfg.gab_impl``, ``cfg.attn_impl`` and
         ``cfg.packed_channels`` pick for ``variant`` (the module
         docstring's table). In train mode the train forward, its dropout
         masks drawn from ``generator`` (required when ``cfg.dropout`` >
-        0)."""
+        0); under a data-parallel ``mesh`` (``gastx_torch.parallel``) on
+        this rank's rows of the global batch, whose BN statistics and
+        dropout masks it takes."""
         if self.training:
             if self.cfg.dropout > 0.0 and generator is None:
                 raise ValueError("a train forward with dropout > 0 needs a "
                                  "torch.Generator (generator=...)")
             self._check_input(x, variant)
             return self._plain_forward(x, variant, train=True,
-                                       generator=generator)
+                                       generator=generator, mesh=mesh)
         with torch.no_grad():
             return self._kernel_forward(x, variant)
 
@@ -354,19 +357,20 @@ class GastNet(nn.Module):
             outs.append(out.reshape(b, tt, j, g_ch))
         return outs
 
-    def _expand(self, x: torch.Tensor, variant: str, train: bool = False
-                ) -> torch.Tensor:
+    def _expand(self, x: torch.Tensor, variant: str, train: bool = False,
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
         """init_bn -> expand conv (strided by fw[0] in the strided
         variant) -> BN -> ReLU, in plain torch."""
         stride = self.cfg.filter_widths[0] if variant == "strided" else 1
-        y = batch_norm(x, self.init_bn, train=train)
+        y = batch_norm(x, self.init_bn, train=train, mesh=mesh)
         y = temporal_conv(y, tconv_weight(self.expand_conv), stride=stride)
-        return torch.relu(batch_norm(y, self.expand_bn, train=train))
+        return torch.relu(batch_norm(y, self.expand_bn, train=train,
+                                     mesh=mesh))
 
     def _conv_chain(self, y: torch.Tensor, i: int, dilation: int,
                     variant: str, train: bool = False,
-                    generator: Optional[torch.Generator] = None
-                    ) -> torch.Tensor:
+                    generator: Optional[torch.Generator] = None,
+                    mesh: Optional[Mesh] = None) -> torch.Tensor:
         """Level ``i``'s temporal conv -> BN -> ReLU -> 1x1 -> BN -> ReLU
         (-> dropout in train mode) -> + residual: dilated (at dilation 1
         and the dense width with ``dense``) with the pads' residual slice,
@@ -383,11 +387,11 @@ class GastNet(nn.Module):
             res = y[:, pad + shift: y.shape[1] - pad + shift]
             z = temporal_conv(y, tconv_weight(conv_t),
                               dilation=1 if cfg.dense else dilation)
-        z = torch.relu(batch_norm(z, bn_t, train=train))
+        z = torch.relu(batch_norm(z, bn_t, train=train, mesh=mesh))
         z = pointwise(z, pconv_weight(conv_1))
-        z = torch.relu(batch_norm(z, bn_1, train=train))
+        z = torch.relu(batch_norm(z, bn_1, train=train, mesh=mesh))
         if train and cfg.dropout > 0.0:
-            z = dropout(z, cfg.dropout, generator)
+            z = dropout(z, cfg.dropout, generator, mesh)
         return res + z
 
     @torch.no_grad()
@@ -401,8 +405,8 @@ class GastNet(nn.Module):
 
     def _plain_forward(self, x: torch.Tensor, variant: str, *,
                        train: bool = False,
-                       generator: Optional[torch.Generator] = None
-                       ) -> torch.Tensor:
+                       generator: Optional[torch.Generator] = None,
+                       mesh: Optional[Mesh] = None) -> torch.Tensor:
         """The plain ops level by level, in the weights' dtype (float32;
         float64 for a float64 copy of the model); with ``train``,
         batch-statistic BN and dropout, the masks drawn in the JAX
@@ -410,13 +414,16 @@ class GastNet(nn.Module):
         global branch)."""
         cfg, statics = self.cfg, self.statics
         gabs = self.layers_graph_conv
-        kw = dict(train=train, rate=cfg.dropout, generator=generator)
-        y = self._expand(x.to(self.shrink.weight.dtype), variant, train)
+        kw = dict(train=train, rate=cfg.dropout, generator=generator,
+                  mesh=mesh)
+        y = self._expand(x.to(self.shrink.weight.dtype), variant, train,
+                         mesh)
         y = graph_attention_block(y, gabs[0], statics, **kw)
         dilation = cfg.filter_widths[0]
         for i in range(1, cfg.num_levels):
             y = graph_attention_block(
-                self._conv_chain(y, i, dilation, variant, train, generator),
+                self._conv_chain(y, i, dilation, variant, train, generator,
+                                 mesh),
                 gabs[i], statics, **kw)
             dilation *= cfg.filter_widths[i]
         return pointwise(y, pconv_weight(self.shrink))

@@ -7,26 +7,44 @@ normalize (biased variance) and the running statistics take one momentum
 step in place (the unbiased variance), as ``nn.BatchNorm2d`` does. Every
 row of the batch enters the statistics, the zero-weight filler rows of a
 ragged last batch included, as in the JAX package (``PARITY.md``).
+
+Under a mesh of more than one rank (``gastx_torch.parallel``) train mode
+takes the statistics of the global batch, every rank's rows, as the JAX
+mesh's ``psum`` gives them: the sum over ranks of each rank's sum, then
+of its sum of squares about that mean (:func:`all_reduce_sum`, whose
+backward sums the gradients over the ranks), and the running variance's
+n / (n - 1) with the global n. Every rank holds the same number of rows
+(``shard_batch`` pads to a multiple of the mesh size).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
+
+from gastx_torch.parallel.mesh import Mesh, all_reduce_sum
 
 EPS = 1e-5
 MOMENTUM = 0.1
 
 
 def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, *,
-               train: bool = False) -> torch.Tensor:
+               train: bool = False, mesh: Optional[Mesh] = None
+               ) -> torch.Tensor:
     """Normalize ``x`` (..., C) with ``bn``'s running statistics, or in
-    train mode with the batch's, updating ``bn``'s running statistics."""
+    train mode with the batch's (the global batch's under a ``mesh`` of
+    more than one rank), updating ``bn``'s running statistics."""
     if train:
-        var, mean = torch.var_mean(x, dim=tuple(range(x.dim() - 1)),
-                                   correction=0)
+        dims = tuple(range(x.dim() - 1))
         n = x.numel() // x.shape[-1]
+        if mesh is None or mesh.size == 1:
+            var, mean = torch.var_mean(x, dim=dims, correction=0)
+        else:
+            n *= mesh.size
+            mean = all_reduce_sum(x.sum(dim=dims), mesh) / n
+            var = all_reduce_sum(torch.square(x - mean).sum(dim=dims),
+                                 mesh) / n
         with torch.no_grad():
             bn.running_mean.copy_((1.0 - MOMENTUM) * bn.running_mean
                                   + MOMENTUM * mean)

@@ -11,7 +11,10 @@ With ``train=True`` every BN takes the batch statistics (and updates its
 running ones), and :func:`dropout` runs at the JAX package's two GAB
 sites: the local branch's output after its cat BN/ReLU and the global
 branch's after its cat. Every op is differentiable: no in-place write
-touches a tensor that autograd saved.
+touches a tensor that autograd saved. Under a ``mesh`` of more than one
+rank (``gastx_torch.parallel``) the BN statistics and the dropout masks
+are the global batch's, so that the ranks together compute what one
+process computes on the whole batch.
 
   * :func:`sem_ch_graph_conv` — channel-wise semantic graph conv with a
     masked softmax over each adjacency row (fill -9e15, not -inf, as the
@@ -27,6 +30,8 @@ upstream torch layout (gastx_torch.models.gastnet).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -34,6 +39,7 @@ from torch import nn
 
 from gastx_torch.device import check_f32_matmul
 from gastx_torch.ops.batchnorm import batch_norm
+from gastx_torch.parallel.mesh import Mesh, batch_sharding
 from gastx_torch.ops.temporal import pconv_weight
 
 MASK_FILL = -9e15
@@ -63,41 +69,51 @@ def sem_ch_graph_conv(x: torch.Tensor, w: torch.Tensor, e: torch.Tensor,
     return h0 * diag.t() + torch.einsum("cjk,btkc->btjc", off, h1)
 
 
-def dropout(x: torch.Tensor, rate: float,
-            generator: torch.Generator) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
+            mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Inverted dropout: keep each value with probability 1 - ``rate``
     (a mask drawn from ``generator``) and scale the kept ones by
-    1 / (1 - rate), as the JAX ``_dropout`` does."""
+    1 / (1 - rate), as the JAX ``_dropout`` does. Under a ``mesh`` of more
+    than one rank the mask is drawn at the global batch's shape (the
+    generator's offset advances alike on every rank) and this rank keeps
+    its own rows of it, as JAX's dropout over a sharded batch does."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
-                                                   device=x.device))
+    if mesh is None or mesh.size == 1:
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+    else:
+        u = torch.rand((x.shape[0] * mesh.size, *x.shape[1:]),
+                       generator=generator, device=x.device)
+        u = u[batch_sharding(mesh, u.shape[0])]
+    return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
 
 
 def _maybe_dropout(y: torch.Tensor, train: bool, rate: float,
-                   generator) -> torch.Tensor:
+                   generator, mesh: Optional[Mesh]) -> torch.Tensor:
     if train and rate > 0.0:
-        return dropout(y, rate, generator)
+        return dropout(y, rate, generator, mesh)
     return y
 
 
 def local_graph(x: torch.Tensor, mod: nn.Module, statics, *,
                 train: bool = False, rate: float = 0.0,
-                generator=None) -> torch.Tensor:
+                generator=None, mesh: Optional[Mesh] = None
+                ) -> torch.Tensor:
     """Two-branch (mirror symmetry + kinematic connection) local module."""
     j = statics.num_joints
     a = sem_ch_graph_conv(x, mod.gcn_sym.W, mod.gcn_sym.e, statics.sym_idx, j)
     b = sem_ch_graph_conv(x, mod.gcn_con.W, mod.gcn_con.e, statics.con_idx, j)
-    a = torch.relu(batch_norm(a, mod.bn_1, train=train))
-    b = torch.relu(batch_norm(b, mod.bn_2, train=train))
+    a = torch.relu(batch_norm(a, mod.bn_1, train=train, mesh=mesh))
+    b = torch.relu(batch_norm(b, mod.bn_2, train=train, mesh=mesh))
     y = torch.matmul(torch.cat([a, b], dim=-1), pconv_weight(mod.cat_conv))
-    y = torch.relu(batch_norm(y, mod.cat_bn, train=train))
-    return _maybe_dropout(y, train, rate, generator)
+    y = torch.relu(batch_norm(y, mod.cat_bn, train=train, mesh=mesh))
+    return _maybe_dropout(y, train, rate, generator, mesh)
 
 
 def multi_global_graph(x: torch.Tensor, mod: nn.Module, *,
                        train: bool = False, rate: float = 0.0,
-                       generator=None) -> torch.Tensor:
+                       generator=None, mesh: Optional[Mesh] = None
+                       ) -> torch.Tensor:
     """Multi-head attention over joints, one head at a time; head outputs
     concatenate head-major as in the reference's torch.cat."""
     check_f32_matmul(x)
@@ -114,33 +130,36 @@ def multi_global_graph(x: torch.Tensor, mod: nn.Module, *,
         attn = torch.softmax(f, dim=-1) + head.C_k
         outs.append(torch.matmul(attn, g))                     # (B, T, J, G)
     return global_concat(outs, mod, train=train, rate=rate,
-                         generator=generator)
+                         generator=generator, mesh=mesh)
 
 
 def global_concat(heads: list, mod: nn.Module, *, train: bool = False,
-                  rate: float = 0.0, generator=None) -> torch.Tensor:
+                  rate: float = 0.0, generator=None,
+                  mesh: Optional[Mesh] = None) -> torch.Tensor:
     """The global branch's head outputs (head-major) -> K*G->C 1x1 conv ->
     BN -> ReLU (-> dropout in train mode)."""
     y = torch.matmul(torch.cat(heads, dim=-1), pconv_weight(mod.cat_conv))
-    y = torch.relu(batch_norm(y, mod.cat_bn, train=train))
-    return _maybe_dropout(y, train, rate, generator)
+    y = torch.relu(batch_norm(y, mod.cat_bn, train=train, mesh=mesh))
+    return _maybe_dropout(y, train, rate, generator, mesh)
 
 
 def graph_attention_block(x: torch.Tensor, mod: nn.Module, statics, *,
                           train: bool = False, rate: float = 0.0,
-                          generator=None) -> torch.Tensor:
+                          generator=None, mesh: Optional[Mesh] = None
+                          ) -> torch.Tensor:
     """residual ++ local ++ global -> 1x1 conv (3C->2C) -> BN -> ReLU.
     In train mode the local branch's dropout mask is drawn before the
     global branch's, the JAX package's order."""
-    kw = dict(train=train, rate=rate, generator=generator)
+    kw = dict(train=train, rate=rate, generator=generator, mesh=mesh)
     local = local_graph(x, mod.local_graph_layer, statics, **kw)
     globl = multi_global_graph(x, mod.global_graph_layer, **kw)
-    return block_concat(x, local, globl, mod, train=train)
+    return block_concat(x, local, globl, mod, train=train, mesh=mesh)
 
 
 def block_concat(x: torch.Tensor, local: torch.Tensor, globl: torch.Tensor,
-                 mod: nn.Module, *, train: bool = False) -> torch.Tensor:
+                 mod: nn.Module, *, train: bool = False,
+                 mesh: Optional[Mesh] = None) -> torch.Tensor:
     """The GAB's [x, local, global] -> 1x1 conv (3C->2C) -> BN -> ReLU."""
     y = torch.matmul(torch.cat([x, local, globl], dim=-1),
                      pconv_weight(mod.cat_conv))
-    return torch.relu(batch_norm(y, mod.cat_bn, train=train))
+    return torch.relu(batch_norm(y, mod.cat_bn, train=train, mesh=mesh))

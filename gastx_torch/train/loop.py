@@ -7,6 +7,15 @@ the given learning rate. Ragged last batches are padded to the fixed
 batch with zero-weight filler rows, so the loss and its gradient are the
 partial batch's mean; the filler rows still enter the BN batch
 statistics, as in the JAX package (``PARITY.md``).
+
+Under a data-parallel mesh (``gastx_torch.parallel``) each rank steps on
+its rows of the global batch through the DDP-wrapped model: the BN
+statistics and dropout masks are the global batch's, and the local loss
+is ``world * sum_local(err * w) / sum_global(w)``, so that DDP's mean of
+the ranks' gradients is the gradient of the JAX loss ``sum(err * w) /
+sum(w)`` over the whole batch. Every rank assembled the same global
+batch, so ``sum_global(w)`` is known on the host (``weight_sum``), and a
+rank holding only filler rows divides by it, not by its own zero.
 """
 from __future__ import annotations
 
@@ -17,6 +26,7 @@ import torch
 from gastx_torch.device import check_f32_matmul
 from gastx_torch.eval.metrics import mpjpe
 from gastx_torch.models.gastnet import GastNet
+from gastx_torch.parallel.mesh import Mesh, all_reduce_sum
 from gastx_torch.train.optimizer import set_lr
 
 
@@ -28,29 +38,44 @@ def root_relative(batch_3d: torch.Tensor) -> torch.Tensor:
 
 
 def weighted_loss(pred: torch.Tensor, target: torch.Tensor,
-                  sample_weight: torch.Tensor) -> torch.Tensor:
-    """Per-sample MPJPE averaged with ``sample_weight`` (B,)."""
+                  sample_weight: torch.Tensor,
+                  weight_sum: Optional[float] = None) -> torch.Tensor:
+    """Per-sample MPJPE weighted by ``sample_weight`` (B,), summed and
+    divided by ``weight_sum`` (default: the sum of ``sample_weight``)."""
     err = torch.linalg.norm(pred - target, dim=-1).mean(dim=(1, 2))
-    return torch.sum(err * sample_weight) / torch.sum(sample_weight)
+    total = torch.sum(sample_weight) if weight_sum is None else weight_sum
+    return torch.sum(err * sample_weight) / total
 
 
 def train_step(model: GastNet, opt: torch.optim.Optimizer,
                batch_2d: torch.Tensor, batch_3d: torch.Tensor,
                sample_weight: torch.Tensor, lr: float,
                generator: Optional[torch.Generator],
-               variant: str = "strided") -> torch.Tensor:
+               variant: str = "strided", *, mesh: Optional[Mesh] = None,
+               weight_sum: Optional[float] = None) -> torch.Tensor:
     """One step on ``batch_2d`` (B, T_in, J, C_in) and the camera-space
     targets ``batch_3d`` (B, T_out, J, 3), ``sample_weight`` (B,) zero
-    for filler rows. Returns the loss (a device scalar, not synced)."""
+    for filler rows. Under a ``mesh`` these are this rank's rows, the
+    ``model`` is wrapped by ``parallel.replicate``, and ``weight_sum``
+    (the global batch's sum of ``sample_weight``; by default this batch's)
+    is required beyond one rank. Returns the loss of the whole batch (a
+    device scalar, not synced)."""
     check_f32_matmul(batch_2d)
+    ranks = 1 if mesh is None else mesh.size
+    if ranks > 1 and weight_sum is None:
+        raise ValueError("a step over more than one rank needs weight_sum, "
+                         "the global batch's sum of sample weights")
     model.train()
-    loss = weighted_loss(model(batch_2d, variant, generator=generator),
-                         root_relative(batch_3d), sample_weight)
+    loss = weighted_loss(
+        model(batch_2d, variant, generator=generator, mesh=mesh),
+        root_relative(batch_3d), sample_weight,
+        None if weight_sum is None else weight_sum / ranks)
     opt.zero_grad(set_to_none=True)
     loss.backward()
     set_lr(opt, lr)
     opt.step()
-    return loss.detach()
+    loss = loss.detach()
+    return loss if ranks == 1 else all_reduce_sum(loss, mesh) / ranks
 
 
 def eval_step(model: GastNet, batch_2d: torch.Tensor,

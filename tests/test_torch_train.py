@@ -259,7 +259,8 @@ def test_dropout_sites_match_jax(monkeypatch):
         shapes["jax"].append(tuple(x.shape))
         return jnp.where(keep, x / (1.0 - rate), 0.0)
 
-    def t_dropout(x, rate, generator):
+    def t_dropout(x, rate, generator, mesh=None):
+        assert mesh is None
         keep = torch.from_numpy(mask(tuple(x.shape), rate))
         shapes["torch"].append(tuple(x.shape))
         return torch.where(keep, x / (1.0 - rate), torch.zeros(()))

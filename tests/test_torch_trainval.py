@@ -221,10 +221,11 @@ def test_resume_is_bitwise_on_cpu(synthetic_h36m):
     (["--matmul-precision", "mixed"], "item 2")])
 def test_trainval_refuses_flags_not_ported(synthetic_h36m, capsys, flag,
                                            item):
-    """--profile-dir is refused with the ROADMAP item it waits for;
-    --render (item 6, rendering; test_torch_viz_data runs it) and
-    --matmul-precision (item 2, the precision tiers; test_torch_precision
-    holds its mapping to JAX's) are ported and parse."""
+    """No flag is refused any more: --render (item 6, rendering;
+    test_torch_viz_data runs it) and --matmul-precision (item 2, the
+    precision tiers; test_torch_precision holds its mapping to JAX's)
+    parse, and --profile-dir (item 8, profiling) writes a torch.profiler
+    trace of the first epoch that names each train step."""
     if item == "item 2":
         args = trainval.parse_args(_argv(synthetic_h36m, "ckpt", *flag))
         assert args.matmul_precision == "mixed"
@@ -232,9 +233,63 @@ def test_trainval_refuses_flags_not_ported(synthetic_h36m, capsys, flag,
     if item == "item 6":
         assert trainval.parse_args(_argv(synthetic_h36m, "ckpt", *flag)).render
         return
-    with pytest.raises(SystemExit):
-        trainval.main(_argv(synthetic_h36m, "ckpt", *flag))
-    assert item in capsys.readouterr().err
+    prof = synthetic_h36m / flag[1]
+    trainval.main(_argv(synthetic_h36m, "ckpt", flag[0], str(prof), "-e",
+                        "1", "--no-eval", "-b", "400"))
+    assert "error" not in capsys.readouterr().err
+    traces = list(prof.glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    assert '"train_step"' in traces[0].read_text()
+
+
+def test_trainval_two_gloo_ranks_match_one_process(synthetic_h36m):
+    """trainval's loop under ``torch.distributed.run`` with two gloo ranks
+    on the CPU, on an epoch whose last batch is ragged (100 real rows of
+    500: rank 1 holds only filler rows), gives the one-process epoch loss
+    (the port's counterpart of tests/test_train.py's data-parallel
+    equivalence); only rank 0 logs and writes the checkpoint, which holds
+    the bare model's state."""
+    import json
+    import subprocess
+    import sys
+
+    from gastx_torch.parallel.mesh import free_port
+
+    tmp = synthetic_h36m
+    common = ("-e", "1", "--no-eval", "--checkpoint-frequency", "1",
+              "-b", "500")
+
+    def argv(name):
+        return [*_argv(tmp, name, *common), "--log-file",
+                str(tmp / f"{name}.jsonl")]
+
+    trainval.main(argv("one"))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": repo}
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+         "2", "--master_addr", "127.0.0.1", "--master_port",
+         str(free_port()), "-m", "gastx_torch.cli.trainval", *argv("two")],
+        cwd=repo, env=env, capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-3000:]
+    assert "process group of 2 rank(s)" in run.stdout
+    assert run.stdout.count("Training on 2000 frames") == 1
+
+    def logged(name):
+        with open(tmp / f"{name}.jsonl") as f:
+            records = [json.loads(line) for line in f]
+        assert len(records) == 1
+        return records[0]
+
+    one, two = logged("one"), logged("two")
+    assert one["train_frames"] == two["train_frames"] == 1600
+    np.testing.assert_allclose(two["train_mpjpe_mm"] / 1000,
+                               one["train_mpjpe_mm"] / 1000, atol=ATOL,
+                               rtol=RTOL)
+    assert sorted(os.listdir(tmp / "two")) == ["epoch_1.pt"]
+    sd = load_checkpoint(str(tmp / "two" / "epoch_1.pt"))["model"]
+    assert not any(k.startswith("module.") for k in sd)
+    trainval.main(_argv(tmp, "two", "--evaluate", "epoch_1.pt"))
 
 
 def test_trainval_runs_on_cuda_by_default(synthetic_h36m, monkeypatch):
