@@ -32,7 +32,17 @@ a non-zero exit and no result line:
      the 27-frame model's GAB chains at 153, 51 and 17 rows (C = 128, 256,
      512) and the 81-frame model's GAB 0 at 459 rows (C = 64, on
      ``gab_narrow`` where ``gab_route`` picks it), each on the
-     instantiation ``gemm_variant`` or ``graph_variant`` picks;
+     instantiation ``gemm_variant`` or ``graph_variant`` picks; then the
+     bf16-I/O forms (``bf16_cases``): ``gemm_epilogue`` on the 27f
+     products with bf16 A pieces (the block concat's [x | local |
+     global] with x bf16 and a bf16 output, the projection, the conv
+     taps), a bf16 residual, and a ragged bf16 product on its general
+     instantiation; ``gemm_tc`` at every tier on two of them (its general
+     instantiation); ``gab_narrow`` at C = 32 and 64, bf16 in and out and
+     float32 in, bf16 out; ``fused_gab`` and ``fused_level`` on bf16
+     activations; each checked to launch its kernel with its I/O dtypes
+     (``DTYPE_LAUNCHES``) and held to its plain version (a bf16 output
+     within one bf16 step, ``check_bf16``);
   3. run reconstruct requests through ``gastx_torch.cli.reconstruct
      --random-weights --no-render`` on synthetic COCO keypoint files: 50,
      277 and 1000 frames with the 27-frame model, 277 and 1000 frames with
@@ -66,13 +76,10 @@ a non-zero exit and no result line:
      routes; then each kernel and entry point at its forward's shapes
      against its plain version, and ``gab_narrow`` beside the
      three-kernel chain at the three narrow GABs of the shipped models
-     (C=32, T=241, B=256; C=64, T=79, B=1024; C=64, T=235, B=256); then
-     ``gemm_epilogue`` at each main-path shape (``GEMM_SHAPES``: ms,
-     TFLOP/s, bound, the instantiation, and one ``torch.addmm`` over the
-     same product as a yardstick); then the graph kernels by shape
-     (``GRAPH_SHAPES``, their six launches in a 27f B=1024 and a 243f
-     B=256 forward: device ms per launch from torch.profiler, bound, GB/s,
-     the instantiation);
+     (C=32, T=241, B=256; C=64, T=79, B=1024; C=64, T=235, B=256). The
+     per-shape tables of ``gemm_epilogue`` and of the graph kernels are
+     one-off measurements: ``scripts/torch_gemm_shapes.py`` and
+     ``scripts/torch_graph_kernels.py``;
   5. trace one forward of each of the 27-frame (B=1024), 243-frame
      (B=256), hybrid and packed cells with torch.profiler: device time by
      kernel and the device's idle share;
@@ -185,7 +192,21 @@ a non-zero exit and no result line:
      ``gastx_torch.examples.train_synthetic`` (exit 0: its 3x gate); (f)
      ``gastx_torch.entry.entry()`` against the plain route,
      ``profiling.benchmark`` of it and ``flops_estimate`` of the plain
-     route; (g) the ablation modules on the card against the CPU.
+     route; (g) the ablation modules on the card against the CPU;
+ 13. the JAX package's last config surface at full width
+     (``config_phase``): explicit ``"pallas_level"`` (27f) and
+     ``"pallas_pbatch"`` (243f), a ``gab_impl_levels`` mix (81f),
+     ``storage_dtype="bfloat16"`` at 27f, 81f and 243f, the 81f mixed
+     levels, ``gab_io_dtype`` at 27f, ``"pallas_level"`` on bf16 (243f),
+     the 243f preset with its fold at GAB 0, and that preset on bf16
+     storage (the JAX package's shipped 243f route on a TPU); each with
+     the launch counters zeroed just before and read just after (the
+     entry points, kernels, instantiations and I/O dtypes it must show)
+     and held to ``plain_route_forward`` (float32: the bound below; tiered:
+     ``tiered_check``; bf16 storage: ``storage_check``); then windows/s of
+     the storage cells beside float32 and of the 243f preset without and
+     with fold, each pair in turns; then the bf16-I/O forms timed at a
+     main-path shape for the kernels line (``bf16_kernels``).
 
 Tolerance: each kernel, wrapper and the forward must agree with its plain
 version to max |delta| <= 1e-4 * max(1, max |plain|); both sides compute
@@ -516,59 +537,6 @@ def gemm_library_operands(pieces, m, kw):
             torch.cat([w for _, w, _ in pieces], 0))
 
 
-def gemm_table(K, dev) -> list:
-    """Phase 4's per-shape table: ``gemm_epilogue`` at each
-    ``GEMM_SHAPES`` line, held to its plain version, beside its bound and
-    one ``torch.addmm`` over the same product."""
-    import torch
-
-    print("phase 4: gemm_epilogue by shape (ms, TFLOP/s of the product)")
-    rows = []
-    for i, spec in enumerate(GEMM_SHAPES):
-        label, _, _, ks, n, _, taps, _ = spec
-        pieces, m, kw = gemm_case(spec, dev, seed=100 + i)
-        variant = K.gemm_variant(pieces, n, kw["res"])
-        err = check(label, K.gemm_epilogue(pieces, m, **kw),
-                    K.gemm_epilogue_plain(pieces, m, **kw))
-        ms = cuda_ms(lambda: K.gemm_epilogue(pieces, m, **kw))
-        a_cat, w_cat = gemm_library_operands(pieces, m, kw)
-        library_ms = cuda_ms(lambda: torch.addmm(kw["shift"], a_cat, w_cat))
-        del a_cat, w_cat
-        # Bytes: each input once (a conv's taps share one input).
-        a_elems = (pieces[0][0].numel() if taps
-                   else sum(a.numel() for a, _, _ in pieces))
-        flops, nbytes = gemm_work(m, ks, n, 1, kw["res"] is not None)
-        nbytes += 4 * (a_elems - m * sum(ks))
-        bms, by = bound(flops, nbytes)
-        tflops = 2 * m * n * sum(ks) / ms / 1e9
-        rows.append({"shape": label, "m": m, "ks": list(ks), "n": n,
-                     "variant": variant, "ms": ms, "tflops": tflops,
-                     "library_ms": library_ms,
-                     "library_tflops": 2 * m * n * sum(ks) / library_ms / 1e9,
-                     "bound_ms": bms, "bound_by": by, "max_abs_err": err})
-        print(f"  {label} [{variant}] M={m} K={'+'.join(map(str, ks))} "
-              f"N={n}: {ms:.3f} ms, {tflops:.1f} TFLOP/s; torch.addmm "
-              f"{library_ms:.3f} ms; bound {bms:.3f} by {by}")
-        del pieces, kw
-        torch.cuda.empty_cache()
-    # One 27f B=1024 forward's products, summed.
-    f27 = [r for r in rows if r["shape"].startswith("27f")]
-    print(f"  the {len(f27)} 27f lines: {sum(r['ms'] for r in f27):.3f} ms; "
-          f"torch.addmm {sum(r['library_ms'] for r in f27):.3f} ms")
-    return rows
-
-
-# --------------------------------------------------------------------------
-# sem_graph and joint_attention by shape: their launches in one 27f B=1024
-# and one 243f B=256 forward, (label, receptive field, GAB level, windows,
-# frames at the GAB); J = 17.
-# --------------------------------------------------------------------------
-
-GRAPH_SHAPES = (("27f L0", 27, 0, 1024, 25), ("27f L1", 27, 1, 1024, 19),
-                ("27f L2", 27, 2, 1024, 1), ("243f L2", 243, 2, 256, 217),
-                ("243f L3", 243, 3, 256, 163), ("243f L4", 243, 4, 256, 1))
-
-
 def graph_operands(K, t, rows, dev, seed, offset=0, pad=0):
     """``sem_graph``'s and ``joint_attention``'s arguments for the GAB
     tables ``t`` on one random projection output P of ``rows`` rows, as
@@ -617,70 +585,41 @@ def launched_variant(K, kernel, call):
     return (taken[0] if len(taken) == 1 else str(taken)), got
 
 
+# Profiler windows device_ms opens before it gives up: a trace on the
+# card's machine has come back once without the device activity of a
+# kernel the same call had traced a moment before.
+PROFILE_TRIES = 3
+
+
 def device_ms(fn, key: str, reps: int = 20) -> float:
     """Device time per launch of the kernels whose name holds ``key``, from
     torch.profiler over ``reps`` calls of ``fn``, so that launch overhead
-    does not hide a small shape. Raises if the profiler records no such
-    kernel, so that the yardstick cannot change without notice."""
+    does not hide a small shape. A trace that records no such kernel is
+    taken again (``PROFILE_TRIES`` in all, each retry printed); raises if
+    none does, so that the yardstick cannot change without notice."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and key in ev.key:
-            total += ev.self_device_time_total
-            count += ev.count
-    if not count:
-        raise RuntimeError(f"the profiler recorded no kernel named *{key}*")
-    return total / 1e3 / count
-
-
-def graph_table(K, models, dev) -> list:
-    """Phase 4's "graph kernels by shape": ``sem_graph`` and
-    ``joint_attention`` at each ``GRAPH_SHAPES`` launch of ``models``
-    (keyed by receptive field), each held to its plain version, with its
-    device time per launch, bound, GB/s and the instantiation that
-    launched."""
-    import torch
-    from gastx_torch.ops.cuda.fused_gab import gab_tables
-
-    print("phase 4: graph kernels by shape (device ms per launch)")
-    out = []
-    for i, (label, rf, level, b, t_gab) in enumerate(GRAPH_SHAPES):
-        m = models[rf]
-        t = gab_tables(m.layers_graph_conv[level], m.statics)
-        c, k, inter, g_ch, j, d = K.gab_shape(t)
-        rows = b * t_gab * j
-        sem, attn = graph_operands(K, t, rows, dev, seed=200 + i)
-        for name, fn, plain, args, work in (
-                ("sem_graph", K.sem_graph, K.sem_graph_plain, sem,
-                 sem_work(rows, c, j, d)),
-                ("joint_attention", K.joint_attention,
-                 K.joint_attention_plain, attn,
-                 attn_work(rows, j, k, inter, g_ch))):
-            variant, got = launched_variant(K, name, lambda: fn(*args))
-            err = check(f"{name} {label} [{variant}]", got, plain(*args))
-            del got
-            ms = device_ms(lambda: fn(*args), f"{name}_kernel")
-            bms, by = bound(*work)
-            out.append({"kernel": name, "shape": label, "rows": rows, "c": c,
-                        "variant": variant, "ms": ms, "bound_ms": bms,
-                        "bound_by": by, "gb_per_s": work[1] / ms / 1e6,
-                        "max_abs_err": err})
-            print(f"  {name} {label} ({rows} rows, C={c}) [{variant}]: "
-                  f"{ms:.4f} ms, {work[1] / ms / 1e6:.1f} GB/s; bound "
-                  f"{bms:.4f} by {by} ({bms / ms:.0%})")
-        del sem, attn
-        torch.cuda.empty_cache()
-    return out
+    for attempt in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA and key in ev.key:
+                total += ev.self_device_time_total
+                count += ev.count
+        if count:
+            return total / 1e3 / count
+        print(f"  the profiler recorded no kernel named *{key}* (trace "
+              f"{attempt + 1} of {PROFILE_TRIES})")
+    raise RuntimeError(f"the profiler recorded no kernel named *{key}* in "
+                       f"{PROFILE_TRIES} traces")
 
 
 def graph_cases(K, dev, seed_model):
@@ -1732,6 +1671,14 @@ def tc_work(m, ks, n, has_bn, has_res, tier):
     halves = 2 if tier in ("high", "high_rhs") else 1
     nbytes += (2 * halves - 4) * k * n
     return flops, nbytes, TC_PASSES[tier]
+
+
+def tc_passes(tier: str, a_bf16: bool) -> int:
+    """gemm_tc's bf16 passes over one A piece at ``tier``: A's lo half
+    where the tier splits A and A is float32 (a bf16 A's lo half is zero,
+    and the kernel skips its pass), W's lo half where the tier splits W."""
+    return (1 + (tier in ("high", "high_lhs") and not a_bf16)
+            + (tier in ("high", "high_rhs")))
 
 
 def tc_bound(flops, nbytes, passes):
@@ -3141,6 +3088,480 @@ def dp_phase(K, dev, report) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# bf16 I/O (phase 2) and the JAX package's last config surface (phase 13)
+# --------------------------------------------------------------------------
+
+# bf16's spacing relative to a value, at worst (7 stored mantissa bits).
+BF16_STEP = 2.0 ** -7
+
+
+def check_bf16(name: str, got, plain) -> float:
+    """Hold a bf16 output to its plain version: both round float32 sums
+    that differ only in order, so an element may land on the neighbouring
+    bf16 value. Each element within one bf16 step of the plain value
+    (2^-7 of it) plus the float32 bound; returns the max |d|."""
+    g, p = got.float(), plain.float()
+    err = max_err(g, p)
+    slack = TOL * max(1.0, float(p.abs().max()))
+    over = float(((g - p).abs() - BF16_STEP * p.abs()).max())
+    print(f"  {name}: max|d| {err:.3e} (bound: one bf16 step + "
+          f"{slack:.3e}; worst excess {over:.3e})")
+    if got.dtype != plain.dtype:
+        fail(f"{name}: dtype {got.dtype}, plain {plain.dtype}")
+    if not over <= slack:
+        fail(f"{name} disagrees with its plain version by more than one "
+             f"bf16 step: {over} > {slack}")
+    return err
+
+
+def check_out(name: str, got, plain) -> float:
+    """``check`` for a float32 output, ``check_bf16`` for a bf16 one."""
+    import torch
+
+    if got.dtype == torch.bfloat16:
+        return check_bf16(name, got, plain)
+    return check(name, got, plain)
+
+
+def gemm_bytes(pieces, m, n, kw, out_dtype) -> int:
+    """The bytes a ``gemm_epilogue`` call must move: each distinct A once
+    in its dtype (a conv's taps share one), W, the epilogue vectors, the
+    residual and the output in theirs."""
+    import torch
+
+    seen, total = set(), 0
+    for a, w, _ in pieces:
+        if a.data_ptr() not in seen:
+            seen.add(a.data_ptr())
+            total += a.numel() * a.element_size()
+        total += w.numel() * w.element_size()
+    if kw.get("scale") is not None:
+        total += 8 * n
+    if kw.get("res") is not None:
+        total += kw["res"].numel() * kw["res"].element_size()
+    return total + m * n * torch.empty((), dtype=out_dtype).element_size()
+
+
+# The bf16 cases of gemm_epilogue (phase 2): (label, GEMM_SHAPES index,
+# pieces cast to bf16, residual bf16, output bf16), at B=256 windows; the
+# block concat's pieces are [x (bf16) | local | global] as bf16 storage
+# gives them, the conv taps and residual a bf16 level's input.
+BF16_GEMM_CASES = (
+    ("27f L0 block concat, x bf16 -> bf16", 4, (0,), False, True),
+    ("27f L0 projection, x bf16", 1, (0,), False, False),
+    ("27f L1 dilated conv, taps bf16", 5, (0, 1, 2), False, False),
+    ("27f L1 1x1 + bf16 residual", 6, (), True, False),
+)
+def bf16_gemm_case(K, dev, spec_i, cast, res_bf16, windows, seed):
+    import torch
+
+    pieces, m, kw = gemm_case(GEMM_SHAPES[spec_i], dev, seed,
+                              windows=windows)
+    # A conv's taps share one input: cast it once.
+    cache = {}
+    out = []
+    for p, (a, w, off) in enumerate(pieces):
+        if p in cast:
+            a = cache.setdefault(a.data_ptr(), a.to(torch.bfloat16))
+        out.append((a, w, off))
+    if res_bf16:
+        kw["res"] = kw["res"].to(torch.bfloat16)
+    return out, m, kw
+
+
+def bf16_cases(K, dev, gts, n243, n81, l1t):
+    """Phase 2's bf16-I/O cases: (label, kernel whose launch it is or None
+    for an entry point, its IO_LABELS entry, its instantiation or None,
+    call, plain call). Every output held by ``check_out``."""
+    import torch
+    from gastx_torch.ops.cuda.fused_gab import fused_gab, fused_gab_plain
+    from gastx_torch.ops.cuda.fused_level import (fused_level,
+                                                  fused_level_plain)
+
+    bf = torch.bfloat16
+    cases = []
+    for i, (label, spec_i, cast, res_bf16, out_bf16) in enumerate(
+            BF16_GEMM_CASES):
+        pieces, m, kw = bf16_gemm_case(K, dev, spec_i, cast, res_bf16, 256,
+                                       400 + i)
+        kw["out_dtype"] = bf if out_bf16 else torch.float32
+        io = K.io_label([a for a, _, _ in pieces] + [kw["res"]],
+                        kw["out_dtype"])
+        want = K.gemm_variant(pieces, pieces[0][1].shape[1], kw["res"])
+        cases.append((f"gemm_epilogue {label}", "gemm_epilogue", io, want,
+                      lambda p=pieces, m=m, kw=kw: K.gemm_epilogue(p, m, **kw),
+                      lambda p=pieces, m=m, kw=kw: K.gemm_epilogue_plain(
+                          p, m, **kw)))
+        if spec_i in (4, 6):
+            for tier in K.TC_TIERS:
+                kt = dict(kw, tier=tier)
+                cases.append((
+                    f"gemm_tc {tier} {label}", "gemm_tc", io, "general",
+                    lambda p=pieces, m=m, kw=kt: K.gemm_epilogue(p, m, **kw),
+                    lambda p=pieces, m=m, kw=kt: K.gemm_epilogue_plain(
+                        p, m, **kw)))
+    # A ragged product (K = 130, N = 70) on the general instantiation.
+    gen = torch.Generator(device=dev).manual_seed(410)
+    a = torch.randn((4001, 130), generator=gen, device=dev).to(bf)
+    w = torch.randn((130, 70), generator=gen, device=dev) / 12.0
+    kw = dict(scale=torch.rand(70, generator=gen, device=dev) + 0.5,
+              shift=torch.randn(70, generator=gen, device=dev), relu=True,
+              out_dtype=bf)
+    cases.append(("gemm_epilogue K=130 N=70, bf16 in and out",
+                  "gemm_epilogue", "bf16_io", "general",
+                  lambda: K.gemm_epilogue([(a, w, 0)], 4001, **kw),
+                  lambda: K.gemm_epilogue_plain([(a, w, 0)], 4001, **kw)))
+    # gab_narrow at C = 32 and 64 (243f GAB 0 and 1, 81f GAB 0), bf16 x and
+    # output, and float32 x to a bf16 output (a bf16 level's GAB).
+    for label, t, frames, seed, x_bf16 in (
+            ("C=32, T=241", n243[0], 256 * 241, 411, True),
+            ("C=64, T=79", n81, 256 * 79, 412, True),
+            ("C=64, T=235, float32 in", n243[1], 256 * 235, 413, False)):
+        c = t.w_proj.shape[0]
+        x = torch.randn((frames * 17, c), generator=torch.Generator(
+            device=dev).manual_seed(seed), device=dev)
+        x = x.to(bf) if x_bf16 else x
+        cases.append((f"gab_narrow {label} -> bf16", "gab_narrow",
+                      "bf16_io" if x_bf16 else "bf16_out", None,
+                      lambda x=x, t=t: K.gab_narrow(x, t, bf),
+                      lambda x=x, t=t: K.gab_narrow_plain(x, t, bf)))
+    # The entry points on bf16 activations: the 27f GABs at C=128 and 512
+    # and its level 1, B=256.
+    g = torch.Generator(device=dev).manual_seed(414)
+    x128 = torch.randn((256, 25, 17, 128), generator=g, device=dev).to(bf)
+    x512 = torch.randn((256, 1, 17, 512), generator=g, device=dev).to(bf)
+    x256 = torch.randn((256, 25, 17, 256), generator=g, device=dev).to(bf)
+    cases += [
+        ("fused_gab (C=128, T=25) bf16", None, None, None,
+         lambda: fused_gab(x128, gts[0]),
+         lambda: fused_gab_plain(x128, gts[0])),
+        ("fused_gab (C=512, T=1) bf16", None, None, None,
+         lambda: fused_gab(x512, gts[2]),
+         lambda: fused_gab_plain(x512, gts[2])),
+        ("fused_level (C=256, T=25) bf16", None, None, None,
+         lambda: fused_level(x256, l1t, gts[1], fw=3, dilation=3,
+                             res_off=3),
+         lambda: fused_level_plain(x256, l1t, gts[1], fw=3, dilation=3,
+                                   res_off=3))]
+    return cases
+
+
+def run_bf16_cases(K, cases) -> dict:
+    """Phase 2: each bf16 case held to its plain version, and checked to
+    launch its kernel once, with its I/O dtypes and instantiation."""
+    errs = {}
+    for label, kernel, io, variant, fn, plain in cases:
+        if kernel is None:
+            errs[label] = check_out(label, fn(), plain())
+            continue
+        before_io = K.DTYPE_LAUNCHES[kernel][io]
+        before = dict(K.VARIANT_LAUNCHES.get(kernel, {}))
+        got = fn()
+        if K.DTYPE_LAUNCHES[kernel][io] != before_io + 1:
+            fail(f"{label}: no {kernel} launch with I/O {io}")
+        if variant is not None:
+            taken = [v for v, n in K.VARIANT_LAUNCHES[kernel].items()
+                     if n != before.get(v)]
+            if taken != [variant]:
+                fail(f"{label}: took {taken}, not {variant}")
+        errs[label] = check_out(f"{label} [{io}]", got, plain())
+        del got
+    return errs
+
+
+def dtype_counts(K) -> dict:
+    """Every kernel's launches by I/O dtypes, where non-zero."""
+    return {f"{k} {io}": n for k, counts in K.DTYPE_LAUNCHES.items()
+            for io, n in counts.items() if n}
+
+
+# Phase 13's cells: (label, receptive field, windows held, fields on
+# config_for_frames, what the launch counters must show: (counter, >0 or
+# ==0) pairs over launch_counts and dtype_counts).
+LEVELS_81 = ("pallas_level", "pallas_pbatch", "pallas_local", "xla")
+CONFIG_CELLS = (
+    ("27f pallas_level", 27, 128, {"gab_impl": "pallas_level"},
+     (("fused_level0", True), ("fused_level", True),
+      ("fused_gab_split", True), ("gemm_epilogue bf16_in", False))),
+    ("243f pallas_pbatch", 243, 32, {"gab_impl": "pallas_pbatch"},
+     (("fused_gab_pbatch", True), ("gab_narrow", True),
+      ("fused_level", False))),
+    ("81f gab_impl_levels", 81, 64, {"gab_impl_levels": LEVELS_81},
+     (("fused_level0", True), ("fused_gab", True),
+      ("fused_local_branch", True), ("fused_level", False))),
+    ("27f storage bf16", 27, 128, {"storage_dtype": "bfloat16"},
+     (("gemm_epilogue bf16_in", True), ("gemm_epilogue bf16_io", True),
+      ("fused_level", False), ("fused_level0", False))),
+    ("81f storage bf16", 81, 64, {"storage_dtype": "bfloat16",
+                                  "storage_dtype_levels": ()},
+     (("gab_narrow bf16_io", True), ("gemm_epilogue bf16_io", True),
+      ("fused_level", False))),
+    ("243f storage bf16", 243, 32, {"storage_dtype": "bfloat16"},
+     (("gab_narrow bf16_io", True), ("gemm_epilogue bf16_io", True),
+      ("fused_level", False))),
+    ("81f mixed storage", 81, 64, {"storage_dtype": "bfloat16"},
+     (("gab_narrow bf16_io", True), ("gemm_epilogue float32", True),
+      ("gemm_epilogue bf16_io", True))),
+    ("27f gab_io_dtype", 27, 128, {"gab_io_dtype": "bfloat16"},
+     (("fused_level0", True), ("fused_gab_split", True),
+      ("gemm_epilogue bf16_io", True), ("gemm_epilogue bf16_in", True))),
+    ("243f pallas_level bf16", 243, 32, {"gab_impl": "pallas_level",
+                                         "storage_dtype": "bfloat16"},
+     (("fused_level", True), ("gemm_epilogue bf16_in", True),
+      ("gab_narrow bf16_out", True))),
+)
+# The tiered cells: the 243f preset (its fold at GAB 0), and the JAX
+# package's shipped 243f route on a TPU (bf16 storage, the preset, fold).
+TIERED_CELLS = (
+    ("243f preset fold", 243, 32, {},
+     (("fused_level0", True), ("joint_attention general", True),
+      ("joint_attention highest/default", True))),
+    ("243f preset fold bf16", 243, 32, {"storage_dtype": "bfloat16"},
+     (("gemm_tc bf16_io", True), ("gemm_tc general", True),
+      ("joint_attention highest/default", True))),
+)
+# Windows a second: the storage cells at float32 and bf16, and the 243f
+# preset without and with fold, each pair timed in turns (a, b, b, a).
+THROUGHPUT_CELLS = (("27f", 27, 1024, {}, {"storage_dtype": "bfloat16"}),
+                    ("81f", 81, 1024, {}, {"storage_dtype": "bfloat16",
+                                           "storage_dtype_levels": ()}),
+                    ("81f mixed", 81, 1024, {}, {"storage_dtype": "bfloat16"}),
+                    ("243f", 243, 256, {}, {"storage_dtype": "bfloat16"}),
+                    ("243f preset", 243, 256,
+                     {"gab_kernel_form_levels": ()}, {}))
+
+
+def storage_check(name, got, plain, f32, rounded, levels) -> float:
+    """Hold a bf16-storage forward to the same route through the plain
+    versions: both round activations to bf16 at every level boundary, and
+    an activation whose float32 value the two sum in other orders may
+    round to the neighbouring bf16 value, after which they differ as two
+    draws of bf16 storage do. So, as ``tiered_check`` for a tier, the bound
+    is the float32 one or, where larger, twice the storage's own distance
+    from the float32 forward (through the plain versions), which a broken
+    kernel (a wrong row, tap, head or dtype) far exceeds.
+
+    A route that skipped the rounding would sit near the float32 forward,
+    inside that bound too; so the forward must also lie at least half the
+    plain route's distance from the float32 forward, and ``rounded``, its
+    launches with a bf16 output, must be at least ``levels`` (the GAB of
+    each bf16 level writes the level's output)."""
+    err = max_err(got, plain)
+    gap = max_err(plain, f32)
+    away = max_err(got, f32)
+    bound_ = max(TOL * max(1.0, float(plain.abs().max())), 2 * gap)
+    print(f"  {name}: max|d| {err:.3e} (bound {bound_:.3e}; the storage's "
+          f"own distance from float32 {gap:.3e}, the forward's {away:.3e}; "
+          f"float32 bound {TOL * max(1.0, float(plain.abs().max())):.3e}); "
+          f"{rounded} launches with a bf16 output, {levels} bf16 levels")
+    if not err <= bound_:
+        fail(f"{name} disagrees with its plain route: {err} > {bound_}")
+    if not away >= gap / 2:
+        fail(f"{name} does not round as bf16 storage does: {away} from the "
+             f"float32 forward, the plain route {gap}")
+    if rounded < levels:
+        fail(f"{name}: {rounded} launches with a bf16 output for {levels} "
+             f"bf16 levels")
+    return err
+
+
+def config_phase(K, dev) -> dict:
+    """Phase 13: every route the JAX package's last config knobs select,
+    at full width (``CONFIG_CELLS``, ``TIERED_CELLS``): each cell's
+    forward with the launch counters zeroed just before and read just
+    after (what the counters must show is checked), held to
+    ``plain_route_forward`` (float32 cells: the float32 bound; tiered:
+    ``tiered_check``; bf16 storage: ``storage_check``); then windows/s
+    (``THROUGHPUT_CELLS``)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from gastx_torch.models import build_gastnet, config_for_frames
+    from gastx_torch.models.config import TPU_MIXED_PRECISION_OVERRIDES
+
+    out = {"cells": {}, "throughput": {}}
+    launches_all = {}
+
+    def run(label, rf, b, cfg, want, held):
+        model = build_gastnet(cfg, seed=rf, device=dev)
+        x = torch.from_numpy(np.random.default_rng(rf).standard_normal(
+            (b, rf, 17, 2)).astype(np.float32)).to(dev)
+        K.reset_launches()
+        y = model(x)
+        torch.cuda.synchronize()
+        counts = {**{k: v for k, v in launch_counts(K).items() if v},
+                  **dtype_counts(K)}
+        for key, v in counts.items():
+            launches_all[key] = launches_all.get(key, 0) + v
+        for key, positive in want:
+            if bool(counts.get(key)) != positive:
+                fail(f"phase 13 {label}: {key} launched "
+                     f"{counts.get(key, 0)} times")
+        err = held(label, model, x, y, counts)
+        out["cells"][label] = {"batch": b, "max_abs_err": err,
+                               "launches": counts}
+        print(f"    launches {counts}")
+        del model, x, y
+        torch.cuda.empty_cache()
+
+    def f32_held(label, model, x, y, counts):
+        return check(f"{label} (B={x.shape[0]})", y,
+                     model.plain_route_forward(x))
+
+    def bf16_held(label, model, x, y, counts):
+        levels = max(1, model.level_dtypes().count(torch.bfloat16))
+        rounded = sum(v for k, v in counts.items()
+                      if k.endswith((" bf16_out", " bf16_io")))
+        plain = model.plain_route_forward(x)
+        f32 = with_config(model, dataclasses.replace(
+            model.cfg, storage_dtype="float32", storage_dtype_levels=(),
+            gab_io_dtype="float32")).plain_route_forward(x)
+        return storage_check(f"{label} (B={x.shape[0]})", y, plain, f32,
+                             rounded, levels)
+
+    print("phase 13: the config surface (explicit routes, gab_impl_levels, "
+          "fold, bf16 storage, gab_io_dtype) against plain_route_forward")
+    for label, rf, b, fields, want in CONFIG_CELLS:
+        cfg = dataclasses.replace(config_for_frames(rf, dropout=0.0),
+                                  **fields)
+        bf16 = "bfloat16" in (cfg.storage_dtype, cfg.gab_io_dtype)
+        run(label, rf, b, cfg, want, bf16_held if bf16 else f32_held)
+
+    def tiered_held(label, model, x, y, counts):
+        if model.cfg.storage_dtype == "bfloat16":
+            return bf16_held(label, model, x, y, counts)
+        return tiered_check(f"{label} (B={x.shape[0]})", model, x, y)[0]
+
+    preset = dict(matmul_precision="high",
+                  precision_overrides=TPU_MIXED_PRECISION_OVERRIDES)
+    for label, rf, b, fields, want in TIERED_CELLS:
+        cfg = dataclasses.replace(config_for_frames(rf, dropout=0.0,
+                                                    **preset), **fields)
+        if cfg.gab_kernel_form_levels != ("fold",):
+            fail(f"{label}: the preset does not fold GAB 0")
+        run(label, rf, b, cfg, want, tiered_held)
+    out["launches"] = launches_all
+
+    print("phase 13: windows/s, each pair in turns (a, b, b, a)")
+    for label, rf, b, fa, fb in THROUGHPUT_CELLS:
+        base = config_for_frames(rf, dropout=0.0,
+                                 **(preset if "preset" in label else {}))
+        cfgs = [dataclasses.replace(base, **f) for f in (fa, fb)]
+        model = build_gastnet(cfgs[0], seed=rf, device=dev)
+        x = torch.from_numpy(np.random.default_rng(rf).standard_normal(
+            (b, rf, 17, 2)).astype(np.float32)).to(dev)
+        ms = {0: [], 1: []}
+        for i in (0, 1, 1, 0):
+            with_config(model, cfgs[i])
+            ms[i].append(cuda_ms(lambda: model(x), reps=5))
+        names = (("without fold", "fold") if "preset" in label
+                 else ("float32", "bf16"))
+        out["throughput"][label] = {
+            names[i]: {"ms": float(np.mean(ms[i])), "turns": ms[i],
+                       "windows_per_s": b / (float(np.mean(ms[i])) / 1e3)}
+            for i in (0, 1)}
+        r = out["throughput"][label]
+        print(f"  {label} B={b}: {names[0]} "
+              f"{r[names[0]]['windows_per_s']:.1f} windows/s, {names[1]} "
+              f"{r[names[1]]['windows_per_s']:.1f} (ms turns "
+              f"{[round(v, 3) for v in ms[0] + ms[1]]})")
+        del model, x
+        torch.cuda.empty_cache()
+    return out
+
+
+def bf16_kernels(K, dev, n243, phase13, phase2_errs) -> list:
+    """The bf16-I/O instantiations' entries of the kernels line: each timed
+    at a main-path shape of bf16 storage (the 27f level-0 block concat
+    with bf16 x and output at B=1024, on ``gemm_epilogue`` and on
+    ``gemm_tc`` at every tier; ``gab_narrow`` on the 243f model's C=32 GAB
+    at B=256, bf16 in and out) beside its plain version and its bound (bf16
+    elements at 2 bytes; ``gemm_tc``'s operations at ``tc_passes`` a
+    piece); launches from phase 13 (all bf16 I/O labels)."""
+    import torch
+
+    bf = torch.bfloat16
+    label, spec_i, cast, res_bf16, _ = BF16_GEMM_CASES[0]
+    pieces, m, kw = bf16_gemm_case(K, dev, spec_i, cast, res_bf16, None, 420)
+    kw["out_dtype"] = bf
+    ks = [a.shape[1] for a, _, _ in pieces]
+    n = pieces[0][1].shape[1]
+    flops = gemm_work(m, ks, n, 1, 0)[0]
+    epilogue = flops - 2 * m * n * sum(ks)
+    nbytes = gemm_bytes(pieces, m, n, kw, bf)
+    launches = phase13["launches"]
+
+    def io_launches(name):
+        return sum(launches.get(f"{name} {io}", 0)
+                   for io in K.IO_LABELS if io != "float32")
+
+    def err_of(prefix):
+        return max(v for k, v in phase2_errs.items() if k.startswith(prefix))
+
+    entries = []
+    for kernel, tier in [("gemm_epilogue", "highest")] + [
+            ("gemm_tc", t) for t in K.TC_TIERS]:
+        kt = dict(kw, tier=tier)
+        check_bf16(f"{kernel} {tier} {label} (B=1024)",
+                   K.gemm_epilogue(pieces, m, **kt),
+                   K.gemm_epilogue_plain(pieces, m, **kt))
+        ms = cuda_ms(lambda: K.gemm_epilogue(pieces, m, **kt))
+        plain_ms = cuda_ms(lambda: K.gemm_epilogue_plain(pieces, m, **kt),
+                           reps=3)
+        if kernel == "gemm_epilogue":
+            bms, by = bound(flops, nbytes)
+            name, n_launch = f"{kernel} (bf16 I/O, {label})", \
+                io_launches(kernel)
+            err = err_of("gemm_epilogue")
+        else:
+            passed = epilogue + sum(
+                2 * m * a.shape[1] * n * tc_passes(tier, a.dtype == bf)
+                for a, _, _ in pieces)
+            bms, by = tc_bound(passed, nbytes, 1)
+            name = f"gemm_tc ({tier}, bf16 I/O, general, {label})"
+            n_launch = (io_launches("gemm_tc") if tier == "default" else 0)
+            err = err_of(f"gemm_tc {tier}")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"gastx_torch/csrc/{kernel}.cu",
+            "replaces": "gastx/ops/pallas/fused_gab.py:501",
+            "launches": n_launch, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None})
+        if not n_launch:
+            entries[-1]["direct_launches"] = sum(
+                1 for k in phase2_errs if k.startswith(f"gemm_tc {tier}"))
+        print(f"  {name}: {ms:.3f} ms (plain {plain_ms:.3f}, bound "
+              f"{bms:.3f} by {by}); launches {n_launch}")
+    del pieces, kw
+    t = n243[0]
+    c, k, inter, g_ch, j, d = K.gab_shape(t)
+    rows = 256 * 241 * j
+    x = torch.randn((rows, c), generator=torch.Generator(
+        device=dev).manual_seed(421), device=dev).to(bf)
+    check_bf16("gab_narrow (bf16 I/O, C=32, T=241, B=256)",
+               K.gab_narrow(x, t), K.gab_narrow_plain(x, t))
+    ms = cuda_ms(lambda: K.gab_narrow(x, t))
+    plain_ms = cuda_ms(lambda: K.gab_narrow_plain(x, t), reps=3)
+    flops, nbytes = gab_work(rows, c, j, k, inter, g_ch, d)
+    bms, by = bound(flops, nbytes - 2 * 3 * rows * c)  # x, out in bf16
+    entries.append({
+        "name": "gab_narrow (bf16 I/O, C=32, T=241)", "route": "cuda",
+        "source": "gastx_torch/csrc/gab_narrow.cu",
+        "replaces": "gastx/ops/pallas/fused_gab.py:959",
+        "launches": io_launches("gab_narrow"),
+        "max_abs_err": err_of("gab_narrow"), "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bms, "bound_by": by, "library_ms": None})
+    print(f"  gab_narrow (bf16 I/O, C=32, T=241, B=256): {ms:.3f} ms (plain "
+          f"{plain_ms:.3f}, bound {bms:.3f} by {by})")
+    del x
+    torch.cuda.empty_cache()
+    return entries
+
+
 def main() -> int:
     try:
         import torch
@@ -3187,6 +3608,8 @@ def main() -> int:
             or torch.backends.cuda.matmul.allow_tf32):
         fail("float32 matmuls must run at 'highest' precision, TF32 off")
     torch.backends.cudnn.allow_tf32 = False  # float32 convolutions
+    # bf16 storage's plain products sum in float32 (device.check_f32_matmul)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
     report = {"device": torch.cuda.get_device_name(0)}
     t_start = time.time()
@@ -3397,6 +3820,10 @@ def main() -> int:
         graph_errs[kernel].append(check(f"{kernel} {label} ({want})", got,
                                         plain(*args)))
         del got
+    torch.cuda.empty_cache()
+    print("phase 2: the bf16-I/O forms against their plain versions")
+    bf16_errs = run_bf16_cases(K, bf16_cases(K, dev, gts, n243, n81, l1t))
+    report["bf16_cases"] = bf16_errs
     torch.cuda.empty_cache()
     report["odd_width_forwards"] = odd_width_forwards(K, dev)
     torch.cuda.empty_cache()
@@ -3630,9 +4057,6 @@ def main() -> int:
               f"{chain_ms:.3f} ms; bound {bms:.3f} by {by}")
     del calls
     torch.cuda.empty_cache()
-    report["gemm_shapes"] = gemm_table(K, dev)
-    report["graph_shapes"] = graph_table(
-        K, {27: model, 243: models["243f"]}, dev)
     report["profile"] = profile_forward(model, xs["27f"], "27f B=1024")
     report["profile_243f"] = profile_forward(models["243f"], xs["243f"],
                                              "243f B=256")
@@ -3794,6 +4218,14 @@ def main() -> int:
         entry["dp_launches"] = dp["pair"]["dp_launches"].get(counter, 0)
     report["dp"]["s"] = time.time() - t12
     print(f"  phase 12 took {report['dp']['s']:.1f} s")
+
+    # ---- phase 13: the config surface -----------------------------------
+    report["card_phase13"] = card_state("phase 13")
+    t13 = time.time()
+    report["config"] = config_phase(K, dev)
+    kernels += bf16_kernels(K, dev, n243, report["config"], bf16_errs)
+    report["config"]["s"] = time.time() - t13
+    print(f"  phase 13 took {report['config']['s']:.1f} s")
 
     report["kernels"] = kernels
     report["total_s"] = time.time() - t_start

@@ -63,10 +63,26 @@
 // float4. Float32 FMAs only: no tensor cores. At C = 80 and 96 the tile of
 // 64 rows holds 3 frames and the kernel loses to the chain on the card;
 // kernels.gab_route sends those widths to the chain.
+//
+// bf16 I/O (bf16 storage, as the TPU kernel reads and writes its block in
+// the input's dtype): with x_bf16, x is bf16 and is upcast exactly as it
+// is staged into shared memory (plain loads in place of the 4-byte
+// cp.async copies, which cannot convert); with out_bf16, the block
+// concat's output is rounded to bf16 (nearest even) as it is stored, 8
+// bytes for 4 values. Everything between stays float32 in shared memory.
+// The flags are read at run time, in a library of their own (below).
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+// GASTX_BF16_IO builds the bf16-I/O library (kernels.py, IO_SOURCES), whose
+// code reads the dtype bits; the float32 library's has no dtype branch.
+#ifdef GASTX_BF16_IO
+constexpr bool BF16_IO = true;
+#else
+constexpr bool BF16_IO = false;
+#endif
 
 namespace {
 
@@ -159,22 +175,38 @@ __device__ __forceinline__ void copy_floats(float* dst, const float* src,
   }
 }
 
-// x rows of the tile (row-major, `rows` of them) into activation group 0,
-// column-major; the rows past them zero.
+// x rows of the tile (row-major, `rows` of them, float32 or, with bf,
+// bf16) into activation group 0, column-major; the rows past them zero.
 template <class G, bool ASYNC>
-__device__ __forceinline__ void load_x(const float* __restrict__ xg,
+__device__ __forceinline__ void load_x(const void* __restrict__ xg, bool bf,
                                        float* xs, int rows) {
   constexpr int C = G::C;
+  const float* xf = static_cast<const float*>(xg);
+  const unsigned short* xb = static_cast<const unsigned short*>(xg);
   for (int e = threadIdx.x; e < G::BM * C; e += G::NT) {
     const int r = e / C, c = e - r * C;
     float* dst = xs + c * G::BMP + r;
     if (r >= rows)
       *dst = 0.f;
+    else if (bf)
+      *dst = __uint_as_float(static_cast<uint32_t>(__ldg(xb + e)) << 16);
     else if (ASYNC)
-      __pipeline_memcpy_async(dst, xg + e, 4);
+      __pipeline_memcpy_async(dst, xf + e, 4);
     else
-      *dst = __ldg(xg + e);
+      *dst = __ldg(xf + e);
   }
+}
+
+// float32 to bf16 bits, rounded to nearest even (finite values).
+__device__ __forceinline__ uint32_t float_to_bf16(float f) {
+  const uint32_t u = __float_as_uint(f);
+  return (u + 0x7fffu + ((u >> 16) & 1u)) >> 16;
+}
+
+// The element at index i of a float32 (bf false) or bf16 array.
+__device__ __forceinline__ const void* elem_ptr(const void* p, long long i,
+                                                bool bf) {
+  return static_cast<const char*>(p) + i * (bf ? 2 : 4);
 }
 
 // The semantic-graph weights of branch b in their order in a staged group:
@@ -193,7 +225,8 @@ __device__ __forceinline__ void load_sem(const Tables& t, float* dst, int j,
 // semantic-graph weights of both branches (into groups 4 and 3, if staged)
 // and x (into group 0).
 struct Prefetch {
-  const float* x;
+  const void* x;
+  bool x_bf;
   int rows, j, d;
   bool sem;
 };
@@ -230,8 +263,8 @@ template <class G, int MM, int NS, bool RELU, bool TO_GLOBAL,
 __device__ __forceinline__ void product(
     bool on, const Tables& t, float* ring, long long& g, long long total,
     float* acts, int a0, int a1, int a2, const float* scale,
-    const float* shift, int o0, int o1, float* out = nullptr,
-    int rows_valid = 0, const Prefetch* pre = nullptr) {
+    const float* shift, int o0, int o1, void* out = nullptr,
+    int rows_valid = 0, const Prefetch* pre = nullptr, bool out_bf = false) {
   constexpr int C = G::C, N = MM * C, TM = G::TM, BMP = G::BMP;
   constexpr int BK = G::BK, S = G::S;
   int rt, ct;
@@ -251,7 +284,7 @@ __device__ __forceinline__ void product(
       if (s == 0 && pre->sem)
         load_sem<G, true>(t, acts + 4 * G::GROUP, pre->j, pre->d, 0);
       if (s == S && pre->x != nullptr)
-        load_x<G, true>(pre->x, acts, pre->rows);
+        load_x<G, true>(pre->x, pre->x_bf, acts, pre->rows);
       if (s == 2 * S && pre->sem)
         load_sem<G, true>(t, acts + 3 * G::GROUP, pre->j, pre->d, 1);
     }
@@ -298,8 +331,20 @@ __device__ __forceinline__ void product(
         float y = acc[m][4 * j + v] * sc[v] + sh[v];
         acc[m][4 * j + v] = RELU ? fmaxf(y, 0.f) : y;
       }
-    if (TO_GLOBAL || ROW_MAJOR) {
-      float* base = TO_GLOBAL ? out + c0
+    if (TO_GLOBAL && out_bf) {
+      unsigned short* base = static_cast<unsigned short*>(out) + c0;
+#pragma unroll
+      for (int m = 0; m < TM; ++m) {
+        const int r = 4 * rt + (m / 4) * 4 * G::RTH + m % 4;
+        if (r < rows_valid)
+          *reinterpret_cast<uint2*>(base + (size_t)r * N) = make_uint2(
+              float_to_bf16(acc[m][4 * j]) |
+                  float_to_bf16(acc[m][4 * j + 1]) << 16,
+              float_to_bf16(acc[m][4 * j + 2]) |
+                  float_to_bf16(acc[m][4 * j + 3]) << 16);
+      }
+    } else if (TO_GLOBAL || ROW_MAJOR) {
+      float* base = TO_GLOBAL ? static_cast<float*>(out) + c0
                               : acts + (size_t)(j ? o1 : o0) * G::GROUP +
                                     4 * ct;
       const int ld = TO_GLOBAL ? N : C;
@@ -526,9 +571,11 @@ __device__ __forceinline__ void attention(float* theta, const float* phi,
 // graph reads them from device memory.
 template <class G>
 __global__ void __launch_bounds__(G::NT, G::MINB)
-gab_narrow_kernel(const float* __restrict__ x, float* __restrict__ out,
+gab_narrow_kernel(const void* __restrict__ x, void* __restrict__ out,
                   long long frames, int fpt, long long tiles, int j, int d,
-                  int nheads, const Tables t) {
+                  int nheads, const Tables t, bool x_bf, bool out_bf) {
+  x_bf = BF16_IO && x_bf;
+  out_bf = BF16_IO && out_bf;
   extern __shared__ float4 smem4[];
   constexpr int C = G::C, S = G::S, GR = G::GROUP;
   float* acts = reinterpret_cast<float*>(smem4);
@@ -562,7 +609,8 @@ gab_narrow_kernel(const float* __restrict__ x, float* __restrict__ out,
     const int nf = (int)min((long long)fpt, frames - f0);
     const int rows = nf * j;
     if (tile == blockIdx.x) {  // the first tile's; P7 brings the next ones
-      if (/*XLOAD*/true) load_x<G, false>(x + f0 * j * C, acts, rows);
+      if (/*XLOAD*/true)
+        load_x<G, false>(elem_ptr(x, f0 * j * C, x_bf), x_bf, acts, rows);
       if (staged) {
         load_sem<G, false>(t, acts + 4 * GR, j, d, 0);
         load_sem<G, false>(t, acts + 3 * GR, j, d, 1);
@@ -597,19 +645,24 @@ gab_narrow_kernel(const float* __restrict__ x, float* __restrict__ out,
                                   0, 0, t.acat_scale, t.acat_shift, 2, 0);
     const long long f1 = (tile + gridDim.x) * fpt;
     const bool more = tile + gridDim.x < tiles;
-    const Prefetch pre{more && /*XLOAD*/true ? x + f1 * j * C : nullptr,
+    const Prefetch pre{more && /*XLOAD*/true ? elem_ptr(x, f1 * j * C, x_bf)
+                                             : nullptr,
+                       x_bf,
                        more ? (int)min((long long)fpt, frames - f1) * j : 0,
                        j, d, more && staged};
-    product<G, 2, 3 * S, true, true>(/*P7*/true, t, ring, g, total, acts,
-                                     0, 3, 2, t.gcat_scale, t.gcat_shift, 0,
-                                     0, out + f0 * j * 2 * C, rows, &pre);
+    product<G, 2, 3 * S, true, true>(
+        /*P7*/true, t, ring, g, total, acts, 0, 3, 2, t.gcat_scale,
+        t.gcat_shift, 0, 0,
+        const_cast<void*>(elem_ptr(out, f0 * j * 2 * C, out_bf)), rows, &pre,
+        out_bf);
   }
 }
 
 // As many persistent blocks as fit on the card, but no more than tiles.
 template <class G>
-int launch(const float* x, float* out, long long frames, int j, int d,
-           int nheads, const Tables& t, cudaStream_t stream) {
+int launch(const void* x, void* out, long long frames, int j, int d,
+           int nheads, const Tables& t, cudaStream_t stream, bool x_bf,
+           bool out_bf) {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -637,7 +690,7 @@ int launch(const float* x, float* out, long long frames, int j, int d,
     const long long blocks =
         tiles < (long long)per_sm * sms ? tiles : (long long)per_sm * sms;
     gab_narrow_kernel<G><<<(unsigned)blocks, G::NT, smem, stream>>>(
-        x, out, frames, fpt, tiles, j, d, nheads, t);
+        x, out, frames, fpt, tiles, j, d, nheads, t, x_bf, out_bf);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -650,10 +703,11 @@ bool aligned16(const void* p) {
 
 extern "C" {
 
-// Launches on `stream`; returns cudaGetLastError() after the launch, or
+// Launches on `stream`, x bf16 if x_bf16 and the output bf16 if out_bf16
+// (else float32); returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for a shape the kernel does not take (the rule in
-// the note above) or for `out` or a weight it copies 16 bytes at a time
-// that is not 16-byte aligned.
+// the note above), for `out` or a weight it copies 16 bytes at a time
+// that is not 16-byte aligned, or, in the float32 library, for bf16.
 int gab_narrow(const void* x, void* out, long long frames, int j, int c,
                int d, int nheads, int inter, int g_ch,
                const void* w_proj, const void* proj_scale,
@@ -665,11 +719,12 @@ int gab_narrow(const void* x, void* out, long long frames, int j, int c,
                const void* acat_w, const void* acat_scale,
                const void* acat_shift, const void* gcat_w,
                const void* gcat_scale, const void* gcat_shift,
-               void* stream) {
+               void* stream, int x_bf16, int out_bf16) {
   if (frames < 0 || j < 1 || j > MAX_J || d < 1 || d > MAX_D ||
       nheads < 1 || nheads > MAX_HEADS || nheads * inter != c ||
       nheads * g_ch != c || !aligned16(out) || !aligned16(w_proj) ||
-      !aligned16(lcat_w) || !aligned16(acat_w) || !aligned16(gcat_w))
+      !aligned16(lcat_w) || !aligned16(acat_w) || !aligned16(gcat_w) ||
+      ((x_bf16 || out_bf16) && !BF16_IO))
     return static_cast<int>(cudaErrorInvalidValue);
   Tables t;
   t.w_proj = static_cast<const float*>(w_proj);
@@ -692,31 +747,30 @@ int gab_narrow(const void* x, void* out, long long frames, int j, int c,
   t.gcat_w = static_cast<const float*>(gcat_w);
   t.gcat_scale = static_cast<const float*>(gcat_scale);
   t.gcat_shift = static_cast<const float*>(gcat_shift);
-  const float* xf = static_cast<const float*>(x);
-  float* of = static_cast<float*>(out);
+  const bool xb = x_bf16 != 0, ob = out_bf16 != 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // Cfg<C, threads along rows, rows a thread, blocks an SM, slab rows,
   // slabs in the ring>: tiles of 256 rows at C <= 32, 128 at C = 48..64,
   // 64 at C >= 80; 256 to 512 threads; 32-row slabs where C allows.
   switch (c) {
     case 16:
-      return launch<Cfg<16, 64, 4, 2, 16, 3>>(xf, of, frames, j, d, nheads,
-                                              t, st);
+      return launch<Cfg<16, 64, 4, 2, 16, 3>>(x, out, frames, j, d, nheads,
+                                              t, st, xb, ob);
     case 32:
-      return launch<Cfg<32, 64, 4, 1, 32, 2>>(xf, of, frames, j, d, nheads,
-                                              t, st);
+      return launch<Cfg<32, 64, 4, 1, 32, 2>>(x, out, frames, j, d, nheads,
+                                              t, st, xb, ob);
     case 48:
-      return launch<Cfg<48, 32, 4, 1, 16, 3>>(xf, of, frames, j, d, nheads,
-                                              t, st);
+      return launch<Cfg<48, 32, 4, 1, 16, 3>>(x, out, frames, j, d, nheads,
+                                              t, st, xb, ob);
     case 64:
-      return launch<Cfg<64, 32, 4, 1, 32, 2>>(xf, of, frames, j, d, nheads,
-                                              t, st);
+      return launch<Cfg<64, 32, 4, 1, 32, 2>>(x, out, frames, j, d, nheads,
+                                              t, st, xb, ob);
     case 80:
-      return launch<Cfg<80, 16, 4, 1, 16, 3>>(xf, of, frames, j, d, nheads,
-                                              t, st);
+      return launch<Cfg<80, 16, 4, 1, 16, 3>>(x, out, frames, j, d, nheads,
+                                              t, st, xb, ob);
     case 96:
-      return launch<Cfg<96, 16, 4, 1, 32, 2>>(xf, of, frames, j, d, nheads,
-                                              t, st);
+      return launch<Cfg<96, 16, 4, 1, 32, 2>>(x, out, frames, j, d, nheads,
+                                              t, st, xb, ob);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -51,8 +51,25 @@
 // 16-byte aligned: 16-byte loads, copies and epilogue) and the general one
 // (4-byte loads and copies, scalar epilogue), picked by the wrapper
 // (kernels.gemm_variant).
+//
+// bf16 I/O (bf16 storage; the TPU kernels read their block's input in its
+// dtype, upcast on load and write the output in it, fused_gab.py:501-541):
+// bit p of `dtypes` makes piece p's A bf16, bit 3 the residual, bit 4 the
+// output. A bf16 value is upcast exactly as it is loaded (8-byte loads of
+// 4 values in VEC), the FMAs and the epilogue stay float32, and a bf16
+// output is rounded to nearest even as it is stored. W, scale and shift
+// are float32. The flags are read at run time, in a library of their own
+// (below).
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// GASTX_BF16_IO builds the bf16-I/O library (kernels.py, IO_SOURCES), whose
+// code reads the dtype bits; the float32 library's has no dtype branch.
+#ifdef GASTX_BF16_IO
+constexpr bool BF16_IO = true;
+#else
+constexpr bool BF16_IO = false;
+#endif
 
 namespace {
 
@@ -77,7 +94,7 @@ constexpr int STAGE_FLOATS = AS_FLOATS + BK * BN;
 constexpr size_t SMEM_BYTES = sizeof(float) * 2 * STAGE_FLOATS;
 
 struct GemmArgs {
-  const float* a[MAX_PIECES];
+  const void* a[MAX_PIECES];  // float32 or bf16 (dtypes bit p)
   const float* w[MAX_PIECES];
   int k[MAX_PIECES];
   int a_off[MAX_PIECES];
@@ -87,10 +104,40 @@ struct GemmArgs {
   const float* scale;
   const float* shift;
   int relu;
-  const float* res;
+  const void* res;  // float32 or bf16 (bit 3)
   int res_off;
-  float* out;
+  void* out;        // float32 or bf16 (bit 4)
+  int dtypes;
 };
+
+constexpr int RES_BF16 = 8;
+constexpr int OUT_BF16 = 16;
+
+// bf16 bits to float32, exactly.
+__device__ __forceinline__ float bf16_to_float(unsigned short h) {
+  return __uint_as_float(static_cast<uint32_t>(h) << 16);
+}
+
+// Four bf16 values (8 bytes) to float32.
+__device__ __forceinline__ float4 bf16x4_to_float4(uint2 v) {
+  return make_float4(__uint_as_float(v.x << 16),
+                     __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16),
+                     __uint_as_float(v.y & 0xffff0000u));
+}
+
+// float32 to bf16 bits, rounded to nearest even (finite values).
+__device__ __forceinline__ unsigned short float_to_bf16(float f) {
+  const uint32_t u = __float_as_uint(f);
+  return static_cast<unsigned short>((u + 0x7fffu + ((u >> 16) & 1u)) >> 16);
+}
+
+// Element k of a float32 or bf16 row (`row` in bytes), as float32.
+__device__ __forceinline__ float load_at(const char* row, int k, bool bf) {
+  return bf ? bf16_to_float(
+                  __ldg(reinterpret_cast<const unsigned short*>(row) + k))
+            : __ldg(reinterpret_cast<const float*>(row) + k);
+}
 
 template <typename T>
 __device__ __forceinline__ T pick(const T (&v)[MAX_PIECES], int p) {
@@ -153,17 +200,22 @@ gemm_epilogue_kernel(const GemmArgs args, int tiles_n) {
     a_base[i] = r < m ? (int)map_row(r, args.s_out, args.a_s_in) : -1;
   }
 
-  // The load side walks (piece, k0) as one stream of slabs.
-  const float* a_ptr[A_ROWS];
+  // The load side walks (piece, k0) as one stream of slabs. a_ptr[i]:
+  // row i's k 0 in the piece's A, in bytes (float32, or bf16 where a_bf).
+  const char* a_ptr[A_ROWS];
+  bool a_bf = false;
   const float* w_ptr;
   int lp = 0, lk0 = 0, lK = 0;
   auto set_piece = [&](int p) {
-    const float* A = pick(args.a, p);
+    const char* A = static_cast<const char*>(pick(args.a, p));
+    a_bf = BF16_IO && ((args.dtypes >> p) & 1);
+    const int es = a_bf ? 2 : 4;
     lK = pick(args.k, p);
     const int off = pick(args.a_off, p);
 #pragma unroll
     for (int i = 0; i < A_ROWS; ++i)
-      a_ptr[i] = a_base[i] >= 0 ? A + (long long)(a_base[i] + off) * lK : A;
+      a_ptr[i] = a_base[i] >= 0 ? A + (long long)(a_base[i] + off) * lK * es
+                                : A;
     w_ptr = pick(args.w, p);
   };
   set_piece(0);
@@ -181,18 +233,22 @@ gemm_epilogue_kernel(const GemmArgs args, int tiles_n) {
     if (lp < args.npieces) {
 #pragma unroll
       for (int i = 0; i < A_ROWS; ++i) {
-        const float* src = a_ptr[i] + lk0 + a_k;
+        const int k = lk0 + a_k;
         if constexpr (VEC) {  // K % 4 == 0: the 4 k are in or out
-          const float4 v = (a_base[i] >= 0 && lk0 + a_k < lK)
-              ? __ldg(reinterpret_cast<const float4*>(src))
-              : make_float4(0.f, 0.f, 0.f, 0.f);
+          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (a_base[i] >= 0 && k < lK)
+            v = a_bf ? bf16x4_to_float4(__ldg(reinterpret_cast<const uint2*>(
+                           reinterpret_cast<const unsigned short*>(a_ptr[i]) +
+                           k)))
+                     : __ldg(reinterpret_cast<const float4*>(
+                           reinterpret_cast<const float*>(a_ptr[i]) + k));
           a_stage[i][0] = v.x; a_stage[i][1] = v.y;
           a_stage[i][2] = v.z; a_stage[i][3] = v.w;
         } else {
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            a_stage[i][e] = (a_base[i] >= 0 && lk0 + a_k + e < lK)
-                ? __ldg(src + e) : 0.f;
+            a_stage[i][e] = (a_base[i] >= 0 && k + e < lK)
+                ? load_at(a_ptr[i], k + e, a_bf) : 0.f;
         }
       }
       a_slot = slot;
@@ -296,6 +352,8 @@ gemm_epilogue_kernel(const GemmArgs args, int tiles_n) {
   cp_async_wait_all();
 
   // Epilogue: * scale + shift, ReLU, + residual, in that order.
+  const bool res_bf = BF16_IO && (args.dtypes & RES_BF16);
+  const bool out_bf = BF16_IO && (args.dtypes & OUT_BF16);
   float sc[2][4], sh[2][4];
 #pragma unroll
   for (int j = 0; j < 2; ++j)
@@ -312,11 +370,14 @@ gemm_epilogue_kernel(const GemmArgs args, int tiles_n) {
     for (int ii = 0; ii < 4; ++ii) {
       const int r = row0 + wm + 32 * i + ii;
       if (r >= m) continue;
-      const float* res_row =
-          args.res ? args.res + (map_row(r, args.s_out, args.res_s_in) +
-                                 args.res_off) * (long long)n
+      // Row r's column 0 in the residual and output, in bytes.
+      const char* res_row =
+          args.res ? static_cast<const char*>(args.res) +
+                         (map_row(r, args.s_out, args.res_s_in) +
+                          args.res_off) * (long long)n * (res_bf ? 2 : 4)
                    : nullptr;
-      float* out_row = args.out + (long long)r * n;
+      char* out_row =
+          static_cast<char*>(args.out) + (long long)r * n * (out_bf ? 2 : 4);
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int c = col0 + wn + 16 * j;
@@ -330,16 +391,38 @@ gemm_epilogue_kernel(const GemmArgs args, int tiles_n) {
         if constexpr (VEC) {
           if (c >= n) continue;  // n % 4 == 0: the 4 columns are in or out
           if (res_row) {
-            const float4 rv = *reinterpret_cast<const float4*>(res_row + c);
+            const float4 rv =
+                res_bf ? bf16x4_to_float4(*reinterpret_cast<const uint2*>(
+                             reinterpret_cast<const unsigned short*>(res_row) +
+                             c))
+                       : *reinterpret_cast<const float4*>(
+                             reinterpret_cast<const float*>(res_row) + c);
             v[0] += rv.x; v[1] += rv.y; v[2] += rv.z; v[3] += rv.w;
           }
-          *reinterpret_cast<float4*>(out_row + c) =
-              make_float4(v[0], v[1], v[2], v[3]);
+          if (out_bf) {
+            uint2 o;
+            o.x = float_to_bf16(v[0]) | (uint32_t)float_to_bf16(v[1]) << 16;
+            o.y = float_to_bf16(v[2]) | (uint32_t)float_to_bf16(v[3]) << 16;
+            *reinterpret_cast<uint2*>(
+                reinterpret_cast<unsigned short*>(out_row) + c) = o;
+          } else {
+            *reinterpret_cast<float4*>(reinterpret_cast<float*>(out_row) + c) =
+                make_float4(v[0], v[1], v[2], v[3]);
+          }
         } else {
 #pragma unroll
           for (int jj = 0; jj < 4; ++jj) {
             if (c + jj >= n) continue;
-            out_row[c + jj] = res_row ? v[jj] + res_row[c + jj] : v[jj];
+            float y = v[jj];
+            if (res_row)
+              y += res_bf ? bf16_to_float(reinterpret_cast<const uint16_t*>(
+                                res_row)[c + jj])
+                          : reinterpret_cast<const float*>(res_row)[c + jj];
+            if (out_bf)
+              reinterpret_cast<unsigned short*>(out_row)[c + jj] =
+                  float_to_bf16(y);
+            else
+              reinterpret_cast<float*>(out_row)[c + jj] = y;
           }
         }
       }
@@ -351,14 +434,15 @@ int launch(const void* a0, const void* w0, int k0, int off0, const void* a1,
            const void* w1, int k1, int off1, const void* a2, const void* w2,
            int k2, int off2, int npieces, int m, int n, int s_out,
            int a_s_in, int res_s_in, const void* scale, const void* shift,
-           int relu, const void* res, int res_off, void* out, void* stream) {
+           int relu, const void* res, int res_off, void* out, void* stream,
+           int dtypes) {
   GemmArgs args;
   const void* as[MAX_PIECES] = {a0, a1, a2};
   const void* ws[MAX_PIECES] = {w0, w1, w2};
   const int ks[MAX_PIECES] = {k0, k1, k2};
   const int offs[MAX_PIECES] = {off0, off1, off2};
   for (int p = 0; p < MAX_PIECES; ++p) {
-    args.a[p] = static_cast<const float*>(as[p]);
+    args.a[p] = as[p];
     args.w[p] = static_cast<const float*>(ws[p]);
     args.k[p] = ks[p];
     args.a_off[p] = offs[p];
@@ -372,9 +456,10 @@ int launch(const void* a0, const void* w0, int k0, int off0, const void* a1,
   args.scale = static_cast<const float*>(scale);
   args.shift = static_cast<const float*>(shift);
   args.relu = relu;
-  args.res = static_cast<const float*>(res);
+  args.res = res;
   args.res_off = res_off;
-  args.out = static_cast<float*>(out);
+  args.out = out;
+  args.dtypes = dtypes;
   if constexpr (VEC) {  // gemm_variant picks VEC only where these hold
     bool ok = n % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
               reinterpret_cast<uintptr_t>(res) % 16 == 0;
@@ -399,20 +484,23 @@ int launch(const void* a0, const void* w0, int k0, int off0, const void* a1,
 extern "C" {
 
 // Launches the 16-byte instantiation if vec16, else the general one, on
-// `stream`; returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue, with no launch, where vec16's alignment does not
-// hold).
+// `stream`, the activations' dtypes by `dtypes` (bit p: A piece p bf16;
+// bit 3 the residual, bit 4 the output); returns cudaGetLastError() after
+// the launch (cudaErrorInvalidValue, with no launch, where vec16's
+// alignment does not hold or, in the float32 library, for a bf16
+// activation).
 int gemm_epilogue(const void* a0, const void* w0, int k0, int off0,
                   const void* a1, const void* w1, int k1, int off1,
                   const void* a2, const void* w2, int k2, int off2,
                   int npieces, int m, int n, int s_out, int a_s_in,
                   int res_s_in, const void* scale, const void* shift,
                   int relu, const void* res, int res_off, void* out,
-                  void* stream, int vec16) {
+                  void* stream, int dtypes, int vec16) {
+  if (dtypes && !BF16_IO) return static_cast<int>(cudaErrorInvalidValue);
   const auto run = vec16 ? launch<true> : launch<false>;
   return run(a0, w0, k0, off0, a1, w1, k1, off1, a2, w2, k2, off2, npieces,
              m, n, s_out, a_s_in, res_s_in, scale, shift, relu, res,
-             res_off, out, stream);
+             res_off, out, stream, dtypes);
 }
 
 const char* error_string(int code) {

@@ -70,10 +70,27 @@
 //   a 128 x 128 tile a block, 8 warps of mma.sync.m16n8k16, BK = 32, two
 //   buffers, A split as it is stored into shared memory, W's halves
 //   (K_p, N) row-major per piece, scalar loads and stores.
+//
+// bf16 I/O (bf16 storage) runs on the general instantiation alone: vec16's
+// A boxes, gathers and output boxes are float32, and a bf16 TMA layout
+// would be a redesign. Bit p of `dtypes` makes piece p's A bf16 (upcast
+// as loaded: its hi half is the value and its lo half zero, so the A-lo
+// pass of "high" and "high_lhs" is skipped for its slabs), bit 3 the
+// residual and bit 4 the output (rounded to nearest even as stored). The
+// flags are read at run time, in a library of their own (below); the
+// bf16-I/O library holds the general body alone.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// GASTX_BF16_IO builds the bf16-I/O library (kernels.py, IO_SOURCES), whose
+// code reads the dtype bits; the float32 library's has no dtype branch.
+#ifdef GASTX_BF16_IO
+constexpr bool BF16_IO = true;
+#else
+constexpr bool BF16_IO = false;
+#endif
 
 namespace {
 
@@ -132,7 +149,7 @@ constexpr int A_ROWS = BM * A_CHUNKS / THREADS;
 constexpr int A_ROW_STEP = THREADS / A_CHUNKS;
 
 struct GemmArgs {
-  const float* a[MAX_PIECES];
+  const void* a[MAX_PIECES];  // float32 or bf16 (dtypes bit p)
   const __nv_bfloat16* wh[MAX_PIECES];
   const __nv_bfloat16* wl[MAX_PIECES];
   int k[MAX_PIECES];
@@ -143,10 +160,25 @@ struct GemmArgs {
   const float* scale;
   const float* shift;
   int relu;
-  const float* res;
+  const void* res;  // float32 or bf16 (bit 3)
   int res_off;
-  float* out;
+  void* out;        // float32 or bf16 (bit 4)
+  int dtypes;
 };
+
+constexpr int RES_BF16 = 8;
+constexpr int OUT_BF16 = 16;
+
+// Element k of a float32 or bf16 row (`row` in bytes), as float32 (a bf16
+// value exactly); `ldg` through the read-only path.
+template <bool LDG>
+__device__ __forceinline__ float load_at(const char* row, int k, bool bf) {
+  const auto* h = reinterpret_cast<const unsigned short*>(row) + k;
+  const auto* f = reinterpret_cast<const float*>(row) + k;
+  if (bf)
+    return __uint_as_float(static_cast<uint32_t>(LDG ? __ldg(h) : *h) << 16);
+  return LDG ? __ldg(f) : *f;
+}
 
 template <int TIER>
 struct Layout {
@@ -225,17 +257,23 @@ gemm_tc_kernel(const GemmArgs args, int tiles_n) {
     a_base[i] = r < m ? (int)map_row(r, args.s_out, args.a_s_in) : -1;
   }
 
-  const float* a_ptr[A_ROWS];
+  // a_ptr[i]: row i's k 0 in the piece's A, in bytes (float32, or bf16
+  // where a_bf).
+  const char* a_ptr[A_ROWS];
+  bool a_bf = false;
   const __nv_bfloat16* wh_ptr;
   const __nv_bfloat16* wl_ptr;
   int lp = 0, lk0 = 0, lK = 0;
   auto set_piece = [&](int p) {
-    const float* A = pick(args.a, p);
+    const char* A = static_cast<const char*>(pick(args.a, p));
+    a_bf = BF16_IO && ((args.dtypes >> p) & 1);
+    const int es = a_bf ? 2 : 4;
     lK = pick(args.k, p);
     const int off = pick(args.a_off, p);
 #pragma unroll
     for (int i = 0; i < A_ROWS; ++i)
-      a_ptr[i] = a_base[i] >= 0 ? A + (long long)(a_base[i] + off) * lK : A;
+      a_ptr[i] = a_base[i] >= 0 ? A + (long long)(a_base[i] + off) * lK * es
+                                : A;
     wh_ptr = pick(args.wh, p);
     wl_ptr = pick(args.wl, p);
   };
@@ -246,6 +284,8 @@ gemm_tc_kernel(const GemmArgs args, int tiles_n) {
 
   float a_stage[A_ROWS][4];
   int a_slot = -1;
+  // Bit s: buffer s holds a slab of a bf16 piece (its A lo half is zero).
+  int bf_slots = 0;
 
   // W's halves of slab rows [lk0, lk0 + BK) into buffer `slot`.
   auto load_w = [&](int slot) {
@@ -268,13 +308,15 @@ gemm_tc_kernel(const GemmArgs args, int tiles_n) {
     if (lp < args.npieces) {
 #pragma unroll
       for (int i = 0; i < A_ROWS; ++i) {
-        const float* src = a_ptr[i] + lk0 + a_k;
+        const int k = lk0 + a_k;
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          a_stage[i][e] = (a_base[i] >= 0 && lk0 + a_k + e < lK)
-              ? __ldg(src + e) : 0.f;
+          a_stage[i][e] = (a_base[i] >= 0 && k + e < lK)
+              ? load_at<true>(a_ptr[i], k + e, a_bf) : 0.f;
       }
       a_slot = slot;
+      if constexpr (BF16_IO)
+        bf_slots = (bf_slots & ~(1 << slot)) | (int(a_bf) << slot);
       load_w(slot);
       lk0 += BK;
       if (lk0 >= lK) {
@@ -289,6 +331,7 @@ gemm_tc_kernel(const GemmArgs args, int tiles_n) {
     if (a_slot < 0) return;
     __nv_bfloat16* ah = a_hi(a_slot);
     __nv_bfloat16* al = a_lo(a_slot);
+    const bool lo = P::A_LO && !(BF16_IO && ((bf_slots >> a_slot) & 1));
     a_slot = -1;
 #pragma unroll
     for (int i = 0; i < A_ROWS; ++i) {
@@ -297,7 +340,7 @@ gemm_tc_kernel(const GemmArgs args, int tiles_n) {
       for (int e = 0; e < 4; ++e) split(a_stage[i][e], h[e], l[e]);
       const int o = a_row[i] * A_PITCH + a_k;
       *reinterpret_cast<uint2*>(ah + o) = *reinterpret_cast<uint2*>(h);
-      if constexpr (P::A_LO)
+      if (lo)
         *reinterpret_cast<uint2*>(al + o) = *reinterpret_cast<uint2*>(l);
     }
   };
@@ -329,6 +372,7 @@ gemm_tc_kernel(const GemmArgs args, int tiles_n) {
     const int s = t % 2;
     const uint32_t ah = smem_addr(a_hi(s)), al = smem_addr(a_lo(s));
     const uint32_t bh = smem_addr(b_hi(s)), bl = smem_addr(b_lo(s));
+    const bool a_lo_pass = P::A_LO && !(BF16_IO && ((bf_slots >> s) & 1));
 #pragma unroll
     for (int ks = 0; ks < BK; ks += 16) {
       // W fragments of the four n8 tiles: [tile][k half].
@@ -356,7 +400,7 @@ gemm_tc_kernel(const GemmArgs args, int tiles_n) {
           mma(acc[i][j], fa, wh[j][0], wh[j][1]);
           if constexpr (P::B_LO) mma(acc[i][j], fa, wl[j][0], wl[j][1]);
         }
-        if constexpr (P::A_LO) {
+        if (a_lo_pass) {
           ldmatrix_x4(fa, al + o);
 #pragma unroll
           for (int j = 0; j < 4; ++j) mma(acc[i][j], fa, wh[j][0], wh[j][1]);
@@ -370,6 +414,8 @@ gemm_tc_kernel(const GemmArgs args, int tiles_n) {
   // Epilogue: lane holds rows g and g + 8 of each m16 tile, columns 2c and
   // 2c + 1 of each n8 tile.
   const int g = lane / 4, c2 = (lane % 4) * 2;
+  const bool res_bf = BF16_IO && (args.dtypes & RES_BF16);
+  const bool out_bf = BF16_IO && (args.dtypes & OUT_BF16);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int c = col0 + wn + j * 8 + c2;
@@ -393,15 +439,24 @@ gemm_tc_kernel(const GemmArgs args, int tiles_n) {
           if (args.scale) v[e] = v[e] * sc[e] + sh[e];
           if (args.relu) v[e] = fmaxf(v[e], 0.f);
         }
-        const float* res_row =
-            args.res ? args.res + (map_row(r, args.s_out, args.res_s_in) +
-                                   args.res_off) * (long long)n
+        // Row r's column 0 in the residual and output, in bytes.
+        const char* res_row =
+            args.res ? static_cast<const char*>(args.res) +
+                           (map_row(r, args.s_out, args.res_s_in) +
+                            args.res_off) * (long long)n * (res_bf ? 2 : 4)
                      : nullptr;
-        float* out_row = args.out + (long long)r * n;
+        char* out_row = static_cast<char*>(args.out) +
+                        (long long)r * n * (out_bf ? 2 : 4);
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           if (c + e >= n) continue;
-          out_row[c + e] = res_row ? v[e] + res_row[c + e] : v[e];
+          const float y =
+              res_row ? v[e] + load_at<false>(res_row, c + e, res_bf) : v[e];
+          if (out_bf)
+            reinterpret_cast<__nv_bfloat16*>(out_row)[c + e] =
+                __float2bfloat16_rn(y);
+          else
+            reinterpret_cast<float*>(out_row)[c + e] = y;
         }
       }
   }
@@ -430,6 +485,7 @@ int launch(const GemmArgs& args, cudaStream_t stream) {
 
 }  // namespace general
 
+#ifndef GASTX_BF16_IO
 // ==========================================================================
 // vec16: the persistent, warp-specialised wgmma kernel.
 // ==========================================================================
@@ -917,6 +973,7 @@ int launch(const Args& args, const CUtensorMap (&ma)[MAX_PIECES],
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
+#endif  // GASTX_BF16_IO
 
 }  // namespace
 
@@ -924,17 +981,19 @@ extern "C" {
 
 // The general instantiation of `tier` (0 default, 1 high_lhs, 2 high_rhs,
 // 3 high) on `stream`: W's halves per piece, (K_p, N) row-major bf16 (the
-// lo half only where the tier multiplies it). Returns cudaGetLastError()
-// after the launch, or cudaErrorInvalidValue with no launch for an unknown
-// tier or a missing W half.
+// lo half only where the tier multiplies it); the activations' dtypes by
+// `dtypes` (bit p: A piece p bf16; bit 3 the residual, bit 4 the output).
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
+// with no launch for an unknown tier, a missing W half or, in the float32
+// library, a bf16 activation.
 int gemm_tc(const void* a0, const void* wh0, const void* wl0, int k0,
             int off0, const void* a1, const void* wh1, const void* wl1,
             int k1, int off1, const void* a2, const void* wh2,
             const void* wl2, int k2, int off2, int npieces, int m, int n,
             int s_out, int a_s_in, int res_s_in, const void* scale,
             const void* shift, int relu, const void* res, int res_off,
-            void* out, void* stream, int tier) {
-  if (npieces < 1 || npieces > MAX_PIECES)
+            void* out, void* stream, int tier, int dtypes) {
+  if (npieces < 1 || npieces > MAX_PIECES || (dtypes && !BF16_IO))
     return static_cast<int>(cudaErrorInvalidValue);
   general::GemmArgs args;
   const void* as[MAX_PIECES] = {a0, a1, a2};
@@ -943,7 +1002,7 @@ int gemm_tc(const void* a0, const void* wh0, const void* wl0, int k0,
   const int ks[MAX_PIECES] = {k0, k1, k2};
   const int offs[MAX_PIECES] = {off0, off1, off2};
   for (int p = 0; p < MAX_PIECES; ++p) {
-    args.a[p] = static_cast<const float*>(as[p]);
+    args.a[p] = as[p];
     args.wh[p] = static_cast<const __nv_bfloat16*>(whs[p]);
     args.wl[p] = static_cast<const __nv_bfloat16*>(wls[p]);
     args.k[p] = ks[p];
@@ -958,9 +1017,10 @@ int gemm_tc(const void* a0, const void* wh0, const void* wl0, int k0,
   args.scale = static_cast<const float*>(scale);
   args.shift = static_cast<const float*>(shift);
   args.relu = relu;
-  args.res = static_cast<const float*>(res);
+  args.res = res;
   args.res_off = res_off;
-  args.out = static_cast<float*>(out);
+  args.out = out;
+  args.dtypes = dtypes;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (tier) {
     case 0: return general::launch<0>(args, s);
@@ -971,6 +1031,7 @@ int gemm_tc(const void* a0, const void* wh0, const void* wl0, int k0,
   }
 }
 
+#ifndef GASTX_BF16_IO
 // The vec16 instantiation of `tier` on `stream`, one persistent block an SM.
 // Piece p: a_p (rows_p, K_p) float32 and its row offset off_p; W of every
 // piece as one K-major matrix, its bf16 halves wt_hi and wt_lo (N, k_pad)
@@ -1047,6 +1108,7 @@ int gemm_tc_hopper(const void* a0, int k0, int rows0, int off0,
     default: return launch<3>(args, ma, mwh, mwl, mout, s);
   }
 }
+#endif  // GASTX_BF16_IO
 
 const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -1,24 +1,47 @@
 """GastNet model configuration and per-layout static graph constants.
 
 The port's own copy of ``gastx.models.config``: the fields that fix the
-architecture, the geometry derived from them, and the three route knobs
-of the eval forward that the port carries, with the JAX names and
-meanings (``gastx_torch.models.gastnet`` has the route table):
+architecture, the geometry derived from them, and every knob of the JAX
+eval forward, with the JAX names, defaults and meanings
+(``gastx_torch.models.gastnet`` has the route table):
 
-  * ``gab_impl``: ``"auto"`` (the level kernels, then ``fused_gab`` at
-    C=512), ``"pallas"`` (torch conv chains, then ``fused_gab`` per GAB),
-    ``"pallas_local"`` (the hybrid GAB: ``fused_local_branch``, the global
-    branch and the block concat in plain torch) or ``"xla"`` (plain ops
-    throughout). The kernel or its plain version follows the tensor's
-    device, so the JAX ``_interpret`` suffixes have no counterpart.
-  * ``attn_impl``: ``"einsum"`` or ``"pallas_head"`` (``head_attention``
-    once per head wherever the plain global branch runs).
-  * ``packed_channels``: under ``"pallas"`` only, levels whose GAB width
-    C is at most this run the GAB through ``fused_gab_packed`` on the
-    (B, T, J*C) view. The JAX package also packs under ``"auto"`` on a
-    TPU; on Hopper the packed GAB is ``fused_gab`` on a view, so that
-    combination would only take levels off the level kernels, and any
-    ``packed_channels`` > 0 with another ``gab_impl`` raises.
+  * ``gab_impl`` (``VALID_GAB_IMPLS``): ``"auto"`` (the level kernels on
+    float32 activations, ``fused_gab`` elsewhere; narrow bf16 GABs as
+    ``"pallas_pbatch"``), ``"pallas"`` (conv chains in torch, then
+    ``fused_gab`` per GAB), ``"pallas_level"`` (``fused_level0`` /
+    ``fused_level`` at every level they take, at any dtype),
+    ``"pallas_pbatch"`` (the narrow GAB entry point at C <= 64, else as
+    ``"pallas"``), ``"pallas_local"`` (the hybrid GAB) or ``"xla"`` (plain
+    ops throughout). A ``_interpret`` suffix runs the same route through
+    every wrapper's plain version on any device, the port's counterpart
+    of interpret mode. ``gab_impl_levels`` overrides it per level (``""``
+    / ``"inherit"``: ``gab_impl``), and does not combine with
+    ``packed_channels``, as in JAX.
+  * ``attn_impl``: ``"einsum"``, ``"batched"`` (the plain global branch
+    with all heads' projections in one product) or ``"pallas_head"``
+    (``head_attention`` once per head wherever the plain global branch
+    runs; ``"pallas_head_interpret"`` its plain version). ``local_impl``:
+    ``"einsum"`` or ``"gather"`` (the plain local branch aggregating by a
+    padded-degree gather).
+  * ``packed_channels``: under ``"pallas"`` and ``"auto"``, on float32
+    activations, the levels whose GAB width C is at most this (from
+    level 0 on; nothing when it is below ``channels``) run the GAB
+    through ``fused_gab_packed`` on the (B, T, J*C) view.
+  * ``gab_kernel_form`` / ``gab_kernel_form_levels``: ``"v1"`` or
+    ``"fold"`` (the score-folded global branch of every kernel GAB:
+    theta/phi and the rank-1 score vectors precontracted on the host).
+    ``"v2"``, ``gab_apply_block=True`` and ``gab_score_block=True`` raise
+    (ROADMAP queue 2 B3: forms the JAX package ships no route for).
+  * ``storage_dtype`` (``"float32"``, ``"bfloat16"``, or ``"auto"``,
+    which is float32 on the card as the JAX package's is off a TPU),
+    ``storage_dtype_levels`` (per level) and ``gab_io_dtype`` (bf16
+    only at the boundaries of the GABs that reach ``fused_gab`` on
+    float32 activations): eval-only activation and weight storage; the
+    kernels read and write bf16 and compute in float32.
+  * Accepted and ignored: ``gab_softmax_group`` (its every value computes
+    the same function bit for bit), ``gab_tile_budget`` and
+    ``gab_pbatch_max_pack`` (the TPU's VMEM row budget and lane pack
+    factor; the north star leaves TPU route gates out of the port).
 
 The matmul precision tiers carry the JAX names and meanings:
 ``matmul_precision`` (the base tier: ``"highest"``, ``"high"`` or
@@ -33,20 +56,16 @@ operands rounded in ``joint_attention``); ``gab_narrow`` computes float32
 at every tier; every plain site (the shrink, the C=512 level's conv chain,
 ``gab_impl="xla"``'s ops, the projections and cats of the hybrid route,
 the train forward) computes float32 whatever ``xla_precision`` names for
-it, and so does every site on the CPU, as the JAX package's CPU path
-computes float32 for every tier.
+it (bf16 products with float32 sums under bf16 storage), and so does
+every site on the CPU, as the JAX package's CPU path computes float32 for
+every tier.
 
 The port's defaults differ from the JAX package's: its bare config and
 ``config_for_frames`` keep ``matmul_precision="highest"`` with no
 overrides, where JAX's run ``"high"`` with the TPU preset, because
 ``ROADMAP.md`` lets a non-float32 default in only after its own 24-seed
-error certificate on the card (``chip_smoke.py``).
-
-Not carried yet (ROADMAP queue 1): ``gab_impl="pallas_level"`` and
-``"pallas_pbatch"``, ``attn_impl="batched"``, ``local_impl``,
-``gab_impl_levels``, tile budgets, kernel forms (the 243f
-``gab_kernel_form_levels=("fold",)`` among them: ROADMAP queue 2 B1) and
-storage dtypes.
+error certificate on the card (``chip_smoke.py``); and the bare config's
+``gab_impl`` is ``"auto"``, not ``"xla"``.
 """
 from __future__ import annotations
 
@@ -60,8 +79,18 @@ import numpy as np
 from gastx_torch.ops.precision import TIERS
 from gastx_torch.skeleton import get_layout, local_adjacencies
 
-GAB_IMPLS = ("auto", "pallas", "pallas_local", "xla")
-ATTN_IMPLS = ("einsum", "pallas_head")
+# gab_impl values of the eval forward (the JAX package's list); inside
+# gab_impl_levels, "" and "inherit" also mean "gab_impl".
+VALID_GAB_IMPLS = ("xla", "auto", "pallas", "pallas_interpret",
+                   "pallas_local", "pallas_local_interpret",
+                   "pallas_level", "pallas_level_interpret",
+                   "pallas_pbatch", "pallas_pbatch_interpret")
+ATTN_IMPLS = ("einsum", "batched", "pallas_head", "pallas_head_interpret")
+LOCAL_IMPLS = ("einsum", "gather")
+KERNEL_FORMS = ("v1", "fold")
+STORAGE_DTYPES = ("float32", "bfloat16")
+_INHERIT = ("", "inherit")
+_QUEUE_B3 = "ROADMAP queue 2 B3: a TPU kernel form with no shipped route"
 # The two forwards of one set of weights (``GastNet.forward``'s
 # ``variant``): valid dilated convs over any T >= the receptive field, or
 # strided convs that compute only the frames the output needs.
@@ -101,12 +130,53 @@ class GastNetConfig:
     layout: str = "h36m17"
     gab_impl: str = "auto"
     attn_impl: str = "einsum"
+    local_impl: str = "einsum"
     packed_channels: int = 0
+    gab_impl_levels: Tuple[str, ...] = ()
+    gab_kernel_form: str = "v1"
+    gab_kernel_form_levels: Tuple[str, ...] = ()
+    # Eval-only storage: "float32", "bfloat16" or "auto" (float32 here).
+    storage_dtype: str = "float32"
+    storage_dtype_levels: Tuple[str, ...] = ()
+    gab_io_dtype: str = "float32"
+    # Accepted and ignored (module docstring): the same function at every
+    # value, and the TPU's VMEM budget and pack factor.
+    gab_softmax_group: int = 8
+    gab_tile_budget: int = 4096
+    gab_pbatch_max_pack: int = 0
+    # Raise when set (ROADMAP queue 2 B3).
+    gab_apply_block: bool = False
+    gab_score_block: bool = False
     # The base tier of every kernel dot, and (op_class, tier) overrides
     # (module docstring). The JAX default is "high"; the port's stays
     # float32 until its own cert clears another.
     matmul_precision: str = "highest"
     precision_overrides: Tuple[Tuple[str, str], ...] = ()
+
+    def gab_impl_for(self, i: int) -> str:
+        """gab_impl of level ``i``: its ``gab_impl_levels`` entry when
+        set."""
+        return _level_value(self.gab_impl_levels, i, self.gab_impl)
+
+    def gab_form_for(self, i: int) -> str:
+        """gab_kernel_form of level ``i``: its ``gab_kernel_form_levels``
+        entry when set."""
+        return _level_value(self.gab_kernel_form_levels, i,
+                            self.gab_kernel_form)
+
+    def storage_dtype_for(self, i: int, resolved: str) -> str:
+        """Storage dtype of level ``i``: its ``storage_dtype_levels``
+        entry when set, else ``resolved`` (``storage_dtype`` with
+        ``"auto"`` already resolved)."""
+        return _level_value(self.storage_dtype_levels, i, resolved)
+
+    def level_storage(self) -> Tuple[str, ...]:
+        """Each level's eval storage dtype, ``"auto"`` resolved to
+        float32 (the JAX package's resolution off a TPU)."""
+        sd = "float32" if self.storage_dtype == "auto" else \
+            self.storage_dtype
+        return tuple(self.storage_dtype_for(i, sd)
+                     for i in range(self.num_levels))
 
     def precision_for(self, op_class: str) -> Optional[str]:
         """Override tier of an op class (bare or level-qualified, matched
@@ -135,20 +205,53 @@ class GastNetConfig:
                 f"layout {self.layout} has "
                 f"{get_layout(self.layout).num_joints} joints, expected "
                 f"{self.num_joints_in}")
-        if self.gab_impl not in GAB_IMPLS:
-            raise ValueError(f"unknown gab_impl {self.gab_impl!r}; the port "
-                             f"takes {GAB_IMPLS}")
-        if self.attn_impl not in ATTN_IMPLS:
-            raise ValueError(f"unknown attn_impl {self.attn_impl!r}; the "
-                             f"port takes {ATTN_IMPLS}")
-        if (not isinstance(self.packed_channels, int)
-                or isinstance(self.packed_channels, bool)
-                or self.packed_channels < 0):
-            raise ValueError(f"packed_channels must be an int >= 0, got "
-                             f"{self.packed_channels!r}")
-        if self.packed_channels and self.gab_impl != "pallas":
-            raise ValueError(f"packed_channels > 0 needs gab_impl='pallas', "
-                             f"got {self.gab_impl!r}")
+        for name, value, valid in (
+                ("gab_impl", self.gab_impl, VALID_GAB_IMPLS),
+                ("attn_impl", self.attn_impl, ATTN_IMPLS),
+                ("local_impl", self.local_impl, LOCAL_IMPLS),
+                ("storage_dtype", self.storage_dtype,
+                 STORAGE_DTYPES + ("auto",)),
+                ("gab_io_dtype", self.gab_io_dtype, STORAGE_DTYPES)):
+            if value not in valid:
+                raise ValueError(f"unknown {name} {value!r}; valid: {valid}")
+        if self.gab_kernel_form == "v2" or "v2" in self.gab_kernel_form_levels:
+            raise ValueError(f"gab_kernel_form 'v2' is not carried "
+                             f"({_QUEUE_B3})")
+        if self.gab_kernel_form not in KERNEL_FORMS:
+            raise ValueError(f"unknown gab_kernel_form "
+                             f"{self.gab_kernel_form!r}; valid: "
+                             f"{KERNEL_FORMS}")
+        for name in ("gab_apply_block", "gab_score_block"):
+            if getattr(self, name):
+                raise ValueError(f"{name} is not carried ({_QUEUE_B3})")
+        for name, levels, valid in (
+                ("gab_impl_levels", self.gab_impl_levels, VALID_GAB_IMPLS),
+                ("gab_kernel_form_levels", self.gab_kernel_form_levels,
+                 KERNEL_FORMS),
+                ("storage_dtype_levels", self.storage_dtype_levels,
+                 STORAGE_DTYPES)):
+            if not isinstance(levels, tuple) or len(levels) > \
+                    self.num_levels:
+                raise ValueError(f"{name} must be a tuple of at most "
+                                 f"{self.num_levels} entries, got "
+                                 f"{levels!r}")
+            for v in levels:
+                if v not in valid + _INHERIT:
+                    raise ValueError(f"unknown {name} entry {v!r}; valid: "
+                                     f"{valid + _INHERIT}")
+        for name in ("packed_channels", "gab_softmax_group",
+                     "gab_tile_budget", "gab_pbatch_max_pack"):
+            v = getattr(self, name)
+            if not isinstance(v, int) or isinstance(v, bool) or v < 0:
+                raise ValueError(f"{name} must be an int >= 0, got {v!r}")
+        if self.packed_channels and any(
+                v not in _INHERIT for v in self.storage_dtype_levels):
+            raise ValueError(
+                "storage_dtype_levels is not supported with packed_channels")
+        if self.packed_channels and any(
+                v not in _INHERIT for v in self.gab_impl_levels):
+            raise ValueError(
+                "gab_impl_levels is not supported with packed_channels")
         if self.matmul_precision not in BASE_TIERS:
             hint = (" (a kernel-only tier: valid in precision_overrides, "
                     "not as the base)"
@@ -255,6 +358,11 @@ class GastNetConfig:
         return (2 ** self.num_levels) * self.channels
 
 
+def _level_value(levels: Tuple[str, ...], i: int, default: str) -> str:
+    v = levels[i] if i < len(levels) else ""
+    return default if v in _INHERIT else v
+
+
 class GraphStatics(NamedTuple):
     """Static per-layout constants consumed by the graph ops."""
 
@@ -302,18 +410,20 @@ def xla_precision(tier):
 def config_for_frames(frames: int, num_joints: int = 17, *,
                       causal: bool = False, dropout: float = 0.05,
                       precision_overrides: Tuple[Tuple[str, str], ...] = (),
-                      matmul_precision: str = "highest") -> GastNetConfig:
-    """The shipped receptive-field -> architecture table.
+                      matmul_precision: str = "highest",
+                      gab_impl: str = "auto") -> GastNetConfig:
+    """The shipped receptive-field -> architecture table, with the JAX
+    function's route fields.
 
     The tiers default to float32 (module docstring); pass
     ``matmul_precision="high", precision_overrides=
     TPU_MIXED_PRECISION_OVERRIDES`` for the JAX package's inference
-    default. Given that preset at 243 frames, the JAX 1-pass loosening of
-    the three remaining 3-pass kernel classes to ``"kdefault"`` is
-    prepended under JAX's gate (the preset exactly, on the default
-    ``"auto"`` route, which is the port's only route here). The JAX
-    243f ``gab_kernel_form_levels=("fold",)`` is not carried (ROADMAP
-    queue 2 B1)."""
+    default. As in JAX: 81f and 243f store ``"auto"`` (float32 here) and
+    81f keeps its C=512 tail level float32 (``storage_dtype_levels``);
+    under JAX's gate (that preset exactly, and ``gab_impl == "auto"``) a
+    243f model also prepends the 1-pass ``"kdefault"`` loosening of the
+    three remaining 3-pass kernel classes and folds GAB 0's scores
+    (``gab_kernel_form_levels=("fold",)``)."""
     if frames == 27:
         fw, ch = (3, 3, 3), 128
     elif frames == 81:
@@ -325,11 +435,19 @@ def config_for_frames(frames: int, num_joints: int = 17, *,
     layout = {17: "h36m17", 19: "h36m19", 16: "sh16",
               15: "humaneva15"}[num_joints]
     overrides = tuple(tuple(p) for p in precision_overrides)
-    if frames == 243 and overrides == TPU_MIXED_PRECISION_OVERRIDES:
+    form_levels: Tuple[str, ...] = ()
+    if (frames == 243 and gab_impl == "auto"
+            and overrides == TPU_MIXED_PRECISION_OVERRIDES):
         overrides = (("attn_proj", "kdefault"), ("attn_cat", "kdefault"),
                      ("gab_cat", "kdefault")) + overrides
+        form_levels = ("fold",)
     return GastNetConfig(num_joints_in=num_joints, num_joints_out=num_joints,
                          filter_widths=fw, channels=ch, causal=causal,
-                         dropout=dropout, layout=layout,
+                         dropout=dropout, layout=layout, gab_impl=gab_impl,
                          matmul_precision=matmul_precision,
-                         precision_overrides=overrides)
+                         precision_overrides=overrides,
+                         storage_dtype=("auto" if frames in (81, 243)
+                                        else "float32"),
+                         storage_dtype_levels=(("", "", "", "float32")
+                                               if frames == 81 else ()),
+                         gab_kernel_form_levels=form_levels)

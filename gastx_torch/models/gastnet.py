@@ -23,42 +23,57 @@ activations channels-last (B, T, J, C):
 
 The two forwards:
 
-  * :meth:`GastNet.forward` — the route the config picks, as the JAX
-    package's knobs of the same names pick it (``gastx/models/
-    gastnet.py``, ``gastx/ops/graph.py``):
+  * :meth:`GastNet.forward` — the route the config picks, level by level,
+    as the JAX package's knobs of the same names pick it
+    (``gastx/models/gastnet.py:186-428``, ``gastx/ops/graph.py:380-475``).
+    ``cfg.gab_impl_for(i)`` names level i's route (a ``_interpret``
+    suffix: the same route through every wrapper's plain version, on any
+    device); ``x`` below is the model input in level 0's storage dtype.
 
-    ==============  =======================================================
-    route           levels
-    ==============  =======================================================
-    ``"auto"``      dilated, not dense: level 0 ``fused_level0``; every
-    (default)       level with C <= 256 ``fused_level``; the C=512 tail its
-                    conv chain in plain torch, then ``fused_gab`` (the
-                    TPU's ``fused_gab_split``). Strided or dense: the plain
-                    expand prefix or conv chain, then ``fused_gab``, at
-                    every level (the JAX level kernels are gated to the
-                    dilated, non-dense forward)
-    ``"pallas"``    every level: the plain expand prefix or conv chain,
-                    then ``fused_gab``
-    ``"pallas_      every level: the plain prefix or conv chain, then the
-    local"``        hybrid GAB: ``fused_local_branch``, the global branch
-                    (by ``attn_impl``) and the 3C->2C concat in plain torch
-    ``"xla"``       the plain ops throughout, the global branch by
-                    ``attn_impl``
-    ==============  =======================================================
+    ==================  ===================================================
+    gate (JAX line)     levels it takes
+    ==================  ===================================================
+    level 0 kernel      ``fused_level0``: dilated, not dense, level 0's
+    (``l0_fused``,      route ``"auto"`` or ``"pallas_level"``, no
+    ``:252-262``)       ``packed_channels``, x float32, C <= 256
+    packed prefix       ``fused_gab_packed`` on the (B, T, J*C) view of
+    (``use_packed``,    each level from 0 while C <= ``packed_channels``
+    ``:292-298``)       (>= ``channels``): dilated, x float32,
+                        ``gab_impl`` ``"pallas"`` or ``"auto"``
+    level kernel        ``fused_level`` at level i >= 1: dilated, not
+    (``use_level_       dense, C <= 256, route ``"pallas_level"`` (any
+    fuse``, ``:341-     dtype) or ``"auto"`` with x float32
+    355``)
+    else                the plain expand prefix or conv chain at the
+                        level's dtype, then the GAB by route: ``"auto"``
+                        is ``"pallas"`` on float32 activations, else
+                        ``"pallas_pbatch"`` below C=128 and ``"pallas"``
+                        above; ``"pallas_local"`` on bf16 is ``"xla"``;
+                        ``"pallas_pbatch"`` at C <= 64 ``fused_gab`` as
+                        that entry point, else as ``"pallas"``;
+                        ``"pallas"``/``"pallas_level"`` ``fused_gab`` at
+                        C <= 512 (``gab_io_dtype="bfloat16"`` rounds its
+                        float32 input and output to bf16 there alone);
+                        ``"pallas_local"`` ``fused_local_branch``, the
+                        global branch and the concat in plain torch;
+                        ``"xla"`` (and C > 512) the plain block
+    ==================  ===================================================
 
-    ``attn_impl="pallas_head"`` runs each head of a plain global branch
-    (``"pallas_local"``, ``"xla"``) through ``head_attention``, its
-    projection and cat in plain torch. ``packed_channels`` (``"pallas"``
-    only; the config rejects it elsewhere) runs every GAB of C <=
-    ``packed_channels`` of the dilated forward through
-    ``fused_gab_packed`` on the (B, T, J*C) view of its conv chain's
-    output (the JAX package's ``_packed_prefix``, which the strided
-    forward does not take; its block-diagonal convs compute the same
-    function as the per-joint convs run here). Inside every wrapper the
-    GAB goes by shape (``kernels.gab_route``): one ``gab_narrow`` launch at
-    the narrow widths where it beat the chain, else the three-kernel
-    chain. The final 1x1 shrink is ``torch.matmul``. On a CPU tensor each
-    wrapper runs its plain version.
+    The plain global branch runs by ``attn_impl`` (``"pallas_head"``:
+    ``head_attention`` once per head, its projection and cat in plain
+    torch) and the plain local branch by ``local_impl``. The JAX VMEM gates
+    (``fits_vmem``, ``MAX_FUSED_CHANNELS``/``MAX_SPLIT_CHANNELS`` beyond
+    the GAB's 512) are not carried: the wrappers take any T. Every kernel
+    GAB takes ``cfg.gab_form_for(i)`` (``"fold"``: ``gab_tables``). Inside
+    every wrapper the GAB goes by shape (``fused_gab.gab_route``): one
+    ``gab_narrow`` launch at the narrow widths where it beat the chain,
+    else the three-kernel chain. The final 1x1 shrink is
+    ``torch.matmul``. On a CPU tensor each wrapper runs its plain version.
+
+    Storage (eval only; ``cfg.level_storage()``): a level stored bf16 runs
+    on a bf16 copy of its modules (``storage_copy``, cached) and its
+    activations are cast at level entry; the shrink runs at the last
+    level's dtype and the output is float32. Train mode ignores storage.
   * :meth:`GastNet.reference_forward` — the unfused ops of
     ``gastx_torch.ops.graph`` (the JAX package's XLA route with the einsum
     attention) for every config, the reference every route is held to.
@@ -90,12 +105,15 @@ Pallas kernel.
 """
 from __future__ import annotations
 
+import itertools
+import weakref
 from typing import Optional
 
 import torch
 from torch import nn
 
 from gastx_torch.models.config import GastNetConfig, graph_statics
+from gastx_torch.models.precision import cast_module
 from gastx_torch.ops.batchnorm import batch_norm
 from gastx_torch.ops.cuda.fused_gab import (
     KERNEL_OPS, fused_gab, fused_gab_packed, fused_gab_packed_plain,
@@ -118,7 +136,21 @@ from gastx_torch.parallel.mesh import Mesh
 # Levels up to this width run the level wrapper; wider ones run the conv
 # chain in torch and then fused_gab (see the module docstring).
 LEVEL_KERNEL_MAX_CHANNELS = 256
+# The widest GAB the kernel entry points take (the TPU's split form).
+GAB_KERNEL_MAX_CHANNELS = 512
+# The bf16 storage copies of each model, by dtype: (weights token, copy).
+_STORAGE_COPIES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
+
+def _base(impl: str) -> str:
+    """A route without its ``_interpret`` suffix."""
+    return impl.removesuffix("_interpret")
+
+
+def _interpret(impl: str) -> bool:
+    """Whether a route runs every wrapper's plain version (the port's
+    interpret mode)."""
+    return impl.endswith("_interpret")
 
 
 def _wrappers(plain: bool) -> dict:
@@ -261,75 +293,133 @@ class GastNet(nn.Module):
         reference on the card (on the CPU the same as the eval forward)."""
         return self._kernel_forward(x, variant, plain=True)
 
+    def storage_copy(self, dtype: torch.dtype) -> "GastNet":
+        """This model with its weights and BN statistics stored as
+        ``dtype`` (bf16 storage): ``self`` where they already are, else a
+        copy, made once per dtype and rebuilt when a weight changes (by
+        identity or in place), which carries ``self.cfg`` as it is now (a
+        config may be reassigned). ``self`` is never touched."""
+        if self.shrink.weight.dtype == dtype:
+            return self
+        token = tuple((t.data_ptr(), t._version) for t in itertools.chain(
+            self.parameters(), self.buffers()))
+        cache = _STORAGE_COPIES.setdefault(self, {})
+        if dtype not in cache or cache[dtype][0] != token:
+            cache[dtype] = (token, cast_module(self, dtype))
+        copy = cache[dtype][1]
+        copy.cfg = self.cfg
+        return copy
+
+    def level_dtypes(self) -> tuple:
+        """Each level's eval storage dtype (``cfg.level_storage()``); all
+        bf16 for a model whose weights are bf16 (``bf16_inference_fn``)."""
+        if self.shrink.weight.dtype == torch.bfloat16:
+            return (torch.bfloat16,) * self.cfg.num_levels
+        return tuple(torch.bfloat16 if d == "bfloat16" else torch.float32
+                     for d in self.cfg.level_storage())
+
     def _kernel_forward(self, x: torch.Tensor, variant: str,
                         plain: bool = False) -> torch.Tensor:
         self._check_input(x, variant)
         cfg, statics = self.cfg, self.statics
         fw, pads = cfg.filter_widths, cfg.pads()
         shifts = cfg.causal_shifts(variant)
-        gabs = self.layers_graph_conv
-        wrap = _wrappers(plain)
-        x = x.to(torch.float32).contiguous()
+        dts = self.level_dtypes()
+        mods = [self.storage_copy(d) for d in dts]
+        x = x.to(dts[0]).contiguous()
         dev = x.device
-        # The level kernels run on the dilated, non-dense forward under
-        # "auto" alone, as the JAX gates (l0_fused, level_fuse_ok) have it.
-        level_kernels = (cfg.gab_impl == "auto" and variant == "dilated"
-                         and not cfg.dense)
-        if level_kernels:
+        # The JAX gates (module docstring) read x's dtype: level 0's.
+        x_f32 = dts[0] == torch.float32
+        level_ok = variant == "dilated" and not cfg.dense
+        packed = (variant == "dilated" and x_f32
+                  and 0 < cfg.channels <= cfg.packed_channels
+                  and _base(cfg.gab_impl) in ("pallas", "auto"))
+        impl0 = cfg.gab_impl_for(0)
+        if (level_ok and _base(impl0) in ("pallas_level", "auto")
+                and cfg.packed_channels == 0 and x_f32
+                and cfg.channels <= LEVEL_KERNEL_MAX_CHANNELS):
+            m0 = mods[0]
             tiers0 = resolve_tiers(cfg, "gab0", KERNEL_OPS, dev)
             tiers0["temporal"] = resolve_tiers(cfg, "lvl0", ("expand",),
-                                             dev)["expand"]
-            y = wrap["level0"](
-                x, level0_tables(self.init_bn, self.expand_conv,
-                                 self.expand_bn),
-                gab_tables(gabs[0], statics), tiers0)
+                                               dev)["expand"]
+            y = _wrappers(plain or _interpret(impl0))["level0"](
+                x, level0_tables(m0.init_bn, m0.expand_conv, m0.expand_bn),
+                gab_tables(m0.layers_graph_conv[0], statics,
+                           cfg.gab_form_for(0)), tiers0)
         else:
-            y = self._gab(self._expand(x, variant), 0, variant, wrap)
+            y = mods[0]._gab(mods[0]._expand(x, variant), 0, variant, plain,
+                             packed)
         dilation = fw[0]
         for i in range(1, cfg.num_levels):
-            if (level_kernels
-                    and cfg.block_channels(i) <= LEVEL_KERNEL_MAX_CHANNELS):
+            m, impl, ci = mods[i], cfg.gab_impl_for(i), cfg.block_channels(i)
+            y = y.to(dts[i])
+            if (level_ok and ci <= LEVEL_KERNEL_MAX_CHANNELS
+                    and not (packed and ci <= cfg.packed_channels)
+                    and (_base(impl) == "pallas_level"
+                         or (_base(impl) == "auto" and x_f32))):
                 tiers = {**resolve_tiers(cfg, f"lvl{i}", LEVEL_OPS, dev),
                          **resolve_tiers(cfg, f"gab{i}", KERNEL_OPS, dev)}
-                y = wrap["level"](
-                    y, level_tables(*self.level_modules(i)),
-                    gab_tables(gabs[i], statics), fw=fw[i],
+                y = _wrappers(plain or _interpret(impl))["level"](
+                    y, level_tables(*m.level_modules(i)),
+                    gab_tables(m.layers_graph_conv[i], statics,
+                               cfg.gab_form_for(i)), fw=fw[i],
                     dilation=dilation, res_off=pads[i] + shifts[i],
                     tiers=tiers)
             else:
-                y = self._gab(self._conv_chain(y, i, dilation, variant), i,
-                              variant, wrap)
+                y = m._gab(m._conv_chain(y, i, dilation, variant), i,
+                           variant, plain, packed)
             dilation *= fw[i]
-        return pointwise(y, pconv_weight(self.shrink))
+        return pointwise(y, pconv_weight(mods[-1].shrink)).to(torch.float32)
 
-    def _gab(self, y: torch.Tensor, i: int, variant: str,
-             wrap: dict) -> torch.Tensor:
-        """GAB ``i`` on the route's wrapper: ``fused_gab_packed`` on the
-        (B, T, J*C) view at a packed width of the dilated forward,
-        ``fused_gab`` under "auto" and "pallas", else the plain block with
-        the hybrid's kernels in it; each kernel at the ``"gab{i}"`` tiers
-        (``wrap``: the wrappers or their plain versions)."""
+    def _gab(self, y: torch.Tensor, i: int, variant: str, plain: bool,
+             packed: bool) -> torch.Tensor:
+        """GAB ``i`` by its route (the module docstring's last row):
+        ``fused_gab_packed`` on the (B, T, J*C) view in the packed prefix,
+        ``fused_gab`` on the kernel routes, else the plain block with the
+        hybrid's kernels in it; each kernel at the ``"gab{i}"`` tiers and
+        ``cfg.gab_form_for(i)``, or its plain version (``plain``, or the
+        route's ``_interpret`` suffix)."""
         cfg, gab, statics = self.cfg, self.layers_graph_conv[i], self.statics
         b, t, j, c = y.shape
         tiers = resolve_tiers(cfg, f"gab{i}", KERNEL_OPS, y.device)
-        if variant == "dilated" and c <= cfg.packed_channels:
-            y = wrap["packed"](y.contiguous().view(b, t, j * c),
-                               gab_tables(gab, statics), j, tiers)
+        form = cfg.gab_form_for(i)
+        if packed and c <= cfg.packed_channels:
+            y = _wrappers(plain or _interpret(cfg.gab_impl))["packed"](
+                y.contiguous().view(b, t, j * c),
+                gab_tables(gab, statics, form), j, tiers)
             return y.view(b, t, j, 2 * c)
-        if cfg.gab_impl in ("auto", "pallas"):
-            return wrap["gab"](y.contiguous(), gab_tables(gab, statics),
+        impl = cfg.gab_impl_for(i)
+        wrap = _wrappers(plain or _interpret(impl))
+        route = _base(impl)
+        if route == "auto":
+            route = ("pallas" if y.dtype == torch.float32 or c >= 128
+                     else "pallas_pbatch")
+        if route == "pallas_local" and y.dtype != torch.float32:
+            route = "xla"
+        # The TPU's pack factor (frames in 128 lanes, within its 256-wide
+        # fused kernel) decides whether the narrow entry point runs.
+        pack = min(128 // c, 256 // c, cfg.gab_pbatch_max_pack or 128)
+        if route == "pallas_pbatch" and pack > 1:
+            return wrap["gab"](y.contiguous(), gab_tables(gab, statics, form),
                                tiers)
+        if (route in ("pallas", "pallas_level", "pallas_pbatch")
+                and c <= GAB_KERNEL_MAX_CHANNELS):
+            tables = gab_tables(gab, statics, form)
+            if cfg.gab_io_dtype == "bfloat16" and y.dtype == torch.float32:
+                return wrap["gab"](y.to(torch.bfloat16).contiguous(), tables,
+                                   tiers).to(torch.float32)
+            return wrap["gab"](y.contiguous(), tables, tiers)
         loc, glb = gab.local_graph_layer, gab.global_graph_layer
-        if cfg.gab_impl == "pallas_local":
+        if route == "pallas_local" and c <= GAB_KERNEL_MAX_CHANNELS:
             local = wrap["local"](y.contiguous(), local_tables(loc, statics),
                                   tiers)
         else:
-            local = local_graph(y, loc, statics)
-        if cfg.attn_impl == "pallas_head":
-            globl = global_concat(self._heads(y, glb, wrap["head"], tiers),
-                                  glb)
+            local = local_graph(y, loc, statics, impl=cfg.local_impl)
+        if _base(cfg.attn_impl) == "pallas_head":
+            head = _wrappers(plain or _interpret(cfg.attn_impl))["head"]
+            globl = global_concat(self._heads(y, glb, head, tiers), glb)
         else:
-            globl = multi_global_graph(y, glb)
+            globl = multi_global_graph(y, glb, impl=cfg.attn_impl)
         return block_concat(y, local, globl, gab)
 
     @staticmethod
@@ -338,10 +428,14 @@ class GastNet(nn.Module):
         ``head_attention`` (``head``: it or its plain version) at the
         ``attn_score``/``attn_apply`` tiers, on column views of one plain
         projection [theta | phi | g] (head-major within each), as the JAX
-        package keeps the projections outside its per-head kernel."""
+        package keeps the projections outside its per-head kernel. Under
+        bf16 storage the projection is bf16 and the kernel reads it
+        upcast and writes float32, as the JAX kernel does; the outputs go
+        on in y's dtype."""
         t = global_tables(glb)
         b, tt, j, _ = y.shape
-        p = (pointwise(y, t.w_attn) + t.attn_shift).reshape(b * tt, j, -1)
+        p = (pointwise(y, t.w_attn.to(y.dtype)) + t.attn_shift.to(y.dtype))
+        p = p.reshape(b * tt, j, -1).to(torch.float32)
         k, inter = t.proj_t.shape
         g_ch = (p.shape[-1] - 2 * k * inter) // k
         outs = []
@@ -354,7 +448,7 @@ class GastNet(nn.Module):
                 t.proj_t[h].reshape(-1, 1), t.proj_p[h].reshape(-1, 1),
                 t.c_k[h], score_tier=tiers["attn_score"],
                 apply_tier=tiers["attn_apply"])
-            outs.append(out.reshape(b, tt, j, g_ch))
+            outs.append(out.reshape(b, tt, j, g_ch).to(y.dtype))
         return outs
 
     def _expand(self, x: torch.Tensor, variant: str, train: bool = False,

@@ -58,7 +58,11 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, *,
 
 
 def fold_bn(bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Eval BN as an affine: y = x * scale + shift, each (C,)."""
-    scale = bn.weight / torch.sqrt(bn.running_var + EPS)
-    shift = bn.bias - bn.running_mean * scale
+    """Eval BN as an affine: y = x * scale + shift, each (C,); a bf16 BN
+    (bf16 storage) is folded in float32, as the TPU kernels fold theirs."""
+    weight, bias, mean, var = (
+        t.to(torch.float32) if t.dtype == torch.bfloat16 else t
+        for t in (bn.weight, bn.bias, bn.running_mean, bn.running_var))
+    scale = weight / torch.sqrt(var + EPS)
+    shift = bias - mean * scale
     return scale, shift

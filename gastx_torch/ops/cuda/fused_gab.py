@@ -52,6 +52,23 @@ version, :func:`fused_gab_plain`, runs the same chain through the
 kernels' plain PyTorch versions at every width; ``gastx_torch.ops.graph.
 graph_attention_block`` is the unfused reference.
 
+**Fold.** ``gab_tables(..., form="fold")`` folds the global branch's
+scores as the TPU kernels' ``form="fold"`` does (``_global_ins_fold``,
+``gastx/ops/pallas/fused_gab.py:673``): each head's theta and phi
+projections contract on the host, in float32, with their rank-1 score
+vectors into one column each (``global_attn.fold_columns``), so the
+projection yields [sem | sa | sb | g] and ``joint_attention`` runs at
+I = 1 on unit score vectors (``kernels.gab_chain``). Every wrapper that
+runs a GAB takes such tables; ``gab_narrow`` has no fold form, so a fold
+GAB runs the chain at every width.
+
+**bf16 I/O.** :func:`fused_gab` and ``fused_level`` take bf16
+activations (bf16 storage) and write bf16, or float32 in and bf16 out
+(``out_dtype``): the chain's GEMMs read the bf16 pieces and write the
+bf16 block output, ``gab_narrow`` likewise, and every intermediate stays
+float32, as in the TPU kernels' VMEM. The other entry points take
+float32 alone, as the JAX routes send them nothing else.
+
 Two more entry points replace TPU kernels of the same file:
 
   * :func:`fused_local_branch` (``fused_local_branch``, C <= 512, the
@@ -66,8 +83,7 @@ Two more entry points replace TPU kernels of the same file:
 """
 from __future__ import annotations
 
-import functools
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -75,8 +91,9 @@ from torch import nn
 
 from gastx_torch.ops.batchnorm import fold_bn
 from gastx_torch.ops.cuda import kernels as K
-from gastx_torch.ops.cuda.global_attn import attn_columns, head_tables
-from gastx_torch.ops.graph import sem_adjacency
+from gastx_torch.ops.cuda.global_attn import (attn_columns, fold_columns,
+                                              head_tables)
+from gastx_torch.ops.graph import local_weight_tables
 from gastx_torch.ops.temporal import pconv_weight
 
 MAX_CHANNELS = 512
@@ -89,7 +106,9 @@ PACKED_MAX_CHANNELS = 256
 
 class GabTables(NamedTuple):
     """Host-side weights of one GAB in the kernels' layouts (all float32
-    contiguous on the block's device, ``col`` int32)."""
+    contiguous on the block's device, ``col`` int32), and the form they
+    were folded for: ``"v1"``, or ``"fold"`` (I = 1 below, the score
+    vectors ones: module docstring)."""
 
     w_proj: torch.Tensor      # (C, 4C + 2KI + KG)
     proj_scale: torch.Tensor  # (4C + 2KI + KG,)  ones
@@ -111,44 +130,7 @@ class GabTables(NamedTuple):
     gcat_w: torch.Tensor      # (3C, 2C)
     gcat_scale: torch.Tensor  # (2C,)
     gcat_shift: torch.Tensor
-
-
-@functools.lru_cache(maxsize=None)
-def local_gather_tables(mask_idx: Tuple[int, ...], j: int):
-    """Padded-degree neighbour tables of a (J, J) adjacency from the flat
-    row-major indices of its nonzeros: (J, D) ``col`` (neighbour joint),
-    ``valid`` and ``is_diag`` masks, D the largest row degree."""
-    idx = np.asarray(mask_idx, np.int64)
-    rows, cols = idx // j, idx % j
-    per_row = [np.flatnonzero(rows == r) for r in range(j)]
-    d = max(len(p) for p in per_row)
-    col = np.zeros((j, d), np.int32)
-    valid = np.zeros((j, d), bool)
-    for r, p in enumerate(per_row):
-        col[r, : len(p)] = cols[p]
-        valid[r, : len(p)] = True
-    is_diag = valid & (col == np.arange(j)[:, None])
-    return col, valid, is_diag
-
-
-def local_weight_tables(e: torch.Tensor, mask_idx, j: int):
-    """Softmax edge weights -> (J, C) self and (J, D, C) neighbour tables.
-
-    Equivalent to the masked softmax of ``sem_ch_graph_conv``: each row
-    softmaxes over the -9e15-filled logits; the diagonal goes to
-    ``w_self``, the other nonzeros to ``w_nbr`` (zero-padded to the row
-    degree D). Returns (w_self, w_nbr, col (J, D) numpy int32).
-    """
-    adj = sem_adjacency(e, np.asarray(mask_idx), j)           # (C, J, J)
-    col, valid, is_diag = local_gather_tables(
-        tuple(int(i) for i in np.asarray(mask_idx)), j)
-    w_self = torch.diagonal(adj, dim1=1, dim2=2).t()           # (J, C)
-    adj_t = adj.permute(1, 2, 0)                               # (J, J, C)
-    w_nbr = adj_t[torch.arange(j, device=e.device)[:, None],
-                  torch.as_tensor(col, device=e.device).long()]  # (J, D, C)
-    keep = torch.as_tensor(valid & ~is_diag, device=e.device)
-    w_nbr = torch.where(keep[..., None], w_nbr, torch.zeros_like(w_nbr))
-    return w_self, w_nbr, col
+    form: str = "v1"
 
 
 def _pad_degree(w_nbr: torch.Tensor, col: np.ndarray, d: int):
@@ -187,8 +169,10 @@ def sem_columns(loc: nn.Module) -> list:
 def _local_after_projection(loc: nn.Module, statics) -> dict:
     """The :class:`LocalTables` fields after ``w_sem``."""
     j = statics.num_joints
-    ws_s, wn_s, col_s = local_weight_tables(loc.gcn_sym.e, statics.sym_idx, j)
-    ws_c, wn_c, col_c = local_weight_tables(loc.gcn_con.e, statics.con_idx, j)
+    ws_s, wn_s, col_s = local_weight_tables(K.upcast(loc.gcn_sym.e),
+                                            statics.sym_idx, j)
+    ws_c, wn_c, col_c = local_weight_tables(K.upcast(loc.gcn_con.e),
+                                            statics.con_idx, j)
     d = max(col_s.shape[1], col_c.shape[1])
     wn_s, col_s = _pad_degree(wn_s, col_s, d)
     wn_c, col_c = _pad_degree(wn_c, col_c, d)
@@ -217,76 +201,98 @@ def local_tables(loc: nn.Module, statics) -> LocalTables:
 
 
 @torch.no_grad()
-def gab_tables(block: nn.Module, statics) -> GabTables:
+def gab_tables(block: nn.Module, statics, form: str = "v1") -> GabTables:
     """Fold one ``GraphAttentionBlock``'s weights into :class:`GabTables`:
     one projection of both branches' columns, each branch's other tables,
-    and the block concat."""
+    and the block concat; with ``form="fold"`` the scores folded into the
+    projection (module docstring). bf16 weights (bf16 storage) are
+    upcast before any arithmetic, as the TPU kernels do."""
+    if form not in ("v1", "fold"):
+        raise ValueError(f"unknown GAB form {form!r}")
     loc, glb = block.local_graph_layer, block.global_graph_layer
-    attn_cols, attn_shift = attn_columns(glb)
+    attn_cols, attn_shift = (fold_columns if form == "fold"
+                             else attn_columns)(glb)
     shift = torch.cat([attn_shift.new_zeros(4 * loc.gcn_sym.W.shape[2]),
                        attn_shift])
+    heads = head_tables(glb)
+    if form == "fold":
+        k = heads["proj_t"].shape[0]
+        heads["proj_t"] = heads["proj_p"] = heads["proj_t"].new_ones(k, 1)
     s_g, t_g = fold_bn(block.cat_bn)
     return GabTables(
         w_proj=K.as_table(torch.cat(sem_columns(loc) + attn_cols, dim=1)),
         proj_scale=K.as_table(torch.ones_like(shift)),
         proj_shift=K.as_table(shift),
-        **_local_after_projection(loc, statics), **head_tables(glb),
+        **_local_after_projection(loc, statics), **heads,
         gcat_w=K.as_table(pconv_weight(block.cat_conv)),
-        gcat_scale=K.as_table(s_g), gcat_shift=K.as_table(t_g))
+        gcat_scale=K.as_table(s_g), gcat_shift=K.as_table(t_g), form=form)
 
 
 def _check_x(x: torch.Tensor, t: GabTables) -> None:
     K.check_blocks(x, t.w_proj.shape[0], t.c_k.shape[1], MAX_CHANNELS,
-                   "fused_gab")
+                   "fused_gab", K.IO_DTYPES)
+
+
+def gab_route(t: GabTables, tiers) -> str:
+    """``kernels.gab_route`` for these tables: a fold GAB takes the chain
+    (``gab_narrow`` has no fold form)."""
+    if t.form == "fold":
+        return "chain"
+    return K.gab_route(*K.gab_shape(t), tiers)
 
 
 def _chain_tiers(t: GabTables, tiers):
     """The chain's tiers for this GAB: None (float32) where ``gab_route``
     picks ``gab_narrow``, which computes float32 at every tier."""
-    if K.gab_route(*K.gab_shape(t), tiers) == "gab_narrow":
-        return None
-    return tiers
+    return None if gab_route(t, tiers) == "gab_narrow" else tiers
 
 
 def fused_gab_plain(x: torch.Tensor, t: GabTables,
-                    tiers: Optional[Dict[str, str]] = None) -> torch.Tensor:
+                    tiers: Optional[Dict[str, str]] = None,
+                    out_dtype: Optional[torch.dtype] = None
+                    ) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_gab`."""
     _check_x(x, t)
     b, tt, j, c = x.shape
     y = K.gab_chain(x.reshape(-1, c), t, K.gemm_epilogue_plain,
                     K.sem_graph_plain, K.joint_attention_plain,
-                    _chain_tiers(t, tiers))
+                    _chain_tiers(t, tiers),
+                    out_dtype=x.dtype if out_dtype is None else out_dtype)
     return y.reshape(b, tt, j, 2 * c)
 
 
-def _gab_kernels(x: torch.Tensor, t: GabTables, tiers) -> torch.Tensor:
+def _gab_kernels(x: torch.Tensor, t: GabTables, tiers,
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The GAB's kernels on CUDA (B, T, J, C) activations: ``gab_narrow``
-    where ``kernels.gab_route`` picks it, else the chain above."""
+    where :func:`gab_route` picks it, else the chain above."""
     b, tt, j, c = x.shape
-    if K.gab_route(*K.gab_shape(t), tiers) == "gab_narrow":
-        y = K.gab_narrow(x.reshape(-1, c), t)
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    if gab_route(t, tiers) == "gab_narrow":
+        y = K.gab_narrow(x.reshape(-1, c), t, out_dtype)
     else:
         y = K.gab_chain(x.reshape(-1, c), t, K.gemm_epilogue, K.sem_graph,
-                        K.joint_attention, tiers)
+                        K.joint_attention, tiers, out_dtype=out_dtype)
     return y.reshape(b, tt, j, 2 * c)
 
 
 def fused_gab(x: torch.Tensor, t: GabTables,
-              tiers: Optional[Dict[str, str]] = None) -> torch.Tensor:
+              tiers: Optional[Dict[str, str]] = None,
+              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """(B, T, J, C) -> (B, T, J, 2C), the eval-mode GAB, C <= 512. It runs
-    ``gab_narrow`` where ``kernels.gab_route`` picks it, else the chain at
+    ``gab_narrow`` where :func:`gab_route` picks it, else the chain at
     ``tiers``, and counts by width, under the TPU kernel each class
     replaces: ``fused_gab_pbatch`` (C < 128), ``fused_gab`` (C <= 256) or
-    ``fused_gab_split``."""
+    ``fused_gab_split``. ``x`` is float32 or bf16; the output is
+    ``out_dtype`` (default: x's)."""
     K.check_no_grad("fused_gab", x, t)
     _check_x(x, t)
     if not K.use_kernel(x.device):
-        return fused_gab_plain(x, t, tiers)
+        return fused_gab_plain(x, t, tiers, out_dtype)
     c = x.shape[-1]
     entry = ("fused_gab_pbatch" if c <= K.NARROW_MAX_CHANNELS
              else "fused_gab" if c <= 256 else "fused_gab_split")
     with K.entry_point(entry):
-        return _gab_kernels(x, t, tiers)
+        return _gab_kernels(x, t, tiers, out_dtype)
 
 
 def _unpack(x: torch.Tensor, t: GabTables, num_joints: int) -> torch.Tensor:
@@ -309,7 +315,8 @@ def fused_gab_packed_plain(x: torch.Tensor, t: GabTables, num_joints: int,
                            tiers: Optional[Dict[str, str]] = None
                            ) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_gab_packed`."""
-    y = fused_gab_plain(_unpack(x, t, num_joints), t, tiers)
+    xv = _unpack(x, t, num_joints)
+    y = fused_gab_plain(xv, t, tiers)
     return y.view(x.shape[0], x.shape[1], -1)
 
 
@@ -321,7 +328,6 @@ def fused_gab_packed(x: torch.Tensor, t: GabTables, num_joints: int,
     view, counted under ``fused_gab_packed`` alone."""
     K.check_no_grad("fused_gab_packed", x, t)
     xv = _unpack(x, t, num_joints)
-    _check_x(xv, t)
     if not K.use_kernel(x.device):
         return fused_gab_packed_plain(x, t, num_joints, tiers)
     with K.entry_point("fused_gab_packed"):

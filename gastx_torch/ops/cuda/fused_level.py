@@ -15,6 +15,12 @@ residual slice at ``res_off`` frames. The GAB then runs through
 length is not carried: these wrappers take any T, so whole-sequence
 lifting stays on them.
 
+``fused_level`` also takes bf16 activations (bf16 storage), as the TPU
+kernel does at any dtype: its taps and residual read them as bf16 A pieces
+and a bf16 residual, the conv chain's output stays float32, and the GAB
+writes the level's bf16 output. ``fused_level0`` takes float32 alone (the
+JAX route sends it nothing else, ``gastx/models/gastnet.py:252-262``).
+
 ``tiers`` ({op_class: tier}, None: all ``"highest"``) covers ``LEVEL_OPS``
 (the conv taps and the 1x1) and ``fused_gab.KERNEL_OPS``; in
 ``fused_level0`` the expand conv takes the ``"temporal"`` slot, as the TPU
@@ -71,17 +77,19 @@ def level_tables(conv_t: nn.Module, bn_t: nn.Module, conv_1: nn.Module,
 def level0_tables(init_bn: nn.Module, expand_conv: nn.Module,
                   expand_bn: nn.Module) -> Level0Tables:
     a_i, b_i = fold_bn(init_bn)
-    w = tconv_weight(expand_conv)                          # (fw, C_in, C)
+    w = K.upcast(tconv_weight(expand_conv))                # (fw, C_in, C)
     bias = torch.einsum("kco,c->o", w, b_i)
     s_e, t_e = fold_bn(expand_bn)
     return Level0Tables(K.as_table(w * a_i[None, :, None]), K.as_table(s_e),
                         K.as_table(t_e + bias * s_e))
 
 
-def _check_x(x: torch.Tensor, c_in: int, span: int) -> None:
-    if (x.dim() != 4 or x.shape[-1] != c_in or x.dtype != torch.float32
+def _check_x(x: torch.Tensor, c_in: int, span: int,
+             dtypes=(torch.float32,)) -> None:
+    if (x.dim() != 4 or x.shape[-1] != c_in or x.dtype not in dtypes
             or not x.is_contiguous()):
-        raise ValueError(f"x must be a contiguous float32 (B, T, J, {c_in}) "
+        kinds = " or ".join(str(d).split(".")[-1] for d in dtypes)
+        raise ValueError(f"x must be a contiguous {kinds} (B, T, J, {c_in}) "
                          f"tensor, got {tuple(x.shape)} {x.dtype}")
     if x.shape[1] < span:
         raise ValueError(f"{x.shape[1]} frames are fewer than the level's "
@@ -108,7 +116,8 @@ def _level(x, lt, gt, fw, dilation, res_off, gemm, gab, tiers):
     y1 = gemm([(z, lt.w1, 0)], m, s_out=s_out, scale=lt.bn1_scale,
               shift=lt.bn1_shift, relu=True, res=x2, res_s_in=t * j,
               res_off=res_off * j, tier=tier("mid1x1"))
-    return gab(y1.reshape(b, t_out, j, c), gt, _gab_tiers(tiers))
+    return gab(y1.reshape(b, t_out, j, c), gt, _gab_tiers(tiers),
+               out_dtype=x.dtype)
 
 
 def _level0(x, l0, gt, gemm, gab, tiers):
@@ -125,7 +134,7 @@ def _level0(x, l0, gt, gemm, gab, tiers):
 def _check_level(x, lt, fw, dilation, res_off):
     if lt.wt.shape[0] != fw:
         raise ValueError(f"conv has {lt.wt.shape[0]} taps, fw is {fw}")
-    _check_x(x, lt.wt.shape[1], (fw - 1) * dilation + 1)
+    _check_x(x, lt.wt.shape[1], (fw - 1) * dilation + 1, K.IO_DTYPES)
     t_out = x.shape[1] - (fw - 1) * dilation
     if not 0 <= res_off <= x.shape[1] - t_out:
         raise ValueError(f"residual offset {res_off} leaves the sequence")
@@ -146,7 +155,8 @@ def fused_level(x: torch.Tensor, lt: LevelTables, gt: GabTables, *,
                 tiers: Optional[Dict[str, str]] = None) -> torch.Tensor:
     """(B, T, J, C) -> (B, T', J, 2C), T' = T - (fw-1)*dilation: dilated
     conv -> BN -> ReLU -> 1x1 -> BN -> ReLU -> + x[res_off:res_off+T'] ->
-    GAB. ``res_off`` is in frames (pad + causal shift)."""
+    GAB. ``res_off`` is in frames (pad + causal shift). ``x`` is float32
+    or bf16, and the output has its dtype."""
     K.check_no_grad("fused_level", x, lt, gt)
     _check_level(x, lt, fw, dilation, res_off)
     if not K.use_kernel(x.device):

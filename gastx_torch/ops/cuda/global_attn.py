@@ -68,6 +68,32 @@ def attn_columns(mod: nn.Module):
     return [wt, wp, wg], torch.cat([bt, bp, bg])
 
 
+def fold_columns(mod: nn.Module):
+    """:func:`attn_columns` in the TPU kernels' fold form
+    (``_global_ins_fold``, ``gastx/ops/pallas/fused_gab.py:673``): each
+    head k's theta and phi columns contracted with its score vectors,
+    wsa_k = W_theta_k @ p_theta_k and wsb_k likewise, (C, K) each, their
+    biases b_theta_k . p_theta_k and b_phi_k . p_phi_k, then g's columns
+    as they are; computed in float32."""
+    (wt, wp, wg), bias = attn_columns(mod)
+    heads = list(mod.attentions)
+    k = len(heads)
+    proj = torch.stack([K.upcast(h.concat_project[0].weight.reshape(-1))
+                        for h in heads])                      # (K, 2I)
+    inter = proj.shape[1] // 2
+    c = wt.shape[0]
+
+    def fold(w, b, p):  # (C, KI), (KI,), (K, I) -> (C, K), (K,)
+        w = K.upcast(w).reshape(c, k, inter)
+        return ((w * p).sum(-1), (K.upcast(b).reshape(k, inter) * p).sum(-1))
+
+    (wsa, bsa), (wsb, bsb) = (fold(wt, bias[:k * inter], proj[:, :inter]),
+                              fold(wp, bias[k * inter:2 * k * inter],
+                                   proj[:, inter:]))
+    return ([wsa, wsb, K.upcast(wg)],
+            torch.cat([bsa, bsb, K.upcast(bias[2 * k * inter:])]))
+
+
 def head_tables(mod: nn.Module) -> dict:
     """The :class:`GlobalTables` fields after the projection: the score
     vectors, the biases C_k and the folded K*G -> C cat."""

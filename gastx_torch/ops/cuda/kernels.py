@@ -21,6 +21,17 @@ plain C interface:
     (``NARROW_WIDTHS``, C = 16 .. 96 in steps of 16) in one launch, every
     intermediate in shared memory.
 
+``gemm_epilogue``, ``gemm_tc`` and ``gab_narrow`` also read and write
+bf16 (bf16 storage, ``gastx_torch.models.config``): each A piece of a GEMM
+and its residual float32 or bf16 (the dtype is the tensor's), its output
+float32 or bf16 (``out_dtype``); ``gab_narrow``'s x and output likewise.
+They upcast on load and compute in float32, as the TPU kernels do; the
+weights stay float32, and so do the intermediates between the chain's
+kernels. ``gemm_tc`` takes any bf16 operand on its ``general``
+instantiation. A launch with a bf16 operand goes to the source's bf16-I/O
+library (``IO_SOURCES``). Each plain version upcasts, runs the float32
+plain chain and rounds the output.
+
 The first three chain into the GAB (:func:`gab_chain`) wherever
 :func:`gab_route` does not pick ``gab_narrow``, and into its two
 branches alone (:func:`local_chain`, projection ->
@@ -56,9 +67,10 @@ kernel to. ``LAUNCHES`` counts kernel launches by kernel,
 ``VARIANT_LAUNCHES`` those of the kernels with two alignment
 instantiations by kernel and instantiation, ``TIER_LAUNCHES`` the tiered
 launches of ``gemm_tc`` (by tier) and ``joint_attention`` (by score/apply
-tier pair); ``ENTRY_LAUNCHES`` counts the kernel launches made inside each
-entry point (:func:`entry_point`). All are counted in ``_launch`` alone,
-after the launch succeeded.
+tier pair), ``DTYPE_LAUNCHES`` every kernel's launches by the dtypes of
+its I/O (``IO_LABELS``); ``ENTRY_LAUNCHES`` counts the kernel launches
+made inside each entry point (:func:`entry_point`). All are counted in
+``_launch`` alone, after the launch succeeded.
 """
 from __future__ import annotations
 
@@ -83,6 +95,11 @@ CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "gastx_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# The sources with bf16-I/O forms, each also built with IO_FLAGS into a
+# library of its own ("<name>_io"): every bf16 launch goes there, so the
+# float32 library has no dtype code, and the two compile side by side.
+IO_SOURCES = ("gemm_epilogue", "gab_narrow", "gemm_tc")
+IO_FLAGS = ("-DGASTX_BF16_IO",)
 
 # The port's entry points that replace TPU kernels. The one ``fused_gab``
 # counts under the TPU kernel it stands for: ``fused_gab_pbatch`` for
@@ -120,28 +137,37 @@ TIER_LAUNCHES: Dict[str, Dict[str, int]] = {
     "gemm_tc": {t: 0 for t in TC_TIERS}, "joint_attention": {}}
 ENTRY_LAUNCHES: Dict[str, int] = {name: 0 for name in ENTRY_POINTS}
 _OPEN_ENTRIES: List[str] = []
+# Launches by the dtypes of a launch's activations in and out: all float32,
+# a bf16 input (an A piece, the residual or x), a bf16 output, or both.
+IO_LABELS = ("float32", "bf16_in", "bf16_out", "bf16_io")
+DTYPE_LAUNCHES: Dict[str, Dict[str, int]] = {
+    name: {io: 0 for io in IO_LABELS} for name in KERNEL_SOURCES}
+# The C functions' dtype bits: A piece p bf16 (bit p), the residual (bit
+# 3) and the output (bit 4).
+_RES_BF16, _OUT_BF16 = 8, 16
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     "gemm_epilogue": [_P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I,
                       _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _I, _P, _P,
-                      _I],
+                      _I, _I],
     "sem_graph": [_P, _I, _P, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I],
     "joint_attention": [_P, _P, _P, _I, _P, _P, _P, _P, _LL, _I, _I, _I,
                         _I, _P, _I, _I, _I],
     # per piece (a, w_hi, w_lo, K, a_off) x 3, then as gemm_epilogue's
-    # from npieces on, tier code (the general instantiation)
+    # from npieces on, tier code, dtype bits (the general instantiation)
     "gemm_tc": [_P, _P, _P, _I, _I] * 3 + [_I, _I, _I, _I, _I, _I, _P, _P,
-                                          _I, _P, _I, _P, _P, _I],
+                                          _I, _P, _I, _P, _P, _I, _I],
     # per piece (a, K, rows, a_off) x 3, npieces, W^T's halves and their
     # padded K, then as gemm_epilogue's from m on, tier code (vec16)
     "gemm_tc_hopper": [_P, _I, _I, _I] * 3 + [_I, _P, _P, _I, _I, _I, _I,
                                               _I, _I, _P, _P, _I, _P, _I,
                                               _P, _P, _I],
     # x, out, frames, J, C, D, K, I, G, the 20 tables of a GabTables in
-    # its field order, stream
-    "gab_narrow": [_P, _P, _LL, _I, _I, _I, _I, _I, _I] + [_P] * 21,
+    # its field order (narrow_table_ptrs), stream, x bf16, out bf16
+    "gab_narrow": [_P, _P, _LL, _I, _I, _I, _I, _I, _I] + [_P] * 21
+    + [_I, _I],
 }
 
 
@@ -151,7 +177,7 @@ _EXTRA_SYMBOLS = {"gemm_tc": ("gemm_tc_hopper",)}
 
 def reset_launches() -> None:
     for counts in (LAUNCHES, ENTRY_LAUNCHES, *VARIANT_LAUNCHES.values(),
-                   TIER_LAUNCHES["gemm_tc"]):
+                   TIER_LAUNCHES["gemm_tc"], *DTYPE_LAUNCHES.values()):
         for name in counts:
             counts[name] = 0
     TIER_LAUNCHES["joint_attention"].clear()
@@ -180,27 +206,38 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
+def _libraries() -> Dict[str, Tuple[str, Tuple[str, ...]]]:
+    """Every library of ``KERNEL_SOURCES``: its name -> (source, the nvcc
+    flags beyond ``NVCC_FLAGS``)."""
+    libs = {name: (name, ()) for name in KERNEL_SOURCES}
+    libs.update({f"{name}_io": (name, IO_FLAGS) for name in IO_SOURCES
+                 if name in KERNEL_SOURCES})
+    return libs
+
+
 def _library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    source, flags = _libraries()[name]
+    src = (CSRC_DIR / f"{source}.cu").read_bytes()
+    digest = hashlib.sha1(
+        src + " ".join(NVCC_FLAGS + flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
 def build_kernels() -> Dict[str, str]:
-    """Compile every kernel whose library is missing, one ``nvcc`` per
-    source, all started together, and load them all. Returns the compiler
-    output (``ptxas -v``: registers, shared memory, spills) of each kernel
+    """Compile every library whose file is missing, one ``nvcc`` each, all
+    started together, and load them all. Returns the compiler output
+    (``ptxas -v``: registers, shared memory, spills) of each library
     built."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     try:
-        for name in KERNEL_SOURCES:
+        for name, (source, flags) in _libraries().items():
             lib = _library_path(name)
             if lib.exists():
                 continue
             tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   str(CSRC_DIR / f"{name}.cu")]
+            cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp),
+                   str(CSRC_DIR / f"{source}.cu")]
             procs[name] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True), tmp, lib)
@@ -211,7 +248,7 @@ def build_kernels() -> Dict[str, str]:
                 raise RuntimeError(f"nvcc failed on {name}.cu:\n{out}")
             os.replace(tmp, lib)
             logs[name] = out
-        for name in KERNEL_SOURCES:
+        for name in _libraries():
             _lib(name)
         return logs
     finally:
@@ -227,7 +264,7 @@ def _lib(name: str) -> ctypes.CDLL:
         if not path.exists():
             build_kernels()
         lib = ctypes.CDLL(str(path))
-        for symbol in (name, *_EXTRA_SYMBOLS.get(name, ())):
+        for symbol in (_libraries()[name][0], *_EXTRA_SYMBOLS.get(name, ())):
             fn = getattr(lib, symbol)
             fn.argtypes = _ARGTYPES[symbol]
             fn.restype = ctypes.c_int
@@ -239,17 +276,20 @@ def _lib(name: str) -> ctypes.CDLL:
 
 def _launch(name: str, *args, tier: Optional[str] = None,
             symbol: Optional[str] = None,
-            variant: Optional[str] = None) -> None:
+            variant: Optional[str] = None, io: str = "float32") -> None:
     """Launch kernel ``name`` through its C function ``symbol`` (default
     ``name``); ``tier``: the tiered instantiation's label, for
     ``TIER_LAUNCHES``; ``variant``: the alignment instantiation (default:
-    ``"vec16"`` where the last argument is 1)."""
-    lib = _lib(name)
+    ``"vec16"`` where the last argument is 1); ``io``: the launch's
+    ``IO_LABELS`` entry (a bf16 launch goes to the ``IO_SOURCES``
+    library)."""
+    lib = _lib(name if io == "float32" else f"{name}_io")
     code = getattr(lib, symbol or name)(*args)
     if code != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.error_string(code).decode()} ({code})")
     LAUNCHES[name] += 1
+    DTYPE_LAUNCHES[name][io] += 1
     if name in VARIANT_LAUNCHES:
         VARIANT_LAUNCHES[name][variant or ("vec16" if args[-1]
                                            else "general")] += 1
@@ -268,16 +308,56 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _check(device: torch.device, **tensors) -> None:
+# The dtypes an activation of the bf16-I/O kernels may have.
+IO_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(device: torch.device, dtypes=(torch.float32,), **tensors
+           ) -> None:
     for name, t in tensors.items():
         if t is None:
             continue
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise ValueError(f"{name} must be "
+                             f"{' or '.join(map(str, dtypes))}, got "
+                             f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def io_label(inputs: Sequence[Optional[torch.Tensor]],
+             out_dtype: torch.dtype) -> str:
+    """The ``IO_LABELS`` entry of a launch reading ``inputs`` and writing
+    ``out_dtype``."""
+    b_in = any(t is not None and t.dtype == torch.bfloat16 for t in inputs)
+    b_out = out_dtype == torch.bfloat16
+    return IO_LABELS[int(b_in) + 2 * int(b_out)]
+
+
+def _check_out_dtype(out_dtype: torch.dtype) -> None:
+    if out_dtype not in IO_DTYPES:
+        raise ValueError(f"out_dtype must be float32 or bfloat16, got "
+                         f"{out_dtype}")
+
+
+def _dtype_bits(pieces, res, out_dtype) -> int:
+    """The C functions' dtype bits (A pieces, residual, output)."""
+    bits = sum(1 << p for p, (a, _, _) in enumerate(pieces)
+               if a.dtype == torch.bfloat16)
+    if res is not None and res.dtype == torch.bfloat16:
+        bits |= _RES_BF16
+    if out_dtype == torch.bfloat16:
+        bits |= _OUT_BF16
+    return bits
+
+
+def upcast(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 weight (bf16 storage) as float32 before any table
+    arithmetic, as the TPU kernels' ``_ensure_f32`` does; other dtypes
+    as they are."""
+    return t.to(torch.float32) if t.dtype == torch.bfloat16 else t
 
 
 def as_table(t: torch.Tensor) -> torch.Tensor:
@@ -336,7 +416,8 @@ def _check_gemm(pieces, m, s_out, a_s_in, scale, shift, res, res_s_in,
                          f"sequence's output rows {s_out}")
     seqs = m // s_out
     for i, (a, w, off) in enumerate(pieces):
-        _check(device, **{f"a{i}": a, f"w{i}": w})
+        _check(device, IO_DTYPES, **{f"a{i}": a})
+        _check(device, **{f"w{i}": w})
         if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[0]:
             raise ValueError(f"piece {i}: a {tuple(a.shape)} and w "
                              f"{tuple(w.shape)} do not multiply")
@@ -354,7 +435,7 @@ def _check_gemm(pieces, m, s_out, a_s_in, scale, shift, res, res_s_in,
     if (scale is None) != (shift is None):
         raise ValueError("scale and shift come together")
     if res is not None:
-        _check(device, res=res)
+        _check(device, IO_DTYPES, res=res)
         if (res.dim() != 2 or res.shape[1] != n or res_off < 0
                 or (seqs - 1) * res_s_in + s_out + res_off > res.shape[0]):
             raise ValueError(f"residual {tuple(res.shape)} does not cover "
@@ -374,10 +455,14 @@ def gemm_epilogue_plain(pieces: Sequence[Piece], m: int, *,
                         res=None,
                         res_s_in: Optional[int] = None,
                         res_off: int = 0,
-                        tier: str = "highest") -> torch.Tensor:
+                        tier: str = "highest",
+                        out_dtype: torch.dtype = torch.float32
+                        ) -> torch.Tensor:
     """Plain PyTorch version of :func:`gemm_epilogue` (same arguments):
-    each piece's product by ``precision.tiered_mm`` at ``tier``."""
+    bf16 operands upcast, each piece's product by ``precision.tiered_mm``
+    at ``tier``, the output rounded to ``out_dtype``."""
     check_tier(tier)
+    _check_out_dtype(out_dtype)
     s_out = m if s_out is None else s_out
     a_s_in = s_out if a_s_in is None else a_s_in
     res_s_in = s_out if res_s_in is None else res_s_in
@@ -388,22 +473,24 @@ def gemm_epilogue_plain(pieces: Sequence[Piece], m: int, *,
     acc = None
     for a, w, off in pieces:
         rows = _row_map(m, s_out, a_s_in, off, device)
-        term = tiered_mm(a[rows], w, tier)
+        term = tiered_mm(a[rows].to(torch.float32), w, tier)
         acc = term if acc is None else acc + term
     if scale is not None:
         acc = acc * scale + shift
     if relu:
         acc = torch.relu(acc)
     if res is not None:
-        acc = acc + res[_row_map(m, s_out, res_s_in, res_off, device)]
-    return acc
+        acc = acc + res[_row_map(m, s_out, res_s_in, res_off,
+                                 device)].to(torch.float32)
+    return acc.to(out_dtype)
 
 
 def gemm_epilogue(pieces: Sequence[Piece], m: int, *,
                   s_out: Optional[int] = None, a_s_in: Optional[int] = None,
                   scale=None, shift=None, relu: bool = False, res=None,
                   res_s_in: Optional[int] = None, res_off: int = 0,
-                  tier: str = "highest") -> torch.Tensor:
+                  tier: str = "highest",
+                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """out (m, N) = epi(sum_p A_p[in_row(r, p)] @ W_p).
 
     ``pieces``: up to three (a (rows, K_p), w (K_p, N), a_off). Rows are
@@ -415,9 +502,12 @@ def gemm_epilogue(pieces: Sequence[Piece], m: int, *,
     ``"highest"`` launches the float32 ``gemm_epilogue`` kernel and every
     other tier ``gemm_tc``, each W split here into its bf16 halves (laid
     out by :func:`tc_weights` for the ``vec16`` instantiation).
+    Each A piece and ``res`` may be float32 or bf16, and the output is
+    ``out_dtype`` (float32 or bf16); W, scale and shift are float32.
     """
     check_no_grad("gemm_epilogue", pieces, scale, shift, res)
     check_tier(tier)
+    _check_out_dtype(out_dtype)
     s_out = m if s_out is None else s_out
     a_s_in = s_out if a_s_in is None else a_s_in
     res_s_in = s_out if res_s_in is None else res_s_in
@@ -427,11 +517,12 @@ def gemm_epilogue(pieces: Sequence[Piece], m: int, *,
         return gemm_epilogue_plain(
             pieces, m, s_out=s_out, a_s_in=a_s_in, scale=scale, shift=shift,
             relu=relu, res=res, res_s_in=res_s_in, res_off=res_off,
-            tier=tier)
-    out = torch.empty((m, n), dtype=torch.float32, device=device)
+            tier=tier, out_dtype=out_dtype)
+    out = torch.empty((m, n), dtype=out_dtype, device=device)
+    io = io_label([a for a, _, _ in pieces] + [res], out_dtype)
     if tier != "highest":
         _gemm_tc(pieces, m, n, s_out, a_s_in, res_s_in, scale, shift, relu,
-                 res, res_off, out, tier)
+                 res, res_off, out, tier, io)
         return out
     flat = []
     for i in range(3):
@@ -443,12 +534,13 @@ def gemm_epilogue(pieces: Sequence[Piece], m: int, *,
     _launch("gemm_epilogue", *flat, len(pieces), m, n, s_out, a_s_in,
             res_s_in, _ptr(scale), _ptr(shift), int(relu),
             _ptr(res), res_off, out.data_ptr(), _stream(),
-            int(gemm_variant(pieces, n, res) == "vec16"))
+            _dtype_bits(pieces, res, out_dtype),
+            int(gemm_variant(pieces, n, res) == "vec16"), io=io)
     return out
 
 
 def _gemm_tc(pieces, m, n, s_out, a_s_in, res_s_in, scale, shift, relu,
-             res, res_off, out, tier) -> None:
+             res, res_off, out, tier, io) -> None:
     """Launch ``gemm_tc`` at ``tier`` into ``out``, on the instantiation
     :func:`tc_variant` picks; W's lo half is made and passed only where
     the tier multiplies it (``"high"``, ``"high_rhs"``)."""
@@ -457,7 +549,7 @@ def _gemm_tc(pieces, m, n, s_out, a_s_in, res_s_in, scale, shift, relu,
     tail = [m, n, s_out, a_s_in, res_s_in, _ptr(scale), _ptr(shift),
             int(relu), _ptr(res), res_off, out.data_ptr(), _stream(),
             TC_TIERS.index(tc)]
-    if tc_variant(pieces, n, res) == "vec16":
+    if tc_variant(pieces, n, res, out.dtype) == "vec16":
         hi, lo_t = tc_weights(pieces, lo)
         flat = []
         for i in range(3):
@@ -468,7 +560,7 @@ def _gemm_tc(pieces, m, n, s_out, a_s_in, res_s_in, scale, shift, relu,
                 flat += [None, 0, 0, 0]
         _launch("gemm_tc", *flat, len(pieces), hi.data_ptr(), _ptr(lo_t),
                 hi.shape[1], *tail, tier=tc, symbol="gemm_tc_hopper",
-                variant="vec16")
+                variant="vec16", io=io)
         return
     flat, halves = [], []
     for i in range(3):
@@ -480,22 +572,26 @@ def _gemm_tc(pieces, m, n, s_out, a_s_in, res_s_in, scale, shift, relu,
                      lo_t.data_ptr() if lo else None, a.shape[1], off]
         else:
             flat += [None, None, None, 0, 0]
-    _launch("gemm_tc", *flat, len(pieces), *tail, tier=tc,
-            variant="general")
+    _launch("gemm_tc", *flat, len(pieces), *tail,
+            _dtype_bits(pieces, res, out.dtype), tier=tc, variant="general",
+            io=io)
 
 
 def tc_variant(pieces: Sequence[Piece], n: int,
-               res: Optional[torch.Tensor]) -> str:
+               res: Optional[torch.Tensor],
+               out_dtype: torch.dtype = torch.float32) -> str:
     """The alignment instantiation of ``gemm_tc`` for these operands:
     ``"vec16"`` (the ``wgmma`` kernel: TMA or 16-byte row gathers of A,
     TMA of W's halves, TMA stores of the output) when every K_p is a
-    multiple of 4, N a multiple of 8 and every a_p and ``res`` start
-    16-byte aligned (W's halves are fresh tensors), else ``"general"``."""
-    ptrs = [a.data_ptr() for a, _, _ in pieces]
-    if res is not None:
-        ptrs.append(res.data_ptr())
+    multiple of 4, N a multiple of 8, every a_p and ``res`` start
+    16-byte aligned (W's halves are fresh tensors) and every activation
+    and the output are float32, else ``"general"`` (which also takes
+    bf16 I/O, where vec16's A and output boxes are float32)."""
+    tensors = [a for a, _, _ in pieces] + ([] if res is None else [res])
     if (n % 8 == 0 and all(a.shape[1] % 4 == 0 for a, _, _ in pieces)
-            and all(p % 16 == 0 for p in ptrs)):
+            and all(t.data_ptr() % 16 == 0 and t.dtype == torch.float32
+                    for t in tensors)
+            and out_dtype == torch.float32):
         return "vec16"
     return "general"
 
@@ -776,43 +872,89 @@ def global_chain(x: torch.Tensor, t, gemm, attn, p=None,
                 shift=t.acat_shift, relu=True, **_tier(tiers, "attn_cat"))
 
 
+def _proj_launches(t, c: int, tiers: Optional[Dict[str, str]]) -> list:
+    """The GAB projection's launches: (first column, end column, tier
+    keyword) of each, its column groups merged where their tiers agree.
+    The groups are the 4C sem columns (``local_sem``) and the attention
+    columns (``attn_proj``); in the fold form the score columns sa | sb
+    (``attn_score``, merged with a neighbour whose tier runs the same
+    instantiation, ``"kdefault"`` as ``"default"``) before g."""
+    n = t.w_proj.shape[1]
+    fold = t.form == "fold"
+    if not fold:
+        groups = [(0, 4 * c, _tier(tiers, "local_sem")),
+                  (4 * c, n, _tier(tiers, "attn_proj"))]
+    else:
+        ks = 4 * c + 2 * t.proj_t.shape[0]
+        groups = [(0, 4 * c, _tier(tiers, "local_sem")),
+                  (4 * c, ks, _tier(tiers, "attn_score")),
+                  (ks, n, _tier(tiers, "attn_proj"))]
+
+    def key(tier: dict) -> dict:
+        return {k: "default" if fold and v == "kdefault" else v
+                for k, v in tier.items()}
+
+    launches = [groups[0]]
+    for g in groups[1:]:
+        if key(launches[-1][2]) == key(g[2]):
+            launches[-1] = (launches[-1][0], g[1], launches[-1][2])
+        else:
+            launches.append(g)
+    return launches
+
+
 def gab_chain(x: torch.Tensor, t, gemm, sem, attn,
-              tiers: Optional[Dict[str, str]] = None) -> torch.Tensor:
+              tiers: Optional[Dict[str, str]] = None,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The eval GAB on (rows, C) activations through the given GEMM, graph
     and attention functions (the kernels, or their plain versions); ``t``
     is a ``fused_gab.GabTables``, ``tiers`` the {op_class: tier} of
     ``fused_gab.KERNEL_OPS`` (None: all ``"highest"``). One projection
     feeds both branches: one launch over its 7C columns where
-    ``local_sem`` and ``attn_proj`` share a tier, else two launches, the
-    4C sem columns and the 3C theta/phi/g columns each into an output of
-    its own (``sem_graph`` and ``joint_attention`` read any row stride,
-    so nothing is copied; x is read twice)."""
+    ``local_sem`` and ``attn_proj`` share a tier, else one launch a tier
+    (:func:`_proj_launches`), each into an output of its own
+    (``sem_graph`` and ``joint_attention`` read any row stride, so
+    nothing is copied; x is read once a launch). In the fold form
+    (``t.form == "fold"``) the attention columns are [sa | sb | g], the
+    scores already projected, so ``joint_attention`` runs at I = 1 with
+    unit score vectors and its score dot at ``"highest"``; where sa | sb
+    and g come from two launches they are joined into one output.
+    ``x`` may be bf16 (read by the projection and the block concat), and
+    the block's output is ``out_dtype``; every intermediate is float32."""
     rows, c = x.shape
-    t_sem, t_attn = _tier(tiers, "local_sem"), _tier(tiers, "attn_proj")
-    if t_sem == t_attn:
-        p = gemm([(x, t.w_proj, 0)], rows, scale=t.proj_scale,
-                 shift=t.proj_shift, **t_sem)
-        p_sem, p_attn = p, p[:, 4 * c:]
-    else:  # the sem columns' shift is zero at scale 1: no epilogue
-        p_sem = gemm([(x, t.w_proj[:, :4 * c].contiguous(), 0)], rows,
-                     **t_sem)
-        p_attn = gemm([(x, t.w_proj[:, 4 * c:].contiguous(), 0)], rows,
-                      scale=t.proj_scale[4 * c:],
-                      shift=t.proj_shift[4 * c:], **t_attn)
+    outs = []
+    for lo, hi, tier in _proj_launches(t, c, tiers):
+        whole = (lo, hi) == (0, t.w_proj.shape[1])
+        w = t.w_proj if whole else t.w_proj[:, lo:hi].contiguous()
+        if lo == 0 and hi == 4 * c:  # the sem shift is zero: no epilogue
+            outs.append((lo, gemm([(x, w, 0)], rows, **tier)))
+        else:
+            outs.append((lo, gemm([(x, w, 0)], rows,
+                                  scale=t.proj_scale[lo:hi],
+                                  shift=t.proj_shift[lo:hi], **tier)))
+    p_sem = outs[0][1]
+    attn_parts = [p[:, max(4 * c - lo, 0):] for lo, p in outs
+                  if lo + p.shape[1] > 4 * c]
+    p_attn = (attn_parts[0] if len(attn_parts) == 1
+              else torch.cat(attn_parts, dim=1))
     local = local_chain(x, t, gemm, sem, p_sem, tiers)
+    if t.form == "fold" and tiers is not None:
+        tiers = {**tiers, "attn_score": "highest"}
     globl = global_chain(x, t, gemm, attn, p_attn, tiers)
     return gemm([(x, t.gcat_w[0:c], 0), (local, t.gcat_w[c:2 * c], 0),
                  (globl, t.gcat_w[2 * c:3 * c], 0)], rows,
                 scale=t.gcat_scale, shift=t.gcat_shift, relu=True,
-                **_tier(tiers, "gab_cat"))
+                out_dtype=out_dtype, **_tier(tiers, "gab_cat"))
 
 
 def check_blocks(x: torch.Tensor, c: int, j: int, max_channels: int,
-                 name: str) -> None:
-    """An entry point's (B, T, J, C) float32 contiguous activations."""
+                 name: str, dtypes=(torch.float32,)) -> None:
+    """An entry point's (B, T, J, C) contiguous activations, of a dtype
+    among ``dtypes`` (bf16 only where the kernels have a bf16-I/O form)."""
     if (x.dim() != 4 or x.shape[-1] != c or x.shape[-2] != j
-            or x.dtype != torch.float32 or not x.is_contiguous()):
-        raise ValueError(f"x must be a contiguous float32 (B, T, {j}, {c}) "
+            or x.dtype not in dtypes or not x.is_contiguous()):
+        kinds = " or ".join(str(d).split(".")[-1] for d in dtypes)
+        raise ValueError(f"x must be a contiguous {kinds} (B, T, {j}, {c}) "
                          f"tensor, got {tuple(x.shape)} {x.dtype}")
     if c > max_channels:
         raise ValueError(f"{name} supports C <= {max_channels}, got {c}")
@@ -881,10 +1023,20 @@ def gab_shape(t) -> Tuple[int, int, int, int, int, int]:
     return c, k, inter, kg // k, t.c_k.shape[1], t.col.shape[2]
 
 
-def _check_narrow(x, t):
+def narrow_table_ptrs(t) -> list:
+    """The pointers of a ``fused_gab.GabTables``'s 20 tables in its field
+    order, as ``gab_narrow``'s C function takes them."""
+    return [v.data_ptr() for v in t if isinstance(v, torch.Tensor)]
+
+
+def _check_narrow(x, t, out_dtype):
     device = x.device
-    _check(device, x=x, **{k: v for k, v in t._asdict().items()
-                           if k != "col"})
+    _check(device, IO_DTYPES, x=x)
+    _check_out_dtype(out_dtype)
+    _check(device, **{k: v for k, v in t._asdict().items()
+                      if k not in ("col", "form")})
+    if t.form != "v1":
+        raise ValueError(f"gab_narrow has no {t.form!r} form")
     c, k, inter, g_ch, j, d = gab_shape(t)
     if x.dim() != 2 or x.shape[1] != c or x.shape[0] % j:
         raise ValueError(f"x must be (rows, {c}) holding whole frames of {j} "
@@ -903,24 +1055,31 @@ def _check_narrow(x, t):
     return device, c, j, k, inter, g_ch, d
 
 
-def gab_narrow_plain(x: torch.Tensor, t) -> torch.Tensor:
+def gab_narrow_plain(x: torch.Tensor, t,
+                     out_dtype: Optional[torch.dtype] = None
+                     ) -> torch.Tensor:
     """Plain PyTorch version of :func:`gab_narrow`: the chain of the three
     kernels' plain versions."""
-    _check_narrow(x, t)
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    _check_narrow(x, t, out_dtype)
     return gab_chain(x, t, gemm_epilogue_plain, sem_graph_plain,
-                     joint_attention_plain)
+                     joint_attention_plain, out_dtype=out_dtype)
 
 
-def gab_narrow(x: torch.Tensor, t) -> torch.Tensor:
+def gab_narrow(x: torch.Tensor, t,
+               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The eval GAB in one launch at the narrow widths: (rows, C) ->
     (rows, 2C), rows whole frames; ``t`` is a ``fused_gab.GabTables`` whose
-    shape meets :func:`narrow_shape_ok` (else ``ValueError``)."""
+    shape meets :func:`narrow_shape_ok` (else ``ValueError``). ``x`` is
+    float32 or bf16, the output ``out_dtype`` (default: x's)."""
     check_no_grad("gab_narrow", x, t)
-    device, c, j, k, inter, g_ch, d = _check_narrow(x, t)
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    device, c, j, k, inter, g_ch, d = _check_narrow(x, t, out_dtype)
     if not use_kernel(device):
-        return gab_narrow_plain(x, t)
-    out = torch.empty((x.shape[0], 2 * c), dtype=torch.float32,
-                      device=device)
+        return gab_narrow_plain(x, t, out_dtype)
+    out = torch.empty((x.shape[0], 2 * c), dtype=out_dtype, device=device)
     _launch("gab_narrow", x.data_ptr(), out.data_ptr(), x.shape[0] // j,
-            j, c, d, k, inter, g_ch, *(v.data_ptr() for v in t), _stream())
+            j, c, d, k, inter, g_ch, *narrow_table_ptrs(t), _stream(),
+            int(x.dtype == torch.bfloat16),
+            int(out_dtype == torch.bfloat16), io=io_label([x], out_dtype))
     return out

@@ -30,7 +30,8 @@ upstream torch layout (gastx_torch.models.gastnet).
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,13 +57,59 @@ def sem_adjacency(e: torch.Tensor, mask_idx: np.ndarray, j: int
     return torch.softmax(logits.reshape(c_out, j, j), dim=2)
 
 
+@functools.lru_cache(maxsize=None)
+def local_gather_tables(mask_idx: Tuple[int, ...], j: int):
+    """Padded-degree neighbour tables of a (J, J) adjacency from the flat
+    row-major indices of its nonzeros: (J, D) ``col`` (neighbour joint),
+    ``valid`` and ``is_diag`` masks, D the largest row degree."""
+    idx = np.asarray(mask_idx, np.int64)
+    rows, cols = idx // j, idx % j
+    per_row = [np.flatnonzero(rows == r) for r in range(j)]
+    d = max(len(p) for p in per_row)
+    col = np.zeros((j, d), np.int32)
+    valid = np.zeros((j, d), bool)
+    for r, p in enumerate(per_row):
+        col[r, : len(p)] = cols[p]
+        valid[r, : len(p)] = True
+    is_diag = valid & (col == np.arange(j)[:, None])
+    return col, valid, is_diag
+
+
+def local_weight_tables(e: torch.Tensor, mask_idx, j: int):
+    """Softmax edge weights -> (J, C) self and (J, D, C) neighbour tables.
+
+    Equivalent to the masked softmax of ``sem_ch_graph_conv``: each row
+    softmaxes over the -9e15-filled logits; the diagonal goes to
+    ``w_self``, the other nonzeros to ``w_nbr`` (zero-padded to the row
+    degree D). Returns (w_self, w_nbr, col (J, D) numpy int32).
+    """
+    adj = sem_adjacency(e, np.asarray(mask_idx), j)           # (C, J, J)
+    col, valid, is_diag = local_gather_tables(
+        tuple(int(i) for i in np.asarray(mask_idx)), j)
+    w_self = torch.diagonal(adj, dim1=1, dim2=2).t()           # (J, C)
+    adj_t = adj.permute(1, 2, 0)                               # (J, J, C)
+    w_nbr = adj_t[torch.arange(j, device=e.device)[:, None],
+                  torch.as_tensor(col, device=e.device).long()]  # (J, D, C)
+    keep = torch.as_tensor(valid & ~is_diag, device=e.device)
+    w_nbr = torch.where(keep[..., None], w_nbr, torch.zeros_like(w_nbr))
+    return w_self, w_nbr, col
+
+
 def sem_ch_graph_conv(x: torch.Tensor, w: torch.Tensor, e: torch.Tensor,
-                      mask_idx: np.ndarray, j: int) -> torch.Tensor:
+                      mask_idx: np.ndarray, j: int,
+                      impl: str = "einsum") -> torch.Tensor:
     """``x`` (B, T, J, Cin); ``w`` (2, Cin, Cout) self/neighbour weights;
-    ``e`` (Cout, nnz) edge logits."""
+    ``e`` (Cout, nnz) edge logits. ``impl="einsum"`` aggregates with the
+    channel-batched (C, J, J) adjacency, ``"gather"`` with the
+    padded-degree neighbour tables of :func:`local_weight_tables` (the
+    JAX ``local_impl``s; the same function)."""
     check_f32_matmul(x)
     h0 = torch.matmul(x, w[0])
     h1 = torch.matmul(x, w[1])
+    if impl == "gather":
+        w_self, w_nbr, col = local_weight_tables(e, mask_idx, j)
+        nbr = h1[..., torch.as_tensor(col, device=x.device).long(), :]
+        return h0 * w_self + (nbr * w_nbr).sum(dim=-2)
     adj = sem_adjacency(e, mask_idx, j)
     diag = torch.diagonal(adj, dim1=1, dim2=2)                # (C, J)
     off = adj * (1.0 - torch.eye(j, dtype=x.dtype, device=x.device))
@@ -97,12 +144,15 @@ def _maybe_dropout(y: torch.Tensor, train: bool, rate: float,
 
 def local_graph(x: torch.Tensor, mod: nn.Module, statics, *,
                 train: bool = False, rate: float = 0.0,
-                generator=None, mesh: Optional[Mesh] = None
-                ) -> torch.Tensor:
-    """Two-branch (mirror symmetry + kinematic connection) local module."""
+                generator=None, mesh: Optional[Mesh] = None,
+                impl: str = "einsum") -> torch.Tensor:
+    """Two-branch (mirror symmetry + kinematic connection) local module,
+    each branch's aggregation by ``impl`` (:func:`sem_ch_graph_conv`)."""
     j = statics.num_joints
-    a = sem_ch_graph_conv(x, mod.gcn_sym.W, mod.gcn_sym.e, statics.sym_idx, j)
-    b = sem_ch_graph_conv(x, mod.gcn_con.W, mod.gcn_con.e, statics.con_idx, j)
+    a = sem_ch_graph_conv(x, mod.gcn_sym.W, mod.gcn_sym.e, statics.sym_idx, j,
+                          impl)
+    b = sem_ch_graph_conv(x, mod.gcn_con.W, mod.gcn_con.e, statics.con_idx, j,
+                          impl)
     a = torch.relu(batch_norm(a, mod.bn_1, train=train, mesh=mesh))
     b = torch.relu(batch_norm(b, mod.bn_2, train=train, mesh=mesh))
     y = torch.matmul(torch.cat([a, b], dim=-1), pconv_weight(mod.cat_conv))
@@ -110,25 +160,48 @@ def local_graph(x: torch.Tensor, mod: nn.Module, statics, *,
     return _maybe_dropout(y, train, rate, generator, mesh)
 
 
+def _head(theta: torch.Tensor, phi: torch.Tensor, g: torch.Tensor,
+          head: nn.Module) -> torch.Tensor:
+    """One head's rank-1 scores, LeakyReLU, softmax, +C_k, applied to g."""
+    proj = head.concat_project[0].weight.reshape(-1)           # (2I,)
+    inter = theta.shape[-1]
+    sa = torch.matmul(theta, proj[:inter])                     # (B, T, J)
+    sb = torch.matmul(phi, proj[inter:])
+    f = F.leaky_relu(sa[..., :, None] + sb[..., None, :], 0.2)
+    attn = torch.softmax(f, dim=-1) + head.C_k
+    return torch.matmul(attn, g)                               # (B, T, J, G)
+
+
 def multi_global_graph(x: torch.Tensor, mod: nn.Module, *,
                        train: bool = False, rate: float = 0.0,
-                       generator=None, mesh: Optional[Mesh] = None
-                       ) -> torch.Tensor:
-    """Multi-head attention over joints, one head at a time; head outputs
-    concatenate head-major as in the reference's torch.cat."""
+                       generator=None, mesh: Optional[Mesh] = None,
+                       impl: str = "einsum") -> torch.Tensor:
+    """Multi-head attention over joints; head outputs concatenate
+    head-major as in the reference's torch.cat. ``impl="einsum"``
+    projects one head at a time; ``"batched"`` (the JAX ``attn_impl``
+    that unrolls the heads over flat projections) projects every head's
+    theta, phi and g in one product, then runs each head on its column
+    slices. The same function."""
     check_f32_matmul(x)
-    outs = []
-    for head in mod.attentions:
-        theta = torch.matmul(x, pconv_weight(head.theta)) + head.theta.bias
-        phi = torch.matmul(x, pconv_weight(head.phi)) + head.phi.bias
-        g = torch.matmul(x, pconv_weight(head.g)) + head.g.bias
-        proj = head.concat_project[0].weight.reshape(-1)       # (2I,)
-        inter = theta.shape[-1]
-        sa = torch.matmul(theta, proj[:inter])                 # (B, T, J)
-        sb = torch.matmul(phi, proj[inter:])
-        f = F.leaky_relu(sa[..., :, None] + sb[..., None, :], 0.2)
-        attn = torch.softmax(f, dim=-1) + head.C_k
-        outs.append(torch.matmul(attn, g))                     # (B, T, J, G)
+    heads = list(mod.attentions)
+    if impl == "batched":
+        names = ("theta", "phi", "g")
+        w = torch.cat([pconv_weight(getattr(h, n)) for n in names
+                       for h in heads], dim=1)
+        p = torch.matmul(x, w) + torch.cat([getattr(h, n).bias
+                                            for n in names for h in heads])
+        k, inter = len(heads), heads[0].theta.out_channels
+        g_ch = heads[0].g.out_channels
+        outs = [_head(p[..., h * inter:(h + 1) * inter],
+                      p[..., (k + h) * inter:(k + h + 1) * inter],
+                      p[..., 2 * k * inter + h * g_ch:
+                        2 * k * inter + (h + 1) * g_ch], head)
+                for h, head in enumerate(heads)]
+    else:
+        outs = [_head(torch.matmul(x, pconv_weight(h.theta)) + h.theta.bias,
+                      torch.matmul(x, pconv_weight(h.phi)) + h.phi.bias,
+                      torch.matmul(x, pconv_weight(h.g)) + h.g.bias, h)
+                for h in heads]
     return global_concat(outs, mod, train=train, rate=rate,
                          generator=generator, mesh=mesh)
 

@@ -19,7 +19,9 @@ def temporal_conv(x: torch.Tensor, w: torch.Tensor, *,
     with T' = (T - (fw-1)*dilation - 1) // stride + 1, the length the JAX
     package's VALID ``conv_general_dilated`` gives: output frame t sums tap
     k of input frame t*stride + k*dilation. Each tap is one matmul on a
-    strided frame view.
+    strided frame view; bf16 operands (bf16 storage) take the taps side by
+    side in one product, so that the conv sums in float32 and rounds once,
+    as the JAX package's bf16 conv does.
     """
     check_f32_matmul(x)
     fw = w.shape[0]
@@ -29,6 +31,11 @@ def temporal_conv(x: torch.Tensor, w: torch.Tensor, *,
                          f"the conv's span {span}")
     t_out = (x.shape[1] - span) // stride + 1
     last = (t_out - 1) * stride + 1
+    if x.dtype == torch.bfloat16:
+        taps = [x[:, k * dilation:k * dilation + last:stride]
+                for k in range(fw)]
+        return torch.matmul(torch.cat(taps, dim=-1),
+                            w.reshape(fw * w.shape[1], w.shape[2]))
     y = torch.matmul(x[:, 0:last:stride], w[0])
     for k in range(1, fw):
         s = k * dilation

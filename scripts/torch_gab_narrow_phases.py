@@ -122,7 +122,7 @@ def time_widths(K, fn, cuda_ms) -> dict:
 
         def call():
             code = fn(x.data_ptr(), y.data_ptr(), WIDTH_FRAMES, j, c, d, k,
-                      inter, g_ch, *(v.data_ptr() for v in tab), stream)
+                      inter, g_ch, *K.narrow_table_ptrs(tab), stream, 0, 0)
             if code != 0:
                 raise SystemExit(f"launch failed at C={c} ({code})")
 
@@ -195,7 +195,7 @@ def main(argv=None) -> int:
 
         def call(fn):
             code = fn(x.data_ptr(), out.data_ptr(), b * t, j, c, d, k,
-                      inter, g_ch, *(v.data_ptr() for v in tab), stream)
+                      inter, g_ch, *K.narrow_table_ptrs(tab), stream, 0, 0)
             if code != 0:
                 raise SystemExit(f"launch failed ({code})")
 

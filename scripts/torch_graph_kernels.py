@@ -1,11 +1,12 @@
 """Time ``sem_graph`` and ``joint_attention`` at their main-path launches on
 one GPU, beside each launch's bound.
 
-The same table as ``chip_smoke.py`` phase 4's "graph kernels by shape"
-(``chip_smoke.graph_table``: the six launches of ``GRAPH_SHAPES``, each
-held to its plain version, device time per launch from torch.profiler,
-bound, GB/s, the instantiation that launched), for the ``gastx_torch`` of
-this checkout or, with ``--tree``, of another one (e.g. a ``git archive``
+The "graph kernels by shape" table (``graph_table``: the six launches of
+``GRAPH_SHAPES``, each held to its plain version, device time per launch
+from torch.profiler, bound, GB/s, the instantiation that launched; it was
+``chip_smoke.py`` phase 4's until the script moved its one-off
+measurements here), for the ``gastx_torch`` of this checkout or, with
+``--tree``, of another one (e.g. a ``git archive``
 of the parent commit, whose kernels keep the wrappers' Python signatures),
 so that two versions of the kernels can be compared in one call:
 
@@ -29,6 +30,55 @@ import sys
 from collections.abc import Mapping
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# sem_graph and joint_attention by shape: their launches in one 27f B=1024
+# and one 243f B=256 forward, (label, receptive field, GAB level, windows,
+# frames at the GAB); J = 17.
+GRAPH_SHAPES = (("27f L0", 27, 0, 1024, 25), ("27f L1", 27, 1, 1024, 19),
+                ("27f L2", 27, 2, 1024, 1), ("243f L2", 243, 2, 256, 217),
+                ("243f L3", 243, 3, 256, 163), ("243f L4", 243, 4, 256, 1))
+
+
+def graph_table(K, models, dev) -> list:
+    """The "graph kernels by shape": ``sem_graph`` and
+    ``joint_attention`` at each ``GRAPH_SHAPES`` launch of ``models``
+    (keyed by receptive field), each held to its plain version, with its
+    device time per launch, bound, GB/s and the instantiation that
+    launched."""
+    import torch
+
+    import chip_smoke as cs
+    from gastx_torch.ops.cuda.fused_gab import gab_tables
+
+    print("graph kernels by shape (device ms per launch)")
+    out = []
+    for i, (label, rf, level, b, t_gab) in enumerate(GRAPH_SHAPES):
+        m = models[rf]
+        t = gab_tables(m.layers_graph_conv[level], m.statics)
+        c, k, inter, g_ch, j, d = K.gab_shape(t)
+        rows = b * t_gab * j
+        sem, attn = cs.graph_operands(K, t, rows, dev, seed=200 + i)
+        for name, fn, plain, args, work in (
+                ("sem_graph", K.sem_graph, K.sem_graph_plain, sem,
+                 cs.sem_work(rows, c, j, d)),
+                ("joint_attention", K.joint_attention,
+                 K.joint_attention_plain, attn,
+                 cs.attn_work(rows, j, k, inter, g_ch))):
+            variant, got = cs.launched_variant(K, name, lambda: fn(*args))
+            err = cs.check(f"{name} {label} [{variant}]", got, plain(*args))
+            del got
+            ms = cs.device_ms(lambda: fn(*args), f"{name}_kernel")
+            bms, by = cs.bound(*work)
+            out.append({"kernel": name, "shape": label, "rows": rows, "c": c,
+                        "variant": variant, "ms": ms, "bound_ms": bms,
+                        "bound_by": by, "gb_per_s": work[1] / ms / 1e6,
+                        "max_abs_err": err})
+            print(f"  {name} {label} ({rows} rows, C={c}) [{variant}]: "
+                  f"{ms:.4f} ms, {work[1] / ms / 1e6:.1f} GB/s; bound "
+                  f"{bms:.4f} by {by} ({bms / ms:.0%})")
+        del sem, attn
+        torch.cuda.empty_cache()
+    return out
 
 
 class _SingleVariant(Mapping):
@@ -64,7 +114,6 @@ def main(argv=None) -> int:
         print("needs a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    import chip_smoke
     sys.path.insert(0, tree)
     from gastx_torch.models import (GastNet, config_for_frames,
                                     init_gastnet, randomize_eval_statistics)
@@ -86,7 +135,7 @@ def main(argv=None) -> int:
         gen = torch.Generator().manual_seed(frames)
         m = init_gastnet(GastNet(config_for_frames(frames)), gen)
         models[frames] = randomize_eval_statistics(m, gen).cuda().eval()
-    rows = chip_smoke.graph_table(K, models, torch.device("cuda"))
+    rows = graph_table(K, models, torch.device("cuda"))
     result = {"card": card, "tree": tree, "rows": rows}
     path = os.path.join(REPO, "chiprun_out", args.json)
     os.makedirs(os.path.dirname(path), exist_ok=True)

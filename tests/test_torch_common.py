@@ -68,21 +68,20 @@ def random_jax_tree(cfg, seed):
     return with_path(draw, params), with_path(draw, state)
 
 
+# The JAX config's fields that do not cross: the precision tiers, whose
+# defaults differ by design (the port's stay float32 until its own cert;
+# every tier computes float32 on the CPU on both sides).
+NOT_CROSSED = ("matmul_precision", "precision_overrides")
+
+
 def torch_config(cfg):
-    """The port's config of a JAX one: its structure and its route knobs,
-    the ``_interpret`` suffixes stripped (on the port the tensor's device
-    picks kernel or plain version). Knobs the port does not carry yet
-    raise."""
-    if cfg.local_impl != "einsum" or cfg.gab_impl_levels:
-        raise ValueError("the port carries neither local_impl nor "
-                         "gab_impl_levels")
-    return tm.GastNetConfig(
-        num_joints_in=cfg.num_joints_in, num_joints_out=cfg.num_joints_out,
-        filter_widths=cfg.filter_widths, channels=cfg.channels,
-        causal=cfg.causal, dense=cfg.dense, layout=cfg.layout,
-        gab_impl=cfg.gab_impl.removesuffix("_interpret"),
-        attn_impl=cfg.attn_impl.removesuffix("_interpret"),
-        packed_channels=cfg.packed_channels)
+    """The port's config of a JAX one, field for field: its structure,
+    routes (the ``_interpret`` suffixes too: on the port they run every
+    wrapper's plain version), forms and storage, all but ``NOT_CROSSED``.
+    Values the port does not carry raise."""
+    return tm.GastNetConfig(**{f.name: getattr(cfg, f.name)
+                               for f in dataclasses.fields(cfg)
+                               if f.name not in NOT_CROSSED})
 
 
 def port_model(cfg, params, state, **route):
@@ -171,46 +170,80 @@ def test_launch_counters_stay_zero_on_cpu():
 
 
 def test_torch_config_carries_the_routes():
-    """The route knobs cross with their JAX names, the _interpret suffixes
-    stripped; knobs the port lacks raise."""
+    """Every JAX config crosses field for field, the shipped ones included
+    (both presets, and each ``config_for_frames(gab_impl=)``); the port
+    raises on the forms the JAX package ships no route for."""
     cfg = jm.GastNetConfig(filter_widths=(3, 3), channels=32,
                            gab_impl="pallas_interpret",
                            attn_impl="pallas_head_interpret",
                            packed_channels=64)
     t = torch_config(cfg)
     assert (t.gab_impl, t.attn_impl, t.packed_channels) == (
-        "pallas", "pallas_head", 64)
-    assert torch_config(jm.GastNetConfig(
-        gab_impl="pallas_local_interpret")).gab_impl == "pallas_local"
-    for bad in ({"local_impl": "gather"}, {"gab_impl_levels": ("xla",)}):
-        with pytest.raises(ValueError):
+        "pallas_interpret", "pallas_head_interpret", 64)
+    full = jm.GastNetConfig(
+        filter_widths=(3, 3, 3), local_impl="gather", attn_impl="batched",
+        gab_impl="pallas_pbatch_interpret",
+        gab_impl_levels=("xla", "", "pallas_level"),
+        gab_kernel_form="fold", gab_kernel_form_levels=("v1", "inherit"),
+        storage_dtype="bfloat16", storage_dtype_levels=("", "float32"),
+        gab_io_dtype="bfloat16", gab_softmax_group=2, gab_tile_budget=2048,
+        gab_pbatch_max_pack=2)
+    shipped = [jm.config_for_frames(f, j, precision_overrides=o,
+                                    gab_impl=g)
+               for f in (27, 81, 243) for j in (17, 16)
+               for o in ((), jm.TPU_MIXED_PRECISION_OVERRIDES)
+               for g in ("auto", "pallas", "xla")]
+    for jc in [cfg, full] + shipped:
+        t = torch_config(jc)
+        for f in dataclasses.fields(jc):
+            if f.name not in NOT_CROSSED:
+                assert getattr(t, f.name) == getattr(jc, f.name), f.name
+    for bad in ({"gab_kernel_form": "v2"},
+                {"gab_kernel_form_levels": ("v2",)},
+                {"gab_apply_block": True}, {"gab_score_block": True}):
+        with pytest.raises(ValueError, match="queue 2 B3"):
             torch_config(jm.GastNetConfig(**bad))
 
 
 def test_config_rejects_routes_the_port_lacks():
-    """``"auto"`` is the default, here and in config_for_frames; values
-    with no port route, and packing off ``"pallas"``, raise ValueError,
-    and JAX knobs the port does not carry are not fields."""
+    """``"auto"`` is the default, here and in config_for_frames, and every
+    JAX value is accepted; unknown values, the forms with no shipped route
+    (``v2``, ``apply_block``, ``score_block``), ``gab_impl_levels`` with
+    ``packed_channels`` and bad counts raise ValueError."""
     assert tm.GastNetConfig().gab_impl == "auto"
     assert tm.config_for_frames(243).gab_impl == "auto"
+    for gab_impl in tm.config.VALID_GAB_IMPLS:
+        tm.GastNetConfig(gab_impl=gab_impl, gab_impl_levels=(gab_impl,))
+    for attn_impl in ("einsum", "batched", "pallas_head",
+                      "pallas_head_interpret"):
+        tm.GastNetConfig(attn_impl=attn_impl)
     for gab_impl in ("auto", "pallas", "pallas_local", "xla"):
-        tm.GastNetConfig(gab_impl=gab_impl)
-    bad = [{"gab_impl": v} for v in (
-        "pallas_interpret", "pallas_local_interpret", "pallas_level",
-        "pallas_level_interpret", "pallas_pbatch", "pallas_pbatch_interpret",
-        "")]
-    bad += [{"attn_impl": v} for v in ("batched", "pallas_head_interpret")]
+        tm.GastNetConfig(gab_impl=gab_impl, packed_channels=64)
+    tm.GastNetConfig(local_impl="gather", gab_kernel_form="fold",
+                     gab_kernel_form_levels=("", "inherit", "v1"),
+                     storage_dtype="auto", storage_dtype_levels=("bfloat16",),
+                     gab_io_dtype="bfloat16", gab_softmax_group=1,
+                     gab_tile_budget=1024, gab_pbatch_max_pack=4)
+    bad = [{"gab_impl": v} for v in ("pallas_head", "")]
+    bad += [{"attn_impl": v} for v in ("xla", "batched_interpret")]
+    bad += [{"local_impl": "pallas"}, {"storage_dtype": "float16"},
+            {"gab_io_dtype": "auto"}, {"gab_kernel_form": "v3"}]
+    bad += [{"gab_impl_levels": ("pallas_head",)},
+            {"gab_impl_levels": ("", "", "", "")},
+            {"gab_kernel_form_levels": ("v3",)},
+            {"storage_dtype_levels": ("float16",)},
+            {"storage_dtype_levels": ["bfloat16"]}]
+    bad += [{"gab_kernel_form": "v2"}, {"gab_kernel_form_levels": ("v2",)},
+            {"gab_apply_block": True}, {"gab_score_block": True}]
     bad += [{"gab_impl": "pallas", "packed_channels": v}
             for v in (-1, 1.5, True)]
-    # Packing needs "pallas": the JAX package also packs under "auto" on a
-    # TPU, which on Hopper would only take levels off the level kernels.
-    bad += [{"gab_impl": v, "packed_channels": 64}
-            for v in ("auto", "pallas_local", "xla")]
+    bad += [{"gab_softmax_group": -1}, {"gab_tile_budget": 1.5},
+            {"gab_pbatch_max_pack": True}]
+    # As in JAX: the packed prefix routes off gab_impl alone.
+    bad += [{"packed_channels": 64, "gab_impl_levels": ("pallas",)},
+            {"packed_channels": 64, "storage_dtype_levels": ("bfloat16",)}]
     for kw in bad:
         with pytest.raises(ValueError):
-            tm.GastNetConfig(**kw)
-    for kw in ({"local_impl": "gather"}, {"gab_impl_levels": ("pallas",)}):
-        with pytest.raises(TypeError):
             tm.GastNetConfig(**kw)
 
 

@@ -815,3 +815,90 @@ def test_cuda_tiered_forward_matches_plain_route(model, frames):
     assert K.TIER_LAUNCHES["joint_attention"].get("default/default")
     _assert_close(got, m.plain_route_forward(x))
     assert (got - f32).abs().max().item() <= 1e-4
+
+
+def _bf16_pieces(n_pieces, k, n, m, seed):
+    """``n_pieces`` A pieces of (m, k), the first bf16 (the block concat's
+    x under bf16 storage), W float32."""
+    pieces = []
+    for p in range(n_pieces):
+        a = _randn(m, k, seed=seed + p)
+        pieces.append((a.to(torch.bfloat16) if p == 0 else a,
+                       _randn(k, n, seed=seed + 10 + p) / k ** 0.5, 0))
+    return pieces
+
+
+def _assert_bf16_close(got, plain):
+    """A bf16 output within one bf16 step (2^-7 of the value) of its plain
+    version plus the float32 bound: both round float32 sums that differ
+    only in order."""
+    torch.cuda.synchronize()
+    assert got.dtype == plain.dtype and got.shape == plain.shape
+    g, p = got.float(), plain.float()
+    slack = 1e-4 * max(1.0, p.abs().max().item())
+    assert ((g - p).abs() - 2.0 ** -7 * p.abs()).max().item() <= slack
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ("highest",) + K.TC_TIERS)
+@pytest.mark.parametrize("k,n", [(128, 256), (130, 70)],
+                         ids=["vec16", "ragged"])
+def test_cuda_bf16_io_gemm_matches_plain(model, tier, k, n):
+    """``gemm_epilogue`` (and ``gemm_tc`` below ``"highest"``, on its
+    general instantiation) with a bf16 A piece, a bf16 residual and a
+    bf16 output, counted under its I/O dtypes."""
+    m = 4001
+    pieces = _bf16_pieces(3, k, n, m, seed=500)
+    kw = dict(scale=_randn(n, seed=1).abs() + 0.5, shift=_randn(n, seed=2),
+              relu=True, res=_randn(m, n, seed=3).to(torch.bfloat16),
+              tier=tier, out_dtype=torch.bfloat16)
+    K.reset_launches()
+    got = K.gemm_epilogue(pieces, m, **kw)
+    kernel = "gemm_epilogue" if tier == "highest" else "gemm_tc"
+    assert K.DTYPE_LAUNCHES[kernel]["bf16_io"] == 1
+    if tier != "highest":
+        assert K.VARIANT_LAUNCHES["gemm_tc"]["general"] == 1
+    _assert_bf16_close(got, K.gemm_epilogue_plain(pieces, m, **kw))
+    kw["out_dtype"] = torch.float32
+    _assert_close(K.gemm_epilogue(pieces, m, **kw),
+                  K.gemm_epilogue_plain(pieces, m, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames,level", [(243, 0), (81, 0), (243, 1)])
+def test_cuda_bf16_io_gab_narrow_matches_plain(model, frames, level):
+    """``gab_narrow`` at C = 32 and 64 on bf16 x to a bf16 output, and on
+    float32 x to a bf16 output."""
+    m = _model(frames)
+    t = gab_tables(m.layers_graph_conv[level], m.statics)
+    c = t.w_proj.shape[0]
+    x = _randn(7 * 17, c, seed=level)
+    for xin in (x.to(torch.bfloat16), x):
+        K.reset_launches()
+        got = K.gab_narrow(xin, t, torch.bfloat16)
+        assert K.LAUNCHES["gab_narrow"] == 1
+        _assert_bf16_close(got, K.gab_narrow_plain(xin, t, torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames", [27, 243])
+def test_cuda_bf16_storage_forward_matches_plain_route(model, frames,
+                                                       monkeypatch):
+    """``storage_dtype="bfloat16"`` on the card: every GAB on the bf16-I/O
+    kernels, the output float32, within the storage's own distance from
+    float32 of the same route through the plain versions."""
+    monkeypatch.setattr(torch.backends.cuda.matmul,
+                        "allow_bf16_reduced_precision_reduction", False)
+    m = _model(frames)
+    x = _randn(4, frames, 17, 2, seed=frames)
+    f32 = m.plain_route_forward(x)
+    m.cfg = dataclasses.replace(m.cfg, storage_dtype="bfloat16")
+    K.reset_launches()
+    got = m(x)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert K.DTYPE_LAUNCHES["gemm_epilogue"]["bf16_io"] > 0
+    plain = m.plain_route_forward(x)
+    gap = (plain - f32).abs().max().item()
+    assert (got - plain).abs().max().item() <= max(
+        gap, 1e-4 * max(1.0, plain.abs().max().item()))
