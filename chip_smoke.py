@@ -36,9 +36,14 @@ a non-zero exit and no result line:
      bf16-I/O forms (``bf16_cases``): ``gemm_epilogue`` on the 27f
      products with bf16 A pieces (the block concat's [x | local |
      global] with x bf16 and a bf16 output, the projection, the conv
-     taps), a bf16 residual, and a ragged bf16 product on its general
-     instantiation; ``gemm_tc`` at every tier on two of them (its general
-     instantiation); ``gab_narrow`` at C = 32 and 64, bf16 in and out and
+     taps), a bf16 residual, the 243f N = 64 and 81f N = 128 block
+     concats, taps with a bf16 residual, and a ragged bf16 product on its
+     general instantiation; ``gemm_tc`` at every tier on each of them
+     (its ``vec16_bf16`` instantiation) and on three ragged bf16
+     products (``BF16_TC_RAGGED``: its general one; one of them three
+     pieces, a bf16 one beside two float32 ones, with a bf16 residual and
+     output); ``gab_narrow`` at C = 32 and
+     64, bf16 in and out and
      float32 in, bf16 out; ``fused_gab`` and ``fused_level`` on bf16
      activations; each checked to launch its kernel with its I/O dtypes
      (``DTYPE_LAUNCHES``) and held to its plain version (a bf16 output
@@ -199,14 +204,19 @@ a non-zero exit and no result line:
      ``storage_dtype="bfloat16"`` at 27f, 81f and 243f, the 81f mixed
      levels, ``gab_io_dtype`` at 27f, ``"pallas_level"`` on bf16 (243f),
      the 243f preset with its fold at GAB 0, and that preset on bf16
-     storage (the JAX package's shipped 243f route on a TPU); each with
+     storage (the JAX package's shipped 243f route on a TPU: every bf16
+     GEMM on ``vec16_bf16``, none on ``general``); each with
      the launch counters zeroed just before and read just after (the
      entry points, kernels, instantiations and I/O dtypes it must show)
      and held to ``plain_route_forward`` (float32: the bound below; tiered:
      ``tiered_check``; bf16 storage: ``storage_check``); then windows/s of
-     the storage cells beside float32 and of the 243f preset without and
-     with fold, each pair in turns; then the bf16-I/O forms timed at a
-     main-path shape for the kernels line (``bf16_kernels``).
+     the storage cells beside float32, of the 243f preset without and
+     with fold, and of the JAX package's two shipped bf16 routes (the
+     243f preset with fold, the 81f preset) beside float32 storage, each
+     pair in turns (``pair_turns``, with the host's time to issue a
+     forward; the shipped routes also one profiled forward a side,
+     ``breakdown``); then the bf16-I/O forms timed at main-path shapes for
+     the kernels line (``bf16_kernels``).
 
 Tolerance: each kernel, wrapper and the forward must agree with its plain
 version to max |delta| <= 1e-4 * max(1, max |plain|); both sides compute
@@ -261,6 +271,15 @@ def card_state(label: str) -> str:
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """ms a call of ``fn``: CUDA events around ``reps`` calls after
+    ``warmup``."""
+    return issue_ms(fn, reps, warmup)[0]
+
+
+def issue_ms(fn, reps: int = 5, warmup: int = 2) -> tuple:
+    """``cuda_ms`` of ``fn``, and the host's ms to issue one call (its
+    clock from the first call to the last one's return, before the sync):
+    the two agree where the host, not the device, sets the pace."""
     import torch
 
     for _ in range(warmup):
@@ -269,11 +288,13 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
+    host = (time.perf_counter() - t0) * 1e3 / reps
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, host
 
 
 def max_err(got, plain) -> float:
@@ -1674,9 +1695,11 @@ def tc_work(m, ks, n, has_bn, has_res, tier):
 
 
 def tc_passes(tier: str, a_bf16: bool) -> int:
-    """gemm_tc's bf16 passes over one A piece at ``tier``: A's lo half
-    where the tier splits A and A is float32 (a bf16 A's lo half is zero,
-    and the kernel skips its pass), W's lo half where the tier splits W."""
+    """gemm_tc's bf16 passes over one A piece at ``tier`` that the bound
+    counts: A's lo half where the tier splits A and A is float32 (a bf16
+    A's lo half is zero; the general body skips that pass, while the wgmma
+    kernel multiplies the zeros, work the bound leaves out), W's lo half
+    where the tier splits W."""
     return (1 + (tier in ("high", "high_lhs") and not a_bf16)
             + (tier in ("high", "high_rhs")))
 
@@ -3143,21 +3166,70 @@ def gemm_bytes(pieces, m, n, kw, out_dtype) -> int:
     return total + m * n * torch.empty((), dtype=out_dtype).element_size()
 
 
-# The bf16 cases of gemm_epilogue (phase 2): (label, GEMM_SHAPES index,
-# pieces cast to bf16, residual bf16, output bf16), at B=256 windows; the
-# block concat's pieces are [x (bf16) | local | global] as bf16 storage
-# gives them, the conv taps and residual a bf16 level's input.
+# The bf16 cases of gemm_epilogue and gemm_tc (phase 2): (label, a
+# GEMM_SHAPES index or a line of its form, pieces cast to bf16, residual
+# bf16, output bf16), at B=256 windows; the block concat's pieces are
+# [x (bf16) | local | global] as bf16 storage gives them (N = 2C: 256 at
+# 27f level 0, 64 at 243f GAB 0 under the JAX preset's fold, 128 at 81f
+# GAB 0), the conv taps and residual a bf16 level's input (the taps with
+# a residual: "pallas_level" on bf16). Every one takes gemm_tc's
+# vec16_bf16 at every tier.
 BF16_GEMM_CASES = (
     ("27f L0 block concat, x bf16 -> bf16", 4, (0,), False, True),
     ("27f L0 projection, x bf16", 1, (0,), False, False),
     ("27f L1 dilated conv, taps bf16", 5, (0, 1, 2), False, False),
     ("27f L1 1x1 + bf16 residual", 6, (), True, False),
+    ("243f L0 block concat (N=64), x bf16 -> bf16",
+     ("243f L0 block concat", 256, 241, (32,) * 3, 64, "bn", None, None),
+     (0,), False, True),
+    ("81f L0 block concat (N=128), x bf16 -> bf16",
+     ("81f L0 block concat", 1024, 79, (64,) * 3, 128, "bn", None, None),
+     (0,), False, True),
+    ("27f L1 dilated conv + residual, taps and residual bf16",
+     ("27f L1 dilated conv + residual", 1024, 19, (256,) * 3, 256, "bn",
+      (25, 3), (25, 3)), (0, 1, 2), True, False),
 )
+# The ragged bf16 GEMMs that stay on gemm_tc's general instantiation, at
+# every tier: (label, M, K of each piece, N, pieces, first piece bf16 (the
+# others float32), residual bf16, output bf16). The three-piece one mixes
+# a bf16 piece with float32 ones under a bf16 residual, as a ragged block
+# concat on bf16 storage does.
+BF16_TC_RAGGED = (
+    ("K=132 bf16 piece (K % 8 = 4)", 4001, 132, 64, 1, True, False, False),
+    ("N=70 bf16 output", 4001, 128, 70, 1, False, False, True),
+    ("3 pieces K=130 N=70, bf16 piece, residual and output", 4001, 130, 70,
+     3, True, True, True),
+)
+
+
+def bf16_ragged_cases(dev, gen) -> list:
+    """``BF16_TC_RAGGED``'s operands, drawn from ``gen``: (``"ragged "`` and
+    the label, pieces, M, keyword arguments with the output dtype)."""
+    import torch
+
+    bf = torch.bfloat16
+    cases = []
+    for label, m, k, n, n_p, a_bf, res_bf, out_bf in BF16_TC_RAGGED:
+        pieces = []
+        for p in range(n_p):
+            a = torch.randn((m, k), generator=gen, device=dev)
+            pieces.append((a.to(bf) if a_bf and p == 0 else a,
+                           torch.randn((k, n), generator=gen, device=dev)
+                           / 12.0, 0))
+        res = torch.randn((m, n), generator=gen, device=dev)
+        cases.append((f"ragged {label}", pieces, m, dict(
+            scale=torch.rand(n, generator=gen, device=dev) + 0.5,
+            shift=torch.randn(n, generator=gen, device=dev), relu=True,
+            res=res.to(bf) if res_bf else None,
+            out_dtype=bf if out_bf else torch.float32)))
+    return cases
+
+
 def bf16_gemm_case(K, dev, spec_i, cast, res_bf16, windows, seed):
     import torch
 
-    pieces, m, kw = gemm_case(GEMM_SHAPES[spec_i], dev, seed,
-                              windows=windows)
+    spec = GEMM_SHAPES[spec_i] if isinstance(spec_i, int) else spec_i
+    pieces, m, kw = gemm_case(spec, dev, seed, windows=windows)
     # A conv's taps share one input: cast it once.
     cache = {}
     out = []
@@ -3193,14 +3265,17 @@ def bf16_cases(K, dev, gts, n243, n81, l1t):
                       lambda p=pieces, m=m, kw=kw: K.gemm_epilogue(p, m, **kw),
                       lambda p=pieces, m=m, kw=kw: K.gemm_epilogue_plain(
                           p, m, **kw)))
-        if spec_i in (4, 6):
-            for tier in K.TC_TIERS:
-                kt = dict(kw, tier=tier)
-                cases.append((
-                    f"gemm_tc {tier} {label}", "gemm_tc", io, "general",
-                    lambda p=pieces, m=m, kw=kt: K.gemm_epilogue(p, m, **kw),
-                    lambda p=pieces, m=m, kw=kt: K.gemm_epilogue_plain(
-                        p, m, **kw)))
+        want = K.tc_variant(pieces, pieces[0][1].shape[1], kw["res"],
+                            kw["out_dtype"])
+        if want != "vec16_bf16":
+            fail(f"gemm_tc {label}: tc_variant picks {want}")
+        for tier in K.TC_TIERS:
+            kt = dict(kw, tier=tier)
+            cases.append((
+                f"gemm_tc {tier} {label}", "gemm_tc", io, want,
+                lambda p=pieces, m=m, kw=kt: K.gemm_epilogue(p, m, **kw),
+                lambda p=pieces, m=m, kw=kt: K.gemm_epilogue_plain(
+                    p, m, **kw)))
     # A ragged product (K = 130, N = 70) on the general instantiation.
     gen = torch.Generator(device=dev).manual_seed(410)
     a = torch.randn((4001, 130), generator=gen, device=dev).to(bf)
@@ -3212,6 +3287,20 @@ def bf16_cases(K, dev, gts, n243, n81, l1t):
                   "gemm_epilogue", "bf16_io", "general",
                   lambda: K.gemm_epilogue([(a, w, 0)], 4001, **kw),
                   lambda: K.gemm_epilogue_plain([(a, w, 0)], 4001, **kw)))
+    # The ragged bf16 GEMMs on gemm_tc's general instantiation.
+    for label, p_r, m_r, kw_r in bf16_ragged_cases(dev, gen):
+        io_r = K.io_label([a for a, _, _ in p_r] + [kw_r["res"]],
+                          kw_r["out_dtype"])
+        if K.tc_variant(p_r, p_r[0][1].shape[1], kw_r["res"],
+                        kw_r["out_dtype"]) != "general":
+            fail(f"gemm_tc {label}: tc_variant does not pick general")
+        for tier in K.TC_TIERS:
+            kt = dict(kw_r, tier=tier)
+            cases.append((
+                f"gemm_tc {tier} {label}", "gemm_tc", io_r, "general",
+                lambda p=p_r, m=m_r, kw=kt: K.gemm_epilogue(p, m, **kw),
+                lambda p=p_r, m=m_r, kw=kt: K.gemm_epilogue_plain(
+                    p, m, **kw)))
     # gab_narrow at C = 32 and 64 (243f GAB 0 and 1, 81f GAB 0), bf16 x and
     # output, and float32 x to a bf16 output (a bf16 level's GAB).
     for label, t, frames, seed, x_bf16 in (
@@ -3312,24 +3401,131 @@ CONFIG_CELLS = (
       ("gab_narrow bf16_out", True))),
 )
 # The tiered cells: the 243f preset (its fold at GAB 0), and the JAX
-# package's shipped 243f route on a TPU (bf16 storage, the preset, fold).
+# package's shipped 243f route on a TPU (bf16 storage, the preset, fold):
+# every bf16 GEMM of its GABs on gemm_tc's vec16_bf16, none on general.
 TIERED_CELLS = (
     ("243f preset fold", 243, 32, {},
      (("fused_level0", True), ("joint_attention general", True),
       ("joint_attention highest/default", True))),
     ("243f preset fold bf16", 243, 32, {"storage_dtype": "bfloat16"},
-     (("gemm_tc bf16_io", True), ("gemm_tc general", True),
+     (("gemm_tc bf16_io", True), ("gemm_tc vec16_bf16", True),
+      ("gemm_tc general", False),
       ("joint_attention highest/default", True))),
 )
-# Windows a second: the storage cells at float32 and bf16, and the 243f
-# preset without and with fold, each pair timed in turns (a, b, b, a).
-THROUGHPUT_CELLS = (("27f", 27, 1024, {}, {"storage_dtype": "bfloat16"}),
-                    ("81f", 81, 1024, {}, {"storage_dtype": "bfloat16",
-                                           "storage_dtype_levels": ()}),
-                    ("81f mixed", 81, 1024, {}, {"storage_dtype": "bfloat16"}),
-                    ("243f", 243, 256, {}, {"storage_dtype": "bfloat16"}),
-                    ("243f preset", 243, 256,
-                     {"gab_kernel_form_levels": ()}, {}))
+# Windows a second: (label, receptive field, batch, on the JAX preset,
+# (name, fields) of the pair), each pair timed in turns (a, b, b, a): the
+# storage cells at float32 and bf16, the 243f preset without and with
+# fold, and the JAX package's two shipped bf16 routes (the 243f preset
+# with fold; the 81f preset with level 3 float32) against float32
+# storage on the same preset.
+BF16 = {"storage_dtype": "bfloat16"}
+SHIPPED_CELLS = (
+    ("243f preset fold, shipped storage", 243, 256, True, ("float32", {}),
+     ("bf16", BF16)),
+    ("81f preset, shipped storage", 81, 1024, True, ("float32", {}),
+     ("bf16", BF16)))
+THROUGHPUT_CELLS = (
+    ("27f", 27, 1024, False, ("float32", {}), ("bf16", BF16)),
+    ("81f", 81, 1024, False, ("float32", {}),
+     ("bf16", {**BF16, "storage_dtype_levels": ()})),
+    ("81f mixed", 81, 1024, False, ("float32", {}), ("bf16", BF16)),
+    ("243f", 243, 256, False, ("float32", {}), ("bf16", BF16)),
+    ("243f preset", 243, 256, True,
+     ("without fold", {"gab_kernel_form_levels": ()}), ("fold", {}))
+) + SHIPPED_CELLS
+# breakdown's kernel classes: (class, substrings of the kernel name), the
+# first that matches.
+BREAKDOWN_CLASSES = (
+    ("gemm_tc wgmma", ("gemm_tc_kernel_ws",)),
+    ("gemm_tc general", ("gemm_tc_kernel",)),
+    ("gemm_epilogue", ("gemm_epilogue_kernel",)),
+    ("gab_narrow", ("gab_narrow",)),
+    ("sem_graph", ("sem_graph",)),
+    ("joint_attention", ("joint_attention",)),
+    ("copy / cast", ("copy",)),
+    ("conv (cuDNN)", ("conv", "cudnn", "xmma", "implicit")),
+    ("matmul (cuBLAS)", ("gemm", "cutlass", "sm90_")),
+    ("elementwise / BN / reduce", ("elementwise", "reduce", "norm")))
+
+
+def breakdown(fn) -> dict:
+    """One profiled call of ``fn``: device ms by ``BREAKDOWN_CLASSES`` (and
+    the launches of each), the device's busy and idle share of the call's
+    CUDA-event time, the eight largest kernels by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    wall = start.elapsed_time(end)
+    classes, kernels = {}, {}
+    for ev in prof.key_averages():
+        ms = ev.self_device_time_total / 1e3
+        if ev.device_type != DeviceType.CUDA or ms <= 0:
+            continue
+        key = ev.key.lower()
+        name = next((c for c, subs in BREAKDOWN_CLASSES
+                     if any(sub in key for sub in subs)), "other")
+        c = classes.setdefault(name, [0.0, 0])
+        c[0] += ms
+        c[1] += ev.count
+        kernels[ev.key[:90]] = kernels.get(ev.key[:90], 0.0) + ms
+    busy = sum(v[0] for v in classes.values())
+    return {"wall_ms": wall, "busy_ms": busy,
+            "idle_share": max(0.0, 1.0 - busy / wall) if wall else None,
+            "classes": {k: {"ms": v[0], "launches": v[1]}
+                        for k, v in classes.items()},
+            "top": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:8])}
+
+
+def pair_turns(cell, dev, profile: bool = False) -> dict:
+    """One ``THROUGHPUT_CELLS`` pair on one model (random weights from the
+    receptive field as seed), its config switched between the two sides:
+    per side the ms of 5 forwards in each of the turns (a, b, b, a), their
+    mean, windows/s, the host's ms to issue a forward (``issue_ms``) and,
+    with ``profile``, one profiled forward (``breakdown``)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from gastx_torch.models import build_gastnet, config_for_frames
+    from gastx_torch.models.config import TPU_MIXED_PRECISION_OVERRIDES
+
+    label, rf, b, on_preset, (na, fa), (nb, fb) = cell
+    preset = dict(matmul_precision="high",
+                  precision_overrides=TPU_MIXED_PRECISION_OVERRIDES)
+    base = config_for_frames(rf, dropout=0.0, **(preset if on_preset else {}))
+    cfgs = [dataclasses.replace(base, **f) for f in (fa, fb)]
+    model = build_gastnet(cfgs[0], seed=rf, device=dev)
+    x = torch.from_numpy(np.random.default_rng(rf).standard_normal(
+        (b, rf, 17, 2)).astype(np.float32)).to(dev)
+    ms, host = {0: [], 1: []}, {0: [], 1: []}
+    for i in (0, 1, 1, 0):
+        with_config(model, cfgs[i])
+        t, h = issue_ms(lambda: model(x))
+        ms[i].append(t)
+        host[i].append(h)
+    out = {}
+    for i, name in enumerate((na, nb)):
+        mean = float(np.mean(ms[i]))
+        out[name] = {"ms": mean, "turns": ms[i], "windows_per_s": b / mean
+                     * 1e3, "host_issue_ms": host[i]}
+        if profile:
+            with_config(model, cfgs[i])
+            out[name]["breakdown"] = breakdown(lambda: model(x))
+    del model, x
+    torch.cuda.empty_cache()
+    return out
 
 
 def storage_check(name, got, plain, f32, rounded, levels) -> float:
@@ -3446,97 +3642,164 @@ def config_phase(K, dev) -> dict:
     out["launches"] = launches_all
 
     print("phase 13: windows/s, each pair in turns (a, b, b, a)")
-    for label, rf, b, fa, fb in THROUGHPUT_CELLS:
-        base = config_for_frames(rf, dropout=0.0,
-                                 **(preset if "preset" in label else {}))
-        cfgs = [dataclasses.replace(base, **f) for f in (fa, fb)]
-        model = build_gastnet(cfgs[0], seed=rf, device=dev)
-        x = torch.from_numpy(np.random.default_rng(rf).standard_normal(
-            (b, rf, 17, 2)).astype(np.float32)).to(dev)
-        ms = {0: [], 1: []}
-        for i in (0, 1, 1, 0):
-            with_config(model, cfgs[i])
-            ms[i].append(cuda_ms(lambda: model(x), reps=5))
-        names = (("without fold", "fold") if "preset" in label
-                 else ("float32", "bf16"))
-        out["throughput"][label] = {
-            names[i]: {"ms": float(np.mean(ms[i])), "turns": ms[i],
-                       "windows_per_s": b / (float(np.mean(ms[i])) / 1e3)}
-            for i in (0, 1)}
-        r = out["throughput"][label]
-        print(f"  {label} B={b}: {names[0]} "
-              f"{r[names[0]]['windows_per_s']:.1f} windows/s, {names[1]} "
-              f"{r[names[1]]['windows_per_s']:.1f} (ms turns "
-              f"{[round(v, 3) for v in ms[0] + ms[1]]})")
-        del model, x
-        torch.cuda.empty_cache()
+    for cell in THROUGHPUT_CELLS:
+        label, _, b, _, (na, _), (nb, _) = cell
+        r = out["throughput"][label] = pair_turns(
+            cell, dev, profile=cell in SHIPPED_CELLS)
+        turns = [round(v, 3) for v in r[na]["turns"] + r[nb]["turns"]]
+        issued = [round(v, 3) for v in r[na]["host_issue_ms"]
+                  + r[nb]["host_issue_ms"]]
+        print(f"  {label} B={b}: {na} {r[na]['windows_per_s']:.1f} "
+              f"windows/s, {nb} {r[nb]['windows_per_s']:.1f} (ms turns "
+              f"{turns}; host issue ms {issued})")
+        for name in (na, nb):
+            if "breakdown" in r[name]:
+                p = r[name]["breakdown"]
+                print(f"    {name}, profiled: device busy {p['busy_ms']:.3f} "
+                      f"of {p['wall_ms']:.3f} ms, idle "
+                      f"{p['idle_share']:.4f}; " + ", ".join(
+                          f"{k} {v['ms']:.3f} ({v['launches']})"
+                          for k, v in sorted(p["classes"].items(),
+                                             key=lambda kv: -kv[1]["ms"])))
     return out
+
+
+# The kernels line's bf16-I/O GEMM rows: (BF16_GEMM_CASES index, windows,
+# kernel, tiers, whether the row carries phase 13's launches of its
+# instantiation) at main-path shapes of bf16 storage: the 27f level-0
+# block concat, the 243f GAB-0 one (N = 64; its launches: phase 13's
+# vec16_bf16 launches are the 243f cell's), the 81f GAB-0 one (N = 128)
+# and the 27f level-0 projection; and the ragged row of gemm_tc's general
+# instantiation: the 27f level-0 expand conv (K = 2 a tap) on bf16 taps to
+# a bf16 output. scripts/torch_gemm_tc.py --bf16 times the gemm_tc rows.
+BF16_KERNEL_ROWS = (
+    (0, 1024, "gemm_epilogue", ("highest",), True),
+    (0, 1024, "gemm_tc", TC_PASSES, False),
+    (4, 256, "gemm_tc", TC_PASSES, True),
+    (5, 1024, "gemm_tc", TC_PASSES, False),
+    (1, 1024, "gemm_tc", TC_PASSES, False))
+BF16_GENERAL_ROW = ("27f L0 expand conv, taps bf16 -> bf16", 0, (0, 1, 2),
+                    False, True)
+
+
+def tc_bf16_bound(pieces, m, n, kw, tier):
+    """gemm_tc's bound on bf16 I/O: each piece's product at ``tc_passes``
+    (a bf16 piece has no A-lo pass) plus the epilogue, against the bytes
+    of ``gemm_bytes`` (bf16 activations at 2 bytes)."""
+    import torch
+
+    ks = [a.shape[1] for a, _, _ in pieces]
+    flops = gemm_work(m, ks, n, 1, kw.get("res") is not None)[0]
+    passed = flops - 2 * m * n * sum(ks) + sum(
+        2 * m * a.shape[1] * n * tc_passes(tier, a.dtype == torch.bfloat16)
+        for a, _, _ in pieces)
+    return tc_bound(passed, gemm_bytes(pieces, m, n, kw, kw["out_dtype"]),
+                    1)
+
+
+def bf16_matmul_ms(pieces, m, kw) -> float:
+    """One bf16 ``torch.matmul`` (bf16 out) over the same product, the
+    operands gathered and rounded once outside the timing: the
+    yardstick."""
+    import torch
+
+    a_cat, w_cat = gemm_library_operands(pieces, m, kw)
+    a16, w16 = a_cat.to(torch.bfloat16), w_cat.to(torch.bfloat16)
+    del a_cat, w_cat
+    return cuda_ms(lambda: torch.matmul(a16, w16))
 
 
 def bf16_kernels(K, dev, n243, phase13, phase2_errs) -> list:
     """The bf16-I/O instantiations' entries of the kernels line: each timed
-    at a main-path shape of bf16 storage (the 27f level-0 block concat
-    with bf16 x and output at B=1024, on ``gemm_epilogue`` and on
-    ``gemm_tc`` at every tier; ``gab_narrow`` on the 243f model's C=32 GAB
-    at B=256, bf16 in and out) beside its plain version and its bound (bf16
-    elements at 2 bytes; ``gemm_tc``'s operations at ``tc_passes`` a
-    piece); launches from phase 13 (all bf16 I/O labels)."""
+    at a main-path shape of bf16 storage (``BF16_KERNEL_ROWS``: the 27f
+    level-0 block concat with bf16 x and output at B=1024 on
+    ``gemm_epilogue`` and on ``gemm_tc``'s vec16_bf16 at every tier, the
+    243f GAB-0 block concat (N = 64) at B=256, the 81f one (N = 128) and
+    the 27f level-0 projection, bf16 x to float32, at B=1024;
+    ``BF16_GENERAL_ROW`` on the general
+    instantiation; ``gab_narrow`` on the 243f model's C=32 GAB at B=256,
+    bf16 in and out) beside its plain version, its bound (bf16 elements at
+    2 bytes; ``gemm_tc``'s operations at ``tc_passes`` a piece) and a bf16
+    ``torch.matmul``; launches from phase 13 (all bf16 I/O labels; the
+    vec16_bf16 launches on one row, its ``default`` 243f one)."""
     import torch
 
     bf = torch.bfloat16
-    label, spec_i, cast, res_bf16, _ = BF16_GEMM_CASES[0]
-    pieces, m, kw = bf16_gemm_case(K, dev, spec_i, cast, res_bf16, None, 420)
-    kw["out_dtype"] = bf
-    ks = [a.shape[1] for a, _, _ in pieces]
-    n = pieces[0][1].shape[1]
-    flops = gemm_work(m, ks, n, 1, 0)[0]
-    epilogue = flops - 2 * m * n * sum(ks)
-    nbytes = gemm_bytes(pieces, m, n, kw, bf)
     launches = phase13["launches"]
 
     def io_launches(name):
         return sum(launches.get(f"{name} {io}", 0)
                    for io in K.IO_LABELS if io != "float32")
 
-    def err_of(prefix):
-        return max(v for k, v in phase2_errs.items() if k.startswith(prefix))
+    def phase2(prefix, ragged=None):
+        """Phase 2's cases under ``prefix`` (and, for ``ragged`` True or
+        False, only the ragged ones or the others)."""
+        return [v for k, v in phase2_errs.items() if k.startswith(prefix)
+                and (ragged is None or ("ragged" in k) == ragged)]
 
+    def err_of(prefix, ragged=None):
+        return max(phase2(prefix, ragged))
+
+    vec_launches = launches.get("gemm_tc vec16_bf16", 0)
+    rows = [(BF16_GEMM_CASES[i], windows, kernel, tiers, "vec16_bf16", path)
+            for i, windows, kernel, tiers, path in BF16_KERNEL_ROWS]
+    rows.append((BF16_GENERAL_ROW, 1024, "gemm_tc", ("default",),
+                 "general", True))
     entries = []
-    for kernel, tier in [("gemm_epilogue", "highest")] + [
-            ("gemm_tc", t) for t in K.TC_TIERS]:
-        kt = dict(kw, tier=tier)
-        check_bf16(f"{kernel} {tier} {label} (B=1024)",
-                   K.gemm_epilogue(pieces, m, **kt),
-                   K.gemm_epilogue_plain(pieces, m, **kt))
-        ms = cuda_ms(lambda: K.gemm_epilogue(pieces, m, **kt))
-        plain_ms = cuda_ms(lambda: K.gemm_epilogue_plain(pieces, m, **kt),
-                           reps=3)
-        if kernel == "gemm_epilogue":
-            bms, by = bound(flops, nbytes)
-            name, n_launch = f"{kernel} (bf16 I/O, {label})", \
-                io_launches(kernel)
-            err = err_of("gemm_epilogue")
-        else:
-            passed = epilogue + sum(
-                2 * m * a.shape[1] * n * tc_passes(tier, a.dtype == bf)
-                for a, _, _ in pieces)
-            bms, by = tc_bound(passed, nbytes, 1)
-            name = f"gemm_tc ({tier}, bf16 I/O, general, {label})"
-            n_launch = (io_launches("gemm_tc") if tier == "default" else 0)
-            err = err_of(f"gemm_tc {tier}")
-        entries.append({
-            "name": name, "route": "cuda",
-            "source": f"gastx_torch/csrc/{kernel}.cu",
-            "replaces": "gastx/ops/pallas/fused_gab.py:501",
-            "launches": n_launch, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": None})
-        if not n_launch:
-            entries[-1]["direct_launches"] = sum(
-                1 for k in phase2_errs if k.startswith(f"gemm_tc {tier}"))
-        print(f"  {name}: {ms:.3f} ms (plain {plain_ms:.3f}, bound "
-              f"{bms:.3f} by {by}); launches {n_launch}")
-    del pieces, kw
+    for (label, spec_i, cast, res_bf16, out_bf16), windows, kernel, tiers, \
+            variant, path in rows:
+        pieces, m, kw = bf16_gemm_case(K, dev, spec_i, cast, res_bf16,
+                                       windows, 420)
+        kw["out_dtype"] = bf if out_bf16 else torch.float32
+        n = pieces[0][1].shape[1]
+        shape = f"{label} (B={windows})"
+        matmul_ms = bf16_matmul_ms(pieces, m, kw)
+        for tier in tiers:
+            kt = dict(kw, tier=tier)
+            taken, got = launched_variant(
+                K, kernel, lambda: K.gemm_epilogue(pieces, m, **kt))
+            if kernel == "gemm_tc" and taken != variant:
+                fail(f"gemm_tc {tier} {shape}: took {taken}, not {variant}")
+            err = check_out(f"{kernel} {tier} {shape}", got,
+                            K.gemm_epilogue_plain(pieces, m, **kt))
+            del got
+            ms = cuda_ms(lambda: K.gemm_epilogue(pieces, m, **kt))
+            plain_ms = cuda_ms(lambda: K.gemm_epilogue_plain(pieces, m,
+                                                             **kt), reps=3)
+            if kernel == "gemm_epilogue":
+                ks = [a.shape[1] for a, _, _ in pieces]
+                bms, by = bound(gemm_work(m, ks, n, 1, 0)[0],
+                                gemm_bytes(pieces, m, n, kw, kw["out_dtype"]))
+                name = f"{kernel} (bf16 I/O, {shape})"
+                n_launch, err = io_launches(kernel), err_of("gemm_epilogue")
+                library_ms = None
+            else:
+                bms, by = tc_bf16_bound(pieces, m, n, kw, tier)
+                name = f"gemm_tc ({tier}, bf16 I/O, {variant}, {shape})"
+                if not (path and tier == "default"):
+                    n_launch = 0
+                elif variant == "general":
+                    n_launch = io_launches("gemm_tc") - vec_launches
+                else:
+                    n_launch = vec_launches
+                err = max(err, err_of(f"gemm_tc {tier} ",
+                                      ragged=variant == "general"))
+                library_ms = matmul_ms if tier == "default" else None
+            entries.append({
+                "name": name, "route": "cuda",
+                "source": f"gastx_torch/csrc/{kernel}.cu",
+                "replaces": "gastx/ops/pallas/fused_gab.py:501",
+                "launches": n_launch, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                "library_ms": library_ms, "matmul_bf16_ms": matmul_ms})
+            if not n_launch:
+                entries[-1]["direct_launches"] = len(phase2(
+                    f"gemm_tc {tier} ", ragged=variant == "general"))
+            print(f"  {name}: {ms:.3f} ms (plain {plain_ms:.3f}, bound "
+                  f"{bms:.3f} by {by}, {bms / ms:.1%} of it; bf16 "
+                  f"torch.matmul {matmul_ms:.3f}); launches {n_launch}")
+        del pieces, kw
+        torch.cuda.empty_cache()
     t = n243[0]
     c, k, inter, g_ch, j, d = K.gab_shape(t)
     rows = 256 * 241 * j
@@ -4030,7 +4293,8 @@ def main() -> int:
             kernels[-1]["direct_launches"] = phase2_launches[counter]
         if name in K.VARIANT_LAUNCHES:  # max_abs_err: the main shape alone
             kernels[-1]["launches_by_variant"] = {
-                v: main_launches[f"{name} {v}"] for v in K.VARIANTS}
+                v: main_launches[f"{name} {v}"]
+                for v in K.VARIANT_LAUNCHES[name]}
             kernels[-1]["ragged_max_abs_err"] = max(
                 gemm_errs if name == "gemm_epilogue" else graph_errs[name])
         print(f"  {name}: {ms:.3f} ms (plain {plain_ms:.3f}, bound "
@@ -4166,7 +4430,7 @@ def main() -> int:
             "float32_ms": r["float32_ms"], "a_route": r["a_route"],
             "launches_by_variant": {
                 v: tp["launches"].get(f"gemm_tc {v}", 0)
-                for v in K.VARIANTS}})
+                for v in K.TC_VARIANTS}})
         if not kernels[-1]["launches"]:  # off the tiered path: high_lhs
             kernels[-1]["direct_launches"] = direct[key]
     for r in tk["joint_attention"]:

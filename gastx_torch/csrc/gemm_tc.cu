@@ -71,18 +71,44 @@
 //   buffers, A split as it is stored into shared memory, W's halves
 //   (K_p, N) row-major per piece, scalar loads and stores.
 //
-// bf16 I/O (bf16 storage) runs on the general instantiation alone: vec16's
-// A boxes, gathers and output boxes are float32, and a bf16 TMA layout
-// would be a redesign. Bit p of `dtypes` makes piece p's A bf16 (upcast
-// as loaded: its hi half is the value and its lo half zero, so the A-lo
-// pass of "high" and "high_lhs" is skipped for its slabs), bit 3 the
-// residual and bit 4 the output (rounded to nearest even as stored). The
-// flags are read at run time, in a library of their own (below); the
-// bf16-I/O library holds the general body alone.
+// bf16 I/O (bf16 storage): bit p of `dtypes` makes piece p's A bf16, bit 3
+// the residual and bit 4 the output (rounded to nearest even as stored).
+// A bf16 A is its own hi half (its lo half is zero): general skips the
+// A-lo pass of "high" and "high_lhs" for its slabs; vec16_bf16 multiplies
+// the zeros (below). The flags are read at run time, in a library of its
+// own (GASTX_BF16_IO, below), which holds both bodies; the float32
+// library's code has no dtype branch.
+// * vec16_bf16 (vec16's rule, with every bf16 K_p a multiple of 8): the
+//   same persistent wgmma kernel with bf16 TMA boxes.
+//   - A bf16 piece's slab is 128 rows x 32 k x 2 bytes, one TMA box with
+//     64-byte swizzle (or 16-byte cp.async gathers of 8 k into the same
+//     layout), half a float32 slab; each slab's expect_tx counts its own
+//     bytes. The consumer reads it as it is: one 16-byte load a row
+//     holds the thread's fragments of both k16 steps (k 8c .. 8c + 7,
+//     which TC_K_ORDER_BF16 makes the fragment's k 2c, 2c+1, 2c+8, 2c+9
+//     of step 0, then of step 1), with no split; its A-lo pass at "high"
+//     and "high_lhs" multiplies zeros (a branch around that wgmma, though
+//     uniform, makes ptxas serialize all of them). A stays in registers,
+//     as for a float32 slab, so slabs of both dtypes feed
+//     the same accumulators in one GEMM (the block concat's [x (bf16) |
+//     local | global]): wgmma with A from shared memory would give the
+//     accumulators the slab's row order, which the float32 slabs' float4
+//     reads cannot keep without bank conflicts.
+//   - Fragment row g is the tile's row (g / 2) ^ (5 (g % 2)) of its 8:
+//     a quarter-warp's two rows then differ in bit 2 (the float32 slab's
+//     128-byte swizzle) and in bit 0 (the bf16 slab's 64-byte rows), so
+//     both slabs' loads are free of bank conflicts.
+//   - The piece of a slab, hence its dtype, is uniform over the block:
+//     the choice of load is a uniform branch.
+//   - A bf16 residual is read as bf16 pairs; a bf16 output is rounded in
+//     registers and staged as 64 x 64 boxes of 128-byte rows (the float32
+//     slots' size and swizzle), stored by TMA.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 // GASTX_BF16_IO builds the bf16-I/O library (kernels.py, IO_SOURCES), whose
 // code reads the dtype bits; the float32 library's has no dtype branch.
@@ -95,6 +121,9 @@ constexpr bool BF16_IO = false;
 namespace {
 
 constexpr int MAX_PIECES = 3;
+// The dtype bits beyond the pieces' (bit p: A piece p bf16).
+constexpr int RES_BF16 = 8;
+constexpr int OUT_BF16 = 16;
 
 template <int TIER>
 struct Passes {
@@ -165,9 +194,6 @@ struct GemmArgs {
   void* out;        // float32 or bf16 (bit 4)
   int dtypes;
 };
-
-constexpr int RES_BF16 = 8;
-constexpr int OUT_BF16 = 16;
 
 // Element k of a float32 or bf16 row (`row` in bytes), as float32 (a bf16
 // value exactly); `ldg` through the read-only path.
@@ -485,9 +511,9 @@ int launch(const GemmArgs& args, cudaStream_t stream) {
 
 }  // namespace general
 
-#ifndef GASTX_BF16_IO
 // ==========================================================================
-// vec16: the persistent, warp-specialised wgmma kernel.
+// vec16 (and, in the bf16-I/O library, vec16_bf16): the persistent,
+// warp-specialised wgmma kernel.
 // ==========================================================================
 namespace hopper {
 
@@ -499,8 +525,11 @@ constexpr int THREADS = 128 * (CONSUMERS + 1);
 constexpr int PRODUCER_REGS = 56;  // setmaxnreg: 56 * 128 + 224 * 256 =
 constexpr int CONSUMER_REGS = 224; // 168 * 384, the launch's allocation
 constexpr int A_BYTES = BM * BK * 4;   // [128 rows][32 k] f32, 128B swizzle
+constexpr int A_BYTES_BF16 = BM * BK * 2;  // [128][32] bf16, 64B swizzle
 constexpr int W_BYTES = BN * BK * 2;   // [256 n][32 k] bf16, 64B swizzle
-constexpr int BOX = 64 * 32 * 4;       // a warpgroup's 64 x 32 output box
+// A warpgroup's output box: 64 rows of 128 bytes (32 float32 columns, or
+// 64 bf16 ones), 128B swizzle.
+constexpr int BOX = 64 * 32 * 4;
 constexpr int BUDGET = 224 * 1024;     // ring and output boxes
 constexpr int EMPTY_ARRIVALS = 4 * CONSUMERS;  // one a consumer warp
 constexpr int GATHER_ARRIVALS = 128 + 1;       // noinc arrivals + expect_tx
@@ -520,7 +549,7 @@ struct Ring {
 };
 
 struct Args {
-  const float* a[MAX_PIECES];
+  const float* a[MAX_PIECES];  // bf16 where dtypes bit p (bf16-I/O library)
   int k[MAX_PIECES];
   int a_off[MAX_PIECES];
   int kb_end[MAX_PIECES];   // cumulative slabs at the end of each piece
@@ -531,10 +560,19 @@ struct Args {
   const float* scale;
   const float* shift;
   int relu;
-  const float* res;
+  const float* res;         // bf16 where RES_BF16
   int res_off;
-  float* out;
+  float* out;               // bf16 where OUT_BF16
+  int dtypes;               // 0 in the float32 library
 };
+
+// Whether k-block kb's slab holds a bf16 piece (always false in the
+// float32 library).
+__device__ __forceinline__ bool slab_bf16(const Args& args, int kb) {
+  if (!BF16_IO) return false;
+  const int p = kb < args.kb_end[0] ? 0 : (kb < args.kb_end[1] ? 1 : 2);
+  return (args.dtypes >> p) & 1;
+}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
@@ -742,8 +780,12 @@ gemm_tc_kernel_ws(const Args args, const __grid_constant__ CUtensorMap map_a0,
         mbar_wait(empty0 + 8 * s, ph ^ 1);
         const int p = kb < args.kb_end[0] ? 0 : (kb < args.kb_end[1] ? 1 : 2);
         const int k0 = (kb - (p ? pick(args.kb_end, p - 1) : 0)) * BK;
+        const bool a_bf = BF16_IO && ((args.dtypes >> p) & 1);
+        // The slab's bytes by TMA: W's halves, and A unless gathered.
+        const uint32_t a_bytes =
+            args.gather ? 0 : (a_bf ? A_BYTES_BF16 : A_BYTES);
         if (t == 0) {
-          mbar_expect_tx(full, w_bytes + (args.gather ? 0 : A_BYTES));
+          mbar_expect_tx(full, w_bytes + a_bytes);
           if (!args.gather) {
             const CUtensorMap* ma = p == 0 ? &map_a0 : (p == 1 ? &map_a1 : &map_a2);
             tma_load(slab, ma, full, k0, row0 + pick(args.a_off, p));
@@ -752,7 +794,27 @@ gemm_tc_kernel_ws(const Args args, const __grid_constant__ CUtensorMap map_a0,
           if constexpr (P::B_LO)
             tma_load(slab + A_BYTES + W_BYTES, &map_wl, full, kb * BK, col0);
         }
-        if (args.gather) {
+        if (args.gather && a_bf) {
+          // A bf16 slab's rows are 64 bytes, 4 chunks of 8 k: thread t
+          // copies chunk ch % 4 of the rows t / 8 + 16 i with i % 2 ==
+          // ch / 4, into TMA's 64-byte swizzle (chunk ^ (row / 2) % 4).
+          const auto* A = reinterpret_cast<const unsigned short*>(
+              pick(args.a, p));
+          const int K = pick(args.k, p);
+          const int off = pick(args.a_off, p);
+          const int q = ch % 4;
+          const int k = k0 + 8 * q;
+          const uint32_t dst =
+              slab + (t / 8) * 64 + ((q ^ ((t / 8) / 2 % 4)) * 16);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            if (i % 2 != ch / 4) continue;
+            const bool v = in_row[i] >= 0 && k < K;
+            const auto* src = v ? A + (long long)(in_row[i] + off) * K + k : A;
+            cp_async16(dst + 16 * i * 64, src, v);
+          }
+          cp_async_arrive(full);
+        } else if (args.gather) {
           const float* A = pick(args.a, p);
           const int K = pick(args.k, p);
           const int off = pick(args.a_off, p);
@@ -776,8 +838,12 @@ gemm_tc_kernel_ws(const Args args, const __grid_constant__ CUtensorMap map_a0,
     // Fragment row g of each 8 is the tile's row 4 (g % 2) + g / 2 of
     // those 8 (sg): the two rows a quarter-warp reads then sit in the two
     // 64-byte halves of the 128-byte swizzle (conflict-free float4 loads).
+    // With bf16 slabs too, (g / 2) ^ (5 (g % 2)): the two rows also differ
+    // in bit 0, so they sit in the two 64-byte halves of a bank line as
+    // bf16 slab rows (64 bytes) as well. The float32 library keeps the
+    // first order, so that its code stays vec16's own.
     // The thread holds tile rows rr + 8h, rr = 64 wg + 16 warp + sg.
-    const int sg = 4 * (g % 2) + g / 2;
+    const int sg = BF16_IO ? (g / 2) ^ (5 * (g % 2)) : 4 * (g % 2) + g / 2;
     const int rr = 64 * wg + 16 * warp + sg;
     const int box_row = (16 * warp + sg) * 128;   // in the warpgroup's box
     const uint32_t boxes = ring_s + R::BOXES + wg * R::SLOTS * BOX;
@@ -788,12 +854,27 @@ gemm_tc_kernel_ws(const Args args, const __grid_constant__ CUtensorMap map_a0,
     // Slab `it`'s A fragments, both k16 steps: rows rr and rr + 8,
     // physical k 16j + 4c .. + 3 (the swizzled chunk 4j + c), which
     // TC_K_ORDER makes the fragment's k 2c, 2c + 1, 2c + 8, 2c + 9; split
-    // into hi and lo. Waits for the slab first.
-    auto fragments = [&](uint32_t it, uint32_t (&ah)[2][4],
+    // into hi and lo. A bf16 slab (k-block kb of a bf16 piece): physical
+    // k 8c .. 8c + 7 (the 64-byte row's chunk c, swizzled by (row / 2) %
+    // 4), which TC_K_ORDER_BF16 makes step 0's fragment, then step 1's;
+    // its lo half is zero. Waits for the slab first.
+    auto fragments = [&](uint32_t it, int kb, uint32_t (&ah)[2][4],
                          uint32_t (&al)[2][4]) {
       const int s = it % R::STAGES;
       mbar_wait(full0 + 8 * s, (it / R::STAGES) & 1);
       const unsigned char* slab = ring + s * R::STAGE;
+      if (slab_bf16(args, kb)) {
+        const int o = rr * 64 + ((c ^ (sg / 2 % 4)) * 16);
+        const uint4 x0 = *reinterpret_cast<const uint4*>(slab + o);
+        const uint4 x1 = *reinterpret_cast<const uint4*>(slab + o + 512);
+        ah[0][0] = x0.x; ah[0][1] = x1.x; ah[0][2] = x0.y; ah[0][3] = x1.y;
+        ah[1][0] = x0.z; ah[1][1] = x1.z; ah[1][2] = x0.w; ah[1][3] = x1.w;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) al[j][r] = 0u;
+        return;
+      }
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int o = rr * 128 + (((4 * j + c) ^ sg) * 16);
@@ -814,6 +895,9 @@ gemm_tc_kernel_ws(const Args args, const __grid_constant__ CUtensorMap map_a0,
                     uint32_t (&nl)[2][4]) {
       const int s = it % R::STAGES;
       const uint32_t wh = ring_s + s * R::STAGE + A_BYTES;
+      // A bf16 slab's A-lo pass multiplies zeros: skipping it by a branch,
+      // uniform as it is, makes ptxas serialize every wgmma of the kernel
+      // (C7520, "compiler-inserted WG.AR in divergent path").
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
@@ -827,14 +911,14 @@ gemm_tc_kernel_ws(const Args args, const __grid_constant__ CUtensorMap map_a0,
       asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
       if (kb > 0 && lane == 0)
         mbar_arrive(empty0 + 8 * ((it + R::STAGES - 1) % R::STAGES));
-      if (kb + 1 < nkb) fragments(it + 1, nh, nl);
+      if (kb + 1 < nkb) fragments(it + 1, kb + 1, nh, nl);
     };
     uint32_t it = 0, q = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const int row0 = (tile / tiles_n) * BM;
       const int col0 = (tile % tiles_n) * BN;
       uint32_t xh[2][4], xl[2][4], yh[2][4], yl[2][4];
-      fragments(it, xh, xl);
+      fragments(it, 0, xh, xl);
       for (int kb = 0; kb < nkb; kb += 2) {
         step(it++, kb, xh, xl, yh, yl);
         if (kb + 1 < nkb) step(it++, kb + 1, yh, yl, xh, xl);
@@ -850,6 +934,94 @@ gemm_tc_kernel_ws(const Args args, const __grid_constant__ CUtensorMap map_a0,
       // it (128-byte swizzle), and the issuer stores it by TMA, which
       // clips rows >= m and columns >= n; the next box, and the next
       // tile's wgmmas, go on while it drains.
+#ifdef GASTX_BF16_IO
+      // The bf16-I/O library's epilogue: a bf16 residual (RES_BF16) is read
+      // as pairs of bf16; a bf16 output (OUT_BF16) goes through 64 x 64
+      // boxes of 128-byte rows, the thread's two columns one 4-byte word at
+      // chunk jj (of 8, swizzled by the row) of its row. The float32
+      // library keeps vec16's own epilogue (#else): this one, instantiated
+      // there for float32 only and with res_bf constant false, computes
+      // the same but compiles to other instructions (2824 against 2840 at
+      // "default"; scripts/torch_sass_diff.py).
+      const bool res_bf = args.dtypes & RES_BF16;
+      const float* res_row[2];   // a row of bf16 where res_bf
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row0 + rr + 8 * h;
+        const long long at =
+            (map_row(r, args.s_out, args.res_s_in) + args.res_off) *
+            (long long)n;
+        res_row[h] = (r < m && args.res)
+            ? (res_bf ? reinterpret_cast<const float*>(
+                            reinterpret_cast<const __nv_bfloat16*>(args.res) +
+                            at)
+                      : args.res + at)
+            : nullptr;
+      }
+      auto epilogue = [&](auto out_bf16) {
+        constexpr bool OB = decltype(out_bf16)::value;
+        constexpr int COLS = OB ? 64 : 32;  // output columns a box
+#pragma unroll
+        for (int b = 0; b < BN / COLS; ++b) {
+          if (col0 + COLS * b >= n || row0 + 64 * wg >= m) break;
+          const uint32_t box = boxes + (q % R::SLOTS) * BOX;
+          if (issuer) store_wait_read<R::SLOTS - 1>();
+          wg_sync(wg);
+#pragma unroll
+          for (int jj = 0; jj < COLS / 8; ++jj) {
+            const int j = COLS / 8 * b + jj;
+            const int col = col0 + 8 * j + 2 * c;
+            const bool in = col < n;   // n % 8 == 0: both columns in or out
+            float sc0 = 1.f, sc1 = 1.f, sh0 = 0.f, sh1 = 0.f;
+            if (args.scale && in) {
+              sc0 = __ldg(args.scale + col); sc1 = __ldg(args.scale + col + 1);
+              sh0 = __ldg(args.shift + col); sh1 = __ldg(args.shift + col + 1);
+            }
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+              if (args.scale) { v0 = v0 * sc0 + sh0; v1 = v1 * sc1 + sh1; }
+              if (args.relu) { v0 = fmaxf(v0, 0.f); v1 = fmaxf(v1, 0.f); }
+              if (res_row[h] && in) {
+                if (res_bf) {
+                  const uint32_t rv = __ldg(reinterpret_cast<const unsigned*>(
+                      reinterpret_cast<const __nv_bfloat16*>(res_row[h]) +
+                      col));
+                  v0 += __uint_as_float(rv << 16);
+                  v1 += __uint_as_float(rv & 0xffff0000u);
+                } else {
+                  const float2 rv =
+                      __ldg(reinterpret_cast<const float2*>(res_row[h] + col));
+                  v0 += rv.x; v1 += rv.y;
+                }
+              }
+              if constexpr (OB) {
+                const __nv_bfloat162 pk = __floats2bfloat162_rn(v0, v1);
+                const uint32_t dst = box + box_row + h * 1024 +
+                                     ((jj ^ sg) * 16) + c * 4;
+                asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dst),
+                             "r"(*reinterpret_cast<const uint32_t*>(&pk))
+                             : "memory");
+              } else {
+                const uint32_t dst = box + box_row + h * 1024 +
+                                     (((2 * jj + c / 2) ^ sg) * 16) +
+                                     (c % 2) * 8;
+                asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(dst),
+                             "f"(v0), "f"(v1) : "memory");
+              }
+            }
+          }
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          wg_sync(wg);
+          if (issuer) tma_store(&map_out, box, col0 + COLS * b, row0 + 64 * wg);
+          ++q;
+        }
+      };
+      if (args.dtypes & OUT_BF16)
+        epilogue(std::true_type{});
+      else
+        epilogue(std::false_type{});
+#else
       const float* res_row[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -896,6 +1068,7 @@ gemm_tc_kernel_ws(const Args args, const __grid_constant__ CUtensorMap map_a0,
         if (issuer) tma_store(&map_out, box, col0 + 32 * b, row0 + 64 * wg);
         ++q;
       }
+#endif  // GASTX_BF16_IO
     }
     if (issuer) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   }
@@ -973,7 +1146,6 @@ int launch(const Args& args, const CUtensorMap (&ma)[MAX_PIECES],
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
-#endif  // GASTX_BF16_IO
 
 }  // namespace
 
@@ -1031,16 +1203,19 @@ int gemm_tc(const void* a0, const void* wh0, const void* wl0, int k0,
   }
 }
 
-#ifndef GASTX_BF16_IO
-// The vec16 instantiation of `tier` on `stream`, one persistent block an SM.
-// Piece p: a_p (rows_p, K_p) float32 and its row offset off_p; W of every
-// piece as one K-major matrix, its bf16 halves wt_hi and wt_lo (N, k_pad)
-// (wt_lo only where the tier multiplies it): piece p's columns padded with
-// zeros to a multiple of 32, every 16 permuted by TC_K_ORDER (kernels.py,
-// tc_weights). Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue with no launch where the operands break the
-// instantiation's rule (K_p % 4, N % 8, 16-byte a_p, res and W, k_pad the
-// pieces' padded sum) or a tensor map cannot be encoded.
+// The wgmma instantiation of `tier` on `stream`, one persistent block an
+// SM: vec16 (float32 I/O, the float32 library) or vec16_bf16 (the bf16-I/O
+// library, `dtypes` as gemm_tc's). Piece p: a_p (rows_p, K_p) float32 or
+// bf16 and its row offset off_p; W of every piece as one K-major matrix,
+// its bf16 halves wt_hi and wt_lo (N, k_pad) (wt_lo only where the tier
+// multiplies it): piece p's columns padded with zeros to a multiple of 32,
+// every 16 permuted by TC_K_ORDER for a float32 piece, every 32 by
+// TC_K_ORDER_BF16 for a bf16 one (kernels.py, tc_weights). Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue with no
+// launch where the operands break the instantiation's rule (K_p % 4, and
+// % 8 for a bf16 piece; N % 8; 16-byte a_p, res, out and W; k_pad the
+// pieces' padded sum), a bf16 dtype bit in the float32 library, or a
+// tensor map cannot be encoded.
 int gemm_tc_hopper(const void* a0, int k0, int rows0, int off0,
                    const void* a1, int k1, int rows1, int off1,
                    const void* a2, int k2, int rows2, int off2, int npieces,
@@ -1048,12 +1223,13 @@ int gemm_tc_hopper(const void* a0, int k0, int rows0, int off0,
                    int n, int s_out, int a_s_in, int res_s_in,
                    const void* scale, const void* shift, int relu,
                    const void* res, int res_off, void* out, void* stream,
-                   int tier) {
+                   int tier, int dtypes) {
   using namespace hopper;
   if (npieces < 1 || npieces > MAX_PIECES || tier < 0 || tier > 3 ||
       n % 8 != 0 || !aligned16(out) || !aligned16(res) ||
       !aligned16(wt_hi) || !aligned16(wt_lo) || wt_hi == nullptr ||
-      ((tier == 2 || tier == 3) && wt_lo == nullptr))
+      ((tier == 2 || tier == 3) && wt_lo == nullptr) ||
+      (dtypes && !BF16_IO))
     return static_cast<int>(cudaErrorInvalidValue);
   Args args;
   const void* as[MAX_PIECES] = {a0, a1, a2};
@@ -1068,19 +1244,30 @@ int gemm_tc_hopper(const void* a0, int k0, int rows0, int off0,
     args.k[p] = ks[p];
     args.a_off[p] = offs[p];
     if (p < npieces) {
-      if (ks[p] < 1 || ks[p] % 4 != 0 || !aligned16(as[p]))
+      // A bf16 piece: rows of 16-byte multiples, a box of 32 k x 128 rows
+      // with 64-byte swizzle (the consumers' bf16 slab layout).
+      const bool bf = (dtypes >> p) & 1;
+      if (ks[p] < 1 || ks[p] % (bf ? 8 : 4) != 0 || !aligned16(as[p]))
         return static_cast<int>(cudaErrorInvalidValue);
       kb += (ks[p] + BK - 1) / BK;
       if (!args.gather &&
-          !encode(&ma[p], as[p], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
-                  rows[p], ks[p], BK, BM, CU_TENSOR_MAP_SWIZZLE_128B))
+          !encode(&ma[p], as[p],
+                  bf ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                  bf ? 2 : 4, rows[p], ks[p], BK, BM,
+                  bf ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B))
         return static_cast<int>(cudaErrorInvalidValue);
     }
     args.kb_end[p] = kb;
   }
   if (kb * BK != k_pad) return static_cast<int>(cudaErrorInvalidValue);
   if (m < 1 || n < 1) return static_cast<int>(cudaGetLastError());
-  if (!encode(&mout, out, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, m, n, 32, 64,
+  // The output in boxes of 64 rows x 128 bytes: 32 float32 or 64 bf16.
+  const bool out_bf = dtypes & OUT_BF16;
+  if (!encode(&mout, out,
+              out_bf ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+              out_bf ? 2 : 4, m, n, out_bf ? 64 : 32, 64,
               CU_TENSOR_MAP_SWIZZLE_128B) ||
       !encode(&mwh, wt_hi, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, n, k_pad, BK,
               BN, CU_TENSOR_MAP_SWIZZLE_64B) ||
@@ -1100,6 +1287,7 @@ int gemm_tc_hopper(const void* a0, int k0, int rows0, int off0,
   args.res = static_cast<const float*>(res);
   args.res_off = res_off;
   args.out = static_cast<float*>(out);
+  args.dtypes = dtypes;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (tier) {
     case 0: return launch<0>(args, ma, mwh, mwl, mout, s);
@@ -1108,7 +1296,6 @@ int gemm_tc_hopper(const void* a0, int k0, int rows0, int off0,
     default: return launch<3>(args, ma, mwh, mwl, mout, s);
   }
 }
-#endif  // GASTX_BF16_IO
 
 const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -8,11 +8,13 @@ plain C interface:
     instantiations (:func:`gemm_variant`), the ``"highest"`` tier;
   * ``gemm_tc`` — the same function at the bf16 tiers
     (``gastx_torch.ops.precision``) on the tensor cores, one
-    instantiation per tier (``TC_TIERS``) and alignment
+    instantiation per tier (``TC_TIERS``) and alignment and I/O dtype
     (:func:`tc_variant`): ``vec16`` a persistent warp-specialised
     ``wgmma`` kernel fed by TMA (W as :func:`tc_weights` lays it out),
-    ``general`` an ``mma.sync`` one; the :func:`gemm_epilogue` wrapper
-    launches it for every tier but ``"highest"``;
+    ``vec16_bf16`` the same kernel with bf16 TMA boxes (bf16 A pieces,
+    residual or output), ``general`` an ``mma.sync`` one for the ragged
+    rest; the :func:`gemm_epilogue` wrapper launches it for every tier
+    but ``"highest"``;
   * ``sem_graph`` — the local branch's semantic graph aggregation, and
   * ``joint_attention`` — per-frame multi-head attention over the joints,
     its score and apply dots at their tiers (operands rounded as
@@ -27,10 +29,11 @@ and its residual float32 or bf16 (the dtype is the tensor's), its output
 float32 or bf16 (``out_dtype``); ``gab_narrow``'s x and output likewise.
 They upcast on load and compute in float32, as the TPU kernels do; the
 weights stay float32, and so do the intermediates between the chain's
-kernels. ``gemm_tc`` takes any bf16 operand on its ``general``
-instantiation. A launch with a bf16 operand goes to the source's bf16-I/O
-library (``IO_SOURCES``). Each plain version upcasts, runs the float32
-plain chain and rounds the output.
+kernels. ``gemm_tc`` takes an aligned bf16 operand on its ``vec16_bf16``
+instantiation and a ragged one on ``general``. A launch with a bf16
+operand goes to the source's bf16-I/O library (``IO_SOURCES``). Each
+plain version upcasts, runs the float32 plain chain and rounds the
+output.
 
 The first three chain into the GAB (:func:`gab_chain`) wherever
 :func:`gab_route` does not pick ``gab_narrow``, and into its two
@@ -116,6 +119,9 @@ ENTRY_POINTS = ("fused_level0", "fused_level", "fused_gab_pbatch",
 VARIANTS = ("vec16", "general")
 VARIANT_KERNELS = ("gemm_epilogue", "sem_graph", "joint_attention",
                    "gemm_tc")
+# gemm_tc's instantiations: its wgmma kernel on float32 I/O (vec16) and
+# on bf16 I/O (vec16_bf16, the bf16-I/O library), and the mma.sync one.
+TC_VARIANTS = ("vec16", "vec16_bf16", "general")
 # gemm_tc's tiers, in the order of its C tier code; "kdefault" is the
 # "default" instantiation (one bf16 pass in a kernel, as on the TPU).
 TC_TIERS = ("default", "high_lhs", "high_rhs", "high")
@@ -130,7 +136,8 @@ MAX_SLOTS = 8
 # points open at the launch.
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_SOURCES}
 VARIANT_LAUNCHES: Dict[str, Dict[str, int]] = {
-    name: {v: 0 for v in VARIANTS} for name in VARIANT_KERNELS}
+    name: {v: 0 for v in (TC_VARIANTS if name == "gemm_tc" else VARIANTS)}
+    for name in VARIANT_KERNELS}
 # Tiered launches: gemm_tc by tier, joint_attention by "score/apply" pair
 # (a pair of "highest" is its float32 path and is not counted here).
 TIER_LAUNCHES: Dict[str, Dict[str, int]] = {
@@ -160,10 +167,11 @@ _ARGTYPES = {
     "gemm_tc": [_P, _P, _P, _I, _I] * 3 + [_I, _I, _I, _I, _I, _I, _P, _P,
                                           _I, _P, _I, _P, _P, _I, _I],
     # per piece (a, K, rows, a_off) x 3, npieces, W^T's halves and their
-    # padded K, then as gemm_epilogue's from m on, tier code (vec16)
+    # padded K, then as gemm_epilogue's from m on, tier code, dtype bits
+    # (vec16, vec16_bf16)
     "gemm_tc_hopper": [_P, _I, _I, _I] * 3 + [_I, _P, _P, _I, _I, _I, _I,
                                               _I, _I, _P, _P, _I, _P, _I,
-                                              _P, _P, _I],
+                                              _P, _P, _I, _I],
     # x, out, frames, J, C, D, K, I, G, the 20 tables of a GabTables in
     # its field order (narrow_table_ptrs), stream, x bf16, out bf16
     "gab_narrow": [_P, _P, _LL, _I, _I, _I, _I, _I, _I] + [_P] * 21
@@ -171,7 +179,8 @@ _ARGTYPES = {
 }
 
 
-# The C functions of each library beyond the one named after it.
+# The C functions of each source's libraries beyond the one named after
+# it.
 _EXTRA_SYMBOLS = {"gemm_tc": ("gemm_tc_hopper",)}
 
 
@@ -264,7 +273,8 @@ def _lib(name: str) -> ctypes.CDLL:
         if not path.exists():
             build_kernels()
         lib = ctypes.CDLL(str(path))
-        for symbol in (_libraries()[name][0], *_EXTRA_SYMBOLS.get(name, ())):
+        source = _libraries()[name][0]
+        for symbol in (source, *_EXTRA_SYMBOLS.get(source, ())):
             fn = getattr(lib, symbol)
             fn.argtypes = _ARGTYPES[symbol]
             fn.restype = ctypes.c_int
@@ -501,7 +511,7 @@ def gemm_epilogue(pieces: Sequence[Piece], m: int, *,
     products' precision tier (``gastx_torch.ops.precision``); on the card
     ``"highest"`` launches the float32 ``gemm_epilogue`` kernel and every
     other tier ``gemm_tc``, each W split here into its bf16 halves (laid
-    out by :func:`tc_weights` for the ``vec16`` instantiation).
+    out by :func:`tc_weights` for the ``wgmma`` instantiations).
     Each A piece and ``res`` may be float32 or bf16, and the output is
     ``out_dtype`` (float32 or bf16); W, scale and shift are float32.
     """
@@ -549,7 +559,9 @@ def _gemm_tc(pieces, m, n, s_out, a_s_in, res_s_in, scale, shift, relu,
     tail = [m, n, s_out, a_s_in, res_s_in, _ptr(scale), _ptr(shift),
             int(relu), _ptr(res), res_off, out.data_ptr(), _stream(),
             TC_TIERS.index(tc)]
-    if tc_variant(pieces, n, res, out.dtype) == "vec16":
+    dtypes = _dtype_bits(pieces, res, out.dtype)
+    variant = tc_variant(pieces, n, res, out.dtype)
+    if variant != "general":
         hi, lo_t = tc_weights(pieces, lo)
         flat = []
         for i in range(3):
@@ -559,8 +571,8 @@ def _gemm_tc(pieces, m, n, s_out, a_s_in, res_s_in, scale, shift, relu,
             else:
                 flat += [None, 0, 0, 0]
         _launch("gemm_tc", *flat, len(pieces), hi.data_ptr(), _ptr(lo_t),
-                hi.shape[1], *tail, tier=tc, symbol="gemm_tc_hopper",
-                variant="vec16", io=io)
+                hi.shape[1], *tail, dtypes, tier=tc, symbol="gemm_tc_hopper",
+                variant=variant, io=io)
         return
     flat, halves = [], []
     for i in range(3):
@@ -572,51 +584,67 @@ def _gemm_tc(pieces, m, n, s_out, a_s_in, res_s_in, scale, shift, relu,
                      lo_t.data_ptr() if lo else None, a.shape[1], off]
         else:
             flat += [None, None, None, 0, 0]
-    _launch("gemm_tc", *flat, len(pieces), *tail,
-            _dtype_bits(pieces, res, out.dtype), tier=tc, variant="general",
-            io=io)
+    _launch("gemm_tc", *flat, len(pieces), *tail, dtypes, tier=tc,
+            variant="general", io=io)
 
 
 def tc_variant(pieces: Sequence[Piece], n: int,
                res: Optional[torch.Tensor],
                out_dtype: torch.dtype = torch.float32) -> str:
-    """The alignment instantiation of ``gemm_tc`` for these operands:
-    ``"vec16"`` (the ``wgmma`` kernel: TMA or 16-byte row gathers of A,
-    TMA of W's halves, TMA stores of the output) when every K_p is a
-    multiple of 4, N a multiple of 8, every a_p and ``res`` start
-    16-byte aligned (W's halves are fresh tensors) and every activation
-    and the output are float32, else ``"general"`` (which also takes
-    bf16 I/O, where vec16's A and output boxes are float32)."""
+    """The instantiation of ``gemm_tc`` for these operands: the ``wgmma``
+    kernel (TMA or 16-byte row gathers of A, TMA of W's halves, TMA
+    stores of the output) when every float32 K_p is a multiple of 4, every
+    bf16 K_p of 8 (16-byte rows), N of 8, and every a_p and ``res`` start
+    16-byte aligned (W's halves and the output are fresh tensors):
+    ``"vec16"`` where every activation and the output are float32,
+    ``"vec16_bf16"`` (its bf16 TMA boxes, in the bf16-I/O library) where
+    any is bf16; else ``"general"``."""
     tensors = [a for a, _, _ in pieces] + ([] if res is None else [res])
-    if (n % 8 == 0 and all(a.shape[1] % 4 == 0 for a, _, _ in pieces)
-            and all(t.data_ptr() % 16 == 0 and t.dtype == torch.float32
-                    for t in tensors)
-            and out_dtype == torch.float32):
-        return "vec16"
-    return "general"
+    if not (n % 8 == 0
+            and all(a.shape[1] % (8 if a.dtype == torch.bfloat16 else 4)
+                    == 0 for a, _, _ in pieces)
+            and all(t.data_ptr() % 16 == 0 for t in tensors)):
+        return "general"
+    if (out_dtype == torch.bfloat16
+            or any(t.dtype == torch.bfloat16 for t in tensors)):
+        return "vec16_bf16"
+    return "vec16"
 
 
-# The k of a slab of the vec16 gemm_tc (gemm_tc.cu, hopper::BK).
+# The k of a slab of the wgmma gemm_tc (gemm_tc.cu, hopper::BK).
 TC_BK = 32
-# The k order of W within every 16 k of its slabs: column l of W^T holds
-# W's row TC_K_ORDER[l], so that the four k of a thread's wgmma fragment
-# (l = 2c, 2c+1, 2c+8, 2c+9) are A's k 4c .. 4c+3, one float4 in shared
-# memory.
+# The k order of W within every 16 k of a float32 piece's slabs: column l
+# of W^T holds W's row TC_K_ORDER[l], so that the four k of a thread's
+# wgmma fragment (l = 2c, 2c+1, 2c+8, 2c+9) are A's k 4c .. 4c+3, one
+# float4 in shared memory.
 TC_K_ORDER = (0, 1, 4, 5, 8, 9, 12, 13, 2, 3, 6, 7, 10, 11, 14, 15)
-_TC_INDEX: Dict[Tuple[Tuple[int, ...], str], torch.Tensor] = {}
+# The same within every 32 k of a bf16 piece's slabs: a thread's fragments
+# of both k16 steps (l = 16j + 2c, +1, +8, +9 for j = 0, 1) are A's k
+# 8c .. 8c+7, one 16-byte load of a bf16 row.
+TC_K_ORDER_BF16 = tuple(
+    8 * ((l % 16 % 8) // 2) + 4 * (l // 16) + 2 * (l % 16 // 8) + l % 2
+    for l in range(32))
+_TC_INDEX: Dict[Tuple[Tuple[int, ...], Tuple[bool, ...], str],
+                torch.Tensor] = {}
 
 
-def tc_weight_index(ks: Sequence[int], device) -> torch.Tensor:
-    """For each k column of the vec16 ``gemm_tc``'s W^T, the row of
+def tc_weight_index(ks: Sequence[int], device,
+                    bf16: Sequence[bool] = ()) -> torch.Tensor:
+    """For each k column of the wgmma ``gemm_tc``'s W^T, the row of
     ``[W_0; W_1; W_2; 0]`` (pieces of K_p rows, then one zero row) it
     holds: piece p's columns padded with the zero row to a multiple of
-    ``TC_BK``, every 16 in ``TC_K_ORDER``. Cached per (ks, device)."""
-    key = (tuple(ks), str(device))
+    ``TC_BK``, every 16 in ``TC_K_ORDER``, or every 32 in
+    ``TC_K_ORDER_BF16`` where ``bf16[p]`` (piece p's A is bf16; missing
+    entries are float32). Cached per (ks, bf16, device)."""
+    flags = tuple(bool(f) for f in bf16)
+    flags += (False,) * (len(ks) - len(flags))
+    key = (tuple(ks), flags, str(device))
     if key not in _TC_INDEX:
         idx, base, zero = [], 0, sum(ks)
-        for k in ks:
+        for k, bf in zip(ks, flags):
             for q in range(-(-k // TC_BK) * TC_BK):
-                src = q - q % 16 + TC_K_ORDER[q % 16]
+                src = (q - q % TC_BK + TC_K_ORDER_BF16[q % TC_BK] if bf
+                       else q - q % 16 + TC_K_ORDER[q % 16])
                 idx.append(base + src if src < k else zero)
             base += k
         _TC_INDEX[key] = torch.tensor(idx, dtype=torch.long, device=device)
@@ -625,13 +653,14 @@ def tc_weight_index(ks: Sequence[int], device) -> torch.Tensor:
 
 def tc_weights(pieces: Sequence[Piece], lo: bool
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """W of every piece as the vec16 ``gemm_tc`` reads it: the bf16 halves
+    """W of every piece as the wgmma ``gemm_tc`` reads it: the bf16 halves
     (hi, and lo where ``lo``, else None) of W^T, (N, K_pad) K-major, its
-    columns by :func:`tc_weight_index`."""
+    columns by :func:`tc_weight_index` for the pieces' A dtypes."""
     ws = [w for _, w, _ in pieces]
     stacked = torch.cat(ws + [ws[0].new_zeros(1, ws[0].shape[1])])
-    wt = stacked.t().index_select(
-        1, tc_weight_index([w.shape[0] for w in ws], stacked.device))
+    wt = stacked.t().index_select(1, tc_weight_index(
+        [w.shape[0] for w in ws], stacked.device,
+        [a.dtype == torch.bfloat16 for a, _, _ in pieces]))
     if not lo:
         return wt.to(torch.bfloat16), None
     return split_bf16(wt)

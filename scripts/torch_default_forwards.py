@@ -1,14 +1,15 @@
 """Compare checkouts of the port on one GPU, in turns: the default float32
-eval forwards and the kernels whose loads and stores the bf16-I/O forms
-touch.
+eval forwards, the float32 kernels, and the JAX package's shipped bf16
+routes with a profiled breakdown.
 
     python3 scripts/torch_default_forwards.py TREE [TREE ...] [--json F]
 
 Each tree (a checkout's root, e.g. a ``git archive`` of the parent commit
 unpacked under ``build/``) runs in a process of its own, in the order
 T1 .. Tn, Tn .. T1, so that a drift of the card over the call weighs on
-every tree alike. Each run, on that tree's ``gastx_torch`` and
-``chip_smoke.py`` (its kernels built into its own ``build/``):
+every tree alike. Each run times that tree's ``gastx_torch`` (its kernels
+built into its own ``build/``) with this checkout's ``chip_smoke.py`` as
+the harness:
 
 * the forwards of ``chip_smoke.FORWARDS`` (phase 4's cells, the default
   tiers, random weights from seeds): ms (CUDA events, ``cuda_ms``) and the
@@ -19,13 +20,20 @@ every tree alike. Each run, on that tree's ``gastx_torch`` and
   time alone (``device_ms``: at these shapes the wrapper's host time and
   its W split can exceed the kernel's); ``gab_narrow`` at the 243f
   model's C=32 GAB, T=241, B=256;
-* where the tree has them, the bf16-I/O ``gemm_tc`` at every tier on
-  ``chip_smoke.BF16_GEMM_CASES[0]`` at B=1024 (bf16 x piece, bf16 out),
-  held to its plain version (``check_bf16``).
+* the float32 ``gemm_tc`` ``vec16`` rows: every tier at the
+  ``chip_smoke.TIER_GEMM_CASES`` shapes it takes, also its kernel's
+  device time alone;
+* ``chip_smoke.SHIPPED_CELLS`` (the JAX package's shipped bf16 routes:
+  the 243f preset with fold at B=256, the 81f preset at B=1024 with level
+  3 float32) at float32 and bf16 storage through ``chip_smoke.pair_turns``,
+  phase 13's own timing: ms in turns, the host's issue time and one
+  profiled forward a side (``chip_smoke.breakdown``).
 
-Prints each row's ms per tree (the mean of its two turns) and writes all
-turns, the card's name and power limit to ``chiprun_out/`` (``--json``,
-default ``default_forwards.json``). Exit 1 if an output differs.
+The bf16-I/O ``gemm_tc`` rows are ``scripts/torch_gemm_tc.py --bf16``'s
+(``--tree`` for another checkout). Prints each row's ms per tree (the mean
+of its two runs) and writes all runs, the card's name and power limit to
+``chiprun_out/`` (``--json``, default ``default_forwards.json``). Exit 1 if
+an output differs.
 """
 from __future__ import annotations
 
@@ -39,23 +47,22 @@ import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-
 def one_tree(tree: str, out: str) -> None:
     """Time ``tree``'s rows and save them (and its forwards' outputs)."""
     tree = os.path.abspath(tree)
+    sys.path.insert(0, REPO)
+    import chip_smoke as cs  # the harness: this checkout's
     sys.path.insert(0, tree)
     import numpy as np
     import torch
 
-    import chip_smoke as cs
     import gastx_torch
     from gastx_torch.models import build_gastnet, config_for_frames
     from gastx_torch.ops.cuda import kernels as K
     from gastx_torch.ops.cuda.fused_gab import gab_tables
 
-    for mod in (cs, gastx_torch):
-        if not os.path.abspath(mod.__file__).startswith(tree):
-            raise SystemExit(f"{mod.__name__} came from {mod.__file__}")
+    if not os.path.abspath(gastx_torch.__file__).startswith(tree + os.sep):
+        raise SystemExit(f"gastx_torch came from {gastx_torch.__file__}")
     # As chip_smoke.main: plain convolutions and bf16 products in float32.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -85,6 +92,19 @@ def one_tree(tree: str, out: str) -> None:
                                  reps=20)
             ms[f"{row}, device"] = cs.device_ms(
                 lambda: K.gemm_epilogue(pieces, m, **kt), "gemm_tc_kernel")
+    for idx, windows in cs.TIER_GEMM_CASES:
+        spec = cs.GEMM_SHAPES[idx]
+        pieces, m, kw = cs.gemm_case(spec, dev, 300 + idx, windows=windows)
+        if K.tc_variant(pieces, spec[4], kw["res"]) != "vec16":
+            continue
+        for tier in K.TC_TIERS:
+            kt = dict(kw, tier=tier)
+            row = f"gemm_tc vec16 {tier} {spec[0]} (B={windows})"
+            ms[row] = cs.cuda_ms(lambda: K.gemm_epilogue(pieces, m, **kt),
+                                 reps=20)
+            ms[f"{row}, device"] = cs.device_ms(
+                lambda: K.gemm_epilogue(pieces, m, **kt), "gemm_tc_kernel_ws")
+        del pieces, kw
     m243 = models["243f"]
     t = gab_tables(m243.layers_graph_conv[0], m243.statics)
     gen = torch.Generator(device=dev).manual_seed(421)
@@ -93,19 +113,13 @@ def one_tree(tree: str, out: str) -> None:
         lambda: K.gab_narrow(x, t), reps=20)
     del x, models
     torch.cuda.empty_cache()
-    if hasattr(cs, "BF16_GEMM_CASES"):
-        label, spec_i, cast, res_bf16, _ = cs.BF16_GEMM_CASES[0]
-        pieces, m, kw = cs.bf16_gemm_case(K, dev, spec_i, cast, res_bf16,
-                                          None, 420)
-        kw["out_dtype"] = torch.bfloat16
-        for tier in K.TC_TIERS:
-            kt = dict(kw, tier=tier)
-            name = f"gemm_tc bf16 I/O {tier} {label}"
-            cs.check_bf16(name, K.gemm_epilogue(pieces, m, **kt),
-                          K.gemm_epilogue_plain(pieces, m, **kt))
-            ms[name] = cs.cuda_ms(lambda: K.gemm_epilogue(pieces, m, **kt),
-                                  reps=20)
-    torch.save({"ms": ms, "y": ys}, out)
+    shipped = {}
+    for cell in cs.SHIPPED_CELLS:
+        label, _, b, _, (na, _), (nb, _) = cell
+        r = shipped[label] = cs.pair_turns(cell, dev, profile=True)
+        for name in (na, nb):
+            ms[f"{label} {name} B={b}"] = r[name]["ms"]
+    torch.save({"ms": ms, "y": ys, "shipped": shipped}, out)
 
 
 def main(argv=None) -> int:
@@ -156,11 +170,28 @@ def main(argv=None) -> int:
                  for v in rows[name].values()]
         print(f"{name}: " + " | ".join(
             "-" if v is None else f"{v:.4f}" for v in means))
+    shipped = {args.trees[i]: [r["shipped"] for r in turns[i]]
+               for i in order}
+    for tree, runs in shipped.items():
+        for run in runs:
+            for cell, sides in run.items():
+                for name, side in sides.items():
+                    prof = side["breakdown"]
+                    print(f"{tree} {cell} {name}: ms turns {side['turns']}, "
+                          f"host issue ms {side['host_issue_ms']}; profiled: "
+                          f"device busy {prof['busy_ms']:.3f} of "
+                          f"{prof['wall_ms']:.3f} ms, idle "
+                          f"{prof['idle_share']:.4f}; " + ", ".join(
+                              f"{k} {v['ms']:.3f} ({v['launches']})"
+                              for k, v in sorted(
+                                  prof["classes"].items(),
+                                  key=lambda kv: -kv[1]["ms"])))
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", args.json), "w") as f:
         json.dump({"card": smi.strip(), "trees": args.trees,
                    "order": [args.trees[i] for i in order + order[::-1]],
-                   "bitwise_equal": same, "ms_turns": rows}, f, indent=1)
+                   "bitwise_equal": same, "ms_turns": rows,
+                   "shipped": shipped}, f, indent=1)
     return 0 if same else 1
 
 

@@ -6,21 +6,33 @@ one (e.g. a ``git archive`` of the parent commit under ``build/``, whose
 ``gemm_epilogue`` wrapper takes the same ``tier`` argument), so that two
 versions of the kernel can be compared in one call, in turns:
 
-    python3 scripts/torch_gemm_tc.py [--tree DIR] [--check] [--cuts]
-        [--json F]
+    python3 scripts/torch_gemm_tc.py [--tree DIR] [--check] [--bf16]
+        [--no-f32] [--cuts] [--json F]
 
 Builds only ``gemm_tc`` and the float32 ``gemm_epilogue`` of that tree and
 prints the compiler's registers, shared memory and spills of each
 ``gemm_tc`` instantiation. At each ``chip_smoke.TIER_GEMM_CASES`` shape
 and tier: ms (CUDA events over 20 calls after 2, the wrapper's W split
-included), the bound (``chip_smoke.tc_bound``), TFLOP/s, the instantiation
-that launched and how A reaches shared memory (``chip_smoke.tc_a_route``);
+included), the plain version's ms (3 calls), the bound
+(``chip_smoke.tc_bound``), TFLOP/s, the instantiation that launched and
+how A reaches shared memory (``chip_smoke.tc_a_route``);
 at each shape once: a bf16 ``torch.matmul`` (bf16 out) and
 ``torch.addmm(shift, a16, w16, out_dtype=torch.float32)`` (one cuBLAS call
 with bf16 operands, float32 output and the bias; null where the card
 refuses it), the yardsticks only. ``--check`` first holds every tier on
 ``chip_smoke.tc_edge_cases`` and ``gemm_ragged_cases`` and the timed
 shapes to ``gemm_epilogue_plain`` (``chip_smoke.check``).
+
+``--bf16`` adds the bf16-I/O rows (the ``gemm_tc`` rows of
+``chip_smoke.BF16_KERNEL_ROWS``: the 27f level-0 block
+concat, bf16 x to bf16, at B=1024; the 243f GAB-0 block concat, N = 64,
+at B=256; the 81f GAB-0 one, N = 128, at B=1024; the 27f level-0
+projection, bf16 x to float32, at B=1024) at every tier beside
+``chip_smoke.tc_bf16_bound`` and a bf16 ``torch.matmul``; with
+``--check`` it first holds every tier on ``chip_smoke.BF16_GEMM_CASES``
+(B=256), ``BF16_TC_RAGGED`` and the timed shapes (``chip_smoke.check_out``),
+each on the instantiation the tree's ``tc_variant`` picks. ``--no-f32``
+leaves out the float32 rows.
 
 ``--cuts`` then rebuilds this checkout's ``gemm_tc.cu`` once with each
 part of its ``wgmma`` kernel cut out (``CUTS``: the epilogue stores, the
@@ -44,13 +56,14 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CUT_DIR = os.path.join(REPO, "build", "gemm_tc_cuts")
 
+# The float32 library's store (the cuts build that library).
 _STORE = ("if (issuer) tma_store(&map_out, box, col0 + 32 * b, "
           "row0 + 64 * wg);")
 _WGMMA = '"wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"'
 _A_TMA = "tma_load(slab, ma, full, k0, row0 + pick(args.a_off, p));"
 _W_TMA = ("tma_load(slab + A_BYTES, &map_wh, full, kb * BK, col0);",
           "tma_load(slab + A_BYTES + W_BYTES, &map_wl, full, kb * BK, col0);")
-_TX = "w_bytes + (args.gather ? 0 : A_BYTES)"
+_TX = "w_bytes + a_bytes"
 _WAIT1 = '"wgmma.wait_group.sync.aligned 1;\\n"'
 # Each cut of the wgmma kernel: (text in gemm_tc.cu, what replaces it). A
 # cut store still stages its box in shared memory; a cut wgmma is a PTX
@@ -62,11 +75,90 @@ CUTS = {
     "loads only": [(_STORE, ";"), (_WGMMA, '"// cut: wgmma {"')],
     "no A loads": [(_A_TMA, ";"), (_TX, "w_bytes")],
     "no W loads": [(_W_TMA[0], ";"), (_W_TMA[1], ";"),
-                   (_TX, "(args.gather ? 0u : (uint32_t)A_BYTES)")],
+                   (_TX, "a_bytes")],
     # Not a cut: one wgmma group in flight instead of two (each slab's
     # split then waits for the slab before).
     "one wgmma group in flight": [(_WAIT1, _WAIT1.replace("1;", "0;"))],
 }
+
+
+def bf16_operands(K, cs, torch, dev, case, windows, seed):
+    """One ``chip_smoke.BF16_GEMM_CASES`` entry's operands at ``windows``,
+    its output dtype in the keyword arguments."""
+    label, spec_i, cast, res_bf16, out_bf16 = case
+    pieces, m, kw = cs.bf16_gemm_case(K, dev, spec_i, cast, res_bf16,
+                                      windows, seed)
+    kw["out_dtype"] = torch.bfloat16 if out_bf16 else torch.float32
+    return f"{label} (B={windows})", pieces, m, kw
+
+
+def bf16_checks(K, cs, torch, dev) -> tuple:
+    """Every tier on the bf16 cases, each on the instantiation the tree's
+    ``tc_variant`` picks: ({case: max |d|}, [failed cases])."""
+    checks, failed = {}, []
+    cases = [bf16_operands(K, cs, torch, dev, case, 256, 400 + i)
+             for i, case in enumerate(cs.BF16_GEMM_CASES)]
+    cases += cs.bf16_ragged_cases(
+        dev, torch.Generator(device=dev).manual_seed(410))
+    for tier in cs.TC_PASSES:
+        for label, pieces, m, kw in cases:
+            kt = {**kw, "tier": tier}
+            want = K.tc_variant(pieces, pieces[0][1].shape[1], kw["res"],
+                                kw["out_dtype"])
+            taken, got = cs.launched_variant(
+                K, "gemm_tc", lambda: K.gemm_epilogue(pieces, m, **kt))
+            try:
+                if taken != want:
+                    cs.fail(f"gemm_tc {label}: took {taken}, not {want}")
+                checks[f"bf16 {tier} {label}"] = cs.check_out(
+                    f"gemm_tc {tier} {label} ({want})", got,
+                    K.gemm_epilogue_plain(pieces, m, **kt))
+            except SystemExit as e:  # report every case, then fail
+                print(f"  {e}")
+                failed.append(f"bf16 {tier} {label}")
+            del got
+    return checks, failed
+
+
+def bf16_rows(K, cs, torch, dev, check) -> list:
+    """ms of every tier at the gemm_tc rows of ``chip_smoke.
+    BF16_KERNEL_ROWS`` beside the bound and a bf16
+    ``torch.matmul``; ``check`` holds each to its plain version first."""
+    rows = []
+    for case_i, windows, kernel, _, _ in cs.BF16_KERNEL_ROWS:
+        if kernel != "gemm_tc":
+            continue
+        shape, pieces, m, kw = bf16_operands(
+            K, cs, torch, dev, cs.BF16_GEMM_CASES[case_i], windows, 420)
+        n = pieces[0][1].shape[1]
+        matmul_ms = cs.bf16_matmul_ms(pieces, m, kw)
+        for tier in cs.TC_PASSES:
+            kt = {**kw, "tier": tier}
+            variant = K.tc_variant(pieces, n, kw["res"], kw["out_dtype"])
+            taken, got = cs.launched_variant(
+                K, "gemm_tc", lambda: K.gemm_epilogue(pieces, m, **kt))
+            if taken != variant:
+                cs.fail(f"gemm_tc {shape}: took {taken}, not {variant}")
+            err = (cs.check_out(f"gemm_tc {tier} {shape}", got,
+                                K.gemm_epilogue_plain(pieces, m, **kt))
+                   if check else None)
+            del got
+            ms = cs.cuda_ms(lambda: K.gemm_epilogue(pieces, m, **kt),
+                            reps=20)
+            plain_ms = cs.cuda_ms(
+                lambda: K.gemm_epilogue_plain(pieces, m, **kt), reps=3)
+            bms, by = cs.tc_bf16_bound(pieces, m, n, kt, tier)
+            rows.append({"shape": shape, "m": m, "n": n, "tier": tier,
+                         "ks": [a.shape[1] for a, _, _ in pieces],
+                         "variant": variant, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bms, "bound_by": by,
+                         "matmul_bf16_ms": matmul_ms, "max_abs_err": err})
+            print(f"  gemm_tc bf16 {tier:8s} {shape} [{variant}]: {ms:.4f} "
+                  f"ms (plain {plain_ms:.4f}; bound {bms:.4f} by {by}, "
+                  f"{bms / ms:.1%} of it; bf16 torch.matmul {matmul_ms:.4f})")
+        del pieces, kw
+        torch.cuda.empty_cache()
+    return rows
 
 
 def library_calls(torch, pieces, m, kw, cs):
@@ -151,6 +243,10 @@ def main(argv=None) -> int:
                     help="checkout whose gastx_torch is timed")
     ap.add_argument("--check", action="store_true",
                     help="hold every tier on the edge cases first")
+    ap.add_argument("--bf16", action="store_true",
+                    help="add the bf16-I/O checks and rows")
+    ap.add_argument("--no-f32", action="store_true",
+                    help="leave out the float32 rows and checks")
     ap.add_argument("--cuts", action="store_true",
                     help="time this checkout's kernel with parts cut out")
     ap.add_argument("--json", default="gemm_tc.json",
@@ -171,10 +267,12 @@ def main(argv=None) -> int:
         raise SystemExit(f"imported {K.__file__}, not the tree {tree}")
     K.KERNEL_SOURCES = ("gemm_epilogue", "gemm_tc")  # only what is timed
     logs = K.build_kernels()
-    for line in logs.get("gemm_tc", "").splitlines():
-        if "Compiling entry" in line or "registers" in line \
-                or "spill" in line or "Potential" in line:
-            print(f"  ptxas: {line.strip()}")
+    for lib in ("gemm_tc", "gemm_tc_io"):
+        for line in logs.get(lib, "").splitlines():
+            if "Compiling entry" in line or "registers" in line \
+                    or "spill" in line or "Potential" in line \
+                    or "warning" in line:
+                print(f"  ptxas {lib}: {line.strip()}")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -182,9 +280,13 @@ def main(argv=None) -> int:
     print(f"card: {card}; tree {tree}")
     cs.card_state("gemm_tc")
     dev = torch.device("cuda")
+    # As chip_smoke.main: the plain versions' bf16 products sum in float32.
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     checks, failed = {}, []
-    if args.check:
+    if args.check and args.bf16:
+        checks, failed = bf16_checks(K, cs, torch, dev)
+    if args.check and not args.no_f32:
         for tier in cs.TC_PASSES:
             for label, pieces, m, kw, _ in (cs.tc_edge_cases(dev)
                                             + cs.gemm_ragged_cases(dev)):
@@ -203,11 +305,11 @@ def main(argv=None) -> int:
                     print(f"  {e}")
                     failed.append(f"{tier} {label}")
                 del got
-        if failed:
-            cs.fail(f"{len(failed)} cases disagree: {failed}")
+    if failed:
+        cs.fail(f"{len(failed)} cases disagree: {failed}")
 
-    rows = []
-    for idx, windows in cs.TIER_GEMM_CASES:
+    rows = bf16_rows(K, cs, torch, dev, args.check) if args.bf16 else []
+    for idx, windows in ([] if args.no_f32 else cs.TIER_GEMM_CASES):
         spec = cs.GEMM_SHAPES[idx]
         label, _, _, ks, n, _, _, res = spec
         pieces, m, kw = cs.gemm_case(spec, dev, 300 + idx, windows=windows)
@@ -231,17 +333,21 @@ def main(argv=None) -> int:
             del got
             ms = cs.cuda_ms(lambda: K.gemm_epilogue(pieces, m, **kw),
                             reps=20)
+            plain_ms = cs.cuda_ms(
+                lambda: K.gemm_epilogue_plain(pieces, m, **kw), reps=3)
             bms, by = cs.tc_bound(*cs.tc_work(m, ks, n, 1, res is not None,
                                               tier))
             tflops = 2 * m * n * sum(ks) * cs.TC_PASSES[tier] / ms / 1e9
             rows.append({"shape": shape, "m": m, "ks": list(ks), "n": n,
                          "tier": tier, "variant": variant,
-                         "a_route": a_route, "ms": ms, "bound_ms": bms,
+                         "a_route": a_route, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bms,
                          "bound_by": by, "tflops_all_passes": tflops,
                          "matmul_bf16_ms": matmul_ms,
                          "addmm_f32_out_ms": addmm_ms})
             print(f"  gemm_tc {tier:8s} {shape} [{variant}, A by "
-                  f"{a_route}]: {ms:.4f} ms (bound {bms:.4f} by {by}, "
+                  f"{a_route}]: {ms:.4f} ms (plain {plain_ms:.4f}; bound "
+                  f"{bms:.4f} by {by}, "
                   f"{bms / ms:.1%} of it; {tflops:.1f} TFLOP/s all passes)")
         del pieces, kw
         torch.cuda.empty_cache()

@@ -168,7 +168,8 @@ def test_cuda_gemm_epilogue_matches_plain(model, case):
 def _assert_launched(kernel, variant):
     """Since the last reset, ``kernel`` launched once, on ``variant``."""
     assert K.VARIANT_LAUNCHES[kernel] == {
-        v: int(v == variant) for v in K.VARIANTS}, K.VARIANT_LAUNCHES
+        v: int(v == variant) for v in K.VARIANT_LAUNCHES[kernel]}, \
+        K.VARIANT_LAUNCHES
 
 
 def _model(frames, num_joints=17):
@@ -839,36 +840,93 @@ def _assert_bf16_close(got, plain):
     assert ((g - p).abs() - 2.0 ** -7 * p.abs()).max().item() <= slack
 
 
+# (K of each piece, N) of the bf16-I/O GEMM cases: the 27f level-0 block
+# concat (C = 128; its id "vec16" as before), the 243f (C = 32, N = 64)
+# and 81f (C = 64, N = 128) GAB-0 block concats, K padded within a slab
+# with an N tail, all on gemm_tc's vec16_bf16; K = 130 / N = 70 and a
+# bf16 piece of K = 132 (K % 8 = 4) on its general instantiation.
+BF16_GEMM_SHAPES = {"vec16": (128, 256), "n64": (32, 64), "n128": (64, 128),
+                    "k40_n72": (40, 72), "ragged": (130, 70),
+                    "k132": (132, 64)}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("tier", ("highest",) + K.TC_TIERS)
-@pytest.mark.parametrize("k,n", [(128, 256), (130, 70)],
-                         ids=["vec16", "ragged"])
-def test_cuda_bf16_io_gemm_matches_plain(model, tier, k, n):
-    """``gemm_epilogue`` (and ``gemm_tc`` below ``"highest"``, on its
-    general instantiation) with a bf16 A piece, a bf16 residual and a
-    bf16 output, counted under its I/O dtypes."""
+@pytest.mark.parametrize("shape", sorted(BF16_GEMM_SHAPES))
+def test_cuda_bf16_io_gemm_matches_plain(model, tier, shape, monkeypatch):
+    """``gemm_epilogue`` (and ``gemm_tc`` below ``"highest"``, on the
+    instantiation tc_variant picks: vec16_bf16 where every bf16 K_p is a
+    multiple of 8 and N of 8, else general) with a bf16 A piece, a bf16
+    residual and a bf16 output, then a float32 one, counted under its I/O
+    dtypes. The plain version's bf16 products sum in float32."""
+    monkeypatch.setattr(torch.backends.cuda.matmul,
+                        "allow_bf16_reduced_precision_reduction", False)
+    k, n = BF16_GEMM_SHAPES[shape]
     m = 4001
     pieces = _bf16_pieces(3, k, n, m, seed=500)
     kw = dict(scale=_randn(n, seed=1).abs() + 0.5, shift=_randn(n, seed=2),
               relu=True, res=_randn(m, n, seed=3).to(torch.bfloat16),
               tier=tier, out_dtype=torch.bfloat16)
-    K.reset_launches()
-    got = K.gemm_epilogue(pieces, m, **kw)
     kernel = "gemm_epilogue" if tier == "highest" else "gemm_tc"
-    assert K.DTYPE_LAUNCHES[kernel]["bf16_io"] == 1
-    if tier != "highest":
-        assert K.VARIANT_LAUNCHES["gemm_tc"]["general"] == 1
-    _assert_bf16_close(got, K.gemm_epilogue_plain(pieces, m, **kw))
-    kw["out_dtype"] = torch.float32
-    _assert_close(K.gemm_epilogue(pieces, m, **kw),
-                  K.gemm_epilogue_plain(pieces, m, **kw))
+    for out_dtype, io in ((torch.bfloat16, "bf16_io"),
+                          (torch.float32, "bf16_in")):
+        kw["out_dtype"] = out_dtype
+        K.reset_launches()
+        got = K.gemm_epilogue(pieces, m, **kw)
+        assert K.DTYPE_LAUNCHES[kernel][io] == 1
+        if tier != "highest":
+            want = K.tc_variant(pieces, n, kw["res"], out_dtype)
+            assert want == ("general" if shape in ("ragged", "k132")
+                            else "vec16_bf16")
+            _assert_launched("gemm_tc", want)
+        plain = K.gemm_epilogue_plain(pieces, m, **kw)
+        if out_dtype == torch.bfloat16:
+            _assert_bf16_close(got, plain)
+        else:
+            _assert_close(got, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", K.TC_TIERS)
+@pytest.mark.parametrize("c", (128, 40))
+def test_cuda_bf16_io_gemm_taps_matches_plain(model, tier, c, monkeypatch):
+    """The dilated conv's three taps on one bf16 input with a bf16
+    residual (``"pallas_level"`` on bf16; A by 16-byte row gathers into
+    the bf16 slabs) on vec16_bf16, to a float32 and to a bf16 output."""
+    monkeypatch.setattr(torch.backends.cuda.matmul,
+                        "allow_bf16_reduced_precision_reduction", False)
+    b, t_in, j, d, n = 3, 31, 17, 3, 128
+    t_out = t_in - 2 * d
+    x = _randn(b * t_in * j, c, seed=600).to(torch.bfloat16)
+    pieces = [(x, _randn(c, n, seed=601 + p) / (3 * c) ** 0.5, p * d * j)
+              for p in range(3)]
+    m = b * t_out * j
+    kw = dict(s_out=t_out * j, a_s_in=t_in * j,
+              scale=_randn(n, seed=604).abs() + 0.5,
+              shift=_randn(n, seed=605), relu=True,
+              res=_randn(b * t_in * j, n, seed=606).to(torch.bfloat16),
+              res_s_in=t_in * j, res_off=d * j, tier=tier)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        kw["out_dtype"] = out_dtype
+        K.reset_launches()
+        got = K.gemm_epilogue(pieces, m, **kw)
+        _assert_launched("gemm_tc", "vec16_bf16")
+        plain = K.gemm_epilogue_plain(pieces, m, **kw)
+        if out_dtype == torch.bfloat16:
+            _assert_bf16_close(got, plain)
+        else:
+            _assert_close(got, plain)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("frames,level", [(243, 0), (81, 0), (243, 1)])
-def test_cuda_bf16_io_gab_narrow_matches_plain(model, frames, level):
+def test_cuda_bf16_io_gab_narrow_matches_plain(model, frames, level,
+                                               monkeypatch):
     """``gab_narrow`` at C = 32 and 64 on bf16 x to a bf16 output, and on
-    float32 x to a bf16 output."""
+    float32 x to a bf16 output. The plain version's bf16 products sum in
+    float32."""
+    monkeypatch.setattr(torch.backends.cuda.matmul,
+                        "allow_bf16_reduced_precision_reduction", False)
     m = _model(frames)
     t = gab_tables(m.layers_graph_conv[level], m.statics)
     c = t.w_proj.shape[0]

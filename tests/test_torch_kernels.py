@@ -313,11 +313,19 @@ def _at_offset(*shape):
     return torch.zeros(n + 1)[1:].view(*shape)
 
 
-def _conv_taps(c_in):
+def _conv_taps(c_in, dtype=torch.float32):
     """The level-0 expand conv's three tap pieces over (B, T, J, C_in)."""
-    x = torch.zeros(2, 9, 17, c_in).reshape(-1, c_in)
+    x = torch.zeros(2, 9, 17, c_in, dtype=dtype).reshape(-1, c_in)
     w = torch.zeros(3, c_in, 128)
     return [(x, w[k], k * 17) for k in range(3)]
+
+
+def _bf16(*shape, offset=0):
+    """A zero bf16 tensor that starts ``offset`` bytes past a 16-byte
+    boundary (``offset`` even)."""
+    n = int(np.prod(shape))
+    flat = torch.zeros(n + offset // 2, dtype=torch.bfloat16)
+    return flat[offset // 2:].view(*shape)
 
 
 # (pieces, N, residual) -> the gemm_epilogue instantiation they take.
@@ -362,9 +370,11 @@ def test_gemm_variant(case):
     assert K.gemm_variant(pieces(), n, res) == want
 
 
-# (pieces, N, residual) -> the gemm_tc instantiation they take: the
-# wgmma one (vec16) needs K_p % 4, N % 8 and 16-byte a_p and res; W is
-# re-laid out by the wrapper, so its own alignment does not count.
+# (pieces, N, residual[, output dtype]) -> the gemm_tc instantiation they
+# take: the wgmma one (vec16) needs K_p % 4, N % 8 and 16-byte a_p and
+# res; W is re-laid out by the wrapper, so its own alignment does not
+# count. With a bf16 piece, residual or output it is vec16_bf16, which
+# also needs a bf16 piece's K_p % 8 (16-byte rows).
 TC_VARIANT_CASES = {
     "aligned": (lambda: [(torch.zeros(40, 128), torch.zeros(128, 256), 0)],
                 256, None, "vec16"),
@@ -402,41 +412,86 @@ TC_VARIANT_CASES = {
                  192, None, "vec16"),
     "level0_taps": (lambda: _conv_taps(2), 128, None, "general"),
     "level_taps_c128": (lambda: _conv_taps(128), 128, None, "vec16"),
+    "bf16_piece": (lambda: [(_bf16(40, 128), torch.zeros(128, 256), 0)],
+                   256, None, "vec16_bf16"),
+    "bf16_output_only": (
+        lambda: [(torch.zeros(40, 128), torch.zeros(128, 256), 0)], 256,
+        None, "vec16_bf16", torch.bfloat16),
+    "bf16_residual_only": (
+        lambda: [(torch.zeros(40, 128), torch.zeros(128, 64), 0)], 64,
+        _bf16(60, 64), "vec16_bf16"),
+    "block_concat_mixed": (
+        lambda: [(_bf16(40, 128), torch.zeros(128, 256), 0)]
+        + [(torch.zeros(40, 128), torch.zeros(128, 256), 0)] * 2, 256,
+        None, "vec16_bf16", torch.bfloat16),
+    "block_concat_243f_n64": (
+        lambda: [(_bf16(40, 32), torch.zeros(32, 64), 0)]
+        + [(torch.zeros(40, 32), torch.zeros(32, 64), 0)] * 2, 64, None,
+        "vec16_bf16", torch.bfloat16),
+    "bf16_k40_padded": (lambda: [(_bf16(40, 40), torch.zeros(40, 64), 0)],
+                        64, None, "vec16_bf16"),
+    "bf16_taps_c128_residual": (
+        lambda: _conv_taps(128, torch.bfloat16), 128, _bf16(306, 128),
+        "vec16_bf16"),
+    "bf16_k_multiple_of_4_not_8": (
+        lambda: [(_bf16(40, 132), torch.zeros(132, 64), 0)], 64, None,
+        "general"),
+    "bf16_level0_taps": (lambda: _conv_taps(2, torch.bfloat16), 128, None,
+                         "general"),
+    "bf16_output_n_not_multiple_of_8": (
+        lambda: [(torch.zeros(40, 128), torch.zeros(128, 68), 0)], 68, None,
+        "general", torch.bfloat16),
+    "misaligned_bf16_piece": (
+        lambda: [(torch.zeros(40, 128), torch.zeros(128, 64), 0),
+                 (_bf16(40, 128, offset=8), torch.zeros(128, 64), 0)], 64,
+        None, "general", torch.bfloat16),
+    "misaligned_bf16_residual": (
+        lambda: [(_bf16(40, 128), torch.zeros(128, 64), 0)], 64,
+        _bf16(40, 64, offset=2), "general"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(TC_VARIANT_CASES))
 def test_tc_variant(case):
     """gemm_tc's wgmma instantiation only where every K_p is a multiple of
-    4, N of 8, and every a_p and the residual start 16-byte aligned."""
-    pieces, n, res, want = TC_VARIANT_CASES[case]
-    assert K.tc_variant(pieces(), n, res) == want
+    4 (8 for a bf16 piece), N of 8, and every a_p and the residual start
+    16-byte aligned; vec16_bf16 where any of them or the output is bf16."""
+    pieces, n, res, want, *out_dtype = TC_VARIANT_CASES[case]
+    assert K.tc_variant(pieces(), n, res, *out_dtype) == want
 
 
-@pytest.mark.parametrize("ks", [(256,), (128, 64, 12), (4,), (48,),
-                                (256, 256, 256)])
-@pytest.mark.parametrize("lo", [False, True])
-def test_tc_weights(ks, lo):
-    """W as the wgmma instantiation reads it: A's k in the kernel's own
-    order (each piece padded to TC_BK, every 16 k read as TC_K_ORDER
-    lays W^T's columns) times W^T's halves gives each half's product."""
+def _check_tc_weights(ks, bf16, lo):
+    """A's k in the kernel's own order (each piece padded to TC_BK; every
+    16 k of a float32 piece read as TC_K_ORDER lays W^T's columns, every
+    32 of a bf16 piece (``bf16[p]``) as TC_K_ORDER_BF16) times W^T's
+    halves gives each half's product."""
     from gastx_torch.ops.precision import split_bf16
 
     rng = np.random.default_rng(len(ks) + sum(ks))
     n = 24
-    pieces = [(torch.from_numpy(rng.standard_normal((5, k), np.float32)),
-               torch.from_numpy(rng.standard_normal((k, n), np.float32)), 0)
-              for k in ks]
+    flags = tuple(bf16) + (False,) * (len(ks) - len(bf16))
+    pieces = []
+    for k, bf in zip(ks, flags):
+        a = torch.from_numpy(rng.standard_normal((5, k), np.float32))
+        pieces.append((a.to(torch.bfloat16) if bf else a, torch.from_numpy(
+            rng.standard_normal((k, n), np.float32)), 0))
     hi, wl = K.tc_weights(pieces, lo)
     k_pad = sum(-(-k // K.TC_BK) * K.TC_BK for k in ks)
     assert hi.dtype == torch.bfloat16 and hi.shape == (n, k_pad)
     assert hi.is_contiguous() and (wl is not None) == lo
     # The kernel: A of each piece in its padded slabs, column q of a slab
-    # holding A's k (q - q % 16) + TC_K_ORDER[q % 16].
+    # holding A's k (q - q % 16) + TC_K_ORDER[q % 16] (float32), or
+    # (q - q % 32) + TC_K_ORDER_BF16[q % 32] (bf16).
     a_pad = torch.cat([torch.nn.functional.pad(
-        a, (0, -(-a.shape[1] // K.TC_BK) * K.TC_BK - a.shape[1]))
-        for a, _, _ in pieces], 1).double()
-    order = [q - q % 16 + K.TC_K_ORDER[q % 16] for q in range(k_pad)]
+        a.double(), (0, -(-a.shape[1] // K.TC_BK) * K.TC_BK - a.shape[1]))
+        for a, _, _ in pieces], 1)
+    order, base = [], 0
+    for k, bf in zip(ks, flags):
+        k_p = -(-k // K.TC_BK) * K.TC_BK
+        order += [base + (q - q % 32 + K.TC_K_ORDER_BF16[q % 32] if bf
+                          else q - q % 16 + K.TC_K_ORDER[q % 16])
+                  for q in range(k_p)]
+        base += k_p
     for half, w_t in ((0, hi), (1, wl)):
         if w_t is None:
             continue
@@ -447,9 +502,41 @@ def test_tc_weights(ks, lo):
                                    atol=1e-12)
 
 
+@pytest.mark.parametrize("ks", [(256,), (128, 64, 12), (4,), (48,),
+                                (256, 256, 256)])
+@pytest.mark.parametrize("lo", [False, True])
+def test_tc_weights(ks, lo):
+    """W as the wgmma instantiation reads it for float32 pieces."""
+    _check_tc_weights(ks, (), lo)
+
+
+@pytest.mark.parametrize("ks,bf16", [
+    ((128,), (True,)), ((40,), (True,)),
+    ((128, 128, 128), (True, False, False)),
+    ((32, 32, 32), (True, False, False)), ((8, 36), (False, True))],
+    ids=["bf16_k128", "bf16_k40", "block_concat_c128", "block_concat_c32",
+         "f32_then_bf16"])
+@pytest.mark.parametrize("lo", [False, True])
+def test_tc_weights_bf16(ks, bf16, lo):
+    """W as the wgmma instantiation reads it with bf16 pieces (alone, and
+    mixed with float32 ones as in the block concat)."""
+    _check_tc_weights(ks, bf16, lo)
+
+
+def test_tc_k_order_bf16_fragments():
+    """TC_K_ORDER_BF16 puts thread c's wgmma fragments of both k16 steps
+    (W^T columns 16j + 2c, +1, +8, +9) at A's k 8c .. 8c+7 of a 32-k slab,
+    in the order the kernel's registers take them."""
+    assert sorted(K.TC_K_ORDER_BF16) == list(range(32))
+    for c in range(4):
+        cols = [16 * j + 2 * c + e for j in (0, 1) for e in (0, 1, 8, 9)]
+        assert [K.TC_K_ORDER_BF16[q] for q in cols] == list(
+            range(8 * c, 8 * c + 8))
+
+
 def test_tc_weight_index():
     """Each piece padded to TC_BK with the zero row (index sum(ks)), every
-    16 columns in TC_K_ORDER; cached per (ks, device)."""
+    16 columns in TC_K_ORDER; cached per (ks, bf16 flags, device)."""
     idx = K.tc_weight_index((20, 4), "cpu").tolist()
     zero = 24
     want = [K.TC_K_ORDER[q] for q in range(16)]
@@ -461,6 +548,49 @@ def test_tc_weight_index():
     assert sorted(K.TC_K_ORDER) == list(range(16))
     assert K.tc_weight_index((20, 4), "cpu") is K.tc_weight_index([20, 4],
                                                                   "cpu")
+
+
+@pytest.mark.parametrize("name", ["gemm_tc", "gemm_tc_io"])
+def test_library_binds_every_symbol(name, monkeypatch, tmp_path):
+    """Each library of gemm_tc.cu, the float32 one and the bf16-I/O one,
+    binds both C functions (the general and the wgmma entry) with their
+    argument types: ctypes would pass an unbound pointer as a 32-bit
+    int."""
+    class Fn:
+        argtypes = restype = None
+
+    class Lib:
+        def __init__(self, path):
+            self.gemm_tc, self.gemm_tc_hopper = Fn(), Fn()
+            self.error_string = Fn()
+
+    lib_file = tmp_path / "lib.so"
+    lib_file.touch()
+    monkeypatch.setattr(K, "_library_path", lambda _: lib_file)
+    monkeypatch.setattr(K.ctypes, "CDLL", Lib)
+    monkeypatch.setattr(K, "_LIBS", {})
+    lib = K._lib(name)
+    for symbol in ("gemm_tc", "gemm_tc_hopper"):
+        assert getattr(lib, symbol).argtypes == K._ARGTYPES[symbol]
+
+
+def test_tc_weight_index_bf16():
+    """A bf16 piece's columns every 32 in TC_K_ORDER_BF16, a float32
+    piece's every 16 in TC_K_ORDER, in one W^T; the flags are part of the
+    cache key (missing ones are float32)."""
+    idx = K.tc_weight_index((8, 4), "cpu", (True, False)).tolist()
+    zero = 12
+    want = [K.TC_K_ORDER_BF16[q] if K.TC_K_ORDER_BF16[q] < 8 else zero
+            for q in range(32)]
+    want += [8 + K.TC_K_ORDER[q] if K.TC_K_ORDER[q] < 4 else zero
+             for q in range(16)] + [zero] * 16
+    assert idx == want
+    assert K.tc_weight_index((8, 4), "cpu", (True, False)) is \
+        K.tc_weight_index([8, 4], "cpu", [True, False])
+    assert K.tc_weight_index((8, 4), "cpu", (False,)) is \
+        K.tc_weight_index((8, 4), "cpu")
+    assert K.tc_weight_index((8, 4), "cpu", (True,)).tolist() != \
+        K.tc_weight_index((8, 4), "cpu").tolist()
 
 
 def _projection(c, pad=0, offset=0, rows=34):
