@@ -5,7 +5,7 @@ CUDA device and the CUDA toolkit (``nvcc``); it imports nothing of JAX or
 of the ``gastx`` package. Phases, in order; any failure ends the run with
 a non-zero exit and no result line:
 
-  1. build the five CUDA kernels from ``gastx_torch/csrc`` (one ``nvcc``
+  1. build the six CUDA kernels from ``gastx_torch/csrc`` (one ``nvcc``
      per source, all started together) and print the card's name and power
      limit;
   2. hold each kernel and each entry-point wrapper to its plain PyTorch
@@ -18,7 +18,14 @@ a non-zero exit and no result line:
      ``head_attention`` on one head at C=256, ``fused_gab_packed`` at the
      243-frame model's C=32 and C=64; then ``gemm_epilogue`` on ragged
      cases (``gemm_ragged_cases``), each checked to launch the
-     instantiation ``gemm_variant`` must pick, 16-byte or general; then
+     instantiation ``gemm_variant`` must pick, 16-byte or general, or
+     ``gemm_smallk`` (the K = 2 taps); then ``gemm_smallk`` at
+     ``"highest"`` and every tier on its cases (``smallk_cases``: the
+     three expand convs at small B, one push's rows, ragged M, N = 32 /
+     36 / 64 / 128 / 1028, one to three pieces at row offsets, a
+     residual, no scale, ReLU off), each checked to launch it at its tier
+     and nothing else, held to ``gemm_epilogue_plain`` and, at
+     ``"highest"``, bitwise to the general ``gemm_epilogue``; then
      ``sem_graph`` and ``joint_attention`` on theirs (``graph_cases``: 1,
      7 and 4001 frames against their frame tiles at C=128, 256 and 512
      and on the 15/16/19-joint layouts, P at a 4-byte offset and at an
@@ -69,12 +76,13 @@ a non-zero exit and no result line:
      the main paths ran every kernel and every entry point but
      ``fused_global_attention``, which no model route reaches (0 main-path
      launches; its phase-2 calls are reported apart, as
-     ``direct_launches``), and that the general ``gemm_epilogue`` ran once
-     per default-route forward (its level-0 expand conv, K = 2) and
-     nowhere else, and that the graph kernels' general instantiations ran
-     nowhere. Every forward the requests make (the padded, flip-TTA
-     batches) is recorded and then held to the model's plain reference
-     forward on the same batch;
+     ``direct_launches``), that ``gemm_smallk`` ran once per
+     default-route forward (its level-0 expand conv, K = 2) at
+     ``"highest"``, and that the general instantiations of
+     ``gemm_epilogue``, ``gemm_tc`` and the graph kernels ran nowhere.
+     Every forward the requests make (the padded, flip-TTA batches) is
+     recorded and then held to the model's plain reference forward on the
+     same batch;
   4. time the full-width forwards against the plain reference forward:
      B=1024 windows of 27 and of 81 frames, B=256 windows of 243 frames,
      then the hybrid 27-frame (B=1024) and packed 243-frame (B=256)
@@ -133,11 +141,11 @@ a non-zero exit and no result line:
      for the one-pass tier, ``torch.addmm(shift, a16, w16,
      out_dtype=torch.float32)``, one cuBLAS call of the same function, and
      a bf16 ``torch.matmul``, bf16 out), the level-1 1x1 with its
-     residual, the block concat, the level-0 expand conv (K = 2 a tap, the
-     general instantiation), the edge cases of its ``wgmma`` instantiation
+     residual, the block concat, the level-0 expand conv (K = 2 a tap:
+     ``gemm_smallk``), the edge cases of its ``wgmma`` instantiation
      (``tc_edge_cases``) and ``gemm_epilogue``'s ragged cases, each held
      to ``gemm_epilogue_plain`` at the same tier and checked to launch the
-     instantiation ``tc_variant`` picks, then
+     kernel and instantiation ``kernels.gemm_route`` names, then
      ``joint_attention`` at C=256 and 128 at the cert's tier pairs (B=1024,
      timed) and at every pair (B=4), held by ``attn_tier_check``; (b) the
      cert: 27f, 81f and 243f at seeds 0-23 of the port's init, max
@@ -146,13 +154,16 @@ a non-zero exit and no result line:
      finding), worst seed printed; (c) those six tiered forwards at B=64
      held to ``plain_route_forward``, the launch counters zeroed just
      before and read just after (the tiered path: every tier's
-     instantiation it must launch, the general ``gemm_tc`` once a forward
-     for its level-0 expand conv and the ``wgmma`` one for every other
-     product, and no float32 ``gemm_epilogue``); (d)
+     instantiation it must launch, ``gemm_smallk`` once a forward for its
+     level-0 expand conv, the ``wgmma`` one for every other product, and
+     no general ``gemm_tc`` or float32 ``gemm_epilogue``); (d)
      windows/s, device busy and idle share and launches of the float32,
      (i) and (ii) forwards at 27f/81f/243f (B=1024/1024/256), and
      ``gab_narrow`` beside the chain at the preset's tiers at the three
-     narrow GABs;
+     narrow GABs; (e) ``gemm_smallk`` at the expand conv of each shipped
+     model (``EXPAND_SHAPES``: 27f at B=1024 and 256, 81f at 1024, 243f at
+     256) at ``"highest"`` and every tier (``expand_table``: device time,
+     bound, a float32 ``torch.addmm`` and a bf16 ``torch.matmul``);
  11. the in-the-wild pipeline (``gastx_torch.cli.gen_skes`` and
      ``gastx_torch.cli.realtime`` through their frame functions,
      ``skeletons_from_frames`` and ``run_frames``) at full width with
@@ -489,7 +500,7 @@ def gemm_ragged_cases(dev):
     cases = [
         ("M=1000, not a tile multiple", *plain(1000, 256, 256), "vec16"),
         ("M=100 < one tile", *plain(100, 64, 96, relu=True), "vec16"),
-        ("K=2 taps", *taps(2, 128, 1, False), "general"),
+        ("K=2 taps", *taps(2, 128, 1, False), "smallk"),
         ("K=130, N=70", *plain(517, 130, 70, relu=True), "general"),
         ("3-piece concat", [(rnd(777, 128), rnd(128, 256), 0)
                             for _ in range(3)], 777,
@@ -500,11 +511,189 @@ def gemm_ragged_cases(dev):
         ("W at a 4-byte offset", [(rnd(300, 128), w_off, 0)], 300, {},
          "general"),
     ]
-    for i, want in ((7, "vec16"), (0, "general")):  # 27f L1 proj, L0 conv
+    for i, want in ((7, "vec16"), (0, "smallk")):  # 27f L1 proj, L0 conv
         cases.append((f"{GEMM_SHAPES[i][0]} (B=256)",
                       *gemm_case(GEMM_SHAPES[i], dev, 40 + i, windows=256),
                       want))
     return cases
+
+
+# The level-0 expand conv of each shipped model at the main path's windows
+# (gemm_smallk's main product): (GEMM_SHAPES line or one of its form,
+# windows).
+EXPAND_SHAPES = (
+    (0, 1024), (0, 256),
+    (("81f L0 expand conv", 1024, 79, (2, 2, 2), 64, "bn", (81, 1), None),
+     1024),
+    (("243f L0 expand conv", 256, 241, (2, 2, 2), 32, "bn", (243, 1), None),
+     256))
+
+
+def smallk_cases(dev):
+    """Phase 2's held cases of ``gemm_smallk``: (label, pieces, m, keyword
+    arguments). The three expand convs at small B (each tap's first row 8
+    bytes past the last: off a 16-byte boundary), one push's rows, ragged
+    M, N = 32 / 36 / 64 / 128 and a second column chunk (N = 1028), one to
+    three pieces at row offsets, a residual at its own offset, no scale,
+    ReLU off, A at a 4-byte offset."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(33)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def expand(frames, b, n):
+        spec = (f"{frames}f L0 expand conv", b, frames - 2, (2, 2, 2), n,
+                "bn", (frames, 1), None)
+        return gemm_case(spec, dev, 34 + frames)
+
+    a_off = torch.empty(2000 * 2 + 1, device=dev)[1:].view(2000, 2)
+    a_off.copy_(rnd(2000, 2))
+    return [
+        ("27f expand conv (B=8)", *expand(27, 8, 128)),
+        ("81f expand conv (B=4)", *expand(81, 4, 64)),
+        ("243f expand conv (B=2)", *expand(243, 2, 32)),
+        ("one 27f push's expand conv (153 rows)", *expand(11, 1, 128)),
+        ("one 81f push's expand conv (459 rows)", *expand(29, 1, 64)),
+        ("M=1001, K=5, N=36, residual at 100, no scale",
+         [(rnd(1001, 5), rnd(5, 36), 0)], 1001,
+         dict(res=rnd(1101, 36), res_off=100)),
+        ("3 pieces K=4/4/8 at a_off 0/17/34, N=64, residual, ReLU off",
+         [(rnd(740, k), rnd(k, 64), 17 * p)
+          for p, k in enumerate((4, 4, 8))], 700,
+         dict(scale=rnd(64), shift=rnd(64), res=rnd(751, 64), res_off=51)),
+        ("M=4001, K=3, N=32, no scale, ReLU",
+         [(rnd(4001, 3), rnd(3, 32), 0)], 4001, dict(relu=True)),
+        ("A at a 4-byte offset, N=128", [(a_off, rnd(2, 128), 0)], 2000, {}),
+        ("K=6, N=1028: two column chunks", [(rnd(300, 6), rnd(6, 1028), 0)],
+         300, dict(scale=rnd(1028), shift=rnd(1028), relu=True)),
+    ]
+
+
+def general_gemm_epilogue(K, pieces, m, kw):
+    """``gemm_epilogue``'s general (4-byte) instantiation on these
+    operands through its C function, as the float32 path launched it on
+    the level-0 expand conv before ``gemm_smallk``: the bitwise
+    reference of ``gemm_smallk`` at ``"highest"``."""
+    import torch
+
+    n = pieces[0][1].shape[1]
+    out = torch.empty((m, n), device=pieces[0][0].device)
+    s_out = kw.get("s_out") or m
+    lib = K._lib("gemm_epilogue")
+    code = lib.gemm_epilogue(
+        *K._flat_pieces(pieces), len(pieces), m, n, s_out,
+        kw.get("a_s_in") or s_out, kw.get("res_s_in") or s_out,
+        K._ptr(kw.get("scale")), K._ptr(kw.get("shift")),
+        int(kw.get("relu", False)), K._ptr(kw.get("res")),
+        kw.get("res_off", 0), out.data_ptr(), K._stream(), 0, 0)
+    if code:
+        fail(f"the general gemm_epilogue: {lib.error_string(code)}")
+    return out
+
+
+def run_smallk_cases(K, dev) -> list:
+    """Phase 2: ``gemm_smallk`` on ``smallk_cases`` at ``"highest"`` and
+    every tier through the ``gemm_epilogue`` wrapper, each launch checked
+    to be ``gemm_smallk``'s at its tier (no other GEMM) and held to
+    ``gemm_epilogue_plain`` at the same tier; at ``"highest"`` also
+    bitwise to the general ``gemm_epilogue``. Returns the errors."""
+    import torch
+
+    errs = []
+    for label, pieces, m, kw in smallk_cases(dev):
+        for tier in K.ATTN_TIERS + ("kdefault",):
+            kt = dict(kw, tier=tier)
+            K.reset_launches()
+            route, taken, got = launched_route(K, pieces, m, kt)
+            if route != ("gemm_smallk", "smallk") or taken != "smallk":
+                fail(f"gemm_smallk {tier} {label}: routed to {route}, "
+                     f"took {taken}")
+            label_t = "default" if tier == "kdefault" else tier
+            if (K.TIER_LAUNCHES["gemm_smallk"] != {
+                    t: int(t == label_t) for t in K.ATTN_TIERS}
+                    or K.LAUNCHES["gemm_epilogue"] or K.LAUNCHES["gemm_tc"]):
+                fail(f"gemm_smallk {tier} {label}: launches "
+                     f"{launch_counts(K)}")
+            errs.append(check(f"gemm_smallk {tier} {label}", got,
+                              K.gemm_epilogue_plain(pieces, m, **kt)))
+            if tier == "highest":
+                want = general_gemm_epilogue(K, pieces, m, kw)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f"gemm_smallk {label}: not bitwise the general "
+                         f"gemm_epilogue ({float((got - want).abs().max())})")
+            del got
+    return errs
+
+
+def smallk_key(K, tier: str) -> str:
+    """The kernel name (a substring) that computes the expand conv at
+    ``tier`` in this tree: ``gemm_smallk``, or in a tree without it (a
+    parent's) the general ``gemm_epilogue`` at ``"highest"`` and the
+    general ``gemm_tc`` below it."""
+    if "gemm_smallk" in K.LAUNCHES:
+        return "gemm_smallk_kernel"
+    return "gemm_epilogue_kernel" if tier == "highest" else "gemm_tc_kernel"
+
+
+def expand_table(K, dev, plain=True) -> list:
+    """The expand conv of each shipped model (``EXPAND_SHAPES``) at
+    ``"highest"`` and every tier (``K.ATTN_TIERS``; ``"kdefault"`` runs
+    ``"default"``'s instantiation) through the ``gemm_epilogue`` wrapper: the kernel's device
+    time (``device_ms`` over the kernel ``smallk_key`` names), the call's
+    CUDA-event time (``cuda_ms``: the wrapper's host work and, in a tree
+    without ``gemm_smallk``, its W split included), the bound (operations
+    by ``gemm_work``, "high" two FMAs an element; bytes by ``gemm_bytes``:
+    the taps' one input once, W, BN and the float32 output), its share; once a shape, a float32 ``torch.addmm`` on the
+    gathered (M, 6) A (W scaled by the BN scale: one call computing all but
+    the ReLU), a bf16 ``torch.matmul`` and, with ``plain``, the plain
+    version's time at ``"highest"``. Each output is held to the plain
+    version at its tier (``check``)."""
+    import torch
+
+    rows = []
+    for spec, windows in EXPAND_SHAPES:
+        spec = GEMM_SHAPES[spec] if isinstance(spec, int) else spec
+        label, _, _, ks, n, _, _, _ = spec
+        pieces, m, kw = gemm_case(spec, dev, 500 + n, windows=windows)
+        shape = f"{label} (B={windows})"
+        a_cat, w_cat = gemm_library_operands(pieces, m, kw)
+        w_cat = w_cat * kw["scale"]
+        library_ms = cuda_ms(lambda: torch.addmm(kw["shift"], a_cat, w_cat),
+                             reps=20)
+        del a_cat, w_cat
+        matmul_ms = bf16_matmul_ms(pieces, m, kw)
+        plain_ms = (cuda_ms(lambda: K.gemm_epilogue_plain(pieces, m, **kw),
+                            reps=3) if plain else None)
+        flops = gemm_work(m, ks, n, 1, 0)[0]
+        nbytes = gemm_bytes(pieces, m, n, kw, torch.float32)
+        for tier in K.ATTN_TIERS:
+            kt = dict(kw, tier=tier)
+            err = check(f"expand conv {tier} {shape}",
+                        K.gemm_epilogue(pieces, m, **kt),
+                        K.gemm_epilogue_plain(pieces, m, **kt))
+            ms = device_ms(lambda: K.gemm_epilogue(pieces, m, **kt),
+                           smallk_key(K, tier))
+            call_ms = cuda_ms(lambda: K.gemm_epilogue(pieces, m, **kt),
+                              reps=20)
+            bms, by = bound(flops * (2 if tier == "high" else 1), nbytes)
+            rows.append({"shape": shape, "tier": tier, "m": m, "n": n,
+                         "ms": ms, "call_ms": call_ms, "bound_ms": bms,
+                         "bound_by": by, "share_of_bound": bms / ms,
+                         "plain_ms": plain_ms if tier == "highest" else None,
+                         "max_abs_err": err, "library_ms": library_ms,
+                         "matmul_bf16_ms": matmul_ms})
+            print(f"  expand conv {tier:8s} {shape}: {ms:.4f} ms on the "
+                  f"device ({bms / ms:.1%} of its bound {bms:.4f} by {by}); "
+                  f"the call {call_ms:.4f}; float32 torch.addmm "
+                  f"{library_ms:.4f}; bf16 torch.matmul {matmul_ms:.4f}"
+                  + (f"; plain {plain_ms:.4f}"
+                     if plain_ms and tier == "highest" else ""))
+        del pieces, kw
+        torch.cuda.empty_cache()
+    return rows
 
 
 def tc_edge_cases(dev):
@@ -604,6 +793,27 @@ def launched_variant(K, kernel, call):
     got = call()
     taken = [v for v in counts if counts[v] != before[v]]
     return (taken[0] if len(taken) == 1 else str(taken)), got
+
+
+def launched_route(K, pieces, m, kw):
+    """One ``gemm_epilogue`` call: ((kernel, instantiation) as
+    ``K.gemm_route`` names them for its operands and tier, the
+    instantiation of that kernel it launched, its result). A tree without
+    ``gemm_route`` (a parent's) routes by tier alone."""
+    import torch
+
+    n, res = pieces[0][1].shape[1], kw.get("res")
+    out_dtype, tier = (kw.get("out_dtype", torch.float32),
+                       kw.get("tier", "highest"))
+    if hasattr(K, "gemm_route"):
+        route = K.gemm_route(pieces, n, res, out_dtype, tier)
+    elif tier == "highest":
+        route = "gemm_epilogue", K.gemm_variant(pieces, n, res)
+    else:
+        route = "gemm_tc", K.tc_variant(pieces, n, res, out_dtype)
+    taken, got = launched_variant(
+        K, route[0], lambda: K.gemm_epilogue(pieces, m, **kw))
+    return route, taken, got
 
 
 # Profiler windows device_ms opens before it gives up: a trace on the
@@ -724,7 +934,8 @@ def profile_call(fn, title):
         if ev.device_type != DeviceType.CUDA or dev_ms <= 0:
             continue
         name = next((k for k in ("gemm_epilogue", "sem_graph",
-                                 "joint_attention", "gab_narrow", "gemm_tc")
+                                 "joint_attention", "gab_narrow", "gemm_tc",
+                                 "gemm_smallk")
                      if f"{k}_kernel" in ev.key), f"other: {ev.key[:70]}")
         g = groups.setdefault(name, [0.0, 0])
         g[0] += dev_ms
@@ -846,15 +1057,20 @@ def launch_counts(K) -> dict:
 
 
 def tiered_launch(name: str) -> bool:
-    """A counter of the tiered instantiations (``gemm_tc``'s, and
-    ``joint_attention``'s by tier pair), which the float32 paths never
-    launch."""
-    return name.startswith("gemm_tc") or "/" in name
+    """A counter of the tiered instantiations (``gemm_tc``'s,
+    ``gemm_smallk``'s below ``"highest"``, and ``joint_attention``'s by
+    tier pair), which the float32 paths never launch."""
+    return (name.startswith("gemm_tc") or "/" in name
+            or (name.startswith("gemm_smallk ")
+                and name.split()[1] in TC_PASSES))
 
 
 # Every view the main paths give the graph kernels meets the 16-byte rule:
 # their 4-byte instantiations launch only in phase 2's cases.
 GRAPH_GENERAL = ("sem_graph general", "joint_attention general")
+# The 4-byte GEMMs the main paths never launch: the one product they took
+# (the level-0 expand conv, K = 2 a tap) runs on gemm_smallk.
+GEMM_GENERAL = ("gemm_epilogue general", "gemm_tc general")
 
 
 # --------------------------------------------------------------------------
@@ -1725,8 +1941,8 @@ def tier_kernels(K, dev, gts, glts) -> dict:
     ``joint_attention`` at the cert's tier pairs, held to their plain
     versions (the same operands rounded), timed beside their bound and one
     PyTorch call where one computes the same function; the ragged
-    ``general`` cases at every tier, each on the instantiation
-    ``tc_variant`` picks."""
+    ``general`` cases at every tier; each GEMM on the kernel and
+    instantiation ``gemm_route`` names (``launched_route``)."""
     import torch
 
     print("phase 10 (a): the tiered kernels against their plain versions")
@@ -1738,12 +1954,10 @@ def tier_kernels(K, dev, gts, glts) -> dict:
             label, _, _, ks, n, epi, taps, res = spec
             pieces, m, kw = gemm_case(spec, dev, 300 + idx, windows=windows)
             kw["tier"] = tier
-            variant = K.tc_variant(pieces, n, kw["res"])
-            taken, got = launched_variant(
-                K, "gemm_tc", lambda: K.gemm_epilogue(pieces, m, **kw))
+            (kernel, variant), taken, got = launched_route(K, pieces, m, kw)
             if taken != variant:
-                fail(f"gemm_tc {label}: took {taken}, not {variant}")
-            err = check(f"gemm_tc {tier} {label} (B={windows}, {variant})",
+                fail(f"{kernel} {label}: took {taken}, not {variant}")
+            err = check(f"{kernel} {tier} {label} (B={windows}, {variant})",
                         got, K.gemm_epilogue_plain(pieces, m, **kw))
             del got
             errs[tier] = max(errs.get(tier, 0.0), err)
@@ -1792,14 +2006,11 @@ def tier_kernels(K, dev, gts, glts) -> dict:
         for label, pieces, m, kw, _ in (tc_edge_cases(dev)
                                         + gemm_ragged_cases(dev)):
             kw = {**kw, "tier": tier}
-            want = K.tc_variant(pieces, pieces[0][1].shape[1],
-                                kw.get("res"))
-            taken, got = launched_variant(
-                K, "gemm_tc", lambda: K.gemm_epilogue(pieces, m, **kw))
+            (kernel, want), taken, got = launched_route(K, pieces, m, kw)
             if taken != want:
-                fail(f"gemm_tc {label}: took {taken}, not {want}")
+                fail(f"{kernel} {label}: took {taken}, not {want}")
             errs[tier] = max(errs[tier], check(
-                f"gemm_tc {tier} {label} ({want})", got,
+                f"{kernel} {tier} {label} ({want})", got,
                 K.gemm_epilogue_plain(pieces, m, **kw)))
             del got
 
@@ -1960,7 +2171,7 @@ def tier_paths(K, dev) -> dict:
             m.plain_route_forward(xs[frames]))
     print(f"  launches over the six forwards: {launches}")
     for key in ("gemm_tc", "gemm_tc high", "gemm_tc high_rhs",
-                "gemm_tc default", "gemm_tc vec16", "gemm_tc general",
+                "gemm_tc default", "gemm_tc vec16", "gemm_smallk",
                 "joint_attention high/high",
                 "joint_attention default/default", "gab_narrow",
                 "sem_graph"):
@@ -1968,11 +2179,13 @@ def tier_paths(K, dev) -> dict:
             fail(f"the tiered path did not launch {key}")
     if launches.get("gemm_epilogue"):
         fail("a tiered forward launched the float32 gemm_epilogue")
-    # tc_variant picks the general instantiation for the level-0 expand
-    # conv alone (K = 2 a tap): once a forward.
-    if launches.get("gemm_tc general") != len(outs):
-        fail(f"the tiered path launched the general gemm_tc "
-             f"{launches.get('gemm_tc general')} times, not once a forward")
+    # The level-0 expand conv (K = 2 a tap) alone takes gemm_smallk, once a
+    # forward; no product takes the general gemm_tc.
+    if (launches.get("gemm_smallk") != len(outs)
+            or launches.get("gemm_tc general")):
+        fail(f"the tiered path launched gemm_smallk "
+             f"{launches.get('gemm_smallk')} times (not once a forward) or "
+             f"the general gemm_tc {launches.get('gemm_tc general')} times")
     del models, xs, outs
     torch.cuda.empty_cache()
     return {"max_abs_err": held, "launches": launches}
@@ -3439,6 +3652,7 @@ BREAKDOWN_CLASSES = (
     ("gemm_tc wgmma", ("gemm_tc_kernel_ws",)),
     ("gemm_tc general", ("gemm_tc_kernel",)),
     ("gemm_epilogue", ("gemm_epilogue_kernel",)),
+    ("gemm_smallk", ("gemm_smallk_kernel",)),
     ("gab_narrow", ("gab_narrow",)),
     ("sem_graph", ("sem_graph",)),
     ("joint_attention", ("joint_attention",)),
@@ -4066,13 +4280,15 @@ def main() -> int:
     # gemm_epilogue's ragged cases, each on the instantiation it must take.
     gemm_errs = []
     for label, pieces, m, kw, want in gemm_ragged_cases(dev):
-        taken, got = launched_variant(
-            K, "gemm_epilogue", lambda: K.gemm_epilogue(pieces, m, **kw))
-        if taken != want:
-            fail(f"gemm_epilogue {label}: took {taken}, not {want}")
+        (kernel, variant), taken, got = launched_route(K, pieces, m, kw)
+        if not taken == variant == want:
+            fail(f"{kernel} {label}: took {taken}, not {want}")
         gemm_errs.append(check(f"gemm_epilogue {label} ({want})", got,
                                K.gemm_epilogue_plain(pieces, m, **kw)))
         del got
+    print("phase 2: gemm_smallk at every tier")
+    smallk_errs = run_smallk_cases(K, dev)
+    torch.cuda.empty_cache()
     # The graph kernels' ragged, layout and unaligned cases, likewise.
     graph_errs = {"sem_graph": [], "joint_attention": []}
     for label, kernel, fn, plain, args, want in graph_cases(K, dev,
@@ -4178,7 +4394,7 @@ def main() -> int:
           f"({', '.join(f'{t:.3f}' for t in request_s)}) on {smi}")
     print(f"  launches: {main_launches}")
     for name, count in main_launches.items():
-        if name in GRAPH_GENERAL or tiered_launch(name):
+        if name in GRAPH_GENERAL + GEMM_GENERAL or tiered_launch(name):
             if count:
                 fail(f"{name} launched {count} times on the main path")
         elif count <= 0 and name not in OFF_PATH:
@@ -4188,9 +4404,9 @@ def main() -> int:
              f"requests")
     level0_convs = sum(module.cfg.gab_impl == "auto"
                        for module, _, _ in forwards)
-    if main_launches["gemm_epilogue general"] != level0_convs:
-        fail(f"{main_launches['gemm_epilogue general']} general gemm_epilogue "
-             f"launches for {level0_convs} level-0 expand convs")
+    if main_launches["gemm_smallk highest"] != level0_convs:
+        fail(f"{main_launches['gemm_smallk highest']} gemm_smallk launches "
+             f"for {level0_convs} level-0 expand convs")
     for i, (module, xb, yb) in enumerate(forwards):
         requests[i]["batch"] = list(xb.shape)
         requests[i]["max_abs_err"] = check(
@@ -4212,10 +4428,12 @@ def main() -> int:
         y = m(x)
         torch.cuda.synchronize()
         per_forward = {k: v for k, v in launch_counts(K).items() if v}
-        general = K.VARIANT_LAUNCHES["gemm_epilogue"]["general"]
-        if general != (m.cfg.gab_impl == "auto"):
-            fail(f"{cell}: {general} general gemm_epilogue launches in one "
-                 f"forward")
+        smallk = K.LAUNCHES["gemm_smallk"]
+        if (smallk != (m.cfg.gab_impl == "auto")
+                or any(per_forward.get(name) for name in GEMM_GENERAL)):
+            fail(f"{cell}: {smallk} gemm_smallk launches (one a level-0 "
+                 f"expand conv) and no general GEMM in one forward: "
+                 f"{per_forward}")
         if any(per_forward.get(name) for name in GRAPH_GENERAL):
             fail(f"{cell}: a 4-byte graph kernel launched: {per_forward}")
         y_plain = m.reference_forward(x)
@@ -4444,6 +4662,26 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
             "float32_ms": r["float32_ms"]})
+    print("phase 10 (e): gemm_smallk at the shipped models' expand convs")
+    card_state("phase 10 (e)")
+    report["smallk"] = sk = expand_table(K, dev)
+    sk27 = [r for r in sk if r["shape"] == sk[0]["shape"]]
+    kernels.append({
+        "name": f"gemm_smallk (highest, {sk27[0]['shape']})",
+        "route": "cuda", "source": "gastx_torch/csrc/gemm_smallk.cu",
+        "replaces": "gastx/ops/pallas/fused_level.py:194",
+        "launches": main_launches["gemm_smallk"],
+        "launches_by_tier": {
+            "highest": main_launches["gemm_smallk highest"],
+            **{t: tp["launches"].get(f"gemm_smallk {t}", 0)
+               for t in K.TC_TIERS}},
+        "max_abs_err": sk27[0]["max_abs_err"], "ms": sk27[0]["ms"],
+        "ms_by_tier": {r["tier"]: r["ms"] for r in sk27},
+        "call_ms": sk27[0]["call_ms"], "plain_ms": sk27[0]["plain_ms"],
+        "bound_ms": sk27[0]["bound_ms"], "bound_by": sk27[0]["bound_by"],
+        "library_ms": sk27[0]["library_ms"],
+        "matmul_bf16_ms": sk27[0]["matmul_bf16_ms"],
+        "ragged_max_abs_err": max(smallk_errs)})
 
     # ---- phase 11: the in-the-wild pipeline ------------------------------
     report["card_phase11"] = card_state("phase 11")

@@ -1,6 +1,6 @@
 """Build, binding and launch wrappers of the port's CUDA kernels.
 
-Five kernels, each a CUDA C++ source under ``gastx_torch/csrc/`` with a
+Six kernels, each a CUDA C++ source under ``gastx_torch/csrc/`` with a
 plain C interface:
 
   * ``gemm_epilogue`` — pipelined f32 GEMM over up to three pieces with a
@@ -15,6 +15,12 @@ plain C interface:
     residual or output), ``general`` an ``mma.sync`` one for the ragged
     rest; the :func:`gemm_epilogue` wrapper launches it for every tier
     but ``"highest"``;
+  * ``gemm_smallk`` — the same function for GEMMs whose K is tiny (the
+    level-0 expand conv, K = 2 a tap), on the CUDA cores at ``"highest"``
+    and at every tier, instantiated by tier: the :func:`gemm_epilogue`
+    wrapper launches it wherever :func:`smallk_ok` holds
+    (:func:`gemm_variant` and :func:`tc_variant` then return
+    ``"smallk"``; :func:`gemm_route` names the kernel each call takes);
   * ``sem_graph`` — the local branch's semantic graph aggregation, and
   * ``joint_attention`` — per-frame multi-head attention over the joints,
     its score and apply dots at their tiers (operands rounded as
@@ -67,12 +73,14 @@ it launches its kernel (and raises if the launch fails; a tier below
 float32 one); on a CPU tensor it runs the plain PyTorch version beside it,
 at the tier it is given, which is also what the card runs to hold the
 kernel to. ``LAUNCHES`` counts kernel launches by kernel,
-``VARIANT_LAUNCHES`` those of the kernels with two alignment
-instantiations by kernel and instantiation, ``TIER_LAUNCHES`` the tiered
-launches of ``gemm_tc`` (by tier) and ``joint_attention`` (by score/apply
-tier pair), ``DTYPE_LAUNCHES`` every kernel's launches by the dtypes of
-its I/O (``IO_LABELS``); ``ENTRY_LAUNCHES`` counts the kernel launches
-made inside each entry point (:func:`entry_point`). All are counted in
+``VARIANT_LAUNCHES`` those of the kernels with alignment
+instantiations (and ``gemm_smallk``'s one, ``"smallk"``) by kernel and
+instantiation, ``TIER_LAUNCHES`` the
+launches of ``gemm_tc`` and ``gemm_smallk`` by tier and the tiered ones of
+``joint_attention`` (by score/apply tier pair), ``DTYPE_LAUNCHES`` every
+kernel's launches by the dtypes of its I/O (``IO_LABELS``);
+``ENTRY_LAUNCHES`` counts the kernel launches made inside each entry point
+(:func:`entry_point`). All are counted in
 ``_launch`` alone, after the launch succeeded.
 """
 from __future__ import annotations
@@ -93,7 +101,7 @@ from gastx_torch.ops.precision import check_tier, split_bf16, tiered, \
     tiered_mm
 
 KERNEL_SOURCES = ("gemm_epilogue", "sem_graph", "joint_attention",
-                  "gab_narrow", "gemm_tc")
+                  "gab_narrow", "gemm_tc", "gemm_smallk")
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "gastx_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -118,15 +126,22 @@ ENTRY_POINTS = ("fused_level0", "fused_level", "fused_gab_pbatch",
 # (1: vec16).
 VARIANTS = ("vec16", "general")
 VARIANT_KERNELS = ("gemm_epilogue", "sem_graph", "joint_attention",
-                   "gemm_tc")
+                   "gemm_tc", "gemm_smallk")
 # gemm_tc's instantiations: its wgmma kernel on float32 I/O (vec16) and
 # on bf16 I/O (vec16_bf16, the bf16-I/O library), and the mma.sync one.
 TC_VARIANTS = ("vec16", "vec16_bf16", "general")
+# gemm_smallk's one (its tiers are TIER_LAUNCHES'), the name gemm_variant
+# and tc_variant give it.
+SMALLK_VARIANTS = ("smallk",)
 # gemm_tc's tiers, in the order of its C tier code; "kdefault" is the
 # "default" instantiation (one bf16 pass in a kernel, as on the TPU).
 TC_TIERS = ("default", "high_lhs", "high_rhs", "high")
-# joint_attention's tier codes, for its score and its apply dot.
+# joint_attention's tier codes, for its score and its apply dot; also
+# gemm_smallk's, whose launches TIER_LAUNCHES counts by them ("kdefault"
+# as "default").
 ATTN_TIERS = ("highest", "default", "high_lhs", "high_rhs", "high")
+# gemm_smallk's shape rule (smallk_ok): the sum of K_p at most this.
+SMALLK_MAX_K = 16
 # The graph kernels' shape rule (their C entry points check it too): J <= 32
 # joints and, for sem_graph, D <= 8 neighbour slots a joint.
 MAX_JOINTS = 32
@@ -136,12 +151,16 @@ MAX_SLOTS = 8
 # points open at the launch.
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_SOURCES}
 VARIANT_LAUNCHES: Dict[str, Dict[str, int]] = {
-    name: {v: 0 for v in (TC_VARIANTS if name == "gemm_tc" else VARIANTS)}
+    name: {v: 0 for v in {"gemm_tc": TC_VARIANTS,
+                          "gemm_smallk": SMALLK_VARIANTS}.get(name,
+                                                              VARIANTS)}
     for name in VARIANT_KERNELS}
-# Tiered launches: gemm_tc by tier, joint_attention by "score/apply" pair
-# (a pair of "highest" is its float32 path and is not counted here).
+# Launches by tier: gemm_tc by tier, gemm_smallk by tier ("highest"
+# too), joint_attention by "score/apply" pair (a pair of "highest" is its
+# float32 path and is not counted here).
 TIER_LAUNCHES: Dict[str, Dict[str, int]] = {
-    "gemm_tc": {t: 0 for t in TC_TIERS}, "joint_attention": {}}
+    "gemm_tc": {t: 0 for t in TC_TIERS},
+    "gemm_smallk": {t: 0 for t in ATTN_TIERS}, "joint_attention": {}}
 ENTRY_LAUNCHES: Dict[str, int] = {name: 0 for name in ENTRY_POINTS}
 _OPEN_ENTRIES: List[str] = []
 # Launches by the dtypes of a launch's activations in and out: all float32,
@@ -172,6 +191,9 @@ _ARGTYPES = {
     "gemm_tc_hopper": [_P, _I, _I, _I] * 3 + [_I, _P, _P, _I, _I, _I, _I,
                                               _I, _I, _P, _P, _I, _P, _I,
                                               _P, _P, _I, _I],
+    # as gemm_epilogue's up to the stream, then the tier code (ATTN_TIERS)
+    "gemm_smallk": [_P, _P, _I, _I] * 3 + [_I, _I, _I, _I, _I, _I, _P, _P,
+                                          _I, _P, _I, _P, _P, _I],
     # x, out, frames, J, C, D, K, I, G, the 20 tables of a GabTables in
     # its field order (narrow_table_ptrs), stream, x bf16, out bf16
     "gab_narrow": [_P, _P, _LL, _I, _I, _I, _I, _I, _I] + [_P] * 21
@@ -186,7 +208,8 @@ _EXTRA_SYMBOLS = {"gemm_tc": ("gemm_tc_hopper",)}
 
 def reset_launches() -> None:
     for counts in (LAUNCHES, ENTRY_LAUNCHES, *VARIANT_LAUNCHES.values(),
-                   TIER_LAUNCHES["gemm_tc"], *DTYPE_LAUNCHES.values()):
+                   TIER_LAUNCHES["gemm_tc"], TIER_LAUNCHES["gemm_smallk"],
+                   *DTYPE_LAUNCHES.values()):
         for name in counts:
             counts[name] = 0
     TIER_LAUNCHES["joint_attention"].clear()
@@ -511,7 +534,9 @@ def gemm_epilogue(pieces: Sequence[Piece], m: int, *,
     products' precision tier (``gastx_torch.ops.precision``); on the card
     ``"highest"`` launches the float32 ``gemm_epilogue`` kernel and every
     other tier ``gemm_tc``, each W split here into its bf16 halves (laid
-    out by :func:`tc_weights` for the ``wgmma`` instantiations).
+    out by :func:`tc_weights` for the ``wgmma`` instantiations), except
+    where :func:`smallk_ok` holds: then every tier launches
+    ``gemm_smallk``, W as it is.
     Each A piece and ``res`` may be float32 or bf16, and the output is
     ``out_dtype`` (float32 or bf16); W, scale and shift are float32.
     """
@@ -529,11 +554,44 @@ def gemm_epilogue(pieces: Sequence[Piece], m: int, *,
             relu=relu, res=res, res_s_in=res_s_in, res_off=res_off,
             tier=tier, out_dtype=out_dtype)
     out = torch.empty((m, n), dtype=out_dtype, device=device)
-    io = io_label([a for a, _, _ in pieces] + [res], out_dtype)
-    if tier != "highest":
-        _gemm_tc(pieces, m, n, s_out, a_s_in, res_s_in, scale, shift, relu,
-                 res, res_off, out, tier, io)
+    kernel, variant = gemm_route(pieces, n, res, out_dtype, tier)
+    if kernel == "gemm_smallk":
+        _gemm_smallk(pieces, m, n, s_out, a_s_in, res_s_in, scale, shift,
+                     relu, res, res_off, out, tier)
         return out
+    io = io_label([a for a, _, _ in pieces] + [res], out_dtype)
+    if kernel == "gemm_tc":
+        _gemm_tc(pieces, m, n, s_out, a_s_in, res_s_in, scale, shift, relu,
+                 res, res_off, out, tier, io, variant)
+        return out
+    _launch("gemm_epilogue", *_flat_pieces(pieces), len(pieces), m, n,
+            s_out, a_s_in, res_s_in, _ptr(scale), _ptr(shift), int(relu),
+            _ptr(res), res_off, out.data_ptr(), _stream(),
+            _dtype_bits(pieces, res, out_dtype), int(variant == "vec16"),
+            io=io)
+    return out
+
+
+def gemm_route(pieces: Sequence[Piece], n: int,
+               res: Optional[torch.Tensor],
+               out_dtype: torch.dtype = torch.float32,
+               tier: str = "highest") -> Tuple[str, str]:
+    """(kernel, instantiation) that :func:`gemm_epilogue` launches on the
+    card for these operands at ``tier``: ``gemm_epilogue`` on
+    :func:`gemm_variant`'s at ``"highest"``, ``gemm_tc`` on
+    :func:`tc_variant`'s below it, and ``gemm_smallk`` where either says
+    ``"smallk"``. The wrapper and the launch checks read it."""
+    if tier == "highest":
+        kernel, variant = "gemm_epilogue", gemm_variant(pieces, n, res,
+                                                         out_dtype)
+    else:
+        kernel, variant = "gemm_tc", tc_variant(pieces, n, res, out_dtype)
+    return ("gemm_smallk" if variant == "smallk" else kernel), variant
+
+
+def _flat_pieces(pieces) -> list:
+    """(a, w, K_p, a_off) of each of the three piece slots, None and 0 in
+    the slots past ``pieces``: the C functions' first twelve arguments."""
     flat = []
     for i in range(3):
         if i < len(pieces):
@@ -541,18 +599,39 @@ def gemm_epilogue(pieces: Sequence[Piece], m: int, *,
             flat += [a.data_ptr(), w.data_ptr(), a.shape[1], off]
         else:
             flat += [None, None, 0, 0]
-    _launch("gemm_epilogue", *flat, len(pieces), m, n, s_out, a_s_in,
-            res_s_in, _ptr(scale), _ptr(shift), int(relu),
+    return flat
+
+
+def _gemm_smallk(pieces, m, n, s_out, a_s_in, res_s_in, scale, shift,
+                 relu, res, res_off, out, tier) -> None:
+    """Launch ``gemm_smallk`` at ``tier`` into ``out`` (the operands meet
+    :func:`smallk_ok`)."""
+    label = "default" if tier == "kdefault" else tier
+    _launch("gemm_smallk", *_flat_pieces(pieces), len(pieces), m, n, s_out,
+            a_s_in, res_s_in, _ptr(scale), _ptr(shift), int(relu),
             _ptr(res), res_off, out.data_ptr(), _stream(),
-            _dtype_bits(pieces, res, out_dtype),
-            int(gemm_variant(pieces, n, res) == "vec16"), io=io)
-    return out
+            ATTN_TIERS.index(label), tier=label, variant="smallk")
+
+
+def smallk_ok(pieces: Sequence[Piece], n: int,
+              res: Optional[torch.Tensor],
+              out_dtype: torch.dtype = torch.float32) -> bool:
+    """``gemm_smallk``'s shape rule, the same as its C entry point's: every
+    A piece, the residual and the output float32, the sum of K_p from 1 to
+    ``SMALLK_MAX_K``, N a multiple of 4, the residual 16-byte aligned (the
+    output is a fresh tensor, so it is too). W may lie anywhere."""
+    tensors = [a for a, _, _ in pieces] + ([] if res is None else [res])
+    return (out_dtype == torch.float32
+            and all(t.dtype == torch.float32 for t in tensors)
+            and 1 <= sum(a.shape[1] for a, _, _ in pieces) <= SMALLK_MAX_K
+            and n % 4 == 0
+            and (res is None or res.data_ptr() % 16 == 0))
 
 
 def _gemm_tc(pieces, m, n, s_out, a_s_in, res_s_in, scale, shift, relu,
-             res, res_off, out, tier, io) -> None:
-    """Launch ``gemm_tc`` at ``tier`` into ``out``, on the instantiation
-    :func:`tc_variant` picks; W's lo half is made and passed only where
+             res, res_off, out, tier, io, variant) -> None:
+    """Launch ``gemm_tc`` at ``tier`` into ``out``, on ``variant`` (what
+    :func:`tc_variant` picks); W's lo half is made and passed only where
     the tier multiplies it (``"high"``, ``"high_rhs"``)."""
     tc = "default" if tier == "kdefault" else tier
     lo = tc in ("high", "high_rhs")
@@ -560,7 +639,6 @@ def _gemm_tc(pieces, m, n, s_out, a_s_in, res_s_in, scale, shift, relu,
             int(relu), _ptr(res), res_off, out.data_ptr(), _stream(),
             TC_TIERS.index(tc)]
     dtypes = _dtype_bits(pieces, res, out.dtype)
-    variant = tc_variant(pieces, n, res, out.dtype)
     if variant != "general":
         hi, lo_t = tc_weights(pieces, lo)
         flat = []
@@ -598,7 +676,10 @@ def tc_variant(pieces: Sequence[Piece], n: int,
     16-byte aligned (W's halves and the output are fresh tensors):
     ``"vec16"`` where every activation and the output are float32,
     ``"vec16_bf16"`` (its bf16 TMA boxes, in the bf16-I/O library) where
-    any is bf16; else ``"general"``."""
+    any is bf16; else ``"general"``. Where :func:`smallk_ok` holds,
+    ``"smallk"``: the wrapper launches ``gemm_smallk`` instead."""
+    if smallk_ok(pieces, n, res, out_dtype):
+        return "smallk"
     tensors = [a for a, _, _ in pieces] + ([] if res is None else [res])
     if not (n % 8 == 0
             and all(a.shape[1] % (8 if a.dtype == torch.bfloat16 else 4)
@@ -667,12 +748,16 @@ def tc_weights(pieces: Sequence[Piece], lo: bool
 
 
 def gemm_variant(pieces: Sequence[Piece], n: int,
-                 res: Optional[torch.Tensor]) -> str:
+                 res: Optional[torch.Tensor],
+                 out_dtype: torch.dtype = torch.float32) -> str:
     """The instantiation of ``gemm_epilogue`` for these operands:
-    ``"vec16"`` (16-byte loads, copies and epilogue) when every K_p and N are
-    multiples of 4 and every a_p, w_p and ``res`` starts 16-byte aligned
-    (then so does every row, with its offset a_off * K_p, and the fresh
-    output), else ``"general"``."""
+    ``"smallk"`` where :func:`smallk_ok` holds (the wrapper launches
+    ``gemm_smallk`` instead), else ``"vec16"`` (16-byte loads, copies and
+    epilogue) when every K_p and N are multiples of 4 and every a_p, w_p
+    and ``res`` starts 16-byte aligned (then so does every row, with its
+    offset a_off * K_p, and the fresh output), else ``"general"``."""
+    if smallk_ok(pieces, n, res, out_dtype):
+        return "smallk"
     ptrs = [t.data_ptr() for a, w, _ in pieces for t in (a, w)]
     if res is not None:
         ptrs.append(res.data_ptr())

@@ -2,12 +2,13 @@
 eval forwards, the float32 kernels, and the JAX package's shipped bf16
 routes with a profiled breakdown.
 
-    python3 scripts/torch_default_forwards.py TREE [TREE ...] [--json F]
+    python3 scripts/torch_default_forwards.py TREE [TREE ...] [--tiered]
+        [--rounds N] [--json F]
 
 Each tree (a checkout's root, e.g. a ``git archive`` of the parent commit
 unpacked under ``build/``) runs in a process of its own, in the order
-T1 .. Tn, Tn .. T1, so that a drift of the card over the call weighs on
-every tree alike. Each run times that tree's ``gastx_torch`` (its kernels
+T1 .. Tn, Tn .. T1 (``--rounds`` times over), so that a drift of the card
+over the call weighs on every tree alike. Each run times that tree's ``gastx_torch`` (its kernels
 built into its own ``build/``) with this checkout's ``chip_smoke.py`` as
 the harness:
 
@@ -23,11 +24,27 @@ the harness:
 * the float32 ``gemm_tc`` ``vec16`` rows: every tier at the
   ``chip_smoke.TIER_GEMM_CASES`` shapes it takes, also its kernel's
   device time alone;
+* the level-0 expand conv of each shipped model
+  (``chip_smoke.EXPAND_SHAPES``) at ``"highest"`` and every tier
+  (``chip_smoke.expand_table``): the device time of the kernel that
+  computes it (``gemm_smallk``, or in a tree without it the general
+  ``gemm_epilogue`` / ``gemm_tc``) and the call's CUDA-event time;
+* the tiered forwards of phase 10 (d) (``chip_smoke.TIER_FORWARDS`` at
+  all "high" and at the JAX preset, ``chip_smoke.tier_configs``): ms
+  (``chip_smoke.issue_ms`` over 10 forwards: CUDA events and the host's
+  issue time);
+* phase 8's streaming cells (``chip_smoke.STREAM_CELLS``, causal models,
+  ``chip_smoke.streaming_cell``): push p50 and p99;
 * ``chip_smoke.SHIPPED_CELLS`` (the JAX package's shipped bf16 routes:
   the 243f preset with fold at B=256, the 81f preset at B=1024 with level
   3 float32) at float32 and bf16 storage through ``chip_smoke.pair_turns``,
   phase 13's own timing: ms in turns, the host's issue time and one
   profiled forward a side (``chip_smoke.breakdown``).
+
+``--tiered`` times only the 27f model's tiered forwards
+(``TIERED_27F``: "high" and the preset at B=1024 and B=256), each also
+with its device busy ms from one profiled forward
+(``chip_smoke.breakdown``), so that a run of several rounds costs minutes.
 
 The bf16-I/O ``gemm_tc`` rows are ``scripts/torch_gemm_tc.py --bf16``'s
 (``--tree`` for another checkout). Prints each row's ms per tree (the mean
@@ -47,8 +64,46 @@ import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-def one_tree(tree: str, out: str) -> None:
-    """Time ``tree``'s rows and save them (and its forwards' outputs)."""
+# --tiered: the 27f model's tiered forwards, (frames, batch of windows).
+TIERED_27F = ((27, 1024), (27, 256))
+
+
+def tiered_forwards(cs, dev, cells, busy: bool) -> dict:
+    """ms of the "high" and preset forwards of each (frames, windows) in
+    ``cells`` (one model a frame count, random weights from it as seed),
+    with the host's issue ms and, with ``busy``, the device's busy ms of
+    one profiled forward."""
+    import numpy as np
+    import torch
+
+    from gastx_torch.models import build_gastnet
+
+    ms, models = {}, {}
+    for frames, b in cells:
+        cfgs = cs.tier_configs(frames)
+        if frames not in models:
+            models[frames] = build_gastnet(cfgs["highest"], seed=frames,
+                                           device=dev)
+        model = models[frames]
+        x = torch.from_numpy(np.random.default_rng(frames).standard_normal(
+            (b, frames, 17, 2)).astype(np.float32)).to(dev)
+        for name in ("high", "preset"):
+            cs.with_config(model, cfgs[name])
+            row = f"forward {frames}f {name} B={b}"
+            ms[row], ms[f"{row}, host issue"] = cs.issue_ms(
+                lambda: model(x), reps=10)
+            if busy:
+                ms[f"{row}, device busy"] = cs.breakdown(
+                    lambda: model(x))["busy_ms"]
+        del x
+    del models
+    torch.cuda.empty_cache()
+    return ms
+
+
+def one_tree(tree: str, out: str, tiered: bool = False) -> None:
+    """Time ``tree``'s rows and save them (and its forwards' outputs);
+    with ``tiered`` only ``TIERED_27F``'s forwards."""
     tree = os.path.abspath(tree)
     sys.path.insert(0, REPO)
     import chip_smoke as cs  # the harness: this checkout's
@@ -67,6 +122,10 @@ def one_tree(tree: str, out: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
+    if tiered:
+        torch.save({"ms": tiered_forwards(cs, dev, TIERED_27F, True),
+                    "y": {}, "shipped": {}}, out)
+        return
     ms, ys = {}, {}
     models = {}
     for cell, rf, b, route in cs.FORWARDS:
@@ -105,6 +164,18 @@ def one_tree(tree: str, out: str) -> None:
             ms[f"{row}, device"] = cs.device_ms(
                 lambda: K.gemm_epilogue(pieces, m, **kt), "gemm_tc_kernel_ws")
         del pieces, kw
+    for r in cs.expand_table(K, dev, plain=False):
+        row = f"expand conv {r['tier']} {r['shape']}"
+        ms[row] = r["call_ms"]
+        ms[f"{row}, device"] = r["ms"]
+    ms.update(tiered_forwards(cs, dev, cs.TIER_FORWARDS, False))
+    for rf, persons in cs.STREAM_CELLS:
+        cfg = dataclasses.replace(config_for_frames(rf), causal=True)
+        r = cs.streaming_cell(K, build_gastnet(cfg, seed=rf, device=dev),
+                              persons, f"{rf}f M={persons}")
+        for q in ("p50", "p99"):
+            ms[f"push {q} {rf}f M={persons}"] = float(r[f"push_{q}_ms"])
+    torch.cuda.empty_cache()
     m243 = models["243f"]
     t = gab_tables(m243.layers_graph_conv[0], m243.statics)
     gen = torch.Generator(device=dev).manual_seed(421)
@@ -127,10 +198,14 @@ def main(argv=None) -> int:
     ap.add_argument("trees", nargs="*")
     ap.add_argument("--one", nargs=2, metavar=("TREE", "OUT"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--tiered", action="store_true",
+                    help="time only the 27f model's tiered forwards")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="times over the order T1 .. Tn, Tn .. T1")
     ap.add_argument("--json", default="default_forwards.json")
     args = ap.parse_args(argv)
     if args.one:
-        one_tree(*args.one)
+        one_tree(*args.one, tiered=args.tiered)
         return 0
     import torch
 
@@ -144,10 +219,11 @@ def main(argv=None) -> int:
     order = list(range(len(args.trees)))
     turns = {i: [] for i in order}
     with tempfile.TemporaryDirectory() as tmp:
-        for n, i in enumerate(order + order[::-1]):
+        for n, i in enumerate((order + order[::-1]) * args.rounds):
             path = os.path.join(tmp, f"{n}.pt")
             subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--one", args.trees[i], path], check=True)
+                            "--one", args.trees[i], path]
+                           + ["--tiered"] * args.tiered, check=True)
             turns[i].append(torch.load(path))
     ys0 = turns[0][0]["y"]
     same = True
@@ -159,7 +235,8 @@ def main(argv=None) -> int:
                     d = float((y - ys0[cell]).abs().max())
                     print(f"{args.trees[i]} {cell}: DIFFERENT, max|d| "
                           f"{d:.3e}")
-    print(f"forwards bitwise equal across trees and turns: {same}")
+    if not args.tiered:
+        print(f"forwards bitwise equal across trees and turns: {same}")
     rows = {}
     names = list(dict.fromkeys(k for i in order for r in turns[i]
                                for k in r["ms"]))
@@ -189,7 +266,8 @@ def main(argv=None) -> int:
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", args.json), "w") as f:
         json.dump({"card": smi.strip(), "trees": args.trees,
-                   "order": [args.trees[i] for i in order + order[::-1]],
+                   "order": [args.trees[i] for i in
+                             (order + order[::-1]) * args.rounds],
                    "bitwise_equal": same, "ms_turns": rows,
                    "shipped": shipped}, f, indent=1)
     return 0 if same else 1

@@ -7,9 +7,10 @@ one (e.g. a ``git archive`` of the parent commit under ``build/``, whose
 versions of the kernel can be compared in one call, in turns:
 
     python3 scripts/torch_gemm_tc.py [--tree DIR] [--check] [--bf16]
-        [--no-f32] [--cuts] [--json F]
+        [--no-f32] [--cuts] [--smallk] [--json F]
 
-Builds only ``gemm_tc`` and the float32 ``gemm_epilogue`` of that tree and
+Builds only ``gemm_tc``, the float32 ``gemm_epilogue`` and, where the tree
+has it, ``gemm_smallk`` of that tree and
 prints the compiler's registers, shared memory and spills of each
 ``gemm_tc`` instantiation. At each ``chip_smoke.TIER_GEMM_CASES`` shape
 and tier: ms (CUDA events over 20 calls after 2, the wrapper's W split
@@ -33,6 +34,23 @@ projection, bf16 x to float32, at B=1024) at every tier beside
 (B=256), ``BF16_TC_RAGGED`` and the timed shapes (``chip_smoke.check_out``),
 each on the instantiation the tree's ``tc_variant`` picks. ``--no-f32``
 leaves out the float32 rows.
+
+``--smallk`` adds the level-0 expand conv of each shipped model at
+``"highest"`` and every tier (``chip_smoke.expand_table``: the device time
+of the kernel that computes it, ``gemm_smallk`` or, in a tree without it,
+the general ``gemm_epilogue`` / ``gemm_tc``, beside the bound, a float32
+``torch.addmm`` and a bf16 ``torch.matmul``), and, where the tree has
+``gemm_smallk.cu``, its variants (``SMALLK_CUTS``: plain ``st.global``
+stores in place of evict-first ones, the stores or A's loads cut out, 2
+or 8 rows a thread an iteration, the bf16 rounding in integer
+instructions) timed in turns beside ``fill_`` of an output of the same
+size.
+
+It then times the 27f forwards at B=256 (``STORE_AB``: "highest", "high"
+and the preset) on the evict-first and the plain-store builds in turns,
+with the device time of ``gemm_smallk`` and of the first GEMM after it,
+the first reader of its output (``store_forwards``); ``--stores`` runs
+only that.
 
 ``--cuts`` then rebuilds this checkout's ``gemm_tc.cu`` once with each
 part of its ``wgmma`` kernel cut out (``CUTS``: the epilogue stores, the
@@ -178,25 +196,170 @@ def library_calls(torch, pieces, m, kw, cs):
     return matmul_ms, addmm_ms
 
 
-def build_cuts(K) -> dict:
-    """Compile every ``CUTS`` build of this checkout's gemm_tc.cu, all
-    ``nvcc`` processes started together; returns {cut: library}."""
+# gemm_smallk.cu's variants: (text in the source, what replaces it). A
+# cut build computes garbage; only its time is read. "whole" is the
+# source as it is.
+_SK_STORE = "__stcs(reinterpret_cast<float4*>(p), v);"
+_SK_LOAD = ("__ldg(reinterpret_cast<const float*>(\n"
+            "            args.a[k] + (size_t)in_row * args.a_stride[k]));")
+_SK_ROWS = "constexpr int ROWS = 4;"
+_SK_Q1 = "  return __bfloat162float(__float2bfloat16_rn(x));"
+SMALLK_CUTS = {
+    "whole": [],
+    "plain st.global stores": [(_SK_STORE,
+                                "*reinterpret_cast<float4*>(p) = v;")],
+    "no stores": [(_SK_STORE, "if (v.x == -1.5e-38f) " + _SK_STORE)],
+    "no A loads": [(_SK_LOAD, "(float)(in_row + k);")],
+    "2 rows an iteration": [(_SK_ROWS, "constexpr int ROWS = 2;")],
+    "8 rows an iteration": [(_SK_ROWS, "constexpr int ROWS = 8;")],
+    # bf16 rounding in integer ALU instructions in place of F2F.
+    "integer q1": [(_SK_Q1, "  const uint32_t u = __float_as_uint(x);\n"
+                            "  return x != x ? x : __uint_as_float((u + "
+                            "0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u);")],
+}
+SMALLK_CUT_DIR = os.path.join(REPO, "build", "gemm_smallk_cuts")
+# The rows the variants are timed at: (EXPAND_SHAPES index, tiers).
+SMALLK_CUT_ROWS = ((0, ("highest", "high")), (1, ("high",)),
+                   (2, ("highest", "high")), (3, ("highest", "high")))
+
+
+def smallk_cuts(K, cs, torch, dev, tree) -> dict:
+    """Every ``SMALLK_CUTS`` build of the tree's gemm_smallk.cu, all
+    ``nvcc`` started together, timed at ``SMALLK_CUT_ROWS`` (device ms,
+    ``chip_smoke.device_ms``) in turns (the builds in order, then "whole"
+    again), beside ``fill_`` of an output of the same size (the card's
+    write rate at that size): ({row: {build: [ms, ...]}}, {build:
+    library})."""
+    libs = build_variants(
+        K, os.path.join(tree, "gastx_torch", "csrc", "gemm_smallk.cu"),
+        SMALLK_CUTS, SMALLK_CUT_DIR, ("gemm_smallk",))
+    whole = K._lib("gemm_smallk")
+    out = {}
+    for idx, tiers in SMALLK_CUT_ROWS:
+        spec, windows = cs.EXPAND_SHAPES[idx]
+        spec = cs.GEMM_SHAPES[spec] if isinstance(spec, int) else spec
+        pieces, m, kw = cs.gemm_case(spec, dev, 500 + spec[4],
+                                     windows=windows)
+        shape = f"{spec[0]} (B={windows})"
+        fill = torch.empty((m, spec[4]), device=dev)
+        out.setdefault(shape, {})["fill_"] = [cs.device_ms(
+            lambda: fill.fill_(1.0), "Fill")]
+        del fill
+        for tier in tiers:
+            kt = dict(kw, tier=tier)
+            rows = out.setdefault(f"{tier} {shape}", {})
+            for name in list(SMALLK_CUTS) + ["whole"]:
+                K._LIBS["gemm_smallk"] = libs[name]
+                rows.setdefault(name, []).append(cs.device_ms(
+                    lambda: K.gemm_epilogue(pieces, m, **kt),
+                    "gemm_smallk_kernel"))
+                print(f"  {tier:8s} {shape} {name:24s}: "
+                      f"{rows[name][-1]:.4f} ms")
+            K._LIBS["gemm_smallk"] = whole
+        print(f"  fill_ of the {shape} output: "
+              f"{out[shape]['fill_'][0]:.4f} ms")
+        del pieces, kw
+        torch.cuda.empty_cache()
+    return out, libs
+
+
+# The forwards of the store A/B (store_forwards): (frames, windows) and
+# the tiers (chip_smoke.tier_configs); at B=256 the 27f expand output
+# (56 MB) is about the size of the card's L2, which GAB 0's first GEMM
+# reads next.
+STORE_AB = ((27, 256), ("highest", "high", "preset"))
+STORE_BUILDS = ("whole", "plain st.global stores")
+
+
+def _after(prof, key: str, reader: str = "gemm_") -> tuple:
+    """From a profile: the mean device ms of the kernels whose name holds
+    ``key`` and of the first kernel after each whose name holds
+    ``reader`` (its name)."""
+    from torch.autograd import DeviceType
+
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    pairs = [(a, next(b for b in evs[i + 1:]
+                      if reader in b.name and key not in b.name))
+             for i, a in enumerate(evs) if key in a.name]
+    if not pairs:
+        raise RuntimeError(f"the profiler recorded no kernel named *{key}*")
+    return (sum(a.time_range.elapsed_us() for a, _ in pairs)
+            / 1e3 / len(pairs),
+            sum(b.time_range.elapsed_us() for _, b in pairs)
+            / 1e3 / len(pairs), pairs[0][1].name[:80])
+
+
+def store_forwards(K, cs, torch, dev, libs, all_sources) -> dict:
+    """The 27f forwards of ``STORE_AB`` on each of ``STORE_BUILDS`` (the
+    builds of ``SMALLK_CUTS``: evict-first stores, plain stores), in turns
+    (a, b, b, a, a, b, b, a): per tier and build the forward's ms (CUDA
+    events over 10 forwards), and from a profile of 5 forwards the mean
+    device ms of ``gemm_smallk`` and of the first GEMM after it (GAB 0's
+    projection, which reads its output); {tier: {build: {metric:
+    [...]}}}."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from gastx_torch.models import build_gastnet
+
+    K.KERNEL_SOURCES = all_sources  # a forward runs every kernel
+    K.build_kernels()
+    (frames, b), tiers = STORE_AB
+    cfgs = cs.tier_configs(frames)
+    model = build_gastnet(cfgs["highest"], seed=frames, device=dev)
+    x = torch.from_numpy(np.random.default_rng(frames).standard_normal(
+        (b, frames, 17, 2)).astype(np.float32)).to(dev)
+    whole = K._lib("gemm_smallk")
+    out = {}
+    for name in (STORE_BUILDS + STORE_BUILDS[::-1]) * 2:
+        K._LIBS["gemm_smallk"] = libs[name]
+        for tier in tiers:
+            cs.with_config(model, cfgs[tier])
+            row = out.setdefault(tier, {}).setdefault(
+                name, {"forward_ms": [], "smallk_ms": [], "next_ms": []})
+            row["forward_ms"].append(cs.cuda_ms(lambda: model(x)))
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    model(x)
+                torch.cuda.synchronize()
+            sk, nxt, row["next"] = _after(prof, "gemm_smallk_kernel")
+            row["smallk_ms"].append(sk)
+            row["next_ms"].append(nxt)
+            print(f"  {frames}f B={b} {tier:8s} {name:24s}: forward "
+                  f"{row['forward_ms'][-1]:.4f} ms, gemm_smallk {sk:.4f}, "
+                  f"then {row['next']} {nxt:.4f}")
+    K._LIBS["gemm_smallk"] = whole
+    del model, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def build_variants(K, source: str, table: dict, out_dir: str,
+                   symbols) -> dict:
+    """Compile ``source`` once for each entry of ``table`` ({name: [(text
+    in the source, what replaces it), ...]}) into ``out_dir``, all
+    ``nvcc`` processes started together, and print each build's registers
+    and spills; returns {name: library}, ``symbols`` bound as
+    ``kernels._ARGTYPES`` gives them."""
     import ctypes
 
-    src = open(os.path.join(REPO, "gastx_torch", "csrc", "gemm_tc.cu")).read()
-    os.makedirs(CUT_DIR, exist_ok=True)
+    src = open(source).read()
+    os.makedirs(out_dir, exist_ok=True)
     procs = {}
-    for i, (name, subs) in enumerate(CUTS.items()):
+    for i, (name, subs) in enumerate(table.items()):
         text = src
         for old, new in subs:
             if old not in text:
-                raise SystemExit(f"cut {name!r}: the source no longer holds "
-                                 f"{old!r}")
+                raise SystemExit(f"variant {name!r}: the source no longer "
+                                 f"holds {old!r}")
             text = text.replace(old, new)
-        cu = os.path.join(CUT_DIR, f"cut{i}.cu")
+        cu = os.path.join(out_dir, f"cut{i}.cu")
         with open(cu, "w") as f:
             f.write(text)
-        so = os.path.join(CUT_DIR, f"libcut{i}.so")
+        so = os.path.join(out_dir, f"libcut{i}.so")
         procs[name] = (subprocess.Popen(
             [K._nvcc(), *K.NVCC_FLAGS, "-o", so, cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
@@ -204,9 +367,12 @@ def build_cuts(K) -> dict:
     for name, (proc, so) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            raise SystemExit(f"nvcc failed on cut {name!r}:\n{out}")
+            raise SystemExit(f"nvcc failed on variant {name!r}:\n{out}")
+        regs = [line.split(":")[-1].strip() for line in out.splitlines()
+                if "registers" in line or "spill stores" in line]
+        print(f"  variant {name}: {regs[:4]}")
         lib = ctypes.CDLL(so)
-        for symbol in ("gemm_tc", "gemm_tc_hopper"):
+        for symbol in symbols:
             fn = getattr(lib, symbol)
             fn.argtypes = K._ARGTYPES[symbol]
             fn.restype = ctypes.c_int
@@ -219,7 +385,9 @@ def build_cuts(K) -> dict:
 def time_cuts(K, cs, torch, dev) -> dict:
     """ms of every cut build at the 27f level-1 projection (B=1024), each
     tier, the builds in turns: whole, cuts..., whole."""
-    libs = build_cuts(K)
+    libs = build_variants(
+        K, os.path.join(REPO, "gastx_torch", "csrc", "gemm_tc.cu"), CUTS,
+        CUT_DIR, ("gemm_tc", "gemm_tc_hopper"))
     spec = cs.GEMM_SHAPES[cs.TIER_GEMM_CASES[0][0]]
     pieces, m, kw = cs.gemm_case(spec, dev, 300,
                                  windows=cs.TIER_GEMM_CASES[0][1])
@@ -249,6 +417,10 @@ def main(argv=None) -> int:
                     help="leave out the float32 rows and checks")
     ap.add_argument("--cuts", action="store_true",
                     help="time this checkout's kernel with parts cut out")
+    ap.add_argument("--smallk", action="store_true",
+                    help="add the expand convs and gemm_smallk's variants")
+    ap.add_argument("--stores", action="store_true",
+                    help="only the forwards' store A/B of --smallk")
     ap.add_argument("--json", default="gemm_tc.json",
                     help="file name of the result under chiprun_out/")
     args = ap.parse_args(argv)
@@ -265,9 +437,12 @@ def main(argv=None) -> int:
 
     if not K.__file__.startswith(tree + os.sep):
         raise SystemExit(f"imported {K.__file__}, not the tree {tree}")
-    K.KERNEL_SOURCES = ("gemm_epilogue", "gemm_tc")  # only what is timed
+    all_sources = K.KERNEL_SOURCES
+    K.KERNEL_SOURCES = tuple(  # only what is timed
+        k for k in ("gemm_epilogue", "gemm_tc", "gemm_smallk")
+        if k in K.KERNEL_SOURCES)
     logs = K.build_kernels()
-    for lib in ("gemm_tc", "gemm_tc_io"):
+    for lib in ("gemm_tc", "gemm_tc_io", "gemm_smallk"):
         for line in logs.get(lib, "").splitlines():
             if "Compiling entry" in line or "registers" in line \
                     or "spill" in line or "Potential" in line \
@@ -291,15 +466,14 @@ def main(argv=None) -> int:
             for label, pieces, m, kw, _ in (cs.tc_edge_cases(dev)
                                             + cs.gemm_ragged_cases(dev)):
                 kw = {**kw, "tier": tier}
-                want = K.tc_variant(pieces, pieces[0][1].shape[1],
-                                    kw.get("res"))
-                taken, got = cs.launched_variant(
-                    K, "gemm_tc", lambda: K.gemm_epilogue(pieces, m, **kw))
+                (kernel, want), taken, got = cs.launched_route(K, pieces, m,
+                                                               kw)
                 try:
                     if taken != want:
-                        cs.fail(f"gemm_tc {label}: took {taken}, not {want}")
+                        cs.fail(f"{kernel} {label}: took {taken}, not "
+                                f"{want}")
                     checks[f"{tier} {label}"] = cs.check(
-                        f"gemm_tc {tier} {label} ({want})", got,
+                        f"{kernel} {tier} {label} ({want})", got,
                         K.gemm_epilogue_plain(pieces, m, **kw))
                 except SystemExit as e:  # report every case, then fail
                     print(f"  {e}")
@@ -314,7 +488,6 @@ def main(argv=None) -> int:
         label, _, _, ks, n, _, _, res = spec
         pieces, m, kw = cs.gemm_case(spec, dev, 300 + idx, windows=windows)
         shape = f"{label} (B={windows})"
-        variant = K.tc_variant(pieces, n, kw["res"])
         a_route = cs.tc_a_route(kw)
         matmul_ms, addmm_ms = library_calls(torch, pieces, m, kw, cs)
         print(f"  {shape}: bf16 torch.matmul {matmul_ms:.4f} ms; "
@@ -322,10 +495,10 @@ def main(argv=None) -> int:
               + (f"{addmm_ms:.4f} ms" if addmm_ms else "null"))
         for tier in cs.TC_PASSES:
             kw["tier"] = tier
-            taken, got = cs.launched_variant(
-                K, "gemm_tc", lambda: K.gemm_epilogue(pieces, m, **kw))
+            (kernel, variant), taken, got = cs.launched_route(K, pieces, m,
+                                                              kw)
             if taken != variant:
-                cs.fail(f"gemm_tc {shape}: took {taken}, not {variant}")
+                cs.fail(f"{kernel} {shape}: took {taken}, not {variant}")
             if args.check:
                 checks[f"{tier} {shape}"] = cs.check(
                     f"gemm_tc {tier} {shape}", got,
@@ -351,9 +524,22 @@ def main(argv=None) -> int:
                   f"{bms / ms:.1%} of it; {tflops:.1f} TFLOP/s all passes)")
         del pieces, kw
         torch.cuda.empty_cache()
+    expand = variants = stores = None
+    if args.stores:
+        libs = build_variants(
+            K, os.path.join(tree, "gastx_torch", "csrc", "gemm_smallk.cu"),
+            {name: SMALLK_CUTS[name] for name in STORE_BUILDS},
+            SMALLK_CUT_DIR, ("gemm_smallk",))
+        stores = store_forwards(K, cs, torch, dev, libs, all_sources)
+    elif args.smallk:
+        expand = cs.expand_table(K, dev)
+        if "gemm_smallk" in K.KERNEL_SOURCES:
+            variants, libs = smallk_cuts(K, cs, torch, dev, tree)
+            stores = store_forwards(K, cs, torch, dev, libs, all_sources)
     cuts = time_cuts(K, cs, torch, dev) if args.cuts else None
     result = {"card": card, "tree": tree, "rows": rows, "checks": checks,
-              "cuts": cuts}
+              "expand": expand, "smallk_variants": variants,
+              "store_forwards": stores, "cuts": cuts}
     path = os.path.join(REPO, "chiprun_out", args.json)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:

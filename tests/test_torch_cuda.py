@@ -120,9 +120,10 @@ def _three_pieces_offsets():
                  res=_randn(m + 51, 256, seed=6), res_off=51))
 
 
-# gemm_epilogue's ragged cases: (operands builder, instantiation it takes).
+# gemm_epilogue's ragged cases: (operands builder, instantiation it takes;
+# "smallk": the wrapper launches gemm_smallk).
 GEMM_CASES = {
-    "k2_taps": (lambda: _taps(2, 128, 1, False), "general"),
+    "k2_taps": (lambda: _taps(2, 128, 1, False), "smallk"),
     "k130_n70": (lambda: ([(_randn(517, 130, seed=1),
                             _randn(130, 70, seed=2), 0)], 517,
                           dict(scale=_randn(70, seed=4),
@@ -156,20 +157,131 @@ GEMM_CASES = {
 @pytest.mark.parametrize("case", sorted(GEMM_CASES))
 def test_cuda_gemm_epilogue_matches_plain(model, case):
     """Ragged rows, columns and K, taps, pieces and a residual, each on the
-    instantiation gemm_variant picks for it."""
+    kernel and instantiation gemm_route names for it."""
     build, variant = GEMM_CASES[case]
     pieces, m, kw = build()
+    kernel, routed = K.gemm_route(pieces, pieces[0][1].shape[1],
+                                  kw.get("res"))
+    assert routed == variant
     K.reset_launches()
     got = K.gemm_epilogue(pieces, m, **kw)
-    _assert_launched("gemm_epilogue", variant)
+    _assert_launched(kernel, variant)
     _assert_close(got, K.gemm_epilogue_plain(pieces, m, **kw))
 
 
 def _assert_launched(kernel, variant):
-    """Since the last reset, ``kernel`` launched once, on ``variant``."""
+    """Since the last reset, ``kernel`` launched once, on ``variant``, and
+    no other kernel with instantiations launched."""
+    assert {k: K.LAUNCHES[k] for k in K.VARIANT_LAUNCHES} == {
+        k: int(k == kernel) for k in K.VARIANT_LAUNCHES}, K.LAUNCHES
     assert K.VARIANT_LAUNCHES[kernel] == {
         v: int(v == variant) for v in K.VARIANT_LAUNCHES[kernel]}, \
         K.VARIANT_LAUNCHES
+
+
+def _expand(frames, batch, n):
+    """The level-0 expand conv of the ``frames`` model at ``batch``
+    windows: three K = 2 taps (rows 8 bytes apart: a tap's first row lies
+    off a 16-byte boundary), BN and ReLU."""
+    j, t_out = 17, frames - 2
+    x = _randn(batch * frames * j, 2, seed=40)
+    w = _randn(3, 2, n, seed=41) / 6 ** 0.5
+    return ([(x, w[k].contiguous(), k * j) for k in range(3)],
+            batch * t_out * j,
+            dict(s_out=t_out * j, a_s_in=frames * j,
+                 scale=_randn(n, seed=42).abs() + 0.5,
+                 shift=_randn(n, seed=43), relu=True))
+
+
+def _a_at_offset(m, k):
+    """An (m, k) A that starts 4 bytes past a 16-byte boundary."""
+    a = torch.empty(m * k + 1, device="cuda")[1:].view(m, k)
+    return a.copy_(_randn(m, k, seed=44))
+
+
+# gemm_smallk's cases (its shape rule: float32, sum of K_p <= 16, N % 4):
+# the three expand convs at small B, one push's rows, ragged M, N = 32 /
+# 36 / 64 / 128 and a second column chunk (N = 1028), one to three pieces
+# at row offsets, a residual at its own offset, no scale, ReLU off, A off a
+# 16-byte boundary.
+SMALLK_CASES = {
+    "expand_27f": lambda: _expand(27, 8, 128),
+    "expand_81f": lambda: _expand(81, 4, 64),
+    "expand_243f": lambda: _expand(243, 2, 32),
+    "push_27f_153_rows": lambda: _expand(11, 1, 128),
+    "push_81f_459_rows": lambda: _expand(29, 1, 64),
+    "ragged_n36_residual_no_scale": lambda: (
+        [(_randn(1001, 5, seed=45), _randn(5, 36, seed=46), 0)], 1001,
+        dict(res=_randn(1101, 36, seed=47), res_off=100)),
+    "three_pieces_offsets_k16_relu_off": lambda: (
+        [(_randn(700 + 40, k, seed=48 + k), _randn(k, 64, seed=50 + k),
+          17 * p) for p, k in enumerate((4, 4, 8))], 700,
+        dict(scale=_randn(64, seed=52), shift=_randn(64, seed=53),
+             res=_randn(751, 64, seed=54), res_off=51)),
+    "one_piece_n32_no_scale_relu": lambda: (
+        [(_randn(4001, 3, seed=55), _randn(3, 32, seed=56), 0)], 4001,
+        dict(relu=True)),
+    "a_off_boundary_n128": lambda: (
+        [(_a_at_offset(2000, 2), _randn(2, 128, seed=57), 0)], 2000, {}),
+    "n1028_two_chunks": lambda: (
+        [(_randn(300, 6, seed=58), _randn(6, 1028, seed=59), 0)], 300,
+        dict(scale=_randn(1028, seed=60), shift=_randn(1028, seed=61),
+             relu=True)),
+}
+SMALLK_TIERS = ("highest", "default", "kdefault", "high_lhs", "high_rhs",
+                "high")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", SMALLK_TIERS)
+@pytest.mark.parametrize("case", sorted(SMALLK_CASES))
+def test_cuda_gemm_smallk_matches_plain(model, case, tier):
+    """gemm_smallk at "highest" and every tier against gemm_epilogue_plain
+    at the same tier (both round the same operands and sum exact products
+    in float32), each launch counted under its tier, no other GEMM
+    launched."""
+    pieces, m, kw = SMALLK_CASES[case]()
+    n = pieces[0][1].shape[1]
+    assert K.gemm_route(pieces, n, kw.get("res"), tier=tier) == (
+        "gemm_smallk", "smallk")
+    K.reset_launches()
+    got = K.gemm_epilogue(pieces, m, tier=tier, **kw)
+    label = "default" if tier == "kdefault" else tier
+    assert K.TIER_LAUNCHES["gemm_smallk"] == {
+        t: int(t == label) for t in K.ATTN_TIERS}
+    _assert_launched("gemm_smallk", "smallk")
+    _assert_close(got, K.gemm_epilogue_plain(pieces, m, tier=tier, **kw))
+
+
+def _general_gemm_epilogue(pieces, m, kw):
+    """gemm_epilogue's general (4-byte) instantiation on these operands,
+    launched through its C function (the wrapper sends them to
+    gemm_smallk)."""
+    n = pieces[0][1].shape[1]
+    out = torch.empty((m, n), device="cuda")
+    s_out = kw.get("s_out", m)
+    lib = K._lib("gemm_epilogue")
+    code = lib.gemm_epilogue(
+        *K._flat_pieces(pieces), len(pieces), m, n, s_out,
+        kw.get("a_s_in", s_out), kw.get("res_s_in", s_out),
+        K._ptr(kw.get("scale")), K._ptr(kw.get("shift")),
+        int(kw.get("relu", False)), K._ptr(kw.get("res")),
+        kw.get("res_off", 0), out.data_ptr(), K._stream(), 0, 0)
+    assert code == 0, lib.error_string(code)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SMALLK_CASES))
+def test_cuda_gemm_smallk_highest_is_bitwise_general(model, case):
+    """At "highest" gemm_smallk is bitwise gemm_epilogue's general
+    instantiation, which the float32 path launched on these operands
+    before: one fmaf chain from 0 in the same order, the same epilogue."""
+    pieces, m, kw = SMALLK_CASES[case]()
+    got = K.gemm_epilogue(pieces, m, **kw)
+    want = _general_gemm_epilogue(pieces, m, kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), (got - want).abs().max().item()
 
 
 def _model(frames, num_joints=17):
@@ -292,6 +404,10 @@ def test_cuda_forward_runs_the_kernels_and_matches_reference(model):
     torch.cuda.synchronize()
     assert all(K.LAUNCHES[k] > 0 for k in CHAIN), K.LAUNCHES
     assert K.LAUNCHES["gab_narrow"] == 0, K.LAUNCHES
+    # The level-0 expand conv (K = 2 taps) on gemm_smallk, nothing on the
+    # general gemm_epilogue.
+    assert K.TIER_LAUNCHES["gemm_smallk"]["highest"] == 1, K.TIER_LAUNCHES
+    assert K.VARIANT_LAUNCHES["gemm_epilogue"]["general"] == 0
     assert all(K.ENTRY_LAUNCHES[k] > 0 for k in WIDE_ENTRIES), \
         K.ENTRY_LAUNCHES
     assert K.ENTRY_LAUNCHES["fused_gab_pbatch"] == 0, K.ENTRY_LAUNCHES
@@ -473,7 +589,7 @@ def _gab_launches(m):
     chain = routes.count("chain")
     return {"gemm_epilogue": 4 * chain, "sem_graph": chain,
             "joint_attention": chain, "gab_narrow": routes.count("gab_narrow"),
-            "gemm_tc": 0}
+            "gemm_tc": 0, "gemm_smallk": 0}
 
 
 @pytest.mark.cuda
@@ -719,22 +835,26 @@ TC_TIERS = ("default", "kdefault", "high_lhs", "high_rhs", "high")
 @pytest.mark.parametrize("tier", TC_TIERS)
 @pytest.mark.parametrize("case", sorted(GEMM_CASES))
 def test_cuda_gemm_tc_matches_plain(model, case, tier):
-    """gemm_epilogue at a tier below "highest" launches gemm_tc (never the
-    float32 kernel: no fallback), on the alignment instantiation tc_variant
-    picks and the tier's own instantiation, and agrees with its plain
+    """gemm_epilogue at a tier below "highest" launches the kernel
+    gemm_route names, gemm_tc (or gemm_smallk, for the K = 2 taps; never
+    the float32 kernel: no fallback), on its instantiation and the tier's
+    own, and agrees with its plain
     version: both round the same operands, the tensor cores sum the exact
     bf16 products in float32, so the float32 bound holds."""
     build, _ = GEMM_CASES[case]
     pieces, m, kw = build()
     kw["tier"] = tier
     n = pieces[0][1].shape[1]
+    kernel, variant = K.gemm_route(pieces, n, kw.get("res"), tier=tier)
+    assert kernel in ("gemm_tc", "gemm_smallk")
     K.reset_launches()
     got = K.gemm_epilogue(pieces, m, **kw)
-    _assert_launched("gemm_tc", K.tc_variant(pieces, n, kw.get("res")))
+    _assert_launched(kernel, variant)
     want = "default" if tier == "kdefault" else tier
-    assert K.TIER_LAUNCHES["gemm_tc"] == {
-        t: int(t == want) for t in K.TC_TIERS}
-    assert K.LAUNCHES["gemm_epilogue"] == 0
+    for name in ("gemm_tc", "gemm_smallk"):
+        assert K.TIER_LAUNCHES[name] == {
+            t: int(name == kernel and t == want)
+            for t in K.TIER_LAUNCHES[name]}
     _assert_close(got, K.gemm_epilogue_plain(pieces, m, **kw))
 
 
@@ -813,6 +933,9 @@ def test_cuda_tiered_forward_matches_plain_route(model, frames):
     got = m(x)
     torch.cuda.synchronize()
     assert K.LAUNCHES["gemm_tc"] > 0 and K.LAUNCHES["gemm_epilogue"] == 0
+    # The level-0 expand conv on gemm_smallk, nothing on general gemm_tc.
+    assert K.LAUNCHES["gemm_smallk"] == 1
+    assert K.VARIANT_LAUNCHES["gemm_tc"]["general"] == 0
     assert K.TIER_LAUNCHES["joint_attention"].get("default/default")
     _assert_close(got, m.plain_route_forward(x))
     assert (got - f32).abs().max().item() <= 1e-4

@@ -313,11 +313,45 @@ def _at_offset(*shape):
     return torch.zeros(n + 1)[1:].view(*shape)
 
 
-def _conv_taps(c_in, dtype=torch.float32):
+def _conv_taps(c_in, dtype=torch.float32, n=128):
     """The level-0 expand conv's three tap pieces over (B, T, J, C_in)."""
     x = torch.zeros(2, 9, 17, c_in, dtype=dtype).reshape(-1, c_in)
-    w = torch.zeros(3, c_in, 128)
+    w = torch.zeros(3, c_in, n)
     return [(x, w[k], k * 17) for k in range(3)]
+
+
+def _pieces(*ks, n=128):
+    """Aligned float32 pieces of these K_p (40 rows each) into N columns."""
+    return [(torch.zeros(40, k), torch.zeros(k, n), 0) for k in ks]
+
+
+# The edges of gemm_smallk's shape rule (kernels.smallk_ok), each for both
+# variant functions: (pieces, N, residual[, output dtype]) -> what
+# gemm_variant and tc_variant pick. A sum of K_p of 16 takes it and 17 (or
+# 0) does not; N = 36 (a multiple of 4) takes it and N = 30 does not; a
+# bf16 tap, a bf16 output or a residual off a 16-byte boundary does not.
+SMALLK_EDGE_CASES = {
+    "smallk_k16_one_piece": (lambda: _pieces(16), 128, None, "smallk",
+                             "smallk"),
+    "smallk_k16_three_pieces": (lambda: _pieces(4, 4, 8), 64, None,
+                                "smallk", "smallk"),
+    "k17_one_piece": (lambda: _pieces(17), 128, None, "general", "general"),
+    "k0_one_piece": (lambda: _pieces(0), 128, None, "vec16", "vec16"),
+    "k20_three_pieces": (lambda: _pieces(4, 8, 8), 64, None, "vec16",
+                         "vec16"),
+    "smallk_n36": (lambda: _conv_taps(2, n=36), 36, None, "smallk",
+                   "smallk"),
+    "n30_taps": (lambda: _conv_taps(2, n=30), 30, None, "general",
+                 "general"),
+    "bf16_tap": (lambda: _conv_taps(2, torch.bfloat16), 128, None,
+                 "general", "general"),
+    "bf16_output_taps": (lambda: _conv_taps(2), 128, None, "general",
+                         "general", torch.bfloat16),
+    "misaligned_res_taps": (lambda: _conv_taps(2), 128,
+                            _at_offset(306, 128), "general", "general"),
+    "aligned_res_taps": (lambda: _conv_taps(2), 128, torch.zeros(306, 128),
+                         "smallk", "smallk"),
+}
 
 
 def _bf16(*shape, offset=0):
@@ -357,7 +391,7 @@ GEMM_VARIANT_CASES = {
         "general"),
     "misaligned_res": (lambda: [(torch.zeros(40, 128), torch.zeros(128, 64),
                                  0)], 64, _at_offset(40, 64), "general"),
-    "level0_taps": (lambda: _conv_taps(2), 128, None, "general"),
+    "level0_taps": (lambda: _conv_taps(2), 128, None, "smallk"),
     "level_taps_c128": (lambda: _conv_taps(128), 128, None, "vec16"),
 }
 
@@ -365,9 +399,36 @@ GEMM_VARIANT_CASES = {
 @pytest.mark.parametrize("case", sorted(GEMM_VARIANT_CASES))
 def test_gemm_variant(case):
     """The 16-byte instantiation only where every K_p and N are multiples of
-    4 and every operand starts 16-byte aligned."""
+    4 and every operand starts 16-byte aligned; gemm_smallk (the level-0
+    expand conv's K = 2 taps) where its shape rule holds."""
     pieces, n, res, want = GEMM_VARIANT_CASES[case]
     assert K.gemm_variant(pieces(), n, res) == want
+
+
+@pytest.mark.parametrize("case", sorted(SMALLK_EDGE_CASES))
+def test_variants_at_smallk_edges(case):
+    """gemm_smallk's shape rule at its edges, as gemm_variant (the float32
+    wrapper at "highest") and tc_variant (the tiers) see it."""
+    pieces, n, res, want_gemm, want_tc, *out_dtype = SMALLK_EDGE_CASES[case]
+    ps = pieces()
+    assert K.gemm_variant(ps, n, res, *out_dtype) == want_gemm
+    assert K.tc_variant(ps, n, res, *out_dtype) == want_tc
+    assert K.smallk_ok(ps, n, res, *out_dtype) == (want_tc == "smallk")
+
+
+@pytest.mark.parametrize("tier", ["highest", "high"])
+@pytest.mark.parametrize("case", sorted(SMALLK_EDGE_CASES))
+def test_gemm_route(case, tier):
+    """gemm_route names the kernel the wrapper launches at each edge of
+    gemm_smallk's shape rule: gemm_smallk where the variant functions say
+    "smallk", else gemm_epilogue at "highest" and gemm_tc below it, on
+    their instantiation."""
+    pieces, n, res, want_gemm, want_tc, *out_dtype = SMALLK_EDGE_CASES[case]
+    want = want_gemm if tier == "highest" else want_tc
+    kernel = ("gemm_smallk" if want == "smallk" else
+              "gemm_epilogue" if tier == "highest" else "gemm_tc")
+    assert K.gemm_route(pieces(), n, res, *(out_dtype or [torch.float32]),
+                        tier=tier) == (kernel, want)
 
 
 # (pieces, N, residual[, output dtype]) -> the gemm_tc instantiation they
@@ -410,7 +471,7 @@ TC_VARIANT_CASES = {
                  144, None, "vec16"),
     "n192_c64": (lambda: [(torch.zeros(459, 64), torch.zeros(64, 192), 0)],
                  192, None, "vec16"),
-    "level0_taps": (lambda: _conv_taps(2), 128, None, "general"),
+    "level0_taps": (lambda: _conv_taps(2), 128, None, "smallk"),
     "level_taps_c128": (lambda: _conv_taps(128), 128, None, "vec16"),
     "bf16_piece": (lambda: [(_bf16(40, 128), torch.zeros(128, 256), 0)],
                    256, None, "vec16_bf16"),
@@ -455,7 +516,8 @@ TC_VARIANT_CASES = {
 def test_tc_variant(case):
     """gemm_tc's wgmma instantiation only where every K_p is a multiple of
     4 (8 for a bf16 piece), N of 8, and every a_p and the residual start
-    16-byte aligned; vec16_bf16 where any of them or the output is bf16."""
+    16-byte aligned; vec16_bf16 where any of them or the output is bf16;
+    gemm_smallk where its shape rule holds (the float32 K = 2 taps)."""
     pieces, n, res, want, *out_dtype = TC_VARIANT_CASES[case]
     assert K.tc_variant(pieces(), n, res, *out_dtype) == want
 
@@ -572,6 +634,141 @@ def test_library_binds_every_symbol(name, monkeypatch, tmp_path):
     lib = K._lib(name)
     for symbol in ("gemm_tc", "gemm_tc_hopper"):
         assert getattr(lib, symbol).argtypes == K._ARGTYPES[symbol]
+
+
+def test_smallk_library_binds_its_symbol(monkeypatch, tmp_path):
+    """gemm_smallk.cu's library binds its C function with its argument
+    types (a pointer unbound would pass as a 32-bit int)."""
+    class Fn:
+        argtypes = restype = None
+
+    class Lib:
+        def __init__(self, path):
+            self.gemm_smallk, self.error_string = Fn(), Fn()
+
+    lib_file = tmp_path / "lib.so"
+    lib_file.touch()
+    monkeypatch.setattr(K, "_library_path", lambda _: lib_file)
+    monkeypatch.setattr(K.ctypes, "CDLL", Lib)
+    monkeypatch.setattr(K, "_LIBS", {})
+    lib = K._lib("gemm_smallk")
+    assert lib.gemm_smallk.argtypes == K._ARGTYPES["gemm_smallk"]
+    assert len(K._ARGTYPES["gemm_smallk"]) == 26
+    assert "gemm_smallk" in K.KERNEL_SOURCES
+    assert "gemm_smallk" not in K.IO_SOURCES
+
+
+@pytest.mark.parametrize("tier", ["highest", "default", "kdefault",
+                                  "high_lhs", "high_rhs", "high"])
+def test_gemm_epilogue_launches_smallk(tier, monkeypatch):
+    """On a CUDA tensor the wrapper sends the expand conv's K = 2 taps to
+    gemm_smallk at every tier, with W as it is (no bf16 split) and the
+    tier's code, and anything off the rule elsewhere; the C function's
+    arguments line up with its argtypes. The launch is recorded, not made
+    (no card here)."""
+    launched = []
+    monkeypatch.setattr(K, "use_kernel", lambda device: True)
+    monkeypatch.setattr(K, "_stream", lambda: 0)
+    monkeypatch.setattr(K, "_launch", lambda name, *args, **kw:
+                        launched.append((name, args, kw)))
+    monkeypatch.setattr(K, "split_bf16", lambda w: pytest.fail("W split"))
+    pieces = _conv_taps(2)
+    scale, shift = torch.ones(128), torch.zeros(128)
+    out = K.gemm_epilogue(pieces, 2 * 7 * 17, s_out=7 * 17, a_s_in=9 * 17,
+                          scale=scale, shift=shift, relu=True, tier=tier)
+    (name, args, kw), = launched
+    label = "default" if tier == "kdefault" else tier
+    assert name == "gemm_smallk"
+    assert kw == {"tier": label, "variant": "smallk"}
+    assert len(args) == len(K._ARGTYPES["gemm_smallk"])
+    assert args[-1] == K.ATTN_TIERS.index(label)
+    assert args[2::4][:3] == (2, 2, 2) and args[3::4][:3] == (0, 17, 34)
+    assert args[12:18] == (3, 2 * 7 * 17, 128, 7 * 17, 9 * 17, 7 * 17)
+    assert args[-3] == out.data_ptr() and out.shape == (2 * 7 * 17, 128)
+    # A bf16 tap is off the rule: the general gemm_epilogue or gemm_tc.
+    launched.clear()
+    monkeypatch.setattr(K, "split_bf16", lambda w: (w.bfloat16(), w))
+    K.gemm_epilogue(_conv_taps(2, torch.bfloat16), 2 * 7 * 17, s_out=7 * 17,
+                    a_s_in=9 * 17, tier=tier)
+    assert launched[0][0] == ("gemm_epilogue" if tier == "highest"
+                              else "gemm_tc")
+
+
+def _q1(x):
+    return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+
+
+def _fma(a, b, c):
+    """float32 fmaf: the exact product (float64 holds it) plus c, rounded
+    once to float32 (the float64 sum's own rounding lies far below the
+    tolerance)."""
+    return (a.astype(np.float64) * b.astype(np.float64)
+            + c.astype(np.float64)).astype(np.float32)
+
+
+def _smallk_emulate(x, ws, offs, m, s_out, a_s_in, tier):
+    """gemm_smallk.cu's arithmetic element by element in float32: the taps'
+    k flattened (piece by piece, k ascending), A and W rounded to the
+    tier's operands (q1, q2 = q1(x) + q1(x - q1(x)), lo = q1(x - q1(x))),
+    one fmaf chain from 0 a column (two terms a k at "high")."""
+    lhs = {"highest": 0, "default": 1, "kdefault": 1, "high_lhs": 2,
+           "high_rhs": 1, "high": 2}[tier]
+    rhs = {"highest": 0, "high_rhs": 2}.get(tier, 1)
+
+    def rnd(v, mode):
+        if mode == 0:
+            return v
+        h = _q1(v)
+        return h if mode == 1 else (h + _q1(v - h)).astype(np.float32)
+
+    r = np.arange(m)
+    base = (r // s_out) * a_s_in + r % s_out
+    acc = np.zeros((m, ws[0].shape[1]), np.float32)
+    for w, off in zip(ws, offs):
+        a = x[base + off]
+        for k in range(w.shape[0]):
+            ak, wk = a[:, k:k + 1], w[k:k + 1, :]
+            acc = _fma(rnd(ak, lhs), rnd(wk, rhs), acc)
+            if tier == "high":
+                acc = _fma(_q1(ak), _q1(wk - _q1(wk)), acc)
+    return acc
+
+
+@pytest.mark.parametrize("tier", ["highest", "default", "kdefault",
+                                  "high_lhs", "high_rhs", "high"])
+def test_smallk_arithmetic_matches_kdot(tier):
+    """gemm_smallk's per-element arithmetic (emulated in float32 above) on
+    the expand conv's three K = 2 taps against JAX's kdot at the same tier
+    (the bf16 passes, gastx/ops/pallas/precision.py:99; the one-pass tiers
+    as a bf16 jnp.matmul into float32), within 1e-6 of the largest output:
+    both sum exact products in float32, in another order. Below "highest"
+    the tier is visible: its product lies further than that from the
+    float32 one."""
+    from gastx.ops.pallas.precision import kdot
+
+    b, t_in, j, n = 3, 11, 17, 128
+    t_out = t_in - 2
+    x = inputs((b * t_in * j, 2), 60)
+    ws = [inputs((2, n), 61 + k) for k in range(3)]
+    offs = [k * j for k in range(3)]
+    m, s_out, a_s_in = b * t_out * j, t_out * j, t_in * j
+    got = _smallk_emulate(x, ws, offs, m, s_out, a_s_in, tier)
+    r = np.arange(m)
+    base = (r // s_out) * a_s_in + r % s_out
+    want = 0.0
+    for w, off in zip(ws, offs):
+        a = jnp.asarray(x[base + off])
+        if tier in ("default", "kdefault"):
+            want = want + np.asarray(jnp.matmul(
+                a.astype(jnp.bfloat16), jnp.asarray(w).astype(jnp.bfloat16),
+                preferred_element_type=jnp.float32))
+        else:
+            want = want + np.asarray(kdot(a, jnp.asarray(w), tier))
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * scale)
+    if tier != "highest":
+        f32 = sum(x[base + off] @ w for w, off in zip(ws, offs))
+        assert np.abs(got - f32).max() > 1e-6 * scale
 
 
 def test_tc_weight_index_bf16():
