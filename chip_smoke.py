@@ -152,18 +152,27 @@ a non-zero exit and no result line:
      |tiered - float32| of the card's forward in mm for (i) all "high"
      (over 0.1 mm fails the run) and (ii) the JAX inference preset (a
      finding), worst seed printed; (c) those six tiered forwards at B=64
-     held to ``plain_route_forward``, the launch counters zeroed just
-     before and read just after (the tiered path: every tier's
-     instantiation it must launch, ``gemm_smallk`` once a forward for its
-     level-0 expand conv, the ``wgmma`` one for every other product, and
-     no general ``gemm_tc`` or float32 ``gemm_epilogue``); (d)
-     windows/s, device busy and idle share and launches of the float32,
-     (i) and (ii) forwards at 27f/81f/243f (B=1024/1024/256), and
-     ``gab_narrow`` beside the chain at the preset's tiers at the three
-     narrow GABs; (e) ``gemm_smallk`` at the expand conv of each shipped
-     model (``EXPAND_SHAPES``: 27f at B=1024 and 256, 81f at 1024, 243f at
-     256) at ``"highest"`` and every tier (``expand_table``: device time,
-     bound, a float32 ``torch.addmm`` and a bf16 ``torch.matmul``);
+     held to ``plain_route_forward``, then the preset on the 27f routes
+     whose GABs are plain sites (``gab_impl="xla"``, the hybrid) and two
+     strided pushes of a causal 27f model (``tiered_check``), the launch
+     counters zeroed just before and read just after (the tiered path:
+     every tier's instantiation it must launch, ``gemm_smallk`` once a
+     forward for its expand conv and the general ``gemm_tc`` once for its
+     shrink (N = 3), the ``wgmma`` one for every other product, no float32
+     ``gemm_epilogue``, the tiered ``gab_narrow`` wherever ``gab_route``
+     sends a GAB, and every plain site's class at a tier, none float32:
+     ``K.SITE_PRODUCTS``); (d) windows/s, device busy and idle share and
+     launches of the float32, (i) and (ii) forwards at 27f/81f/243f
+     (B=1024/1024/256), and ``gab_narrow`` (float32 and tiered) beside the
+     chain at the preset's tiers at the three narrow GABs; (e)
+     ``gemm_smallk`` at the expand conv of each shipped model
+     (``EXPAND_SHAPES``: 27f at B=1024 and 256, 81f at 1024, 243f at 256)
+     at ``"highest"`` and every tier (``expand_table``: device time, bound,
+     a float32 ``torch.addmm`` and a bf16 ``torch.matmul``); (f)
+     ``gab_narrow``'s tiered form at C = 16, 32, 48 and 64, every tier and
+     the preset's, in both libraries, against its plain version
+     (``narrow_tier_check``), then timed at the 243f GAB 0 by tier beside
+     the tiered chain and its bound (``narrow_bound``);
  11. the in-the-wild pipeline (``gastx_torch.cli.gen_skes`` and
      ``gastx_torch.cli.realtime`` through their frame functions,
      ``skeletons_from_frames`` and ``run_frames``) at full width with
@@ -2063,23 +2072,31 @@ def tier_kernels(K, dev, gts, glts) -> dict:
                                 K.TIER_LAUNCHES.items()}}
 
 
-def tiered_check(name, model, x, got):
-    """Hold a tiered eval forward ``got`` of ``model`` on ``x`` to the same
-    route and tiers through the plain versions; returns (its max |d|, the
-    plain route's own max distance from the float32 ``reference_forward``,
-    the float32 output's largest magnitude).
+def tier_bound(plain, f32) -> tuple:
+    """(bound, the tier's own distance) of a tiered computation against
+    its plain version ``plain``, ``f32`` the float32 one.
 
     Two computations at one tier whose float32 sums run in other orders
     round a few operands to neighbouring bf16 values; past the first such
     operand they differ as two draws of the tier's rounding do. So the
     bound is the float32 one or, where larger, twice the tier's own
-    distance from the float32 forward, which a broken kernel (a wrong row,
+    distance from the float32 result, which a broken kernel (a wrong row,
     tap or head) far exceeds. At "highest" it is the float32 bound."""
-    plain = model.plain_route_forward(x)
-    f32 = model.reference_forward(x)
     tier_err = max_err(plain, f32)
+    return max(TOL * max(1.0, float(plain.abs().max())), 2 * tier_err), \
+        tier_err
+
+
+def tiered_check(name, model, x, got, variant="dilated"):
+    """Hold a tiered eval forward ``got`` of ``model`` on ``x`` to the same
+    route and tiers through the plain versions, by :func:`tier_bound`;
+    returns (its max |d|, the plain route's own max distance from the
+    float32 ``reference_forward``, the float32 output's largest
+    magnitude)."""
+    plain = model.plain_route_forward(x, variant)
+    f32 = model.reference_forward(x, variant)
+    bound_, tier_err = tier_bound(plain, f32)
     err = max_err(got, plain)
-    bound_ = max(TOL * max(1.0, float(plain.abs().max())), 2 * tier_err)
     print(f"  {name}: max|d| {err:.3e} (bound {bound_:.3e}; the tier's own "
           f"distance from float32 {tier_err:.3e})")
     if not err <= bound_:
@@ -2134,18 +2151,48 @@ def tier_cert(dev) -> dict:
     return out
 
 
+# phase 10 (c) beyond the six dilated forwards, on the 27f preset: the
+# routes whose GABs run plain sites, (label, config fields), B=64 windows;
+# then a causal model's strided pushes (StreamingLifter) of PUSH_STREAMS
+# streams.
+TIER_ROUTE_CELLS = (("27f xla", {"gab_impl": "xla"}), ("27f hybrid", HYBRID))
+PUSH_STREAMS = 64
+
+
+def expected_narrow(K, model) -> int:
+    """``gab_narrow`` launches of one dilated kernel-route forward of
+    ``model``: its GABs that ``fused_gab.gab_route`` sends there at their
+    tiers and forms."""
+    from gastx_torch.ops.cuda.fused_gab import (KERNEL_OPS, gab_route,
+                                                gab_tables)
+
+    cfg = model.cfg
+    return sum(gab_route(gab_tables(g, model.statics, cfg.gab_form_for(i)),
+                         {op: cfg.tier_for(op, f"gab{i}")
+                          for op in KERNEL_OPS}) == "gab_narrow"
+               for i, g in enumerate(model.layers_graph_conv))
+
+
 def tier_paths(K, dev) -> dict:
     """Phase 10 (c): the tiered forwards, (i) and (ii) at 27f, 81f and
     243f on B=64 windows, each held to the same route and tiers through
     the plain versions (``plain_route_forward``) within the float32 bound
     (the bf16 operands are rounded alike; only the float32 sums' order, and
     the rare operand that rounds to the neighbouring bf16 value after it,
-    differ). The launch counters are zeroed just before these six forwards
-    and read just after: the tiered path's launches."""
+    differ); then the preset on the 27f routes whose GABs are plain sites
+    (``TIER_ROUTE_CELLS``) and two strided pushes of a causal 27f model,
+    held by ``tiered_check``. The launch counters are zeroed just before
+    these forwards and read just after: the tiered path's launches, and
+    the plain sites' products (``K.SITE_PRODUCTS``), none of which may
+    compute float32."""
+    import dataclasses
+
     import numpy as np
     import torch
 
-    from gastx_torch.models import build_gastnet
+    from gastx_torch.infer import StreamingLifter
+    from gastx_torch.models import build_gastnet, config_for_frames
+    from gastx_torch.models.config import TPU_MIXED_PRECISION_OVERRIDES
 
     print("phase 10 (c): the tiered forwards against their plain route "
           "(B=64)")
@@ -2156,48 +2203,86 @@ def tier_paths(K, dev) -> dict:
         xs[frames] = torch.from_numpy(np.random.default_rng(frames)
                                       .standard_normal((64, frames, 17, 2))
                                       .astype(np.float32)).to(dev)
-    outs = {}
+    preset = tier_configs(27)["preset"]
+    routes = {label: build_gastnet(dataclasses.replace(preset, **fields),
+                                   seed=27, device=dev)
+              for label, fields in TIER_ROUTE_CELLS}
+    pusher = build_gastnet(config_for_frames(
+        27, causal=True, dropout=0.0, matmul_precision="high",
+        precision_overrides=TPU_MIXED_PRECISION_OVERRIDES), seed=28,
+        device=dev)
+    kps = torch.from_numpy(np.random.default_rng(28).standard_normal(
+        (2, PUSH_STREAMS, 17, 2)).astype(np.float32)).to(dev)
+    lifter = StreamingLifter(pusher, num_person=PUSH_STREAMS)
+    outs, want_narrow = {}, 0
     K.reset_launches()
     for frames in (27, 81, 243):
         for name in ("high", "preset"):
             m = with_config(models[frames], tier_configs(frames)[name])
             outs[(frames, name)] = m(xs[frames])
+            want_narrow += expected_narrow(K, m)
+    route_outs = {label: m(xs[27]) for label, m in routes.items()}
+    pushes = [lifter.push_async(k) for k in kps]
     torch.cuda.synchronize()
     launches = {k: v for k, v in launch_counts(K).items() if v}
+    sites = {op: dict(v) for op, v in K.SITE_PRODUCTS.items()}
+    forwards = len(outs) + len(route_outs) + len(pushes)
     for (frames, name), y in outs.items():
         m = with_config(models[frames], tier_configs(frames)[name])
         held[f"{frames}f {name}"] = check(
             f"{frames}f {name} forward (B=64) against its plain route", y,
             m.plain_route_forward(xs[frames]))
-    print(f"  launches over the six forwards: {launches}")
+    for label, y in route_outs.items():
+        held[f"{label} preset"] = tiered_check(
+            f"{label} preset forward (B=64)", routes[label], xs[27], y)[0]
+    rf = pusher.cfg.receptive_field()
+    window = torch.cat([kps[0][:, None].expand(-1, rf - 1, -1, -1),
+                        kps[1][:, None]], dim=1)
+    held["27f causal push preset"] = tiered_check(
+        f"27f causal preset push ({PUSH_STREAMS} streams)", pusher, window,
+        pushes[1][:, None], variant="strided")[0]
+    print(f"  launches over the {forwards} forwards: {launches}")
+    print(f"  plain sites' products by class and tier: {sites}")
     for key in ("gemm_tc", "gemm_tc high", "gemm_tc high_rhs",
                 "gemm_tc default", "gemm_tc vec16", "gemm_smallk",
                 "joint_attention high/high",
                 "joint_attention default/default", "gab_narrow",
-                "sem_graph"):
+                "sem_graph", "fused_local_branch", "head_attention"):
         if not launches.get(key):
             fail(f"the tiered path did not launch {key}")
     if launches.get("gemm_epilogue"):
         fail("a tiered forward launched the float32 gemm_epilogue")
-    # The level-0 expand conv (K = 2 a tap) alone takes gemm_smallk, once a
-    # forward; no product takes the general gemm_tc.
-    if (launches.get("gemm_smallk") != len(outs)
-            or launches.get("gemm_tc general")):
+    # The expand conv (K = 2 a tap) takes gemm_smallk and the shrink (N = 3)
+    # the general gemm_tc, once a forward each; no other product is ragged.
+    if (launches.get("gemm_smallk") != forwards
+            or launches.get("gemm_tc general") != forwards):
         fail(f"the tiered path launched gemm_smallk "
-             f"{launches.get('gemm_smallk')} times (not once a forward) or "
-             f"the general gemm_tc {launches.get('gemm_tc general')} times")
-    del models, xs, outs
+             f"{launches.get('gemm_smallk')} times and the general gemm_tc "
+             f"{launches.get('gemm_tc general')} times, not once a forward")
+    narrow = sum(v for k, v in K.TIER_LAUNCHES["gab_narrow"].items())
+    if narrow != want_narrow or narrow != launches.get("gab_narrow"):
+        fail(f"gab_narrow launched {launches.get('gab_narrow')} times, "
+             f"{narrow} tiered, where gab_route picks it {want_narrow} "
+             f"times")
+    from gastx_torch.models.config import OP_CLASSES
+
+    for op in OP_CLASSES:
+        if sites.get(op, {}).get("highest") or not sites.get(op):
+            fail(f"the plain site {op} computed {sites.get(op)} on the "
+                 f"tiered path (none may be float32; every class runs)")
+    del models, xs, outs, routes, route_outs, pusher, lifter
     torch.cuda.empty_cache()
-    return {"max_abs_err": held, "launches": launches}
+    return {"max_abs_err": held, "launches": launches,
+            "site_products": sites, "gab_narrow_expected": want_narrow}
 
 
 def tier_throughput(K, dev) -> dict:
     """Phase 10 (d): windows/s of the full-width forwards (27f/81f/243f at
     B=1024/1024/256) at float32, (i) and (ii) in one call, each with its
     device busy time and idle share (one profiled forward) and launches by
-    instantiation; then gab_narrow (float32 at every tier) beside the chain
-    at the preset's tiers at the three narrow GABs (``gab_route``'s
-    rule)."""
+    instantiation; then gab_narrow, float32 and at the preset's tiers,
+    beside the chain at the preset's tiers at the three narrow GABs
+    (``gab_route``'s rule)."""
     import torch
 
     from gastx_torch.models import build_gastnet
@@ -2251,21 +2336,167 @@ def tier_throughput(K, dev) -> dict:
         gen = torch.Generator(device=dev).manual_seed(level)
         x2 = torch.randn((b * t_gab * 17, c), generator=gen, device=dev)
         ms = cuda_ms(lambda: K.gab_narrow(x2, t))
+        tiered_ms = cuda_ms(lambda: K.gab_narrow(x2, t, tiers=tiers))
         chain_ms = cuda_ms(lambda: K.gab_chain(
             x2, t, K.gemm_epilogue, K.sem_graph, K.joint_attention, tiers))
         f32_chain_ms = cuda_ms(lambda: K.gab_chain(
             x2, t, K.gemm_epilogue, K.sem_graph, K.joint_attention))
         label = f"{frames}f GAB {level} C={c} T={t_gab} B={b}"
-        nar[label] = {"gab_narrow_ms": ms, "tiered_chain_ms": chain_ms,
+        nar[label] = {"gab_narrow_ms": ms, "tiered_gab_narrow_ms": tiered_ms,
+                      "tiered_chain_ms": chain_ms,
                       "float32_chain_ms": f32_chain_ms,
                       "route": K.gab_route(*K.gab_shape(t), tiers)}
-        print(f"  {label}: gab_narrow {ms:.3f} ms; the chain at the preset's "
-              f"tiers {chain_ms:.3f} ms (float32 {f32_chain_ms:.3f}); routed "
-              f"to {nar[label]['route']}")
+        print(f"  {label}: gab_narrow at the preset's tiers {tiered_ms:.3f} "
+              f"ms (float32 {ms:.3f}); the chain at the preset's tiers "
+              f"{chain_ms:.3f} ms (float32 {f32_chain_ms:.3f}); routed to "
+              f"{nar[label]['route']}")
         del model, t, x2
         torch.cuda.empty_cache()
     out["narrow_vs_tiered_chain"] = nar
     return out
+
+
+# phase 10 (f): gab_narrow's tiered form, held at each width it routes
+# or may route (level 0 of a 2-level model of that many channels, random
+# BN statistics) at every tier and at the JAX preset's kernel tiers, on
+# NARROW_TIER_FRAMES frames, in both libraries (float32 x and output; bf16
+# x and output); then timed at the 243f model's GAB 0 (C=32, T=241, B=256)
+# at each tier beside the tiered chain and its bound.
+NARROW_TIER_WIDTHS = (16, 32, 48, 64)
+NARROW_TIER_FRAMES = 1000
+NARROW_TIERS = ("default", "kdefault", "high_lhs", "high_rhs", "high",
+                "preset")
+
+
+def narrow_tier_dict(tier: str) -> dict:
+    """The kernel tiers of a ``NARROW_TIERS`` entry: every class at the
+    tier, or the JAX preset's at the 243f model's GAB 1."""
+    from gastx_torch.ops.cuda.fused_gab import KERNEL_OPS
+
+    if tier == "preset":
+        cfg = tier_configs(243)["preset"]
+        return {op: cfg.tier_for(op, "gab1") for op in KERNEL_OPS}
+    return dict.fromkeys(KERNEL_OPS, tier)
+
+
+def narrow_tier_check(K, name, x, t, tiers, noise, out_dtype) -> float:
+    """One tiered ``gab_narrow`` launch to ``out_dtype`` held to its plain
+    version at the same tiers by ``tier_bound`` (plus one bf16 step of a
+    bf16 output), checked to launch the tiered form once, and, on a
+    float32 output, in root-mean-square half as far from its plain version
+    as from the float32 one wherever the tier moves the plain output by
+    more than twice ``noise`` (the float32 kernel's own distance from its
+    plain version): a kernel that skipped a tier would sit at the float32
+    output (a bf16 output's own rounding hides that)."""
+    import torch
+
+    before = sum(K.TIER_LAUNCHES["gab_narrow"].values())
+    got = K.gab_narrow(x, t, out_dtype, tiers).float()
+    if sum(K.TIER_LAUNCHES["gab_narrow"].values()) != before + 1:
+        fail(f"{name}: the tiered gab_narrow did not launch")
+    plain = K.gab_narrow_plain(x, t, out_dtype, tiers).float()
+    f32 = K.gab_narrow_plain(x, t, torch.float32)
+    bound_, tier_err = tier_bound(plain, f32)
+    if out_dtype == torch.bfloat16:
+        bound_ += 2.0 ** -8 * float(plain.abs().max())
+        noise = float("inf")
+    err = max_err(got, plain)
+    rms = float((got - plain).pow(2).mean().sqrt())
+    rms_f32 = float((got - f32).pow(2).mean().sqrt())
+    rms_tier = float((plain - f32).pow(2).mean().sqrt())
+    print(f"  {name}: max|d| {err:.3e} (bound {bound_:.3e}; tier "
+          f"{tier_err:.3e}); rms {rms:.3e}, from float32 {rms_f32:.3e}")
+    if not err <= bound_:
+        fail(f"{name} disagrees with its plain version: {err} > {bound_}")
+    if rms_tier > 2 * noise and not rms <= 0.5 * rms_f32:
+        fail(f"{name}: rms {rms} from its plain version is not half its "
+             f"{rms_f32} from the float32 output")
+    return err
+
+
+def narrow_bound(rows, c, j, k, inter, g, d, tiers) -> tuple:
+    """The tiered gab_narrow's bound: the block's bytes (``gab_work``),
+    against its products' operations at the bf16 rate a pass (each class
+    at its tier's passes: ``tc_passes``) and the attention's at the
+    float32 one."""
+    flops, nbytes = gab_work(rows, c, j, k, inter, g, d)
+    passes = {op: tc_passes("default" if v == "kdefault" else v, False)
+              for op, v in tiers.items()}
+    width = 4 * c + 2 * k * inter + k * g
+    mm = {"local_sem": 2 * rows * c * 4 * c,
+          "attn_proj": 2 * rows * c * (width - 4 * c),
+          "local_cat": 2 * rows * 2 * c * c, "attn_cat": 2 * rows * k * g * c,
+          "gab_cat": 2 * rows * 3 * c * 2 * c}
+    t_ops = (sum(n * passes[op] for op, n in mm.items()) / BF16_PEAK
+             + (flops - sum(mm.values())) / F32_PEAK)
+    t_bytes = nbytes / HBM_RATE
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def tier_narrow(K, dev) -> dict:
+    """Phase 10 (f): the tiered ``gab_narrow`` against its plain version
+    (``narrow_tier_check``) at ``NARROW_TIER_WIDTHS`` x ``NARROW_TIERS`` in
+    both libraries, then its time at the 243f GAB 0 by tier, beside the
+    tiered chain, the float32 kernel and the bound (``narrow_bound``)."""
+    import torch
+
+    from gastx_torch.models import (GastNet, GastNetConfig, init_gastnet,
+                                    randomize_eval_statistics)
+    from gastx_torch.ops.cuda.fused_gab import gab_tables
+
+    print("phase 10 (f): gab_narrow's tiered form against its plain "
+          "version, then timed")
+    card_state("phase 10 (f)")
+    errs = {}
+    for c in NARROW_TIER_WIDTHS:
+        gen = torch.Generator().manual_seed(c)
+        m = GastNet(GastNetConfig(filter_widths=(3, 3), channels=c))
+        m = randomize_eval_statistics(init_gastnet(m, gen), gen).to(dev)
+        t = gab_tables(m.eval().layers_graph_conv[0], m.statics)
+        x = torch.randn((NARROW_TIER_FRAMES * 17, c), generator=torch
+                        .Generator(device=dev).manual_seed(c), device=dev)
+        for io, xi, outs in (
+                ("float32", x, (torch.float32,)),
+                ("bf16", x.to(torch.bfloat16),
+                 (torch.float32, torch.bfloat16))):
+            noise = float((K.gab_narrow(xi, t, torch.float32)
+                           - K.gab_narrow_plain(xi, t, torch.float32))
+                          .pow(2).mean().sqrt())
+            for tier in NARROW_TIERS:
+                for out in outs:
+                    key = f"C={c} {io} -> {str(out)[6:]} {tier}"
+                    errs[key] = narrow_tier_check(
+                        K, f"gab_narrow {key}", xi, t,
+                        narrow_tier_dict(tier), noise, out)
+        del m, t, x
+    gen = torch.Generator().manual_seed(243)
+    m = GastNet(tier_configs(243)["highest"])
+    m = randomize_eval_statistics(init_gastnet(m, gen), gen).to(dev).eval()
+    t = gab_tables(m.layers_graph_conv[0], m.statics)
+    c, k, inter, g_ch, j, d = K.gab_shape(t)
+    rows = 256 * 241 * j
+    x = torch.randn((rows, c), generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev)
+    f32_ms = cuda_ms(lambda: K.gab_narrow(x, t))
+    timed = {}
+    for tier in NARROW_TIERS:
+        tiers = narrow_tier_dict(tier)
+        ms = cuda_ms(lambda: K.gab_narrow(x, t, tiers=tiers))
+        chain_ms = cuda_ms(lambda: K.gab_chain(
+            x, t, K.gemm_epilogue, K.sem_graph, K.joint_attention, tiers))
+        plain_ms = cuda_ms(lambda: K.gab_narrow_plain(x, t, tiers=tiers),
+                           reps=2, warmup=1)
+        bms, by = narrow_bound(rows, c, j, k, inter, g_ch, d, tiers)
+        timed[tier] = {"ms": ms, "tiered_chain_ms": chain_ms,
+                       "plain_ms": plain_ms, "bound_ms": bms,
+                       "bound_by": by, "float32_ms": f32_ms}
+        print(f"  gab_narrow {tier} C=32 T=241 B=256: {ms:.3f} ms (bound "
+              f"{bms:.3f} by {by}; the chain at these tiers {chain_ms:.3f};"
+              f" float32 gab_narrow {f32_ms:.3f}; plain {plain_ms:.3f})")
+    del m, t, x
+    torch.cuda.empty_cache()
+    return {"errs": errs, "timed": timed}
 
 
 def synthetic_coco(frames: int, seed: int):
@@ -4634,6 +4865,18 @@ def main() -> int:
     report["tier_cert"] = tier_cert(dev)
     report["tier_paths"] = tp = tier_paths(K, dev)
     report["tier_throughput"] = tier_throughput(K, dev)
+    report["tier_narrow"] = tn = tier_narrow(K, dev)
+    high = tn["timed"]["high"]
+    kernels.append({
+        "name": "gab_narrow (tiered, C=32, T=241)", "route": "cuda",
+        "source": "gastx_torch/csrc/gab_narrow.cu",
+        "replaces": "gastx/ops/pallas/fused_gab.py:959",
+        "launches": sum(v for k, v in tp["launches"].items()
+                        if k.startswith("gab_narrow ")),
+        "max_abs_err": max(tn["errs"].values()), "ms": high["ms"],
+        "plain_ms": high["plain_ms"], "bound_ms": high["bound_ms"],
+        "bound_by": high["bound_by"], "library_ms": None,
+        "tier": "high", "by_tier": tn["timed"]})
     for r in tk["gemm_tc"]:
         key = f"gemm_tc {r['tier']}"
         kernels.append({

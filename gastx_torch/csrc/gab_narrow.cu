@@ -71,6 +71,11 @@
 // concat's output is rounded to bf16 (nearest even) as it is stored, 8
 // bytes for 4 values. Everything between stays float32 in shared memory.
 // The flags are read at run time, in a library of their own (below).
+//
+// Built with GASTX_TIERED_FORM, the file holds the tiered form alone
+// (gab_narrow_tiered, below) in libraries of its own (kernels.py,
+// TIERED_SOURCES), so that the two forms compile side by side.
+#include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -555,6 +560,7 @@ __device__ __forceinline__ void attention(float* theta, const float* phi,
   }
 }
 
+#ifndef GASTX_TIERED_FORM
 // Persistent blocks: block b takes tiles b, b + gridDim.x, ... of fpt whole
 // frames each. The five activation groups of a tile, in order of use:
 //   0: x
@@ -695,14 +701,626 @@ int launch(const void* x, void* out, long long frames, int j, int d,
   return static_cast<int>(cudaGetLastError());
 }
 
+#endif  // GASTX_TIERED_FORM
+
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+#ifdef GASTX_TIERED_FORM
+// ---------------------------------------------------------------------------
+// The tiered form: the same block at the precision tiers below "highest"
+// (gastx_torch/ops/precision.py), its own __global__, so that the float32
+// kernel above keeps its code.
+//
+// Its four products (the projection, local cat, global cat and block
+// concat; seven slab streams as above) run as bf16 mma.sync.m16n8k16
+// passes with float32 accumulation, by tier: one pass (ah bh) at default
+// and kdefault, two at high_lhs (+ al bh) and high_rhs (+ ah bl), three at
+// high, with a = ah + al, ah = bf16(a), al = bf16(a - ah) rounded to
+// nearest even (precision.split_bf16). The projection's sem columns take
+// local_sem's tier and its attention columns attn_proj's (they are apart
+// products here: P1, P2 and P4, P5). The activations stay float32 in
+// shared memory in the float32 kernel's group plan (the semantic graph
+// and the attention read them), and each warp splits its A fragments as
+// it loads them. The weights stream through a float32 ring as above, and
+// each slab, once landed, is split once by the whole block into a bf16
+// buffer of k-pair words (hi, and lo where the product's tier takes it;
+// rows padded 8 words so that the B fragments load without bank
+// conflicts). The attention rounds its score and apply operands as
+// joint_attention.cu's tiered instantiations do (q1 = bf16, q2 = q1 + q1
+// of the rest; high: q2(a) q1(b) + q1(a) lo(b)) and accumulates in
+// float32 FMAs, each operand rounded once (attention_tiered).
+//
+// Bound: the same bytes as the float32 kernel (x in, 2C out a row) and
+// 2 * 16 * C^2 FLOPs a row at the bf16 tensor-core rate a pass, 2.7 C
+// FLOPs a byte a pass against the card's ~295: bytes bound it at every
+// tier up to C = 32 (at C = 32, 33 kFLOP against 384 bytes a row) and at
+// one pass at every narrow width. Its tiles are the float32 kernel's; its
+// slabs 16 rows (32 at C = 32) in a ring of 3 or 4 (TiersCfg). A warp
+// owns MPW 16-row by NPG 8-column tiles of each C-wide output group (Tc),
+// its accumulators in registers.
+// ---------------------------------------------------------------------------
+
+// Tier codes of the products (kernels.TC_TIERS): 0 default, 1 high_lhs, 2
+// high_rhs, 3 high; and of the attention's dots (kernels.ATTN_TIERS): 0
+// highest, 1 default, 2 high_lhs, 3 high_rhs, 4 high.
+struct Tiers {
+  int sem, proj, lcat, acat, gcat, score, apply;
+};
+
+// The widest C of the tiered form (kernels.NARROW_TIERED_WIDTHS): the
+// float32 kernel loses to the chain above it, so the tiered form is built
+// for C <= 64 alone.
+constexpr int MAX_TIERED_C = 64;
+
+// The tiered form's tiling of each width: the float32 kernel's tiles, with
+// slabs and ring depth of its own.
+template <int C>
+struct TieredCfg;
+template <>
+struct TieredCfg<16> {
+  using type = Cfg<16, 64, 4, 2, 16, 4>;
+};
+template <>
+struct TieredCfg<32> {
+  using type = Cfg<32, 64, 4, 1, 32, 3>;
+};
+template <>
+struct TieredCfg<48> {
+  using type = Cfg<48, 32, 4, 1, 16, 4>;
+};
+template <>
+struct TieredCfg<64> {
+  using type = Cfg<64, 32, 4, 1, 16, 4>;
+};
+
+// The warp grid of a width: WM x WN warps over the tile's 16-row tiles and
+// a C-wide group's 8-column tiles, the first WN (fewest columns a warp
+// shares) that divides both; and the bf16 slab buffer: BK / 2 k-pair rows
+// of at most 2C words and 8 more, hi then lo.
+constexpr int tc_wn(int w, int mt, int n8) {
+  for (int wn = 1; wn <= w; ++wn)
+    if (w % wn == 0 && n8 % wn == 0 && mt % (w / wn) == 0) return wn;
+  return 0;
+}
+
+template <class G>
+struct Tc {
+  static constexpr int W = G::NT / 32;
+  static constexpr int MT = G::BM / 16;
+  static constexpr int N8 = G::C / 8;
+  static constexpr int WN = tc_wn(W, MT, N8);
+  static constexpr int WM = WN ? W / WN : 1;
+  static constexpr int MPW = MT / WM;  // 16-row tiles a warp
+  static constexpr int NPG = WN ? N8 / WN : 1;  // 8-column tiles a group
+  static constexpr int WB_HALF = G::BK / 2 * (2 * G::C + 8);  // words
+  static_assert(WN > 0 && G::BK % 16 == 0, "tensor-core warp grid");
+};
+
+__device__ __forceinline__ uint32_t bf16_bits(float x) {
+  const __nv_bfloat16 h = __float2bfloat16_rn(x);
+  return static_cast<uint32_t>(*reinterpret_cast<const unsigned short*>(&h));
+}
+__device__ __forceinline__ float bits_bf16(uint32_t b) {
+  return __uint_as_float(b << 16);
+}
+
+// The bf16 halves (hi, lo) of (x0, x1) as mma operand registers, x0 in the
+// low 16 bits (the smaller k).
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const uint32_t h0 = bf16_bits(x0), h1 = bf16_bits(x1);
+  hi = h0 | h1 << 16;
+  lo = bf16_bits(x0 - bits_bf16(h0)) | bf16_bits(x1 - bits_bf16(h1)) << 16;
+}
+
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// product() at a tier (the code above): the same operands, slab stream,
+// prefetch, epilogue and output layouts, its sums by tensor-core passes.
+// Each landed slab (BK rows of N floats) is split into `wb`: word (kp, n)
+// of the hi half holds rows 2kp and 2kp+1 of column n, rows N + 8 words
+// apart; the lo half follows at Tc::WB_HALF, made only where b_lo.
+template <class G, int MM, int NS, bool RELU, bool TO_GLOBAL,
+          bool ROW_MAJOR = false>
+__device__ __forceinline__ void product_tc(
+    int tier, const Tables& t, float* ring, uint32_t* wb, long long& g,
+    long long total, float* acts, int a0, int a1, int a2,
+    const float* scale, const float* shift, int o0, int o1,
+    void* out = nullptr, int rows_valid = 0, const Prefetch* pre = nullptr,
+    bool out_bf = false) {
+  using T = Tc<G>;
+  constexpr int C = G::C, N = MM * C, NW = N + 8, BMP = G::BMP;
+  constexpr int BK = G::BK, S = G::S;
+  constexpr int NN = MM * T::NPG;  // 8-column tiles a warp
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wm = warp % T::WM, wn = warp / T::WM;
+  const int gq = lane / 4, tq = lane % 4;
+  const bool a_lo = tier == 1 || tier == 3, b_lo = tier == 2 || tier == 3;
+  // Column of the warp's q-th 8-column tile.
+  auto col = [&](int q) {
+    return (q / T::NPG) * C + (wn * T::NPG + q % T::NPG) * 8;
+  };
+  float acc[T::MPW][NN][4];
+#pragma unroll
+  for (int i = 0; i < T::MPW; ++i)
+#pragma unroll
+    for (int q = 0; q < NN; ++q)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[i][q][v] = 0.f;
+  for (int s = 0; s < NS; ++s) {
+    __pipeline_wait_prior(G::STAGES - 2);
+    __syncthreads();  // slab g has landed; slab g - 1 and wb are read
+    if (pre != nullptr) {
+      if (s == 0 && pre->sem)
+        load_sem<G, true>(t, acts + 4 * G::GROUP, pre->j, pre->d, 0);
+      if (s == S && pre->x != nullptr)
+        load_x<G, true>(pre->x, pre->x_bf, acts, pre->rows);
+      if (s == 2 * S && pre->sem)
+        load_sem<G, true>(t, acts + 3 * G::GROUP, pre->j, pre->d, 1);
+    }
+    stage<G>(t, ring, g + G::STAGES - 1, total);
+    const float* w = ring + (int)(g % G::STAGES) * G::SLAB;
+    ++g;
+    for (int e = threadIdx.x; /*TSPLIT*/true && e < BK / 2 * N;
+         e += G::NT) {
+      const int kp = e / N, n = e - kp * N;
+      uint32_t hi, lo;
+      split2(w[2 * kp * N + n], w[(2 * kp + 1) * N + n], hi, lo);
+      wb[kp * NW + n] = hi;
+      if (b_lo) wb[T::WB_HALF + kp * NW + n] = lo;
+    }
+    __syncthreads();  // wb holds slab g
+    const int k0 = s * BK, piece = k0 / C;
+    const float* a =
+        acts + (size_t)(piece == 0 ? a0 : piece == 1 ? a1 : a2) * G::GROUP +
+        (size_t)(k0 - piece * C) * BMP;
+    if (!/*TMMA*/true) continue;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      uint32_t bh[NN][2], bl[NN][2];
+#pragma unroll
+      for (int q = 0; q < NN; ++q) {
+        const uint32_t* wc = wb + (kk / 2 + tq) * NW + col(q) + gq;
+        bh[q][0] = wc[0];
+        bh[q][1] = wc[4 * NW];
+        if (b_lo) {
+          bl[q][0] = wc[T::WB_HALF];
+          bl[q][1] = wc[T::WB_HALF + 4 * NW];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < T::MPW; ++i) {
+        const float* ac =
+            a + (kk + 2 * tq) * BMP + (wm * T::MPW + i) * 16 + gq;
+        uint32_t ah[4], al[4];
+        split2(ac[0], ac[BMP], ah[0], al[0]);
+        split2(ac[8], ac[BMP + 8], ah[1], al[1]);
+        split2(ac[8 * BMP], ac[9 * BMP], ah[2], al[2]);
+        split2(ac[8 * BMP + 8], ac[9 * BMP + 8], ah[3], al[3]);
+#pragma unroll
+        for (int q = 0; q < NN; ++q) {
+          mma_bf16(acc[i][q], ah, bh[q]);
+          if (b_lo) mma_bf16(acc[i][q], ah, bl[q]);
+          if (a_lo) mma_bf16(acc[i][q], al, bh[q]);
+        }
+      }
+    }
+  }
+  // Epilogue: accumulator v of tile (i, q) is row r0 + 8 (v / 2), column
+  // c + v % 2.
+#pragma unroll
+  for (int q = 0; q < NN; ++q) {
+    const int c = col(q) + 2 * tq, j = c / C, cc = c - j * C;
+    const float sc0 = __ldg(scale + c), sc1 = __ldg(scale + c + 1);
+    const float sh0 = __ldg(shift + c), sh1 = __ldg(shift + c + 1);
+#pragma unroll
+    for (int i = 0; i < T::MPW; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = (wm * T::MPW + i) * 16 + gq + 8 * h;
+        float y0 = acc[i][q][2 * h] * sc0 + sh0;
+        float y1 = acc[i][q][2 * h + 1] * sc1 + sh1;
+        if (RELU) {
+          y0 = fmaxf(y0, 0.f);
+          y1 = fmaxf(y1, 0.f);
+        }
+        if (TO_GLOBAL) {
+          if (r >= rows_valid) continue;
+          if (out_bf)
+            *reinterpret_cast<uint32_t*>(static_cast<unsigned short*>(out) +
+                                         (size_t)r * N + c) =
+                float_to_bf16(y0) | float_to_bf16(y1) << 16;
+          else
+            *reinterpret_cast<float2*>(static_cast<float*>(out) +
+                                       (size_t)r * N + c) =
+                make_float2(y0, y1);
+        } else if (ROW_MAJOR) {
+          *reinterpret_cast<float2*>(acts + (size_t)o0 * G::GROUP +
+                                     (size_t)r * C + c) = make_float2(y0, y1);
+        } else {
+          float* o = acts + (size_t)(j ? o1 : o0) * G::GROUP +
+                     (size_t)cc * BMP + r;
+          o[0] = y0;
+          o[BMP] = y1;
+        }
+      }
+  }
+}
+
+// x rounded: mode 0 exact, 1 q1, 2 q2; lo(x) = q1(x - q1(x))
+// (joint_attention.cu).
+__device__ __forceinline__ float q1(float x) { return bits_bf16(bf16_bits(x)); }
+__device__ __forceinline__ float rnd(float x, int mode) {
+  if (mode == 0) return x;
+  const float h = q1(x);
+  return mode == 1 ? h : h + q1(x - h);
+}
+__device__ __forceinline__ float lo_half(float x) { return q1(x - q1(x)); }
+// The rounding of a tier's lhs and rhs operand in its first term (ATTN
+// codes).
+__device__ __forceinline__ int lhs_mode(int tier) {
+  return tier == 0 ? 0 : (tier == 2 || tier == 4 ? 2 : 1);
+}
+__device__ __forceinline__ int rhs_mode(int tier) {
+  return tier == 0 ? 0 : (tier == 3 ? 2 : 1);
+}
+
+// attention() with its score dots at `score` and its apply dots at `apply`
+// (ATTN codes): theta/phi the lhs and p_theta/p_phi the rhs of the score,
+// the attention weights the lhs and g the rhs of the apply, each rounded
+// as read; the high tier adds its q1(a) lo(b) term. Three passes between
+// barriers over the tile's nf frames (theta, phi column-major; g
+// row-major, C floats a row):
+//  1. the scores, one thread a (row, head), the score vectors rounded once
+//     a block in `pr` (rhs(p_theta) | rhs(p_phi) | lo(p_theta) |
+//     lo(p_phi), C each); each (row, head)'s pair goes over theta's first
+//     two columns of the head, which that pair alone reads;
+//  2. g rounded in place as the apply's rhs, and, for the high apply tier,
+//     lo(g) into phi's group (free after the scores);
+//  3. the apply: one warp a (frame, head), one lane a query joint, 8
+//     output columns a step, its weights rounded in registers; each head's
+//     outputs over its theta columns.
+template <class G>
+__device__ __forceinline__ void attention_tiered(
+    float* theta, float* phi, float* gv, int nf, int j, int nheads,
+    const float* pr, const float* c_k, int score, int apply) {
+  constexpr int C = G::C, BMP = G::BMP;
+  constexpr int ITEMS = (G::BM * MAX_HEADS + G::NT - 1) / G::NT;
+  const int inter = C / nheads, rows = nf * j, items = rows * nheads;
+  const int s_lhs = lhs_mode(score);
+  const int a_lhs = lhs_mode(apply), a_rhs = rhs_mode(apply);
+  const bool s_high = score == 4, a_high = apply == 4;
+  float sab[ITEMS][2];
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it) {
+    const int e = threadIdx.x + it * G::NT;
+    const int k = e / rows, r = e - k * rows;
+    float sa = 0.f, sb = 0.f;
+    if (e < items) {
+#pragma unroll 4
+      for (int i = 0; i < inter; ++i) {
+        const int cc = k * inter + i;
+        const float a = theta[cc * BMP + r], b = phi[cc * BMP + r];
+        sa = fmaf(rnd(a, s_lhs), pr[cc], sa);
+        sb = fmaf(rnd(b, s_lhs), pr[C + cc], sb);
+        if (s_high) {
+          sa = fmaf(q1(a), pr[2 * C + cc], sa);
+          sb = fmaf(q1(b), pr[3 * C + cc], sb);
+        }
+      }
+    }
+    sab[it][0] = sa;
+    sab[it][1] = sb;
+  }
+  __syncthreads();  // theta and phi are read
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it) {
+    const int e = threadIdx.x + it * G::NT;
+    const int k = e / rows, r = e - k * rows;
+    if (e < items) {
+      theta[k * inter * BMP + r] = sab[it][0];
+      theta[(k * inter + 1) * BMP + r] = sab[it][1];
+    }
+  }
+  if (apply != 0)
+    for (int e = threadIdx.x; e < rows * C; e += G::NT) {
+      const float v = gv[e];
+      gv[e] = rnd(v, a_rhs);
+      if (a_high) phi[e] = lo_half(v);
+    }
+  __syncthreads();
+  const int warp = threadIdx.x / 32, q = threadIdx.x % 32;
+  for (int pair = warp; pair < nf * nheads; pair += G::NT / 32) {
+    const int fr = pair / nheads, k = pair - fr * nheads;
+    const int row0 = fr * j;
+    const float* sc = theta + k * inter * BMP + row0;
+    const float sa = q < j ? sc[q] : 0.f, sb = q < j ? sc[BMP + q] : 0.f;
+    __syncwarp();  // every lane has its scores before the outputs go there
+    float w[MAX_J];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int m = 0; m < MAX_J; ++m) {
+      if (m >= j) break;
+      w[m] = leaky(sa + __shfl_sync(FULL, sb, m));
+      mx = fmaxf(mx, w[m]);
+    }
+    float sum = 0.f;
+#pragma unroll
+    for (int m = 0; m < MAX_J; ++m) {
+      if (m >= j) break;
+      w[m] = expf(w[m] - mx);
+      sum += w[m];
+    }
+    const float inv = 1.f / sum;
+    const float* ck = c_k + (k * j + (q < j ? q : 0)) * j;
+#pragma unroll
+    for (int m = 0; m < MAX_J; ++m) {
+      if (m >= j) break;
+      w[m] = w[m] * inv + ck[m];
+    }
+    const float* gk = gv + (size_t)row0 * C + k * inter;
+    const float* gl = phi + (size_t)row0 * C + k * inter;
+    for (int g0 = 0; g0 < inter; g0 += 8) {
+      const bool hi = g0 + 4 < inter;
+      float4 lo4 = make_float4(0.f, 0.f, 0.f, 0.f), hi4 = lo4;
+#pragma unroll
+      for (int m = 0; m < MAX_J; ++m) {
+        if (m >= j) break;
+        float wa = w[m], wh = w[m];
+        if (a_lhs) {
+          wh = q1(w[m]);
+          wa = a_lhs == 2 ? wh + q1(w[m] - wh) : wh;
+        }
+        const float4 a = *reinterpret_cast<const float4*>(gk + m * C + g0);
+        lo4.x = fmaf(wa, a.x, lo4.x);
+        lo4.y = fmaf(wa, a.y, lo4.y);
+        lo4.z = fmaf(wa, a.z, lo4.z);
+        lo4.w = fmaf(wa, a.w, lo4.w);
+        if (hi) {
+          const float4 h =
+              *reinterpret_cast<const float4*>(gk + m * C + g0 + 4);
+          hi4.x = fmaf(wa, h.x, hi4.x);
+          hi4.y = fmaf(wa, h.y, hi4.y);
+          hi4.z = fmaf(wa, h.z, hi4.z);
+          hi4.w = fmaf(wa, h.w, hi4.w);
+        }
+        if (a_high) {
+          const float4 b = *reinterpret_cast<const float4*>(gl + m * C + g0);
+          lo4.x = fmaf(wh, b.x, lo4.x);
+          lo4.y = fmaf(wh, b.y, lo4.y);
+          lo4.z = fmaf(wh, b.z, lo4.z);
+          lo4.w = fmaf(wh, b.w, lo4.w);
+          if (hi) {
+            const float4 h =
+                *reinterpret_cast<const float4*>(gl + m * C + g0 + 4);
+            hi4.x = fmaf(wh, h.x, hi4.x);
+            hi4.y = fmaf(wh, h.y, hi4.y);
+            hi4.z = fmaf(wh, h.z, hi4.z);
+            hi4.w = fmaf(wh, h.w, hi4.w);
+          }
+        }
+      }
+      if (q < j) {
+        float* o = theta + (size_t)(k * inter + g0) * BMP + row0 + q;
+        o[0] = lo4.x;
+        o[BMP] = lo4.y;
+        o[2 * BMP] = lo4.z;
+        o[3 * BMP] = lo4.w;
+        if (hi) {
+          o[4 * BMP] = hi4.x;
+          o[5 * BMP] = hi4.y;
+          o[6 * BMP] = hi4.z;
+          o[7 * BMP] = hi4.w;
+        }
+      }
+    }
+  }
+}
+
+// gab_narrow_kernel at the tiers: the same tiles, group plan and prefetch.
+template <class G>
+__global__ void __launch_bounds__(G::NT, G::MINB)
+gab_narrow_tiered_kernel(const void* __restrict__ x, void* __restrict__ out,
+                         long long frames, int fpt, long long tiles, int j,
+                         int d, int nheads, const Tables t, bool x_bf,
+                         bool out_bf, const Tiers tr) {
+  x_bf = BF16_IO && x_bf;
+  out_bf = BF16_IO && out_bf;
+  extern __shared__ float4 smem4[];
+  constexpr int C = G::C, GR = G::GROUP, S = G::S;
+  float* acts = reinterpret_cast<float*>(smem4);
+  float* ring = acts + 5 * GR;
+  uint32_t* wb = reinterpret_cast<uint32_t*>(ring + G::STAGES * G::SLAB);
+  float* ck = reinterpret_cast<float*>(wb + 2 * Tc<G>::WB_HALF);
+  float* pr = ck + nheads * j * j;
+  int* col = reinterpret_cast<int*>(pr + 4 * C);
+  for (int i = threadIdx.x; i < nheads * j * j; i += G::NT)
+    ck[i] = __ldg(t.c_k + i);
+  // The score vectors as the score tier's rhs, and their lo halves.
+  for (int i = threadIdx.x; i < C; i += G::NT) {
+    const float vt = __ldg(t.proj_t + i), vp = __ldg(t.proj_p + i);
+    const int mode = rhs_mode(tr.score);
+    pr[i] = rnd(vt, mode);
+    pr[C + i] = rnd(vp, mode);
+    pr[2 * C + i] = lo_half(vt);
+    pr[3 * C + i] = lo_half(vp);
+  }
+  for (int i = threadIdx.x; i < 2 * j * d; i += G::NT)
+    col[i] = __ldg(t.col + i);
+  const bool staged = j * (1 + d) * C + 2 * C <= GR;
+  const SemSrc sem_w0 = sem_src<G>(t, staged ? acts + 4 * GR : nullptr, j,
+                                   d, 0);
+  const SemSrc sem_w1 = sem_src<G>(t, staged ? acts + 3 * GR : nullptr, j,
+                                   d, 1);
+  const long long total =
+      ((tiles - 1 - blockIdx.x) / gridDim.x + 1) * G::SPT;
+  long long g = 0;
+  for (int i = 0; i < G::STAGES - 1; ++i) stage<G>(t, ring, i, total);
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long f0 = tile * fpt;
+    const int nf = (int)min((long long)fpt, frames - f0);
+    const int rows = nf * j;
+    if (tile == blockIdx.x) {
+      load_x<G, false>(elem_ptr(x, f0 * j * C, x_bf), x_bf, acts, rows);
+      if (staged) {
+        load_sem<G, false>(t, acts + 4 * GR, j, d, 0);
+        load_sem<G, false>(t, acts + 3 * GR, j, d, 1);
+      }
+    }
+    product_tc<G, 2, S, false, false>(tr.sem, t, ring, wb, g, total, acts,
+                                      0, 0, 0, t.proj_scale, t.proj_shift, 1,
+                                      2);
+    __syncthreads();
+    if (/*TSEM*/true)
+      sem_graph<G>(sem_w0, col, acts + GR, acts + 2 * GR, nf, j, d, 0);
+    product_tc<G, 2, S, false, false>(tr.sem, t, ring, wb, g, total, acts,
+                                      0, 0, 0, t.proj_scale + 2 * C,
+                                      t.proj_shift + 2 * C, 2, 4);
+    __syncthreads();
+    if (/*TSEM*/true)
+      sem_graph<G>(sem_w1, col, acts + 2 * GR, acts + 4 * GR, nf, j, d, 1);
+    product_tc<G, 1, 2 * S, true, false>(tr.lcat, t, ring, wb, g, total,
+                                         acts, 1, 2, 0, t.lcat_scale,
+                                         t.lcat_shift, 3, 0);
+    product_tc<G, 2, S, false, false>(tr.proj, t, ring, wb, g, total, acts,
+                                      0, 0, 0, t.proj_scale + 4 * C,
+                                      t.proj_shift + 4 * C, 1, 2);
+    product_tc<G, 1, S, false, false, true>(tr.proj, t, ring, wb, g, total,
+                                            acts, 0, 0, 0,
+                                            t.proj_scale + 6 * C,
+                                            t.proj_shift + 6 * C, 4, 0);
+    __syncthreads();
+    if (/*TATTN*/true)
+      attention_tiered<G>(acts + GR, acts + 2 * GR, acts + 4 * GR, nf, j,
+                          nheads, pr, ck, tr.score, tr.apply);
+    product_tc<G, 1, S, true, false>(tr.acat, t, ring, wb, g, total, acts, 1,
+                                     0, 0, t.acat_scale, t.acat_shift, 2, 0);
+    const long long f1 = (tile + gridDim.x) * fpt;
+    const bool more = tile + gridDim.x < tiles;
+    const Prefetch pre{more ? elem_ptr(x, f1 * j * C, x_bf) : nullptr, x_bf,
+                       more ? (int)min((long long)fpt, frames - f1) * j : 0,
+                       j, d, more && staged};
+    product_tc<G, 2, 3 * S, true, true>(
+        tr.gcat, t, ring, wb, g, total, acts, 0, 3, 2, t.gcat_scale,
+        t.gcat_shift, 0, 0,
+        const_cast<void*>(elem_ptr(out, f0 * j * 2 * C, out_bf)), rows, &pre,
+        out_bf);
+  }
+}
+
+template <class G>
+int launch_tiered(const void* x, void* out, long long frames, int j, int d,
+                  int nheads, const Tables& t, cudaStream_t stream, bool x_bf,
+                  bool out_bf, const Tiers& tr) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const size_t smem =
+      sizeof(float) * ((size_t)5 * G::GROUP + G::STAGES * G::SLAB +
+                       2 * Tc<G>::WB_HALF + nheads * j * j + 4 * G::C) +
+      sizeof(int) * 2 * j * d;
+  cudaError_t e = cudaFuncSetAttribute(
+      gab_narrow_tiered_kernel<G>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, gab_narrow_tiered_kernel<G>, G::NT, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int fpt = G::BM / j;
+  const long long tiles = (frames + fpt - 1) / fpt;
+  if (tiles > 0) {
+    const long long blocks =
+        tiles < (long long)per_sm * sms ? tiles : (long long)per_sm * sms;
+    gab_narrow_tiered_kernel<G><<<(unsigned)blocks, G::NT, smem, stream>>>(
+        x, out, frames, fpt, tiles, j, d, nheads, t, x_bf, out_bf, tr);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+#endif  // GASTX_TIERED_FORM
+
+// The tables of the C functions' arguments, in GabTables' field order.
+Tables make_tables(const void* const* p) {
+  Tables t;
+  t.w_proj = static_cast<const float*>(p[0]);
+  t.proj_scale = static_cast<const float*>(p[1]);
+  t.proj_shift = static_cast<const float*>(p[2]);
+  t.w_self = static_cast<const float*>(p[3]);
+  t.w_nbr = static_cast<const float*>(p[4]);
+  t.col = static_cast<const int*>(p[5]);
+  t.sem_scale = static_cast<const float*>(p[6]);
+  t.sem_shift = static_cast<const float*>(p[7]);
+  t.lcat_w = static_cast<const float*>(p[8]);
+  t.lcat_scale = static_cast<const float*>(p[9]);
+  t.lcat_shift = static_cast<const float*>(p[10]);
+  t.proj_t = static_cast<const float*>(p[11]);
+  t.proj_p = static_cast<const float*>(p[12]);
+  t.c_k = static_cast<const float*>(p[13]);
+  t.acat_w = static_cast<const float*>(p[14]);
+  t.acat_scale = static_cast<const float*>(p[15]);
+  t.acat_shift = static_cast<const float*>(p[16]);
+  t.gcat_w = static_cast<const float*>(p[17]);
+  t.gcat_scale = static_cast<const float*>(p[18]);
+  t.gcat_shift = static_cast<const float*>(p[19]);
+  return t;
+}
+
+// The shape and alignment rule of both C functions (the note above).
+bool refused(const void* out, const Tables& t, long long frames, int j,
+             int c, int d, int nheads, int inter, int g_ch, int x_bf16,
+             int out_bf16) {
+  return frames < 0 || j < 1 || j > MAX_J || d < 1 || d > MAX_D ||
+         nheads < 1 || nheads > MAX_HEADS || nheads * inter != c ||
+         nheads * g_ch != c || !aligned16(out) || !aligned16(t.w_proj) ||
+         !aligned16(t.lcat_w) || !aligned16(t.acat_w) ||
+         !aligned16(t.gcat_w) || ((x_bf16 || out_bf16) && !BF16_IO);
+}
+
+// Cfg<C, threads along rows, rows a thread, blocks an SM, slab rows, slabs
+// in the ring>: tiles of 256 rows at C <= 32, 128 at C = 48..64, 64 at C
+// >= 80; 256 to 512 threads; 32-row slabs where C allows. L is a functor
+// that launches a Cfg.
+template <class L>
+int by_width(int c, L launch_cfg) {
+  switch (c) {
+    case 16:
+      return launch_cfg(Cfg<16, 64, 4, 2, 16, 3>());
+    case 32:
+      return launch_cfg(Cfg<32, 64, 4, 1, 32, 2>());
+    case 48:
+      return launch_cfg(Cfg<48, 32, 4, 1, 16, 3>());
+    case 64:
+      return launch_cfg(Cfg<64, 32, 4, 1, 32, 2>());
+    case 80:
+      return launch_cfg(Cfg<80, 16, 4, 1, 16, 3>());
+    case 96:
+      return launch_cfg(Cfg<96, 16, 4, 1, 32, 2>());
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
+#ifndef GASTX_TIERED_FORM
 // Launches on `stream`, x bf16 if x_bf16 and the output bf16 if out_bf16
 // (else float32); returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for a shape the kernel does not take (the rule in
@@ -720,61 +1338,70 @@ int gab_narrow(const void* x, void* out, long long frames, int j, int c,
                const void* acat_shift, const void* gcat_w,
                const void* gcat_scale, const void* gcat_shift,
                void* stream, int x_bf16, int out_bf16) {
-  if (frames < 0 || j < 1 || j > MAX_J || d < 1 || d > MAX_D ||
-      nheads < 1 || nheads > MAX_HEADS || nheads * inter != c ||
-      nheads * g_ch != c || !aligned16(out) || !aligned16(w_proj) ||
-      !aligned16(lcat_w) || !aligned16(acat_w) || !aligned16(gcat_w) ||
-      ((x_bf16 || out_bf16) && !BF16_IO))
+  const void* p[20] = {w_proj,     proj_scale, proj_shift, w_self,
+                       w_nbr,      col,        sem_scale,  sem_shift,
+                       lcat_w,     lcat_scale, lcat_shift, proj_t,
+                       proj_p,     c_k,        acat_w,     acat_scale,
+                       acat_shift, gcat_w,     gcat_scale, gcat_shift};
+  const Tables t = make_tables(p);
+  if (refused(out, t, frames, j, c, d, nheads, inter, g_ch, x_bf16,
+              out_bf16))
     return static_cast<int>(cudaErrorInvalidValue);
-  Tables t;
-  t.w_proj = static_cast<const float*>(w_proj);
-  t.proj_scale = static_cast<const float*>(proj_scale);
-  t.proj_shift = static_cast<const float*>(proj_shift);
-  t.w_self = static_cast<const float*>(w_self);
-  t.w_nbr = static_cast<const float*>(w_nbr);
-  t.col = static_cast<const int*>(col);
-  t.sem_scale = static_cast<const float*>(sem_scale);
-  t.sem_shift = static_cast<const float*>(sem_shift);
-  t.lcat_w = static_cast<const float*>(lcat_w);
-  t.lcat_scale = static_cast<const float*>(lcat_scale);
-  t.lcat_shift = static_cast<const float*>(lcat_shift);
-  t.proj_t = static_cast<const float*>(proj_t);
-  t.proj_p = static_cast<const float*>(proj_p);
-  t.c_k = static_cast<const float*>(c_k);
-  t.acat_w = static_cast<const float*>(acat_w);
-  t.acat_scale = static_cast<const float*>(acat_scale);
-  t.acat_shift = static_cast<const float*>(acat_shift);
-  t.gcat_w = static_cast<const float*>(gcat_w);
-  t.gcat_scale = static_cast<const float*>(gcat_scale);
-  t.gcat_shift = static_cast<const float*>(gcat_shift);
   const bool xb = x_bf16 != 0, ob = out_bf16 != 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // Cfg<C, threads along rows, rows a thread, blocks an SM, slab rows,
-  // slabs in the ring>: tiles of 256 rows at C <= 32, 128 at C = 48..64,
-  // 64 at C >= 80; 256 to 512 threads; 32-row slabs where C allows.
-  switch (c) {
-    case 16:
-      return launch<Cfg<16, 64, 4, 2, 16, 3>>(x, out, frames, j, d, nheads,
-                                              t, st, xb, ob);
-    case 32:
-      return launch<Cfg<32, 64, 4, 1, 32, 2>>(x, out, frames, j, d, nheads,
-                                              t, st, xb, ob);
-    case 48:
-      return launch<Cfg<48, 32, 4, 1, 16, 3>>(x, out, frames, j, d, nheads,
-                                              t, st, xb, ob);
-    case 64:
-      return launch<Cfg<64, 32, 4, 1, 32, 2>>(x, out, frames, j, d, nheads,
-                                              t, st, xb, ob);
-    case 80:
-      return launch<Cfg<80, 16, 4, 1, 16, 3>>(x, out, frames, j, d, nheads,
-                                              t, st, xb, ob);
-    case 96:
-      return launch<Cfg<96, 16, 4, 1, 32, 2>>(x, out, frames, j, d, nheads,
-                                              t, st, xb, ob);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return by_width(c, [&](auto cfg) {
+    return launch<decltype(cfg)>(x, out, frames, j, d, nheads, t, st, xb,
+                                 ob);
+  });
 }
+#else
+
+// gab_narrow at the tiers, C <= MAX_TIERED_C: the same arguments, then the
+// tier codes of the projection's sem columns, its attention columns, the
+// local cat, the global cat and the block concat (0 default .. 3 high) and
+// of the attention's score and apply dots (0 highest .. 4 high).
+int gab_narrow_tiered(const void* x, void* out, long long frames, int j,
+                      int c, int d, int nheads, int inter, int g_ch,
+                      const void* w_proj, const void* proj_scale,
+                      const void* proj_shift, const void* w_self,
+                      const void* w_nbr, const void* col,
+                      const void* sem_scale, const void* sem_shift,
+                      const void* lcat_w, const void* lcat_scale,
+                      const void* lcat_shift, const void* proj_t,
+                      const void* proj_p, const void* c_k,
+                      const void* acat_w, const void* acat_scale,
+                      const void* acat_shift, const void* gcat_w,
+                      const void* gcat_scale, const void* gcat_shift,
+                      void* stream, int x_bf16, int out_bf16, int sem,
+                      int proj, int lcat, int acat, int gcat, int score,
+                      int apply) {
+  const void* p[20] = {w_proj,     proj_scale, proj_shift, w_self,
+                       w_nbr,      col,        sem_scale,  sem_shift,
+                       lcat_w,     lcat_scale, lcat_shift, proj_t,
+                       proj_p,     c_k,        acat_w,     acat_scale,
+                       acat_shift, gcat_w,     gcat_scale, gcat_shift};
+  const Tables t = make_tables(p);
+  const Tiers tr{sem, proj, lcat, acat, gcat, score, apply};
+  bool bad = refused(out, t, frames, j, c, d, nheads, inter, g_ch, x_bf16,
+                     out_bf16);
+  const int codes[7] = {sem, proj, lcat, acat, gcat, score, apply};
+  for (int i = 0; i < 7; ++i)
+    bad = bad || codes[i] < 0 || codes[i] > (i < 5 ? 3 : 4);
+  if (bad || c > MAX_TIERED_C)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool xb = x_bf16 != 0, ob = out_bf16 != 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return by_width(c, [&](auto cfg) {
+    constexpr int width = decltype(cfg)::C;
+    if constexpr (width <= MAX_TIERED_C)
+      return launch_tiered<typename TieredCfg<width>::type>(
+          x, out, frames, j, d, nheads, t, st, xb, ob, tr);
+    else
+      return static_cast<int>(cudaErrorInvalidValue);
+  });
+}
+
+#endif  // GASTX_TIERED_FORM
 
 const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -49,16 +49,30 @@ The matmul precision tiers carry the JAX names and meanings:
 ``OP_CLASSES``, each optionally level-qualified, ``"gab1.attn_proj"`` or
 ``"lvl2.temporal"``, the qualified entry winning over the bare class), with
 ``TPU_MIXED_PRECISION_OVERRIDES``, ``KERNEL_ONLY_TIERS`` and
-``xla_precision`` copied from the JAX package. Where the port honours them:
-the kernels' dots run at their tier on the card (``gastx_torch.ops.
-precision``: bf16 passes on the tensor cores in ``gemm_epilogue``,
-operands rounded in ``joint_attention``); ``gab_narrow`` computes float32
-at every tier; every plain site (the shrink, the C=512 level's conv chain,
-``gab_impl="xla"``'s ops, the projections and cats of the hybrid route,
-the train forward) computes float32 whatever ``xla_precision`` names for
-it (bf16 products with float32 sums under bf16 storage), and so does
-every site on the CPU, as the JAX package's CPU path computes float32 for
-every tier.
+``xla_precision`` copied from the JAX package. Where the port honours
+them, on the card (``gastx_torch.ops.precision``):
+
+  * the kernels' dots run at their raw tier (:meth:`GastNetConfig.tier_for`,
+    the kernel-only tiers included): bf16 passes on the tensor cores in
+    ``gemm_epilogue`` and in ``gab_narrow``'s tiered form, operands
+    rounded in ``joint_attention``;
+  * every plain site, the JAX package's XLA sites, runs at its XLA tier
+    (:meth:`GastNetConfig.site_tier`: the kernel-only tiers as ``"high"``,
+    ``xla_precision``): the expand conv wherever ``fused_level0`` does
+    not run and the shrink (bare classes, as the JAX forward resolves
+    them, ``gastx/models/gastnet.py:285, 428``), each level's conv chain
+    wherever ``fused_level`` does not run (``"lvl{i}"``), and the plain
+    GAB's products (``gab_impl="xla"``, the hybrid route's global branch
+    and concatenations, ``_heads``' projection; ``"gab{i}"``). Their
+    row-wide products launch the port's GEMM kernels; the J x J
+    contractions (``local_off``, ``attn_score``, ``attn_apply``) are torch
+    products of tier-rounded operands.
+
+The train forward computes float32 at every tier (ROADMAP queue 1), and
+so does every site on the CPU, as the JAX package's CPU path computes
+float32 for every tier. On bf16 operands (bf16 storage) every tier is the
+same function (a bf16 value has no lo half), so the plain sites keep
+their bf16 products with float32 sums.
 
 The port's defaults differ from the JAX package's: its bare config and
 ``config_for_frames`` keep ``matmul_precision="highest"`` with no
@@ -195,6 +209,18 @@ class GastNetConfig:
         if v is None:
             v = self.precision_for(op_class)
         return self.matmul_precision if v is None else v
+
+    def site_tier(self, op_class: str, tag: Optional[str] = None) -> str:
+        """The tier of ``op_class`` at a plain (JAX: XLA) site: the
+        ``tag``-qualified override (``"gab1"``, ``"lvl2"``; none for a
+        bare site), else the bare class's, mapped by
+        :func:`xla_precision`, else ``matmul_precision`` (the JAX
+        ``level_prec(tag)(op)`` or ``prec(op)`` under the ambient
+        ``jax.default_matmul_precision``)."""
+        v = None if tag is None else self.precision_for(f"{tag}.{op_class}")
+        if v is None:
+            v = self.precision_for(op_class)
+        return self.matmul_precision if v is None else xla_precision(v)
 
     def __post_init__(self):
         for fw in self.filter_widths:
@@ -402,8 +428,8 @@ KERNEL_ONLY_TIERS: Tuple[str, ...] = ("high_lhs", "high_rhs", "kdefault")
 
 def xla_precision(tier):
     """The tier the JAX package's XLA sites take for a possibly
-    kernel-only tier. The port's plain sites compute float32 whatever it
-    names (module docstring)."""
+    kernel-only tier, and the port's plain sites with them
+    (:meth:`GastNetConfig.site_tier`)."""
     return "high" if tier in KERNEL_ONLY_TIERS else tier
 
 

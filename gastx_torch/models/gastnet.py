@@ -66,9 +66,9 @@ The two forwards:
     the GAB's 512) are not carried: the wrappers take any T. Every kernel
     GAB takes ``cfg.gab_form_for(i)`` (``"fold"``: ``gab_tables``). Inside
     every wrapper the GAB goes by shape (``fused_gab.gab_route``): one
-    ``gab_narrow`` launch at the narrow widths where it beat the chain,
-    else the three-kernel chain. The final 1x1 shrink is
-    ``torch.matmul``. On a CPU tensor each wrapper runs its plain version.
+    ``gab_narrow`` launch (float32 or tiered) at the narrow widths where
+    it beat the chain, else the three-kernel chain. The final 1x1 shrink
+    is a plain site. On a CPU tensor each wrapper runs its plain version.
 
     Storage (eval only; ``cfg.level_storage()``): a level stored bf16 runs
     on a bf16 copy of its modules (``storage_copy``, cached) and its
@@ -85,9 +85,15 @@ as the JAX forward resolves it (``gastx/models/gastnet.py:218-235``):
 ``"temporal"`` slot and the ``"gab0"`` classes, ``fused_level`` the
 ``"lvl{i}"`` conv classes and the ``"gab{i}"`` GAB classes, every other
 GAB wrapper its ``"gab{i}"`` classes (``ops.precision.resolve_tiers``;
-all ``"highest"`` on a CPU tensor). The plain sites (the shrink, the
-C=512 conv chain, the hybrid route's projections and cats,
-``gab_impl="xla"``) and the train forward compute float32 at every tier.
+all ``"highest"`` on a CPU tensor). Each plain site takes its XLA tier
+(``ops.precision.resolve_site_tiers``, as the JAX forward's ``prec`` and
+``level_prec`` resolve them): the expand conv and the shrink their bare
+classes, a level's conv chain its ``"lvl{i}"`` ``CHAIN_SITE_OPS``, the
+plain GAB (``gab_impl="xla"``, the hybrid route's global branch and
+concatenations, ``_heads``' projection) its ``"gab{i}"``
+``GAB_SITE_OPS``; below ``"highest"`` their row-wide products launch the
+GEMM kernels (``ops.temporal``, ``ops.graph``). The train forward
+computes float32 at every tier.
 :meth:`GastNet.plain_route_forward` runs the same route and tiers
 through every wrapper's plain version, the tiered forward's reference on
 the card; ``reference_forward`` is float32.
@@ -128,7 +134,7 @@ from gastx_torch.ops.cuda.head_attn import head_attention, \
 from gastx_torch.ops.graph import (block_concat, dropout, global_concat,
                                    graph_attention_block, local_graph,
                                    multi_global_graph)
-from gastx_torch.ops.precision import resolve_tiers
+from gastx_torch.ops.precision import resolve_site_tiers, resolve_tiers
 from gastx_torch.ops.temporal import (pconv_weight, pointwise,
                                       tconv_weight, temporal_conv)
 from gastx_torch.parallel.mesh import Mesh
@@ -138,6 +144,11 @@ from gastx_torch.parallel.mesh import Mesh
 LEVEL_KERNEL_MAX_CHANNELS = 256
 # The widest GAB the kernel entry points take (the TPU's split form).
 GAB_KERNEL_MAX_CHANNELS = 512
+# The op classes of the plain GAB's sites (gastx/ops/graph.py), and of a
+# level's plain conv chain (gastx/models/gastnet.py:394-404).
+GAB_SITE_OPS = ("local_sem", "local_off", "local_cat", "attn_proj",
+                "attn_score", "attn_apply", "attn_cat", "gab_cat")
+CHAIN_SITE_OPS = ("temporal", "mid1x1")
 # The bf16 storage copies of each model, by dtype: (weights token, copy).
 _STORAGE_COPIES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
@@ -347,8 +358,10 @@ class GastNet(nn.Module):
                 gab_tables(m0.layers_graph_conv[0], statics,
                            cfg.gab_form_for(0)), tiers0)
         else:
-            y = mods[0]._gab(mods[0]._expand(x, variant), 0, variant, plain,
-                             packed)
+            y = mods[0]._gab(mods[0]._expand(
+                x, variant, tier=resolve_site_tiers(cfg, None, ("expand",),
+                                                    dev)["expand"],
+                plain=plain), 0, variant, plain, packed)
         dilation = fw[0]
         for i in range(1, cfg.num_levels):
             m, impl, ci = mods[i], cfg.gab_impl_for(i), cfg.block_channels(i)
@@ -366,10 +379,15 @@ class GastNet(nn.Module):
                     dilation=dilation, res_off=pads[i] + shifts[i],
                     tiers=tiers)
             else:
-                y = m._gab(m._conv_chain(y, i, dilation, variant), i,
-                           variant, plain, packed)
+                y = m._gab(m._conv_chain(
+                    y, i, dilation, variant, tiers=resolve_site_tiers(
+                        cfg, f"lvl{i}", CHAIN_SITE_OPS, dev), plain=plain),
+                    i, variant, plain, packed)
             dilation *= fw[i]
-        return pointwise(y, pconv_weight(mods[-1].shrink)).to(torch.float32)
+        return pointwise(y, pconv_weight(mods[-1].shrink),
+                         tier=resolve_site_tiers(cfg, None, ("shrink",),
+                                                 dev)["shrink"],
+                         plain=plain, op="shrink").to(torch.float32)
 
     def _gab(self, y: torch.Tensor, i: int, variant: str, plain: bool,
              packed: bool) -> torch.Tensor:
@@ -410,31 +428,40 @@ class GastNet(nn.Module):
                                    tiers).to(torch.float32)
             return wrap["gab"](y.contiguous(), tables, tiers)
         loc, glb = gab.local_graph_layer, gab.global_graph_layer
+        site = dict(tiers=resolve_site_tiers(cfg, f"gab{i}", GAB_SITE_OPS,
+                                             y.device), plain=plain)
         if route == "pallas_local" and c <= GAB_KERNEL_MAX_CHANNELS:
             local = wrap["local"](y.contiguous(), local_tables(loc, statics),
                                   tiers)
         else:
-            local = local_graph(y, loc, statics, impl=cfg.local_impl)
+            local = local_graph(y, loc, statics, impl=cfg.local_impl, **site)
         if _base(cfg.attn_impl) == "pallas_head":
             head = _wrappers(plain or _interpret(cfg.attn_impl))["head"]
-            globl = global_concat(self._heads(y, glb, head, tiers), glb)
+            globl = global_concat(self._heads(y, glb, head, tiers,
+                                              site["tiers"], plain),
+                                  glb, **site)
         else:
-            globl = multi_global_graph(y, glb, impl=cfg.attn_impl)
-        return block_concat(y, local, globl, gab)
+            globl = multi_global_graph(y, glb, impl=cfg.attn_impl, **site)
+        return block_concat(y, local, globl, gab, **site)
 
     @staticmethod
-    def _heads(y: torch.Tensor, glb: nn.Module, head, tiers: dict) -> list:
+    def _heads(y: torch.Tensor, glb: nn.Module, head, tiers: dict,
+               site_tiers: dict, plain: bool) -> list:
         """The global branch's head outputs, each head through
         ``head_attention`` (``head``: it or its plain version) at the
-        ``attn_score``/``attn_apply`` tiers, on column views of one plain
-        projection [theta | phi | g] (head-major within each), as the JAX
-        package keeps the projections outside its per-head kernel. Under
-        bf16 storage the projection is bf16 and the kernel reads it
+        ``attn_score``/``attn_apply`` tiers (``tiers``, the kernel's), on
+        column views of one plain projection [theta | phi | g] (head-major
+        within each) at the site's ``attn_proj`` tier (``site_tiers``), as
+        the JAX package keeps the projections outside its per-head kernel.
+        Under bf16 storage the projection is bf16 and the kernel reads it
         upcast and writes float32, as the JAX kernel does; the outputs go
         on in y's dtype."""
         t = global_tables(glb)
         b, tt, j, _ = y.shape
-        p = (pointwise(y, t.w_attn.to(y.dtype)) + t.attn_shift.to(y.dtype))
+        p = pointwise(y, t.w_attn.to(y.dtype),
+                      shift=t.attn_shift.to(y.dtype),
+                      tier=site_tiers["attn_proj"], plain=plain,
+                      op="attn_proj")
         p = p.reshape(b * tt, j, -1).to(torch.float32)
         k, inter = t.proj_t.shape
         g_ch = (p.shape[-1] - 2 * k * inter) // k
@@ -452,40 +479,59 @@ class GastNet(nn.Module):
         return outs
 
     def _expand(self, x: torch.Tensor, variant: str, train: bool = False,
-                mesh: Optional[Mesh] = None) -> torch.Tensor:
+                mesh: Optional[Mesh] = None, tier: str = "highest",
+                plain: bool = False) -> torch.Tensor:
         """init_bn -> expand conv (strided by fw[0] in the strided
-        variant) -> BN -> ReLU, in plain torch."""
+        variant) -> BN -> ReLU, the conv a plain site at ``tier`` (eval:
+        BN and ReLU in its epilogue below ``"highest"``)."""
         stride = self.cfg.filter_widths[0] if variant == "strided" else 1
         y = batch_norm(x, self.init_bn, train=train, mesh=mesh)
-        y = temporal_conv(y, tconv_weight(self.expand_conv), stride=stride)
-        return torch.relu(batch_norm(y, self.expand_bn, train=train,
-                                     mesh=mesh))
+        w = tconv_weight(self.expand_conv)
+        if train:
+            y = temporal_conv(y, w, stride=stride, op="expand")
+            return torch.relu(batch_norm(y, self.expand_bn, train=True,
+                                         mesh=mesh))
+        return temporal_conv(y, w, stride=stride, tier=tier,
+                             bn=self.expand_bn, relu=True, plain=plain,
+                             op="expand")
 
     def _conv_chain(self, y: torch.Tensor, i: int, dilation: int,
                     variant: str, train: bool = False,
                     generator: Optional[torch.Generator] = None,
-                    mesh: Optional[Mesh] = None) -> torch.Tensor:
+                    mesh: Optional[Mesh] = None,
+                    tiers: Optional[dict] = None,
+                    plain: bool = False) -> torch.Tensor:
         """Level ``i``'s temporal conv -> BN -> ReLU -> 1x1 -> BN -> ReLU
         (-> dropout in train mode) -> + residual: dilated (at dilation 1
         and the dense width with ``dense``) with the pads' residual slice,
         or strided by fw[i] with the residual ``y[:, shift + fw//2 ::
-        fw]``."""
+        fw]``. In eval mode the two products are plain sites at ``tiers``
+        (``CHAIN_SITE_OPS``; None: ``"highest"``), each BN and ReLU in its
+        epilogue below ``"highest"``."""
         cfg = self.cfg
         conv_t, bn_t, conv_1, bn_1 = self.level_modules(i)
         fw, shift = cfg.filter_widths[i], cfg.causal_shifts(variant)[i]
         if variant == "strided":
             res = y[:, shift + fw // 2::fw]
-            z = temporal_conv(y, tconv_weight(conv_t), stride=fw)
+            conv = dict(stride=fw)
         else:
             pad = cfg.pads()[i]
             res = y[:, pad + shift: y.shape[1] - pad + shift]
-            z = temporal_conv(y, tconv_weight(conv_t),
-                              dilation=1 if cfg.dense else dilation)
-        z = torch.relu(batch_norm(z, bn_t, train=train, mesh=mesh))
-        z = pointwise(z, pconv_weight(conv_1))
-        z = torch.relu(batch_norm(z, bn_1, train=train, mesh=mesh))
-        if train and cfg.dropout > 0.0:
-            z = dropout(z, cfg.dropout, generator, mesh)
+            conv = dict(dilation=1 if cfg.dense else dilation)
+        if train:
+            z = temporal_conv(y, tconv_weight(conv_t), **conv)
+            z = torch.relu(batch_norm(z, bn_t, train=True, mesh=mesh))
+            z = pointwise(z, pconv_weight(conv_1))
+            z = torch.relu(batch_norm(z, bn_1, train=True, mesh=mesh))
+            if cfg.dropout > 0.0:
+                z = dropout(z, cfg.dropout, generator, mesh)
+            return res + z
+        tiers = tiers or dict.fromkeys(CHAIN_SITE_OPS, "highest")
+        z = temporal_conv(y, tconv_weight(conv_t), **conv,
+                          tier=tiers["temporal"], bn=bn_t, relu=True,
+                          plain=plain)
+        z = pointwise(z, pconv_weight(conv_1), tier=tiers["mid1x1"],
+                      bn=bn_1, relu=True, plain=plain)
         return res + z
 
     @torch.no_grad()

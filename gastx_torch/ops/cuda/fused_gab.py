@@ -33,8 +33,9 @@ kernels (``kernels.gab_chain``):
   6. ``gemm_epilogue``: out = relu(BN(x@W_a + local@W_b + global@W_c)), the
      3C->2C block concat as three pieces, never materialised.
 
-The GEMMs and ``gab_narrow`` are bound by the float32 FMA rate, the two
-graph kernels by device-memory bytes (see each source's note).
+The float32 GEMMs and ``gab_narrow`` are bound by the float32 FMA rate,
+the two graph kernels and ``gab_narrow``'s tiered form by device-memory
+bytes (see each source's note).
 
 **Tiers.** Each entry point takes ``tiers``, the {op_class: tier} of the
 TPU kernel's dots (``KERNEL_OPS``; None: all ``"highest"``): on the chain
@@ -43,10 +44,12 @@ two launches where they differ), ``local_cat``, ``attn_cat`` and
 ``gab_cat`` at theirs, ``joint_attention`` ``attn_score`` and
 ``attn_apply``; ``sem_graph`` needs none (the TPU kernels' local
 aggregation is dot-free FMAs, ``gastx/ops/pallas/fused_gab.py:69-72``).
-``gab_narrow`` computes float32 at every tier; where the chain's GEMMs
-run on the tensor cores, ``gab_route`` keeps it only at the widths where
-it still beat the tiered chain. The plain version follows the same route
-rule, so it stays the kernels' exact counterpart. All BNs
+``gab_narrow`` computes the same tiers in its tiered form (its products
+as bf16 ``mma.sync`` passes): ``gab_route`` sends a tiered GAB to it at
+the widths where that form beat the tiered chain, and a GAB with a GEMM
+class at ``"highest"`` beside one below it to the chain. The plain
+version, the chain of plain versions at the same tiers, is the exact
+counterpart of either route. All BNs
 are folded on the host into scale/shift, as ``_fold_bn`` does. The plain
 version, :func:`fused_gab_plain`, runs the same chain through the
 kernels' plain PyTorch versions at every width; ``gastx_torch.ops.graph.
@@ -241,12 +244,6 @@ def gab_route(t: GabTables, tiers) -> str:
     return K.gab_route(*K.gab_shape(t), tiers)
 
 
-def _chain_tiers(t: GabTables, tiers):
-    """The chain's tiers for this GAB: None (float32) where ``gab_route``
-    picks ``gab_narrow``, which computes float32 at every tier."""
-    return None if gab_route(t, tiers) == "gab_narrow" else tiers
-
-
 def fused_gab_plain(x: torch.Tensor, t: GabTables,
                     tiers: Optional[Dict[str, str]] = None,
                     out_dtype: Optional[torch.dtype] = None
@@ -255,8 +252,7 @@ def fused_gab_plain(x: torch.Tensor, t: GabTables,
     _check_x(x, t)
     b, tt, j, c = x.shape
     y = K.gab_chain(x.reshape(-1, c), t, K.gemm_epilogue_plain,
-                    K.sem_graph_plain, K.joint_attention_plain,
-                    _chain_tiers(t, tiers),
+                    K.sem_graph_plain, K.joint_attention_plain, tiers,
                     out_dtype=x.dtype if out_dtype is None else out_dtype)
     return y.reshape(b, tt, j, 2 * c)
 
@@ -268,7 +264,7 @@ def _gab_kernels(x: torch.Tensor, t: GabTables, tiers,
     b, tt, j, c = x.shape
     out_dtype = x.dtype if out_dtype is None else out_dtype
     if gab_route(t, tiers) == "gab_narrow":
-        y = K.gab_narrow(x.reshape(-1, c), t, out_dtype)
+        y = K.gab_narrow(x.reshape(-1, c), t, out_dtype, tiers)
     else:
         y = K.gab_chain(x.reshape(-1, c), t, K.gemm_epilogue, K.sem_graph,
                         K.joint_attention, tiers, out_dtype=out_dtype)

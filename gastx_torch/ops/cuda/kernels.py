@@ -27,7 +27,9 @@ plain C interface:
     loaded), each in two instantiations (:func:`graph_variant`);
   * ``gab_narrow`` — the whole eval GAB at the narrow widths
     (``NARROW_WIDTHS``, C = 16 .. 96 in steps of 16) in one launch, every
-    intermediate in shared memory.
+    intermediate in shared memory; in float32, or in its tiered form
+    (``NARROW_TIERED_WIDTHS``, C <= 64) with its products as bf16
+    ``mma.sync`` passes at each class's tier (:func:`narrow_form`).
 
 ``gemm_epilogue``, ``gemm_tc`` and ``gab_narrow`` also read and write
 bf16 (bf16 storage, ``gastx_torch.models.config``): each A piece of a GEMM
@@ -77,11 +79,13 @@ kernel to. ``LAUNCHES`` counts kernel launches by kernel,
 instantiations (and ``gemm_smallk``'s one, ``"smallk"``) by kernel and
 instantiation, ``TIER_LAUNCHES`` the
 launches of ``gemm_tc`` and ``gemm_smallk`` by tier and the tiered ones of
-``joint_attention`` (by score/apply tier pair), ``DTYPE_LAUNCHES`` every
+``joint_attention`` (by score/apply tier pair) and ``gab_narrow`` (by its
+classes' tiers), ``DTYPE_LAUNCHES`` every
 kernel's launches by the dtypes of its I/O (``IO_LABELS``);
 ``ENTRY_LAUNCHES`` counts the kernel launches made inside each entry point
 (:func:`entry_point`). All are counted in
-``_launch`` alone, after the launch succeeded.
+``_launch`` alone, after the launch succeeded. ``SITE_PRODUCTS`` counts
+the plain sites' products by class and tier (:func:`site_gemm`).
 """
 from __future__ import annotations
 
@@ -111,6 +115,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # float32 library has no dtype code, and the two compile side by side.
 IO_SOURCES = ("gemm_epilogue", "gab_narrow", "gemm_tc")
 IO_FLAGS = ("-DGASTX_BF16_IO",)
+# The sources whose tiered form is built from the same file with
+# TIERED_FLAGS into libraries of its own ("<name>_tiered", and its
+# bf16-I/O "<name>_tiered_io"): the forms compile side by side, and the
+# float32 library keeps its code.
+TIERED_SOURCES = ("gab_narrow",)
+TIERED_FLAGS = ("-DGASTX_TIERED_FORM",)
 
 # The port's entry points that replace TPU kernels. The one ``fused_gab``
 # counts under the TPU kernel it stands for: ``fused_gab_pbatch`` for
@@ -160,9 +170,16 @@ VARIANT_LAUNCHES: Dict[str, Dict[str, int]] = {
 # float32 path and is not counted here).
 TIER_LAUNCHES: Dict[str, Dict[str, int]] = {
     "gemm_tc": {t: 0 for t in TC_TIERS},
-    "gemm_smallk": {t: 0 for t in ATTN_TIERS}, "joint_attention": {}}
+    "gemm_smallk": {t: 0 for t in ATTN_TIERS}, "joint_attention": {},
+    "gab_narrow": {}}
 ENTRY_LAUNCHES: Dict[str, int] = {name: 0 for name in ENTRY_POINTS}
 _OPEN_ENTRIES: List[str] = []
+# The products of the plain sites (the JAX package's XLA sites:
+# ``ops.temporal``, ``ops.graph``) on CUDA tensors, by op class and the
+# tier they computed (:func:`site_gemm`, :func:`count_site`): "highest" a
+# float32 torch product, "bf16" a bf16 one, any other tier a GEMM launch
+# or, for the J x J classes, a torch product of tier-rounded operands.
+SITE_PRODUCTS: Dict[str, Dict[str, int]] = {}
 # Launches by the dtypes of a launch's activations in and out: all float32,
 # a bf16 input (an A piece, the residual or x), a bf16 output, or both.
 IO_LABELS = ("float32", "bf16_in", "bf16_out", "bf16_io")
@@ -198,12 +215,16 @@ _ARGTYPES = {
     # its field order (narrow_table_ptrs), stream, x bf16, out bf16
     "gab_narrow": [_P, _P, _LL, _I, _I, _I, _I, _I, _I] + [_P] * 21
     + [_I, _I],
+    # as gab_narrow's, then the tier codes of NARROW_TIER_CLASSES
+    "gab_narrow_tiered": [_P, _P, _LL, _I, _I, _I, _I, _I, _I] + [_P] * 21
+    + [_I, _I] + [_I] * 7,
 }
 
 
-# The C functions of each source's libraries beyond the one named after
-# it.
-_EXTRA_SYMBOLS = {"gemm_tc": ("gemm_tc_hopper",)}
+# The C functions of each library (its bf16-I/O form's too) where they
+# are not the one named after it.
+_SYMBOLS = {"gemm_tc": ("gemm_tc", "gemm_tc_hopper"),
+            "gab_narrow_tiered": ("gab_narrow_tiered",)}
 
 
 def reset_launches() -> None:
@@ -213,6 +234,31 @@ def reset_launches() -> None:
         for name in counts:
             counts[name] = 0
     TIER_LAUNCHES["joint_attention"].clear()
+    TIER_LAUNCHES["gab_narrow"].clear()
+    SITE_PRODUCTS.clear()
+
+
+def count_site(op: str, tier: str, t: torch.Tensor) -> None:
+    """Count one product of the plain site ``op`` at ``tier`` in
+    ``SITE_PRODUCTS`` where its operand ``t`` lies on the card (``"bf16"``
+    for a bf16 operand, whatever the tier)."""
+    if t.is_cuda:
+        key = "bf16" if t.dtype == torch.bfloat16 else tier
+        counts = SITE_PRODUCTS.setdefault(op, {})
+        counts[key] = counts.get(key, 0) + 1
+
+
+def site_gemm(op: str, pieces: Sequence["Piece"], m: int, tier: str,
+              plain: bool = False, **kw) -> torch.Tensor:
+    """The row-wide product of the plain site ``op`` below ``"highest"``:
+    :func:`gemm_epilogue` (``gemm_tc`` or ``gemm_smallk`` by its route)
+    at ``tier``, or with ``plain`` its plain version; ``kw`` as
+    :func:`gemm_epilogue`'s."""
+    if tier == "highest":
+        raise ValueError(f"the plain site {op} computes 'highest' in torch")
+    count_site(op, tier, pieces[0][0])
+    gemm = gemm_epilogue_plain if plain else gemm_epilogue
+    return gemm(pieces, m, tier=tier, **kw)
 
 
 @contextlib.contextmanager
@@ -244,6 +290,10 @@ def _libraries() -> Dict[str, Tuple[str, Tuple[str, ...]]]:
     libs = {name: (name, ()) for name in KERNEL_SOURCES}
     libs.update({f"{name}_io": (name, IO_FLAGS) for name in IO_SOURCES
                  if name in KERNEL_SOURCES})
+    for name in TIERED_SOURCES:
+        libs[f"{name}_tiered"] = (name, TIERED_FLAGS)
+        if name in IO_SOURCES:
+            libs[f"{name}_tiered_io"] = (name, IO_FLAGS + TIERED_FLAGS)
     return libs
 
 
@@ -296,8 +346,8 @@ def _lib(name: str) -> ctypes.CDLL:
         if not path.exists():
             build_kernels()
         lib = ctypes.CDLL(str(path))
-        source = _libraries()[name][0]
-        for symbol in (source, *_EXTRA_SYMBOLS.get(source, ())):
+        base = name.removesuffix("_io")
+        for symbol in _SYMBOLS.get(base, (base,)):
             fn = getattr(lib, symbol)
             fn.argtypes = _ARGTYPES[symbol]
             fn.restype = ctypes.c_int
@@ -309,14 +359,16 @@ def _lib(name: str) -> ctypes.CDLL:
 
 def _launch(name: str, *args, tier: Optional[str] = None,
             symbol: Optional[str] = None,
-            variant: Optional[str] = None, io: str = "float32") -> None:
+            variant: Optional[str] = None, io: str = "float32",
+            library: Optional[str] = None) -> None:
     """Launch kernel ``name`` through its C function ``symbol`` (default
-    ``name``); ``tier``: the tiered instantiation's label, for
-    ``TIER_LAUNCHES``; ``variant``: the alignment instantiation (default:
-    ``"vec16"`` where the last argument is 1); ``io``: the launch's
-    ``IO_LABELS`` entry (a bf16 launch goes to the ``IO_SOURCES``
-    library)."""
-    lib = _lib(name if io == "float32" else f"{name}_io")
+    ``name``) of ``library`` (default ``name``); ``tier``: the tiered
+    instantiation's label, for ``TIER_LAUNCHES``; ``variant``: the
+    alignment instantiation (default: ``"vec16"`` where the last argument
+    is 1); ``io``: the launch's ``IO_LABELS`` entry (a bf16 launch goes to
+    the library's bf16-I/O form)."""
+    library = library or name
+    lib = _lib(library if io == "float32" else f"{library}_io")
     code = getattr(lib, symbol or name)(*args)
     if code != 0:
         raise RuntimeError(f"{name} launch failed: "
@@ -1081,8 +1133,10 @@ def check_blocks(x: torch.Tensor, c: int, j: int, max_channels: int,
 
 # Widths below this count as narrow (the TPU's fused_gab_pbatch class).
 NARROW_MAX_CHANNELS = 127
-# The widths gab_narrow.cu is instantiated for.
+# The widths gab_narrow.cu is instantiated for, and those of its tiered
+# form (where the float32 kernel still beat the chain).
 NARROW_WIDTHS = (16, 32, 48, 64, 80, 96)
+NARROW_TIERED_WIDTHS = (16, 32, 48, 64)
 # The widths at which gab_narrow beat the three-kernel chain on the card
 # (scripts/torch_gab_narrow_phases.py --widths; PERF.md section 6): 0.83
 # against 2.13 ms at C=16, 1.94 / 3.20 at 32, 4.47 / 4.49 at 48, 5.91 /
@@ -1090,17 +1144,22 @@ NARROW_WIDTHS = (16, 32, 48, 64, 80, 96)
 # at 80 and 14.26 / 11.05 at 96 (its tile holds 3 frames there). Every
 # other width runs the chain.
 NARROW_ROUTE_WIDTHS = (16, 32, 48, 64)
-# Where the chain's GEMMs run below "highest" (on the tensor cores) and
-# gab_narrow stays float32, it keeps only the widths where it still beat
-# the chain: at the JAX preset's tiers (chip_smoke.py phase 10 (d),
-# NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6) the chain took 5.733
-# against gab_narrow's 7.825 ms at C=64 (81f GAB 0, B=1024) and 4.023
-# against 5.850 ms (243f GAB 1, B=256), but 2.703 against 1.976 ms at
-# C=32 (243f GAB 0). C=16 (2.6x ahead at float32) stays; C=48, a float32
-# tie, goes to the chain.
+# The widths at which gab_narrow's tiered form (its GEMM classes on the
+# tensor cores) beat the tiered chain on the card
+# (scripts/torch_gab_narrow_phases.py --tiered, 256 x 241 frames of J=17;
+# NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6), all "high" / the JAX
+# preset's tiers: 1.037 / 0.947 ms against the chain's 2.597 / 1.960 at
+# C=16, 2.098 / 1.904 against 2.659 / 2.352 at C=32, but 4.320 / 3.928
+# against 3.673 / 3.075 at C=48 and 6.583 / 5.940 against 4.436 / 3.774
+# at C=64. Every other width runs the tiered chain.
 NARROW_ROUTE_WIDTHS_TIERED = (16, 32)
 # The chain's GEMM classes: below "highest" they launch gemm_tc.
 GEMM_OPS = ("local_sem", "local_cat", "attn_proj", "attn_cat", "gab_cat")
+# The tier codes gab_narrow's tiered form takes, in its C order: the GEMM
+# classes (TC_TIERS codes) and the attention's score and apply dots
+# (ATTN_TIERS codes).
+NARROW_TIER_CLASSES = ("local_sem", "attn_proj", "local_cat", "attn_cat",
+                       "gab_cat", "attn_score", "attn_apply")
 # Weights the kernel copies into shared memory 16 bytes at a time.
 _NARROW_ALIGNED = ("w_proj", "lcat_w", "acat_w", "gcat_w")
 
@@ -1115,15 +1174,29 @@ def narrow_shape_ok(c: int, k: int, inter: int, g_ch: int, j: int,
             and 1 <= d <= MAX_SLOTS)
 
 
+def narrow_form(tiers: Optional[Dict[str, str]]) -> Optional[str]:
+    """Which ``gab_narrow`` computes a GAB at ``tiers``: ``"float32"``
+    where every class is ``"highest"`` (or no tiers), ``"tiered"`` where
+    every GEMM class is below it (the attention's two at any tier), else
+    None: a GEMM class at ``"highest"`` beside one below it has no
+    ``gab_narrow`` form."""
+    if tiers is None or all(v == "highest" for v in tiers.values()):
+        return "float32"
+    if all(tiers[op] != "highest" for op in GEMM_OPS):
+        return "tiered"
+    return None
+
+
 def gab_route(c: int, k: int, inter: int, g_ch: int, j: int, d: int,
               tiers: Optional[Dict[str, str]] = None) -> str:
     """The kernels a GAB of this shape runs on the card: ``"gab_narrow"``
-    where its shape rule holds and it beat the chain, else ``"chain"``;
-    with ``tiers`` that put a chain GEMM below "highest", the widths it
-    beat the tiered chain at (``NARROW_ROUTE_WIDTHS_TIERED``)."""
-    tiered = tiers is not None and any(tiers[op] != "highest"
-                                       for op in GEMM_OPS)
-    widths = NARROW_ROUTE_WIDTHS_TIERED if tiered else NARROW_ROUTE_WIDTHS
+    where its shape rule holds and its form (:func:`narrow_form`) beat the
+    chain at this width (``NARROW_ROUTE_WIDTHS``, or
+    ``NARROW_ROUTE_WIDTHS_TIERED`` for the tiered form), else
+    ``"chain"``."""
+    form = narrow_form(tiers)
+    widths = {"float32": NARROW_ROUTE_WIDTHS,
+              "tiered": NARROW_ROUTE_WIDTHS_TIERED}.get(form, ())
     if narrow_shape_ok(c, k, inter, g_ch, j, d) and c in widths:
         return "gab_narrow"
     return "chain"
@@ -1169,31 +1242,65 @@ def _check_narrow(x, t, out_dtype):
     return device, c, j, k, inter, g_ch, d
 
 
+def _check_narrow_tiers(tiers: Optional[Dict[str, str]]) -> str:
+    if tiers is not None:
+        for op in NARROW_TIER_CLASSES:
+            check_tier(tiers[op])
+    form = narrow_form(tiers)
+    if form is None:
+        raise ValueError(f"gab_narrow has no form for a GEMM class at "
+                         f"'highest' beside one below it: {tiers}")
+    return form
+
+
 def gab_narrow_plain(x: torch.Tensor, t,
-                     out_dtype: Optional[torch.dtype] = None
+                     out_dtype: Optional[torch.dtype] = None,
+                     tiers: Optional[Dict[str, str]] = None
                      ) -> torch.Tensor:
     """Plain PyTorch version of :func:`gab_narrow`: the chain of the three
-    kernels' plain versions."""
+    kernels' plain versions at ``tiers``."""
     out_dtype = x.dtype if out_dtype is None else out_dtype
     _check_narrow(x, t, out_dtype)
+    _check_narrow_tiers(tiers)
     return gab_chain(x, t, gemm_epilogue_plain, sem_graph_plain,
-                     joint_attention_plain, out_dtype=out_dtype)
+                     joint_attention_plain, tiers, out_dtype=out_dtype)
 
 
 def gab_narrow(x: torch.Tensor, t,
-               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+               out_dtype: Optional[torch.dtype] = None,
+               tiers: Optional[Dict[str, str]] = None) -> torch.Tensor:
     """The eval GAB in one launch at the narrow widths: (rows, C) ->
     (rows, 2C), rows whole frames; ``t`` is a ``fused_gab.GabTables`` whose
     shape meets :func:`narrow_shape_ok` (else ``ValueError``). ``x`` is
-    float32 or bf16, the output ``out_dtype`` (default: x's)."""
+    float32 or bf16, the output ``out_dtype`` (default: x's). ``tiers``
+    ({op_class: tier} of ``fused_gab.KERNEL_OPS``; None: all
+    ``"highest"``) picks the form (:func:`narrow_form`): the float32
+    kernel, or the tiered one, whose products run as bf16 ``mma.sync``
+    passes at each class's tier and whose attention rounds its operands
+    as ``joint_attention`` does (``TIER_LAUNCHES["gab_narrow"]`` counts
+    its launches by their tiers)."""
     check_no_grad("gab_narrow", x, t)
     out_dtype = x.dtype if out_dtype is None else out_dtype
     device, c, j, k, inter, g_ch, d = _check_narrow(x, t, out_dtype)
+    form = _check_narrow_tiers(tiers)
+    if form == "tiered" and c not in NARROW_TIERED_WIDTHS:
+        raise ValueError(f"gab_narrow's tiered form takes C in "
+                         f"{NARROW_TIERED_WIDTHS}, got C={c}")
     if not use_kernel(device):
-        return gab_narrow_plain(x, t, out_dtype)
+        return gab_narrow_plain(x, t, out_dtype, tiers)
     out = torch.empty((x.shape[0], 2 * c), dtype=out_dtype, device=device)
-    _launch("gab_narrow", x.data_ptr(), out.data_ptr(), x.shape[0] // j,
-            j, c, d, k, inter, g_ch, *narrow_table_ptrs(t), _stream(),
-            int(x.dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16), io=io_label([x], out_dtype))
+    args = [x.data_ptr(), out.data_ptr(), x.shape[0] // j, j, c, d, k,
+            inter, g_ch, *narrow_table_ptrs(t), _stream(),
+            int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16)]
+    io = io_label([x], out_dtype)
+    if form == "float32":
+        _launch("gab_narrow", *args, io=io)
+        return out
+    tiers = {op: "default" if v == "kdefault" else v
+             for op, v in tiers.items()}
+    codes = [TC_TIERS.index(tiers[op]) for op in NARROW_TIER_CLASSES[:5]]
+    codes += [ATTN_TIERS.index(tiers[op]) for op in NARROW_TIER_CLASSES[5:]]
+    _launch("gab_narrow", *args, *codes, symbol="gab_narrow_tiered",
+            library="gab_narrow_tiered",
+            tier="/".join(tiers[op] for op in NARROW_TIER_CLASSES), io=io)
     return out

@@ -27,11 +27,25 @@ process computes on the whole batch.
 
 Activations are (B, T, J, C); the modules carry the weights in the
 upstream torch layout (gastx_torch.models.gastnet).
+
+The eval forward's plain GAB (``gab_impl="xla"``, the hybrid route's
+global branch and concatenations) passes ``tiers``, the {op_class: tier}
+of its plain sites (``models.gastnet.GAB_SITE_OPS``; the JAX package's
+``prec(op)`` at ``gastx/ops/graph.py:105-106, 129, 166, 228-234, 260,
+274-275, 290, 302, 305, 471``). Below ``"highest"`` on float32 operands
+the row-wide products (``local_sem``, ``local_cat``, ``attn_proj``,
+``attn_cat``, ``gab_cat``) launch ``kernels.gemm_epilogue`` at their tier,
+the BN and ReLU after each in its epilogue (``plain``: the plain version),
+and the J x J contractions (``local_off``, ``attn_score``,
+``attn_apply``) are torch products of tier-rounded operands
+(``precision.tiered``), as XLA's are einsums. Without ``tiers`` (training,
+``reference_forward``), at ``"highest"`` and on bf16 operands every
+product is the torch one it always was.
 """
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,11 +53,47 @@ import torch.nn.functional as F
 from torch import nn
 
 from gastx_torch.device import check_f32_matmul
-from gastx_torch.ops.batchnorm import batch_norm
+from gastx_torch.ops.batchnorm import batch_norm, fold_bn
+from gastx_torch.ops.cuda import kernels as K
+from gastx_torch.ops.precision import tiered
 from gastx_torch.parallel.mesh import Mesh, batch_sharding
 from gastx_torch.ops.temporal import pconv_weight
 
 MASK_FILL = -9e15
+Tiers = Optional[Dict[str, str]]
+
+
+def _tier(tiers: Tiers, op: str, x: torch.Tensor) -> str:
+    """The tier a product of class ``op`` on operand ``x`` computes:
+    ``"highest"`` without ``tiers`` and on bf16 (every tier the same
+    function there), else its entry, counted in ``K.SITE_PRODUCTS`` at
+    ``"highest"`` (the caller's torch product) or at the J x J classes'
+    rounded torch products (a GEMM launch counts in ``K.site_gemm``)."""
+    tier = "highest" if tiers is None or x.dtype != torch.float32 \
+        else tiers[op]
+    if tier == "highest" or op in ("local_off", "attn_score", "attn_apply"):
+        K.count_site(op, tier, x)
+    return tier
+
+
+def _jj(op: str, tiers: Tiers, fn, a: torch.Tensor, b: torch.Tensor
+        ) -> torch.Tensor:
+    """The J x J contraction ``fn(a, b)`` of class ``op`` at its tier:
+    ``fn`` itself at ``"highest"``, else a torch product of the
+    tier-rounded operands (``precision.tiered``)."""
+    return tiered(fn, a, b, _tier(tiers, op, a))
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(-1, x.shape[-1]).contiguous()
+
+
+def _bn_gemm(op, pieces, bn, tier, plain) -> torch.Tensor:
+    """``relu(BN(sum_p a_p @ w_p))`` of a plain site below ``"highest"``,
+    one GEMM launch with the BN and ReLU in its epilogue."""
+    scale, shift = fold_bn(bn)
+    return K.site_gemm(op, pieces, pieces[0][0].shape[0], tier, plain,
+                       scale=scale, shift=shift, relu=True)
 
 
 def sem_adjacency(e: torch.Tensor, mask_idx: np.ndarray, j: int
@@ -95,17 +145,33 @@ def local_weight_tables(e: torch.Tensor, mask_idx, j: int):
     return w_self, w_nbr, col
 
 
+def _aggregate(off: torch.Tensor, h1: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("cjk,btkc->btjc", off, h1)
+
+
 def sem_ch_graph_conv(x: torch.Tensor, w: torch.Tensor, e: torch.Tensor,
                       mask_idx: np.ndarray, j: int,
-                      impl: str = "einsum") -> torch.Tensor:
+                      impl: str = "einsum", tiers: Tiers = None,
+                      plain: bool = False) -> torch.Tensor:
     """``x`` (B, T, J, Cin); ``w`` (2, Cin, Cout) self/neighbour weights;
     ``e`` (Cout, nnz) edge logits. ``impl="einsum"`` aggregates with the
     channel-batched (C, J, J) adjacency, ``"gather"`` with the
     padded-degree neighbour tables of :func:`local_weight_tables` (the
-    JAX ``local_impl``s; the same function)."""
+    JAX ``local_impl``s; the same function). ``tiers``: ``local_sem``
+    (both products, one GEMM launch below ``"highest"``) and
+    ``local_off`` (the einsum's aggregation)."""
     check_f32_matmul(x)
-    h0 = torch.matmul(x, w[0])
-    h1 = torch.matmul(x, w[1])
+    tier = _tier(tiers, "local_sem", x)
+    if tier == "highest":
+        h0 = torch.matmul(x, w[0])
+        h1 = torch.matmul(x, w[1])
+    else:
+        c_out = w.shape[2]
+        h = K.site_gemm("local_sem", [(_rows(x), torch.cat(
+            [w[0], w[1]], dim=1).to(torch.float32), 0)],
+            x.numel() // x.shape[-1], tier, plain)
+        h = h.reshape(*x.shape[:-1], 2 * c_out)
+        h0, h1 = h[..., :c_out], h[..., c_out:]
     if impl == "gather":
         w_self, w_nbr, col = local_weight_tables(e, mask_idx, j)
         nbr = h1[..., torch.as_tensor(col, device=x.device).long(), :]
@@ -113,7 +179,7 @@ def sem_ch_graph_conv(x: torch.Tensor, w: torch.Tensor, e: torch.Tensor,
     adj = sem_adjacency(e, mask_idx, j)
     diag = torch.diagonal(adj, dim1=1, dim2=2)                # (C, J)
     off = adj * (1.0 - torch.eye(j, dtype=x.dtype, device=x.device))
-    return h0 * diag.t() + torch.einsum("cjk,btkc->btjc", off, h1)
+    return h0 * diag.t() + _jj("local_off", tiers, _aggregate, off, h1)
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
@@ -145,72 +211,104 @@ def _maybe_dropout(y: torch.Tensor, train: bool, rate: float,
 def local_graph(x: torch.Tensor, mod: nn.Module, statics, *,
                 train: bool = False, rate: float = 0.0,
                 generator=None, mesh: Optional[Mesh] = None,
-                impl: str = "einsum") -> torch.Tensor:
+                impl: str = "einsum", tiers: Tiers = None,
+                plain: bool = False) -> torch.Tensor:
     """Two-branch (mirror symmetry + kinematic connection) local module,
-    each branch's aggregation by ``impl`` (:func:`sem_ch_graph_conv`)."""
+    each branch's aggregation by ``impl`` (:func:`sem_ch_graph_conv`);
+    ``tiers`` (eval) also gives ``local_cat``'s."""
     j = statics.num_joints
     a = sem_ch_graph_conv(x, mod.gcn_sym.W, mod.gcn_sym.e, statics.sym_idx, j,
-                          impl)
+                          impl, tiers, plain)
     b = sem_ch_graph_conv(x, mod.gcn_con.W, mod.gcn_con.e, statics.con_idx, j,
-                          impl)
+                          impl, tiers, plain)
     a = torch.relu(batch_norm(a, mod.bn_1, train=train, mesh=mesh))
     b = torch.relu(batch_norm(b, mod.bn_2, train=train, mesh=mesh))
+    tier = _tier(tiers, "local_cat", x)
+    if tier != "highest":
+        w = pconv_weight(mod.cat_conv).contiguous()
+        c = a.shape[-1]
+        y = _bn_gemm("local_cat", [(_rows(a), w[:c], 0),
+                                   (_rows(b), w[c:], 0)], mod.cat_bn, tier,
+                     plain)
+        return y.reshape(*x.shape[:-1], -1)
     y = torch.matmul(torch.cat([a, b], dim=-1), pconv_weight(mod.cat_conv))
     y = torch.relu(batch_norm(y, mod.cat_bn, train=train, mesh=mesh))
     return _maybe_dropout(y, train, rate, generator, mesh)
 
 
 def _head(theta: torch.Tensor, phi: torch.Tensor, g: torch.Tensor,
-          head: nn.Module) -> torch.Tensor:
-    """One head's rank-1 scores, LeakyReLU, softmax, +C_k, applied to g."""
+          head: nn.Module, tiers: Tiers = None) -> torch.Tensor:
+    """One head's rank-1 scores, LeakyReLU, softmax, +C_k, applied to g;
+    the score and apply products at ``tiers``' ``attn_score`` and
+    ``attn_apply`` (torch products of rounded operands)."""
     proj = head.concat_project[0].weight.reshape(-1)           # (2I,)
     inter = theta.shape[-1]
-    sa = torch.matmul(theta, proj[:inter])                     # (B, T, J)
-    sb = torch.matmul(phi, proj[inter:])
+    sa = _jj("attn_score", tiers, torch.matmul, theta, proj[:inter])
+    sb = _jj("attn_score", tiers, torch.matmul, phi, proj[inter:])
     f = F.leaky_relu(sa[..., :, None] + sb[..., None, :], 0.2)
     attn = torch.softmax(f, dim=-1) + head.C_k
-    return torch.matmul(attn, g)                               # (B, T, J, G)
+    return _jj("attn_apply", tiers, torch.matmul, attn, g)     # (B, T, J, G)
 
 
 def multi_global_graph(x: torch.Tensor, mod: nn.Module, *,
                        train: bool = False, rate: float = 0.0,
                        generator=None, mesh: Optional[Mesh] = None,
-                       impl: str = "einsum") -> torch.Tensor:
+                       impl: str = "einsum", tiers: Tiers = None,
+                       plain: bool = False) -> torch.Tensor:
     """Multi-head attention over joints; head outputs concatenate
     head-major as in the reference's torch.cat. ``impl="einsum"``
     projects one head at a time; ``"batched"`` (the JAX ``attn_impl``
     that unrolls the heads over flat projections) projects every head's
     theta, phi and g in one product, then runs each head on its column
-    slices. The same function."""
+    slices. The same function. Below ``"highest"`` (``tiers``' ``attn_
+    proj``) every impl projects in one GEMM launch, the biases in its
+    epilogue; ``tiers`` also gives each head's and the cat's."""
     check_f32_matmul(x)
     heads = list(mod.attentions)
-    if impl == "batched":
-        names = ("theta", "phi", "g")
+    names = ("theta", "phi", "g")
+    k, inter = len(heads), heads[0].theta.out_channels
+    g_ch = heads[0].g.out_channels
+    tier = _tier(tiers, "attn_proj", x)
+    if impl == "batched" or tier != "highest":
         w = torch.cat([pconv_weight(getattr(h, n)) for n in names
                        for h in heads], dim=1)
-        p = torch.matmul(x, w) + torch.cat([getattr(h, n).bias
-                                            for n in names for h in heads])
-        k, inter = len(heads), heads[0].theta.out_channels
-        g_ch = heads[0].g.out_channels
+        bias = torch.cat([getattr(h, n).bias for n in names for h in heads])
+        if tier == "highest":
+            p = torch.matmul(x, w) + bias
+        else:
+            p = K.site_gemm("attn_proj", [(_rows(x), w, 0)],
+                            x.numel() // x.shape[-1], tier, plain,
+                            scale=torch.ones_like(bias), shift=bias)
+            p = p.reshape(*x.shape[:-1], -1)
         outs = [_head(p[..., h * inter:(h + 1) * inter],
                       p[..., (k + h) * inter:(k + h + 1) * inter],
                       p[..., 2 * k * inter + h * g_ch:
-                        2 * k * inter + (h + 1) * g_ch], head)
+                        2 * k * inter + (h + 1) * g_ch], head, tiers)
                 for h, head in enumerate(heads)]
     else:
         outs = [_head(torch.matmul(x, pconv_weight(h.theta)) + h.theta.bias,
                       torch.matmul(x, pconv_weight(h.phi)) + h.phi.bias,
-                      torch.matmul(x, pconv_weight(h.g)) + h.g.bias, h)
+                      torch.matmul(x, pconv_weight(h.g)) + h.g.bias, h,
+                      tiers)
                 for h in heads]
     return global_concat(outs, mod, train=train, rate=rate,
-                         generator=generator, mesh=mesh)
+                         generator=generator, mesh=mesh, tiers=tiers,
+                         plain=plain)
 
 
 def global_concat(heads: list, mod: nn.Module, *, train: bool = False,
                   rate: float = 0.0, generator=None,
-                  mesh: Optional[Mesh] = None) -> torch.Tensor:
+                  mesh: Optional[Mesh] = None, tiers: Tiers = None,
+                  plain: bool = False) -> torch.Tensor:
     """The global branch's head outputs (head-major) -> K*G->C 1x1 conv ->
-    BN -> ReLU (-> dropout in train mode)."""
+    BN -> ReLU (-> dropout in train mode); the conv at ``tiers``'
+    ``attn_cat``."""
+    tier = _tier(tiers, "attn_cat", heads[0])
+    if tier != "highest":
+        y = _bn_gemm("attn_cat", [(_rows(torch.cat(heads, dim=-1)),
+                                   pconv_weight(mod.cat_conv).contiguous(),
+                                   0)], mod.cat_bn, tier, plain)
+        return y.reshape(*heads[0].shape[:-1], -1)
     y = torch.matmul(torch.cat(heads, dim=-1), pconv_weight(mod.cat_conv))
     y = torch.relu(batch_norm(y, mod.cat_bn, train=train, mesh=mesh))
     return _maybe_dropout(y, train, rate, generator, mesh)
@@ -231,8 +329,20 @@ def graph_attention_block(x: torch.Tensor, mod: nn.Module, statics, *,
 
 def block_concat(x: torch.Tensor, local: torch.Tensor, globl: torch.Tensor,
                  mod: nn.Module, *, train: bool = False,
-                 mesh: Optional[Mesh] = None) -> torch.Tensor:
-    """The GAB's [x, local, global] -> 1x1 conv (3C->2C) -> BN -> ReLU."""
+                 mesh: Optional[Mesh] = None, tiers: Tiers = None,
+                 plain: bool = False) -> torch.Tensor:
+    """The GAB's [x, local, global] -> 1x1 conv (3C->2C) -> BN -> ReLU;
+    the conv at ``tiers``' ``gab_cat`` (below ``"highest"`` three pieces
+    of one GEMM launch, the concatenation never made)."""
+    tier = _tier(tiers, "gab_cat", x)
+    if tier != "highest":
+        w = pconv_weight(mod.cat_conv).contiguous()
+        c = x.shape[-1]
+        y = _bn_gemm("gab_cat", [(_rows(x), w[:c], 0),
+                                 (_rows(local), w[c:2 * c], 0),
+                                 (_rows(globl), w[2 * c:], 0)], mod.cat_bn,
+                     tier, plain)
+        return y.reshape(*x.shape[:-1], -1)
     y = torch.matmul(torch.cat([x, local, globl], dim=-1),
                      pconv_weight(mod.cat_conv))
     return torch.relu(batch_norm(y, mod.cat_bn, train=train, mesh=mesh))

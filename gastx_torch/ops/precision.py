@@ -19,12 +19,16 @@ kernels compute the same arithmetic on the card. With ``a = ah + al``
   ==============  ==================================================
 
 Where the tiers apply: on the card, in the tensor-core ``gemm_epilogue``
-instantiations and ``joint_attention``'s rounded operands
-(``gastx_torch/csrc``). On the CPU the model runs every tier in float32,
-as the JAX package's CPU path does: its interpret-mode kernels skip the
-emulation (``gastx/ops/pallas/precision.py:30-33``, "interpret mode runs
-f32 on CPU where XLA's tiers are all exact anyway"), so :func:`resolve_tiers`
-gives ``"highest"`` for every class on a CPU tensor. :func:`tiered_mm` is
+instantiations, ``gab_narrow``'s tiered form and ``joint_attention``'s
+rounded operands (``gastx_torch/csrc``) at each kernel site's raw tier
+(:func:`resolve_tiers`), and at the plain sites, the JAX package's XLA
+sites, at their XLA tier (:func:`resolve_site_tiers`; their row-wide
+products on the GEMM kernels, their J x J contractions by :func:`tiered`).
+On the CPU the model runs every tier in float32, as the JAX package's CPU
+path does: its interpret-mode kernels skip the emulation
+(``gastx/ops/pallas/precision.py:30-33``, "interpret mode runs f32 on CPU
+where XLA's tiers are all exact anyway") and XLA's CPU tiers are float32,
+so both resolvers give ``"highest"`` for every class on a CPU tensor. :func:`tiered_mm` is
 the plain version of a tiered dot on any device: f32 matmuls of
 bf16-valued f32 tensors, under ``check_f32_matmul`` so that no TF32
 enters.
@@ -101,3 +105,14 @@ def resolve_tiers(cfg, tag: str, ops: Iterable[str],
     if device.type != "cuda":
         return {op: "highest" for op in ops}
     return {op: cfg.tier_for(op, tag) for op in ops}
+
+
+def resolve_site_tiers(cfg, tag, ops: Iterable[str],
+                       device: torch.device) -> Dict[str, str]:
+    """The {op_class: tier} dict of one plain site: ``cfg.site_tier(op,
+    tag)`` on a CUDA tensor (the XLA tier: ``tag`` qualified, or bare with
+    ``tag`` None), ``"highest"`` for every class on a CPU one, as
+    :func:`resolve_tiers`."""
+    if device.type != "cuda":
+        return {op: "highest" for op in ops}
+    return {op: cfg.site_tier(op, tag) for op in ops}

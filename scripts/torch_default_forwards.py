@@ -34,7 +34,10 @@ the harness:
   (``chip_smoke.issue_ms`` over 10 forwards: CUDA events and the host's
   issue time);
 * phase 8's streaming cells (``chip_smoke.STREAM_CELLS``, causal models,
-  ``chip_smoke.streaming_cell``): push p50 and p99;
+  ``chip_smoke.streaming_cell``): push p50 and p99; and the outputs,
+  bitwise the first tree's, of a push's strided forward (27f and 81f, 256
+  streams), a request's dilated forward on a whole sequence (27f and
+  243f) and the 27f dense forward;
 * ``chip_smoke.SHIPPED_CELLS`` (the JAX package's shipped bf16 routes:
   the 243f preset with fold at B=256, the 81f preset at B=1024 with level
   3 float32) at float32 and bf16 storage through ``chip_smoke.pair_turns``,
@@ -175,6 +178,22 @@ def one_tree(tree: str, out: str, tiered: bool = False) -> None:
                               persons, f"{rf}f M={persons}")
         for q in ("p50", "p99"):
             ms[f"push {q} {rf}f M={persons}"] = float(r[f"push_{q}_ms"])
+    # The float32 forwards of the other paths, held bit for bit too: a
+    # push's strided forward (a causal model on windows of rf frames), a
+    # phase-3 request's dilated forward on a 1000-frame sequence with its
+    # flip (B=2), and the dense forward.
+    for cell, rf, shape, variant, fields in (
+            ("push 27f", 27, (256, 27), "strided", {"causal": True}),
+            ("push 81f", 81, (256, 81), "strided", {"causal": True}),
+            ("request 27f", 27, (2, 1026), "dilated", {}),
+            ("request 243f", 243, (2, 1242), "dilated", {}),
+            ("dense 27f", 27, (64, 27), "dilated", {"dense": True})):
+        cfg = dataclasses.replace(config_for_frames(rf), **fields)
+        model = build_gastnet(cfg, seed=rf + 1, device=dev)
+        x = torch.from_numpy(np.random.default_rng(rf + 1).standard_normal(
+            (*shape, 17, 2)).astype(np.float32)).to(dev)
+        ys[cell] = model(x, variant).cpu()
+        del model, x
     torch.cuda.empty_cache()
     m243 = models["243f"]
     t = gab_tables(m243.layers_graph_conv[0], m243.statics)

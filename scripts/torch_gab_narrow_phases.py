@@ -18,8 +18,18 @@ build and shape, the chain's ms, the bound, the card's name and power
 limit) and writes it to ``chiprun_out/`` (``--json``, default
 ``gab_narrow_phases.json``).
 
+``--tiered`` also times ``gab_narrow``'s tiered form (the checkout's
+library, through ``kernels.gab_narrow(..., tiers=)``) beside the chain at
+the same tiers, at the three shapes and at every width of
+``kernels.NARROW_TIERED_WIDTHS`` (level 0 of a model of that many
+channels), at
+two sets of tiers: every class at "high" (three passes) and the JAX
+preset's kernel tiers at the 243f model's GAB 1 (one pass each), with the
+bound of each (``chip_smoke.narrow_bound``): the numbers
+``kernels.NARROW_ROUTE_WIDTHS_TIERED`` follows.
+
     python3 scripts/torch_gab_narrow_phases.py [--source F.cu] [--no-cuts]
-        [--widths] [--json F]
+        [--widths] [--tiered [--tiered-cuts]] [--json F]
 """
 from __future__ import annotations
 
@@ -58,6 +68,19 @@ CUTS = {
     "attention twice": [("if (/*ATTN*/true)",
                          "for (int rep_ = 0; rep_ < 2; ++rep_)")],
 }
+# --tiered --tiered-cuts: the tiered form's phases cut out, timed at the first
+# shape with every class at "high": its products' mma passes (the slabs
+# still stream and split), the slabs' split into bf16 words, the semantic
+# graph, the attention.
+TIERED_CUTS = {
+    "tiered whole": [],
+    "tiered no mma": [_cut("TMMA")],
+    "tiered no slab split": [_cut("TSPLIT")],
+    "tiered no semantic graph": [_cut("TSEM")],
+    "tiered no attention": [_cut("TATTN")],
+    "tiered weight stream only": [_cut(t) for t in ("TMMA", "TSPLIT", "TSEM",
+                                                     "TATTN")],
+}
 # (label, model receptive field, its GAB level, windows, frames at the GAB)
 SHAPES = (("C=32, T=241, B=256", 243, 0, 256, 241),
           ("C=64, T=79, B=1024", 81, 0, 1024, 79),
@@ -67,7 +90,8 @@ SHAPES = (("C=32, T=241, B=256", 243, 0, 256, 241),
 WIDTH_FRAMES = 256 * 241
 
 
-def build(K, source: str, cuts: dict) -> dict:
+def build(K, source: str, cuts: dict, symbol: str = "gab_narrow",
+          flags=()) -> dict:
     src = open(source).read()
     os.makedirs(OUT, exist_ok=True)
     procs = {}
@@ -78,11 +102,12 @@ def build(K, source: str, cuts: dict) -> dict:
                 raise SystemExit(f"cut {name!r}: the source no longer holds "
                                  f"{old!r}")
             text = text.replace(old, new)
-        cu, lib = os.path.join(OUT, f"v{i}.cu"), os.path.join(OUT, f"v{i}.so")
+        cu = os.path.join(OUT, f"{symbol}_v{i}.cu")
+        lib = os.path.join(OUT, f"{symbol}_v{i}.so")
         with open(cu, "w") as f:
             f.write(text)
         procs[name] = (subprocess.Popen(
-            [K._nvcc(), *K.NVCC_FLAGS, "-o", lib, cu],
+            [K._nvcc(), *K.NVCC_FLAGS, *flags, "-o", lib, cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
     fns = {}
     for name, (proc, lib) in procs.items():
@@ -93,8 +118,8 @@ def build(K, source: str, cuts: dict) -> dict:
             print("\n".join(line for line in out.splitlines()
                             if "registers" in line or "spill" in line
                             or "Function properties" in line))
-        fn = ctypes.CDLL(lib).gab_narrow
-        fn.argtypes = K._ARGTYPES["gab_narrow"]
+        fn = getattr(ctypes.CDLL(lib), symbol)
+        fn.argtypes = K._ARGTYPES[symbol]
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
@@ -104,16 +129,10 @@ def time_widths(K, fn, cuda_ms) -> dict:
     """The whole kernel beside the chain at each of NARROW_WIDTHS (the
     numbers kernels.NARROW_ROUTE_WIDTHS follows)."""
     import torch
-    from gastx_torch.models import (GastNet, GastNetConfig, init_gastnet,
-                                    randomize_eval_statistics)
-    from gastx_torch.ops.cuda.fused_gab import gab_tables
 
     out = {}
     for c in K.NARROW_WIDTHS:
-        gen = torch.Generator().manual_seed(c)
-        m = GastNet(GastNetConfig(filter_widths=(3, 3), channels=c))
-        m = randomize_eval_statistics(init_gastnet(m, gen), gen).cuda().eval()
-        tab = gab_tables(m.layers_graph_conv[0], m.statics)
+        tab = _width_tables(K, c)
         _, k, inter, g_ch, j, d = K.gab_shape(tab)
         gen = torch.Generator(device="cuda").manual_seed(2)
         x = torch.randn(WIDTH_FRAMES * j, c, generator=gen, device="cuda")
@@ -144,6 +163,90 @@ def time_widths(K, fn, cuda_ms) -> dict:
     return out
 
 
+# --tiered: the tier sets (chip_smoke.narrow_tier_dict's names).
+TIER_SETS = ("high", "preset")
+
+
+def _width_tables(K, c):
+    """The GAB tables of level 0 of a 2-level model of ``c`` channels."""
+    import torch
+    from gastx_torch.models import (GastNet, GastNetConfig, init_gastnet,
+                                    randomize_eval_statistics)
+    from gastx_torch.ops.cuda.fused_gab import gab_tables
+
+    gen = torch.Generator().manual_seed(c)
+    m = GastNet(GastNetConfig(filter_widths=(3, 3), channels=c))
+    m = randomize_eval_statistics(init_gastnet(m, gen), gen).cuda().eval()
+    return gab_tables(m.layers_graph_conv[0], m.statics)
+
+
+def time_tiered(K, cases) -> dict:
+    """The tiered gab_narrow beside the tiered chain, (label, tables,
+    frames) each, at every ``TIER_SETS`` entry, held to its plain version
+    by ``chip_smoke.tier_bound`` first."""
+    import torch
+    from chip_smoke import (cuda_ms, max_err, narrow_bound,
+                            narrow_tier_dict, tier_bound)
+
+    out = {}
+    for label, tab, frames in cases:
+        c, k, inter, g_ch, j, d = K.gab_shape(tab)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        x = torch.randn(frames * j, c, generator=gen, device="cuda")
+        f32_ms = cuda_ms(lambda: K.gab_narrow(x, tab))
+        for name in TIER_SETS:
+            tiers = narrow_tier_dict(name)
+            got = K.gab_narrow(x, tab, tiers=tiers)
+            plain = K.gab_narrow_plain(x, tab, tiers=tiers)
+            bound_, _ = tier_bound(plain, K.gab_narrow_plain(x, tab))
+            err = max_err(got, plain)
+            if not err <= bound_:
+                raise SystemExit(f"{label} {name}: the tiered gab_narrow "
+                                 f"disagrees with its plain version: {err} "
+                                 f"> {bound_}")
+            del got, plain
+            ms = cuda_ms(lambda: K.gab_narrow(x, tab, tiers=tiers))
+            chain_ms = cuda_ms(lambda: K.gab_chain(
+                x, tab, K.gemm_epilogue, K.sem_graph, K.joint_attention,
+                tiers))
+            bms, by = narrow_bound(frames * j, c, j, k, inter, g_ch, d,
+                                   tiers)
+            out[f"{label} {name}"] = {
+                "ms": ms, "chain_ms": chain_ms, "bound_ms": bms,
+                "bound_by": by, "float32_ms": f32_ms, "max_abs_err": err}
+            print(f"tiered {label} {name}: {ms:.3f} ms, chain {chain_ms:.3f}"
+                  f" ms, bound {bms:.3f} ms by {by} (float32 gab_narrow "
+                  f"{f32_ms:.3f}), max|d| {err:.3e}", flush=True)
+        del x
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_tiered_cuts(K, fns, label, tab, frames) -> dict:
+    """Each ``TIERED_CUTS`` build of the tiered form at one shape, every
+    class at "high" (a cut build computes garbage; only its time is
+    read)."""
+    import torch
+    from chip_smoke import cuda_ms
+
+    c, k, inter, g_ch, j, d = K.gab_shape(tab)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(frames * j, c, generator=gen, device="cuda")
+    out = torch.empty(frames * j, 2 * c, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    codes = [K.TC_TIERS.index("high")] * 5 + [K.ATTN_TIERS.index("high")] * 2
+    result = {}
+    for name, fn in fns.items():
+        def call(fn=fn):
+            code = fn(x.data_ptr(), out.data_ptr(), frames, j, c, d, k, inter,
+                      g_ch, *K.narrow_table_ptrs(tab), stream, 0, 0, *codes)
+            if code != 0:
+                raise SystemExit(f"{name}: launch failed ({code})")
+        result[name] = cuda_ms(call)
+        print(f"{label} {name} (high): {result[name]:.3f} ms", flush=True)
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--source", default=os.path.join(
@@ -154,6 +257,12 @@ def main(argv=None) -> int:
     ap.add_argument("--widths", action="store_true",
                     help="also time the whole kernel and the chain at "
                          "every width of kernels.NARROW_WIDTHS")
+    ap.add_argument("--tiered", action="store_true",
+                    help="also time the tiered form beside the tiered "
+                         "chain at the shapes and every width")
+    ap.add_argument("--tiered-cuts", action="store_true",
+                    help="with --tiered, also time the tiered form with "
+                         "each of its phases cut out (TIERED_CUTS)")
     ap.add_argument("--json", default="gab_narrow_phases.json",
                     help="file name of the result under chiprun_out/")
     args = ap.parse_args(argv)
@@ -225,6 +334,18 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if args.widths:
         result["widths"] = time_widths(K, fns["whole"], cuda_ms)
+    if args.tiered:
+        cases = [(label, gab_tables(models[frames].layers_graph_conv[level],
+                                    models[frames].statics), b * t)
+                 for label, frames, level, b, t in SHAPES]
+        if args.tiered_cuts:
+            result["tiered_cuts"] = time_tiered_cuts(
+                K, build(K, args.source, TIERED_CUTS, "gab_narrow_tiered",
+                         K.TIERED_FLAGS),
+                *cases[0])
+        cases += [(f"C={c}", _width_tables(K, c), WIDTH_FRAMES)
+                  for c in K.NARROW_TIERED_WIDTHS]
+        result["tiered"] = time_tiered(K, cases)
     path = os.path.join(REPO, "chiprun_out", args.json)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:

@@ -933,9 +933,10 @@ def test_cuda_tiered_forward_matches_plain_route(model, frames):
     got = m(x)
     torch.cuda.synchronize()
     assert K.LAUNCHES["gemm_tc"] > 0 and K.LAUNCHES["gemm_epilogue"] == 0
-    # The level-0 expand conv on gemm_smallk, nothing on general gemm_tc.
+    # The level-0 expand conv on gemm_smallk, the shrink (N = 3, a plain
+    # site) alone on the general gemm_tc.
     assert K.LAUNCHES["gemm_smallk"] == 1
-    assert K.VARIANT_LAUNCHES["gemm_tc"]["general"] == 0
+    assert K.VARIANT_LAUNCHES["gemm_tc"]["general"] == 1
     assert K.TIER_LAUNCHES["joint_attention"].get("default/default")
     _assert_close(got, m.plain_route_forward(x))
     assert (got - f32).abs().max().item() <= 1e-4
@@ -1083,3 +1084,118 @@ def test_cuda_bf16_storage_forward_matches_plain_route(model, frames,
     gap = (plain - f32).abs().max().item()
     assert (got - plain).abs().max().item() <= max(
         gap, 1e-4 * max(1.0, plain.abs().max().item()))
+
+
+def _tier_close(got, plain, f32, slack=0.0):
+    """A tiered result against its plain version at the same tiers: the
+    float32 bound or, where larger, twice the tier's own distance from
+    the float32 result (``chip_smoke.tier_bound``: two float32 orders may
+    round an intermediate to neighbouring bf16 values), plus ``slack``."""
+    torch.cuda.synchronize()
+    assert got.shape == plain.shape
+    bound = slack + max(1e-4 * max(1.0, plain.abs().max().item()),
+                        2 * (plain - f32).abs().max().item())
+    err = (got - plain).abs().max().item()
+    assert err <= bound, (err, bound)
+
+
+NARROW_TIERS = ("default", "kdefault", "high_lhs", "high_rhs", "high")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("io", ("float32", "bf16"))
+@pytest.mark.parametrize("channels", (16, 32, 48, 64))
+def test_cuda_gab_narrow_tiered_matches_plain(model, channels, io,
+                                             monkeypatch):
+    """gab_narrow's tiered form (bf16 mma.sync passes) at every tier and at
+    the JAX preset's mixed kernel tiers, in the float32 library and the
+    bf16-I/O one (bf16 x, to a float32 and to a bf16 output), against its
+    plain version at the same tiers (``_tier_close``, plus one bf16 step
+    of a bf16 output), each launch counted under its tiers; and, on a
+    float32 output, nearer its plain version than the float32 result
+    wherever the tier moves it (a bf16 output's own rounding hides that)."""
+    from gastx_torch.ops.cuda.fused_gab import KERNEL_OPS
+
+    monkeypatch.setattr(torch.backends.cuda.matmul,
+                        "allow_bf16_reduced_precision_reduction", False)
+    gen = torch.Generator().manual_seed(channels)
+    m = GastNet(GastNetConfig(filter_widths=(3, 3), channels=channels))
+    m = randomize_eval_statistics(init_gastnet(m, gen), gen).cuda().eval()
+    t = gab_tables(m.layers_graph_conv[0], m.statics)
+    x = _randn(301 * 17, channels, seed=channels)
+    outs = (torch.float32,)
+    if io == "bf16":
+        x, outs = x.to(torch.bfloat16), (torch.float32, torch.bfloat16)
+    f32 = K.gab_narrow_plain(x, t, torch.float32)
+    noise = (K.gab_narrow(x, t, torch.float32) - f32).pow(2).mean().sqrt() \
+        .item()
+    preset = config_for_frames(243, matmul_precision="high",
+                               precision_overrides=(
+                                   ("local_sem", "default"),
+                                   ("attn_proj", "kdefault"),
+                                   ("attn_score", "default")))
+    cases = [dict.fromkeys(KERNEL_OPS, tier) for tier in NARROW_TIERS]
+    cases.append({op: preset.tier_for(op, "gab1") for op in KERNEL_OPS})
+    for tiers in cases:
+        for out in outs:
+            K.reset_launches()
+            got = K.gab_narrow(x, t, out, tiers).float()
+            assert K.LAUNCHES["gab_narrow"] == 1
+            assert sum(K.TIER_LAUNCHES["gab_narrow"].values()) == 1
+            assert K.DTYPE_LAUNCHES["gab_narrow"][K.io_label([x], out)] == 1
+            plain = K.gab_narrow_plain(x, t, out, tiers).float()
+            if out == torch.bfloat16:
+                _tier_close(got, plain, f32,
+                            2.0 ** -8 * plain.abs().max().item())
+                continue
+            _tier_close(got, plain, f32)
+            if (plain - f32).pow(2).mean().sqrt().item() > 2 * noise:
+                rms = (got - plain).pow(2).mean().sqrt().item()
+                assert rms <= 0.5 * (got - f32).pow(2).mean().sqrt().item()
+
+
+SITE_CELLS = {
+    "27f xla": (27, {"gab_impl": "xla"}, "dilated", 31),
+    "27f hybrid": (27, {"gab_impl": "pallas_local",
+                        "attn_impl": "pallas_head"}, "dilated", 31),
+    "27f strided causal": (27, {"causal": True}, "strided", 54),
+    "27f dense": (27, {"dense": True}, "dilated", 31),
+    "81f C=512 chain": (81, {}, "dilated", 85)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", sorted(SITE_CELLS))
+def test_cuda_plain_sites_launch_their_gemm(model, cell):
+    """Each plain site on the card at the JAX preset's tiers launches its
+    GEMM (``K.SITE_PRODUCTS``: no float32 product at any plain site; the
+    row-wide classes through gemm_tc or gemm_smallk, never the float32
+    gemm_epilogue), and the forward holds to its plain route."""
+    from gastx_torch.models.config import TPU_MIXED_PRECISION_OVERRIDES
+
+    frames, fields, variant, t = SITE_CELLS[cell]
+    m = _variant_model(frames, **fields)
+    x = _randn(3, t, 17, 2, seed=frames)
+    f32 = m.reference_forward(x, variant)
+    m.cfg = dataclasses.replace(
+        m.cfg, matmul_precision="high",
+        precision_overrides=TPU_MIXED_PRECISION_OVERRIDES)
+    K.reset_launches()
+    got = m(x, variant)
+    torch.cuda.synchronize()
+    sites = {op: dict(v) for op, v in K.SITE_PRODUCTS.items()}
+    assert not any(v.get("highest") for v in sites.values()), sites
+    # Every cell but the last runs no level-0 kernel: its expand conv is a
+    # plain site.
+    want = {"temporal", "mid1x1", "shrink"}
+    if cell != "81f C=512 chain":
+        want.add("expand")
+    if "xla" in cell:
+        want |= {"local_sem", "local_off", "local_cat"}
+    if "xla" in cell or "hybrid" in cell:
+        want |= {"attn_proj", "attn_cat", "gab_cat"}
+    if "xla" in cell:
+        want |= {"attn_score", "attn_apply"}
+    assert want <= set(sites), sites
+    assert K.LAUNCHES["gemm_epilogue"] == 0
+    assert K.LAUNCHES["gemm_tc"] > 0 and K.LAUNCHES["gemm_smallk"] == 1
+    _tier_close(got, m.plain_route_forward(x, variant), f32)

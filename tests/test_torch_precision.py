@@ -293,9 +293,10 @@ def test_trainval_precision_flag_matches_jax(tier):
     (48, "gab_narrow", "chain"), (64, "gab_narrow", "chain"),
     (128, "chain", "chain")])
 def test_gab_route_under_tiers(c, float32_route, tiered_route):
-    """Where the chain's GEMMs run below "highest", gab_narrow (float32 at
-    every tier) keeps only the widths where it beat the tiered chain on
-    the card; tiers of the attention alone leave the float32 rule."""
+    """Where the chain's GEMMs run below "highest", gab_narrow (its tiered
+    form) keeps only the widths where it beat the tiered chain on the
+    card; tiers of the attention alone, beside GEMM classes at "highest",
+    have no gab_narrow form and take the chain."""
     shape = (c, 4, c // 4, c // 4, 17, 4)
     preset = tc.config_for_frames(81, matmul_precision="high",
                                   precision_overrides=PRESET)
@@ -303,5 +304,5 @@ def test_gab_route_under_tiers(c, float32_route, tiered_route):
     attn_only = {op: "highest" for op in KERNEL_OPS}
     attn_only.update(attn_score="default", attn_apply="default")
     assert K.gab_route(*shape) == float32_route
-    assert K.gab_route(*shape, attn_only) == float32_route
+    assert K.gab_route(*shape, attn_only) == "chain"
     assert K.gab_route(*shape, tiers) == tiered_route
