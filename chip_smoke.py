@@ -5,7 +5,7 @@ CUDA device and the CUDA toolkit (``nvcc``); it imports nothing of JAX or
 of the ``gastx`` package. Phases, in order; any failure ends the run with
 a non-zero exit and no result line:
 
-  1. build the six CUDA kernels from ``gastx_torch/csrc`` (one ``nvcc``
+  1. build the seven CUDA kernels from ``gastx_torch/csrc`` (one ``nvcc``
      per source, all started together) and print the card's name and power
      limit;
   2. hold each kernel and each entry-point wrapper to its plain PyTorch
@@ -26,6 +26,12 @@ a non-zero exit and no result line:
      residual, no scale, ReLU off), each checked to launch it at its tier
      and nothing else, held to ``gemm_epilogue_plain`` and, at
      ``"highest"``, bitwise to the general ``gemm_epilogue``; then
+     ``gemm_wgrad`` at every call of one tiered strided train step of the
+     27f model at B=1024 and the 243f one at B=256, all ``high`` and the
+     JAX preset (``wgrad_cases``: each distinct shape and tier held to
+     ``gemm_wgrad_plain`` as it is made), and the 27f call that moves the
+     most bytes timed at each tier for the kernels line (``wgrad_rows``;
+     every call's time: ``scripts/torch_train_tiers.py``); then
      ``sem_graph`` and ``joint_attention`` on theirs (``graph_cases``: 1,
      7 and 4001 frames against their frame tiles at C=128, 256 and 512
      and on the 15/16/19-joint layouts, P at a 4-byte offset and at an
@@ -133,7 +139,19 @@ a non-zero exit and no result line:
      its first step held to the ``.ckpt``'s step and moments), every eval
      forward held to the same route and tiers through the plain versions
      (``plain_route_forward``) as it runs and the launch counters read
-     over the seven runs;
+     over the seven runs; since the train steps run at trainval's tier
+     too, the resume must match the straight run bit for bit, and
+     ``gemm_wgrad`` must have launched; (c) also runs at the JAX preset
+     (its eval forward held by ``tiered_check``); (e) the train steps at
+     the tiers (``tiered_train_phase``): the cells of (a) at all ``high``
+     and the preset, each timed as (a) beside the float32 step, its
+     launches a step (only ``TRAIN_TIER_KERNELS``, no entry point),
+     ``SITE_PRODUCTS`` (no site at ``"highest"``) and ``SITE_GRADS``
+     (every class's gradients) counted over one step with the counters
+     zeroed just before; then 27f B=128 and 243f B=256 tiered steps held
+     to the same steps through the plain versions
+     (``tiered_step_against_plain``: loss, every gradient, every parameter
+     after amsgrad, BN statistics; two runs bitwise equal);
  10. the precision tiers (``gastx_torch.ops.precision``): (a) the
      tensor-core ``gemm_tc`` at every tier (``TC_PASSES``) on the 27f
      level-1 projection (B=1024, timed beside the float32
@@ -197,7 +215,10 @@ a non-zero exit and no result line:
      started by the spawn method and joined with a timeout: (a)
      ``gastx_torch.entry.dryrun_multichip(1)`` on NCCL, and the DDP
      strided train step on one NCCL rank against the step without DDP at
-     27f B=128 and 1024 (the loss and every gradient); (b) two ranks
+     27f B=128 and 1024 (the loss and every gradient), and at the tiers
+     (all ``high``, the preset; B=128) bit for bit (the loss, every
+     gradient, every parameter after amsgrad, the BN statistics); (b) two
+     ranks
      sharing the card over gloo (``dp_pair_rank``): two DP steps at 27f on
      a global B=1024 against one process's steps on the same batch,
      float64 held whole (loss, every gradient, every parameter after
@@ -944,7 +965,7 @@ def profile_call(fn, title):
             continue
         name = next((k for k in ("gemm_epilogue", "sem_graph",
                                  "joint_attention", "gab_narrow", "gemm_tc",
-                                 "gemm_smallk")
+                                 "gemm_smallk", "gemm_wgrad")
                      if f"{k}_kernel" in ev.key), f"other: {ev.key[:70]}")
         g = groups.setdefault(name, [0.0, 0])
         g[0] += dev_ms
@@ -1067,9 +1088,11 @@ def launch_counts(K) -> dict:
 
 def tiered_launch(name: str) -> bool:
     """A counter of the tiered instantiations (``gemm_tc``'s,
-    ``gemm_smallk``'s below ``"highest"``, and ``joint_attention``'s by
-    tier pair), which the float32 paths never launch."""
+    ``gemm_smallk``'s below ``"highest"``, ``joint_attention``'s by tier
+    pair, and ``gemm_wgrad``, the tiered train step's), which the float32
+    paths never launch."""
     return (name.startswith("gemm_tc") or "/" in name
+            or name.startswith("gemm_wgrad")
             or (name.startswith("gemm_smallk ")
                 and name.split()[1] in TC_PASSES))
 
@@ -1373,10 +1396,12 @@ TRAIN_WARMUP, TRAIN_STEPS = 3, 20
 # The card's step against the CPU's: the 27f model at B=16, dropout 0.
 STEP_CHECK_BATCH = 16
 # trainval on the synthetic H36M-format dataset: subjects, two actions of
-# FRAMES frames each, four cameras.
+# FRAMES frames each, four cameras (20,000 train frames after flips: its
+# steps run at trainval's default tier, each 1.3-1.8 times a float32 step,
+# phase 9 (e), so the set is half what a float32 run took in the time).
 TRAINVAL_SUBJECTS = ("S1", "S5", "S6", "S7", "S8", "S9", "S11")
 TRAINVAL_ACTIONS = ("Walking 1", "Eating 1")
-TRAINVAL_FRAMES = 500
+TRAINVAL_FRAMES = 250
 TRAINVAL_ARGS = ("-arc", "3,3,3", "-ch", "128", "-b", "128", "--downsample",
                  "1", "--checkpoint-frequency", "1")
 # Where a ReLU's input lies within rounding of zero, float32 steps on two
@@ -1400,22 +1425,24 @@ def train_batch(frames: int, batch: int, seed: int, dev):
     return x2.to(dev), x3.to(dev), torch.ones(batch, device=dev)
 
 
-def train_cell(K, label, frames, batch, dev) -> dict:
+def train_cell(K, label, frames, batch, dev, tiers=None) -> dict:
     """Phase 9 (a): TRAIN_STEPS strided train steps after TRAIN_WARMUP
     (CUDA events): ms a step, windows a second, the split of a step
     between the forward with its loss, the backward and the optimizer;
-    peak memory; one profiled step; the launch counters stay 0."""
-    import dataclasses
-
+    peak memory; one profiled step; the launch counters stay 0. Phase 9
+    (e), with ``tiers`` (``TRAIN_TIER_NAMES``): the same at those tiers
+    over TIER_TRAIN_STEPS,
+    where a step launches ``TRAIN_TIER_KERNELS`` alone (its launches,
+    ``SITE_PRODUCTS`` and ``SITE_GRADS`` counted over one step: no site
+    at "highest", every class with its gradients)."""
     import torch
 
-    from gastx_torch.models import build_gastnet, config_for_frames
+    from gastx_torch.models import build_gastnet
     from gastx_torch.train import make_optimizer, set_lr, train_step
     from gastx_torch.train.loop import root_relative, weighted_loss
 
-    cfg = dataclasses.replace(config_for_frames(frames),
-                              dropout=TRAIN_DROPOUT)
-    model = build_gastnet(cfg, seed=frames, device=dev)
+    model = build_gastnet(train_tier_cfg(frames, tiers), seed=frames,
+                          device=dev)
     opt = make_optimizer(model.parameters())
     gen = torch.Generator(device=dev).manual_seed(frames + batch)
     x2, x3, w = train_batch(frames, batch, frames + batch, dev)
@@ -1444,40 +1471,62 @@ def train_cell(K, label, frames, batch, dev) -> dict:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    losses += [step() for _ in range(TRAIN_STEPS)]
+    steps = TRAIN_STEPS if tiers is None else TIER_TRAIN_STEPS
+    losses += [step() for _ in range(steps)]
     end.record()
     torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / TRAIN_STEPS
+    ms = start.elapsed_time(end) / steps
     parts = [0.0, 0.0, 0.0]
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
         losses.append(split_step(ev))
         torch.cuda.synchronize()
         for i in range(3):
-            parts[i] += ev[i].elapsed_time(ev[i + 1]) / TRAIN_STEPS
+            parts[i] += ev[i].elapsed_time(ev[i + 1]) / steps
     peak = torch.cuda.max_memory_allocated()
+    launches = {k: v for k, v in launch_counts(K).items() if v}
+    K.reset_launches()
+    losses.append(step())
+    torch.cuda.synchronize()
+    per_step = {k: v for k, v in launch_counts(K).items() if v}
+    sites = {op: dict(v) for op, v in K.SITE_PRODUCTS.items()}
+    grads = {op: dict(v) for op, v in K.SITE_GRADS.items()}
     prof = profile_call(step, f"phase 9: torch.profiler trace of one "
                               f"{label} train step")
-    launches = {k: v for k, v in launch_counts(K).items() if v}
     loss = torch.stack(losses).cpu()
     if not bool(torch.isfinite(loss).all()):
         fail(f"{label}: a train loss is not finite")
-    if launches:
+    if tiers is None and (launches or per_step):
         fail(f"{label}: the train steps launched hand-written kernels: "
              f"{launches}")
+    if tiers is not None:
+        kernels = {k for k in K.LAUNCHES if per_step.get(k)}
+        if kernels != set(TRAIN_TIER_KERNELS) \
+                or any(per_step.get(e) for e in K.ENTRY_POINTS):
+            fail(f"{label}: a tiered step launched {per_step}")
+        if any(v.get("highest") for v in sites.values()) \
+                or set(grads) != set(sites) or len(sites) != 12:
+            fail(f"{label}: a tiered step's sites {sites}, their "
+                 f"gradients {grads}")
     split = dict(zip(("forward_loss_ms", "backward_ms", "optimizer_ms"),
                      parts))
     print(f"  {label}: {ms:.3f} ms a step, {batch / (ms / 1e3):.1f} "
           f"windows/s; forward+loss {parts[0]:.3f}, backward "
           f"{parts[1]:.3f}, optimizer {parts[2]:.3f} ms (a split step "
           f"{sum(parts):.3f}); peak {peak / 2**30:.3f} GiB; loss "
-          f"{float(loss[0]):.4f} -> {float(loss[-1]):.4f}; launches 0")
+          f"{float(loss[0]):.4f} -> {float(loss[-1]):.4f}; launches a step "
+          f"{per_step or 0}")
+    if tiers is not None:
+        print(f"    site products a step {sites}; their gradients {grads}")
     del model, opt
     torch.cuda.empty_cache()
-    return {"batch": batch, "frames": frames, "ms": ms,
+    return {"batch": batch, "frames": frames, "tiers": tiers, "ms": ms,
             "windows_per_s": batch / (ms / 1e3), **split,
             "peak_bytes": peak, "profile": prof,
+            "launches": launches, "launches_per_step": per_step,
+            "site_products": sites,
+            "site_grads": grads,
             "loss_first": float(loss[0]), "loss_last": float(loss[-1])}
 
 
@@ -1554,13 +1603,18 @@ def step_against_cpu(dev) -> dict:
     return report
 
 
-def convergence_on_card(K, dev) -> dict:
+def convergence_on_card(K, dev, tiers=None) -> dict:
     """Phase 9 (c): the convergence gate of tests/test_golden.py on the
     card from the port's seeded init; the held-out MPJPE is a strided eval
-    forward on the kernels, held to reference_forward."""
+    forward on the kernels, held to reference_forward. With ``tiers``
+    (``"preset"``) the model trains and evaluates at the JAX preset's
+    tiers, its eval forward held to its plain route (``tiered_check``)."""
+    import dataclasses
+
     import numpy as np
     import torch
 
+    from gastx_torch.models.config import TPU_MIXED_PRECISION_OVERRIDES
     from gastx_torch.data import synthetic
     from gastx_torch.eval.metrics import mpjpe
     from gastx_torch.models import GastNetConfig, build_gastnet
@@ -1568,6 +1622,10 @@ def convergence_on_card(K, dev) -> dict:
     from gastx_torch.train.loop import root_relative
 
     cfg = GastNetConfig(filter_widths=(3, 3), channels=32, dropout=0.0)
+    if tiers is not None:
+        cfg = dataclasses.replace(
+            cfg, matmul_precision="high",
+            precision_overrides=TPU_MIXED_PRECISION_OVERRIDES)
     model = build_gastnet(cfg, seed=synthetic.CONVERGENCE_SEED, device=dev)
     rf = cfg.receptive_field()
     rng = np.random.default_rng(7)
@@ -1577,8 +1635,12 @@ def convergence_on_card(K, dev) -> dict:
     def held_out_mm(label):
         model.eval()
         pred = model(ex2d, "strided")
-        check(f"{label} held-out forward {tuple(ex2d.shape)}", pred,
-              model.reference_forward(ex2d, "strided"))
+        name = f"{label} held-out forward {tuple(ex2d.shape)}"
+        if tiers is None:
+            check(name, pred, model.reference_forward(ex2d, "strided"))
+        else:
+            tiered_check(f"{name} at the {tiers}", model, ex2d, pred,
+                         "strided")
         return float(mpjpe(pred, root_relative(ex3d))) * 1000.0
 
     K.reset_launches()
@@ -1597,15 +1659,18 @@ def convergence_on_card(K, dev) -> dict:
     train_s = time.time() - t0
     after = held_out_mm("trained")
     launches = {k: v for k, v in launch_counts(K).items() if v}
-    print(f"  convergence: held-out MPJPE {before:.1f} -> {after:.2f} mm "
-          f"after {n} steps of B={batch} ({train_s:.2f} s); eval launches "
-          f"{launches}")
+    print(f"  convergence{'' if tiers is None else ' at the ' + tiers}: "
+          f"held-out MPJPE {before:.1f} -> {after:.2f} mm after {n} steps "
+          f"of B={batch} ({train_s:.2f} s); launches {launches}")
+    if tiers is not None and not launches.get("gemm_wgrad"):
+        fail(f"the convergence run at the {tiers} launched no gemm_wgrad")
     if not before > 400.0:
         fail(f"untrained held-out error suspiciously low: {before} mm")
     if not after < synthetic.CONVERGENCE_GATE_MM:
         fail(f"convergence gate failed on the card: {before} -> {after} mm")
     return {"before_mm": before, "after_mm": after, "steps": n,
-            "batch": batch, "train_s": train_s, "eval_launches": launches}
+            "batch": batch, "train_s": train_s, "tiers": tiers,
+            "launches": launches}
 
 
 def write_trainval_data(data_dir: str, seed: int = 0) -> None:
@@ -1659,7 +1724,9 @@ def trainval_on_card(K, dev) -> dict:
     """Phase 9 (d): trainval end to end: two epochs with evaluation and a
     checkpoint each, a resume from epoch 1 to epoch 2 in a second
     directory (its epoch-2 checkpoint held to the straight one), then
-    --evaluate, at trainval's --matmul-precision default ("high"), and
+    --evaluate, at trainval's --matmul-precision default ("high": the
+    train steps too run at it, on gemm_tc, gemm_smallk and gemm_wgrad;
+    the resumed run bit for bit the straight one), and
     --evaluate again at "mixed" and at "default"; then --evaluate and
     --resume (to epoch 2) on the JAX package's .ckpt (``JAX_CKPT``), the
     resumed Adam's state at its first step held to the .ckpt's step and
@@ -1772,23 +1839,26 @@ def trainval_on_card(K, dev) -> dict:
         bound_ = TOL * max(1.0, float(t.abs().max()))
         worst = max(worst, (d / bound_, d, n))
     print(f"  resume against straight: largest difference {worst[1]:.3e} "
-          f"({worst[2]}), {worst[0]:.3f} of its bound; tiers' own largest "
+          f"({worst[2]}), {worst[0]:.3f} of its bound, bitwise "
+          f"{worst[1] == 0.0}; tiers' own largest "
           f"distance from the float32 forward, by tier (mm, and the "
           f"largest float32 output in mm): "
           f"{ {k: (round(e * 1000, 4), round(m * 1000, 1))
                for k, (e, m) in tier_errs.items()} }; "
           f"{len(held)} eval "
           f"forwards held; launches {launches}; {total_s:.1f} s")
-    if not worst[0] <= 1.0:
+    if not worst[1] == 0.0:
         fail(f"resumed {worst[2]} differs from the straight run by "
              f"{worst[1]}")
     for name in ("fused_level0", "fused_level", "fused_gab",
                  "fused_gab_split", "gemm_tc", "sem_graph",
                  "joint_attention", "gemm_tc high", "gemm_tc high_rhs",
                  "gemm_tc default", "joint_attention high/high",
-                 "joint_attention default/default"):
+                 "joint_attention default/default", "gemm_wgrad",
+                 "gemm_wgrad high"):
         if not launches.get(name):
-            fail(f"trainval's eval passes did not launch {name}")
+            fail(f"trainval's train steps and eval passes did not launch "
+                 f"{name}")
     if launches.get("gemm_epilogue"):
         fail("trainval's tiered eval passes launched the float32 "
              "gemm_epilogue")
@@ -1820,10 +1890,291 @@ def trainval_on_card(K, dev) -> dict:
           f"{len(names)} parameters; the .ckpt's two runs {jax_s:.1f} s")
     torch.cuda.empty_cache()
     return {"epochs": epochs, "resume_max_abs_diff": worst[1],
+            "resume_bitwise": worst[1] == 0.0,
             "resume_worst_tensor": worst[2], "eval_forwards_held": len(held),
             "eval_max_abs_err": max(held), "launches": launches,
             "tier_max_abs_err_vs_float32": tier_errs,
             "jax_ckpt_s": jax_s, "total_s": total_s}
+
+
+# --------------------------------------------------------------------------
+# Training at the tiers: gemm_wgrad at the train steps' shapes (phase 2)
+# and the tiered train steps (phase 9 (e))
+# --------------------------------------------------------------------------
+
+# The tier configurations of a tiered train step: all "high", and the JAX
+# package's preset (its XLA sites at "high" and "default").
+TRAIN_TIER_NAMES = ("high", "preset")
+# phase 2: the strided steps whose every gemm_wgrad call is held to its
+# plain version: (receptive field, batch of windows).
+WGRAD_STEPS = ((27, 1024), (243, 256))
+# What a tiered train step may launch: the sites' GEMMs and the weight
+# gradients, no fused or graph kernel (the JAX package's train gates).
+TRAIN_TIER_KERNELS = ("gemm_tc", "gemm_smallk", "gemm_wgrad")
+# phase 9 (e): the tiered steps held against the same step through the
+# plain versions: (receptive field, batch of windows).
+TIER_STEP_CHECKS = ((27, 128), (243, 256))
+# ... the kernel step about as near the float32 step as the plain one, by
+# kind of tensor: its 2-norm distance at most this many times the plain
+# step's (plus the float32 bound). Each is a draw of the tier's rounding:
+# two float32 orders that round an operand's bf16 halves apart move a
+# product by up to 2^-16 of it at "high" (2^-8 at "default") where float32
+# moves it by 2^-24, and the step's depth (BN on batch statistics)
+# amplifies that unevenly, so one tensor of the two draws may lie far
+# apart (243f B=256 preset: init_bn.weight's gradient 1.337e-02 apart of
+# its largest value 3.496e-02, where the plain step lay 5.593e-04 from
+# float32); the norm over a kind's millions of elements does not. A wrong tier, row, tap or piece moves the kernel step's
+# distance by orders of magnitude.
+TIER_STEP_NORM = 2.0
+# phase 9 (e): steps timed a tiered cell (after TRAIN_WARMUP), and again
+# split into forward, backward and optimizer.
+TIER_TRAIN_STEPS = 10
+
+
+def train_tier_cfg(frames: int, name: str, dropout: float = TRAIN_DROPOUT):
+    """The shipped ``frames`` model at the tier configuration ``name``
+    (``TRAIN_TIER_NAMES``; None: float32), at ``dropout``."""
+    import dataclasses
+
+    from gastx_torch.models import config_for_frames
+    from gastx_torch.models.config import TPU_MIXED_PRECISION_OVERRIDES
+
+    if name is None:
+        cfg = config_for_frames(frames)
+    else:
+        cfg = config_for_frames(
+            frames, matmul_precision="high",
+            precision_overrides=(TPU_MIXED_PRECISION_OVERRIDES
+                                 if name == "preset" else ()))
+    return dataclasses.replace(cfg, dropout=dropout)
+
+
+def wgrad_bytes(m: int, ks, n: int) -> int:
+    """The bytes a weight gradient must move: A's rows read once, G read
+    once, dW written once (float32)."""
+    return 4 * (m * (sum(ks) + n) + sum(ks) * n)
+
+
+def wgrad_step_calls(K, frames: int, batch: int, name: str, dev,
+                     on_call) -> None:
+    """One tiered strided train step of the seeded ``frames`` model at
+    B=``batch`` and tiers ``name``; ``on_call(site, pieces, g, m, kw,
+    out)`` sees every gemm_wgrad call as it is made."""
+    import torch
+
+    from gastx_torch.models import build_gastnet
+    from gastx_torch.ops.cuda import site_grad as S
+    from gastx_torch.train import make_optimizer, train_step
+
+    model = build_gastnet(train_tier_cfg(frames, name), seed=frames,
+                          device=dev)
+    opt = make_optimizer(model.parameters())
+    x2, x3, w = train_batch(frames, batch, frames + batch, dev)
+    wgrad = S._wgrad
+
+    def record(site, pieces, g, m, **kw):
+        out = wgrad(site, pieces, g, m, **kw)
+        on_call(site, pieces, g, m, kw, out)
+        return out
+
+    S._wgrad = record
+    try:
+        train_step(model, opt, x2, x3, w, TRAIN_LR,
+                   torch.Generator(device=dev).manual_seed(frames),
+                   "strided")
+    finally:
+        S._wgrad = wgrad
+    torch.cuda.synchronize()
+
+
+def wgrad_cases(K, dev) -> dict:
+    """Phase 2: every gemm_wgrad call of the tiered strided steps
+    ``WGRAD_STEPS`` at all ``high`` and at the preset, each distinct shape
+    and tier held to its plain version on the same operands; the 27f
+    call that moves the most bytes kept, by tier, for the kernels line."""
+    import torch
+
+    held, main = {}, {}
+    for frames, batch in WGRAD_STEPS:
+        for name in TRAIN_TIER_NAMES:
+            def hold(site, pieces, g, m, kw, out, frames=frames,
+                     batch=batch):
+                ks = tuple(a.shape[1] for a, _ in pieces)
+                key = (f"{frames}f B={batch} {site.op} {site.tier} K={ks} "
+                       f"N={g.shape[1]} M={m} offsets="
+                       f"{tuple(off for _, off in pieces)} "
+                       f"s_out={kw.get('s_out')}")
+                if key in held:
+                    return
+                plain = K.gemm_wgrad_plain(pieces, g, m, tier=site.tier,
+                                           **kw)
+                err = max_err(out, plain)
+                bound_ = TOL * max(1.0, float(plain.abs().max()))
+                if not err <= bound_:
+                    fail(f"gemm_wgrad {key} disagrees with its plain "
+                         f"version: {err} > {bound_}")
+                held[key] = err
+                nbytes = wgrad_bytes(m, ks, g.shape[1])
+                if frames == 27 and nbytes > main.get(site.tier, (0,))[0]:
+                    main[site.tier] = (nbytes, site.op, pieces, g, m, kw)
+
+            wgrad_step_calls(K, frames, batch, name, dev, hold)
+            torch.cuda.empty_cache()
+    worst = max(held.values())
+    print(f"  gemm_wgrad: {len(held)} distinct calls of the tiered steps "
+          f"(27f B=1024, 243f B=256; all high and the preset) held to their "
+          f"plain versions: largest max|d| {worst:.3e}")
+    return {"cases": held, "max_abs_err": worst, "main": main}
+
+
+def wgrad_rows(K, main: dict) -> list:
+    """The kernels line's gemm_wgrad rows: at each tier, the 27f call of
+    ``wgrad_cases`` that moves the most bytes, timed beside its plain
+    version, its bound (bytes 4 M (K + N) and the output; operations 2 M
+    K N a pass at the bf16 peak) and, at one pass, a bf16 ``torch.matmul``
+    of the gathered A^T and G."""
+    import torch
+
+    rows = []
+    # The recorded activations require a gradient: the wrappers take them
+    # under no_grad, as the backward hands them over.
+    with torch.no_grad():
+        for tier in K.WGRAD_TIERS:
+            if tier in main:
+                rows.append(wgrad_row(K, tier, *main[tier]))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def wgrad_row(K, tier, nbytes, op, pieces, g, m, kw) -> dict:
+    """One row of ``wgrad_rows``."""
+    import torch
+
+    ks = [a.shape[1] for a, _ in pieces]
+    n = g.shape[1]
+    ms = cuda_ms(lambda: K.gemm_wgrad(pieces, g, m, tier=tier, **kw))
+    plain_ms = cuda_ms(lambda: K.gemm_wgrad_plain(pieces, g, m, tier=tier,
+                                                   **kw), reps=3)
+    library_ms = None
+    if tier == "default":
+        s_out = kw.get("s_out") or m
+        a_s_in = kw.get("a_s_in") or s_out
+        r = torch.arange(m, device=g.device)
+        at = torch.cat([a[(r // s_out) * a_s_in + r % s_out + off]
+                        for a, off in pieces], dim=1).t().to(torch.bfloat16)
+        gb = g.to(torch.bfloat16)
+        library_ms = cuda_ms(lambda: torch.matmul(at, gb))
+        del at, gb
+    bms, by = tc_bound(2 * m * sum(ks) * n, nbytes, TC_PASSES[tier])
+    shape = f"27f B=1024 {op}, M={m}, K={'+'.join(map(str, ks))}, N={n}"
+    print(f"  gemm_wgrad ({tier}, {shape}): {ms:.4f} ms (plain "
+          f"{plain_ms:.3f}, bound {bms:.4f} by {by}"
+          + (f", bf16 torch.matmul {library_ms:.4f}" if library_ms else "")
+          + ")")
+    return {"tier": tier, "shape": shape, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": library_ms}
+
+
+def step_state_of(loss, model) -> dict:
+    """A step's loss, gradients, parameters and BN statistics by name (on
+    the card)."""
+    out = {"loss": loss.detach().reshape(1)}
+    for n, p in model.named_parameters():
+        out[f"grad {n}"] = p.grad.detach().clone()
+        out[f"param {n}"] = p.detach().clone()
+    out.update({f"bn {n}": b.detach().clone()
+                for n, b in model.named_buffers() if "running" in n})
+    return out
+
+
+def tiered_step_against_plain(K, frames: int, batch: int, name: str,
+                              dev) -> dict:
+    """Phase 9 (e): one tiered strided step (dropout 0.05) of the seeded
+    ``frames`` model at B=``batch`` on the kernels, against the same step
+    through the plain versions on the card (``train_step(plain=True)``)
+    and the float32 step: for each kind of tensor (the loss, the
+    gradients, the parameters after amsgrad, the BN statistics) the kernel
+    step's distance from the float32 step, in the 2-norm over all its
+    elements, at most ``TIER_STEP_NORM`` times the plain step's plus the
+    float32 bound of the kind's norm; and a second run on the kernels bit
+    for bit the first."""
+    import copy
+
+    import torch
+
+    from gastx_torch.models import build_gastnet
+    from gastx_torch.train import make_optimizer, train_step
+
+    base = build_gastnet(train_tier_cfg(frames, name), seed=frames + 1,
+                         device=dev)
+    x2, x3, w = train_batch(frames, batch, frames + batch + 1, dev)
+
+    def run(cfg, plain):
+        m = copy.deepcopy(base)
+        m.cfg = cfg
+        opt = make_optimizer(m.parameters())
+        loss = train_step(m, opt, x2, x3, w, TRAIN_LR,
+                          torch.Generator(device=dev).manual_seed(5),
+                          "strided", plain=plain)
+        torch.cuda.synchronize()
+        return step_state_of(loss, m)
+
+    f32 = run(train_tier_cfg(frames, None), False)
+    plain = run(base.cfg, True)
+    got = run(base.cfg, False)
+    again = run(base.cfg, False)
+    sums = {}
+    for n, f in f32.items():
+        f = f.double()
+        acc = sums.setdefault(n.split()[0], [0.0, 0.0, 0.0, (0.0, "")])
+        acc[0] += float(((got[n].double() - f) ** 2).sum())
+        acc[1] += float(((plain[n].double() - f) ** 2).sum())
+        acc[2] += float((f ** 2).sum())
+        acc[3] = max(acc[3], (max_err(got[n], plain[n]), n))
+    bitwise = all(torch.equal(got[n], again[n]) for n in got)
+    label = f"{frames}f B={batch} {name}"
+    kinds = {}
+    for kind, (dk, dp, scale, direct) in sums.items():
+        dk, dp, scale = dk ** 0.5, dp ** 0.5, scale ** 0.5
+        bound_ = TIER_STEP_NORM * dp + TOL * max(1.0, scale)
+        kinds[kind] = {"kernel_distance": dk, "plain_distance": dp,
+                       "bound": bound_, "float32_norm": scale,
+                       "largest_kernel_plain_difference": direct[0],
+                       "in_tensor": direct[1]}
+        print(f"  {label} {kind}: the kernel step {dk:.4e} from float32, the "
+              f"plain step {dp:.4e} (2-norms; bound {bound_:.4e}, float32 "
+              f"norm {scale:.4e}); kernel against plain at most "
+              f"{direct[0]:.3e} ({direct[1]})")
+        if not dk <= bound_:
+            fail(f"{label}: the tiered step's {kind} lie {dk} from the "
+                 f"float32 step, its plain version's {dp}")
+    print(f"  {label}: two runs bitwise equal: {bitwise}")
+    if not bitwise:
+        fail(f"{label}: two runs of the tiered step differ")
+    return {"by_kind": kinds, "bitwise_repeat": bitwise,
+            "loss": float(got["loss"]), "plain_loss": float(plain["loss"]),
+            "float32_loss": float(f32["loss"])}
+
+
+def tiered_train_phase(K, dev, f32_cells: dict) -> dict:
+    """Phase 9 (e): the tiered train steps of ``TRAIN_CELLS`` at all
+    ``high`` and the preset, each timed as phase 9 (a) times the float32
+    ones (``train_cell``), beside them; then ``TIER_STEP_CHECKS`` against
+    the plain-version steps."""
+    out = {}
+    for label, frames, b in TRAIN_CELLS:
+        for name in TRAIN_TIER_NAMES:
+            cell = train_cell(K, f"{label} {name}", frames, b, dev,
+                              tiers=name)
+            cell["against_float32_ms"] = cell["ms"] / f32_cells[label]["ms"]
+            out[f"{label} {name}"] = cell
+            print(f"    {cell['ms'] / f32_cells[label]['ms']:.3f}x the "
+                  f"float32 step ({f32_cells[label]['ms']:.3f} ms)")
+    out["against_plain"] = {
+        f"{frames}f B={batch} {name}": tiered_step_against_plain(
+            K, frames, batch, name, dev)
+        for frames, batch in TIER_STEP_CHECKS for name in TRAIN_TIER_NAMES}
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -3026,14 +3377,16 @@ def pipeline_phase(K, dev, smi) -> dict:
 # DP_TIMED_STEPS timed after their warm-up; the ragged step's real rows
 # (fewer than a rank's half: rank 1 holds only filler rows).
 DP_BATCHES = (128, 1024)
+# (a) the tiered DDP step's batch of windows.
+DP_TIER_BATCH = 128
 DP_PAIR_BATCH = 1024
 DP_RAGGED_ROWS = 300
 DP_TIMED_STEPS = 5
 DP_ALLREDUCE_REPS = 5
 DP_RANK_TIMEOUT = 300
 # (d) trainval under torch.distributed.run on phase 9 (d)'s data: one
-# epoch (later flags win over TRAINVAL_ARGS'), every 16th frame.
-DP_TRAINVAL_ARGS = ("-e", "1", "--downsample", "16")
+# epoch (later flags win over TRAINVAL_ARGS'), every 8th frame.
+DP_TRAINVAL_ARGS = ("-e", "1", "--downsample", "8")
 DP_TRAINVAL_TIMEOUT = 300
 # (e) the example at its defaults; its gate is its own (exit 1 under 3x).
 EXAMPLE_ARGS = ("--steps", "300", "-arc", "3,3", "-ch", "32")
@@ -3094,7 +3447,10 @@ def worst_by_kind(got: dict, want: dict) -> dict:
 def ddp_one_rank(rank: int, n: int, address: str) -> dict:
     """Phase 12 (a), in a spawned rank: on NCCL, one rank, the DDP strided
     step (dropout 0.05) against the same step without DDP at each of
-    DP_BATCHES; the loss and every gradient."""
+    DP_BATCHES; the loss and every gradient. Then the same at the tiers
+    (``TRAIN_TIER_NAMES``, B=DP_TIER_BATCH): the loss, every gradient,
+    every parameter after amsgrad and the BN statistics, which must be the
+    one-process tiered step's bit for bit."""
     import copy
 
     import torch
@@ -3125,6 +3481,29 @@ def ddp_one_rank(rank: int, n: int, address: str) -> dict:
         cmp = worst_by_kind(step_state(wrapped, dp_loss),
                             step_state(plain, loss))
         out[f"B={b}"] = {k: cmp[k] for k in ("loss", "grads")}
+        del plain, wrapped, ddp
+        torch.cuda.empty_cache()
+    arrays = dp_batch(DP_TIER_BATCH, seed=DP_TIER_BATCH)
+    for name in TRAIN_TIER_NAMES:
+        plain = build_gastnet(train_tier_cfg(27, name), seed=27,
+                              device=mesh.device)
+        wrapped = copy.deepcopy(plain)
+        ddp = replicate(mesh, wrapped)
+        gen = torch.Generator(device=mesh.device)
+        gen.manual_seed(DP_TIER_BATCH)
+        loss = train_step(plain, make_optimizer(plain.parameters()),
+                          *(torch.from_numpy(a).to(mesh.device)
+                            for a in arrays), TRAIN_LR, gen, "strided")
+        gen.manual_seed(DP_TIER_BATCH)
+        (x2, x3, w), _ = shard_batch(mesh, *arrays)
+        dp_loss = train_step(ddp, make_optimizer(ddp.parameters()), x2, x3,
+                             w, TRAIN_LR, gen, "strided", mesh=mesh,
+                             weight_sum=float(arrays[2].sum()))
+        got, want = step_state(wrapped, dp_loss), step_state(plain, loss)
+        out[f"tiered {name}"] = {
+            "bitwise": all(torch.equal(got[k][n], t)
+                           for k in want for n, t in want[k].items()),
+            **worst_by_kind(got, want)}
         del plain, wrapped, ddp
         torch.cuda.empty_cache()
     return out
@@ -3488,6 +3867,16 @@ def dp_phase(K, dev, report) -> dict:
     for b in DP_BATCHES:
         hold(f"(a) DDP step on one NCCL rank against the step without DDP, "
              f"27f B={b}", one[f"B={b}"], ("loss", "grads"))
+    for name in TRAIN_TIER_NAMES:
+        cmp = one[f"tiered {name}"]
+        print(f"  (a) tiered ({name}) DDP step on one NCCL rank against the "
+              f"one-process tiered step, 27f B={DP_TIER_BATCH}: bitwise "
+              f"{cmp['bitwise']}; " + "; ".join(
+                  f"{k} {v['max_abs_err']:.3e}" for k, v in cmp.items()
+                  if k != "bitwise"))
+        if not cmp["bitwise"]:
+            fail(f"the tiered ({name}) DDP step on one rank is not the "
+                 f"one-process step bit for bit")
 
     # (b) and (c): two ranks sharing the card over gloo.
     seqs = []
@@ -4520,6 +4909,14 @@ def main() -> int:
     print("phase 2: gemm_smallk at every tier")
     smallk_errs = run_smallk_cases(K, dev)
     torch.cuda.empty_cache()
+    print("phase 2: gemm_wgrad at every call of the tiered train steps")
+    t2 = time.time()
+    wgrad = wgrad_cases(K, dev)
+    report["wgrad_rows"] = wgrad_rows(K, wgrad.pop("main"))
+    report["wgrad_cases"] = wgrad
+    wgrad["s"] = time.time() - t2
+    print(f"  gemm_wgrad's cases took {wgrad['s']:.1f} s")
+    torch.cuda.empty_cache()
     # The graph kernels' ragged, layout and unaligned cases, likewise.
     graph_errs = {"sem_graph": [], "joint_attention": []}
     for label, kernel, fn, plain, args, want in graph_cases(K, dev,
@@ -4850,15 +5247,45 @@ def main() -> int:
     report["card_phase9"] = card_state("phase 9")
     print("phase 9: training (strided train steps, no kernel) and "
           "trainval's evaluation on the kernels")
+    took = report["phase9_s"] = {}
+    t9 = time.time()
     report["train_cells"] = {label: train_cell(K, label, frames, b, dev)
                              for label, frames, b in TRAIN_CELLS}
     report["train_step_against_cpu"] = step_against_cpu(dev)
+    took["a, b"], t9 = time.time() - t9, time.time()
     report["convergence"] = convergence_on_card(K, dev)
+    report["convergence_preset"] = convergence_on_card(K, dev, "preset")
+    took["c"], t9 = time.time() - t9, time.time()
     report["trainval"] = trainval_on_card(K, dev)
+    took["d"], t9 = time.time() - t9, time.time()
+    report["card_phase9e"] = card_state("phase 9 (e)")
+    print("phase 9 (e): the train steps at the tiers (all high, the JAX "
+          "preset) beside the float32 steps of (a)")
+    report["tiered_train"] = tt = tiered_train_phase(
+        K, dev, report["train_cells"])
+    took["e"] = time.time() - t9
+    print(f"  phase 9 took, by part (s): "
+          f"{ {k: round(v, 1) for k, v in took.items()} }")
+    tiered_cells = [v for k, v in tt.items() if k != "against_plain"]
+    for r in report["wgrad_rows"]:
+        key = f"gemm_wgrad {r['tier']}"
+        kernels.append({
+            "name": f"gemm_wgrad ({r['tier']}, {r['shape']})",
+            "route": "cuda", "source": "gastx_torch/csrc/gemm_wgrad.cu",
+            "replaces": "gastx/models/gastnet.py:89",
+            "launches": sum(c["launches"].get(key, 0) for c in tiered_cells),
+            "launches_per_step": {
+                k: c["launches_per_step"].get(key, 0)
+                for k, c in tt.items() if k != "against_plain"},
+            "max_abs_err": report["wgrad_cases"]["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
 
     # ---- phase 10: the precision tiers -----------------------------------
     print("phase 10: the precision tiers (bf16 passes on the tensor cores, "
           "rounded attention operands)")
+    t10 = time.time()
     K.reset_launches()
     report["tier_kernels"] = tk = tier_kernels(K, dev, gts, glts)
     direct = launch_counts(K)
@@ -4891,7 +5318,10 @@ def main() -> int:
             "float32_ms": r["float32_ms"], "a_route": r["a_route"],
             "launches_by_variant": {
                 v: tp["launches"].get(f"gemm_tc {v}", 0)
-                for v in K.TC_VARIANTS}})
+                for v in K.TC_VARIANTS},
+            "train_launches_per_step": {
+                k: c["launches_per_step"].get(key, 0)
+                for k, c in tt.items() if k != "against_plain"}})
         if not kernels[-1]["launches"]:  # off the tiered path: high_lhs
             kernels[-1]["direct_launches"] = direct[key]
     for r in tk["joint_attention"]:
@@ -4925,6 +5355,9 @@ def main() -> int:
         "library_ms": sk27[0]["library_ms"],
         "matmul_bf16_ms": sk27[0]["matmul_bf16_ms"],
         "ragged_max_abs_err": max(smallk_errs)})
+
+    report["phase10_s"] = time.time() - t10
+    print(f"  phase 10 took {report['phase10_s']:.1f} s")
 
     # ---- phase 11: the in-the-wild pipeline ------------------------------
     report["card_phase11"] = card_state("phase 11")

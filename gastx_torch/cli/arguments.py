@@ -54,12 +54,13 @@ def parse_args(argv=None):
     parser.add_argument("--matmul-precision", default="high", type=str,
                         choices=("high", "mixed", "default"),
                         metavar="TIER",
-                        help="matmul precision tier of the eval passes' "
-                        "kernels on the GPU: 'high' (3 bf16 passes), "
+                        help="matmul precision tier of the whole "
+                        "train/eval stack on the GPU (the train steps' "
+                        "products and their gradients, and the eval "
+                        "passes' kernels): 'high' (3 bf16 passes), "
                         "'mixed' (high with the TPU mixed preset) or "
-                        "'default' (1 bf16 pass); the train step is plain "
-                        "ops with autograd and computes float32 at every "
-                        "tier, and so does every pass on the CPU")
+                        "'default' (1 bf16 pass); every pass on the CPU "
+                        "computes float32")
 
     # Experimental settings
     parser.add_argument("-e", "--epochs", default=60, type=int, metavar="N",

@@ -23,9 +23,12 @@ statistics and dropout masks, so that N ranks compute the one-process
 step. Every rank evaluates; only rank 0 prints, logs and writes
 checkpoints (the bare module's state, which a one-process run loads).
 Training takes the strided variant for ``--stride 1`` (else the dilated
-one), through the plain ops with autograd; every evaluation pass runs
-``lift_sequences`` on the model in eval mode, on the hand-written
-kernels at the ``--matmul-precision`` tier (:func:`build_config`).
+one), through the plain ops with autograd, each site's products and
+their gradients at the ``--matmul-precision`` tier on the GPU (the GEMM
+kernels and ``gemm_wgrad``; ``gastx_torch.models.gastnet``), as the JAX
+trainval trains; every evaluation pass runs ``lift_sequences`` on the
+model in eval mode, on the hand-written kernels at the same tier
+(:func:`build_config`).
 ``--profile-dir`` writes a ``torch.profiler`` trace of the first epoch,
 each step under a ``train_step`` range.
 Batches have one fixed size: a ragged last batch is padded with
@@ -80,8 +83,9 @@ def build_config(args, dataset, in_features: int = 2) -> GastNetConfig:
     keypoints, 3 when the detections carry confidence scores.
     ``--matmul-precision`` maps onto (matmul_precision, precision_overrides)
     as the JAX ``build_config`` maps it: ``mixed`` is ``"high"`` with
-    ``TPU_MIXED_PRECISION_OVERRIDES``, the others the tier alone. The eval
-    passes' kernels run it on the GPU; the train step computes float32."""
+    ``TPU_MIXED_PRECISION_OVERRIDES``, the others the tier alone. On the
+    GPU the train steps' site products and the eval passes' kernels run
+    it; on the CPU every product is float32."""
     num_joints = dataset.skeleton().num_joints()
     tier = getattr(args, "matmul_precision", "high")
     if tier == "mixed":

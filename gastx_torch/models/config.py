@@ -68,11 +68,12 @@ them, on the card (``gastx_torch.ops.precision``):
     contractions (``local_off``, ``attn_score``, ``attn_apply``) are torch
     products of tier-rounded operands.
 
-The train forward computes float32 at every tier (ROADMAP queue 1), and
-so does every site on the CPU, as the JAX package's CPU path computes
-float32 for every tier. On bf16 operands (bf16 storage) every tier is the
-same function (a bf16 value has no lo half), so the plain sites keep
-their bf16 products with float32 sums.
+The train forward's plain sites take the same XLA tiers, and their
+gradients too (``gastx_torch.ops.cuda.site_grad``, as JAX's transposes
+carry a product's tier). Every site on the CPU computes float32, as the
+JAX package's CPU path computes float32 for every tier. On bf16 operands
+(bf16 storage) every tier is the same function (a bf16 value has no lo
+half), so the plain sites keep their bf16 products with float32 sums.
 
 The port's defaults differ from the JAX package's: its bare config and
 ``config_for_frames`` keep ``matmul_precision="highest"`` with no

@@ -93,7 +93,9 @@ plain GAB (``gab_impl="xla"``, the hybrid route's global branch and
 concatenations, ``_heads``' projection) its ``"gab{i}"``
 ``GAB_SITE_OPS``; below ``"highest"`` their row-wide products launch the
 GEMM kernels (``ops.temporal``, ``ops.graph``). The train forward
-computes float32 at every tier.
+resolves the same site tiers (the JAX package trains under
+``jax.default_matmul_precision`` with every site at its tier, and no
+Pallas kernel: ``gastx/models/gastnet.py:89-90, 341``).
 :meth:`GastNet.plain_route_forward` runs the same route and tiers
 through every wrapper's plain version, the tiered forward's reference on
 the card; ``reference_forward`` is float32.
@@ -106,8 +108,19 @@ variant, BN on the batch statistics (the running ones updated in place)
 and dropout at the JAX package's three sites (each GAB's local and
 global branch, and each level's conv chain before its residual add),
 its masks drawn from the ``torch.Generator`` the caller passes. It
-reaches no hand-written kernel, as the JAX package's train gates reach no
-Pallas kernel.
+reaches no fused kernel, as the JAX package's train gates reach no Pallas
+kernel (``level_fuse_ok = not train``). Each of its plain sites takes the
+tier the eval forward's plain sites take (``resolve_site_tiers``: the
+expand conv and the shrink their bare classes, level i's chain
+``"lvl{i}"``, GAB i ``"gab{i}"``). At ``"highest"`` (the port's default,
+and every site on the CPU or on float64 weights) the products are torch's
+with autograd, as they always were. Below it each row-wide product runs
+through ``ops.cuda.site_grad.SiteGemm`` (forward and input gradient on
+``gemm_tc``/``gemm_smallk``, weight gradient on ``gemm_wgrad``, all at
+the site's tier) and each J x J contraction through
+``ops.precision.TieredContraction``; ``K.SITE_PRODUCTS`` and
+``K.SITE_GRADS`` count them. The data-parallel step is this forward under
+DDP, so it trains at the tiers too.
 """
 from __future__ import annotations
 
@@ -276,7 +289,8 @@ class GastNet(nn.Module):
 
     def forward(self, x: torch.Tensor, variant: str = "dilated", *,
                 generator: Optional[torch.Generator] = None,
-                mesh: Optional[Mesh] = None) -> torch.Tensor:
+                mesh: Optional[Mesh] = None,
+                plain: bool = False) -> torch.Tensor:
         """(B, T, J, C_in) normalized 2D keypoints -> (B, T_out, J, 3)
         (``cfg.output_frames(T, variant)`` frames). In eval mode, without
         gradients, on the route ``cfg.gab_impl``, ``cfg.attn_impl`` and
@@ -285,16 +299,19 @@ class GastNet(nn.Module):
         masks drawn from ``generator`` (required when ``cfg.dropout`` >
         0); under a data-parallel ``mesh`` (``gastx_torch.parallel``) on
         this rank's rows of the global batch, whose BN statistics and
-        dropout masks it takes."""
+        dropout masks it takes. ``plain``: every tiered product through
+        its wrappers' plain versions, in either mode (the card's
+        reference; in eval mode :meth:`plain_route_forward`)."""
         if self.training:
             if self.cfg.dropout > 0.0 and generator is None:
                 raise ValueError("a train forward with dropout > 0 needs a "
                                  "torch.Generator (generator=...)")
             self._check_input(x, variant)
             return self._plain_forward(x, variant, train=True,
-                                       generator=generator, mesh=mesh)
+                                       generator=generator, mesh=mesh,
+                                       plain=plain)
         with torch.no_grad():
-            return self._kernel_forward(x, variant)
+            return self._kernel_forward(x, variant, plain=plain)
 
     @torch.no_grad()
     def plain_route_forward(self, x: torch.Tensor, variant: str = "dilated"
@@ -488,7 +505,8 @@ class GastNet(nn.Module):
         y = batch_norm(x, self.init_bn, train=train, mesh=mesh)
         w = tconv_weight(self.expand_conv)
         if train:
-            y = temporal_conv(y, w, stride=stride, op="expand")
+            y = temporal_conv(y, w, stride=stride, tier=tier, plain=plain,
+                              op="expand")
             return torch.relu(batch_norm(y, self.expand_bn, train=True,
                                          mesh=mesh))
         return temporal_conv(y, w, stride=stride, tier=tier,
@@ -505,9 +523,9 @@ class GastNet(nn.Module):
         (-> dropout in train mode) -> + residual: dilated (at dilation 1
         and the dense width with ``dense``) with the pads' residual slice,
         or strided by fw[i] with the residual ``y[:, shift + fw//2 ::
-        fw]``. In eval mode the two products are plain sites at ``tiers``
-        (``CHAIN_SITE_OPS``; None: ``"highest"``), each BN and ReLU in its
-        epilogue below ``"highest"``."""
+        fw]``. The two products are plain sites at ``tiers``
+        (``CHAIN_SITE_OPS``; None: ``"highest"``), in eval mode each BN and
+        ReLU in its epilogue below ``"highest"``."""
         cfg = self.cfg
         conv_t, bn_t, conv_1, bn_1 = self.level_modules(i)
         fw, shift = cfg.filter_widths[i], cfg.causal_shifts(variant)[i]
@@ -518,15 +536,17 @@ class GastNet(nn.Module):
             pad = cfg.pads()[i]
             res = y[:, pad + shift: y.shape[1] - pad + shift]
             conv = dict(dilation=1 if cfg.dense else dilation)
+        tiers = tiers or dict.fromkeys(CHAIN_SITE_OPS, "highest")
         if train:
-            z = temporal_conv(y, tconv_weight(conv_t), **conv)
+            z = temporal_conv(y, tconv_weight(conv_t), **conv,
+                              tier=tiers["temporal"], plain=plain)
             z = torch.relu(batch_norm(z, bn_t, train=True, mesh=mesh))
-            z = pointwise(z, pconv_weight(conv_1))
+            z = pointwise(z, pconv_weight(conv_1), tier=tiers["mid1x1"],
+                          plain=plain)
             z = torch.relu(batch_norm(z, bn_1, train=True, mesh=mesh))
             if cfg.dropout > 0.0:
                 z = dropout(z, cfg.dropout, generator, mesh)
             return res + z
-        tiers = tiers or dict.fromkeys(CHAIN_SITE_OPS, "highest")
         z = temporal_conv(y, tconv_weight(conv_t), **conv,
                           tier=tiers["temporal"], bn=bn_t, relu=True,
                           plain=plain)
@@ -546,24 +566,40 @@ class GastNet(nn.Module):
     def _plain_forward(self, x: torch.Tensor, variant: str, *,
                        train: bool = False,
                        generator: Optional[torch.Generator] = None,
-                       mesh: Optional[Mesh] = None) -> torch.Tensor:
+                       mesh: Optional[Mesh] = None,
+                       plain: bool = False) -> torch.Tensor:
         """The plain ops level by level, in the weights' dtype (float32;
         float64 for a float64 copy of the model); with ``train``,
         batch-statistic BN and dropout, the masks drawn in the JAX
         package's order (a level's conv chain, then its GAB's local and
-        global branch)."""
+        global branch), and every site at its tier (module docstring;
+        ``plain``: each tiered product through its wrappers' plain
+        versions). Without ``train`` (``reference_forward``) every site
+        computes ``"highest"``."""
         cfg, statics = self.cfg, self.statics
         gabs = self.layers_graph_conv
+
+        def site(tag, ops):
+            if not train:
+                return None
+            return resolve_site_tiers(cfg, tag, ops, x.device)
+
+        def bare(op):
+            return (site(None, (op,)) or {op: "highest"})[op]
+
         kw = dict(train=train, rate=cfg.dropout, generator=generator,
-                  mesh=mesh)
+                  mesh=mesh, plain=plain)
         y = self._expand(x.to(self.shrink.weight.dtype), variant, train,
-                         mesh)
-        y = graph_attention_block(y, gabs[0], statics, **kw)
+                         mesh, tier=bare("expand"), plain=plain)
+        y = graph_attention_block(y, gabs[0], statics,
+                                  tiers=site("gab0", GAB_SITE_OPS), **kw)
         dilation = cfg.filter_widths[0]
         for i in range(1, cfg.num_levels):
             y = graph_attention_block(
                 self._conv_chain(y, i, dilation, variant, train, generator,
-                                 mesh),
-                gabs[i], statics, **kw)
+                                 mesh, tiers=site(f"lvl{i}", CHAIN_SITE_OPS),
+                                 plain=plain),
+                gabs[i], statics, tiers=site(f"gab{i}", GAB_SITE_OPS), **kw)
             dilation *= cfg.filter_widths[i]
-        return pointwise(y, pconv_weight(self.shrink))
+        return pointwise(y, pconv_weight(self.shrink), tier=bare("shrink"),
+                         plain=plain, op="shrink")

@@ -1,6 +1,6 @@
 """Build, binding and launch wrappers of the port's CUDA kernels.
 
-Six kernels, each a CUDA C++ source under ``gastx_torch/csrc/`` with a
+Seven kernels, each a CUDA C++ source under ``gastx_torch/csrc/`` with a
 plain C interface:
 
   * ``gemm_epilogue`` — pipelined f32 GEMM over up to three pieces with a
@@ -25,6 +25,11 @@ plain C interface:
   * ``joint_attention`` — per-frame multi-head attention over the joints,
     its score and apply dots at their tiers (operands rounded as
     loaded), each in two instantiations (:func:`graph_variant`);
+  * ``gemm_wgrad`` — the weight gradient ``A_p^T G`` of a plain site's
+    product over its row map at the ``"default"`` and ``"high"`` tiers
+    (:func:`gemm_wgrad`; the train step's backward,
+    ``gastx_torch.ops.cuda.site_grad``), rows split across blocks and the
+    partial sums added in a fixed order;
   * ``gab_narrow`` — the whole eval GAB at the narrow widths
     (``NARROW_WIDTHS``, C = 16 .. 96 in steps of 16) in one launch, every
     intermediate in shared memory; in float32, or in its tiered form
@@ -85,7 +90,8 @@ kernel's launches by the dtypes of its I/O (``IO_LABELS``);
 ``ENTRY_LAUNCHES`` counts the kernel launches made inside each entry point
 (:func:`entry_point`). All are counted in
 ``_launch`` alone, after the launch succeeded. ``SITE_PRODUCTS`` counts
-the plain sites' products by class and tier (:func:`site_gemm`).
+the plain sites' products by class and tier (:func:`site_gemm`), and
+``SITE_GRADS`` their backward's products by class, gradient and tier.
 """
 from __future__ import annotations
 
@@ -105,7 +111,7 @@ from gastx_torch.ops.precision import check_tier, split_bf16, tiered, \
     tiered_mm
 
 KERNEL_SOURCES = ("gemm_epilogue", "sem_graph", "joint_attention",
-                  "gab_narrow", "gemm_tc", "gemm_smallk")
+                  "gab_narrow", "gemm_tc", "gemm_smallk", "gemm_wgrad")
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "gastx_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -150,6 +156,9 @@ TC_TIERS = ("default", "high_lhs", "high_rhs", "high")
 # gemm_smallk's, whose launches TIER_LAUNCHES counts by them ("kdefault"
 # as "default").
 ATTN_TIERS = ("highest", "default", "high_lhs", "high_rhs", "high")
+# gemm_wgrad's tiers (the plain sites' XLA tiers below "highest"), in the
+# C function's codes, TC_TIERS' indices.
+WGRAD_TIERS = ("default", "high")
 # gemm_smallk's shape rule (smallk_ok): the sum of K_p at most this.
 SMALLK_MAX_K = 16
 # The graph kernels' shape rule (their C entry points check it too): J <= 32
@@ -171,7 +180,7 @@ VARIANT_LAUNCHES: Dict[str, Dict[str, int]] = {
 TIER_LAUNCHES: Dict[str, Dict[str, int]] = {
     "gemm_tc": {t: 0 for t in TC_TIERS},
     "gemm_smallk": {t: 0 for t in ATTN_TIERS}, "joint_attention": {},
-    "gab_narrow": {}}
+    "gab_narrow": {}, "gemm_wgrad": {t: 0 for t in WGRAD_TIERS}}
 ENTRY_LAUNCHES: Dict[str, int] = {name: 0 for name in ENTRY_POINTS}
 _OPEN_ENTRIES: List[str] = []
 # The products of the plain sites (the JAX package's XLA sites:
@@ -180,6 +189,11 @@ _OPEN_ENTRIES: List[str] = []
 # float32 torch product, "bf16" a bf16 one, any other tier a GEMM launch
 # or, for the J x J classes, a torch product of tier-rounded operands.
 SITE_PRODUCTS: Dict[str, Dict[str, int]] = {}
+# The products of the plain sites' backward on CUDA tensors, by op class
+# and "dA <tier>" (the input gradient: a GEMM launch) or "dW <tier>" (the
+# weight gradient: a gemm_wgrad launch), or for the J x J classes "da
+# <tier>" / "db <tier>" (torch products of tier-rounded operands).
+SITE_GRADS: Dict[str, Dict[str, int]] = {}
 # Launches by the dtypes of a launch's activations in and out: all float32,
 # a bf16 input (an A piece, the residual or x), a bf16 output, or both.
 IO_LABELS = ("float32", "bf16_in", "bf16_out", "bf16_io")
@@ -218,6 +232,10 @@ _ARGTYPES = {
     # as gab_narrow's, then the tier codes of NARROW_TIER_CLASSES
     "gab_narrow_tiered": [_P, _P, _LL, _I, _I, _I, _I, _I, _I] + [_P] * 21
     + [_I, _I] + [_I] * 7,
+    # per piece (a, K, a_off) x 3, npieces, g, m, n, s_out, a_s_in, the
+    # workspace, splits, chunk, out, stream, tier code (TC_TIERS)
+    "gemm_wgrad": [_P, _I, _I] * 3 + [_I, _P, _I, _I, _I, _I, _P, _I, _I,
+                                      _P, _P, _I],
 }
 
 
@@ -230,12 +248,13 @@ _SYMBOLS = {"gemm_tc": ("gemm_tc", "gemm_tc_hopper"),
 def reset_launches() -> None:
     for counts in (LAUNCHES, ENTRY_LAUNCHES, *VARIANT_LAUNCHES.values(),
                    TIER_LAUNCHES["gemm_tc"], TIER_LAUNCHES["gemm_smallk"],
-                   *DTYPE_LAUNCHES.values()):
+                   TIER_LAUNCHES["gemm_wgrad"], *DTYPE_LAUNCHES.values()):
         for name in counts:
             counts[name] = 0
     TIER_LAUNCHES["joint_attention"].clear()
     TIER_LAUNCHES["gab_narrow"].clear()
     SITE_PRODUCTS.clear()
+    SITE_GRADS.clear()
 
 
 def count_site(op: str, tier: str, t: torch.Tensor) -> None:
@@ -245,6 +264,15 @@ def count_site(op: str, tier: str, t: torch.Tensor) -> None:
     if t.is_cuda:
         key = "bf16" if t.dtype == torch.bfloat16 else tier
         counts = SITE_PRODUCTS.setdefault(op, {})
+        counts[key] = counts.get(key, 0) + 1
+
+
+def count_site_grad(op: str, key: str, t: torch.Tensor) -> None:
+    """Count one backward product of the plain site ``op`` in
+    ``SITE_GRADS`` under ``key`` (``"dA high"``, ...) where ``t`` lies on
+    the card."""
+    if t.is_cuda:
+        counts = SITE_GRADS.setdefault(op, {})
         counts[key] = counts.get(key, 0) + 1
 
 
@@ -832,6 +860,122 @@ def graph_variant(views: Sequence[torch.Tensor], widths: Sequence[int]
                     for v in views)):
         return "vec16"
     return "general"
+
+
+# --------------------------------------------------------------------------
+# gemm_wgrad
+# --------------------------------------------------------------------------
+
+# gemm_wgrad.cu's output tile (rows of dW, columns) and slab of rows.
+WGRAD_TILE = 64
+WGRAD_ROWS = 32
+# The blocks a launch aims at, a multiple of the SMs, and the fewest rows a
+# split sums.
+WGRAD_BLOCKS_PER_SM = 4
+WGRAD_MIN_ROWS = 512
+# A piece of the weight gradient: (a (rows, K_p), a_off).
+WPiece = Tuple[torch.Tensor, int]
+
+
+def _check_wgrad(pieces, g, m, s_out, a_s_in, tier):
+    if not 1 <= len(pieces) <= 3:
+        raise ValueError(f"gemm_wgrad takes 1 to 3 pieces, got "
+                         f"{len(pieces)}")
+    if tier not in WGRAD_TIERS:
+        raise ValueError(f"gemm_wgrad computes the tiers {WGRAD_TIERS}, not "
+                         f"{tier!r} ('highest' is a float32 torch product)")
+    device = g.device
+    _check(device, g=g)
+    if g.dim() != 2 or g.shape[0] != m:
+        raise ValueError(f"g must be ({m}, N), got {tuple(g.shape)}")
+    if m < 1 or s_out < 1 or m % s_out:
+        raise ValueError(f"rows {m} must be a positive multiple of the "
+                         f"sequence's rows {s_out}")
+    seqs = m // s_out
+    for i, (a, off) in enumerate(pieces):
+        _check(device, **{f"a{i}": a})
+        if a.dim() != 2 or a.shape[1] < 1:
+            raise ValueError(f"piece {i}: a must be (rows, K), got "
+                             f"{tuple(a.shape)}")
+        if off < 0 or (seqs - 1) * a_s_in + s_out + off > a.shape[0]:
+            raise ValueError(f"piece {i}: the row map reads past the "
+                             f"{a.shape[0]} rows of a")
+    return device
+
+
+def wgrad_splits(m: int, tiles: int, sms: int) -> Tuple[int, int]:
+    """(splits, rows a split) of a ``gemm_wgrad`` launch of ``tiles``
+    output tiles over ``m`` rows on ``sms`` SMs: about
+    ``WGRAD_BLOCKS_PER_SM`` blocks an SM, at least ``WGRAD_MIN_ROWS`` rows
+    a split, each split a multiple of ``WGRAD_ROWS`` rows and none empty.
+    A function of the shape alone, so a launch sums in the same order on
+    every run."""
+    want = max(1, -(-WGRAD_BLOCKS_PER_SM * sms // tiles))
+    splits = max(1, min(want, m // WGRAD_MIN_ROWS))
+    chunk = -(-m // splits)
+    chunk = -(-chunk // WGRAD_ROWS) * WGRAD_ROWS
+    return -(-m // chunk), chunk
+
+
+def gemm_wgrad_plain(pieces: Sequence[WPiece], g: torch.Tensor, m: int, *,
+                     s_out: Optional[int] = None,
+                     a_s_in: Optional[int] = None,
+                     tier: str = "high") -> torch.Tensor:
+    """Plain PyTorch version of :func:`gemm_wgrad` (same arguments): each
+    piece's rows gathered by the row map, ``A_p^T G`` by
+    ``precision.tiered_mm`` at ``tier`` (float32 matmuls of bf16-valued
+    operands), the pieces' rows stacked."""
+    s_out = m if s_out is None else s_out
+    a_s_in = s_out if a_s_in is None else a_s_in
+    _check_wgrad(pieces, g, m, s_out, a_s_in, tier)
+    check_f32_matmul(g)
+    return torch.cat([
+        tiered_mm(a[_row_map(m, s_out, a_s_in, off, g.device)].t(), g, tier)
+        for a, off in pieces])
+
+
+def gemm_wgrad(pieces: Sequence[WPiece], g: torch.Tensor, m: int, *,
+               s_out: Optional[int] = None, a_s_in: Optional[int] = None,
+               tier: str = "high") -> torch.Tensor:
+    """dW (sum_p K_p, N) = [A_0^T G; A_1^T G; ...] at ``tier``.
+
+    ``pieces``: up to three (a (rows, K_p), a_off); ``g`` (m, N). Row m of
+    the product reads row (m // s_out) * a_s_in + m % s_out + a_off of
+    ``a`` (as :func:`gemm_epilogue`'s row map; default one sequence of
+    ``m``). ``tier``: ``"default"`` (one bf16 pass) or ``"high"`` (three),
+    both operands split by ``precision.split_bf16``; any other tier raises.
+    Every tensor float32 and contiguous; K_p and N any size. On the card
+    one call of the C function: the tile kernel over the rows split
+    :func:`wgrad_splits` ways into a workspace allocated here, then the
+    fixed-order sum of its slices."""
+    check_no_grad("gemm_wgrad", pieces, g)
+    s_out = m if s_out is None else s_out
+    a_s_in = s_out if a_s_in is None else a_s_in
+    device = _check_wgrad(pieces, g, m, s_out, a_s_in, tier)
+    if not use_kernel(device):
+        return gemm_wgrad_plain(pieces, g, m, s_out=s_out, a_s_in=a_s_in,
+                                tier=tier)
+    n = g.shape[1]
+    k_total = sum(a.shape[1] for a, _ in pieces)
+    tiles = (sum(-(-a.shape[1] // WGRAD_TILE) for a, _ in pieces)
+             * -(-n // WGRAD_TILE))
+    splits, chunk = wgrad_splits(
+        m, tiles, torch.cuda.get_device_properties(device)
+        .multi_processor_count)
+    out = torch.empty((k_total, n), dtype=torch.float32, device=device)
+    ws = (torch.empty((splits, k_total, n), dtype=torch.float32,
+                      device=device) if splits > 1 else None)
+    flat = []
+    for i in range(3):
+        if i < len(pieces):
+            a, off = pieces[i]
+            flat += [a.data_ptr(), a.shape[1], off]
+        else:
+            flat += [None, 0, 0]
+    _launch("gemm_wgrad", *flat, len(pieces), g.data_ptr(), m, n, s_out,
+            a_s_in, _ptr(ws), splits, chunk, out.data_ptr(), _stream(),
+            TC_TIERS.index(tier), tier=tier)
+    return out
 
 
 # --------------------------------------------------------------------------

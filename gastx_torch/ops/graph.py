@@ -38,9 +38,15 @@ the row-wide products (``local_sem``, ``local_cat``, ``attn_proj``,
 the BN and ReLU after each in its epilogue (``plain``: the plain version),
 and the J x J contractions (``local_off``, ``attn_score``,
 ``attn_apply``) are torch products of tier-rounded operands
-(``precision.tiered``), as XLA's are einsums. Without ``tiers`` (training,
-``reference_forward``), at ``"highest"`` and on bf16 operands every
-product is the torch one it always was.
+(``precision.tiered``), as XLA's are einsums. The train forward passes
+its ``tiers`` too (``train=True``, as the JAX package trains under its
+tiers): there the row-wide products run through
+``ops.cuda.site_grad.SiteGemm`` (forward and both gradients on the GEMM
+kernels at the tier, BN on the batch statistics and dropout in torch
+after) and the J x J contractions through
+``precision.TieredContraction`` (both gradients at the tier). Without
+``tiers`` (``reference_forward``), at ``"highest"`` (every site on the
+CPU) and on bf16 operands every product is the torch one it always was.
 """
 from __future__ import annotations
 
@@ -55,7 +61,8 @@ from torch import nn
 from gastx_torch.device import check_f32_matmul
 from gastx_torch.ops.batchnorm import batch_norm, fold_bn
 from gastx_torch.ops.cuda import kernels as K
-from gastx_torch.ops.precision import tiered
+from gastx_torch.ops.cuda.site_grad import grad_needed, site_product
+from gastx_torch.ops.precision import TieredContraction, tiered
 from gastx_torch.parallel.mesh import Mesh, batch_sharding
 from gastx_torch.ops.temporal import pconv_weight
 
@@ -80,8 +87,15 @@ def _jj(op: str, tiers: Tiers, fn, a: torch.Tensor, b: torch.Tensor
         ) -> torch.Tensor:
     """The J x J contraction ``fn(a, b)`` of class ``op`` at its tier:
     ``fn`` itself at ``"highest"``, else a torch product of the
-    tier-rounded operands (``precision.tiered``)."""
-    return tiered(fn, a, b, _tier(tiers, op, a))
+    tier-rounded operands (``precision.tiered``); where autograd records
+    it, through ``precision.TieredContraction`` (its gradients at the
+    tier, each counted in ``K.SITE_GRADS``)."""
+    tier = _tier(tiers, op, a)
+    if tier == "highest" or not grad_needed(a, b):
+        return tiered(fn, a, b, tier)
+    return TieredContraction.apply(
+        fn, JJ_VJPS[op], a, b, tier,
+        lambda which, t, g: K.count_site_grad(op, f"{which} {t}", g))
 
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
@@ -149,6 +163,23 @@ def _aggregate(off: torch.Tensor, h1: torch.Tensor) -> torch.Tensor:
     return torch.einsum("cjk,btkc->btjc", off, h1)
 
 
+# The vjp maps of each J x J class's contraction, (d/da (g, b), d/db (a,
+# g)), which ``precision.TieredContraction`` runs at the tier: the local
+# branch's aggregation (off (C, J, K), h1 (B, T, K, C)), a head's score
+# (theta (..., J, I) by a vector (I,)) and its attention applied to g
+# ((..., J, J) by (..., J, G)).
+JJ_VJPS = {
+    "local_off": (lambda g, h1: torch.einsum("btjc,btkc->cjk", g, h1),
+                  lambda off, g: torch.einsum("cjk,btjc->btkc", off, g)),
+    "attn_score": (lambda g, v: g[..., None] * v,
+                   lambda theta, g: torch.tensordot(
+                       g, theta, dims=(list(range(g.dim())),
+                                       list(range(g.dim()))))),
+    "attn_apply": (lambda g, gm: torch.matmul(g, gm.transpose(-1, -2)),
+                   lambda attn, g: torch.matmul(attn.transpose(-1, -2), g)),
+}
+
+
 def sem_ch_graph_conv(x: torch.Tensor, w: torch.Tensor, e: torch.Tensor,
                       mask_idx: np.ndarray, j: int,
                       impl: str = "einsum", tiers: Tiers = None,
@@ -167,10 +198,8 @@ def sem_ch_graph_conv(x: torch.Tensor, w: torch.Tensor, e: torch.Tensor,
         h1 = torch.matmul(x, w[1])
     else:
         c_out = w.shape[2]
-        h = K.site_gemm("local_sem", [(_rows(x), torch.cat(
-            [w[0], w[1]], dim=1).to(torch.float32), 0)],
-            x.numel() // x.shape[-1], tier, plain)
-        h = h.reshape(*x.shape[:-1], 2 * c_out)
+        h = site_product("local_sem", [x], torch.cat([w[0], w[1]], dim=1),
+                         tier, plain)
         h0, h1 = h[..., :c_out], h[..., c_out:]
     if impl == "gather":
         w_self, w_nbr, col = local_weight_tables(e, mask_idx, j)
@@ -215,7 +244,7 @@ def local_graph(x: torch.Tensor, mod: nn.Module, statics, *,
                 plain: bool = False) -> torch.Tensor:
     """Two-branch (mirror symmetry + kinematic connection) local module,
     each branch's aggregation by ``impl`` (:func:`sem_ch_graph_conv`);
-    ``tiers`` (eval) also gives ``local_cat``'s."""
+    ``tiers`` also gives ``local_cat``'s."""
     j = statics.num_joints
     a = sem_ch_graph_conv(x, mod.gcn_sym.W, mod.gcn_sym.e, statics.sym_idx, j,
                           impl, tiers, plain)
@@ -224,16 +253,27 @@ def local_graph(x: torch.Tensor, mod: nn.Module, statics, *,
     a = torch.relu(batch_norm(a, mod.bn_1, train=train, mesh=mesh))
     b = torch.relu(batch_norm(b, mod.bn_2, train=train, mesh=mesh))
     tier = _tier(tiers, "local_cat", x)
-    if tier != "highest":
+    if tier != "highest" and not train:
         w = pconv_weight(mod.cat_conv).contiguous()
         c = a.shape[-1]
         y = _bn_gemm("local_cat", [(_rows(a), w[:c], 0),
                                    (_rows(b), w[c:], 0)], mod.cat_bn, tier,
                      plain)
         return y.reshape(*x.shape[:-1], -1)
-    y = torch.matmul(torch.cat([a, b], dim=-1), pconv_weight(mod.cat_conv))
+    y = _cat_product("local_cat", [a, b], pconv_weight(mod.cat_conv), tier,
+                     plain)
     y = torch.relu(batch_norm(y, mod.cat_bn, train=train, mesh=mesh))
     return _maybe_dropout(y, train, rate, generator, mesh)
+
+
+def _cat_product(op: str, xs: list, w: torch.Tensor, tier: str,
+                 plain: bool) -> torch.Tensor:
+    """``cat(xs, -1) @ w``: the torch product at ``"highest"``, else (the
+    train step) ``site_grad.site_product`` at ``tier``."""
+    if tier == "highest":
+        return torch.matmul(xs[0] if len(xs) == 1 else torch.cat(xs, dim=-1),
+                            w)
+    return site_product(op, xs, w, tier, plain)
 
 
 def _head(theta: torch.Tensor, phi: torch.Tensor, g: torch.Tensor,
@@ -275,6 +315,8 @@ def multi_global_graph(x: torch.Tensor, mod: nn.Module, *,
         bias = torch.cat([getattr(h, n).bias for n in names for h in heads])
         if tier == "highest":
             p = torch.matmul(x, w) + bias
+        elif train:
+            p = site_product("attn_proj", [x], w, tier, plain) + bias
         else:
             p = K.site_gemm("attn_proj", [(_rows(x), w, 0)],
                             x.numel() // x.shape[-1], tier, plain,
@@ -304,27 +346,32 @@ def global_concat(heads: list, mod: nn.Module, *, train: bool = False,
     BN -> ReLU (-> dropout in train mode); the conv at ``tiers``'
     ``attn_cat``."""
     tier = _tier(tiers, "attn_cat", heads[0])
-    if tier != "highest":
+    if tier != "highest" and not train:
         y = _bn_gemm("attn_cat", [(_rows(torch.cat(heads, dim=-1)),
                                    pconv_weight(mod.cat_conv).contiguous(),
                                    0)], mod.cat_bn, tier, plain)
         return y.reshape(*heads[0].shape[:-1], -1)
-    y = torch.matmul(torch.cat(heads, dim=-1), pconv_weight(mod.cat_conv))
+    y = _cat_product("attn_cat", [torch.cat(heads, dim=-1)],
+                     pconv_weight(mod.cat_conv), tier, plain)
     y = torch.relu(batch_norm(y, mod.cat_bn, train=train, mesh=mesh))
     return _maybe_dropout(y, train, rate, generator, mesh)
 
 
 def graph_attention_block(x: torch.Tensor, mod: nn.Module, statics, *,
                           train: bool = False, rate: float = 0.0,
-                          generator=None, mesh: Optional[Mesh] = None
+                          generator=None, mesh: Optional[Mesh] = None,
+                          tiers: Tiers = None, plain: bool = False
                           ) -> torch.Tensor:
-    """residual ++ local ++ global -> 1x1 conv (3C->2C) -> BN -> ReLU.
+    """residual ++ local ++ global -> 1x1 conv (3C->2C) -> BN -> ReLU,
+    each product at ``tiers``' (the train forward's site tiers).
     In train mode the local branch's dropout mask is drawn before the
     global branch's, the JAX package's order."""
-    kw = dict(train=train, rate=rate, generator=generator, mesh=mesh)
+    kw = dict(train=train, rate=rate, generator=generator, mesh=mesh,
+              tiers=tiers, plain=plain)
     local = local_graph(x, mod.local_graph_layer, statics, **kw)
     globl = multi_global_graph(x, mod.global_graph_layer, **kw)
-    return block_concat(x, local, globl, mod, train=train, mesh=mesh)
+    return block_concat(x, local, globl, mod, train=train, mesh=mesh,
+                        tiers=tiers, plain=plain)
 
 
 def block_concat(x: torch.Tensor, local: torch.Tensor, globl: torch.Tensor,
@@ -335,7 +382,7 @@ def block_concat(x: torch.Tensor, local: torch.Tensor, globl: torch.Tensor,
     the conv at ``tiers``' ``gab_cat`` (below ``"highest"`` three pieces
     of one GEMM launch, the concatenation never made)."""
     tier = _tier(tiers, "gab_cat", x)
-    if tier != "highest":
+    if tier != "highest" and not train:
         w = pconv_weight(mod.cat_conv).contiguous()
         c = x.shape[-1]
         y = _bn_gemm("gab_cat", [(_rows(x), w[:c], 0),
@@ -343,6 +390,6 @@ def block_concat(x: torch.Tensor, local: torch.Tensor, globl: torch.Tensor,
                                  (_rows(globl), w[2 * c:], 0)], mod.cat_bn,
                      tier, plain)
         return y.reshape(*x.shape[:-1], -1)
-    y = torch.matmul(torch.cat([x, local, globl], dim=-1),
-                     pconv_weight(mod.cat_conv))
+    y = _cat_product("gab_cat", [x, local, globl],
+                     pconv_weight(mod.cat_conv), tier, plain)
     return torch.relu(batch_norm(y, mod.cat_bn, train=train, mesh=mesh))

@@ -96,6 +96,45 @@ def tiered_mm(a: torch.Tensor, b: torch.Tensor, tier: str) -> torch.Tensor:
     return tiered(torch.matmul, a, b, tier)
 
 
+class TieredContraction(torch.autograd.Function):
+    """The bilinear ``fn(a, b)`` at ``tier`` with its gradients at the same
+    tier: a plain site's J x J contraction in the train step (``ops.graph``'s
+    ``local_off``, ``attn_score``, ``attn_apply``).
+
+    JAX's transpose rules carry a dot's precision to both transposed
+    products (``jax/_src/lax/lax.py``, ``_dot_general_transpose_lhs`` /
+    ``_rhs``), so the TPU computes ``da`` and ``db`` at the forward's tier.
+    Autograd through :func:`tiered` cannot: the lo halves' rounding has no
+    gradient, and the cotangent would never be split. The backward here
+    runs ``fn``'s two vjp maps ``vjps = (vjp_a, vjp_b)``, ``vjp_a(g, b)``
+    the gradient with respect to ``a`` and ``vjp_b(a, g)`` with respect to
+    ``b``, each bilinear, by :func:`tiered` on tier-rounded operands, the
+    cotangent split too: ``da = tiered(vjp_a, g, b)``, ``db =
+    tiered(vjp_b, a, g)``. ``hook(which, tier, t)``, if given, is called
+    for each (``"da"``, ``"db"``) that is computed."""
+
+    @staticmethod
+    def forward(ctx, fn, vjps, a, b, tier, hook=None):
+        ctx.vjps, ctx.tier, ctx.hook = vjps, tier, hook
+        ctx.save_for_backward(a, b)
+        return tiered(fn, a, b, tier)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        (vjp_a, vjp_b), tier = ctx.vjps, ctx.tier
+        da = db = None
+        if ctx.needs_input_grad[2]:
+            da = tiered(vjp_a, g, b, tier)
+            if ctx.hook is not None:
+                ctx.hook("da", tier, g)
+        if ctx.needs_input_grad[3]:
+            db = tiered(vjp_b, a, g, tier)
+            if ctx.hook is not None:
+                ctx.hook("db", tier, g)
+        return None, None, da, db, None, None
+
+
 def resolve_tiers(cfg, tag: str, ops: Iterable[str],
                   device: torch.device) -> Dict[str, str]:
     """The {op_class: tier} dict of one kernel call site: ``cfg.tier_for

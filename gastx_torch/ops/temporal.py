@@ -15,7 +15,11 @@ product runs on ``kernels.gemm_epilogue`` at the tier (``gemm_tc``, or
 ``gemm_smallk`` for the expand conv's K = 2 taps; their plain versions
 with ``plain``), the epilogue folded into the kernel's: the conv's taps as
 pieces of one product over the tap row map, as ``fused_level`` reads
-them.
+them. Where autograd records the product (the train step: grad mode on
+and ``x`` or ``w`` requiring a gradient), the tiered product runs through
+``site_grad.SiteGemm`` instead, whose backward computes the input and
+weight gradients at the same tier; the epilogue is then torch's, and the
+train forward passes none (it applies the train BN itself).
 """
 from __future__ import annotations
 
@@ -27,9 +31,8 @@ from torch import nn
 from gastx_torch.device import check_f32_matmul
 from gastx_torch.ops.batchnorm import batch_norm, fold_bn
 from gastx_torch.ops.cuda import kernels as K
-
-# The pieces one gemm_epilogue launch takes.
-MAX_PIECES = 3
+from gastx_torch.ops.cuda.site_grad import MAX_PIECES, conv_site, \
+    grad_needed, site_conv, site_product
 
 
 def _torch_tail(y, bn, relu):
@@ -80,6 +83,9 @@ def temporal_conv(x: torch.Tensor, w: torch.Tensor, *,
         raise ValueError(f"sequence of {x.shape[1]} frames is shorter than "
                          f"the conv's span {span}")
     t_out = (x.shape[1] - span) // stride + 1
+    if tier != "highest" and x.dtype == torch.float32 and grad_needed(x, w):
+        return _torch_tail(site_conv(op, x, w, dilation, stride, t_out, tier,
+                                     plain), bn, relu)
     if tier != "highest" and x.dtype == torch.float32:
         return _tiered_conv(x, w, dilation, stride, t_out, tier, bn, relu,
                             plain, op)
@@ -99,30 +105,15 @@ def temporal_conv(x: torch.Tensor, w: torch.Tensor, *,
 
 
 def _tiered_conv(x, w, dilation, stride, t_out, tier, bn, relu, plain, op):
-    b, _, j, c = x.shape
-    fw = w.shape[0]
-    if stride == 1:
-        kw = dict(s_out=t_out * j, a_s_in=x.shape[1] * j)
-    elif (fw - 1) * dilation < stride:
-        x = x[:, :t_out * stride]
-        kw = dict(s_out=j, a_s_in=stride * j)
-    else:
-        raise ValueError(f"a strided conv whose taps reach past its stride "
-                         f"({fw} taps at dilation {dilation}, stride "
-                         f"{stride}) has no tap row map")
-    x2 = x.reshape(-1, c).contiguous()
+    b, _, j, _ = x.shape
+    fw, n = w.shape[0], w.shape[2]
+    site, rows = conv_site(op, x, fw, dilation, stride, t_out, tier, plain)
     w = w.to(torch.float32).contiguous()
-    taps = [(x2, w[k], k * dilation * j) for k in range(fw)]
-    m, n = b * t_out * j, w.shape[2]
     if fw <= MAX_PIECES:
-        y = K.site_gemm(op, taps, m, tier, plain, **kw,
-                        **_epilogue(bn, relu, n, x))
-        return y.reshape(b, t_out, j, n)
-    y = None
-    for i in range(0, fw, MAX_PIECES):
-        y = K.site_gemm(op, taps[i:i + MAX_PIECES], m, tier, plain, res=y,
-                        **kw)
-    return _torch_tail(y.reshape(b, t_out, j, n), bn, relu)
+        return site.forward(w, [rows], **_epilogue(bn, relu, n, x)).reshape(
+            b, t_out, j, n)
+    return _torch_tail(site.forward(w, [rows]).reshape(b, t_out, j, n), bn,
+                       relu)
 
 
 def pointwise(x: torch.Tensor, w: torch.Tensor, *, tier: str = "highest",
@@ -134,6 +125,11 @@ def pointwise(x: torch.Tensor, w: torch.Tensor, *, tier: str = "highest",
     ``gemm_epilogue`` launch at ``tier`` (the module docstring; ``op``
     names the site's class)."""
     check_f32_matmul(x)
+    if tier != "highest" and x.dtype == torch.float32 and grad_needed(x, w):
+        y = site_product(op, [x], w, tier, plain)
+        if shift is not None:
+            y = y + shift
+        return _torch_tail(y, bn, relu)
     if tier != "highest" and x.dtype == torch.float32:
         n = w.shape[1]
         y = K.site_gemm(op, [(x.reshape(-1, x.shape[-1]).contiguous(),

@@ -2,7 +2,8 @@
 
 :func:`train_step` is ``train_step_body``: the target's root joint
 zeroed, the train forward (plain ops with autograd, batch-statistic BN,
-dropout), the per-sample weighted MPJPE, backward and one amsgrad step at
+dropout; each plain site at the config's matmul tier on the card, as the
+JAX package trains under its tiers), the per-sample weighted MPJPE, backward and one amsgrad step at
 the given learning rate. Ragged last batches are padded to the fixed
 batch with zero-weight filler rows, so the loss and its gradient are the
 partial batch's mean; the filler rows still enter the BN batch
@@ -52,22 +53,27 @@ def train_step(model: GastNet, opt: torch.optim.Optimizer,
                sample_weight: torch.Tensor, lr: float,
                generator: Optional[torch.Generator],
                variant: str = "strided", *, mesh: Optional[Mesh] = None,
-               weight_sum: Optional[float] = None) -> torch.Tensor:
+               weight_sum: Optional[float] = None,
+               plain: bool = False) -> torch.Tensor:
     """One step on ``batch_2d`` (B, T_in, J, C_in) and the camera-space
     targets ``batch_3d`` (B, T_out, J, 3), ``sample_weight`` (B,) zero
     for filler rows. Under a ``mesh`` these are this rank's rows, the
     ``model`` is wrapped by ``parallel.replicate``, and ``weight_sum``
     (the global batch's sum of ``sample_weight``; by default this batch's)
-    is required beyond one rank. Returns the loss of the whole batch (a
-    device scalar, not synced)."""
+    is required beyond one rank. The forward's plain sites run at the
+    config's tiers on the card (``models.gastnet``); ``plain`` runs their
+    tiered products through the wrappers' plain versions (the kernels'
+    reference on the card). Returns the loss of the whole batch (a device
+    scalar, not synced)."""
     check_f32_matmul(batch_2d)
     ranks = 1 if mesh is None else mesh.size
     if ranks > 1 and weight_sum is None:
         raise ValueError("a step over more than one rank needs weight_sum, "
                          "the global batch's sum of sample weights")
     model.train()
+    kw = {"plain": True} if plain else {}
     loss = weighted_loss(
-        model(batch_2d, variant, generator=generator, mesh=mesh),
+        model(batch_2d, variant, generator=generator, mesh=mesh, **kw),
         root_relative(batch_3d), sample_weight,
         None if weight_sum is None else weight_sum / ranks)
     opt.zero_grad(set_to_none=True)

@@ -583,13 +583,14 @@ def _variant_model(frames, num_joints=17, **fields):
 def _gab_launches(m):
     """What a forward's GABs launch outside the level kernels, by kernel:
     per GAB one gab_narrow, or the chain's 4 GEMMs, sem_graph and
-    joint_attention, as gab_route sends it (float32: no gemm_tc)."""
+    joint_attention, as gab_route sends it (float32: no gemm_tc; an eval
+    forward: no gemm_wgrad)."""
     routes = [K.gab_route(*K.gab_shape(gab_tables(g, m.statics)))
               for g in m.layers_graph_conv]
     chain = routes.count("chain")
     return {"gemm_epilogue": 4 * chain, "sem_graph": chain,
             "joint_attention": chain, "gab_narrow": routes.count("gab_narrow"),
-            "gemm_tc": 0, "gemm_smallk": 0}
+            "gemm_tc": 0, "gemm_smallk": 0, "gemm_wgrad": 0}
 
 
 @pytest.mark.cuda
@@ -1199,3 +1200,119 @@ def test_cuda_plain_sites_launch_their_gemm(model, cell):
     assert K.LAUNCHES["gemm_epilogue"] == 0
     assert K.LAUNCHES["gemm_tc"] > 0 and K.LAUNCHES["gemm_smallk"] == 1
     _tier_close(got, m.plain_route_forward(x, variant), f32)
+
+
+# The weight gradient kernel: (rows of A, K_p of each piece, offsets, M,
+# s_out, a_s_in, N): a conv's taps over ragged sequences, the expand conv's
+# K = 2 taps (strided at 27f, B = 64), N = 51 on pieces of different K, the
+# shrink's N = 3, a 27f level-1 strided conv at B = 256 (the rows split
+# across blocks), and a block concat's three pieces.
+WGRAD_CASES = {
+    "ragged_rows": (2 * 11 * 5, (8, 8, 8), (0, 15, 30), 2 * 5 * 5, 25, 55,
+                    12),
+    "expand_k2": (64 * 27 * 17, (2, 2, 2), (0, 17, 34), 64 * 9 * 17, 17,
+                  51, 128),
+    "n51": (4001, (5, 13, 2), (0, 0, 0), 4001, 4001, 4001, 51),
+    "shrink": (4913, (512,), (0,), 4913, 4913, 4913, 3),
+    "level1_strided": (256 * 9 * 17, (256, 256, 256), (0, 17, 34),
+                       256 * 3 * 17, 17, 51, 256),
+    "concat3": (9000, (128, 128, 128), (0, 0, 0), 9000, 9000, 9000, 256),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ("default", "high"))
+@pytest.mark.parametrize("case", sorted(WGRAD_CASES))
+def test_cuda_gemm_wgrad_matches_plain(model, case, tier):
+    """gemm_wgrad at each tier against its plain version on the same
+    operands (both sum products of the same bf16 halves in float32), one
+    launch a call, and the same bits on a second call (the splits' fixed
+    order of sums)."""
+    rows, ks, offs, m, s_out, a_s_in, n = WGRAD_CASES[case]
+    pieces = [(_randn(rows, k, seed=i), off)
+              for i, (k, off) in enumerate(zip(ks, offs))]
+    g = _randn(m, n, seed=9)
+    kw = dict(s_out=s_out, a_s_in=a_s_in, tier=tier)
+    K.reset_launches()
+    got = K.gemm_wgrad(pieces, g, m, **kw)
+    again = K.gemm_wgrad(pieces, g, m, **kw)
+    assert K.LAUNCHES["gemm_wgrad"] == 2
+    assert K.TIER_LAUNCHES["gemm_wgrad"][tier] == 2
+    _assert_close(got, K.gemm_wgrad_plain(pieces, g, m, **kw))
+    assert torch.equal(got, again)
+
+
+def _tiered_step(base, cfg, plain, batch=8, frames=27):
+    """One strided train step of a copy of ``base`` at ``cfg`` on the card
+    (``plain``: the tiered products through their plain versions): the
+    loss and the model after it."""
+    import copy
+
+    from gastx_torch.train import make_optimizer, train_step
+
+    m = copy.deepcopy(base)
+    m.cfg = cfg
+    opt = make_optimizer(m.parameters())
+    loss = train_step(m, opt, *_train_batch(frames, batch, 33, "cuda"), 1e-3,
+                      torch.Generator(device="cuda").manual_seed(1),
+                      "strided", plain=plain)
+    torch.cuda.synchronize()
+    return loss, m
+
+
+def _step_tensors(loss, m):
+    out = {"loss": loss.reshape(1)}
+    for n, p in m.named_parameters():
+        out[f"grad {n}"], out[f"param {n}"] = p.grad, p
+    out.update({f"bn {n}": b for n, b in m.named_buffers()
+                if "running" in n})
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ("high", "preset"))
+def test_cuda_tiered_train_step_matches_plain(model, name):
+    """A 27f strided train step (dropout 0.05) at all ``high`` and at the
+    JAX preset on the kernels against the same step through the plain
+    versions on the card: for each kind of tensor (the loss, the
+    gradients, the parameters after amsgrad, the BN statistics) the
+    kernel step lies from the float32 step, in the 2-norm over all its
+    elements, at most twice as far as the plain step does, plus the
+    float32 bound (``chip_smoke.TIER_STEP_NORM``: two float32 orders may
+    round an intermediate to neighbouring bf16 values, so the two steps
+    are two draws of the tier's rounding, which the step's depth amplifies
+    unevenly from tensor to tensor). Only gemm_tc, gemm_smallk and
+    gemm_wgrad launch, every site at its tier (no float32 product), and a
+    second run gives the same bits."""
+    from gastx_torch.models.config import TPU_MIXED_PRECISION_OVERRIDES
+
+    base = GastNet(dataclasses.replace(config_for_frames(27), dropout=0.05))
+    gen = torch.Generator().manual_seed(35)
+    base = randomize_eval_statistics(init_gastnet(base, gen), gen).cuda()
+    cfg = dataclasses.replace(
+        base.cfg, matmul_precision="high",
+        precision_overrides=(TPU_MIXED_PRECISION_OVERRIDES
+                             if name == "preset" else ()))
+    f32 = _step_tensors(*_tiered_step(base, base.cfg, False))
+    plain = _step_tensors(*_tiered_step(base, cfg, True))
+    K.reset_launches()
+    got = _step_tensors(*_tiered_step(base, cfg, False))
+    launched = {k for k, v in K.LAUNCHES.items() if v}
+    sites = {op: dict(v) for op, v in K.SITE_PRODUCTS.items()}
+    grads = {op: dict(v) for op, v in K.SITE_GRADS.items()}
+    assert launched == {"gemm_tc", "gemm_smallk", "gemm_wgrad"}, launched
+    assert not any(v for v in K.ENTRY_LAUNCHES.values())
+    assert not any(v.get("highest") for v in sites.values()), sites
+    assert len(sites) == 12 and set(grads) == set(sites), grads
+    again = _step_tensors(*_tiered_step(base, cfg, False))
+    sums = {}
+    for n, t in got.items():
+        assert torch.equal(t, again[n]), n
+        f = f32[n].detach().double()
+        acc = sums.setdefault(n.split()[0], [0.0, 0.0, 0.0])
+        acc[0] += ((t.detach().double() - f) ** 2).sum().item()
+        acc[1] += ((plain[n].detach().double() - f) ** 2).sum().item()
+        acc[2] += (f ** 2).sum().item()
+    for kind, (dk, dp, scale) in sums.items():
+        assert dk ** 0.5 <= 2 * dp ** 0.5 + 1e-4 * max(1.0, scale ** 0.5), \
+            (kind, dk ** 0.5, dp ** 0.5)
