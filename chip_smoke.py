@@ -29,9 +29,11 @@ a non-zero exit and no result line:
      ``gemm_wgrad`` at every call of one tiered strided train step of the
      27f model at B=1024 and the 243f one at B=256, all ``high`` and the
      JAX preset (``wgrad_cases``: each distinct shape and tier held to
-     ``gemm_wgrad_plain`` as it is made), and the 27f call that moves the
-     most bytes timed at each tier for the kernels line (``wgrad_rows``;
-     every call's time: ``scripts/torch_train_tiers.py``); then
+     ``gemm_wgrad_plain`` as it is made and bitwise to a second launch,
+     every instantiation reached), and five 27f calls timed for the
+     kernels line, the three instantiations at their main-path shapes
+     (``wgrad_rows``; every call's time: ``scripts/torch_train_tiers.py``);
+     then
      ``sem_graph`` and ``joint_attention`` on theirs (``graph_cases``: 1,
      7 and 4001 frames against their frame tiles at C=128, 256 and 512
      and on the 15/16/19-joint layouts, P at a 4-byte offset and at an
@@ -1509,6 +1511,12 @@ def train_cell(K, label, frames, batch, dev, tiers=None) -> dict:
                 or set(grads) != set(sites) or len(sites) != 12:
             fail(f"{label}: a tiered step's sites {sites}, their "
                  f"gradients {grads}")
+        # the weight gradients on every instantiation: wgmma (the sites at
+        # C = 32-512), smallk (the expand taps), general (the shrink)
+        if not all(per_step.get(f"gemm_wgrad {v}") for v in
+                   K.WGRAD_VARIANTS):
+            fail(f"{label}: a tiered step left a gemm_wgrad instantiation "
+                 f"out: {per_step}")
     split = dict(zip(("forward_loss_ms", "backward_ms", "optimizer_ms"),
                      parts))
     print(f"  {label}: {ms:.3f} ms a step, {batch / (ms / 1e3):.1f} "
@@ -1855,7 +1863,8 @@ def trainval_on_card(K, dev) -> dict:
                  "joint_attention", "gemm_tc high", "gemm_tc high_rhs",
                  "gemm_tc default", "joint_attention high/high",
                  "joint_attention default/default", "gemm_wgrad",
-                 "gemm_wgrad high"):
+                 "gemm_wgrad high", "gemm_wgrad wgmma",
+                 "gemm_wgrad smallk"):
         if not launches.get(name):
             fail(f"trainval's train steps and eval passes did not launch "
                  f"{name}")
@@ -1987,14 +1996,27 @@ def wgrad_step_calls(K, frames: int, batch: int, name: str, dev,
     torch.cuda.synchronize()
 
 
+# phase 2: the 27f B=1024 calls timed for the kernels line, as (op, tier,
+# the pieces' K, N): each instantiation of gemm_wgrad at its main-path
+# shapes (wgrad_route: wgmma at the GAB-0 block concat, the local cat and
+# the C=512 block concat; smallk at the expand conv's K = 2 taps; general
+# at the shrink's N = 3).
+WGRAD_TIMED = (("gab_cat", "high", (128, 128, 128), 256),
+               ("local_cat", "default", (128, 128), 128),
+               ("gab_cat", "high", (512, 512, 512), 1024),
+               ("expand", "high", (2, 2, 2), 128),
+               ("shrink", "high", (1024,), 3))
+
+
 def wgrad_cases(K, dev) -> dict:
     """Phase 2: every gemm_wgrad call of the tiered strided steps
     ``WGRAD_STEPS`` at all ``high`` and at the preset, each distinct shape
-    and tier held to its plain version on the same operands; the 27f
-    call that moves the most bytes kept, by tier, for the kernels line."""
+    and tier held to its plain version on the same operands and to a
+    second launch bit for bit; the 27f calls of ``WGRAD_TIMED`` kept for
+    the kernels line."""
     import torch
 
-    held, main = {}, {}
+    held, routes, errs, main = {}, {}, {}, {}
     for frames, batch in WGRAD_STEPS:
         for name in TRAIN_TIER_NAMES:
             def hold(site, pieces, g, m, kw, out, frames=frames,
@@ -2006,47 +2028,66 @@ def wgrad_cases(K, dev) -> dict:
                        f"s_out={kw.get('s_out')}")
                 if key in held:
                     return
+                variant = K.wgrad_route(pieces, g, kw.get("s_out"),
+                                        kw.get("a_s_in"))
                 plain = K.gemm_wgrad_plain(pieces, g, m, tier=site.tier,
                                            **kw)
                 err = max_err(out, plain)
                 bound_ = TOL * max(1.0, float(plain.abs().max()))
                 if not err <= bound_:
-                    fail(f"gemm_wgrad {key} disagrees with its plain "
-                         f"version: {err} > {bound_}")
-                held[key] = err
-                nbytes = wgrad_bytes(m, ks, g.shape[1])
-                if frames == 27 and nbytes > main.get(site.tier, (0,))[0]:
-                    main[site.tier] = (nbytes, site.op, pieces, g, m, kw)
+                    fail(f"gemm_wgrad {key} ({variant}) disagrees with its "
+                         f"plain version: {err} > {bound_}")
+                again = K.gemm_wgrad(pieces, g, m, tier=site.tier, **kw)
+                if not torch.equal(out, again):
+                    fail(f"gemm_wgrad {key} ({variant}): two launches "
+                         f"differ")
+                held[key], routes[key] = err, variant
+                errs[variant] = max(err, errs.get(variant, 0.0))
+                spec = (site.op, site.tier, ks, g.shape[1])
+                if frames == 27 and spec in WGRAD_TIMED:
+                    main[spec] = (variant, site.op, pieces, g, m, kw)
 
             wgrad_step_calls(K, frames, batch, name, dev, hold)
             torch.cuda.empty_cache()
     worst = max(held.values())
+    by_variant = {v: sum(r == v for r in routes.values())
+                  for v in K.WGRAD_VARIANTS}
     print(f"  gemm_wgrad: {len(held)} distinct calls of the tiered steps "
           f"(27f B=1024, 243f B=256; all high and the preset) held to their "
-          f"plain versions: largest max|d| {worst:.3e}")
-    return {"cases": held, "max_abs_err": worst, "main": main}
+          f"plain versions and bitwise to a second launch: largest max|d| "
+          f"{worst:.3e}; by instantiation {by_variant}")
+    if not all(by_variant.values()):
+        fail(f"gemm_wgrad: the tiered steps left an instantiation out: "
+             f"{by_variant}")
+    return {"cases": held, "routes": routes, "max_abs_err": worst,
+            "max_abs_err_by_variant": errs, "calls_by_variant": by_variant,
+            "main": main}
 
 
 def wgrad_rows(K, main: dict) -> list:
-    """The kernels line's gemm_wgrad rows: at each tier, the 27f call of
-    ``wgrad_cases`` that moves the most bytes, timed beside its plain
-    version, its bound (bytes 4 M (K + N) and the output; operations 2 M
-    K N a pass at the bf16 peak) and, at one pass, a bf16 ``torch.matmul``
-    of the gathered A^T and G."""
+    """The kernels line's gemm_wgrad rows: each call of ``WGRAD_TIMED``
+    timed beside its plain version and its bound (bytes 4 M (K + N) and
+    the output; operations 2 M K N a pass at the bf16 peak); at one pass
+    two yardsticks: a bf16 ``torch.matmul`` of A^T and G gathered and cast
+    beforehand (``library_ms``: it reads half the bytes the function
+    must), and the two casts from the float32 operands with that call,
+    timed together (``library_f32_ms``: the same inputs as the kernel)."""
     import torch
 
     rows = []
     # The recorded activations require a gradient: the wrappers take them
     # under no_grad, as the backward hands them over.
     with torch.no_grad():
-        for tier in K.WGRAD_TIERS:
-            if tier in main:
-                rows.append(wgrad_row(K, tier, *main[tier]))
+        for spec in WGRAD_TIMED:
+            if spec not in main:
+                fail(f"gemm_wgrad: the 27f B=1024 step made no {spec} call")
+            rows.append(wgrad_row(K, spec[1], *main[spec]))
+    main.clear()
     torch.cuda.empty_cache()
     return rows
 
 
-def wgrad_row(K, tier, nbytes, op, pieces, g, m, kw) -> dict:
+def wgrad_row(K, tier, variant, op, pieces, g, m, kw) -> dict:
     """One row of ``wgrad_rows``."""
     import torch
 
@@ -2055,24 +2096,30 @@ def wgrad_row(K, tier, nbytes, op, pieces, g, m, kw) -> dict:
     ms = cuda_ms(lambda: K.gemm_wgrad(pieces, g, m, tier=tier, **kw))
     plain_ms = cuda_ms(lambda: K.gemm_wgrad_plain(pieces, g, m, tier=tier,
                                                    **kw), reps=3)
-    library_ms = None
+    library_ms = library_f32_ms = None
     if tier == "default":
         s_out = kw.get("s_out") or m
         a_s_in = kw.get("a_s_in") or s_out
         r = torch.arange(m, device=g.device)
-        at = torch.cat([a[(r // s_out) * a_s_in + r % s_out + off]
-                        for a, off in pieces], dim=1).t().to(torch.bfloat16)
+        rows = [(r // s_out) * a_s_in + r % s_out + off for _, off in pieces]
+        at = torch.cat([a[i] for (a, _), i in zip(pieces, rows)],
+                       dim=1).t().to(torch.bfloat16)
         gb = g.to(torch.bfloat16)
         library_ms = cuda_ms(lambda: torch.matmul(at, gb))
-        del at, gb
-    bms, by = tc_bound(2 * m * sum(ks) * n, nbytes, TC_PASSES[tier])
+        a32 = torch.cat([a[i] for (a, _), i in zip(pieces, rows)], dim=1)
+        library_f32_ms = cuda_ms(lambda: torch.matmul(
+            a32.t().to(torch.bfloat16), g.to(torch.bfloat16)))
+        del at, gb, a32
+    bms, by = tc_bound(2 * m * sum(ks) * n, wgrad_bytes(m, ks, n),
+                       TC_PASSES[tier])
     shape = f"27f B=1024 {op}, M={m}, K={'+'.join(map(str, ks))}, N={n}"
-    print(f"  gemm_wgrad ({tier}, {shape}): {ms:.4f} ms (plain "
+    print(f"  gemm_wgrad ({variant}, {tier}, {shape}): {ms:.4f} ms (plain "
           f"{plain_ms:.3f}, bound {bms:.4f} by {by}"
-          + (f", bf16 torch.matmul {library_ms:.4f}" if library_ms else "")
-          + ")")
-    return {"tier": tier, "shape": shape, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": library_ms}
+          + (f", bf16 torch.matmul {library_ms:.4f}, with the casts "
+             f"{library_f32_ms:.4f}" if library_ms else "") + ")")
+    return {"variant": variant, "tier": tier, "shape": shape, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": library_ms, "library_f32_ms": library_f32_ms}
 
 
 def step_state_of(loss, model) -> dict:
@@ -5268,19 +5315,22 @@ def main() -> int:
           f"{ {k: round(v, 1) for k, v in took.items()} }")
     tiered_cells = [v for k, v in tt.items() if k != "against_plain"]
     for r in report["wgrad_rows"]:
-        key = f"gemm_wgrad {r['tier']}"
+        key = f"gemm_wgrad {r['variant']}"
         kernels.append({
-            "name": f"gemm_wgrad ({r['tier']}, {r['shape']})",
+            "name": f"gemm_wgrad ({r['variant']}, {r['tier']}, "
+                    f"{r['shape']})",
             "route": "cuda", "source": "gastx_torch/csrc/gemm_wgrad.cu",
             "replaces": "gastx/models/gastnet.py:89",
             "launches": sum(c["launches"].get(key, 0) for c in tiered_cells),
             "launches_per_step": {
                 k: c["launches_per_step"].get(key, 0)
                 for k, c in tt.items() if k != "against_plain"},
-            "max_abs_err": report["wgrad_cases"]["max_abs_err"],
+            "max_abs_err": report["wgrad_cases"]["max_abs_err_by_variant"][
+                r["variant"]],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"],
+            "library_f32_ms": r["library_f32_ms"]})
 
     # ---- phase 10: the precision tiers -----------------------------------
     print("phase 10: the precision tiers (bf16 passes on the tensor cores, "

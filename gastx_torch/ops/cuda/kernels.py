@@ -81,8 +81,9 @@ float32 one); on a CPU tensor it runs the plain PyTorch version beside it,
 at the tier it is given, which is also what the card runs to hold the
 kernel to. ``LAUNCHES`` counts kernel launches by kernel,
 ``VARIANT_LAUNCHES`` those of the kernels with alignment
-instantiations (and ``gemm_smallk``'s one, ``"smallk"``) by kernel and
-instantiation, ``TIER_LAUNCHES`` the
+instantiations (and ``gemm_smallk``'s one, ``"smallk"``; ``gemm_wgrad``'s
+three, :func:`wgrad_route`) by kernel and instantiation, ``TIER_LAUNCHES``
+the
 launches of ``gemm_tc`` and ``gemm_smallk`` by tier and the tiered ones of
 ``joint_attention`` (by score/apply tier pair) and ``gab_narrow`` (by its
 classes' tiers), ``DTYPE_LAUNCHES`` every
@@ -142,13 +143,16 @@ ENTRY_POINTS = ("fused_level0", "fused_level", "fused_gab_pbatch",
 # (1: vec16).
 VARIANTS = ("vec16", "general")
 VARIANT_KERNELS = ("gemm_epilogue", "sem_graph", "joint_attention",
-                   "gemm_tc", "gemm_smallk")
+                   "gemm_tc", "gemm_smallk", "gemm_wgrad")
 # gemm_tc's instantiations: its wgmma kernel on float32 I/O (vec16) and
 # on bf16 I/O (vec16_bf16, the bf16-I/O library), and the mma.sync one.
 TC_VARIANTS = ("vec16", "vec16_bf16", "general")
 # gemm_smallk's one (its tiers are TIER_LAUNCHES'), the name gemm_variant
 # and tc_variant give it.
 SMALLK_VARIANTS = ("smallk",)
+# gemm_wgrad's instantiations (wgrad_route): its wgmma kernel, its
+# CUDA-core kernel for sum K_p <= WGRAD_SMALLK_MAX_K, and the mma.sync one.
+WGRAD_VARIANTS = ("wgmma", "smallk", "general")
 # gemm_tc's tiers, in the order of its C tier code; "kdefault" is the
 # "default" instantiation (one bf16 pass in a kernel, as on the TPU).
 TC_TIERS = ("default", "high_lhs", "high_rhs", "high")
@@ -171,8 +175,8 @@ MAX_SLOTS = 8
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_SOURCES}
 VARIANT_LAUNCHES: Dict[str, Dict[str, int]] = {
     name: {v: 0 for v in {"gemm_tc": TC_VARIANTS,
-                          "gemm_smallk": SMALLK_VARIANTS}.get(name,
-                                                              VARIANTS)}
+                          "gemm_smallk": SMALLK_VARIANTS,
+                          "gemm_wgrad": WGRAD_VARIANTS}.get(name, VARIANTS)}
     for name in VARIANT_KERNELS}
 # Launches by tier: gemm_tc by tier, gemm_smallk by tier ("highest"
 # too), joint_attention by "score/apply" pair (a pair of "highest" is its
@@ -233,15 +237,25 @@ _ARGTYPES = {
     "gab_narrow_tiered": [_P, _P, _LL, _I, _I, _I, _I, _I, _I] + [_P] * 21
     + [_I, _I] + [_I] * 7,
     # per piece (a, K, a_off) x 3, npieces, g, m, n, s_out, a_s_in, the
-    # workspace, splits, chunk, out, stream, tier code (TC_TIERS)
+    # workspace, splits, chunk, out, stream, tier code (TC_TIERS): the
+    # general and the smallk instantiations
     "gemm_wgrad": [_P, _I, _I] * 3 + [_I, _P, _I, _I, _I, _I, _P, _I, _I,
                                       _P, _P, _I],
+    "gemm_wgrad_smallk": [_P, _I, _I] * 3 + [_I, _P, _I, _I, _I, _I, _P,
+                                             _I, _I, _P, _P, _I],
+    # per piece (a, K, rows, a_off) x 3, then as gemm_wgrad's from npieces
+    # on, the output tile's width (the wgmma instantiation)
+    "gemm_wgrad_hopper": [_P, _I, _I, _I] * 3 + [_I, _P, _I, _I, _I, _I,
+                                                 _P, _I, _I, _P, _P, _I,
+                                                 _I],
 }
 
 
 # The C functions of each library (its bf16-I/O form's too) where they
 # are not the one named after it.
 _SYMBOLS = {"gemm_tc": ("gemm_tc", "gemm_tc_hopper"),
+            "gemm_wgrad": ("gemm_wgrad", "gemm_wgrad_hopper",
+                           "gemm_wgrad_smallk"),
             "gab_narrow_tiered": ("gab_narrow_tiered",)}
 
 
@@ -866,13 +880,26 @@ def graph_variant(views: Sequence[torch.Tensor], widths: Sequence[int]
 # gemm_wgrad
 # --------------------------------------------------------------------------
 
-# gemm_wgrad.cu's output tile (rows of dW, columns) and slab of rows.
+# gemm_wgrad.cu's general tile (rows of dW, columns) and its slab of rows
+# (every instantiation's rows a split are a multiple of it).
 WGRAD_TILE = 64
 WGRAD_ROWS = 32
-# The blocks a launch aims at, a multiple of the SMs, and the fewest rows a
-# split sums.
-WGRAD_BLOCKS_PER_SM = 4
-WGRAD_MIN_ROWS = 512
+# The wgmma instantiation's tile: rows of dW (the pieces' K, each padded to
+# WGRAD_PAD), and the widths it is built for (the narrowest that holds N).
+WGRAD_TC_ROWS = 128
+WGRAD_PAD = 32
+WGRAD_TC_WIDTHS = (64, 128, 256)
+# ... and the rows of a gathered A block in shared memory (the runs of the
+# row map that one slab of WGRAD_ROWS rows may meet, wgrad_gather_rows).
+WGRAD_GATHER_ROWS = 64
+# The smallk instantiation's shape rule: sum K_p at most this, N a multiple
+# of 4 up to WGRAD_SMALLK_MAX_N.
+WGRAD_SMALLK_MAX_K = 16
+WGRAD_SMALLK_MAX_N = 1024
+# The row split of each instantiation (wgrad_splits): the blocks an SM a
+# launch aims at, and the fewest rows a split sums.
+WGRAD_SPLIT_RULES = {"general": (4, 512), "wgmma": (1, 256),
+                     "smallk": (2, 512)}
 # A piece of the weight gradient: (a (rows, K_p), a_off).
 WPiece = Tuple[torch.Tensor, int]
 
@@ -903,18 +930,72 @@ def _check_wgrad(pieces, g, m, s_out, a_s_in, tier):
     return device
 
 
-def wgrad_splits(m: int, tiles: int, sms: int) -> Tuple[int, int]:
-    """(splits, rows a split) of a ``gemm_wgrad`` launch of ``tiles``
-    output tiles over ``m`` rows on ``sms`` SMs: about
-    ``WGRAD_BLOCKS_PER_SM`` blocks an SM, at least ``WGRAD_MIN_ROWS`` rows
-    a split, each split a multiple of ``WGRAD_ROWS`` rows and none empty.
-    A function of the shape alone, so a launch sums in the same order on
-    every run."""
-    want = max(1, -(-WGRAD_BLOCKS_PER_SM * sms // tiles))
-    splits = max(1, min(want, m // WGRAD_MIN_ROWS))
+def wgrad_splits(m: int, tiles: int, sms: int,
+                 variant: str = "general") -> Tuple[int, int]:
+    """(splits, rows a split) of a ``gemm_wgrad`` launch of ``variant``'s
+    ``tiles`` output tiles over ``m`` rows on ``sms`` SMs: as many splits
+    as its ``WGRAD_SPLIT_RULES`` blocks an SM hold whole tiles' blocks (one
+    wave), at least its fewest rows a split, each split a multiple of
+    ``WGRAD_ROWS`` rows and none empty. A function of the shape alone, so a
+    launch sums in the same order on every run."""
+    per_sm, min_rows = WGRAD_SPLIT_RULES[variant]
+    splits = max(1, min(per_sm * sms // tiles, m // min_rows))
     chunk = -(-m // splits)
     chunk = -(-chunk // WGRAD_ROWS) * WGRAD_ROWS
     return -(-m // chunk), chunk
+
+
+def wgrad_gather_rows(s_out: int) -> int:
+    """The rows of a gathered A block that the wgmma instantiation stages
+    for a slab of ``WGRAD_ROWS`` rows over runs of ``s_out`` rows: the
+    most runs it can meet, min(s_out, 32) rows each (gemm_wgrad.cu's
+    ``gather_rows``)."""
+    box = min(s_out, 32)
+    return box * -(-(s_out - 1 + WGRAD_ROWS) // s_out)
+
+
+def wgrad_route(pieces: Sequence[WPiece], g: torch.Tensor,
+                s_out: Optional[int] = None,
+                a_s_in: Optional[int] = None) -> str:
+    """The instantiation of ``gemm_wgrad`` for these operands and row map
+    (its C entry points check the same rule): ``"smallk"`` where the sum
+    of K_p is at most ``WGRAD_SMALLK_MAX_K`` and N a multiple of 4 up to
+    ``WGRAD_SMALLK_MAX_N`` with G 16-byte aligned (the expand conv's K = 2
+    taps); else ``"wgmma"`` where every K_p and N are multiples of 8,
+    every a_p and G start 16-byte aligned (then so does every row) and,
+    for a row map of runs (``s_out != a_s_in``: the conv taps), a slab's
+    runs fit ``WGRAD_GATHER_ROWS`` (:func:`wgrad_gather_rows`: runs of up
+    to 21 rows, the 15-19 joint layouts' strided taps among them, and of
+    31 rows or more); else ``"general"``."""
+    n = g.shape[1]
+    ks = [a.shape[1] for a, _ in pieces]
+    g_ok = g.data_ptr() % 16 == 0
+    if (sum(ks) <= WGRAD_SMALLK_MAX_K and n % 4 == 0
+            and n <= WGRAD_SMALLK_MAX_N and g_ok):
+        return "smallk"
+    runs_ok = (s_out is None or a_s_in in (None, s_out)
+               or wgrad_gather_rows(s_out) <= WGRAD_GATHER_ROWS)
+    if (n % 8 == 0 and all(k % 8 == 0 for k in ks) and g_ok and runs_ok
+            and all(a.data_ptr() % 16 == 0 for a, _ in pieces)):
+        return "wgmma"
+    return "general"
+
+
+def wgrad_tiles(ks: Sequence[int], n: int, variant: str
+                ) -> Tuple[int, int]:
+    """(output tiles, tile width) of a ``gemm_wgrad`` launch of
+    ``variant`` on pieces of ``ks`` rows of dW and N columns: the general
+    kernel's 64 x 64 tiles a piece; the wgmma kernel's WGRAD_TC_ROWS rows
+    of the padded K (every piece padded to WGRAD_PAD) by the narrowest of
+    WGRAD_TC_WIDTHS that holds N (else 256); the smallk kernel's one."""
+    if variant == "smallk":
+        return 1, n
+    if variant == "general":
+        return (sum(-(-k // WGRAD_TILE) for k in ks) * -(-n // WGRAD_TILE),
+                WGRAD_TILE)
+    width = next((w for w in WGRAD_TC_WIDTHS if n <= w), WGRAD_TC_WIDTHS[-1])
+    pad = sum(-(-k // WGRAD_PAD) * WGRAD_PAD for k in ks)
+    return -(-pad // WGRAD_TC_ROWS) * -(-n // width), width
 
 
 def gemm_wgrad_plain(pieces: Sequence[WPiece], g: torch.Tensor, m: int, *,
@@ -945,9 +1026,9 @@ def gemm_wgrad(pieces: Sequence[WPiece], g: torch.Tensor, m: int, *,
     ``m``). ``tier``: ``"default"`` (one bf16 pass) or ``"high"`` (three),
     both operands split by ``precision.split_bf16``; any other tier raises.
     Every tensor float32 and contiguous; K_p and N any size. On the card
-    one call of the C function: the tile kernel over the rows split
-    :func:`wgrad_splits` ways into a workspace allocated here, then the
-    fixed-order sum of its slices."""
+    one call of the C function of :func:`wgrad_route`'s instantiation: its
+    tile kernel over the rows split :func:`wgrad_splits` ways into a
+    workspace allocated here, then the fixed-order sum of its slices."""
     check_no_grad("gemm_wgrad", pieces, g)
     s_out = m if s_out is None else s_out
     a_s_in = s_out if a_s_in is None else a_s_in
@@ -956,25 +1037,32 @@ def gemm_wgrad(pieces: Sequence[WPiece], g: torch.Tensor, m: int, *,
         return gemm_wgrad_plain(pieces, g, m, s_out=s_out, a_s_in=a_s_in,
                                 tier=tier)
     n = g.shape[1]
-    k_total = sum(a.shape[1] for a, _ in pieces)
-    tiles = (sum(-(-a.shape[1] // WGRAD_TILE) for a, _ in pieces)
-             * -(-n // WGRAD_TILE))
+    ks = [a.shape[1] for a, _ in pieces]
+    variant = wgrad_route(pieces, g, s_out, a_s_in)
+    tiles, width = wgrad_tiles(ks, n, variant)
     splits, chunk = wgrad_splits(
         m, tiles, torch.cuda.get_device_properties(device)
-        .multi_processor_count)
-    out = torch.empty((k_total, n), dtype=torch.float32, device=device)
-    ws = (torch.empty((splits, k_total, n), dtype=torch.float32,
+        .multi_processor_count, variant)
+    out = torch.empty((sum(ks), n), dtype=torch.float32, device=device)
+    ws = (torch.empty((splits, sum(ks), n), dtype=torch.float32,
                       device=device) if splits > 1 else None)
+    tail = [len(pieces), g.data_ptr(), m, n, s_out, a_s_in, _ptr(ws),
+            splits, chunk, out.data_ptr(), _stream(), TC_TIERS.index(tier)]
     flat = []
     for i in range(3):
         if i < len(pieces):
             a, off = pieces[i]
-            flat += [a.data_ptr(), a.shape[1], off]
+            flat += ([a.data_ptr(), a.shape[1], a.shape[0], off]
+                     if variant == "wgmma" else
+                     [a.data_ptr(), a.shape[1], off])
         else:
-            flat += [None, 0, 0]
-    _launch("gemm_wgrad", *flat, len(pieces), g.data_ptr(), m, n, s_out,
-            a_s_in, _ptr(ws), splits, chunk, out.data_ptr(), _stream(),
-            TC_TIERS.index(tier), tier=tier)
+            flat += [None, 0, 0, 0] if variant == "wgmma" else [None, 0, 0]
+    if variant == "wgmma":
+        tail.append(width)
+    symbol = {"wgmma": "gemm_wgrad_hopper",
+              "smallk": "gemm_wgrad_smallk"}.get(variant, "gemm_wgrad")
+    _launch("gemm_wgrad", *flat, *tail, tier=tier, symbol=symbol,
+            variant=variant)
     return out
 
 

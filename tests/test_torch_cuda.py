@@ -1206,7 +1206,12 @@ def test_cuda_plain_sites_launch_their_gemm(model, cell):
 # s_out, a_s_in, N): a conv's taps over ragged sequences, the expand conv's
 # K = 2 taps (strided at 27f, B = 64), N = 51 on pieces of different K, the
 # shrink's N = 3, a 27f level-1 strided conv at B = 256 (the rows split
-# across blocks), and a block concat's three pieces.
+# across blocks), and a block concat's three pieces; then pieces of 64 and
+# 40 rows of dW in one wgmma tile at N = 96 (the padding, a partial
+# 128-wide tile), a C=512 attention projection (N = 1536: six 256-wide
+# tiles) and the 243f expand conv's K = 2 taps at N = 32. Each takes
+# wgrad_route's instantiation: smallk, wgmma (TMA or the taps' gathers) or
+# general.
 WGRAD_CASES = {
     "ragged_rows": (2 * 11 * 5, (8, 8, 8), (0, 15, 30), 2 * 5 * 5, 25, 55,
                     12),
@@ -1217,7 +1222,16 @@ WGRAD_CASES = {
     "level1_strided": (256 * 9 * 17, (256, 256, 256), (0, 17, 34),
                        256 * 3 * 17, 17, 51, 256),
     "concat3": (9000, (128, 128, 128), (0, 0, 0), 9000, 9000, 9000, 256),
+    "aligned_n96": (5000, (64, 40), (0, 7), 4993, 4993, 4993, 96),
+    "proj_n1536": (4352, (512,), (0,), 4352, 4352, 4352, 1536),
+    "expand_k2_n32": (16 * 243 * 17, (2, 2, 2), (0, 17, 34),
+                      16 * 81 * 17, 17, 51, 32),
 }
+WGRAD_CASE_ROUTES = {"ragged_rows": "general", "expand_k2": "smallk",
+                     "n51": "general", "shrink": "general",
+                     "level1_strided": "wgmma", "concat3": "wgmma",
+                     "aligned_n96": "wgmma", "proj_n1536": "wgmma",
+                     "expand_k2_n32": "smallk"}
 
 
 @pytest.mark.cuda
@@ -1226,8 +1240,8 @@ WGRAD_CASES = {
 def test_cuda_gemm_wgrad_matches_plain(model, case, tier):
     """gemm_wgrad at each tier against its plain version on the same
     operands (both sum products of the same bf16 halves in float32), one
-    launch a call, and the same bits on a second call (the splits' fixed
-    order of sums)."""
+    launch a call of the case's instantiation, and the same bits on a
+    second call (the splits' fixed order of sums)."""
     rows, ks, offs, m, s_out, a_s_in, n = WGRAD_CASES[case]
     pieces = [(_randn(rows, k, seed=i), off)
               for i, (k, off) in enumerate(zip(ks, offs))]
@@ -1238,6 +1252,10 @@ def test_cuda_gemm_wgrad_matches_plain(model, case, tier):
     again = K.gemm_wgrad(pieces, g, m, **kw)
     assert K.LAUNCHES["gemm_wgrad"] == 2
     assert K.TIER_LAUNCHES["gemm_wgrad"][tier] == 2
+    variant = WGRAD_CASE_ROUTES[case]
+    assert K.wgrad_route(pieces, g, s_out, a_s_in) == variant
+    assert K.VARIANT_LAUNCHES["gemm_wgrad"] == {
+        v: 2 * (v == variant) for v in K.WGRAD_VARIANTS}
     _assert_close(got, K.gemm_wgrad_plain(pieces, g, m, **kw))
     assert torch.equal(got, again)
 

@@ -547,24 +547,193 @@ def test_gemm_wgrad_refusals():
         K.gemm_wgrad([(a.requires_grad_(), 0)], g, 10, tier="high")
 
 
-@pytest.mark.parametrize("m,tiles", [(32, 1), (156_672, 24), (17_408, 384),
-                                     (1000, 3), (513, 2)])
-def test_wgrad_splits_cover_the_rows(m, tiles):
+# (m, tiles, instantiation): the general kernel's cases keep their ids.
+SPLIT_CASES = [pytest.param(m, t, "general", id=f"{m}-{t}")
+               for m, t in ((32, 1), (156_672, 24), (17_408, 384), (1000, 3),
+                            (513, 2))]
+SPLIT_CASES += [pytest.param(m, t, v, id=f"{v}-{m}-{t}") for v, m, t in (
+    ("wgmma", 156_672, 3), ("wgmma", 17_408, 48), ("wgmma", 352_512, 1),
+    ("wgmma", 4_352, 240), ("wgmma", 100, 1), ("wgmma", 1000, 2),
+    ("smallk", 156_672, 1), ("smallk", 352_512, 1), ("smallk", 100, 1),
+    ("smallk", 1100, 1))]
+
+
+@pytest.mark.parametrize("m,tiles,variant", SPLIT_CASES)
+def test_wgrad_splits_cover_the_rows(m, tiles, variant):
     """Every split a multiple of the slab's rows, none empty, together
-    covering the rows, about WGRAD_BLOCKS_PER_SM blocks an SM."""
-    splits, chunk = K.wgrad_splits(m, tiles, 132)
+    covering the rows; the blocks within the instantiation's blocks an SM
+    (one wave: the wgmma kernel one block an SM), each split at least its
+    fewest rows unless there is one."""
+    per_sm, min_rows = K.WGRAD_SPLIT_RULES[variant]
+    splits, chunk = K.wgrad_splits(m, tiles, 132, variant)
     assert chunk % K.WGRAD_ROWS == 0 and chunk >= K.WGRAD_ROWS
     assert splits * chunk >= m > (splits - 1) * chunk
-    assert splits == 1 or chunk >= K.WGRAD_MIN_ROWS - K.WGRAD_ROWS
-    assert splits * tiles <= max(tiles, K.WGRAD_BLOCKS_PER_SM * 132 + tiles)
+    assert splits == 1 or chunk >= min_rows - K.WGRAD_ROWS
+    assert splits * tiles <= max(tiles, per_sm * 132)
+    assert K.wgrad_splits(m, tiles, 132, variant) == (splits, chunk)
+
+
+def test_wgrad_splits_at_the_recorded_shapes():
+    """The wgmma kernel's splits at the 27f B=1024 step's three timed
+    calls: 44 slices of the GAB-0 block concat's 3 tiles (17.3 MB of
+    workspace against 401 MB of operands), 2 of the C=512 block concat's
+    48, 66 of the local cat's 2; the expand taps' 258 smallk blocks."""
+    def plan(ks, n, m, variant):
+        tiles, width = K.wgrad_tiles(ks, n, variant)
+        return tiles, width, K.wgrad_splits(m, tiles, 132, variant)[0]
+
+    assert plan((128,) * 3, 256, 156_672, "wgmma") == (3, 256, 44)
+    assert plan((512,) * 3, 1024, 17_408, "wgmma") == (48, 256, 2)
+    assert plan((128,) * 2, 128, 156_672, "wgmma") == (2, 128, 66)
+    assert plan((32,) * 3, 64, 352_512, "wgmma") == (1, 64, 132)
+    assert plan((2,) * 3, 128, 156_672, "smallk") == (1, 128, 258)
+    assert plan((6, 70), 51, 2900, "general") == (3, 64, 5)
+
+
+def _wpiece(rows, k, off=0, offset=0):
+    """A (rows, k) float32 piece at row offset ``off``, ``offset`` floats
+    past an aligned start."""
+    return (torch.zeros(rows * k + offset)[offset:].view(rows, k), off)
+
+
+# case: (K_p of each piece, N, the 3-tap row map (its runs' rows s_out;
+# a_s_in = 3 s_out) or None, a piece's start offset in floats, want)
+WGRAD_ROUTES = {
+    "k8": ((8, 8, 8), 64, None, 0, "wgmma"),
+    "k6": ((8, 6, 8), 64, None, 0, "general"),
+    "n8": ((32,), 8, None, 0, "wgmma"),
+    "n51": ((32,), 51, None, 0, "general"),
+    "shrink_n3": ((1024,), 3, None, 0, "general"),
+    "sum_k16": ((6, 10), 32, None, 0, "smallk"),
+    "sum_k17": ((6, 11), 32, None, 0, "general"),
+    "sum_k16_n1024": ((8, 8), 1024, None, 0, "smallk"),
+    "sum_k16_n1032": ((8, 8), 1032, None, 0, "wgmma"),
+    "sum_k24": ((16, 8), 64, None, 0, "wgmma"),
+    "unaligned_a": ((64, 64), 64, None, 1, "general"),
+    "unaligned_small_a": ((2, 2, 2), 128, None, 1, "smallk"),
+    "taps_k64": ((64, 64, 64), 64, 17, 0, "wgmma"),
+    "taps_k64_s19": ((64, 64, 64), 64, 19, 0, "wgmma"),
+    "taps_k64_s25": ((64, 64, 64), 64, 25, 0, "general"),
+    "taps_k64_s425": ((64, 64, 64), 64, 425, 0, "wgmma"),
+    "taps_k2": ((2, 2, 2), 128, 17, 0, "smallk"),
+    "gab0_block_concat": ((128, 128, 128), 256, None, 0, "wgmma"),
+    "local_cat": ((128, 128), 128, None, 0, "wgmma"),
+    "c512_block_concat": ((512, 512, 512), 1024, None, 0, "wgmma"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WGRAD_ROUTES))
+def test_wgrad_route(case):
+    """Which instantiation each weight gradient takes: smallk at sum K_p
+    <= 16 (N a multiple of 4 up to 1024), wgmma at K_p and N multiples of
+    8 with 16-byte starts (a conv's taps where a slab's runs of the row
+    map fit its staging), general for the rest; a misaligned G sends both
+    fast paths to general."""
+    ks, n, s_out, offset, want = WGRAD_ROUTES[case]
+    rows = 2 * 3 * (s_out or 17)
+    kw = {}
+    if s_out:
+        x = _wpiece(rows, ks[0], 0, offset)[0]
+        pieces = [(x, k * s_out) for k in range(3)]
+        kw = dict(s_out=s_out, a_s_in=3 * s_out)
+    else:
+        pieces = [_wpiece(rows, k, 0, offset if i == 1 else 0)
+                  for i, k in enumerate(ks)]
+    assert K.wgrad_route(pieces, torch.zeros(rows, n), **kw) == want
+    g_off = _wpiece(rows, n, 0, 2)[0]
+    assert K.wgrad_route(pieces, g_off, **kw) == "general"
+
+
+def _smallk_wgrad_emulate(pieces, g, m, s_out, a_s_in, tier, sms=132):
+    """gemm_wgrad.cu's smallk instantiation's per-element float32
+    arithmetic: thread (c, rl) of split s sums the rows r_begin + rl +
+    j R in order, each row's exact products of the split values added as
+    ah.gh, then at "high" ah.gl and al.gh; the block adds its R partial
+    sums in order; a warp an element adds the slices, lane l those l, l +
+    32, ... from 0, then the lanes by the xor butterfly 16, 8, 4, 2, 1."""
+    n = g.shape[1]
+    r = np.arange(m)
+    base = (r // s_out) * a_s_in + r % s_out
+    a = np.concatenate([x.numpy()[base + off] for x, off in pieces], axis=1)
+    (ah, al), (gh, gl) = [
+        [h.float().numpy() for h in P.split_bf16(torch.from_numpy(v))]
+        for v in (a, g.numpy())]
+    splits, chunk = K.wgrad_splits(m, 1, sms, "smallk")
+    rows = 256 // (n // 4)
+    slices = []
+    for s in range(splits):
+        r0, r1 = s * chunk, min(m, (s + 1) * chunk)
+        acc = np.zeros((rows, a.shape[1], n), np.float32)
+        for j in range(-(-(r1 - r0) // rows)):
+            rr = r0 + np.arange(rows) + j * rows
+            ok = rr < r1
+            rr = np.where(ok, rr, 0)
+            terms = [(ah, gh)] + ([(ah, gl), (al, gh)] if tier == "high"
+                                  else [])
+            for x, y in terms:
+                prod = x[rr][:, :, None] * y[rr][:, None, :]
+                acc = np.where(ok[:, None, None], acc + prod, acc)
+        part = acc[0]
+        for i in range(1, rows):
+            part = part + acc[i]
+        slices.append(part)
+    if splits == 1:
+        return slices[0]
+    lanes = [np.zeros_like(slices[0]) for _ in range(32)]
+    for j, sl in enumerate(slices):
+        lanes[j % 32] = lanes[j % 32] + sl
+    for o in (16, 8, 4, 2, 1):
+        lanes = [lanes[l] + lanes[l ^ o] for l in range(32)]
+    return lanes[0]
 
 
 @pytest.mark.parametrize("tier", TIERS)
-def test_gemm_wgrad_launch_arguments(monkeypatch, tier):
-    """A call on the card launches the C function once with each piece's
-    (a, K_p, a_off), the row map, a workspace of splits x K_total x N
-    floats (none for one split), the split rule's chunk and the tier's
-    TC_TIERS code, counted under its tier. The launch is recorded with
+def test_wgrad_smallk_arithmetic_matches_plain(tier):
+    """The smallk instantiation's arithmetic (emulated in float32 above)
+    on three K = 2 taps over a strided row map, with its rows split in two
+    slices, against ``gemm_wgrad_plain`` within 1e-6 of the largest value:
+    both sum exact products of the split values in float32, in another
+    order. The tier is visible: the float32 product lies further away."""
+    j, seqs = 17, 40
+    m, s_out, a_s_in = seqs * j, j, 3 * j
+    x = torch.from_numpy(inputs((seqs * a_s_in, 2), 70))
+    g = torch.from_numpy(inputs((m, 16), 71))
+    pieces = [(x, k * j) for k in range(3)]
+    assert K.wgrad_route(pieces, g) == "smallk"
+    assert K.wgrad_splits(m, 1, 1, "smallk")[0] == 1
+    got = _smallk_wgrad_emulate(pieces, g, m, s_out, a_s_in, tier, sms=1)
+    want = K.gemm_wgrad_plain(pieces, g, m, s_out=s_out, a_s_in=a_s_in,
+                              tier=tier).numpy()
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * scale)
+    # two slices and the butterfly (1,100 rows: splits of 544 and 556)
+    m2 = 1100
+    x2 = torch.from_numpy(inputs((m2, 3), 72))
+    g2 = torch.from_numpy(inputs((m2, 8), 73))
+    assert K.wgrad_splits(m2, 1, 132, "smallk")[0] == 2
+    got2 = _smallk_wgrad_emulate([(x2, 0)], g2, m2, m2, m2, tier)
+    want2 = K.gemm_wgrad_plain([(x2, 0)], g2, m2, tier=tier).numpy()
+    np.testing.assert_allclose(got2, want2, rtol=0,
+                               atol=1e-6 * max(1.0, np.abs(want2).max()))
+    f32 = np.concatenate([x.numpy()[_rows(m, s_out, a_s_in, off)].T
+                          @ g.numpy() for _, off in pieces])
+    assert np.abs(got - f32).max() > 1e-6 * scale
+
+
+# (instantiation, tier) of the launch-argument test: the general kernel's
+# cases keep their ids.
+LAUNCH_CASES = [pytest.param("general", t, id=t) for t in TIERS]
+LAUNCH_CASES += [pytest.param(v, t, id=f"{v}-{t}")
+                 for v in ("wgmma", "smallk") for t in TIERS]
+
+
+@pytest.mark.parametrize("variant,tier", LAUNCH_CASES)
+def test_gemm_wgrad_launch_arguments(monkeypatch, variant, tier):
+    """A call on the card launches the C function of its instantiation
+    once: each piece's (a, K_p[, rows], a_off), the row map, a workspace
+    of splits x K_total x N floats (none for one split), the split rule's
+    chunk, the tier's TC_TIERS code and, for wgmma, the tile's width;
+    counted under its tier and instantiation. The launch is recorded with
     ``_lib`` patched."""
     calls = []
 
@@ -580,21 +749,61 @@ def test_gemm_wgrad_launch_arguments(monkeypatch, tier):
     monkeypatch.setattr(K, "_stream", lambda: 0)
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda device: Props())
-    a, b = torch.zeros(3000, 6), torch.zeros(3000, 70)
-    g = torch.zeros(2900, 51)
+    ks, n, m = {"general": ((6, 70), 51, 2900),
+                "wgmma": ((64, 40), 96, 2900),
+                "smallk": ((6, 2), 12, 2900)}[variant]
+    a, b = torch.zeros(3000, ks[0]), torch.zeros(3000, ks[1])
+    g = torch.zeros(m, n)
     K.reset_launches()
-    out = K.gemm_wgrad([(a, 0), (b, 100)], g, 2900, tier=tier)
+    out = K.gemm_wgrad([(a, 0), (b, 100)], g, m, tier=tier)
     (symbol, args), = calls
-    assert symbol == "gemm_wgrad" and len(args) == 21
-    assert len(K._ARGTYPES["gemm_wgrad"]) == 21
-    assert args[:9] == (a.data_ptr(), 6, 0, b.data_ptr(), 70, 100, None, 0,
-                        0)
-    splits, chunk = K.wgrad_splits(2900, (1 + 2) * 1, 132)
-    assert args[9:15] == (2, g.data_ptr(), 2900, 51, 2900, 2900)
-    assert args[16:18] == (splits, chunk) and splits > 1
-    assert args[15] is not None and args[18] == out.data_ptr()
-    assert args[20] == K.TC_TIERS.index(tier)
-    assert out.shape == (76, 51)
+    symbols = {"general": "gemm_wgrad", "wgmma": "gemm_wgrad_hopper",
+               "smallk": "gemm_wgrad_smallk"}
+    assert symbol == symbols[variant]
+    assert len(args) == len(K._ARGTYPES[symbol])
+    tiles, width = K.wgrad_tiles(ks, n, variant)
+    splits, chunk = K.wgrad_splits(m, tiles, 132, variant)
+    if variant == "wgmma":
+        assert args[:12] == (a.data_ptr(), ks[0], 3000, 0, b.data_ptr(),
+                             ks[1], 3000, 100, None, 0, 0, 0)
+        assert (tiles, width) == (1, 128) and args[-1] == width
+        args = args[12:-1]
+    else:
+        assert args[:9] == (a.data_ptr(), ks[0], 0, b.data_ptr(), ks[1],
+                            100, None, 0, 0)
+        args = args[9:]
+    assert args[:6] == (2, g.data_ptr(), m, n, m, m)
+    assert args[7:9] == (splits, chunk) and splits > 1
+    assert args[6] is not None and args[9] == out.data_ptr()
+    assert args[11] == K.TC_TIERS.index(tier)
+    assert out.shape == (sum(ks), n)
     assert K.LAUNCHES["gemm_wgrad"] == 1
     assert K.TIER_LAUNCHES["gemm_wgrad"][tier] == 1
+    assert K.VARIANT_LAUNCHES["gemm_wgrad"] == {
+        v: int(v == variant) for v in K.WGRAD_VARIANTS}
     K.reset_launches()
+
+
+def test_wgrad_library_binds_every_symbol(monkeypatch, tmp_path):
+    """gemm_wgrad.cu's library binds its three C functions (general,
+    wgmma, smallk) with their argument types: ctypes would pass an unbound
+    pointer as a 32-bit int."""
+    class Fn:
+        argtypes = restype = None
+
+    symbols = ("gemm_wgrad", "gemm_wgrad_hopper", "gemm_wgrad_smallk")
+
+    class Lib:
+        def __init__(self, path):
+            for symbol in symbols + ("error_string",):
+                setattr(self, symbol, Fn())
+
+    lib_file = tmp_path / "lib.so"
+    lib_file.touch()
+    monkeypatch.setattr(K, "_library_path", lambda _: lib_file)
+    monkeypatch.setattr(K.ctypes, "CDLL", Lib)
+    monkeypatch.setattr(K, "_LIBS", {})
+    lib = K._lib("gemm_wgrad")
+    for symbol in symbols:
+        assert getattr(lib, symbol).argtypes == K._ARGTYPES[symbol]
+    assert [len(K._ARGTYPES[s]) for s in symbols] == [21, 25, 21]
