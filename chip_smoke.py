@@ -180,7 +180,8 @@ a non-zero exit and no result line:
      forward for its expand conv and the general ``gemm_tc`` once for its
      shrink (N = 3), the ``wgmma`` one for every other product, no float32
      ``gemm_epilogue``, the tiered ``gab_narrow`` wherever ``gab_route``
-     sends a GAB, and every plain site's class at a tier, none float32:
+     sends a GAB, the 243f preset's folded GAB 0 as one fold launch and
+     no fold chain, and every plain site's class at a tier, none float32:
      ``K.SITE_PRODUCTS``); (d) windows/s, device busy and idle share and
      launches of the float32, (i) and (ii) forwards at 27f/81f/243f
      (B=1024/1024/256), and ``gab_narrow`` (float32 and tiered) beside the
@@ -192,7 +193,9 @@ a non-zero exit and no result line:
      ``gab_narrow``'s tiered form at C = 16, 32, 48 and 64, every tier and
      the preset's, in both libraries, against its plain version
      (``narrow_tier_check``), then timed at the 243f GAB 0 by tier beside
-     the tiered chain and its bound (``narrow_bound``);
+     the tiered chain and its bound (``narrow_bound``); its fold form
+     (``gab_tables(..., "fold")``) likewise at ``NARROW_FOLD_WIDTHS``,
+     float32 too, timed beside the fold chain;
  11. the in-the-wild pipeline (``gastx_torch.cli.gen_skes`` and
      ``gastx_torch.cli.realtime`` through their frame functions,
      ``skeletons_from_frames`` and ``run_frames``) at full width with
@@ -246,7 +249,9 @@ a non-zero exit and no result line:
      ``"pallas_pbatch"`` (243f), a ``gab_impl_levels`` mix (81f),
      ``storage_dtype="bfloat16"`` at 27f, 81f and 243f, the 81f mixed
      levels, ``gab_io_dtype`` at 27f, ``"pallas_level"`` on bf16 (243f),
-     the 243f preset with its fold at GAB 0, and that preset on bf16
+     every GAB folded in float32 (243f, ``gab_kernel_form="fold"``: the
+     fold ``gab_narrow`` at GAB 0), the 243f preset with its fold at GAB 0
+     (the tiered fold ``gab_narrow``), and that preset on bf16
      storage (the JAX package's shipped 243f route on a TPU: every bf16
      GEMM on ``vec16_bf16``, none on ``general``); each with
      the launch counters zeroed just before and read just after (the
@@ -273,7 +278,10 @@ also gives, as ``pipeline_launches``, its launches under phase 11, and
 as ``dp_launches`` rank 0's in phase 12 (c); the
 entries of ``gemm_epilogue``, ``sem_graph`` and ``joint_attention`` their
 launches by instantiation and, as ``ragged_max_abs_err``, the largest
-error of their phase-2 cases), the card's ``name,
+error of their phase-2 cases; ``gab_narrow``'s its launches by form, v1
+or fold, and the fold form's two entries, tiered and float32, their
+launches over phase 10 (c) and phase 13's ``"243f fold"`` cell), the
+card's ``name,
 power.limit``, and ``{"ok": true, "device": {...}}``. Details, the
 per-shape tables among them, also go to ``chiprun_out/chip_smoke.json``.
 """
@@ -966,7 +974,8 @@ def profile_call(fn, title):
         if ev.device_type != DeviceType.CUDA or dev_ms <= 0:
             continue
         name = next((k for k in ("gemm_epilogue", "sem_graph",
-                                 "joint_attention", "gab_narrow", "gemm_tc",
+                                 "joint_attention", "gab_narrow",
+                                 "gab_narrow_tiered", "gemm_tc",
                                  "gemm_smallk", "gemm_wgrad")
                      if f"{k}_kernel" in ev.key), f"other: {ev.key[:70]}")
         g = groups.setdefault(name, [0.0, 0])
@@ -1088,6 +1097,14 @@ def launch_counts(K) -> dict:
             **K.ENTRY_LAUNCHES}
 
 
+def narrow_tier_launches(launches: dict, fold: bool) -> int:
+    """The tiered ``gab_narrow`` launches in ``launch_counts`` of one form:
+    its tier keys ("gab_narrow <tiers>", "gab_narrow fold <tiers>")."""
+    return sum(v for k, v in launches.items()
+               if k.startswith("gab_narrow ") and "/" in k
+               and k.startswith("gab_narrow fold ") == fold)
+
+
 def tiered_launch(name: str) -> bool:
     """A counter of the tiered instantiations (``gemm_tc``'s,
     ``gemm_smallk``'s below ``"highest"``, ``joint_attention``'s by tier
@@ -1102,6 +1119,9 @@ def tiered_launch(name: str) -> bool:
 # Every view the main paths give the graph kernels meets the 16-byte rule:
 # their 4-byte instantiations launch only in phase 2's cases.
 GRAPH_GENERAL = ("sem_graph general", "joint_attention general")
+# gab_narrow's fold form: the float32 default folds no GAB (the JAX preset
+# folds the 243f GAB 0; phases 10 and 13 launch it).
+FOLD_LAUNCH = "gab_narrow fold"
 # The 4-byte GEMMs the main paths never launch: the one product they took
 # (the level-0 expand conv, K = 2 a tap) runs on gemm_smallk.
 GEMM_GENERAL = ("gemm_epilogue general", "gemm_tc general")
@@ -2645,11 +2665,19 @@ def tier_paths(K, dev) -> dict:
                 "gemm_tc default", "gemm_tc vec16", "gemm_smallk",
                 "joint_attention high/high",
                 "joint_attention default/default", "gab_narrow",
-                "sem_graph", "fused_local_branch", "head_attention"):
+                "gab_narrow fold", "sem_graph", "fused_local_branch",
+                "head_attention"):
         if not launches.get(key):
             fail(f"the tiered path did not launch {key}")
     if launches.get("gemm_epilogue"):
         fail("a tiered forward launched the float32 gemm_epilogue")
+    # The 243f preset's GAB 0, folded, is one tiered gab_narrow launch: the
+    # fold chain's score-free joint_attention ("highest/...") never runs.
+    if (narrow_tier_launches(launches, fold=True) != 1
+            or any(k.startswith("joint_attention highest/")
+                   for k in launches)):
+        fail(f"the 243f preset's GAB 0 did not run as one fold gab_narrow "
+             f"launch: {launches}")
     # The expand conv (K = 2 a tap) takes gemm_smallk and the shrink (N = 3)
     # the general gemm_tc, once a forward each; no other product is ragged.
     if (launches.get("gemm_smallk") != forwards
@@ -2759,7 +2787,9 @@ def tier_throughput(K, dev) -> dict:
 # BN statistics) at every tier and at the JAX preset's kernel tiers, on
 # NARROW_TIER_FRAMES frames, in both libraries (float32 x and output; bf16
 # x and output); then timed at the 243f model's GAB 0 (C=32, T=241, B=256)
-# at each tier beside the tiered chain and its bound.
+# at each tier beside the tiered chain and its bound. The fold form
+# likewise, on the fold tables of the same GABs (``NARROW_FOLD_WIDTHS``),
+# its float32 kernel too, and timed beside the fold chain.
 NARROW_TIER_WIDTHS = (16, 32, 48, 64)
 NARROW_TIER_FRAMES = 1000
 NARROW_TIERS = ("default", "kdefault", "high_lhs", "high_rhs", "high",
@@ -2789,9 +2819,12 @@ def narrow_tier_check(K, name, x, t, tiers, noise, out_dtype) -> float:
     import torch
 
     before = sum(K.TIER_LAUNCHES["gab_narrow"].values())
+    form = K.VARIANT_LAUNCHES["gab_narrow"][t.form]
     got = K.gab_narrow(x, t, out_dtype, tiers).float()
-    if sum(K.TIER_LAUNCHES["gab_narrow"].values()) != before + 1:
-        fail(f"{name}: the tiered gab_narrow did not launch")
+    if (sum(K.TIER_LAUNCHES["gab_narrow"].values()) != before + 1
+            or K.VARIANT_LAUNCHES["gab_narrow"][t.form] != form + 1):
+        fail(f"{name}: the tiered gab_narrow did not launch its {t.form} "
+             f"form")
     plain = K.gab_narrow_plain(x, t, out_dtype, tiers).float()
     f32 = K.gab_narrow_plain(x, t, torch.float32)
     bound_, tier_err = tier_bound(plain, f32)
@@ -2812,11 +2845,13 @@ def narrow_tier_check(K, name, x, t, tiers, noise, out_dtype) -> float:
     return err
 
 
-def narrow_bound(rows, c, j, k, inter, g, d, tiers) -> tuple:
+def narrow_bound(rows, c, j, k, inter, g, d, tiers, fold=False) -> tuple:
     """The tiered gab_narrow's bound: the block's bytes (``gab_work``),
     against its products' operations at the bf16 rate a pass (each class
     at its tier's passes: ``tc_passes``) and the attention's at the
-    float32 one."""
+    float32 one. In the fold form (``inter`` 1) the score columns sa | sb
+    count at ``attn_score``'s passes (at "highest", float32 operations),
+    the g columns at ``attn_proj``'s."""
     flops, nbytes = gab_work(rows, c, j, k, inter, g, d)
     passes = {op: tc_passes("default" if v == "kdefault" else v, False)
               for op, v in tiers.items()}
@@ -2825,6 +2860,10 @@ def narrow_bound(rows, c, j, k, inter, g, d, tiers) -> tuple:
           "attn_proj": 2 * rows * c * (width - 4 * c),
           "local_cat": 2 * rows * 2 * c * c, "attn_cat": 2 * rows * k * g * c,
           "gab_cat": 2 * rows * 3 * c * 2 * c}
+    if fold:
+        mm["attn_proj"] = 2 * rows * c * k * g
+        if tiers["attn_score"] != "highest":
+            mm["attn_score"] = 2 * rows * c * 2 * k
     t_ops = (sum(n * passes[op] for op, n in mm.items()) / BF16_PEAK
              + (flops - sum(mm.values())) / F32_PEAK)
     t_bytes = nbytes / HBM_RATE
@@ -2836,38 +2875,51 @@ def tier_narrow(K, dev) -> dict:
     """Phase 10 (f): the tiered ``gab_narrow`` against its plain version
     (``narrow_tier_check``) at ``NARROW_TIER_WIDTHS`` x ``NARROW_TIERS`` in
     both libraries, then its time at the 243f GAB 0 by tier, beside the
-    tiered chain, the float32 kernel and the bound (``narrow_bound``)."""
+    tiered chain, the float32 kernel and the bound (``narrow_bound``); the
+    fold form the same way at ``K.NARROW_FOLD_WIDTHS`` (and its float32
+    kernel, by ``check_out``), timed beside the fold chain."""
     import torch
 
     from gastx_torch.models import (GastNet, GastNetConfig, init_gastnet,
                                     randomize_eval_statistics)
     from gastx_torch.ops.cuda.fused_gab import gab_tables
 
-    print("phase 10 (f): gab_narrow's tiered form against its plain "
-          "version, then timed")
+    print("phase 10 (f): gab_narrow's tiered form and its fold form "
+          "against their plain versions, then timed")
     card_state("phase 10 (f)")
-    errs = {}
+    errs, fold_errs = {}, {}
     for c in NARROW_TIER_WIDTHS:
         gen = torch.Generator().manual_seed(c)
         m = GastNet(GastNetConfig(filter_widths=(3, 3), channels=c))
         m = randomize_eval_statistics(init_gastnet(m, gen), gen).to(dev)
-        t = gab_tables(m.eval().layers_graph_conv[0], m.statics)
         x = torch.randn((NARROW_TIER_FRAMES * 17, c), generator=torch
                         .Generator(device=dev).manual_seed(c), device=dev)
-        for io, xi, outs in (
-                ("float32", x, (torch.float32,)),
-                ("bf16", x.to(torch.bfloat16),
-                 (torch.float32, torch.bfloat16))):
-            noise = float((K.gab_narrow(xi, t, torch.float32)
-                           - K.gab_narrow_plain(xi, t, torch.float32))
-                          .pow(2).mean().sqrt())
-            for tier in NARROW_TIERS:
-                for out in outs:
-                    key = f"C={c} {io} -> {str(out)[6:]} {tier}"
-                    errs[key] = narrow_tier_check(
-                        K, f"gab_narrow {key}", xi, t,
-                        narrow_tier_dict(tier), noise, out)
-        del m, t, x
+        for form in ("v1", "fold") if c in K.NARROW_FOLD_WIDTHS else ("v1",):
+            t = gab_tables(m.eval().layers_graph_conv[0], m.statics, form)
+            for io, xi, outs in (
+                    ("float32", x, (torch.float32,)),
+                    ("bf16", x.to(torch.bfloat16),
+                     (torch.float32, torch.bfloat16))):
+                noise = float((K.gab_narrow(xi, t, torch.float32)
+                               - K.gab_narrow_plain(xi, t, torch.float32))
+                              .pow(2).mean().sqrt())
+                for out in outs if form == "fold" else ():
+                    key = f"C={c} {io} -> {str(out)[6:]} float32"
+                    before = K.VARIANT_LAUNCHES["gab_narrow"]["fold"]
+                    fold_errs[key] = check_out(
+                        f"gab_narrow fold {key}", K.gab_narrow(xi, t, out),
+                        K.gab_narrow_plain(xi, t, out))
+                    if K.VARIANT_LAUNCHES["gab_narrow"]["fold"] != before + 1:
+                        fail(f"gab_narrow fold {key}: no fold launch")
+                for tier in NARROW_TIERS:
+                    for out in outs:
+                        key = f"C={c} {io} -> {str(out)[6:]} {tier}"
+                        (fold_errs if form == "fold" else errs)[key] = \
+                            narrow_tier_check(
+                                K, f"gab_narrow {form} {key}", xi, t,
+                                narrow_tier_dict(tier), noise, out)
+            del t
+        del m, x
     gen = torch.Generator().manual_seed(243)
     m = GastNet(tier_configs(243)["highest"])
     m = randomize_eval_statistics(init_gastnet(m, gen), gen).to(dev).eval()
@@ -2892,9 +2944,31 @@ def tier_narrow(K, dev) -> dict:
         print(f"  gab_narrow {tier} C=32 T=241 B=256: {ms:.3f} ms (bound "
               f"{bms:.3f} by {by}; the chain at these tiers {chain_ms:.3f};"
               f" float32 gab_narrow {f32_ms:.3f}; plain {plain_ms:.3f})")
-    del m, t, x
+    # The fold form at the same GAB (the 243f preset folds GAB 0), in
+    # float32 and at each tier, beside the fold chain and the v1 kernel.
+    tf = gab_tables(m.layers_graph_conv[0], m.statics, "fold")
+    fold_timed = {}
+    for tier in ("float32",) + NARROW_TIERS:
+        tiers = None if tier == "float32" else narrow_tier_dict(tier)
+        ms = cuda_ms(lambda: K.gab_narrow(x, tf, tiers=tiers))
+        chain_ms = cuda_ms(lambda: K.gab_chain(
+            x, tf, K.gemm_epilogue, K.sem_graph, K.joint_attention, tiers))
+        plain_ms = cuda_ms(lambda: K.gab_narrow_plain(x, tf, tiers=tiers),
+                           reps=2, warmup=1)
+        bms, by = (bound(*gab_work(rows, c, j, k, 1, g_ch, d))
+                   if tiers is None else
+                   narrow_bound(rows, c, j, k, 1, g_ch, d, tiers, fold=True))
+        v1_ms = f32_ms if tiers is None else timed[tier]["ms"]
+        fold_timed[tier] = {"ms": ms, "fold_chain_ms": chain_ms,
+                            "plain_ms": plain_ms, "bound_ms": bms,
+                            "bound_by": by, "v1_gab_narrow_ms": v1_ms}
+        print(f"  gab_narrow fold {tier} C=32 T=241 B=256: {ms:.3f} ms "
+              f"(bound {bms:.3f} by {by}; the fold chain {chain_ms:.3f}; v1 "
+              f"gab_narrow {v1_ms:.3f}; plain {plain_ms:.3f})")
+    del m, t, tf, x
     torch.cuda.empty_cache()
-    return {"errs": errs, "timed": timed}
+    return {"errs": errs, "timed": timed, "fold_errs": fold_errs,
+            "fold_timed": fold_timed}
 
 
 def synthetic_coco(frames: int, seed: int):
@@ -4279,18 +4353,25 @@ CONFIG_CELLS = (
                                          "storage_dtype": "bfloat16"},
      (("fused_level", True), ("gemm_epilogue bf16_in", True),
       ("gab_narrow bf16_out", True))),
+    # Every kernel GAB folded, float32: the fold gab_narrow where
+    # gab_route sends it (GAB 0, C = 32), the fold chain above.
+    ("243f fold", 243, 32, {"gab_kernel_form": "fold"},
+     (("fused_level0", True), ("gab_narrow fold", True),
+      ("gab_narrow v1", False), ("joint_attention general", True))),
 )
 # The tiered cells: the 243f preset (its fold at GAB 0), and the JAX
 # package's shipped 243f route on a TPU (bf16 storage, the preset, fold):
 # every bf16 GEMM of its GABs on gemm_tc's vec16_bf16, none on general.
 TIERED_CELLS = (
     ("243f preset fold", 243, 32, {},
-     (("fused_level0", True), ("joint_attention general", True),
-      ("joint_attention highest/default", True))),
+     (("fused_level0", True), ("gab_narrow fold", True),
+      ("joint_attention general", False),
+      ("joint_attention highest/default", False))),
     ("243f preset fold bf16", 243, 32, {"storage_dtype": "bfloat16"},
      (("gemm_tc bf16_io", True), ("gemm_tc vec16_bf16", True),
-      ("gemm_tc general", False),
-      ("joint_attention highest/default", True))),
+      ("gemm_tc general", False), ("gab_narrow fold", True),
+      ("gab_narrow bf16_io", True),
+      ("joint_attention highest/default", False))),
 )
 # Windows a second: (label, receptive field, batch, on the JAX preset,
 # (name, fields) of the pair), each pair timed in turns (a, b, b, a): the
@@ -5069,7 +5150,8 @@ def main() -> int:
           f"({', '.join(f'{t:.3f}' for t in request_s)}) on {smi}")
     print(f"  launches: {main_launches}")
     for name, count in main_launches.items():
-        if name in GRAPH_GENERAL + GEMM_GENERAL or tiered_launch(name):
+        if (name in GRAPH_GENERAL + GEMM_GENERAL or tiered_launch(name)
+                or name.startswith(FOLD_LAUNCH)):
             if count:
                 fail(f"{name} launched {count} times on the main path")
         elif count <= 0 and name not in OFF_PATH:
@@ -5188,6 +5270,7 @@ def main() -> int:
             kernels[-1]["launches_by_variant"] = {
                 v: main_launches[f"{name} {v}"]
                 for v in K.VARIANT_LAUNCHES[name]}
+        if name in ("gemm_epilogue", "sem_graph", "joint_attention"):
             kernels[-1]["ragged_max_abs_err"] = max(
                 gemm_errs if name == "gemm_epilogue" else graph_errs[name])
         print(f"  {name}: {ms:.3f} ms (plain {plain_ms:.3f}, bound "
@@ -5348,12 +5431,32 @@ def main() -> int:
         "name": "gab_narrow (tiered, C=32, T=241)", "route": "cuda",
         "source": "gastx_torch/csrc/gab_narrow.cu",
         "replaces": "gastx/ops/pallas/fused_gab.py:959",
-        "launches": sum(v for k, v in tp["launches"].items()
-                        if k.startswith("gab_narrow ")),
+        "launches": narrow_tier_launches(tp["launches"], fold=False),
         "max_abs_err": max(tn["errs"].values()), "ms": high["ms"],
         "plain_ms": high["plain_ms"], "bound_ms": high["bound_ms"],
         "bound_by": high["bound_by"], "library_ms": None,
         "tier": "high", "by_tier": tn["timed"]})
+    # The fold form (the 243f preset's GAB 0): its tiered kernel's launches
+    # over phase 10 (c), the float32 one's over phase 13's float32 fold
+    # cell (set there); timed at the preset's tiers and in float32.
+    for name, tier in (("gab_narrow (fold, tiered, C=32, T=241)", "preset"),
+                       ("gab_narrow (fold, C=32, T=241)", "float32")):
+        r = tn["fold_timed"][tier]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "gastx_torch/csrc/gab_narrow.cu",
+            "replaces": "gastx/ops/pallas/fused_gab.py:959",
+            "launches": (narrow_tier_launches(tp["launches"], fold=True)
+                         if tier == "preset" else 0),
+            "max_abs_err": max(v for key, v in tn["fold_errs"].items()
+                               if key.endswith(" float32") == (
+                                   tier == "float32")),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "tier": tier,
+            "fold_chain_ms": r["fold_chain_ms"],
+            "v1_gab_narrow_ms": r["v1_gab_narrow_ms"],
+            "by_tier": tn["fold_timed"]})
     for r in tk["gemm_tc"]:
         key = f"gemm_tc {r['tier']}"
         kernels.append({
@@ -5451,6 +5554,10 @@ def main() -> int:
     report["card_phase13"] = card_state("phase 13")
     t13 = time.time()
     report["config"] = config_phase(K, dev)
+    for entry in kernels:  # the float32 fold kernel: the "243f fold" cell
+        if entry["name"] == "gab_narrow (fold, C=32, T=241)":
+            entry["launches"] = report["config"]["cells"]["243f fold"][
+                "launches"].get("gab_narrow fold", 0)
     kernels += bf16_kernels(K, dev, n243, report["config"], bf16_errs)
     report["config"]["s"] = time.time() - t13
     print(f"  phase 13 took {report['config']['s']:.1f} s")

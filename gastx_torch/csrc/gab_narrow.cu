@@ -75,6 +75,12 @@
 // Built with GASTX_TIERED_FORM, the file holds the tiered form alone
 // (gab_narrow_tiered, below) in libraries of its own (kernels.py,
 // TIERED_SOURCES), so that the two forms compile side by side.
+//
+// Each form also has a fold instantiation (FoldCfg; the C functions' fold
+// flag): the function of fused_gab_pbatch(..., form="fold") on the tables
+// of gab_tables(..., "fold"), whose projection holds each head's scores
+// already folded with its score vectors (the note at gab_narrow_kernel);
+// C <= 64, I = 1 and K = 2 or 4.
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -127,21 +133,51 @@ struct Cfg {
   static constexpr int SLAB = BK_ * 2 * C_;  // the widest product's slab
   static constexpr int S = C_ / BK_;         // slabs of C rows of K
   static constexpr int SPT = 10 * S;         // slabs a tile
+  static constexpr bool FOLD = false;
   static_assert(C_ % BK_ == 0 && TM_ % 4 == 0 && RTH_ % 4 == 0 &&
                     NT % 32 == 0 && STAGES_ >= 2, "tiling");
 };
 
+// The fold form of a tiling (the note at gab_narrow_kernel): the same
+// tiles, and a tile's stream without P4, 9S slabs.
+template <class G_>
+struct FoldCfg : G_ {
+  static constexpr int SPT = 9 * G_::S;
+  static constexpr bool FOLD = true;
+};
+
+// The widest C of the fold form (kernels.NARROW_FOLD_WIDTHS), in both
+// forms: the v1 kernel loses to the chain above C = 64.
+constexpr int MAX_FOLD_C = 64;
+
 // Stages slab i of the block's stream into its ring slot: slab i % SPT of
-// a tile, whose seven products take S, S, 2S, S, S, S and 3S slabs.
+// a tile, whose seven products take S, S, 2S, S, S, S and 3S slabs (the
+// fold form's six, without P4: S, S, 2S, S, S and 3S; its w_proj rows are
+// 4C + 2K + C floats, K = nh heads, and g starts at column 4C + 2K).
 template <class G>
 __device__ __forceinline__ void stage(const Tables& t, float* ring,
-                                      long long i, long long total) {
+                                      long long i, long long total, int nh) {
   constexpr int C = G::C, S = G::S;
   if (i < total) {
     const int s = (int)(i % G::SPT);
     const float* w;
     int ld, n, k0;
-    if (s < S) {         // P1: sym semantic columns
+    if constexpr (G::FOLD) {
+      const int lp = 5 * C + 2 * nh;
+      if (s < S) {  // P1
+        w = t.w_proj; ld = lp; n = 2 * C; k0 = s;
+      } else if (s < 2 * S) {  // P2
+        w = t.w_proj + 2 * C; ld = lp; n = 2 * C; k0 = s - S;
+      } else if (s < 4 * S) {  // P3
+        w = t.lcat_w; ld = C; n = C; k0 = s - 2 * S;
+      } else if (s < 5 * S) {  // P5: g
+        w = t.w_proj + 4 * C + 2 * nh; ld = lp; n = C; k0 = s - 4 * S;
+      } else if (s < 6 * S) {  // P6
+        w = t.acat_w; ld = C; n = C; k0 = s - 5 * S;
+      } else {  // P7
+        w = t.gcat_w; ld = 2 * C; n = 2 * C; k0 = s - 6 * S;
+      }
+    } else if (s < S) {         // P1: sym semantic columns
       w = t.w_proj; ld = 7 * C; n = 2 * C; k0 = s;
     } else if (s < 2 * S) {  // P2: con
       w = t.w_proj + 2 * C; ld = 7 * C; n = 2 * C; k0 = s - S;
@@ -263,11 +299,12 @@ __device__ __forceinline__ void thread_tile(int& rt, int& ct) {
 // (column-major, or row-major with C floats a row if ROW_MAJOR), or, if
 // TO_GLOBAL, to rows < rows_valid of the row-major (rows, N) `out`, while
 // `pre` brings in the next tile. With `on` false only the weights stream.
+// nh: the block's heads (the fold form's stream reads it).
 template <class G, int MM, int NS, bool RELU, bool TO_GLOBAL,
           bool ROW_MAJOR = false>
 __device__ __forceinline__ void product(
     bool on, const Tables& t, float* ring, long long& g, long long total,
-    float* acts, int a0, int a1, int a2, const float* scale,
+    int nh, float* acts, int a0, int a1, int a2, const float* scale,
     const float* shift, int o0, int o1, void* out = nullptr,
     int rows_valid = 0, const Prefetch* pre = nullptr, bool out_bf = false) {
   constexpr int C = G::C, N = MM * C, TM = G::TM, BMP = G::BMP;
@@ -293,7 +330,7 @@ __device__ __forceinline__ void product(
       if (s == 2 * S && pre->sem)
         load_sem<G, true>(t, acts + 3 * G::GROUP, pre->j, pre->d, 1);
     }
-    stage<G>(t, ring, g + G::STAGES - 1, total);
+    stage<G>(t, ring, g + G::STAGES - 1, total, nh);
     const float* w = ring + (int)(g % G::STAGES) * G::SLAB + 4 * ct;
     ++g;
     if (!on) continue;
@@ -470,17 +507,43 @@ __device__ __forceinline__ float leaky(float f) {
   return f > 0.f ? f : 0.2f * f;
 }
 
+// The fold form's score columns in shared memory: column kk of w_proj's
+// [sa | sb] (4C + kk, kk < 2K) as C floats from kk * C, then their 2K
+// scales and 2K shifts (fold_floats of them).
+__host__ __device__ constexpr int fold_floats(int c, int nh) {
+  return 2 * nh * c + 4 * nh;
+}
+
+template <class G>
+__device__ __forceinline__ void load_fold(const Tables& t, float* dst,
+                                          int nh) {
+  constexpr int C = G::C;
+  const int ld = 5 * C + 2 * nh, n = 2 * nh * C;
+  for (int e = threadIdx.x; e < n; e += G::NT) {
+    const int kk = e / C, c = e - kk * C;
+    dst[e] = __ldg(t.w_proj + (size_t)c * ld + 4 * C + kk);
+  }
+  for (int e = threadIdx.x; e < 2 * nh; e += G::NT) {
+    dst[n + e] = __ldg(t.proj_scale + 4 * C + e);
+    dst[n + 2 * nh + e] = __ldg(t.proj_shift + 4 * C + e);
+  }
+}
+
 // Per-frame multi-head attention over the joints of the tile's nf frames:
 // theta and phi column-major, g row-major (C floats a row; head-major, I =
 // G = C / K columns a head; I is a multiple of 4). Each head's outputs go
 // over its theta columns. proj_t/proj_p (K, I) and c_k (K, J, J) are the
-// block's copies.
+// block's copies. The fold form (G::FOLD) takes no theta or phi: each
+// lane's scores are its row of x (xs, column-major) against the head's
+// folded columns, which proj_t then holds (load_fold), and the heads go
+// to `theta`'s group, G = C / K columns a head.
 template <class G>
 __device__ __forceinline__ void attention(float* theta, const float* phi,
                                           const float* gv, int nf, int j,
                                           int nheads, const float* proj_t,
                                           const float* proj_p,
-                                          const float* c_k) {
+                                          const float* c_k,
+                                          const float* xs) {
   constexpr int C = G::C, BMP = G::BMP;
   const int warp = threadIdx.x / 32, q = threadIdx.x % 32;
   const int inter = C / nheads;
@@ -488,7 +551,22 @@ __device__ __forceinline__ void attention(float* theta, const float* phi,
     const int fr = pair / nheads, k = pair - fr * nheads;
     const int row0 = fr * j;
     float sa = 0.f, sb = 0.f;
-    if (q < j) {
+    if constexpr (G::FOLD) {
+      if (q < j) {
+        const float* xr = xs + row0 + q;
+        const float* wa = proj_t + k * C;
+        const float* wb = proj_t + (nheads + k) * C;
+#pragma unroll 4
+        for (int c = 0; c < C; ++c) {
+          const float v = xr[c * BMP];
+          sa = fmaf(v, wa[c], sa);
+          sb = fmaf(v, wb[c], sb);
+        }
+        const float* ss = proj_t + 2 * nheads * C;
+        sa = sa * ss[k] + ss[2 * nheads + k];
+        sb = sb * ss[nheads + k] + ss[3 * nheads + k];
+      }
+    } else if (q < j) {
 #pragma unroll 4
       for (int i = 0; i < inter; ++i) {
         const int cc = k * inter + i;
@@ -575,6 +653,16 @@ __device__ __forceinline__ void attention(float* theta, const float* phi,
 //      semantic weights (4, 3) and x (0) come in.
 // The weights of a branch are staged when they fit in a group; else the
 // graph reads them from device memory.
+//
+// The fold form (FoldCfg; gastx/ops/pallas/fused_gab.py:370
+// `_global_branch_fold`, the tables of gab_tables(..., "fold")): w_proj's
+// columns are [sem | sa | sb | g], the scores already folded with their
+// score vectors, K of each (I = 1). P4 leaves the stream; the attention
+// takes each (row, head)'s sa and sb as two C-long dots of x, still in
+// group 0, against the folded columns, staged once a block where v1 keeps
+// p_theta and p_phi (2KC floats, 1 KB at C = 32; 2KC FMAs a row in place
+// of P4's 2C^2), and writes the heads into group 1, which P4 no longer
+// fills. The local branch still needs all five groups.
 template <class G>
 __global__ void __launch_bounds__(G::NT, G::MINB)
 gab_narrow_kernel(const void* __restrict__ x, void* __restrict__ out,
@@ -589,12 +677,17 @@ gab_narrow_kernel(const void* __restrict__ x, void* __restrict__ out,
   float* ck = ring + G::STAGES * G::SLAB;
   float* pt = ck + nheads * j * j;
   float* pp = pt + C;
-  int* col = reinterpret_cast<int*>(pp + C);
+  int* col = reinterpret_cast<int*>(G::FOLD ? pt + fold_floats(C, nheads)
+                                            : pp + C);
   for (int i = threadIdx.x; i < nheads * j * j; i += G::NT)
     ck[i] = __ldg(t.c_k + i);
-  for (int i = threadIdx.x; i < C; i += G::NT) {
-    pt[i] = __ldg(t.proj_t + i);
-    pp[i] = __ldg(t.proj_p + i);
+  if constexpr (G::FOLD) {
+    load_fold<G>(t, pt, nheads);
+  } else {
+    for (int i = threadIdx.x; i < C; i += G::NT) {
+      pt[i] = __ldg(t.proj_t + i);
+      pp[i] = __ldg(t.proj_p + i);
+    }
   }
   for (int i = threadIdx.x; i < 2 * j * d; i += G::NT)
     col[i] = __ldg(t.col + i);
@@ -609,7 +702,10 @@ gab_narrow_kernel(const void* __restrict__ x, void* __restrict__ out,
   const long long total =
       ((tiles - 1 - blockIdx.x) / gridDim.x + 1) * G::SPT;
   long long g = 0;
-  for (int i = 0; i < G::STAGES - 1; ++i) stage<G>(t, ring, i, total);
+  for (int i = 0; i < G::STAGES - 1; ++i)
+    stage<G>(t, ring, i, total, nheads);
+  // The g columns' first (v1: after theta | phi).
+  const int gcol = G::FOLD ? 4 * C + 2 * nheads : 6 * C;
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long f0 = tile * fpt;
     const int nf = (int)min((long long)fpt, frames - f0);
@@ -622,33 +718,36 @@ gab_narrow_kernel(const void* __restrict__ x, void* __restrict__ out,
         load_sem<G, false>(t, acts + 3 * GR, j, d, 1);
       }
     }
-    product<G, 2, S, false, false>(/*P1*/true, t, ring, g, total, acts, 0,
-                                   0, 0, t.proj_scale, t.proj_shift, 1, 2);
+    product<G, 2, S, false, false>(/*P1*/true, t, ring, g, total, nheads,
+                                   acts, 0, 0, 0, t.proj_scale,
+                                   t.proj_shift, 1, 2);
     __syncthreads();
     if (/*SEM*/true)
       sem_graph<G>(sem_w0, col, acts + GR, acts + 2 * GR, nf, j, d, 0);
-    product<G, 2, S, false, false>(/*P2*/true, t, ring, g, total, acts, 0,
-                                   0, 0, t.proj_scale + 2 * C,
+    product<G, 2, S, false, false>(/*P2*/true, t, ring, g, total, nheads,
+                                   acts, 0, 0, 0, t.proj_scale + 2 * C,
                                    t.proj_shift + 2 * C, 2, 4);
     __syncthreads();
     if (/*SEM*/true)
       sem_graph<G>(sem_w1, col, acts + 2 * GR, acts + 4 * GR, nf, j, d, 1);
-    product<G, 1, 2 * S, true, false>(/*P3*/true, t, ring, g, total, acts,
-                                      1, 2, 0, t.lcat_scale, t.lcat_shift,
-                                      3, 0);
-    product<G, 2, S, false, false>(/*P4*/true, t, ring, g, total, acts, 0,
-                                   0, 0, t.proj_scale + 4 * C,
-                                   t.proj_shift + 4 * C, 1, 2);
+    product<G, 1, 2 * S, true, false>(/*P3*/true, t, ring, g, total, nheads,
+                                      acts, 1, 2, 0, t.lcat_scale,
+                                      t.lcat_shift, 3, 0);
+    if constexpr (!G::FOLD)
+      product<G, 2, S, false, false>(/*P4*/true, t, ring, g, total, nheads,
+                                     acts, 0, 0, 0, t.proj_scale + 4 * C,
+                                     t.proj_shift + 4 * C, 1, 2);
     product<G, 1, S, false, false, true>(/*P5*/true, t, ring, g, total,
-                                         acts, 0, 0, 0,
-                                         t.proj_scale + 6 * C,
-                                         t.proj_shift + 6 * C, 4, 0);
+                                         nheads, acts, 0, 0, 0,
+                                         t.proj_scale + gcol,
+                                         t.proj_shift + gcol, 4, 0);
     __syncthreads();
     if (/*ATTN*/true)
       attention<G>(acts + GR, acts + 2 * GR, acts + 4 * GR, nf, j, nheads,
-                   pt, pp, ck);
-    product<G, 1, S, true, false>(/*P6*/true, t, ring, g, total, acts, 1,
-                                  0, 0, t.acat_scale, t.acat_shift, 2, 0);
+                   pt, pp, ck, acts);
+    product<G, 1, S, true, false>(/*P6*/true, t, ring, g, total, nheads,
+                                  acts, 1, 0, 0, t.acat_scale, t.acat_shift,
+                                  2, 0);
     const long long f1 = (tile + gridDim.x) * fpt;
     const bool more = tile + gridDim.x < tiles;
     const Prefetch pre{more && /*XLOAD*/true ? elem_ptr(x, f1 * j * C, x_bf)
@@ -657,7 +756,7 @@ gab_narrow_kernel(const void* __restrict__ x, void* __restrict__ out,
                        more ? (int)min((long long)fpt, frames - f1) * j : 0,
                        j, d, more && staged};
     product<G, 2, 3 * S, true, true>(
-        /*P7*/true, t, ring, g, total, acts, 0, 3, 2, t.gcat_scale,
+        /*P7*/true, t, ring, g, total, nheads, acts, 0, 3, 2, t.gcat_scale,
         t.gcat_shift, 0, 0,
         const_cast<void*>(elem_ptr(out, f0 * j * 2 * C, out_bf)), rows, &pre,
         out_bf);
@@ -679,7 +778,8 @@ int launch(const void* x, void* out, long long frames, int j, int d,
   }
   const size_t smem =
       sizeof(float) * ((size_t)5 * G::GROUP + G::STAGES * G::SLAB +
-                       nheads * j * j + 2 * G::C) +
+                       nheads * j * j +
+                       (G::FOLD ? fold_floats(G::C, nheads) : 2 * G::C)) +
       sizeof(int) * 2 * j * d;
   cudaError_t e = cudaFuncSetAttribute(
       gab_narrow_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -834,7 +934,7 @@ template <class G, int MM, int NS, bool RELU, bool TO_GLOBAL,
           bool ROW_MAJOR = false>
 __device__ __forceinline__ void product_tc(
     int tier, const Tables& t, float* ring, uint32_t* wb, long long& g,
-    long long total, float* acts, int a0, int a1, int a2,
+    long long total, int nh, float* acts, int a0, int a1, int a2,
     const float* scale, const float* shift, int o0, int o1,
     void* out = nullptr, int rows_valid = 0, const Prefetch* pre = nullptr,
     bool out_bf = false) {
@@ -868,7 +968,7 @@ __device__ __forceinline__ void product_tc(
       if (s == 2 * S && pre->sem)
         load_sem<G, true>(t, acts + 3 * G::GROUP, pre->j, pre->d, 1);
     }
-    stage<G>(t, ring, g + G::STAGES - 1, total);
+    stage<G>(t, ring, g + G::STAGES - 1, total, nh);
     const float* w = ring + (int)(g % G::STAGES) * G::SLAB;
     ++g;
     for (int e = threadIdx.x; /*TSPLIT*/true && e < BK / 2 * N;
@@ -975,6 +1075,29 @@ __device__ __forceinline__ int rhs_mode(int tier) {
   return tier == 0 ? 0 : (tier == 3 ? 2 : 1);
 }
 
+// The fold form's score columns at the score tier (`mode`: rhs_mode of
+// its code) in `dst` (the slab-split buffer wb, free between P5 and P6):
+// the rounded columns as load_fold lays them out (2KC floats), their lo
+// halves (2KC), then the 2K scales and 2K shifts. The tiles' shared memory
+// has no room beside wb for a copy a block at C = 64 and J = 32, so each
+// tile loads them (from L2) after P5.
+template <class G>
+__device__ __forceinline__ void load_fold_tiered(const Tables& t, float* dst,
+                                                 int nh, int mode) {
+  constexpr int C = G::C;
+  const int ld = 5 * C + 2 * nh, n = 2 * nh * C;
+  for (int e = threadIdx.x; e < n; e += G::NT) {
+    const int kk = e / C, c = e - kk * C;
+    const float v = __ldg(t.w_proj + (size_t)c * ld + 4 * C + kk);
+    dst[e] = rnd(v, mode);
+    dst[n + e] = lo_half(v);
+  }
+  for (int e = threadIdx.x; e < 2 * nh; e += G::NT) {
+    dst[2 * n + e] = __ldg(t.proj_scale + 4 * C + e);
+    dst[2 * n + 2 * nh + e] = __ldg(t.proj_shift + 4 * C + e);
+  }
+}
+
 // attention() with its score dots at `score` and its apply dots at `apply`
 // (ATTN codes): theta/phi the lhs and p_theta/p_phi the rhs of the score,
 // the attention weights the lhs and g the rhs of the apply, each rounded
@@ -990,10 +1113,16 @@ __device__ __forceinline__ int rhs_mode(int tier) {
 //  3. the apply: one warp a (frame, head), one lane a query joint, 8
 //     output columns a step, its weights rounded in registers; each head's
 //     outputs over its theta columns.
+// The fold form (G::FOLD) takes no theta or phi: an item's scores are its
+// row of x (xs) against the head's folded columns at the score tier, x the
+// lhs and the columns the rhs, as gemm_tc computes the chain's sa | sb; pr
+// then holds the columns as load_fold_tiered leaves them, and the heads
+// go to `theta`'s group, G = C / K columns a head.
 template <class G>
 __device__ __forceinline__ void attention_tiered(
     float* theta, float* phi, float* gv, int nf, int j, int nheads,
-    const float* pr, const float* c_k, int score, int apply) {
+    const float* pr, const float* c_k, int score, int apply,
+    const float* xs) {
   constexpr int C = G::C, BMP = G::BMP;
   constexpr int ITEMS = (G::BM * MAX_HEADS + G::NT - 1) / G::NT;
   const int inter = C / nheads, rows = nf * j, items = rows * nheads;
@@ -1006,7 +1135,27 @@ __device__ __forceinline__ void attention_tiered(
     const int e = threadIdx.x + it * G::NT;
     const int k = e / rows, r = e - k * rows;
     float sa = 0.f, sb = 0.f;
-    if (e < items) {
+    if constexpr (G::FOLD) {
+      if (e < items) {
+        const int n = 2 * nheads * C;
+        const float* wa = pr + k * C;
+        const float* wb = pr + (nheads + k) * C;
+#pragma unroll 4
+        for (int c = 0; c < C; ++c) {
+          const float a = xs[c * BMP + r], ar = rnd(a, s_lhs);
+          sa = fmaf(ar, wa[c], sa);
+          sb = fmaf(ar, wb[c], sb);
+          if (s_high) {
+            const float ah = q1(a);
+            sa = fmaf(ah, wa[n + c], sa);
+            sb = fmaf(ah, wb[n + c], sb);
+          }
+        }
+        const float* ss = pr + 2 * n;
+        sa = sa * ss[k] + ss[2 * nheads + k];
+        sb = sb * ss[nheads + k] + ss[3 * nheads + k];
+      }
+    } else if (e < items) {
 #pragma unroll 4
       for (int i = 0; i < inter; ++i) {
         const int cc = k * inter + i;
@@ -1127,7 +1276,8 @@ __device__ __forceinline__ void attention_tiered(
   }
 }
 
-// gab_narrow_kernel at the tiers: the same tiles, group plan and prefetch.
+// gab_narrow_kernel at the tiers: the same tiles, group plan and prefetch
+// (the fold form's too: load_fold_tiered).
 template <class G>
 __global__ void __launch_bounds__(G::NT, G::MINB)
 gab_narrow_tiered_kernel(const void* __restrict__ x, void* __restrict__ out,
@@ -1143,11 +1293,13 @@ gab_narrow_tiered_kernel(const void* __restrict__ x, void* __restrict__ out,
   uint32_t* wb = reinterpret_cast<uint32_t*>(ring + G::STAGES * G::SLAB);
   float* ck = reinterpret_cast<float*>(wb + 2 * Tc<G>::WB_HALF);
   float* pr = ck + nheads * j * j;
-  int* col = reinterpret_cast<int*>(pr + 4 * C);
+  int* col = reinterpret_cast<int*>(pr + (G::FOLD ? 0 : 4 * C));
+  static_assert(4 * MAX_HEADS * (C + 1) <= 2 * Tc<G>::WB_HALF,
+                "the fold form's score columns fit in wb");
   for (int i = threadIdx.x; i < nheads * j * j; i += G::NT)
     ck[i] = __ldg(t.c_k + i);
   // The score vectors as the score tier's rhs, and their lo halves.
-  for (int i = threadIdx.x; i < C; i += G::NT) {
+  for (int i = threadIdx.x; !G::FOLD && i < C; i += G::NT) {
     const float vt = __ldg(t.proj_t + i), vp = __ldg(t.proj_p + i);
     const int mode = rhs_mode(tr.score);
     pr[i] = rnd(vt, mode);
@@ -1165,7 +1317,9 @@ gab_narrow_tiered_kernel(const void* __restrict__ x, void* __restrict__ out,
   const long long total =
       ((tiles - 1 - blockIdx.x) / gridDim.x + 1) * G::SPT;
   long long g = 0;
-  for (int i = 0; i < G::STAGES - 1; ++i) stage<G>(t, ring, i, total);
+  for (int i = 0; i < G::STAGES - 1; ++i)
+    stage<G>(t, ring, i, total, nheads);
+  const int gcol = G::FOLD ? 4 * C + 2 * nheads : 6 * C;
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long f0 = tile * fpt;
     const int nf = (int)min((long long)fpt, frames - f0);
@@ -1177,41 +1331,50 @@ gab_narrow_tiered_kernel(const void* __restrict__ x, void* __restrict__ out,
         load_sem<G, false>(t, acts + 3 * GR, j, d, 1);
       }
     }
-    product_tc<G, 2, S, false, false>(tr.sem, t, ring, wb, g, total, acts,
-                                      0, 0, 0, t.proj_scale, t.proj_shift, 1,
-                                      2);
+    product_tc<G, 2, S, false, false>(tr.sem, t, ring, wb, g, total, nheads,
+                                      acts, 0, 0, 0, t.proj_scale,
+                                      t.proj_shift, 1, 2);
     __syncthreads();
     if (/*TSEM*/true)
       sem_graph<G>(sem_w0, col, acts + GR, acts + 2 * GR, nf, j, d, 0);
-    product_tc<G, 2, S, false, false>(tr.sem, t, ring, wb, g, total, acts,
-                                      0, 0, 0, t.proj_scale + 2 * C,
+    product_tc<G, 2, S, false, false>(tr.sem, t, ring, wb, g, total, nheads,
+                                      acts, 0, 0, 0, t.proj_scale + 2 * C,
                                       t.proj_shift + 2 * C, 2, 4);
     __syncthreads();
     if (/*TSEM*/true)
       sem_graph<G>(sem_w1, col, acts + 2 * GR, acts + 4 * GR, nf, j, d, 1);
     product_tc<G, 1, 2 * S, true, false>(tr.lcat, t, ring, wb, g, total,
-                                         acts, 1, 2, 0, t.lcat_scale,
+                                         nheads, acts, 1, 2, 0, t.lcat_scale,
                                          t.lcat_shift, 3, 0);
-    product_tc<G, 2, S, false, false>(tr.proj, t, ring, wb, g, total, acts,
-                                      0, 0, 0, t.proj_scale + 4 * C,
-                                      t.proj_shift + 4 * C, 1, 2);
+    if constexpr (!G::FOLD)
+      product_tc<G, 2, S, false, false>(tr.proj, t, ring, wb, g, total,
+                                        nheads, acts, 0, 0, 0,
+                                        t.proj_scale + 4 * C,
+                                        t.proj_shift + 4 * C, 1, 2);
     product_tc<G, 1, S, false, false, true>(tr.proj, t, ring, wb, g, total,
-                                            acts, 0, 0, 0,
-                                            t.proj_scale + 6 * C,
-                                            t.proj_shift + 6 * C, 4, 0);
+                                            nheads, acts, 0, 0, 0,
+                                            t.proj_scale + gcol,
+                                            t.proj_shift + gcol, 4, 0);
     __syncthreads();
+    float* scores = pr;
+    if constexpr (G::FOLD) {
+      scores = reinterpret_cast<float*>(wb);
+      load_fold_tiered<G>(t, scores, nheads, rhs_mode(tr.score));
+      __syncthreads();
+    }
     if (/*TATTN*/true)
       attention_tiered<G>(acts + GR, acts + 2 * GR, acts + 4 * GR, nf, j,
-                          nheads, pr, ck, tr.score, tr.apply);
-    product_tc<G, 1, S, true, false>(tr.acat, t, ring, wb, g, total, acts, 1,
-                                     0, 0, t.acat_scale, t.acat_shift, 2, 0);
+                          nheads, scores, ck, tr.score, tr.apply, acts);
+    product_tc<G, 1, S, true, false>(tr.acat, t, ring, wb, g, total, nheads,
+                                     acts, 1, 0, 0, t.acat_scale,
+                                     t.acat_shift, 2, 0);
     const long long f1 = (tile + gridDim.x) * fpt;
     const bool more = tile + gridDim.x < tiles;
     const Prefetch pre{more ? elem_ptr(x, f1 * j * C, x_bf) : nullptr, x_bf,
                        more ? (int)min((long long)fpt, frames - f1) * j : 0,
                        j, d, more && staged};
     product_tc<G, 2, 3 * S, true, true>(
-        tr.gcat, t, ring, wb, g, total, acts, 0, 3, 2, t.gcat_scale,
+        tr.gcat, t, ring, wb, g, total, nheads, acts, 0, 3, 2, t.gcat_scale,
         t.gcat_shift, 0, 0,
         const_cast<void*>(elem_ptr(out, f0 * j * 2 * C, out_bf)), rows, &pre,
         out_bf);
@@ -1232,7 +1395,8 @@ int launch_tiered(const void* x, void* out, long long frames, int j, int d,
   }
   const size_t smem =
       sizeof(float) * ((size_t)5 * G::GROUP + G::STAGES * G::SLAB +
-                       2 * Tc<G>::WB_HALF + nheads * j * j + 4 * G::C) +
+                       2 * Tc<G>::WB_HALF + nheads * j * j +
+                       (G::FOLD ? 0 : 4 * G::C)) +
       sizeof(int) * 2 * j * d;
   cudaError_t e = cudaFuncSetAttribute(
       gab_narrow_tiered_kernel<G>,
@@ -1281,12 +1445,16 @@ Tables make_tables(const void* const* p) {
   return t;
 }
 
-// The shape and alignment rule of both C functions (the note above).
+// The shape and alignment rule of both C functions (the note above; the
+// fold form: I = 1, C <= MAX_FOLD_C, and an even K, so that the folded
+// w_proj's rows, 5C + 2K floats, and its g columns start on 16 bytes).
 bool refused(const void* out, const Tables& t, long long frames, int j,
              int c, int d, int nheads, int inter, int g_ch, int x_bf16,
-             int out_bf16) {
+             int out_bf16, int fold) {
+  const bool heads = fold ? inter == 1 && nheads % 2 == 0 && c <= MAX_FOLD_C
+                          : nheads * inter == c;
   return frames < 0 || j < 1 || j > MAX_J || d < 1 || d > MAX_D ||
-         nheads < 1 || nheads > MAX_HEADS || nheads * inter != c ||
+         nheads < 1 || nheads > MAX_HEADS || !heads ||
          nheads * g_ch != c || !aligned16(out) || !aligned16(t.w_proj) ||
          !aligned16(t.lcat_w) || !aligned16(t.acat_w) ||
          !aligned16(t.gcat_w) || ((x_bf16 || out_bf16) && !BF16_IO);
@@ -1322,7 +1490,8 @@ extern "C" {
 
 #ifndef GASTX_TIERED_FORM
 // Launches on `stream`, x bf16 if x_bf16 and the output bf16 if out_bf16
-// (else float32); returns cudaGetLastError() after the launch, or
+// (else float32), the fold form if fold (its tables: gab_tables(...,
+// "fold")); returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for a shape the kernel does not take (the rule in
 // the note above), for `out` or a weight it copies 16 bytes at a time
 // that is not 16-byte aligned, or, in the float32 library, for bf16.
@@ -1337,7 +1506,7 @@ int gab_narrow(const void* x, void* out, long long frames, int j, int c,
                const void* acat_w, const void* acat_scale,
                const void* acat_shift, const void* gcat_w,
                const void* gcat_scale, const void* gcat_shift,
-               void* stream, int x_bf16, int out_bf16) {
+               void* stream, int x_bf16, int out_bf16, int fold) {
   const void* p[20] = {w_proj,     proj_scale, proj_shift, w_self,
                        w_nbr,      col,        sem_scale,  sem_shift,
                        lcat_w,     lcat_scale, lcat_shift, proj_t,
@@ -1345,21 +1514,27 @@ int gab_narrow(const void* x, void* out, long long frames, int j, int c,
                        acat_shift, gcat_w,     gcat_scale, gcat_shift};
   const Tables t = make_tables(p);
   if (refused(out, t, frames, j, c, d, nheads, inter, g_ch, x_bf16,
-              out_bf16))
+              out_bf16, fold))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool xb = x_bf16 != 0, ob = out_bf16 != 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return by_width(c, [&](auto cfg) {
-    return launch<decltype(cfg)>(x, out, frames, j, d, nheads, t, st, xb,
-                                 ob);
+    using G = decltype(cfg);
+    if constexpr (G::C <= MAX_FOLD_C) {
+      if (fold)
+        return launch<FoldCfg<G>>(x, out, frames, j, d, nheads, t, st, xb,
+                                  ob);
+    }
+    return launch<G>(x, out, frames, j, d, nheads, t, st, xb, ob);
   });
 }
 #else
 
 // gab_narrow at the tiers, C <= MAX_TIERED_C: the same arguments, then the
-// tier codes of the projection's sem columns, its attention columns, the
-// local cat, the global cat and the block concat (0 default .. 3 high) and
-// of the attention's score and apply dots (0 highest .. 4 high).
+// tier codes of the projection's sem columns, its attention columns (the
+// fold form's g; its sa | sb take the score's), the local cat, the global
+// cat and the block concat (0 default .. 3 high) and of the attention's
+// score and apply dots (0 highest .. 4 high).
 int gab_narrow_tiered(const void* x, void* out, long long frames, int j,
                       int c, int d, int nheads, int inter, int g_ch,
                       const void* w_proj, const void* proj_scale,
@@ -1372,9 +1547,9 @@ int gab_narrow_tiered(const void* x, void* out, long long frames, int j,
                       const void* acat_w, const void* acat_scale,
                       const void* acat_shift, const void* gcat_w,
                       const void* gcat_scale, const void* gcat_shift,
-                      void* stream, int x_bf16, int out_bf16, int sem,
-                      int proj, int lcat, int acat, int gcat, int score,
-                      int apply) {
+                      void* stream, int x_bf16, int out_bf16, int fold,
+                      int sem, int proj, int lcat, int acat, int gcat,
+                      int score, int apply) {
   const void* p[20] = {w_proj,     proj_scale, proj_shift, w_self,
                        w_nbr,      col,        sem_scale,  sem_shift,
                        lcat_w,     lcat_scale, lcat_shift, proj_t,
@@ -1383,7 +1558,7 @@ int gab_narrow_tiered(const void* x, void* out, long long frames, int j,
   const Tables t = make_tables(p);
   const Tiers tr{sem, proj, lcat, acat, gcat, score, apply};
   bool bad = refused(out, t, frames, j, c, d, nheads, inter, g_ch, x_bf16,
-                     out_bf16);
+                     out_bf16, fold);
   const int codes[7] = {sem, proj, lcat, acat, gcat, score, apply};
   for (int i = 0; i < 7; ++i)
     bad = bad || codes[i] < 0 || codes[i] > (i < 5 ? 3 : 4);
@@ -1393,11 +1568,15 @@ int gab_narrow_tiered(const void* x, void* out, long long frames, int j,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return by_width(c, [&](auto cfg) {
     constexpr int width = decltype(cfg)::C;
-    if constexpr (width <= MAX_TIERED_C)
-      return launch_tiered<typename TieredCfg<width>::type>(
-          x, out, frames, j, d, nheads, t, st, xb, ob, tr);
-    else
+    using G = typename TieredCfg<width <= MAX_TIERED_C ? width : 16>::type;
+    if constexpr (width > MAX_TIERED_C)
       return static_cast<int>(cudaErrorInvalidValue);
+    else if (fold)
+      return launch_tiered<FoldCfg<G>>(x, out, frames, j, d, nheads, t, st,
+                                       xb, ob, tr);
+    else
+      return launch_tiered<G>(x, out, frames, j, d, nheads, t, st, xb, ob,
+                              tr);
   });
 }
 

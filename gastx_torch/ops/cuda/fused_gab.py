@@ -62,8 +62,14 @@ projections contract on the host, in float32, with their rank-1 score
 vectors into one column each (``global_attn.fold_columns``), so the
 projection yields [sem | sa | sb | g] and ``joint_attention`` runs at
 I = 1 on unit score vectors (``kernels.gab_chain``). Every wrapper that
-runs a GAB takes such tables; ``gab_narrow`` has no fold form, so a fold
-GAB runs the chain at every width.
+runs a GAB takes such tables. ``gab_narrow`` has a fold form of its
+float32 and tiered kernels (C = 16 .. 64, K = 2 or 4): P4, the theta |
+phi product, leaves its slab stream, and its attention takes each row's
+sa and sb as two C-long dots of x against the folded columns, at
+``attn_score``'s tier (as ``gemm_tc`` computes the chain's). ``gab_route``
+sends a fold GAB there at the widths where that form beat the fold chain
+on the card (``kernels.NARROW_ROUTE_WIDTHS_FOLD[_TIERED]``), else to the
+chain; the JAX preset's 243f GAB 0 (C = 32) runs it in one launch.
 
 **bf16 I/O.** :func:`fused_gab` and ``fused_level`` take bf16
 activations (bf16 storage) and write bf16, or float32 in and bf16 out
@@ -237,11 +243,8 @@ def _check_x(x: torch.Tensor, t: GabTables) -> None:
 
 
 def gab_route(t: GabTables, tiers) -> str:
-    """``kernels.gab_route`` for these tables: a fold GAB takes the chain
-    (``gab_narrow`` has no fold form)."""
-    if t.form == "fold":
-        return "chain"
-    return K.gab_route(*K.gab_shape(t), tiers)
+    """``kernels.gab_route`` for these tables, their form included."""
+    return K.gab_route(*K.gab_shape(t), tiers, t.form)
 
 
 def fused_gab_plain(x: torch.Tensor, t: GabTables,

@@ -34,7 +34,9 @@ plain C interface:
     (``NARROW_WIDTHS``, C = 16 .. 96 in steps of 16) in one launch, every
     intermediate in shared memory; in float32, or in its tiered form
     (``NARROW_TIERED_WIDTHS``, C <= 64) with its products as bf16
-    ``mma.sync`` passes at each class's tier (:func:`narrow_form`).
+    ``mma.sync`` passes at each class's tier (:func:`narrow_form`); each
+    also in the fold form of the tables (``NARROW_FOLD_WIDTHS``), its
+    scores folded into the projection.
 
 ``gemm_epilogue``, ``gemm_tc`` and ``gab_narrow`` also read and write
 bf16 (bf16 storage, ``gastx_torch.models.config``): each A piece of a GEMM
@@ -143,7 +145,7 @@ ENTRY_POINTS = ("fused_level0", "fused_level", "fused_gab_pbatch",
 # (1: vec16).
 VARIANTS = ("vec16", "general")
 VARIANT_KERNELS = ("gemm_epilogue", "sem_graph", "joint_attention",
-                   "gemm_tc", "gemm_smallk", "gemm_wgrad")
+                   "gemm_tc", "gemm_smallk", "gemm_wgrad", "gab_narrow")
 # gemm_tc's instantiations: its wgmma kernel on float32 I/O (vec16) and
 # on bf16 I/O (vec16_bf16, the bf16-I/O library), and the mma.sync one.
 TC_VARIANTS = ("vec16", "vec16_bf16", "general")
@@ -153,6 +155,9 @@ SMALLK_VARIANTS = ("smallk",)
 # gemm_wgrad's instantiations (wgrad_route): its wgmma kernel, its
 # CUDA-core kernel for sum K_p <= WGRAD_SMALLK_MAX_K, and the mma.sync one.
 WGRAD_VARIANTS = ("wgmma", "smallk", "general")
+# gab_narrow's by the form of its tables (``fused_gab.GabTables.form``),
+# in the float32 kernel and the tiered one alike.
+NARROW_FORMS = ("v1", "fold")
 # gemm_tc's tiers, in the order of its C tier code; "kdefault" is the
 # "default" instantiation (one bf16 pass in a kernel, as on the TPU).
 TC_TIERS = ("default", "high_lhs", "high_rhs", "high")
@@ -176,11 +181,14 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_SOURCES}
 VARIANT_LAUNCHES: Dict[str, Dict[str, int]] = {
     name: {v: 0 for v in {"gemm_tc": TC_VARIANTS,
                           "gemm_smallk": SMALLK_VARIANTS,
-                          "gemm_wgrad": WGRAD_VARIANTS}.get(name, VARIANTS)}
+                          "gemm_wgrad": WGRAD_VARIANTS,
+                          "gab_narrow": NARROW_FORMS}.get(name, VARIANTS)}
     for name in VARIANT_KERNELS}
 # Launches by tier: gemm_tc by tier, gemm_smallk by tier ("highest"
 # too), joint_attention by "score/apply" pair (a pair of "highest" is its
-# float32 path and is not counted here).
+# float32 path and is not counted here), gab_narrow's tiered form by its
+# classes' tiers (NARROW_TIER_CLASSES, "/"-joined; "fold " before them for
+# the fold form).
 TIER_LAUNCHES: Dict[str, Dict[str, int]] = {
     "gemm_tc": {t: 0 for t in TC_TIERS},
     "gemm_smallk": {t: 0 for t in ATTN_TIERS}, "joint_attention": {},
@@ -230,12 +238,12 @@ _ARGTYPES = {
     "gemm_smallk": [_P, _P, _I, _I] * 3 + [_I, _I, _I, _I, _I, _I, _P, _P,
                                           _I, _P, _I, _P, _P, _I],
     # x, out, frames, J, C, D, K, I, G, the 20 tables of a GabTables in
-    # its field order (narrow_table_ptrs), stream, x bf16, out bf16
+    # its field order (narrow_table_ptrs), stream, x bf16, out bf16, fold
     "gab_narrow": [_P, _P, _LL, _I, _I, _I, _I, _I, _I] + [_P] * 21
-    + [_I, _I],
+    + [_I, _I, _I],
     # as gab_narrow's, then the tier codes of NARROW_TIER_CLASSES
     "gab_narrow_tiered": [_P, _P, _LL, _I, _I, _I, _I, _I, _I] + [_P] * 21
-    + [_I, _I] + [_I] * 7,
+    + [_I, _I, _I] + [_I] * 7,
     # per piece (a, K, a_off) x 3, npieces, g, m, n, s_out, a_s_in, the
     # workspace, splits, chunk, out, stream, tier code (TC_TIERS): the
     # general and the smallk instantiations
@@ -1385,6 +1393,20 @@ NARROW_ROUTE_WIDTHS = (16, 32, 48, 64)
 # against 3.673 / 3.075 at C=48 and 6.583 / 5.940 against 4.436 / 3.774
 # at C=64. Every other width runs the tiered chain.
 NARROW_ROUTE_WIDTHS_TIERED = (16, 32)
+# The widths gab_narrow.cu instantiates the fold form for, in both forms
+# (the v1 kernel loses to the chain above C = 64).
+NARROW_FOLD_WIDTHS = (16, 32, 48, 64)
+# The widths at which the fold form beat the fold chain on the card
+# (scripts/torch_gab_narrow_phases.py --fold, 256 x 241 frames of J=17;
+# NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6), float32: 0.844 ms
+# against the fold chain's 2.085 at C=16, 1.838 / 3.264 at 32, 4.116 /
+# 4.234 at 48, 5.319 / 5.547 at 64. Every other width runs the fold chain.
+NARROW_ROUTE_WIDTHS_FOLD = (16, 32, 48, 64)
+# The same for its tiered form, all "high" / the JAX preset's tiers: 1.051
+# / 0.936 against 2.291 / 1.858 at C=16, 2.036 / 1.816 against 2.451 /
+# 2.237 at C=32, but 4.119 / 3.773 against 3.289 / 2.928 at C=48 and
+# 6.134 / 5.471 against 4.130 / 3.718 at C=64.
+NARROW_ROUTE_WIDTHS_FOLD_TIERED = (16, 32)
 # The chain's GEMM classes: below "highest" they launch gemm_tc.
 GEMM_OPS = ("local_sem", "local_cat", "attn_proj", "attn_cat", "gab_cat")
 # The tier codes gab_narrow's tiered form takes, in its C order: the GEMM
@@ -1397,12 +1419,19 @@ _NARROW_ALIGNED = ("w_proj", "lcat_w", "acat_w", "gcat_w")
 
 
 def narrow_shape_ok(c: int, k: int, inter: int, g_ch: int, j: int,
-                    d: int) -> bool:
+                    d: int, form: str = "v1") -> bool:
     """gab_narrow's shape rule, the same as its C entry point's: C one of
     ``NARROW_WIDTHS``, at most 4 heads with K*I = K*G = C, J <= 32 joints
-    and D <= 8 neighbour slots."""
-    return (c in NARROW_WIDTHS and 1 <= k <= 4 and k * inter == c
-            and k * g_ch == c and 1 <= j <= MAX_JOINTS
+    and D <= 8 neighbour slots; in the fold form, C one of
+    ``NARROW_FOLD_WIDTHS``, I = 1 and K = 2 or 4 with K*G = C (an even K:
+    the folded projection's rows, 5C + 2K floats, and its g columns must
+    start on 16 bytes for the kernel's copies; every GAB of the models has
+    K = 4)."""
+    if form == "fold":
+        heads = c in NARROW_FOLD_WIDTHS and k in (2, 4) and inter == 1
+    else:
+        heads = c in NARROW_WIDTHS and 1 <= k <= 4 and k * inter == c
+    return (heads and k * g_ch == c and 1 <= j <= MAX_JOINTS
             and 1 <= d <= MAX_SLOTS)
 
 
@@ -1420,16 +1449,20 @@ def narrow_form(tiers: Optional[Dict[str, str]]) -> Optional[str]:
 
 
 def gab_route(c: int, k: int, inter: int, g_ch: int, j: int, d: int,
-              tiers: Optional[Dict[str, str]] = None) -> str:
-    """The kernels a GAB of this shape runs on the card: ``"gab_narrow"``
-    where its shape rule holds and its form (:func:`narrow_form`) beat the
-    chain at this width (``NARROW_ROUTE_WIDTHS``, or
-    ``NARROW_ROUTE_WIDTHS_TIERED`` for the tiered form), else
-    ``"chain"``."""
-    form = narrow_form(tiers)
-    widths = {"float32": NARROW_ROUTE_WIDTHS,
-              "tiered": NARROW_ROUTE_WIDTHS_TIERED}.get(form, ())
-    if narrow_shape_ok(c, k, inter, g_ch, j, d) and c in widths:
+              tiers: Optional[Dict[str, str]] = None,
+              form: str = "v1") -> str:
+    """The kernels a GAB of this shape and table form (``"v1"`` or
+    ``"fold"``) runs on the card: ``"gab_narrow"`` where its shape rule
+    holds and its form (:func:`narrow_form`) beat the chain at this width
+    (``NARROW_ROUTE_WIDTHS``, or ``NARROW_ROUTE_WIDTHS_TIERED`` for the
+    tiered form; ``NARROW_ROUTE_WIDTHS_FOLD[_TIERED]`` for fold tables),
+    else ``"chain"``."""
+    widths = {("v1", "float32"): NARROW_ROUTE_WIDTHS,
+              ("v1", "tiered"): NARROW_ROUTE_WIDTHS_TIERED,
+              ("fold", "float32"): NARROW_ROUTE_WIDTHS_FOLD,
+              ("fold", "tiered"): NARROW_ROUTE_WIDTHS_FOLD_TIERED}.get(
+                  (form, narrow_form(tiers)), ())
+    if narrow_shape_ok(c, k, inter, g_ch, j, d, form) and c in widths:
         return "gab_narrow"
     return "chain"
 
@@ -1454,18 +1487,22 @@ def _check_narrow(x, t, out_dtype):
     _check_out_dtype(out_dtype)
     _check(device, **{k: v for k, v in t._asdict().items()
                       if k not in ("col", "form")})
-    if t.form != "v1":
+    if t.form not in NARROW_FORMS:
         raise ValueError(f"gab_narrow has no {t.form!r} form")
     c, k, inter, g_ch, j, d = gab_shape(t)
     if x.dim() != 2 or x.shape[1] != c or x.shape[0] % j:
         raise ValueError(f"x must be (rows, {c}) holding whole frames of {j} "
                          f"joints, got {tuple(x.shape)}")
     kg = t.w_proj.shape[1] - 4 * c - 2 * k * inter
-    if kg != k * g_ch or not narrow_shape_ok(c, k, inter, g_ch, j, d):
-        raise ValueError(f"gab_narrow takes C in {NARROW_WIDTHS}, K <= 4 "
-                         f"heads with K*I = K*G = C, J <= 32 and D <= 8; got "
-                         f"C={c}, K={k}, K*I={k * inter}, K*G={kg}, J={j}, "
-                         f"D={d}")
+    if kg != k * g_ch or not narrow_shape_ok(c, k, inter, g_ch, j, d,
+                                             t.form):
+        rule = (f"gab_narrow's fold form takes C in {NARROW_FOLD_WIDTHS}, "
+                f"K = 2 or 4 heads with I = 1 and K*G = C"
+                if t.form == "fold" else
+                f"gab_narrow takes C in {NARROW_WIDTHS}, K <= 4 heads with "
+                f"K*I = K*G = C")
+        raise ValueError(f"{rule}, J <= 32 and D <= 8; got C={c}, K={k}, "
+                         f"K*I={k * inter}, K*G={kg}, J={j}, D={d}")
     if any(getattr(t, name).data_ptr() % 16 for name in _NARROW_ALIGNED):
         raise ValueError("gab_narrow's weight tables must be 16-byte aligned")
     if (t.col.device != device or t.col.dtype != torch.int32
@@ -1510,7 +1547,10 @@ def gab_narrow(x: torch.Tensor, t,
     kernel, or the tiered one, whose products run as bf16 ``mma.sync``
     passes at each class's tier and whose attention rounds its operands
     as ``joint_attention`` does (``TIER_LAUNCHES["gab_narrow"]`` counts
-    its launches by their tiers)."""
+    its launches by their tiers). Fold tables (``t.form == "fold"``) run
+    either kernel's fold form: the scores are two C-long dots of x a row
+    and head against the folded columns, at ``attn_score``'s tier
+    (``VARIANT_LAUNCHES["gab_narrow"]`` counts launches by form)."""
     check_no_grad("gab_narrow", x, t)
     out_dtype = x.dtype if out_dtype is None else out_dtype
     device, c, j, k, inter, g_ch, d = _check_narrow(x, t, out_dtype)
@@ -1521,18 +1561,21 @@ def gab_narrow(x: torch.Tensor, t,
     if not use_kernel(device):
         return gab_narrow_plain(x, t, out_dtype, tiers)
     out = torch.empty((x.shape[0], 2 * c), dtype=out_dtype, device=device)
+    fold = t.form == "fold"
     args = [x.data_ptr(), out.data_ptr(), x.shape[0] // j, j, c, d, k,
             inter, g_ch, *narrow_table_ptrs(t), _stream(),
-            int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16)]
+            int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+            int(fold)]
     io = io_label([x], out_dtype)
     if form == "float32":
-        _launch("gab_narrow", *args, io=io)
+        _launch("gab_narrow", *args, io=io, variant=t.form)
         return out
     tiers = {op: "default" if v == "kdefault" else v
              for op, v in tiers.items()}
     codes = [TC_TIERS.index(tiers[op]) for op in NARROW_TIER_CLASSES[:5]]
     codes += [ATTN_TIERS.index(tiers[op]) for op in NARROW_TIER_CLASSES[5:]]
+    label = "/".join(tiers[op] for op in NARROW_TIER_CLASSES)
     _launch("gab_narrow", *args, *codes, symbol="gab_narrow_tiered",
-            library="gab_narrow_tiered",
-            tier="/".join(tiers[op] for op in NARROW_TIER_CLASSES), io=io)
+            library="gab_narrow_tiered", variant=t.form,
+            tier=f"fold {label}" if fold else label, io=io)
     return out

@@ -28,8 +28,16 @@ preset's kernel tiers at the 243f model's GAB 1 (one pass each), with the
 bound of each (``chip_smoke.narrow_bound``): the numbers
 ``kernels.NARROW_ROUTE_WIDTHS_TIERED`` follows.
 
+``--fold`` times ``gab_narrow``'s fold form (``gab_tables(..., "fold")``)
+beside the fold chain and beside the v1 ``gab_narrow`` on the v1 tables
+of the same GAB, at every width of ``kernels.NARROW_FOLD_WIDTHS`` (level
+0 of a model of that many channels, 256 x 241 frames), in float32 and at
+the two tier sets above, each held to its plain version first, with the
+fold bound (``narrow_bound(..., fold=True)``): the numbers
+``kernels.NARROW_ROUTE_WIDTHS_FOLD[_TIERED]`` follow.
+
     python3 scripts/torch_gab_narrow_phases.py [--source F.cu] [--no-cuts]
-        [--widths] [--tiered [--tiered-cuts]] [--json F]
+        [--widths] [--tiered [--tiered-cuts]] [--fold] [--json F]
 """
 from __future__ import annotations
 
@@ -141,7 +149,8 @@ def time_widths(K, fn, cuda_ms) -> dict:
 
         def call():
             code = fn(x.data_ptr(), y.data_ptr(), WIDTH_FRAMES, j, c, d, k,
-                      inter, g_ch, *K.narrow_table_ptrs(tab), stream, 0, 0)
+                      inter, g_ch, *K.narrow_table_ptrs(tab), stream, 0, 0,
+                      0)
             if code != 0:
                 raise SystemExit(f"launch failed at C={c} ({code})")
 
@@ -167,7 +176,7 @@ def time_widths(K, fn, cuda_ms) -> dict:
 TIER_SETS = ("high", "preset")
 
 
-def _width_tables(K, c):
+def _width_tables(K, c, form="v1"):
     """The GAB tables of level 0 of a 2-level model of ``c`` channels."""
     import torch
     from gastx_torch.models import (GastNet, GastNetConfig, init_gastnet,
@@ -177,7 +186,63 @@ def _width_tables(K, c):
     gen = torch.Generator().manual_seed(c)
     m = GastNet(GastNetConfig(filter_widths=(3, 3), channels=c))
     m = randomize_eval_statistics(init_gastnet(m, gen), gen).cuda().eval()
-    return gab_tables(m.layers_graph_conv[0], m.statics)
+    return gab_tables(m.layers_graph_conv[0], m.statics, form)
+
+
+def time_fold(K) -> dict:
+    """The fold gab_narrow beside the fold chain and the v1 gab_narrow at
+    every width of NARROW_FOLD_WIDTHS, in float32 and at ``TIER_SETS``,
+    each held to its plain version first (the float32 bound; at the tiers
+    ``chip_smoke.tier_bound``)."""
+    import torch
+    from chip_smoke import (bound, cuda_ms, gab_work, max_err, narrow_bound,
+                            narrow_tier_dict, tier_bound)
+
+    out = {}
+    for c in K.NARROW_FOLD_WIDTHS:
+        tab, v1 = _width_tables(K, c, "fold"), _width_tables(K, c)
+        _, k, inter, g_ch, j, d = K.gab_shape(tab)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        x = torch.randn(WIDTH_FRAMES * j, c, generator=gen, device="cuda")
+        f32 = K.gab_narrow_plain(x, tab)
+        for name in (None,) + TIER_SETS:
+            tiers = None if name is None else narrow_tier_dict(name)
+            got = K.gab_narrow(x, tab, tiers=tiers)
+            plain = f32 if tiers is None else K.gab_narrow_plain(
+                x, tab, tiers=tiers)
+            bound_ = tier_bound(plain, f32)[0]
+            err = max_err(got, plain)
+            label = f"C={c} {name or 'float32'}"
+            if not err <= bound_:
+                raise SystemExit(f"fold {label}: gab_narrow disagrees with "
+                                 f"its plain version: {err} > {bound_}")
+            del got, plain
+            ms = cuda_ms(lambda: K.gab_narrow(x, tab, tiers=tiers))
+            chain_ms = cuda_ms(lambda: K.gab_chain(
+                x, tab, K.gemm_epilogue, K.sem_graph, K.joint_attention,
+                tiers))
+            v1_ms = (cuda_ms(lambda: K.gab_narrow(x, v1, tiers=tiers))
+                     if tiers is None or c in K.NARROW_TIERED_WIDTHS
+                     else None)
+            if tiers is None:
+                bms, by = bound(*gab_work(x.shape[0], c, j, k, inter, g_ch,
+                                          d))
+            else:
+                bms, by = narrow_bound(x.shape[0], c, j, k, inter, g_ch, d,
+                                       tiers, fold=True)
+            out[label] = {"ms": ms, "chain_ms": chain_ms,
+                          "v1_gab_narrow_ms": v1_ms, "bound_ms": bms,
+                          "bound_by": by, "max_abs_err": err,
+                          "route": K.gab_route(*K.gab_shape(tab), tiers,
+                                               "fold")}
+            print(f"fold {label}: {ms:.3f} ms, fold chain {chain_ms:.3f} "
+                  f"ms, v1 gab_narrow "
+                  f"{'-' if v1_ms is None else f'{v1_ms:.3f}'} ms, bound "
+                  f"{bms:.3f} ms by {by}, max|d| {err:.3e}; routed to "
+                  f"{out[label]['route']}", flush=True)
+        del x, f32
+        torch.cuda.empty_cache()
+    return out
 
 
 def time_tiered(K, cases) -> dict:
@@ -239,7 +304,8 @@ def time_tiered_cuts(K, fns, label, tab, frames) -> dict:
     for name, fn in fns.items():
         def call(fn=fn):
             code = fn(x.data_ptr(), out.data_ptr(), frames, j, c, d, k, inter,
-                      g_ch, *K.narrow_table_ptrs(tab), stream, 0, 0, *codes)
+                      g_ch, *K.narrow_table_ptrs(tab), stream, 0, 0, 0,
+                      *codes)
             if code != 0:
                 raise SystemExit(f"{name}: launch failed ({code})")
         result[name] = cuda_ms(call)
@@ -263,6 +329,9 @@ def main(argv=None) -> int:
     ap.add_argument("--tiered-cuts", action="store_true",
                     help="with --tiered, also time the tiered form with "
                          "each of its phases cut out (TIERED_CUTS)")
+    ap.add_argument("--fold", action="store_true",
+                    help="also time the fold form beside the fold chain "
+                         "at every width of kernels.NARROW_FOLD_WIDTHS")
     ap.add_argument("--json", default="gab_narrow_phases.json",
                     help="file name of the result under chiprun_out/")
     args = ap.parse_args(argv)
@@ -304,7 +373,8 @@ def main(argv=None) -> int:
 
         def call(fn):
             code = fn(x.data_ptr(), out.data_ptr(), b * t, j, c, d, k,
-                      inter, g_ch, *K.narrow_table_ptrs(tab), stream, 0, 0)
+                      inter, g_ch, *K.narrow_table_ptrs(tab), stream, 0, 0,
+                      0)
             if code != 0:
                 raise SystemExit(f"launch failed ({code})")
 
@@ -346,6 +416,8 @@ def main(argv=None) -> int:
         cases += [(f"C={c}", _width_tables(K, c), WIDTH_FRAMES)
                   for c in K.NARROW_TIERED_WIDTHS]
         result["tiered"] = time_tiered(K, cases)
+    if args.fold:
+        result["fold"] = time_fold(K)
     path = os.path.join(REPO, "chiprun_out", args.json)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:

@@ -1,11 +1,13 @@
 """Compare the machine code (SASS) of a kernel source in two checkouts.
 
     python3 scripts/torch_sass_diff.py TREE_A TREE_B [--source gemm_tc]
-        [--flags -DGASTX_BF16_IO] [--match hopper]
+        [--flags=-DGASTX_BF16_IO [--flags=-DGASTX_TIERED_FORM]]
+        [--match hopper]
 
 Compiles ``gastx_torch/csrc/<source>.cu`` of each tree to a cubin with the
 port's ``nvcc`` flags (``kernels.NVCC_FLAGS`` of this checkout, without
-``-shared``; ``--flags`` adds others, e.g. the bf16-I/O library's), dumps
+``-shared``; each ``--flags=`` adds one more, e.g. the bf16-I/O
+library's; the ``=`` keeps argparse from reading ``-D`` as an option), dumps
 each kernel's SASS with ``cuobjdump -sass`` and compares the kernels whose
 name holds ``--match`` (default: every kernel), paired by their name with
 the anonymous namespace's per-file tag removed. Instruction addresses and
@@ -63,7 +65,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trees", nargs=2)
     ap.add_argument("--source", default="gemm_tc")
-    ap.add_argument("--flags", nargs="*", default=[])
+    ap.add_argument("--flags", action="append", default=[])
     ap.add_argument("--match", default="")
     args = ap.parse_args(argv)
     with tempfile.TemporaryDirectory() as tmp:

@@ -1155,6 +1155,96 @@ def test_cuda_gab_narrow_tiered_matches_plain(model, channels, io,
                 assert rms <= 0.5 * (got - f32).pow(2).mean().sqrt().item()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("io", ("float32", "bf16"))
+@pytest.mark.parametrize("channels", K.NARROW_FOLD_WIDTHS)
+def test_cuda_gab_narrow_fold_matches_plain(model, channels, io,
+                                           monkeypatch):
+    """gab_narrow's fold form (the tables of gab_tables(..., "fold")) at
+    every width it is built for, at each of NARROW_FRAMES: the float32
+    kernel and the tiered one at every tier and the JAX preset's kernel
+    tiers, in the float32 library and the bf16-I/O one (bf16 x, to a
+    float32 and to a bf16 output), against its plain version (the float32
+    bound, or ``_tier_close``; plus one bf16 step of a bf16 output), each
+    launch counted under the fold form."""
+    from gastx_torch.ops.cuda.fused_gab import KERNEL_OPS
+
+    monkeypatch.setattr(torch.backends.cuda.matmul,
+                        "allow_bf16_reduced_precision_reduction", False)
+    gen = torch.Generator().manual_seed(channels)
+    m = GastNet(GastNetConfig(filter_widths=(3, 3), channels=channels))
+    m = randomize_eval_statistics(init_gastnet(m, gen), gen).cuda().eval()
+    t = gab_tables(m.layers_graph_conv[0], m.statics, "fold")
+    preset = config_for_frames(243, matmul_precision="high",
+                               precision_overrides=(
+                                   ("local_sem", "default"),
+                                   ("attn_proj", "kdefault"),
+                                   ("attn_score", "default")))
+    cases = [None] + [dict.fromkeys(KERNEL_OPS, tier)
+                      for tier in NARROW_TIERS]
+    cases.append({op: preset.tier_for(op, "gab0") for op in KERNEL_OPS})
+    for frames in NARROW_FRAMES:
+        x = _randn(frames * 17, channels, seed=frames + channels)
+        outs = (torch.float32,)
+        if io == "bf16":
+            x, outs = x.to(torch.bfloat16), (torch.float32, torch.bfloat16)
+        f32 = K.gab_narrow_plain(x, t, torch.float32)
+        for tiers in cases:
+            for out in outs:
+                K.reset_launches()
+                got = K.gab_narrow(x, t, out, tiers)
+                assert K.VARIANT_LAUNCHES["gab_narrow"] == {"v1": 0,
+                                                            "fold": 1}
+                assert K.DTYPE_LAUNCHES["gab_narrow"][
+                    K.io_label([x], out)] == 1
+                assert sum(K.TIER_LAUNCHES["gab_narrow"].values()) == (
+                    tiers is not None)
+                assert all(k.startswith("fold ")
+                           for k in K.TIER_LAUNCHES["gab_narrow"])
+                plain = K.gab_narrow_plain(x, t, out, tiers)
+                if tiers is None and out == torch.bfloat16:
+                    _assert_bf16_close(got, plain)
+                elif tiers is None:
+                    _assert_close(got, plain)
+                else:
+                    slack = (2.0 ** -8 * plain.float().abs().max().item()
+                             if out == torch.bfloat16 else 0.0)
+                    _tier_close(got.float(), plain.float(), f32, slack)
+
+
+@pytest.mark.cuda
+def test_cuda_preset_243f_runs_fold_gab_narrow(model, monkeypatch):
+    """The JAX preset's 243f forward (GAB 0 folded, C = 32) runs GAB 0 as
+    one fold gab_narrow launch, in its tiered form, under
+    fused_level0 / fused_gab_pbatch, and no other GAB on gab_narrow (C = 64
+    and up take the tiered chain); the forward holds to its plain route
+    (``_tier_close``)."""
+    from gastx_torch.models import build_gastnet
+    from gastx_torch.models.config import TPU_MIXED_PRECISION_OVERRIDES
+
+    cfg = config_for_frames(243, dropout=0.0, matmul_precision="high",
+                            precision_overrides=TPU_MIXED_PRECISION_OVERRIDES)
+    assert cfg.gab_kernel_form_levels == ("fold",)
+    m = build_gastnet(cfg, seed=243, device="cuda")
+    x = _randn(4, 243, 17, 2, seed=243)
+    seen = []
+    real = K.gab_narrow
+
+    def spy(x, t, *args, **kw):
+        seen.append((t.form, tuple(K._OPEN_ENTRIES)))
+        return real(x, t, *args, **kw)
+
+    monkeypatch.setattr(K, "gab_narrow", spy)
+    K.reset_launches()
+    got = m(x)
+    torch.cuda.synchronize()
+    assert seen == [("fold", ("fused_level0", "fused_gab_pbatch"))]
+    assert K.VARIANT_LAUNCHES["gab_narrow"] == {"v1": 0, "fold": 1}
+    assert [k.split()[0] for k in K.TIER_LAUNCHES["gab_narrow"]] == ["fold"]
+    assert not K.TIER_LAUNCHES["joint_attention"].get("highest/default")
+    _tier_close(got, m.plain_route_forward(x), m.reference_forward(x))
+
+
 SITE_CELLS = {
     "27f xla": (27, {"gab_impl": "xla"}, "dilated", 31),
     "27f hybrid": (27, {"gab_impl": "pallas_local",

@@ -27,6 +27,7 @@ from gastx.models.precision import cast_floating as j_cast_floating
 from gastx_torch.device import check_bf16_matmul
 from gastx_torch.io import params_from_jax
 from gastx_torch.models import GastNet
+from gastx_torch.models.gastnet import GraphAttentionBlock
 from gastx_torch.models.config import VALID_GAB_IMPLS
 from gastx_torch.models.precision import bf16_inference_fn, cast_floating
 from gastx_torch.ops.cuda import kernels as K
@@ -373,7 +374,9 @@ def test_bf16_io_plain_versions_are_upcast_then_rounded(route_weights):
 def test_bf16_only_where_a_form_exists(route_weights):
     """The wrappers take bf16 where a bf16-I/O form exists and raise
     elsewhere: ``fused_level0``, ``fused_local_branch``, ``sem_graph``,
-    ``joint_attention`` and bf16 weights."""
+    ``joint_attention``, bf16 weights, and ``gab_narrow`` on fold tables
+    of a width its fold form has no instantiation for (C = 80; at C = 32
+    it takes them)."""
     params, state = route_weights
     model = port_model(ROUTE_CFG, params, state)
     gab = model.layers_graph_conv[0]
@@ -401,8 +404,14 @@ def test_bf16_only_where_a_form_exists(route_weights):
         K.gemm_epilogue([(torch.zeros(4, 8), torch.zeros(8, 4), 0)], 4,
                         out_dtype=torch.float16)
     fold = gab_tables(gab, model.statics, "fold")
-    with pytest.raises(ValueError, match="fold"):
-        K.gab_narrow(x.reshape(-1, 32), fold)
+    got = K.gab_narrow(x.reshape(-1, 32), fold)
+    assert got.dtype == torch.bfloat16 and torch.equal(
+        got, K.gab_narrow_plain(x.reshape(-1, 32), fold))
+    torch.manual_seed(80)
+    wide = gab_tables(GraphAttentionBlock(80, model.statics).eval(),
+                      model.statics, "fold")
+    with pytest.raises(ValueError, match="fold form takes C"):
+        K.gab_narrow(torch.zeros(51, 80, dtype=torch.bfloat16), wide)
 
 
 def test_bf16_reduced_precision_reduction_is_refused():

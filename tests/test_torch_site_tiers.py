@@ -485,7 +485,7 @@ def test_tiered_library_binds_its_symbol(name, monkeypatch, tmp_path):
     monkeypatch.setattr(K, "_LIBS", {})
     lib = K._lib(name)
     assert lib.gab_narrow_tiered.argtypes == K._ARGTYPES["gab_narrow_tiered"]
-    assert len(K._ARGTYPES["gab_narrow_tiered"]) == 39
+    assert len(K._ARGTYPES["gab_narrow_tiered"]) == 40
     flags = K.TIERED_FLAGS if name.endswith("tiered") else \
         K.IO_FLAGS + K.TIERED_FLAGS
     assert K._libraries()[name] == ("gab_narrow", flags)
@@ -521,13 +521,14 @@ def test_tiered_gab_narrow_launch_arguments(monkeypatch, name):
         calls[:2], calls[2:]
     assert (lib, symbol) == ("gab_narrow_tiered", "gab_narrow_tiered")
     assert (lib32, symbol32) == ("gab_narrow", "gab_narrow")
-    assert len(args) == 39 and args[:32][2:] == args32[2:]
+    assert len(args) == 40 and args[:33][2:] == args32[2:]
+    assert args32[-1] == 0  # the fold flag: v1 tables
     codes = [K.TC_TIERS.index("default" if tiers[op] == "kdefault"
                               else tiers[op])
              for op in K.NARROW_TIER_CLASSES[:5]]
     codes += [K.ATTN_TIERS.index(tiers[op])
               for op in K.NARROW_TIER_CLASSES[5:]]
-    assert list(args[32:]) == codes
+    assert list(args[33:]) == codes
     assert K.LAUNCHES["gab_narrow"] == 2
     assert sum(K.TIER_LAUNCHES["gab_narrow"].values()) == 1
     K.reset_launches()
