@@ -2810,7 +2810,8 @@ def narrow_tier_dict(tier: str) -> dict:
 def narrow_tier_check(K, name, x, t, tiers, noise, out_dtype) -> float:
     """One tiered ``gab_narrow`` launch to ``out_dtype`` held to its plain
     version at the same tiers by ``tier_bound`` (plus one bf16 step of a
-    bf16 output), checked to launch the tiered form once, and, on a
+    bf16 output), checked to launch the tiered form once and to leave the
+    split words of ``narrow_split_plain`` in its scratch buffer, and, on a
     float32 output, in root-mean-square half as far from its plain version
     as from the float32 one wherever the tier moves the plain output by
     more than twice ``noise`` (the float32 kernel's own distance from its
@@ -2825,6 +2826,14 @@ def narrow_tier_check(K, name, x, t, tiers, noise, out_dtype) -> float:
             or K.VARIANT_LAUNCHES["gab_narrow"][t.form] != form + 1):
         fail(f"{name}: the tiered gab_narrow did not launch its {t.form} "
              f"form")
+    # The launch's split words in its scratch buffer, bit for bit, and the
+    # grid barrier's counters back at 0.
+    buf = K.narrow_scratch(x.device, torch.cuda.current_stream().cuda_stream)
+    off, words = K.narrow_split_plain(t)
+    if not (torch.equal(buf[K.NARROW_SCRATCH_CTL + off], words)
+            and int(buf[:K.NARROW_SCRATCH_CTL].abs().sum()) == 0):
+        fail(f"{name}: the scratch buffer does not hold the split words of "
+             f"kernels.narrow_split_plain")
     plain = K.gab_narrow_plain(x, t, out_dtype, tiers).float()
     f32 = K.gab_narrow_plain(x, t, torch.float32)
     bound_, tier_err = tier_bound(plain, f32)
@@ -4854,6 +4863,9 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.split(':')[-1].strip()}")
+        # Each library's (and part's) seconds from the build's start.
+        print("  " + " ".join(line for line in log.splitlines()
+                              if line.startswith("[")))
 
     def build(frames, route):
         gen = torch.Generator().manual_seed(0 if frames == 27 else frames)

@@ -73,8 +73,9 @@
 // The flags are read at run time, in a library of their own (below).
 //
 // Built with GASTX_TIERED_FORM, the file holds the tiered form alone
-// (gab_narrow_tiered, below) in libraries of its own (kernels.py,
-// TIERED_SOURCES), so that the two forms compile side by side.
+// (gab_narrow_tiered, below: a design of its own for the tensor cores) in
+// libraries of its own (kernels.py, TIERED_SOURCES), so that the two forms
+// compile side by side.
 //
 // Each form also has a fold instantiation (FoldCfg; the C functions' fold
 // flag): the function of fused_gab_pbatch(..., form="fold") on the tables
@@ -84,6 +85,7 @@
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -93,6 +95,21 @@
 constexpr bool BF16_IO = true;
 #else
 constexpr bool BF16_IO = false;
+#endif
+
+// GASTX_NARROW_PART builds one part of a library (kernels.py, NARROW_PARTS:
+// two nvcc processes whose objects are linked into one library): 1 the v1
+// instantiations and the C functions, 2 the fold instantiations. Without
+// it the file builds whole.
+#if !defined(GASTX_NARROW_PART) || GASTX_NARROW_PART == 1
+#define NARROW_V1 1
+#else
+#define NARROW_V1 0
+#endif
+#if !defined(GASTX_NARROW_PART) || GASTX_NARROW_PART == 2
+#define NARROW_FOLD 1
+#else
+#define NARROW_FOLD 0
 #endif
 
 namespace {
@@ -813,33 +830,64 @@ bool aligned16(const void* p) {
 // (gastx_torch/ops/precision.py), its own __global__, so that the float32
 // kernel above keeps its code.
 //
-// Its four products (the projection, local cat, global cat and block
-// concat; seven slab streams as above) run as bf16 mma.sync.m16n8k16
-// passes with float32 accumulation, by tier: one pass (ah bh) at default
-// and kdefault, two at high_lhs (+ al bh) and high_rhs (+ ah bl), three at
-// high, with a = ah + al, ah = bf16(a), al = bf16(a - ah) rounded to
-// nearest even (precision.split_bf16). The projection's sem columns take
-// local_sem's tier and its attention columns attn_proj's (they are apart
-// products here: P1, P2 and P4, P5). The activations stay float32 in
-// shared memory in the float32 kernel's group plan (the semantic graph
-// and the attention read them), and each warp splits its A fragments as
-// it loads them. The weights stream through a float32 ring as above, and
-// each slab, once landed, is split once by the whole block into a bf16
-// buffer of k-pair words (hi, and lo where the product's tier takes it;
-// rows padded 8 words so that the B fragments load without bank
-// conflicts). The attention rounds its score and apply operands as
-// joint_attention.cu's tiered instantiations do (q1 = bf16, q2 = q1 + q1
-// of the rest; high: q2(a) q1(b) + q1(a) lo(b)) and accumulates in
-// float32 FMAs, each operand rounded once (attention_tiered).
+// Its products (the projection, local cat, global cat and block concat)
+// run as bf16 mma.sync.m16n8k16 passes with float32 accumulation, by
+// tier: one pass (ah bh) at default and kdefault, two at high_lhs (+ al bh)
+// and high_rhs (+ ah bl), three at high, with a = ah + al, ah = bf16(a),
+// al = bf16(a - ah) rounded to nearest even (precision.split_bf16). The
+// projection's sem columns take local_sem's tier and its attention columns
+// attn_proj's (apart products here: P1, P2 and P4, P5). The attention
+// rounds its score and apply operands as joint_attention.cu's tiered
+// instantiations do (q1 = bf16, q2 = q1 + q1 of the rest; high: q2(a)
+// q1(b) + q1(a) lo(b)), its sums float32 FMAs.
 //
-// Bound: the same bytes as the float32 kernel (x in, 2C out a row) and
-// 2 * 16 * C^2 FLOPs a row at the bf16 tensor-core rate a pass, 2.7 C
-// FLOPs a byte a pass against the card's ~295: bytes bound it at every
-// tier up to C = 32 (at C = 32, 33 kFLOP against 384 bytes a row) and at
-// one pass at every narrow width. Its tiles are the float32 kernel's; its
-// slabs 16 rows (32 at C = 32) in a ring of 3 or 4 (TiersCfg). A warp
-// owns MPW 16-row by NPG 8-column tiles of each C-wide output group (Tc),
-// its accumulators in registers.
+// Bound: the float32 kernel's bytes (x in, 2C out a row) against 2 * 16 *
+// C^2 FLOPs a row a pass at the bf16 tensor-core rate, 2.7 C FLOPs a byte
+// a pass against the card's ~295: bytes bound it at one and two passes at
+// every width, and at three up to C = 32.
+//
+// Its first design (the float32 kernel's tiles and group plan with a bf16
+// split in them) ran at 13-16x that bound. This one answers each cause:
+//
+// 1. The weights were split again on every tile: each float32 slab,
+//    streamed from L2, was split by the whole block into bf16 words
+//    between two block barriers. Here a launch splits them once: every
+//    block splits its share of a tile's slab stream (SPT slabs, all seven
+//    products) into bf16 k-pair words, hi and lo, in the ring's own layout,
+//    into the wrapper's scratch buffer, and one barrier across the grid
+//    (blocks are persistent and all resident) publishes them. A tile's
+//    slabs then stream from L2 by 16-byte cp.async straight into the words
+//    the B fragments load, the lo half only where the product's tier reads
+//    it: no split pass, one block barrier a slab.
+// 2. A fragments: a warp splits each A fragment (hi and lo) once as it
+//    loads it, for all of its column tiles and passes; the activations
+//    stay float32 (the semantic graph and the attention read them).
+//    mma.sync and not wgmma: the passes are the smaller part of a tile's
+//    time (the cut builds, PERF.md), and wgmma's A operand would need a
+//    bf16 copy of each product's input groups beside the float32 ones,
+//    which the shared memory does not hold at C = 48, 64.
+// 3. The attention ran one warp a (frame, head) and one lane a query (17
+//    of 32 lanes at J = 17), its weights in a register array, rounded
+//    again for every 8 output columns. Here one thread takes a (row,
+//    head): its softmax row by passes over the frame's key scores in
+//    shared memory (no shuffle, no array), then each weight rounded once
+//    against g rounded once in place (lo(g) beside it at high), up to 16
+//    output columns a pass; every lane works.
+// 4. Nothing overlapped: one block an SM, its phases between block
+//    barriers. At C = 16 and 32 a block is now 256 threads and two share
+//    an SM (TieredCfg), so that one block's semantic graph and attention
+//    can run under the other's products and barriers (measured no faster
+//    than one 512-thread block, and no slower: PERF.md). At C = 48 and 64
+//    the tile's five float32 groups fill the SM's shared memory, so one
+//    block of 384 or 512 threads runs there, as before. Deeper slabs
+//    (32 or 48 rows) halve the barriers a tile.
+// 5. Spills: the attention's register array and the split pass are gone;
+//    at 128 registers a thread (C = 16, 32, 64) a few words of the tile
+//    loop's state still spill (-Xptxas -v in PERF.md).
+//
+// With bf16 x (the bf16-I/O library, x 16-byte aligned) the next tile's x
+// is staged raw by 16-byte cp.async into a free group during the block
+// concat, and converted from shared memory at that tile's start.
 // ---------------------------------------------------------------------------
 
 // Tier codes of the products (kernels.TC_TIERS): 0 default, 1 high_lhs, 2
@@ -854,8 +902,12 @@ struct Tiers {
 // for C <= 64 alone.
 constexpr int MAX_TIERED_C = 64;
 
-// The tiered form's tiling of each width: the float32 kernel's tiles, with
-// slabs and ring depth of its own.
+// The tiered form's tiling of each width (Cfg<C, threads along rows, rows
+// a thread, blocks an SM, slab rows, slabs in the ring>): 256 rows and two
+// blocks of 256 threads an SM at C = 16; 128 rows and two blocks of 256 at
+// C = 32; 128 rows and one block of 384 or 512 threads at C = 48, 64. A
+// slab is as deep as the shared memory allows (C rows up to 48, 32 at
+// 64): a barrier a slab costs more than the ring's depth gains.
 template <int C>
 struct TieredCfg;
 template <>
@@ -864,21 +916,23 @@ struct TieredCfg<16> {
 };
 template <>
 struct TieredCfg<32> {
-  using type = Cfg<32, 64, 4, 1, 32, 3>;
+  using type = Cfg<32, 32, 4, 2, 32, 2>;
 };
 template <>
 struct TieredCfg<48> {
-  using type = Cfg<48, 32, 4, 1, 16, 4>;
+  using type = Cfg<48, 32, 4, 1, 48, 2>;
 };
 template <>
 struct TieredCfg<64> {
-  using type = Cfg<64, 32, 4, 1, 16, 4>;
+  using type = Cfg<64, 32, 4, 1, 32, 2>;
 };
 
 // The warp grid of a width: WM x WN warps over the tile's 16-row tiles and
 // a C-wide group's 8-column tiles, the first WN (fewest columns a warp
-// shares) that divides both; and the bf16 slab buffer: BK / 2 k-pair rows
-// of at most 2C words and 8 more, hi then lo.
+// shares) that divides both; and a slab of split words: N <= 2C columns of
+// BK / 2 k-pair words, hi, then lo at HALF. A column's 16-byte chunks are
+// swizzled (word()) so that the 8 columns an ldmatrix reads for one k
+// chunk fall in 8 distinct groups of 4 banks.
 constexpr int tc_wn(int w, int mt, int n8) {
   for (int wn = 1; wn <= w; ++wn)
     if (w % wn == 0 && n8 % wn == 0 && mt % (w / wn) == 0) return wn;
@@ -894,9 +948,24 @@ struct Tc {
   static constexpr int WM = WN ? W / WN : 1;
   static constexpr int MPW = MT / WM;  // 16-row tiles a warp
   static constexpr int NPG = WN ? N8 / WN : 1;  // 8-column tiles a group
-  static constexpr int WB_HALF = G::BK / 2 * (2 * G::C + 8);  // words
-  static_assert(WN > 0 && G::BK % 16 == 0, "tensor-core warp grid");
+  static constexpr int KPW = G::BK / 2;  // words a column
+  static constexpr int HALF = 2 * G::C * KPW;
+  static constexpr int WORDS = 2 * HALF;  // a slab's words, hi and lo
+  static_assert(WN > 0 && G::BK % 16 == 0 && NPG % 2 == 0 &&
+                    (G::BK == 16 || G::BK == 32 || G::BK == 48),
+                "tensor-core warp grid");
+  // The word of (column n, k pair kp) in a half: chunk kp / 4 of the
+  // column XOR a function of n (2 or 6 chunks a column: bit 2 of n; 4:
+  // bits 1-2).
+  static __device__ __forceinline__ int word(int n, int kp) {
+    const int sw = KPW % 16 == 0 ? (n >> 1) & 3 : (n >> 2) & 1;
+    return n * KPW + (((kp >> 2) ^ sw) << 2) + (kp & 3);
+  }
 };
+
+// The scratch buffer: CTL words of the grid barrier's counters, then a
+// tile's SPT slabs of split words, Tc::WORDS each (kernels.narrow_scratch).
+constexpr int CTL = 16;
 
 __device__ __forceinline__ uint32_t bf16_bits(float x) {
   const __nv_bfloat16 h = __float2bfloat16_rn(x);
@@ -907,12 +976,27 @@ __device__ __forceinline__ float bits_bf16(uint32_t b) {
 }
 
 // The bf16 halves (hi, lo) of (x0, x1) as mma operand registers, x0 in the
-// low 16 bits (the smaller k).
+// low 16 bits (the smaller k): two cvt.rn.bf16x2.f32, nearest even.
+__device__ __forceinline__ uint32_t bf16x2(float x0, float x1) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
 __device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
                                        uint32_t& lo) {
-  const uint32_t h0 = bf16_bits(x0), h1 = bf16_bits(x1);
-  hi = h0 | h1 << 16;
-  lo = bf16_bits(x0 - bits_bf16(h0)) | bf16_bits(x1 - bits_bf16(h1)) << 16;
+  hi = bf16x2(x0, x1);
+  lo = bf16x2(x0 - __uint_as_float(hi << 16),
+              x1 - __uint_as_float(hi & 0xffff0000u));
+}
+
+// Four 8 x 8 matrices of 16-bit values from shared memory, row addresses
+// from lanes 8i .. 8i + 7 for matrix i (ldmatrix).
+__device__ __forceinline__ void ldsm_x4(uint32_t* d, const uint32_t* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(a)
+      : "memory");
 }
 
 __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
@@ -925,21 +1009,187 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// product() at a tier (the code above): the same operands, slab stream,
-// prefetch, epilogue and output layouts, its sums by tensor-core passes.
-// Each landed slab (BK rows of N floats) is split into `wb`: word (kp, n)
-// of the hi half holds rows 2kp and 2kp+1 of column n, rows N + 8 words
-// apart; the lo half follows at Tc::WB_HALF, made only where b_lo.
+// A 16-byte copy from device memory through L2 alone (cp.async.cg): the
+// split words were written by other blocks of this launch.
+__device__ __forceinline__ void copy16_cg(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+// Slab s of a tile's stream (stage()'s order): the product it belongs to
+// (0 .. 6: P1 .. P7), its weights `w` (ld floats a row), its N and its
+// first row k0.
+template <class G>
+__device__ __forceinline__ int slab_src(const Tables& t, int s, int nh,
+                                        const float*& w, int& ld, int& n,
+                                        int& k0) {
+  constexpr int C = G::C, S = G::S;
+  int p;
+  if constexpr (G::FOLD) {
+    const int lp = 5 * C + 2 * nh;
+    if (s < S) {
+      p = 0; w = t.w_proj; ld = lp; n = 2 * C; k0 = s;
+    } else if (s < 2 * S) {
+      p = 1; w = t.w_proj + 2 * C; ld = lp; n = 2 * C; k0 = s - S;
+    } else if (s < 4 * S) {
+      p = 2; w = t.lcat_w; ld = C; n = C; k0 = s - 2 * S;
+    } else if (s < 5 * S) {  // P5: g
+      p = 4; w = t.w_proj + 4 * C + 2 * nh; ld = lp; n = C; k0 = s - 4 * S;
+    } else if (s < 6 * S) {
+      p = 5; w = t.acat_w; ld = C; n = C; k0 = s - 5 * S;
+    } else {
+      p = 6; w = t.gcat_w; ld = 2 * C; n = 2 * C; k0 = s - 6 * S;
+    }
+  } else if (s < S) {
+    p = 0; w = t.w_proj; ld = 7 * C; n = 2 * C; k0 = s;
+  } else if (s < 2 * S) {
+    p = 1; w = t.w_proj + 2 * C; ld = 7 * C; n = 2 * C; k0 = s - S;
+  } else if (s < 4 * S) {
+    p = 2; w = t.lcat_w; ld = C; n = C; k0 = s - 2 * S;
+  } else if (s < 5 * S) {
+    p = 3; w = t.w_proj + 4 * C; ld = 7 * C; n = 2 * C; k0 = s - 4 * S;
+  } else if (s < 6 * S) {
+    p = 4; w = t.w_proj + 6 * C; ld = 7 * C; n = C; k0 = s - 5 * S;
+  } else if (s < 7 * S) {
+    p = 5; w = t.acat_w; ld = C; n = C; k0 = s - 6 * S;
+  } else {
+    p = 6; w = t.gcat_w; ld = 2 * C; n = 2 * C; k0 = s - 7 * S;
+  }
+  k0 *= G::BK;
+  return p;
+}
+
+// The tier code of product p (P1 .. P7).
+__device__ __forceinline__ int product_tier(int p, const Tiers& tr) {
+  return p < 2 ? tr.sem : p == 2 ? tr.lcat : p < 5 ? tr.proj
+                                    : p == 5 ? tr.acat : tr.gcat;
+}
+
+// The launch's split: slab s of the stream as words (n, kp) = rows k0 + 2kp
+// and k0 + 2kp + 1 of column n (the smaller k in the low half), hi at
+// sw + s * WORDS + word(n, kp) and lo HALF words on; the grid's threads
+// share the SPT * BK / 2 * 2C items.
+template <class G>
+__device__ __forceinline__ void split_weights(const Tables& t, uint32_t* sw,
+                                              int nh) {
+  using T = Tc<G>;
+  constexpr int ROW = 2 * G::C, PER = G::BK / 2 * ROW;
+  const long long items = (long long)G::SPT * PER;
+  for (long long e = (long long)blockIdx.x * G::NT + threadIdx.x;
+       /*TPRE*/true && e < items; e += (long long)gridDim.x * G::NT) {
+    const int s = (int)(e / PER), rem = (int)(e - (long long)s * PER);
+    const int kp = rem / ROW, n = rem - kp * ROW;
+    const float* w;
+    int ld, nn, k0;
+    slab_src<G>(t, s, nh, w, ld, nn, k0);
+    if (n >= nn) continue;
+    const float* src = w + (size_t)(k0 + 2 * kp) * ld + n;
+    uint32_t hi, lo;
+    split2(__ldg(src), __ldg(src + ld), hi, lo);
+    uint32_t* dst = sw + (size_t)s * T::WORDS + T::word(n, kp);
+    dst[0] = hi;
+    dst[T::HALF] = lo;
+  }
+}
+
+// Every block of the launch waits here until all have arrived (after their
+// split); ctl[0] counts arrivals, ctl[1] departures, and the last block to
+// leave sets both back to 0 for the next launch on the buffer. Blocks are
+// at most as many as fit on the card at once (launch_tiered), so all are
+// resident.
+__device__ __forceinline__ void grid_barrier(unsigned* ctl) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(ctl, 1u);
+    while (atomicAdd(ctl, 0u) < gridDim.x) __nanosleep(100);
+    __threadfence();
+    if (atomicAdd(ctl + 1, 1u) == gridDim.x - 1) {
+      atomicExch(ctl, 0u);
+      atomicExch(ctl + 1, 0u);
+    }
+  }
+  __syncthreads();
+}
+
+// Stages slab i of the block's stream into its ring slot: the slab's hi
+// words and, where its product's tier reads B's lo half, its lo words.
+template <class G>
+__device__ __forceinline__ void stage_t(const uint32_t* sw, uint32_t* ring,
+                                        int i, int total,
+                                        const Tables& t, int nh,
+                                        const Tiers& tr) {
+  using T = Tc<G>;
+  if (/*TCOPY*/true && i < total) {
+    const int s = i % G::SPT;
+    const float* w;
+    int ld, n, k0;
+    const int tier = product_tier(slab_src<G>(t, s, nh, w, ld, n, k0), tr);
+    const int chunks = n * T::KPW / 4;
+    const int all = tier >= 2 ? 2 * chunks : chunks;
+    const uint32_t* src = sw + (size_t)s * T::WORDS;
+    uint32_t* dst = ring + i % G::STAGES * T::WORDS;
+    for (int e = threadIdx.x; e < all; e += G::NT) {
+      const int h = e >= chunks;
+      const int o = (e - h * chunks) * 4 + h * T::HALF;
+      copy16_cg(dst + o, src + o);
+    }
+  }
+  __pipeline_commit();
+}
+
+// What the block concat brings in for the next tile: the semantic-graph
+// weights of both branches (into groups 4 and 3, if staged) and x: into
+// group 0 (float32, or bf16 by plain loads), or raw bf16 into group 1 by
+// 16-byte copies (`raw`) for the next tile's start to convert.
+struct TPrefetch {
+  const void* x;
+  bool x_bf, raw;
+  int rows, j, d;
+  bool sem;
+};
+
+// x's rows of a tile as raw bf16 (rows * C values, row-major) into `dst`.
+template <class G>
+__device__ __forceinline__ void stage_x_raw(const void* xg, float* dst,
+                                            int rows) {
+  const char* src = static_cast<const char*>(xg);
+  char* out = reinterpret_cast<char*>(dst);
+  for (int e = threadIdx.x; e < rows * G::C / 8; e += G::NT)
+    copy16_cg(out + 16 * e, src + 16 * e);
+}
+
+// The staged raw bf16 rows into group 0 as load_x leaves it.
+template <class G>
+__device__ __forceinline__ void convert_x_raw(const float* raw, float* xs,
+                                              int rows) {
+  constexpr int C = G::C;
+  const unsigned short* xb = reinterpret_cast<const unsigned short*>(raw);
+  for (int e = threadIdx.x; e < G::BM * C; e += G::NT) {
+    const int r = e / C, c = e - r * C;
+    xs[c * G::BMP + r] =
+        r < rows ? __uint_as_float(static_cast<uint32_t>(xb[e]) << 16) : 0.f;
+  }
+}
+
+// One product over the tile's BM rows at a tier: out[r, n] = epi(sum_k
+// A[r, k] W[k, n]), N = MM * C, K = NS * BK, as product() computes it
+// (the operands, output layouts and epilogue are its), by tensor-core
+// passes. Each landed slab is read as the split words stage_t copied: word
+// (n, kp) of the hi half (Tc::word) holds rows 2kp and 2kp+1 of column n,
+// the lo half Tc::HALF words on; one ldmatrix.x4 loads a k16 step's B
+// fragments of two 8-column tiles.
 template <class G, int MM, int NS, bool RELU, bool TO_GLOBAL,
           bool ROW_MAJOR = false>
-__device__ __forceinline__ void product_tc(
-    int tier, const Tables& t, float* ring, uint32_t* wb, long long& g,
-    long long total, int nh, float* acts, int a0, int a1, int a2,
-    const float* scale, const float* shift, int o0, int o1,
-    void* out = nullptr, int rows_valid = 0, const Prefetch* pre = nullptr,
-    bool out_bf = false) {
+__device__ __forceinline__ void product_t(
+    int tier, const uint32_t* sw, uint32_t* ring, int& g, int total,
+    const Tables& t, int nh, const Tiers& tr, float* acts,
+    int a0, int a1, int a2, const float* scale, const float* shift, int o0,
+    int o1, void* out = nullptr, int rows_valid = 0,
+    const TPrefetch* pre = nullptr, bool out_bf = false) {
   using T = Tc<G>;
-  constexpr int C = G::C, N = MM * C, NW = N + 8, BMP = G::BMP;
+  constexpr int C = G::C, N = MM * C, BMP = G::BMP;
   constexpr int BK = G::BK, S = G::S;
   constexpr int NN = MM * T::NPG;  // 8-column tiles a warp
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -959,27 +1209,21 @@ __device__ __forceinline__ void product_tc(
       for (int v = 0; v < 4; ++v) acc[i][q][v] = 0.f;
   for (int s = 0; s < NS; ++s) {
     __pipeline_wait_prior(G::STAGES - 2);
-    __syncthreads();  // slab g has landed; slab g - 1 and wb are read
+    __syncthreads();  // slab g has landed; slab g - 1 is read
     if (pre != nullptr) {
+      // Groups 4 and 1 are free; group 0 from slab S, group 3 from 2S on.
       if (s == 0 && pre->sem)
         load_sem<G, true>(t, acts + 4 * G::GROUP, pre->j, pre->d, 0);
-      if (s == S && pre->x != nullptr)
+      if (s == 0 && pre->raw)
+        stage_x_raw<G>(pre->x, acts + G::GROUP, pre->rows);
+      if (s == S && pre->x != nullptr && !pre->raw)
         load_x<G, true>(pre->x, pre->x_bf, acts, pre->rows);
       if (s == 2 * S && pre->sem)
         load_sem<G, true>(t, acts + 3 * G::GROUP, pre->j, pre->d, 1);
     }
-    stage<G>(t, ring, g + G::STAGES - 1, total, nh);
-    const float* w = ring + (int)(g % G::STAGES) * G::SLAB;
+    stage_t<G>(sw, ring, g + G::STAGES - 1, total, t, nh, tr);
+    const uint32_t* wb = ring + g % G::STAGES * T::WORDS;
     ++g;
-    for (int e = threadIdx.x; /*TSPLIT*/true && e < BK / 2 * N;
-         e += G::NT) {
-      const int kp = e / N, n = e - kp * N;
-      uint32_t hi, lo;
-      split2(w[2 * kp * N + n], w[(2 * kp + 1) * N + n], hi, lo);
-      wb[kp * NW + n] = hi;
-      if (b_lo) wb[T::WB_HALF + kp * NW + n] = lo;
-    }
-    __syncthreads();  // wb holds slab g
     const int k0 = s * BK, piece = k0 / C;
     const float* a =
         acts + (size_t)(piece == 0 ? a0 : piece == 1 ? a1 : a2) * G::GROUP +
@@ -987,32 +1231,36 @@ __device__ __forceinline__ void product_tc(
     if (!/*TMMA*/true) continue;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t bh[NN][2], bl[NN][2];
-#pragma unroll
-      for (int q = 0; q < NN; ++q) {
-        const uint32_t* wc = wb + (kk / 2 + tq) * NW + col(q) + gq;
-        bh[q][0] = wc[0];
-        bh[q][1] = wc[4 * NW];
-        if (b_lo) {
-          bl[q][0] = wc[T::WB_HALF];
-          bl[q][1] = wc[T::WB_HALF + 4 * NW];
-        }
-      }
+      // The warp's A fragments, split once for every column tile and
+      // pass; then two column tiles' B fragments at a time.
+      uint32_t ah[T::MPW][4], al[T::MPW][4];
 #pragma unroll
       for (int i = 0; i < T::MPW; ++i) {
         const float* ac =
             a + (kk + 2 * tq) * BMP + (wm * T::MPW + i) * 16 + gq;
-        uint32_t ah[4], al[4];
-        split2(ac[0], ac[BMP], ah[0], al[0]);
-        split2(ac[8], ac[BMP + 8], ah[1], al[1]);
-        split2(ac[8 * BMP], ac[9 * BMP], ah[2], al[2]);
-        split2(ac[8 * BMP + 8], ac[9 * BMP + 8], ah[3], al[3]);
+        split2(ac[0], ac[BMP], ah[i][0], al[i][0]);
+        split2(ac[8], ac[BMP + 8], ah[i][1], al[i][1]);
+        split2(ac[8 * BMP], ac[9 * BMP], ah[i][2], al[i][2]);
+        split2(ac[8 * BMP + 8], ac[9 * BMP + 8], ah[i][3], al[i][3]);
+      }
 #pragma unroll
-        for (int q = 0; q < NN; ++q) {
-          mma_bf16(acc[i][q], ah, bh[q]);
-          if (b_lo) mma_bf16(acc[i][q], ah, bl[q]);
-          if (a_lo) mma_bf16(acc[i][q], al, bh[q]);
-        }
+      for (int q = 0; q < NN; q += 2) {
+        // Lane l addresses row l % 8 of matrix l / 8: k 0..7 (then 8..15)
+        // of column tile q (then q + 1).
+        const uint32_t* wc =
+            wb + T::word(col(q + (lane >> 4)) + (lane & 7),
+                         kk / 2 + ((lane >> 3) & 1) * 4);
+        uint32_t bh[4], bl[4];
+        ldsm_x4(bh, wc);
+        if (b_lo) ldsm_x4(bl, wc + T::HALF);
+#pragma unroll
+        for (int i = 0; i < T::MPW; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            mma_bf16(acc[i][q + h], ah[i], bh + 2 * h);
+            if (b_lo) mma_bf16(acc[i][q + h], ah[i], bl + 2 * h);
+            if (a_lo) mma_bf16(acc[i][q + h], al[i], bh + 2 * h);
+          }
       }
     }
   }
@@ -1076,11 +1324,12 @@ __device__ __forceinline__ int rhs_mode(int tier) {
 }
 
 // The fold form's score columns at the score tier (`mode`: rhs_mode of
-// its code) in `dst` (the slab-split buffer wb, free between P5 and P6):
-// the rounded columns as load_fold lays them out (2KC floats), their lo
-// halves (2KC), then the 2K scales and 2K shifts. The tiles' shared memory
-// has no room beside wb for a copy a block at C = 64 and J = 32, so each
-// tile loads them (from L2) after P5.
+// its code), once a block: the rounded columns as load_fold lays them out
+// (2KC floats), their lo halves (2KC), then the 2K scales and 2K shifts.
+__host__ __device__ constexpr int fold_tiered_floats(int c, int nh) {
+  return 4 * nh * c + 4 * nh;
+}
+
 template <class G>
 __device__ __forceinline__ void load_fold_tiered(const Tables& t, float* dst,
                                                  int nh, int mode) {
@@ -1098,64 +1347,61 @@ __device__ __forceinline__ void load_fold_tiered(const Tables& t, float* dst,
   }
 }
 
-// attention() with its score dots at `score` and its apply dots at `apply`
-// (ATTN codes): theta/phi the lhs and p_theta/p_phi the rhs of the score,
-// the attention weights the lhs and g the rhs of the apply, each rounded
-// as read; the high tier adds its q1(a) lo(b) term. Three passes between
+// The attention at the tiers, with its score dots at `score` and its apply
+// dots at `apply` (ATTN codes): theta/phi the lhs and p_theta/p_phi the
+// rhs of the score, the attention weights the lhs and g the rhs of the
+// apply; the high tier adds its q1(a) lo(b) term. Three passes between
 // barriers over the tile's nf frames (theta, phi column-major; g
 // row-major, C floats a row):
 //  1. the scores, one thread a (row, head), the score vectors rounded once
 //     a block in `pr` (rhs(p_theta) | rhs(p_phi) | lo(p_theta) |
-//     lo(p_phi), C each); each (row, head)'s pair goes over theta's first
-//     two columns of the head, which that pair alone reads;
+//     lo(p_phi), C each), into `sc` (sa of head k at 2k * BM, sb at
+//     (2k + 1) * BM);
 //  2. g rounded in place as the apply's rhs, and, for the high apply tier,
-//     lo(g) into phi's group (free after the scores);
-//  3. the apply: one warp a (frame, head), one lane a query joint, 8
-//     output columns a step, its weights rounded in registers; each head's
-//     outputs over its theta columns.
-// The fold form (G::FOLD) takes no theta or phi: an item's scores are its
-// row of x (xs) against the head's folded columns at the score tier, x the
-// lhs and the columns the rhs, as gemm_tc computes the chain's sa | sb; pr
-// then holds the columns as load_fold_tiered leaves them, and the heads
-// go to `theta`'s group, G = C / K columns a head.
+//     lo(g) into phi's group (row-major; read in pass 1);
+//  3. the apply, one thread a (row, head): the row's softmax max and sum
+//     over the frame's sb, then each weight (softmax + C_k) rounded once
+//     against up to 16 columns of g at a time; the head's outputs over its
+//     theta columns (column-major).
+// The fold form (G::FOLD) reads no theta or phi (their groups are free): an
+// item's scores are its row of x (xs) against the head's folded columns at
+// the score tier, x the lhs and the columns the rhs, as gemm_tc computes
+// the chain's sa | sb; pr then holds the columns as load_fold_tiered
+// leaves them, and the heads go to theta's group, G = C / K columns a
+// head. Each sum runs in the order of the first design's (bitwise its
+// results).
 template <class G>
-__device__ __forceinline__ void attention_tiered(
-    float* theta, float* phi, float* gv, int nf, int j, int nheads,
-    const float* pr, const float* c_k, int score, int apply,
+__device__ __forceinline__ void attention_t(
+    float* theta, float* phi, float* gv, float* sc, int nf, int j,
+    int nheads, const float* pr, const float* c_k, int score, int apply,
     const float* xs) {
-  constexpr int C = G::C, BMP = G::BMP;
-  constexpr int ITEMS = (G::BM * MAX_HEADS + G::NT - 1) / G::NT;
+  constexpr int C = G::C, BMP = G::BMP, BM = G::BM;
   const int inter = C / nheads, rows = nf * j, items = rows * nheads;
   const int s_lhs = lhs_mode(score);
   const int a_lhs = lhs_mode(apply), a_rhs = rhs_mode(apply);
   const bool s_high = score == 4, a_high = apply == 4;
-  float sab[ITEMS][2];
-#pragma unroll
-  for (int it = 0; it < ITEMS; ++it) {
-    const int e = threadIdx.x + it * G::NT;
+  for (int e = threadIdx.x; e < items; e += G::NT) {
     const int k = e / rows, r = e - k * rows;
     float sa = 0.f, sb = 0.f;
     if constexpr (G::FOLD) {
-      if (e < items) {
-        const int n = 2 * nheads * C;
-        const float* wa = pr + k * C;
-        const float* wb = pr + (nheads + k) * C;
+      const int n = 2 * nheads * C;
+      const float* wa = pr + k * C;
+      const float* wb = pr + (nheads + k) * C;
 #pragma unroll 4
-        for (int c = 0; c < C; ++c) {
-          const float a = xs[c * BMP + r], ar = rnd(a, s_lhs);
-          sa = fmaf(ar, wa[c], sa);
-          sb = fmaf(ar, wb[c], sb);
-          if (s_high) {
-            const float ah = q1(a);
-            sa = fmaf(ah, wa[n + c], sa);
-            sb = fmaf(ah, wb[n + c], sb);
-          }
+      for (int c = 0; c < C; ++c) {
+        const float a = xs[c * BMP + r], ar = rnd(a, s_lhs);
+        sa = fmaf(ar, wa[c], sa);
+        sb = fmaf(ar, wb[c], sb);
+        if (s_high) {
+          const float ah = q1(a);
+          sa = fmaf(ah, wa[n + c], sa);
+          sb = fmaf(ah, wb[n + c], sb);
         }
-        const float* ss = pr + 2 * n;
-        sa = sa * ss[k] + ss[2 * nheads + k];
-        sb = sb * ss[nheads + k] + ss[3 * nheads + k];
       }
-    } else if (e < items) {
+      const float* ss = pr + 2 * n;
+      sa = sa * ss[k] + ss[2 * nheads + k];
+      sb = sb * ss[nheads + k] + ss[3 * nheads + k];
+    } else {
 #pragma unroll 4
       for (int i = 0; i < inter; ++i) {
         const int cc = k * inter + i;
@@ -1168,157 +1414,127 @@ __device__ __forceinline__ void attention_tiered(
         }
       }
     }
-    sab[it][0] = sa;
-    sab[it][1] = sb;
+    sc[2 * k * BM + r] = sa;
+    sc[(2 * k + 1) * BM + r] = sb;
   }
-  __syncthreads();  // theta and phi are read
-#pragma unroll
-  for (int it = 0; it < ITEMS; ++it) {
-    const int e = threadIdx.x + it * G::NT;
-    const int k = e / rows, r = e - k * rows;
-    if (e < items) {
-      theta[k * inter * BMP + r] = sab[it][0];
-      theta[(k * inter + 1) * BMP + r] = sab[it][1];
-    }
-  }
-  if (apply != 0)
+  if (apply != 0) {
+    __syncthreads();  // theta and phi are read
     for (int e = threadIdx.x; e < rows * C; e += G::NT) {
       const float v = gv[e];
       gv[e] = rnd(v, a_rhs);
       if (a_high) phi[e] = lo_half(v);
     }
+  }
   __syncthreads();
-  const int warp = threadIdx.x / 32, q = threadIdx.x % 32;
-  for (int pair = warp; pair < nf * nheads; pair += G::NT / 32) {
-    const int fr = pair / nheads, k = pair - fr * nheads;
-    const int row0 = fr * j;
-    const float* sc = theta + k * inter * BMP + row0;
-    const float sa = q < j ? sc[q] : 0.f, sb = q < j ? sc[BMP + q] : 0.f;
-    __syncwarp();  // every lane has its scores before the outputs go there
-    float w[MAX_J];
+  for (int e = threadIdx.x; /*TAPPLY*/true && e < items; e += G::NT) {
+    const int k = e / rows, r = e - k * rows;
+    const int q = r % j;
+    const float sa = sc[2 * k * BM + r];
+    const float* sb = sc + (2 * k + 1) * BM + r - q;
     float mx = -INFINITY;
-#pragma unroll
-    for (int m = 0; m < MAX_J; ++m) {
-      if (m >= j) break;
-      w[m] = leaky(sa + __shfl_sync(FULL, sb, m));
-      mx = fmaxf(mx, w[m]);
-    }
+    for (int m = 0; m < j; ++m) mx = fmaxf(mx, leaky(sa + sb[m]));
     float sum = 0.f;
-#pragma unroll
-    for (int m = 0; m < MAX_J; ++m) {
-      if (m >= j) break;
-      w[m] = expf(w[m] - mx);
-      sum += w[m];
-    }
+    for (int m = 0; m < j; ++m) sum += expf(leaky(sa + sb[m]) - mx);
     const float inv = 1.f / sum;
-    const float* ck = c_k + (k * j + (q < j ? q : 0)) * j;
+    const float* ck = c_k + (k * j + q) * j;
+    for (int c0 = 0; c0 < inter; c0 += 16) {
+      const int nv = min(4, (inter - c0) / 4);  // float4s of this pass
+      float4 acc[4];
 #pragma unroll
-    for (int m = 0; m < MAX_J; ++m) {
-      if (m >= j) break;
-      w[m] = w[m] * inv + ck[m];
-    }
-    const float* gk = gv + (size_t)row0 * C + k * inter;
-    const float* gl = phi + (size_t)row0 * C + k * inter;
-    for (int g0 = 0; g0 < inter; g0 += 8) {
-      const bool hi = g0 + 4 < inter;
-      float4 lo4 = make_float4(0.f, 0.f, 0.f, 0.f), hi4 = lo4;
-#pragma unroll
-      for (int m = 0; m < MAX_J; ++m) {
-        if (m >= j) break;
-        float wa = w[m], wh = w[m];
+      for (int v = 0; v < 4; ++v) acc[v] = make_float4(0.f, 0.f, 0.f, 0.f);
+      const float* gk = gv + (size_t)(r - q) * C + k * inter + c0;
+      const float* gl = phi + (size_t)(r - q) * C + k * inter + c0;
+      for (int m = 0; m < j; ++m) {
+        const float w = expf(leaky(sa + sb[m]) - mx) * inv + ck[m];
+        float wa = w, wh = w;
         if (a_lhs) {
-          wh = q1(w[m]);
-          wa = a_lhs == 2 ? wh + q1(w[m] - wh) : wh;
+          wh = q1(w);
+          wa = a_lhs == 2 ? wh + q1(w - wh) : wh;
         }
-        const float4 a = *reinterpret_cast<const float4*>(gk + m * C + g0);
-        lo4.x = fmaf(wa, a.x, lo4.x);
-        lo4.y = fmaf(wa, a.y, lo4.y);
-        lo4.z = fmaf(wa, a.z, lo4.z);
-        lo4.w = fmaf(wa, a.w, lo4.w);
-        if (hi) {
-          const float4 h =
-              *reinterpret_cast<const float4*>(gk + m * C + g0 + 4);
-          hi4.x = fmaf(wa, h.x, hi4.x);
-          hi4.y = fmaf(wa, h.y, hi4.y);
-          hi4.z = fmaf(wa, h.z, hi4.z);
-          hi4.w = fmaf(wa, h.w, hi4.w);
-        }
-        if (a_high) {
-          const float4 b = *reinterpret_cast<const float4*>(gl + m * C + g0);
-          lo4.x = fmaf(wh, b.x, lo4.x);
-          lo4.y = fmaf(wh, b.y, lo4.y);
-          lo4.z = fmaf(wh, b.z, lo4.z);
-          lo4.w = fmaf(wh, b.w, lo4.w);
-          if (hi) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          if (v >= nv) break;
+          float4& o = acc[v];
+          const float4 a =
+              *reinterpret_cast<const float4*>(gk + m * C + 4 * v);
+          o.x = fmaf(wa, a.x, o.x);
+          o.y = fmaf(wa, a.y, o.y);
+          o.z = fmaf(wa, a.z, o.z);
+          o.w = fmaf(wa, a.w, o.w);
+          if (a_high) {
             const float4 h =
-                *reinterpret_cast<const float4*>(gl + m * C + g0 + 4);
-            hi4.x = fmaf(wh, h.x, hi4.x);
-            hi4.y = fmaf(wh, h.y, hi4.y);
-            hi4.z = fmaf(wh, h.z, hi4.z);
-            hi4.w = fmaf(wh, h.w, hi4.w);
+                *reinterpret_cast<const float4*>(gl + m * C + 4 * v);
+            o.x = fmaf(wh, h.x, o.x);
+            o.y = fmaf(wh, h.y, o.y);
+            o.z = fmaf(wh, h.z, o.z);
+            o.w = fmaf(wh, h.w, o.w);
           }
         }
       }
-      if (q < j) {
-        float* o = theta + (size_t)(k * inter + g0) * BMP + row0 + q;
-        o[0] = lo4.x;
-        o[BMP] = lo4.y;
-        o[2 * BMP] = lo4.z;
-        o[3 * BMP] = lo4.w;
-        if (hi) {
-          o[4 * BMP] = hi4.x;
-          o[5 * BMP] = hi4.y;
-          o[6 * BMP] = hi4.z;
-          o[7 * BMP] = hi4.w;
-        }
+      float* o = theta + (size_t)(k * inter + c0) * BMP + r;
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        if (v >= nv) break;
+        o[(4 * v) * BMP] = acc[v].x;
+        o[(4 * v + 1) * BMP] = acc[v].y;
+        o[(4 * v + 2) * BMP] = acc[v].z;
+        o[(4 * v + 3) * BMP] = acc[v].w;
       }
     }
   }
 }
 
-// gab_narrow_kernel at the tiers: the same tiles, group plan and prefetch
-// (the fold form's too: load_fold_tiered).
+// The block at the tiers: the float32 kernel's group plan and prefetch,
+// its products on product_t, the launch's split first (note above).
+// Shared memory: the five groups, the ring (STAGES slabs of Tc::WORDS),
+// C_k, the score buffer (2 * MAX_HEADS * BM), the score vectors (v1: 4C)
+// or the fold form's columns (fold_tiered_floats), the neighbour table.
 template <class G>
 __global__ void __launch_bounds__(G::NT, G::MINB)
 gab_narrow_tiered_kernel(const void* __restrict__ x, void* __restrict__ out,
                          long long frames, int fpt, long long tiles, int j,
                          int d, int nheads, const Tables t, bool x_bf,
-                         bool out_bf, const Tiers tr) {
+                         bool out_bf, bool x_raw, const Tiers tr,
+                         uint32_t* __restrict__ scratch) {
+  using T = Tc<G>;
   x_bf = BF16_IO && x_bf;
   out_bf = BF16_IO && out_bf;
+  x_raw = BF16_IO && x_bf && x_raw;
   extern __shared__ float4 smem4[];
-  constexpr int C = G::C, GR = G::GROUP, S = G::S;
+  constexpr int C = G::C, GR = G::GROUP;
   float* acts = reinterpret_cast<float*>(smem4);
-  float* ring = acts + 5 * GR;
-  uint32_t* wb = reinterpret_cast<uint32_t*>(ring + G::STAGES * G::SLAB);
-  float* ck = reinterpret_cast<float*>(wb + 2 * Tc<G>::WB_HALF);
-  float* pr = ck + nheads * j * j;
-  int* col = reinterpret_cast<int*>(pr + (G::FOLD ? 0 : 4 * C));
-  static_assert(4 * MAX_HEADS * (C + 1) <= 2 * Tc<G>::WB_HALF,
-                "the fold form's score columns fit in wb");
+  uint32_t* ring = reinterpret_cast<uint32_t*>(acts + 5 * GR);
+  float* ck = reinterpret_cast<float*>(ring + G::STAGES * T::WORDS);
+  float* sc = ck + nheads * j * j;
+  float* pr = sc + 2 * MAX_HEADS * G::BM;
+  int* col = reinterpret_cast<int*>(
+      pr + (G::FOLD ? fold_tiered_floats(C, nheads) : 4 * C));
+  const uint32_t* sw = scratch + CTL;
   for (int i = threadIdx.x; i < nheads * j * j; i += G::NT)
     ck[i] = __ldg(t.c_k + i);
-  // The score vectors as the score tier's rhs, and their lo halves.
-  for (int i = threadIdx.x; !G::FOLD && i < C; i += G::NT) {
-    const float vt = __ldg(t.proj_t + i), vp = __ldg(t.proj_p + i);
-    const int mode = rhs_mode(tr.score);
-    pr[i] = rnd(vt, mode);
-    pr[C + i] = rnd(vp, mode);
-    pr[2 * C + i] = lo_half(vt);
-    pr[3 * C + i] = lo_half(vp);
+  if constexpr (G::FOLD) {
+    load_fold_tiered<G>(t, pr, nheads, rhs_mode(tr.score));
+  } else {
+    // The score vectors as the score tier's rhs, and their lo halves.
+    for (int i = threadIdx.x; i < C; i += G::NT) {
+      const float vt = __ldg(t.proj_t + i), vp = __ldg(t.proj_p + i);
+      const int mode = rhs_mode(tr.score);
+      pr[i] = rnd(vt, mode);
+      pr[C + i] = rnd(vp, mode);
+      pr[2 * C + i] = lo_half(vt);
+      pr[3 * C + i] = lo_half(vp);
+    }
   }
   for (int i = threadIdx.x; i < 2 * j * d; i += G::NT)
     col[i] = __ldg(t.col + i);
   const bool staged = j * (1 + d) * C + 2 * C <= GR;
-  const SemSrc sem_w0 = sem_src<G>(t, staged ? acts + 4 * GR : nullptr, j,
-                                   d, 0);
-  const SemSrc sem_w1 = sem_src<G>(t, staged ? acts + 3 * GR : nullptr, j,
-                                   d, 1);
-  const long long total =
-      ((tiles - 1 - blockIdx.x) / gridDim.x + 1) * G::SPT;
-  long long g = 0;
+  split_weights<G>(t, scratch + CTL, nheads);
+  grid_barrier(scratch);
+  // The block's slabs (launch_tiered keeps their count an int).
+  const int total = (int)((tiles - 1 - blockIdx.x) / gridDim.x + 1) * G::SPT;
+  int g = 0;
   for (int i = 0; i < G::STAGES - 1; ++i)
-    stage<G>(t, ring, i, total, nheads);
+    stage_t<G>(sw, ring, i, total, t, nheads, tr);
   const int gcol = G::FOLD ? 4 * C + 2 * nheads : 6 * C;
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long f0 = tile * fpt;
@@ -1330,61 +1546,75 @@ gab_narrow_tiered_kernel(const void* __restrict__ x, void* __restrict__ out,
         load_sem<G, false>(t, acts + 4 * GR, j, d, 0);
         load_sem<G, false>(t, acts + 3 * GR, j, d, 1);
       }
-    }
-    product_tc<G, 2, S, false, false>(tr.sem, t, ring, wb, g, total, nheads,
-                                      acts, 0, 0, 0, t.proj_scale,
-                                      t.proj_shift, 1, 2);
-    __syncthreads();
-    if (/*TSEM*/true)
-      sem_graph<G>(sem_w0, col, acts + GR, acts + 2 * GR, nf, j, d, 0);
-    product_tc<G, 2, S, false, false>(tr.sem, t, ring, wb, g, total, nheads,
-                                      acts, 0, 0, 0, t.proj_scale + 2 * C,
-                                      t.proj_shift + 2 * C, 2, 4);
-    __syncthreads();
-    if (/*TSEM*/true)
-      sem_graph<G>(sem_w1, col, acts + 2 * GR, acts + 4 * GR, nf, j, d, 1);
-    product_tc<G, 1, 2 * S, true, false>(tr.lcat, t, ring, wb, g, total,
-                                         nheads, acts, 1, 2, 0, t.lcat_scale,
-                                         t.lcat_shift, 3, 0);
-    if constexpr (!G::FOLD)
-      product_tc<G, 2, S, false, false>(tr.proj, t, ring, wb, g, total,
-                                        nheads, acts, 0, 0, 0,
-                                        t.proj_scale + 4 * C,
-                                        t.proj_shift + 4 * C, 1, 2);
-    product_tc<G, 1, S, false, false, true>(tr.proj, t, ring, wb, g, total,
-                                            nheads, acts, 0, 0, 0,
-                                            t.proj_scale + gcol,
-                                            t.proj_shift + gcol, 4, 0);
-    __syncthreads();
-    float* scores = pr;
-    if constexpr (G::FOLD) {
-      scores = reinterpret_cast<float*>(wb);
-      load_fold_tiered<G>(t, scores, nheads, rhs_mode(tr.score));
+    } else if (x_raw) {
+      // The raw rows the block concat staged (their copies are in commit
+      // groups at least STAGES - 1 older than the newest).
+      __pipeline_wait_prior(G::STAGES - 2);
       __syncthreads();
+      convert_x_raw<G>(acts + GR, acts, rows);
     }
+    product_t<G, 2, G::S, false, false>(tr.sem, sw, ring, g, total, t,
+                                        nheads, tr, acts, 0, 0, 0,
+                                        t.proj_scale, t.proj_shift, 1, 2);
+    __syncthreads();
+    if (/*TSEM*/true)
+      sem_graph<G>(sem_src<G>(t, staged ? acts + 4 * GR : nullptr, j, d, 0),
+                   col, acts + GR, acts + 2 * GR, nf, j, d, 0);
+    product_t<G, 2, G::S, false, false>(tr.sem, sw, ring, g, total, t,
+                                        nheads, tr, acts, 0, 0, 0,
+                                        t.proj_scale + 2 * C,
+                                        t.proj_shift + 2 * C, 2, 4);
+    __syncthreads();
+    if (/*TSEM*/true)
+      sem_graph<G>(sem_src<G>(t, staged ? acts + 3 * GR : nullptr, j, d, 1),
+                   col, acts + 2 * GR, acts + 4 * GR, nf, j, d, 1);
+    product_t<G, 1, 2 * G::S, true, false>(tr.lcat, sw, ring, g, total, t,
+                                           nheads, tr, acts, 1, 2, 0,
+                                           t.lcat_scale, t.lcat_shift, 3, 0);
+    if constexpr (!G::FOLD)
+      product_t<G, 2, G::S, false, false>(tr.proj, sw, ring, g, total, t,
+                                          nheads, tr, acts, 0, 0, 0,
+                                          t.proj_scale + 4 * C,
+                                          t.proj_shift + 4 * C, 1, 2);
+    product_t<G, 1, G::S, false, false, true>(tr.proj, sw, ring, g, total,
+                                              t, nheads, tr, acts, 0, 0, 0,
+                                              t.proj_scale + gcol,
+                                              t.proj_shift + gcol, 4, 0);
+    __syncthreads();
     if (/*TATTN*/true)
-      attention_tiered<G>(acts + GR, acts + 2 * GR, acts + 4 * GR, nf, j,
-                          nheads, scores, ck, tr.score, tr.apply, acts);
-    product_tc<G, 1, S, true, false>(tr.acat, t, ring, wb, g, total, nheads,
-                                     acts, 1, 0, 0, t.acat_scale,
-                                     t.acat_shift, 2, 0);
+      attention_t<G>(acts + GR, acts + 2 * GR, acts + 4 * GR, sc, nf, j,
+                     nheads, pr, ck, tr.score, tr.apply, acts);
+    product_t<G, 1, G::S, true, false>(tr.acat, sw, ring, g, total, t,
+                                       nheads, tr, acts, 1, 0, 0,
+                                       t.acat_scale, t.acat_shift, 2, 0);
     const long long f1 = (tile + gridDim.x) * fpt;
     const bool more = tile + gridDim.x < tiles;
-    const Prefetch pre{more ? elem_ptr(x, f1 * j * C, x_bf) : nullptr, x_bf,
-                       more ? (int)min((long long)fpt, frames - f1) * j : 0,
-                       j, d, more && staged};
-    product_tc<G, 2, 3 * S, true, true>(
-        tr.gcat, t, ring, wb, g, total, nheads, acts, 0, 3, 2, t.gcat_scale,
-        t.gcat_shift, 0, 0,
+    const TPrefetch pre{more ? elem_ptr(x, f1 * j * C, x_bf) : nullptr, x_bf,
+                        more && x_raw,
+                        more ? (int)min((long long)fpt, frames - f1) * j : 0,
+                        j, d, more && staged};
+    product_t<G, 2, 3 * G::S, true, true>(
+        tr.gcat, sw, ring, g, total, t, nheads, tr, acts, 0, 3, 2,
+        t.gcat_scale, t.gcat_shift, 0, 0,
         const_cast<void*>(elem_ptr(out, f0 * j * 2 * C, out_bf)), rows, &pre,
         out_bf);
   }
 }
 
+// The words of the scratch buffer a tiling's launch needs (CTL, then a
+// tile's slabs).
+template <class G>
+constexpr long long scratch_words() {
+  return CTL + (long long)G::SPT * Tc<G>::WORDS;
+}
+
+// As many persistent blocks as fit on the card, but no more than tiles,
+// all resident at once (the grid barrier waits for every one).
 template <class G>
 int launch_tiered(const void* x, void* out, long long frames, int j, int d,
                   int nheads, const Tables& t, cudaStream_t stream, bool x_bf,
-                  bool out_bf, const Tiers& tr) {
+                  bool out_bf, const Tiers& tr, void* scratch,
+                  long long scratch_size) {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -1393,10 +1623,14 @@ int launch_tiered(const void* x, void* out, long long frames, int j, int d,
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
+  if (scratch == nullptr || !aligned16(scratch) ||
+      scratch_size < scratch_words<G>())
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
-      sizeof(float) * ((size_t)5 * G::GROUP + G::STAGES * G::SLAB +
-                       2 * Tc<G>::WB_HALF + nheads * j * j +
-                       (G::FOLD ? 0 : 4 * G::C)) +
+      sizeof(float) *
+          ((size_t)5 * G::GROUP + G::STAGES * Tc<G>::WORDS +
+           nheads * j * j + 2 * MAX_HEADS * G::BM +
+           (G::FOLD ? fold_tiered_floats(G::C, nheads) : 4 * G::C)) +
       sizeof(int) * 2 * j * d;
   cudaError_t e = cudaFuncSetAttribute(
       gab_narrow_tiered_kernel<G>,
@@ -1409,11 +1643,17 @@ int launch_tiered(const void* x, void* out, long long frames, int j, int d,
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int fpt = G::BM / j;
   const long long tiles = (frames + fpt - 1) / fpt;
+  // x's rows are staged raw where x and its tiles start on 16 bytes (C is
+  // a multiple of 16, so a tile's rows do where x does).
+  const bool raw = x_bf && aligned16(x);
   if (tiles > 0) {
     const long long blocks =
         tiles < (long long)per_sm * sms ? tiles : (long long)per_sm * sms;
+    if ((tiles / blocks + 1) * G::SPT > INT_MAX)
+      return static_cast<int>(cudaErrorInvalidValue);
     gab_narrow_tiered_kernel<G><<<(unsigned)blocks, G::NT, smem, stream>>>(
-        x, out, frames, fpt, tiles, j, d, nheads, t, x_bf, out_bf, tr);
+        x, out, frames, fpt, tiles, j, d, nheads, t, x_bf, out_bf, raw, tr,
+        static_cast<uint32_t*>(scratch));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1483,9 +1723,58 @@ int by_width(int c, L launch_cfg) {
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
-
 }  // namespace
 
+// The fold form's launch, which the C functions of part 1 call and part 2
+// defines where the library is built in parts (GASTX_NARROW_PART, above);
+// p: the 20 tables in GabTables' order (as the C functions take them).
+namespace gastx_narrow_parts {
+#ifndef GASTX_TIERED_FORM
+__attribute__((visibility("hidden"))) int fold(
+    const void* x, void* out, long long frames, int j, int c, int d,
+    int nheads, const void* const* p, cudaStream_t st, bool xb, bool ob);
+#if NARROW_FOLD
+int fold(const void* x, void* out, long long frames, int j, int c, int d,
+         int nheads, const void* const* p, cudaStream_t st, bool xb,
+         bool ob) {
+  const Tables t = make_tables(p);
+  return by_width(c, [&](auto cfg) {
+    using G = decltype(cfg);
+    if constexpr (G::C <= MAX_FOLD_C)
+      return launch<FoldCfg<G>>(x, out, frames, j, d, nheads, t, st, xb, ob);
+    else
+      return static_cast<int>(cudaErrorInvalidValue);
+  });
+}
+#endif
+#else
+// codes: the seven tier codes in Tiers' order.
+__attribute__((visibility("hidden"))) int fold(
+    const void* x, void* out, long long frames, int j, int c, int d,
+    int nheads, const void* const* p, cudaStream_t st, bool xb, bool ob,
+    const int* codes, void* scratch, long long scratch_size);
+#if NARROW_FOLD
+int fold(const void* x, void* out, long long frames, int j, int c, int d,
+         int nheads, const void* const* p, cudaStream_t st, bool xb, bool ob,
+         const int* codes, void* scratch, long long scratch_size) {
+  const Tables t = make_tables(p);
+  const Tiers tr{codes[0], codes[1], codes[2], codes[3],
+                 codes[4], codes[5], codes[6]};
+  return by_width(c, [&](auto cfg) {
+    constexpr int width = decltype(cfg)::C;
+    using G = typename TieredCfg<width <= MAX_TIERED_C ? width : 16>::type;
+    if constexpr (width > MAX_TIERED_C)
+      return static_cast<int>(cudaErrorInvalidValue);
+    else
+      return launch_tiered<FoldCfg<G>>(x, out, frames, j, d, nheads, t, st,
+                                       xb, ob, tr, scratch, scratch_size);
+  });
+}
+#endif
+#endif  // GASTX_TIERED_FORM
+}  // namespace gastx_narrow_parts
+
+#if NARROW_V1
 extern "C" {
 
 #ifndef GASTX_TIERED_FORM
@@ -1518,14 +1807,12 @@ int gab_narrow(const void* x, void* out, long long frames, int j, int c,
     return static_cast<int>(cudaErrorInvalidValue);
   const bool xb = x_bf16 != 0, ob = out_bf16 != 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (fold)
+    return gastx_narrow_parts::fold(x, out, frames, j, c, d, nheads, p, st,
+                                    xb, ob);
   return by_width(c, [&](auto cfg) {
-    using G = decltype(cfg);
-    if constexpr (G::C <= MAX_FOLD_C) {
-      if (fold)
-        return launch<FoldCfg<G>>(x, out, frames, j, d, nheads, t, st, xb,
-                                  ob);
-    }
-    return launch<G>(x, out, frames, j, d, nheads, t, st, xb, ob);
+    return launch<decltype(cfg)>(x, out, frames, j, d, nheads, t, st, xb,
+                                 ob);
   });
 }
 #else
@@ -1534,7 +1821,9 @@ int gab_narrow(const void* x, void* out, long long frames, int j, int c,
 // tier codes of the projection's sem columns, its attention columns (the
 // fold form's g; its sa | sb take the score's), the local cat, the global
 // cat and the block concat (0 default .. 3 high) and of the attention's
-// score and apply dots (0 highest .. 4 high).
+// score and apply dots (0 highest .. 4 high), then the scratch buffer the
+// launch splits the weights into (16-byte aligned, scratch_size 4-byte
+// words; kernels.narrow_scratch) and that no other launch uses meanwhile.
 int gab_narrow_tiered(const void* x, void* out, long long frames, int j,
                       int c, int d, int nheads, int inter, int g_ch,
                       const void* w_proj, const void* proj_scale,
@@ -1549,7 +1838,8 @@ int gab_narrow_tiered(const void* x, void* out, long long frames, int j,
                       const void* gcat_scale, const void* gcat_shift,
                       void* stream, int x_bf16, int out_bf16, int fold,
                       int sem, int proj, int lcat, int acat, int gcat,
-                      int score, int apply) {
+                      int score, int apply, void* scratch,
+                      long long scratch_size) {
   const void* p[20] = {w_proj,     proj_scale, proj_shift, w_self,
                        w_nbr,      col,        sem_scale,  sem_shift,
                        lcat_w,     lcat_scale, lcat_shift, proj_t,
@@ -1566,17 +1856,17 @@ int gab_narrow_tiered(const void* x, void* out, long long frames, int j,
     return static_cast<int>(cudaErrorInvalidValue);
   const bool xb = x_bf16 != 0, ob = out_bf16 != 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (fold)
+    return gastx_narrow_parts::fold(x, out, frames, j, c, d, nheads, p, st,
+                                    xb, ob, codes, scratch, scratch_size);
   return by_width(c, [&](auto cfg) {
     constexpr int width = decltype(cfg)::C;
     using G = typename TieredCfg<width <= MAX_TIERED_C ? width : 16>::type;
     if constexpr (width > MAX_TIERED_C)
       return static_cast<int>(cudaErrorInvalidValue);
-    else if (fold)
-      return launch_tiered<FoldCfg<G>>(x, out, frames, j, d, nheads, t, st,
-                                       xb, ob, tr);
     else
       return launch_tiered<G>(x, out, frames, j, d, nheads, t, st, xb, ob,
-                              tr);
+                              tr, scratch, scratch_size);
   });
 }
 
@@ -1587,3 +1877,4 @@ const char* error_string(int code) {
 }
 
 }  // extern "C"
+#endif  // NARROW_V1

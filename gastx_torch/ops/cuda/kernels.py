@@ -34,9 +34,11 @@ plain C interface:
     (``NARROW_WIDTHS``, C = 16 .. 96 in steps of 16) in one launch, every
     intermediate in shared memory; in float32, or in its tiered form
     (``NARROW_TIERED_WIDTHS``, C <= 64) with its products as bf16
-    ``mma.sync`` passes at each class's tier (:func:`narrow_form`); each
-    also in the fold form of the tables (``NARROW_FOLD_WIDTHS``), its
-    scores folded into the projection.
+    ``mma.sync`` passes at each class's tier (:func:`narrow_form`), its
+    launch splitting the weights once into a scratch buffer
+    (:func:`narrow_scratch`, :func:`narrow_split_plain`); each also in the
+    fold form of the tables (``NARROW_FOLD_WIDTHS``), its scores folded
+    into the projection.
 
 ``gemm_epilogue``, ``gemm_tc`` and ``gab_narrow`` also read and write
 bf16 (bf16 storage, ``gastx_torch.models.config``): each A piece of a GEMM
@@ -69,9 +71,11 @@ and ``fused_global_attention`` (``global_attn.py``: ``global_chain``).
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library under ``build/gastx_torch/`` at the root of the checkout (named
 by a hash of the source and flags, so an edited source is rebuilt), at
-first use, all ``nvcc`` processes started together, and loaded with
-``ctypes``. Kernels launch on PyTorch's current stream and allocate
-nothing: the wrappers allocate outputs with ``torch.empty``.
+first use, all ``nvcc`` processes started together (``gab_narrow.cu``'s
+libraries in two parts each, ``PART_SOURCES``, linked after), and loaded
+with ``ctypes``. Kernels launch on PyTorch's current stream and allocate
+nothing: the wrappers allocate outputs with ``torch.empty`` (and the
+tiered ``gab_narrow``'s scratch buffer once a stream).
 
 Every wrapper checks device, dtype, shape and contiguity, and raises
 (:func:`check_no_grad`) when grad mode is on and an input requires a
@@ -130,6 +134,12 @@ IO_FLAGS = ("-DGASTX_BF16_IO",)
 # float32 library keeps its code.
 TIERED_SOURCES = ("gab_narrow",)
 TIERED_FLAGS = ("-DGASTX_TIERED_FORM",)
+# The sources whose every library is compiled in parts, one ``nvcc -c`` a
+# part with its flags, all started with the other libraries, and linked
+# into the one library: gab_narrow.cu's v1 instantiations and C functions
+# (part 1) and its fold instantiations (part 2), its longest compiles.
+NARROW_PARTS = ("-DGASTX_NARROW_PART=1", "-DGASTX_NARROW_PART=2")
+PART_SOURCES = {"gab_narrow": NARROW_PARTS}
 
 # The port's entry points that replace TPU kernels. The one ``fused_gab``
 # counts under the TPU kernel it stands for: ``fused_gab_pbatch`` for
@@ -241,9 +251,10 @@ _ARGTYPES = {
     # its field order (narrow_table_ptrs), stream, x bf16, out bf16, fold
     "gab_narrow": [_P, _P, _LL, _I, _I, _I, _I, _I, _I] + [_P] * 21
     + [_I, _I, _I],
-    # as gab_narrow's, then the tier codes of NARROW_TIER_CLASSES
+    # as gab_narrow's, then the tier codes of NARROW_TIER_CLASSES, the
+    # scratch buffer and its size in words (narrow_scratch)
     "gab_narrow_tiered": [_P, _P, _LL, _I, _I, _I, _I, _I, _I] + [_P] * 21
-    + [_I, _I, _I] + [_I] * 7,
+    + [_I, _I, _I] + [_I] * 7 + [_P, _LL],
     # per piece (a, K, a_off) x 3, npieces, g, m, n, s_out, a_s_in, the
     # workspace, splits, chunk, out, stream, tier code (TC_TIERS): the
     # general and the smallk instantiations
@@ -350,44 +361,82 @@ def _libraries() -> Dict[str, Tuple[str, Tuple[str, ...]]]:
 def _library_path(name: str) -> Path:
     source, flags = _libraries()[name]
     src = (CSRC_DIR / f"{source}.cu").read_bytes()
-    digest = hashlib.sha1(
-        src + " ".join(NVCC_FLAGS + flags).encode()).hexdigest()
+    digest = hashlib.sha1(src + " ".join(
+        NVCC_FLAGS + flags + PART_SOURCES.get(source, ())).encode()
+    ).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
+def _compile_commands(source: str, flags: Tuple[str, ...], tmp: Path
+                      ) -> List[List[str]]:
+    """The ``nvcc`` commands that build one library into ``tmp``: one
+    command, or, for a source of ``PART_SOURCES``, one ``-c`` a part (its
+    object beside ``tmp``) that ``_link_command`` links."""
+    src = str(CSRC_DIR / f"{source}.cu")
+    if source not in PART_SOURCES:
+        return [[_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), src]]
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    return [[_nvcc(), *compile_flags, *flags, part, "-c", "-o",
+             f"{tmp}.part{i}.o", src]
+            for i, part in enumerate(PART_SOURCES[source])]
+
+
+def _link_command(source: str, tmp: Path) -> List[str]:
+    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+            "-o", str(tmp)] + [f"{tmp}.part{i}.o"
+                               for i in range(len(PART_SOURCES[source]))]
+
+
 def build_kernels() -> Dict[str, str]:
-    """Compile every library whose file is missing, one ``nvcc`` each, all
-    started together, and load them all. Returns the compiler output
-    (``ptxas -v``: registers, shared memory, spills) of each library
+    """Compile every library whose file is missing, one ``nvcc`` each (or
+    one a part, ``PART_SOURCES``, then a link), all started together, and
+    load them all. Returns the compiler output (``ptxas -v``: registers,
+    shared memory, spills; and each command's seconds) of each library
     built."""
+    import time
+
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     try:
+        start = time.perf_counter()
         for name, (source, flags) in _libraries().items():
             lib = _library_path(name)
             if lib.exists():
                 continue
             tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp),
-                   str(CSRC_DIR / f"{source}.cu")]
-            procs[name] = (subprocess.Popen(
+            procs[name] = ([subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True), tmp, lib)
+                text=True) for cmd in _compile_commands(source, flags, tmp)],
+                source, tmp, lib)
         logs = {}
-        for name, (proc, tmp, lib) in procs.items():
-            out, _ = proc.communicate()
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {name}.cu:\n{out}")
+        for name, (parts, source, tmp, lib) in procs.items():
+            outs = []
+            for i, proc in enumerate(parts):
+                out, _ = proc.communicate()
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {name}.cu:\n{out}")
+                outs.append(f"{out}[{name} part {i}: "
+                            f"{time.perf_counter() - start:.1f} s]\n")
+            if source in PART_SOURCES:
+                link = subprocess.run(_link_command(source, tmp),
+                                      capture_output=True, text=True)
+                if link.returncode != 0:
+                    raise RuntimeError(f"linking {name} failed:\n"
+                                       f"{link.stdout}{link.stderr}")
+                for i in range(len(parts)):
+                    os.remove(f"{tmp}.part{i}.o")
             os.replace(tmp, lib)
-            logs[name] = out
+            logs[name] = "".join(outs) + (
+                f"[{name}: {time.perf_counter() - start:.1f} s]\n")
         for name in _libraries():
             _lib(name)
         return logs
     finally:
-        for proc, _, _ in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        for parts, _, _, _ in procs.values():
+            for proc in parts:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -1386,13 +1435,17 @@ NARROW_TIERED_WIDTHS = (16, 32, 48, 64)
 NARROW_ROUTE_WIDTHS = (16, 32, 48, 64)
 # The widths at which gab_narrow's tiered form (its GEMM classes on the
 # tensor cores) beat the tiered chain on the card
-# (scripts/torch_gab_narrow_phases.py --tiered, 256 x 241 frames of J=17;
-# NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6), all "high" / the JAX
-# preset's tiers: 1.037 / 0.947 ms against the chain's 2.597 / 1.960 at
-# C=16, 2.098 / 1.904 against 2.659 / 2.352 at C=32, but 4.320 / 3.928
-# against 3.673 / 3.075 at C=48 and 6.583 / 5.940 against 4.436 / 3.774
-# at C=64. Every other width runs the tiered chain.
-NARROW_ROUTE_WIDTHS_TIERED = (16, 32)
+# (scripts/torch_gab_narrow_phases.py --tiered --tiered-parent, 256 x 241
+# frames of J=17; NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6): since
+# its redesign every width, at each tier set of
+# chip_smoke.NARROW_TIERS; all "high" / the JAX preset's tiers, two turns:
+# 0.755-0.765 / 0.701-0.706 ms against the chain's 2.562 / 1.945 at C=16,
+# 1.430-1.438 / 1.322-1.337 against 2.692 / 2.363 at C=32, 2.778-2.802 /
+# 2.471-2.490 against 3.822 / 3.113 at C=48 and 3.499-3.583 / 3.102
+# against 4.424 / 3.754 at C=64 (its first design lost at C=48, 64:
+# 4.320 / 3.928 against 3.673 / 3.075, 6.583 / 5.940 against 4.436 /
+# 3.774).
+NARROW_ROUTE_WIDTHS_TIERED = (16, 32, 48, 64)
 # The widths gab_narrow.cu instantiates the fold form for, in both forms
 # (the v1 kernel loses to the chain above C = 64).
 NARROW_FOLD_WIDTHS = (16, 32, 48, 64)
@@ -1402,11 +1455,13 @@ NARROW_FOLD_WIDTHS = (16, 32, 48, 64)
 # against the fold chain's 2.085 at C=16, 1.838 / 3.264 at 32, 4.116 /
 # 4.234 at 48, 5.319 / 5.547 at 64. Every other width runs the fold chain.
 NARROW_ROUTE_WIDTHS_FOLD = (16, 32, 48, 64)
-# The same for its tiered form, all "high" / the JAX preset's tiers: 1.051
-# / 0.936 against 2.291 / 1.858 at C=16, 2.036 / 1.816 against 2.451 /
-# 2.237 at C=32, but 4.119 / 3.773 against 3.289 / 2.928 at C=48 and
-# 6.134 / 5.471 against 4.130 / 3.718 at C=64.
-NARROW_ROUTE_WIDTHS_FOLD_TIERED = (16, 32)
+# The same for its tiered form (its redesign; the same runs), all
+# "high" / the JAX preset's tiers: 0.774-0.775 / 0.723-0.729 ms against
+# the fold chain's 2.169 / 1.825 at C=16, 1.507-1.510 / 1.338-1.359
+# against 2.453 / 2.252 at C=32, 2.738-2.741 / 2.549-2.554 against 3.354 /
+# 2.948 at C=48, 3.458-3.488 / 3.164-3.171 against 4.152 / 3.797 at C=64:
+# every width (its first design: C = 16, 32 alone).
+NARROW_ROUTE_WIDTHS_FOLD_TIERED = (16, 32, 48, 64)
 # The chain's GEMM classes: below "highest" they launch gemm_tc.
 GEMM_OPS = ("local_sem", "local_cat", "attn_proj", "attn_cat", "gab_cat")
 # The tier codes gab_narrow's tiered form takes, in its C order: the GEMM
@@ -1547,7 +1602,10 @@ def gab_narrow(x: torch.Tensor, t,
     kernel, or the tiered one, whose products run as bf16 ``mma.sync``
     passes at each class's tier and whose attention rounds its operands
     as ``joint_attention`` does (``TIER_LAUNCHES["gab_narrow"]`` counts
-    its launches by their tiers). Fold tables (``t.form == "fold"``) run
+    its launches by their tiers); the launch first splits the weights into
+    the stream's scratch buffer (:func:`narrow_scratch`, made at the first
+    tiered launch on a stream, then reused). Fold tables (``t.form ==
+    "fold"``) run
     either kernel's fold form: the scores are two C-long dots of x a row
     and head against the folded columns, at ``attn_score``'s tier
     (``VARIANT_LAUNCHES["gab_narrow"]`` counts launches by form)."""
@@ -1572,10 +1630,102 @@ def gab_narrow(x: torch.Tensor, t,
         return out
     tiers = {op: "default" if v == "kdefault" else v
              for op, v in tiers.items()}
-    codes = [TC_TIERS.index(tiers[op]) for op in NARROW_TIER_CLASSES[:5]]
-    codes += [ATTN_TIERS.index(tiers[op]) for op in NARROW_TIER_CLASSES[5:]]
+    codes = narrow_tier_codes(tiers)
     label = "/".join(tiers[op] for op in NARROW_TIER_CLASSES)
-    _launch("gab_narrow", *args, *codes, symbol="gab_narrow_tiered",
+    scratch = narrow_scratch(device, args[-4])
+    _launch("gab_narrow", *args, *codes, scratch.data_ptr(),
+            scratch.numel(), symbol="gab_narrow_tiered",
             library="gab_narrow_tiered", variant=t.form,
             tier=f"fold {label}" if fold else label, io=io)
     return out
+
+
+def narrow_tier_codes(tiers: Dict[str, str]) -> List[int]:
+    """The tiered ``gab_narrow``'s tier codes of ``NARROW_TIER_CLASSES``:
+    ``TC_TIERS`` for the GEMM classes (``"kdefault"`` as ``"default"``),
+    ``ATTN_TIERS`` for the attention's."""
+    tiers = {op: "default" if v == "kdefault" else v
+             for op, v in tiers.items()}
+    return ([TC_TIERS.index(tiers[op]) for op in NARROW_TIER_CLASSES[:5]]
+            + [ATTN_TIERS.index(tiers[op]) for op in NARROW_TIER_CLASSES[5:]])
+
+
+# The tiered gab_narrow's scratch buffer: its launch splits the weights
+# into it (gab_narrow.cu, split_weights), after NARROW_SCRATCH_CTL words of
+# a grid barrier's counters, which start at 0 and which the launch leaves
+# at 0. One zeroed buffer of NARROW_SCRATCH_WORDS int32 words a (device,
+# stream), made at its first launch: launches on one stream run in turn.
+NARROW_SCRATCH_CTL = 16
+NARROW_SCRATCH_WORDS = 1 << 17
+_NARROW_SCRATCH: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+# The tiered form's slab rows at each width (gab_narrow.cu TieredCfg).
+NARROW_TIERED_BK = {16: 16, 32: 32, 48: 48, 64: 32}
+
+
+def narrow_scratch(device: torch.device, stream: int) -> torch.Tensor:
+    """The scratch buffer of tiered ``gab_narrow`` launches on ``stream``
+    of ``device``."""
+    key = (device, stream)
+    if key not in _NARROW_SCRATCH:
+        _NARROW_SCRATCH[key] = torch.zeros(NARROW_SCRATCH_WORDS,
+                                           dtype=torch.int32, device=device)
+    return _NARROW_SCRATCH[key]
+
+
+def narrow_slabs(t) -> List[Tuple[str, torch.Tensor]]:
+    """The products of a tile's slab stream in the tiered ``gab_narrow``,
+    in order: (name, W as (K, N) float32), P1 .. P7 (the fold form without
+    P4, its P5 the g columns past the 2K folded score columns)."""
+    c, k = t.w_proj.shape[0], t.proj_t.shape[0]
+    g0 = 4 * c + 2 * k if t.form == "fold" else 6 * c
+    slabs = [("P1", t.w_proj[:, :2 * c]), ("P2", t.w_proj[:, 2 * c:4 * c]),
+             ("P3", t.lcat_w)]
+    if t.form != "fold":
+        slabs.append(("P4", t.w_proj[:, 4 * c:6 * c]))
+    return slabs + [("P5", t.w_proj[:, g0:g0 + c]), ("P6", t.acat_w),
+                    ("P7", t.gcat_w)]
+
+
+def _bf16_bits(a: torch.Tensor) -> torch.Tensor:
+    return a.view(torch.int16).to(torch.int64) & 0xFFFF
+
+
+def narrow_word(n, kp, bk: int):
+    """The offset of word (column n, k pair kp) in a half slab of the
+    tiered ``gab_narrow`` (``Tc::word``): BK / 2 words a column, its
+    16-byte chunk kp // 4 XOR'd with bits 1-2 of n (4 chunks a column) or
+    bit 2 (2 or 6), so that an ldmatrix's 8 columns hit distinct banks."""
+    kpw = bk // 2
+    sw = (n >> 1) & 3 if kpw % 16 == 0 else (n >> 2) & 1
+    return n * kpw + (((kp >> 2) ^ sw) << 2) + (kp & 3)
+
+
+def narrow_split_plain(t) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the tiered ``gab_narrow``'s split: the words its
+    launch writes into the scratch buffer, as (word offsets past the
+    ``NARROW_SCRATCH_CTL`` counter words, int32 words). Each product's W (K,
+    N) is cut into slabs of ``BK = NARROW_TIERED_BK[C]`` rows in stream
+    order (:func:`narrow_slabs`), each slab ``2C * BK`` words: word (n, kp)
+    of its hi half, at ``narrow_word(n, kp, BK)``, holds bf16(W[2kp, n]) in
+    its low 16 bits and bf16(W[2kp + 1, n]) in its high ones (rounded to
+    nearest even, the slab's rows), and its lo half, ``C * BK`` words on,
+    the same of W - hi (``precision.split_bf16``)."""
+    c = t.w_proj.shape[0]
+    bk = NARROW_TIERED_BK[c]
+    half = c * bk
+    offsets, words, base = [], [], 0
+    for _, w in narrow_slabs(t):
+        hi, lo = split_bf16(w.float())
+        kk, n = w.shape
+        for k0 in range(0, kk, bk):
+            kp = torch.arange(bk // 2, device=w.device)[:, None]
+            col = torch.arange(n, device=w.device)[None, :]
+            at = (base + narrow_word(col, kp, bk)).reshape(-1)
+            for h, part in ((0, hi), (half, lo)):
+                bits = _bf16_bits(part[k0:k0 + bk])
+                offsets.append(at + h)
+                words.append((bits[0::2] | bits[1::2] << 16).reshape(-1))
+            base += 2 * half
+    words = torch.cat(words)
+    return torch.cat(offsets), torch.where(
+        words >= 1 << 31, words - (1 << 32), words).to(torch.int32)

@@ -28,6 +28,18 @@ preset's kernel tiers at the 243f model's GAB 1 (one pass each), with the
 bound of each (``chip_smoke.narrow_bound``): the numbers
 ``kernels.NARROW_ROUTE_WIDTHS_TIERED`` follows.
 
+``--tiered --tiered-cuts`` times the tiered form's builds with each
+phase of its design cut out (``TIERED_CUTS``) at the 243f model's GAB 0
+(v1 at "high", fold at the preset) and GAB 1 (v1 at "high").
+``--tiered --tiered-variants`` times builds with one design choice
+undone each (``TIERED_VARIANTS``) at GAB 0 and GAB 1, v1, "high" and the
+preset.
+``--tiered --tiered-parent TREE`` times it in turns with TREE's tiered
+form (a checkout from before the scratch buffer, e.g. a ``git archive``
+of the parent under ``build/``) at every width, form and
+``chip_smoke.NARROW_TIERS`` entry, beside the tiered chain: the numbers
+``kernels.NARROW_ROUTE_WIDTHS_TIERED`` and ``_FOLD_TIERED`` follow.
+
 ``--fold`` times ``gab_narrow``'s fold form (``gab_tables(..., "fold")``)
 beside the fold chain and beside the v1 ``gab_narrow`` on the v1 tables
 of the same GAB, at every width of ``kernels.NARROW_FOLD_WIDTHS`` (level
@@ -37,7 +49,9 @@ fold bound (``narrow_bound(..., fold=True)``): the numbers
 ``kernels.NARROW_ROUTE_WIDTHS_FOLD[_TIERED]`` follow.
 
     python3 scripts/torch_gab_narrow_phases.py [--source F.cu] [--no-cuts]
-        [--widths] [--tiered [--tiered-cuts]] [--fold] [--json F]
+        [--widths] [--tiered [--tiered-cuts] [--tiered-variants]
+        [--tiered-parent TREE]]
+        [--fold] [--json F]
 """
 from __future__ import annotations
 
@@ -76,18 +90,37 @@ CUTS = {
     "attention twice": [("if (/*ATTN*/true)",
                          "for (int rep_ = 0; rep_ < 2; ++rep_)")],
 }
-# --tiered --tiered-cuts: the tiered form's phases cut out, timed at the first
-# shape with every class at "high": its products' mma passes (the slabs
-# still stream and split), the slabs' split into bf16 words, the semantic
-# graph, the attention.
+# --tiered --tiered-cuts: the tiered form's phases cut out, timed at the
+# 243f GAB 0 (v1 at every class "high", fold at the preset) and GAB 1 (v1,
+# "high"): the launch's split of the weights (the grid barrier stays),
+# the slabs' copies into the ring, the products' mma passes (the slabs
+# still stream), the semantic graph, the attention, its apply pass alone.
 TIERED_CUTS = {
     "tiered whole": [],
+    "tiered no split": [_cut("TPRE")],
+    "tiered no slab copies": [_cut("TCOPY")],
     "tiered no mma": [_cut("TMMA")],
-    "tiered no slab split": [_cut("TSPLIT")],
     "tiered no semantic graph": [_cut("TSEM")],
     "tiered no attention": [_cut("TATTN")],
-    "tiered weight stream only": [_cut(t) for t in ("TMMA", "TSPLIT", "TSEM",
+    "tiered no apply": [_cut("TAPPLY")],
+    "tiered weight stream only": [_cut(t) for t in ("TMMA", "TSEM",
                                                      "TATTN")],
+}
+# --tiered --tiered-variants: the tiered form's design choices undone one
+# at a time, each a correct build, timed as the cuts are: one 512-thread
+# block an SM on 256-row tiles at C = 32 in place of two of 256 threads on
+# 128 rows; 16-row slabs (a barrier each) at C = 32 and 64 in place of
+# 32-row ones.
+TIERED_VARIANTS = {
+    "tiered whole": [],
+    "tiered one block at C=32": [
+        ("using type = Cfg<32, 32, 4, 2, 32, 2>;",
+         "using type = Cfg<32, 64, 4, 1, 32, 2>;")],
+    "tiered 16-row slabs": [
+        ("using type = Cfg<32, 32, 4, 2, 32, 2>;",
+         "using type = Cfg<32, 32, 4, 2, 16, 3>;"),
+        ("using type = Cfg<64, 32, 4, 1, 32, 2>;",
+         "using type = Cfg<64, 32, 4, 1, 16, 3>;")],
 }
 # (label, model receptive field, its GAB level, windows, frames at the GAB)
 SHAPES = (("C=32, T=241, B=256", 243, 0, 256, 241),
@@ -99,7 +132,7 @@ WIDTH_FRAMES = 256 * 241
 
 
 def build(K, source: str, cuts: dict, symbol: str = "gab_narrow",
-          flags=()) -> dict:
+          flags=(), argtypes=None, tag: str = "v") -> dict:
     src = open(source).read()
     os.makedirs(OUT, exist_ok=True)
     procs = {}
@@ -110,8 +143,9 @@ def build(K, source: str, cuts: dict, symbol: str = "gab_narrow",
                 raise SystemExit(f"cut {name!r}: the source no longer holds "
                                  f"{old!r}")
             text = text.replace(old, new)
-        cu = os.path.join(OUT, f"{symbol}_v{i}.cu")
-        lib = os.path.join(OUT, f"{symbol}_v{i}.so")
+        tag = "parent" if argtypes else tag
+        cu = os.path.join(OUT, f"{symbol}_{tag}{i}.cu")
+        lib = os.path.join(OUT, f"{symbol}_{tag}{i}.so")
         with open(cu, "w") as f:
             f.write(text)
         procs[name] = (subprocess.Popen(
@@ -122,12 +156,12 @@ def build(K, source: str, cuts: dict, symbol: str = "gab_narrow",
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed on build {name!r}:\n{out}")
-        if name == "whole":
+        if name in ("whole", "tiered whole", "parent"):
             print("\n".join(line for line in out.splitlines()
                             if "registers" in line or "spill" in line
                             or "Function properties" in line))
         fn = getattr(ctypes.CDLL(lib), symbol)
-        fn.argtypes = K._ARGTYPES[symbol]
+        fn.argtypes = argtypes or K._ARGTYPES[symbol]
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
@@ -287,30 +321,126 @@ def time_tiered(K, cases) -> dict:
     return out
 
 
-def time_tiered_cuts(K, fns, label, tab, frames) -> dict:
-    """Each ``TIERED_CUTS`` build of the tiered form at one shape, every
-    class at "high" (a cut build computes garbage; only its time is
-    read)."""
-    import torch
-    from chip_smoke import cuda_ms
-
+def _tiered_call(K, fn, x, out, tab, tiers, fold, scratch=True):
+    """A call of a tiered C function ``fn`` on x into out at ``tiers``,
+    with the scratch buffer (this checkout's signature) or without (the
+    parent's, from before the scratch buffer)."""
     c, k, inter, g_ch, j, d = K.gab_shape(tab)
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    x = torch.randn(frames * j, c, generator=gen, device="cuda")
-    out = torch.empty(frames * j, 2 * c, device="cuda")
-    stream = torch.cuda.current_stream().cuda_stream
-    codes = [K.TC_TIERS.index("high")] * 5 + [K.ATTN_TIERS.index("high")] * 2
+    stream = torch_stream()
+    extra = []
+    if scratch:
+        buf = K.narrow_scratch(x.device, stream)
+        extra = [buf.data_ptr(), buf.numel()]
+    args = [x.data_ptr(), out.data_ptr(), x.shape[0] // j, j, c, d, k, inter,
+            g_ch, *K.narrow_table_ptrs(tab), stream, 0, 0, int(fold),
+            *K.narrow_tier_codes(tiers), *extra]
+
+    def call():
+        code = fn(*args)
+        if code != 0:
+            raise SystemExit(f"tiered launch failed ({code})")
+    return call
+
+
+def torch_stream() -> int:
+    import torch
+
+    return torch.cuda.current_stream().cuda_stream
+
+
+def time_tiered_cuts(K, fns, cases) -> dict:
+    """Each ``TIERED_CUTS`` build of the tiered form at each (label, tables,
+    frames, tier set) of ``cases`` (a cut build computes garbage; only its
+    time is read)."""
+    import torch
+    from chip_smoke import cuda_ms, narrow_tier_dict
+
     result = {}
-    for name, fn in fns.items():
-        def call(fn=fn):
-            code = fn(x.data_ptr(), out.data_ptr(), frames, j, c, d, k, inter,
-                      g_ch, *K.narrow_table_ptrs(tab), stream, 0, 0, 0,
-                      *codes)
-            if code != 0:
-                raise SystemExit(f"{name}: launch failed ({code})")
-        result[name] = cuda_ms(call)
-        print(f"{label} {name} (high): {result[name]:.3f} ms", flush=True)
+    for label, tab, frames, tier in cases:
+        c = tab.w_proj.shape[0]
+        j = tab.c_k.shape[1]
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        x = torch.randn(frames * j, c, generator=gen, device="cuda")
+        out = torch.empty(frames * j, 2 * c, device="cuda")
+        key = f"{label} {tab.form} {tier}"
+        result[key] = {}
+        for name, fn in fns.items():
+            result[key][name] = cuda_ms(_tiered_call(
+                K, fn, x, out, tab, narrow_tier_dict(tier),
+                tab.form == "fold"))
+            print(f"{key} {name}: {result[key][name]:.3f} ms", flush=True)
+        del x, out
+        torch.cuda.empty_cache()
     return result
+
+
+def time_tiered_turns(K, parent) -> dict:
+    """The tiered gab_narrow against the parent tree's (``parent``: its C
+    function, without the scratch arguments) in turns (parent, change,
+    change, parent) at every width of ``NARROW_TIERED_WIDTHS``, both
+    forms, every ``chip_smoke.NARROW_TIERS`` entry, 256 x 241 frames,
+    beside the tiered (fold) chain and the bound; each kernel held to its
+    plain version first (``chip_smoke.tier_bound``), the change's
+    scratch to ``kernels.narrow_split_plain`` bit for bit, and the two
+    outputs compared bit for bit."""
+    import torch
+    from chip_smoke import (NARROW_TIERS, cuda_ms, max_err, narrow_bound,
+                            narrow_tier_dict, tier_bound)
+
+    out = {}
+    for c in K.NARROW_TIERED_WIDTHS:
+        for form in ("v1", "fold"):
+            tab = _width_tables(K, c, form)
+            _, k, inter, g_ch, j, d = K.gab_shape(tab)
+            gen = torch.Generator(device="cuda").manual_seed(6)
+            x = torch.randn(WIDTH_FRAMES * j, c, generator=gen, device="cuda")
+            y = torch.empty(WIDTH_FRAMES * j, 2 * c, device="cuda")
+            f32 = K.gab_narrow_plain(x, tab)
+            fold = form == "fold"
+            for name in NARROW_TIERS:
+                tiers = narrow_tier_dict(name)
+                label = f"C={c} {form} {name}"
+                plain = K.gab_narrow_plain(x, tab, tiers=tiers)
+                bound_ = tier_bound(plain, f32)[0]
+                old = _tiered_call(K, parent, x, y, tab, tiers, fold,
+                                   scratch=False)
+                old()
+                err_old = max_err(y, plain)
+                got = K.gab_narrow(x, tab, tiers=tiers)
+                err = max_err(got, plain)
+                same = bool(torch.equal(got, y))
+                if not (err <= bound_ and err_old <= bound_):
+                    raise SystemExit(f"{label}: disagrees with its plain "
+                                     f"version: {err} (parent {err_old}) > "
+                                     f"{bound_}")
+                off, words = K.narrow_split_plain(tab)
+                buf = K.narrow_scratch(x.device, torch_stream())
+                if not (torch.equal(buf[K.NARROW_SCRATCH_CTL + off], words)
+                        and int(buf[:2].abs().sum()) == 0):
+                    raise SystemExit(f"{label}: the scratch does not hold "
+                                     f"narrow_split_plain's words")
+                del got, plain
+                new = lambda: K.gab_narrow(x, tab, tiers=tiers)  # noqa
+                turns = [cuda_ms(old), cuda_ms(new), cuda_ms(new),
+                         cuda_ms(old)]
+                chain_ms = cuda_ms(lambda: K.gab_chain(
+                    x, tab, K.gemm_epilogue, K.sem_graph, K.joint_attention,
+                    tiers))
+                bms, by = narrow_bound(x.shape[0], c, j, k, inter, g_ch, d,
+                                       tiers, fold=fold)
+                out[label] = {"ms": turns[1:3], "parent_ms": turns[::3],
+                              "chain_ms": chain_ms, "bound_ms": bms,
+                              "bound_by": by, "max_abs_err": err,
+                              "parent_max_abs_err": err_old,
+                              "bitwise_parent": same}
+                print(f"tiered {label}: {turns[1]:.3f} / {turns[2]:.3f} ms, "
+                      f"parent {turns[0]:.3f} / {turns[3]:.3f}, chain "
+                      f"{chain_ms:.3f}, bound {bms:.3f} by {by}, max|d| "
+                      f"{err:.3e} (parent {err_old:.3e}; bitwise the "
+                      f"parent's: {same})", flush=True)
+            del x, y, f32
+            torch.cuda.empty_cache()
+    return out
 
 
 def main(argv=None) -> int:
@@ -329,6 +459,13 @@ def main(argv=None) -> int:
     ap.add_argument("--tiered-cuts", action="store_true",
                     help="with --tiered, also time the tiered form with "
                          "each of its phases cut out (TIERED_CUTS)")
+    ap.add_argument("--tiered-variants", action="store_true",
+                    help="with --tiered, also time the tiered form's "
+                         "design variants (TIERED_VARIANTS)")
+    ap.add_argument("--tiered-parent", default=None, metavar="TREE",
+                    help="with --tiered, time the tiered form in turns "
+                         "with TREE's (a checkout before the scratch "
+                         "argument) at every width, form and tier set")
     ap.add_argument("--fold", action="store_true",
                     help="also time the fold form beside the fold chain "
                          "at every width of kernels.NARROW_FOLD_WIDTHS")
@@ -409,10 +546,26 @@ def main(argv=None) -> int:
                                     models[frames].statics), b * t)
                  for label, frames, level, b, t in SHAPES]
         if args.tiered_cuts:
+            c32, c64 = cases[0], cases[2]
             result["tiered_cuts"] = time_tiered_cuts(
                 K, build(K, args.source, TIERED_CUTS, "gab_narrow_tiered",
                          K.TIERED_FLAGS),
-                *cases[0])
+                [(*c32, "high"), (c32[0], gab_tables(
+                    models[243].layers_graph_conv[0], models[243].statics,
+                    "fold"), c32[2], "preset"), (*c64, "high")])
+        if args.tiered_variants:
+            c32, c64 = cases[0], cases[2]
+            result["tiered_variants"] = time_tiered_cuts(
+                K, build(K, args.source, TIERED_VARIANTS, "gab_narrow_tiered",
+                         K.TIERED_FLAGS, tag="variant"),
+                [(*c32, "high"), (*c32, "preset"), (*c64, "high"),
+                 (*c64, "preset")])
+        if args.tiered_parent:
+            parent = build(K, os.path.join(
+                args.tiered_parent, "gastx_torch", "csrc", "gab_narrow.cu"),
+                {"parent": []}, "gab_narrow_tiered", K.TIERED_FLAGS,
+                argtypes=K._ARGTYPES["gab_narrow_tiered"][:-2])["parent"]
+            result["tiered_turns"] = time_tiered_turns(K, parent)
         cases += [(f"C={c}", _width_tables(K, c), WIDTH_FRAMES)
                   for c in K.NARROW_TIERED_WIDTHS]
         result["tiered"] = time_tiered(K, cases)

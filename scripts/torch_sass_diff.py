@@ -10,7 +10,9 @@ port's ``nvcc`` flags (``kernels.NVCC_FLAGS`` of this checkout, without
 library's; the ``=`` keeps argparse from reading ``-D`` as an option), dumps
 each kernel's SASS with ``cuobjdump -sass`` and compares the kernels whose
 name holds ``--match`` (default: every kernel), paired by their name with
-the anonymous namespace's per-file tag removed. Instruction addresses and
+the anonymous namespace's tag removed (its trailing hash too, which
+differs between a kernel instantiated inside the namespace and one
+instantiated from a function outside it). Instruction addresses and
 encodings are dropped; every other difference counts. Prints, per kernel,
 its instruction count in each tree and the lines that differ (the first 40),
 then one JSON object; exit 0 when every compared kernel is identical, 1
@@ -49,8 +51,8 @@ def kernels_sass(tree: str, source: str, flags, workdir: str) -> dict:
     for line in dump.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            cur = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_", "ANON_",
-                         m.group(1))
+            cur = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+",
+                         "ANON_", m.group(1))
             funcs[cur] = []
             continue
         if cur and "/*" in line:

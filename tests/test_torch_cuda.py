@@ -1103,6 +1103,18 @@ def _tier_close(got, plain, f32, slack=0.0):
 NARROW_TIERS = ("default", "kdefault", "high_lhs", "high_rhs", "high")
 
 
+def _assert_narrow_scratch(t):
+    """After a tiered gab_narrow launch on ``t``: its scratch buffer holds
+    the split words of ``kernels.narrow_split_plain`` bit for bit, and the
+    grid barrier's counters are back at 0."""
+    torch.cuda.synchronize()
+    buf = K.narrow_scratch(t.w_proj.device,
+                           torch.cuda.current_stream().cuda_stream)
+    off, words = K.narrow_split_plain(t)
+    assert torch.equal(buf[K.NARROW_SCRATCH_CTL + off], words)
+    assert int(buf[:K.NARROW_SCRATCH_CTL].abs().sum()) == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("io", ("float32", "bf16"))
 @pytest.mark.parametrize("channels", (16, 32, 48, 64))
@@ -1144,6 +1156,7 @@ def test_cuda_gab_narrow_tiered_matches_plain(model, channels, io,
             assert K.LAUNCHES["gab_narrow"] == 1
             assert sum(K.TIER_LAUNCHES["gab_narrow"].values()) == 1
             assert K.DTYPE_LAUNCHES["gab_narrow"][K.io_label([x], out)] == 1
+            _assert_narrow_scratch(t)
             plain = K.gab_narrow_plain(x, t, out, tiers).float()
             if out == torch.bfloat16:
                 _tier_close(got, plain, f32,
@@ -1201,6 +1214,8 @@ def test_cuda_gab_narrow_fold_matches_plain(model, channels, io,
                     tiers is not None)
                 assert all(k.startswith("fold ")
                            for k in K.TIER_LAUNCHES["gab_narrow"])
+                if tiers is not None:
+                    _assert_narrow_scratch(t)
                 plain = K.gab_narrow_plain(x, t, out, tiers)
                 if tiers is None and out == torch.bfloat16:
                     _assert_bf16_close(got, plain)
@@ -1216,8 +1231,10 @@ def test_cuda_gab_narrow_fold_matches_plain(model, channels, io,
 def test_cuda_preset_243f_runs_fold_gab_narrow(model, monkeypatch):
     """The JAX preset's 243f forward (GAB 0 folded, C = 32) runs GAB 0 as
     one fold gab_narrow launch, in its tiered form, under
-    fused_level0 / fused_gab_pbatch, and no other GAB on gab_narrow (C = 64
-    and up take the tiered chain); the forward holds to its plain route
+    fused_level0 / fused_gab_pbatch, and each other GAB that gab_route
+    sends to gab_narrow (GAB 1, C = 64, since the tiered form's redesign)
+    as one v1 launch under fused_level / fused_gab_pbatch; the wider ones
+    take the tiered chain. The forward holds to its plain route
     (``_tier_close``)."""
     from gastx_torch.models import build_gastnet
     from gastx_torch.models.config import TPU_MIXED_PRECISION_OVERRIDES
@@ -1238,9 +1255,21 @@ def test_cuda_preset_243f_runs_fold_gab_narrow(model, monkeypatch):
     K.reset_launches()
     got = m(x)
     torch.cuda.synchronize()
-    assert seen == [("fold", ("fused_level0", "fused_gab_pbatch"))]
-    assert K.VARIANT_LAUNCHES["gab_narrow"] == {"v1": 0, "fold": 1}
-    assert [k.split()[0] for k in K.TIER_LAUNCHES["gab_narrow"]] == ["fold"]
+    from gastx_torch.ops.cuda.fused_gab import KERNEL_OPS, gab_route, \
+        gab_tables
+
+    v1 = [i for i, g in enumerate(m.layers_graph_conv)
+          if i > 0 and gab_route(gab_tables(g, m.statics), {
+              op: cfg.tier_for(op, f"gab{i}") for op in KERNEL_OPS})
+          == "gab_narrow"]
+    assert v1 == [1]
+    assert seen == [("fold", ("fused_level0", "fused_gab_pbatch"))] + [
+        ("v1", ("fused_level", "fused_gab_pbatch"))] * len(v1)
+    assert K.VARIANT_LAUNCHES["gab_narrow"] == {"v1": len(v1), "fold": 1}
+    folds = {k: v for k, v in K.TIER_LAUNCHES["gab_narrow"].items()
+             if k.startswith("fold ")}
+    assert sum(folds.values()) == 1
+    assert sum(K.TIER_LAUNCHES["gab_narrow"].values()) == 1 + len(v1)
     assert not K.TIER_LAUNCHES["joint_attention"].get("highest/default")
     _tier_close(got, m.plain_route_forward(x), m.reference_forward(x))
 

@@ -290,13 +290,14 @@ def test_trainval_precision_flag_matches_jax(tier):
 
 @pytest.mark.parametrize("c,float32_route,tiered_route", [
     (16, "gab_narrow", "gab_narrow"), (32, "gab_narrow", "gab_narrow"),
-    (48, "gab_narrow", "chain"), (64, "gab_narrow", "chain"),
+    (48, "gab_narrow", "gab_narrow"), (64, "gab_narrow", "gab_narrow"),
     (128, "chain", "chain")])
 def test_gab_route_under_tiers(c, float32_route, tiered_route):
     """Where the chain's GEMMs run below "highest", gab_narrow (its tiered
     form) keeps only the widths where it beat the tiered chain on the
-    card; tiers of the attention alone, beside GEMM classes at "highest",
-    have no gab_narrow form and take the chain."""
+    card (since its redesign every width it is built for, C <= 64); tiers
+    of the attention alone, beside GEMM classes at "highest", have no
+    gab_narrow form and take the chain."""
     shape = (c, 4, c // 4, c // 4, 17, 4)
     preset = tc.config_for_frames(81, matmul_precision="high",
                                   precision_overrides=PRESET)

@@ -485,7 +485,8 @@ def test_tiered_library_binds_its_symbol(name, monkeypatch, tmp_path):
     monkeypatch.setattr(K, "_LIBS", {})
     lib = K._lib(name)
     assert lib.gab_narrow_tiered.argtypes == K._ARGTYPES["gab_narrow_tiered"]
-    assert len(K._ARGTYPES["gab_narrow_tiered"]) == 40
+    assert len(K._ARGTYPES["gab_narrow_tiered"]) == 42
+    assert K._ARGTYPES["gab_narrow_tiered"][40:] == [K._P, K._LL]
     flags = K.TIERED_FLAGS if name.endswith("tiered") else \
         K.IO_FLAGS + K.TIERED_FLAGS
     assert K._libraries()[name] == ("gab_narrow", flags)
@@ -521,14 +522,17 @@ def test_tiered_gab_narrow_launch_arguments(monkeypatch, name):
         calls[:2], calls[2:]
     assert (lib, symbol) == ("gab_narrow_tiered", "gab_narrow_tiered")
     assert (lib32, symbol32) == ("gab_narrow", "gab_narrow")
-    assert len(args) == 40 and args[:33][2:] == args32[2:]
+    assert len(args) == 42 and args[:33][2:] == args32[2:]
     assert args32[-1] == 0  # the fold flag: v1 tables
     codes = [K.TC_TIERS.index("default" if tiers[op] == "kdefault"
                               else tiers[op])
              for op in K.NARROW_TIER_CLASSES[:5]]
     codes += [K.ATTN_TIERS.index(tiers[op])
               for op in K.NARROW_TIER_CLASSES[5:]]
-    assert list(args[33:]) == codes
+    assert list(args[33:40]) == codes
+    # The scratch buffer of the stream, and its size in words.
+    scratch = K.narrow_scratch(x.device, 0)
+    assert args[40:] == (scratch.data_ptr(), K.NARROW_SCRATCH_WORDS)
     assert K.LAUNCHES["gab_narrow"] == 2
     assert sum(K.TIER_LAUNCHES["gab_narrow"].values()) == 1
     K.reset_launches()
