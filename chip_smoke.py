@@ -5495,6 +5495,7 @@ def main() -> int:
             "name": f"joint_attention ({r['pair']}, C={r['c']})",
             "route": "cuda", "source": "gastx_torch/csrc/joint_attention.cu",
             "replaces": "gastx/ops/pallas/fused_gab.py:248",
+            "instantiation": K.attn_instantiation(*r["pair"].split("/")),
             "launches": tp["launches"].get(key, 0),
             "max_abs_err": tk["errs"][r["pair"]], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

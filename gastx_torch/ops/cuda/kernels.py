@@ -23,8 +23,10 @@ plain C interface:
     ``"smallk"``; :func:`gemm_route` names the kernel each call takes);
   * ``sem_graph`` — the local branch's semantic graph aggregation, and
   * ``joint_attention`` — per-frame multi-head attention over the joints,
-    its score and apply dots at their tiers (operands rounded as
-    loaded), each in two instantiations (:func:`graph_variant`);
+    its score dots at their tier (operands rounded as loaded) and, below
+    ``"highest"``, its apply as ``precision.tiered``'s bf16 passes on
+    ``mma.sync``, instantiated by tier pair
+    (:func:`attn_instantiation`) and alignment (:func:`graph_variant`);
   * ``gemm_wgrad`` — the weight gradient ``A_p^T G`` of a plain site's
     product over its row map at the ``"default"`` and ``"high"`` tiers
     (:func:`gemm_wgrad`; the train step's backward,
@@ -175,6 +177,10 @@ TC_TIERS = ("default", "high_lhs", "high_rhs", "high")
 # gemm_smallk's, whose launches TIER_LAUNCHES counts by them ("kdefault"
 # as "default").
 ATTN_TIERS = ("highest", "default", "high_lhs", "high_rhs", "high")
+# The tier pairs joint_attention has an instantiation of its own for (the
+# shipped routes' pairs); every other pair below "highest" runs on runtime
+# tier codes.
+ATTN_OWN_PAIRS = (("default", "default"), ("high", "high"))
 # gemm_wgrad's tiers (the plain sites' XLA tiers below "highest"), in the
 # C function's codes, TC_TIERS' indices.
 WGRAD_TIERS = ("default", "high")
@@ -1240,6 +1246,21 @@ def joint_attention_plain(theta, phi, g, proj_t, proj_p, c_k, *,
     return out.reshape(frames * j, k * g_ch)
 
 
+def attn_instantiation(score_tier: str, apply_tier: str) -> str:
+    """The instantiation of ``joint_attention.cu`` that a tier pair
+    launches (its C function picks the same, ``pick``): ``"float32"``;
+    ``"tiered score"`` (a tiered score, the float32 apply); a pair of
+    ``ATTN_OWN_PAIRS`` by name; ``"runtime tiers"`` for every other pair
+    (the tensor-core apply on runtime tier codes)."""
+    pair = tuple("default" if t == "kdefault" else t
+                 for t in (score_tier, apply_tier))
+    for t in pair:
+        check_tier(t)
+    if pair[1] == "highest":
+        return "float32" if pair[0] == "highest" else "tiered score"
+    return "/".join(pair) if pair in ATTN_OWN_PAIRS else "runtime tiers"
+
+
 def joint_attention(theta: torch.Tensor, phi: torch.Tensor, g: torch.Tensor,
                     proj_t, proj_p, c_k, *, score_tier: str = "highest",
                     apply_tier: str = "highest") -> torch.Tensor:
@@ -1250,7 +1271,9 @@ def joint_attention(theta: torch.Tensor, phi: torch.Tensor, g: torch.Tensor,
     rank-1 score vectors, ``c_k`` (K, J, J) additive attention biases.
     Returns the head-major (rows, K*G) head outputs. ``score_tier`` and
     ``apply_tier``: the tiers of the score and apply dots; the kernel
-    rounds their operands as it loads them and accumulates in float32.
+    rounds the score's operands as it loads them, and runs the apply
+    below ``"highest"`` as the tier's bf16 passes on the tensor cores,
+    each summing in float32.
     """
     check_no_grad("joint_attention", theta, phi, g, proj_t, proj_p, c_k)
     device, k, inter, j, g_ch = _check_attn(theta, phi, g, proj_t, proj_p,

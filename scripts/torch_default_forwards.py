@@ -2,8 +2,8 @@
 eval forwards, the float32 kernels, and the JAX package's shipped bf16
 routes with a profiled breakdown.
 
-    python3 scripts/torch_default_forwards.py TREE [TREE ...] [--tiered]
-        [--rounds N] [--json F]
+    python3 scripts/torch_default_forwards.py TREE [TREE ...]
+        [--tiered [all]] [--rounds N] [--json F]
 
 Each tree (a checkout's root, e.g. a ``git archive`` of the parent commit
 unpacked under ``build/``) runs in a process of its own, in the order
@@ -47,7 +47,9 @@ the harness:
 ``--tiered`` times only the 27f model's tiered forwards
 (``TIERED_27F``: "high" and the preset at B=1024 and B=256), each also
 with its device busy ms from one profiled forward
-(``chip_smoke.breakdown``), so that a run of several rounds costs minutes.
+(``chip_smoke.breakdown``), so that a run of several rounds costs minutes;
+``--tiered all`` those of phase 10 (d) (``chip_smoke.TIER_FORWARDS``: 27f
+and 81f at B=1024, 243f at B=256) in the same way.
 
 The bf16-I/O ``gemm_tc`` rows are ``scripts/torch_gemm_tc.py --bf16``'s
 (``--tree`` for another checkout). Prints each row's ms per tree (the mean
@@ -104,9 +106,10 @@ def tiered_forwards(cs, dev, cells, busy: bool) -> dict:
     return ms
 
 
-def one_tree(tree: str, out: str, tiered: bool = False) -> None:
+def one_tree(tree: str, out: str, tiered=None) -> None:
     """Time ``tree``'s rows and save them (and its forwards' outputs);
-    with ``tiered`` only ``TIERED_27F``'s forwards."""
+    with ``tiered`` only the tiered forwards (``"27f"``: ``TIERED_27F``'s,
+    ``"all"``: ``chip_smoke.TIER_FORWARDS``')."""
     tree = os.path.abspath(tree)
     sys.path.insert(0, REPO)
     import chip_smoke as cs  # the harness: this checkout's
@@ -126,7 +129,8 @@ def one_tree(tree: str, out: str, tiered: bool = False) -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
     if tiered:
-        torch.save({"ms": tiered_forwards(cs, dev, TIERED_27F, True),
+        cells = TIERED_27F if tiered == "27f" else cs.TIER_FORWARDS
+        torch.save({"ms": tiered_forwards(cs, dev, cells, True),
                     "y": {}, "shipped": {}}, out)
         return
     ms, ys = {}, {}
@@ -217,8 +221,10 @@ def main(argv=None) -> int:
     ap.add_argument("trees", nargs="*")
     ap.add_argument("--one", nargs=2, metavar=("TREE", "OUT"),
                     help=argparse.SUPPRESS)
-    ap.add_argument("--tiered", action="store_true",
-                    help="time only the 27f model's tiered forwards")
+    ap.add_argument("--tiered", nargs="?", const="27f",
+                    choices=("27f", "all"),
+                    help="time only the tiered forwards: the 27f model's "
+                         "(default) or all of phase 10 (d)'s")
     ap.add_argument("--rounds", type=int, default=1,
                     help="times over the order T1 .. Tn, Tn .. T1")
     ap.add_argument("--json", default="default_forwards.json")
@@ -242,7 +248,8 @@ def main(argv=None) -> int:
             path = os.path.join(tmp, f"{n}.pt")
             subprocess.run([sys.executable, os.path.abspath(__file__),
                             "--one", args.trees[i], path]
-                           + ["--tiered"] * args.tiered, check=True)
+                           + (["--tiered", args.tiered] if args.tiered
+                              else []), check=True)
             turns[i].append(torch.load(path))
     ys0 = turns[0][0]["y"]
     same = True

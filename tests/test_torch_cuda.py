@@ -913,6 +913,91 @@ def test_cuda_joint_attention_tiers_match_plain(model, level, apply_tier):
                         apply_tier)
 
 
+# joint_attention's shipped pairs (the instantiations of their own) at the
+# shapes the routes hand it: case -> (J, K, I, G, frames, the pairs). The
+# 15/16/19-joint layouts and J = 32 (one and two k16 steps); a ragged last
+# tile (1023 frames in tiles of 2); I = 1 with unit score vectors, the fold
+# form's columns, at its own pairs too (score "highest": the chain's fold
+# GAB) on the 4-byte view; K = 1 through head_attention.
+SHIPPED_PAIRS = ("default/default", "high/high")
+SHIPPED_ATTN_CASES = {
+    "J15": (15, 4, 16, 16, 301, SHIPPED_PAIRS),
+    "J16": (16, 4, 16, 16, 301, SHIPPED_PAIRS),
+    "J19": (19, 4, 16, 16, 301, SHIPPED_PAIRS),
+    "J32": (32, 4, 16, 16, 129, SHIPPED_PAIRS),
+    "ragged tile": (17, 4, 64, 64, 1023, SHIPPED_PAIRS),
+    "fold I=1": (17, 4, 1, 64, 301, SHIPPED_PAIRS + ("highest/default",
+                                                      "highest/high")),
+    "K=1": (17, 1, 64, 64, 257, SHIPPED_PAIRS),
+}
+
+
+def _attn_operands(j, k, inter, g_ch, frames, seed, unit=False):
+    """joint_attention's arguments on one random projection output (row
+    stride 2KI + KG), random score vectors (ones with ``unit``) and C_k."""
+    p = _randn(frames * j, 2 * k * inter + k * g_ch, seed=seed)
+    ki = k * inter
+    pt, pp = (torch.ones(k, inter, device="cuda") if unit else
+              _randn(k, inter, seed=seed + i) for i in (1, 2))
+    return (p[:, :ki], p[:, ki:2 * ki], p[:, 2 * ki:], pt, pp,
+            0.1 * _randn(k, j, j, seed=seed + 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,pair", [
+    (case, pair) for case in sorted(SHIPPED_ATTN_CASES)
+    for pair in SHIPPED_ATTN_CASES[case][-1]])
+def test_cuda_joint_attention_shipped_pairs_at_route_shapes(model, case,
+                                                            pair):
+    """A tier pair of the shipped routes on joint_attention at a shape a
+    route hands it: one launch, counted under its pair, on the alignment
+    instantiation graph_variant picks, within _attn_close of its plain
+    version."""
+    j, k, inter, g_ch, frames, _ = SHIPPED_ATTN_CASES[case]
+    st, at = pair.split("/")
+    kw = dict(score_tier=st, apply_tier=at)
+    args = _attn_operands(j, k, inter, g_ch, frames, seed=len(case),
+                          unit=inter == 1)
+    f32 = K.joint_attention_plain(*args)
+    noise = (K.joint_attention(*args) - f32).pow(2).mean().sqrt().item()
+    K.reset_launches()
+    if k == 1:
+        m3 = [a.reshape(frames, j, -1) for a in args[:3]]
+        head = (*m3, args[3].reshape(-1, 1), args[4].reshape(-1, 1),
+                args[5][0])
+        got = head_attention(*head, **kw).reshape(frames * j, g_ch)
+    else:
+        got = K.joint_attention(*args, **kw)
+    _assert_launched("joint_attention",
+                     K.graph_variant(args[:3], (inter, g_ch)))
+    assert K.TIER_LAUNCHES["joint_attention"] == {pair: 1}
+    _attn_close(got, K.joint_attention_plain(*args, **kw), f32, noise,
+                args[2], args[5], at)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", SHIPPED_PAIRS)
+def test_cuda_joint_attention_shipped_pairs_at_27f_l1(model, pair):
+    """The shipped pairs at the 27f model's level-1 GAB (C=256: K=4,
+    I=G=64, J=17; tiles of two frames) on its own tables, B=64 windows of
+    its 19 frames, on the 16-byte instantiation."""
+    t = gab_tables(model.layers_graph_conv[1], model.statics)
+    c, ki = t.w_proj.shape[0], t.proj_t.numel()
+    p = _randn(64 * 19 * 17, t.w_proj.shape[1], seed=12)
+    args = (p[:, 4 * c:4 * c + ki], p[:, 4 * c + ki:4 * c + 2 * ki],
+            p[:, 4 * c + 2 * ki:], t.proj_t, t.proj_p, t.c_k)
+    st, at = pair.split("/")
+    kw = dict(score_tier=st, apply_tier=at)
+    f32 = K.joint_attention_plain(*args)
+    noise = (K.joint_attention(*args) - f32).pow(2).mean().sqrt().item()
+    K.reset_launches()
+    got = K.joint_attention(*args, **kw)
+    _assert_launched("joint_attention", "vec16")
+    assert K.TIER_LAUNCHES["joint_attention"] == {pair: 1}
+    _attn_close(got, K.joint_attention_plain(*args, **kw), f32, noise,
+                args[2], t.c_k, at)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("frames", (27, 243))
 def test_cuda_tiered_forward_matches_plain_route(model, frames):
